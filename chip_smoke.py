@@ -19,19 +19,40 @@ Phases (one line each, more where noted):
   5. the journey: v0–v5 and v6–v10 at Si-214 through the registry;
   6. the main path's result held against the plain version (f32) within
      TOL_PLAIN and against a float64 run of it (on the same float32 inputs)
-     within TOL_F64; times (CUDA
-     events, median after warm-up); the kernels line.
-Each path (phase 4's dispatch, phase 5's journey) runs with the launch
-counters zeroed just before it and read just after; the kernels line
-gives each path's counts and their sum, and fails unless every kernel
-launched on the paths that run it (gpp_fused on both, gpp_banded on the
-journey).
+     within TOL_F64; times (CUDA events, median after warm-up);
+  7. flash_fwd at op level: the kernel against flash_fwd_plain on the card
+     (out within FLASH_OUT_ULPS bf16 ulps, lse within FLASH_LSE_ATOL) at
+     qwen2-1.5b's attention shape (B=1, H=12, KvH=2, Hd=128) for S = 256,
+     512 and 4096, at codeqwen's MHA shape (H = KvH = 32, S = 512) and at
+     one config with blk_q != blk_kv; at S = 512 also against the f32
+     oracle ref.reference; each with the kernel's, the plain version's and
+     scaled_dot_product_attention's ms (timed here only) and the bound;
+  8. dense serving, the slice's path: ServeEngine on qwen2-1.5b at full
+     width and depth with use_flash_attention=True, weights from seed 0,
+     max_batch=4, cache_len=1024: 8 greedy requests (prompts of 160, 256,
+     300 and 480 tokens, two each) and one at temperature 0.8, 32 new
+     tokens each. flash_fwd must launch 28 times a prefill; TTFT, decode
+     ms a step, tokens/s and peak device memory are printed; one admission
+     round and three decode rounds run under torch.profiler (device-busy
+     share, top kernels, top host ops). Each request's prompt is then
+     prefilled again: every flash_fwd launch is held against
+     flash_fwd_plain on the same inputs (FLASH_OUT_ULPS), and the
+     first-token logits against the same model with flash_fwd_plain in
+     the kernel's place and against the engine with flash off (the
+     chunked plain path), both within SERVE_LOGIT_RTOL; the kernels line.
+Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
+phase 8's serving run) runs with the launch counters zeroed just before it
+and read just after; the kernels line gives each path's counts, and the
+script fails unless every kernel launched on the paths that run it
+(gpp_fused on dispatch and journey, gpp_banded on the journey, flash_fwd
+28 times a prefill on the serving run).
 
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero without it. Without a card, or outside the repository, the
 script fails before printing any result.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -54,6 +75,26 @@ TOL_REF = 1e-4
 # the main path's totals against a float64 run of the plain version on the
 # same float32 inputs at Si-214 (the arithmetic's error alone)
 TOL_F64 = 1e-3
+# flash_fwd against flash_fwd_plain, compared in the working type (bf16
+# out): within 2 bf16 ulps of each value's magnitude (an ulp is at most
+# 2^-7 of it; floor 1% of the largest), since the kernel multiplies P V
+# with a bf16 hi+lo split of p (~16 bits) and the tensor cores sum in
+# another order than the plain f32 einsums, and each side rounds once to
+# bf16. lse (f32, magnitude ~10) within 1e-4.
+FLASH_OUT_ULPS = 2
+FLASH_LSE_ATOL = 1e-4
+# first-token logits in the served model, as max |difference| over max
+# |logit|. bf16 evaluation of this random-weight 28-layer model has a
+# floor: a one-ulp change in a few attention outputs of one layer moves
+# the logits by about as much as any larger change, and the first
+# full-width runs measured 2.5e-2 to 3.4e-2 between the kernel path and
+# the same model with flash_fwd_plain in the kernel's place (every launch
+# within 1 ulp of the plain version on its own inputs), and 3.3e-2 to
+# 3.8e-2 against the chunked path (PERF.md). So both are held to 6e-2;
+# the kernel itself is held at every launch of those prefills to
+# FLASH_OUT_ULPS against its plain version on the same inputs.
+SERVE_LOGIT_RTOL = 6e-2
+SERVE_PROMPTS = (160, 160, 256, 256, 300, 300, 480, 480)
 
 
 def fail(msg: str) -> None:
@@ -68,7 +109,32 @@ def rel(a, b) -> float:
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
 
+def bf16_ulps(got, want) -> float:
+    """Largest |got - want| in units of a bf16 ulp of the magnitude
+    (2^-7 of max(|want|, 1% of max |want|))."""
+    want = want.float()
+    scale = want.abs().clamp_min(float(want.abs().max()) * 1e-2)
+    return float(((got.float() - want).abs() / scale).max()) * 2 ** 7
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median ms of fn() on the card, each call fenced by CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in ev:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sorted(a.elapsed_time(b) for a, b in ev)[reps // 2]
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -93,6 +159,8 @@ def main() -> None:
     from repro_torch.core import hw
     from repro_torch.core.journey import format_row, run_journey
     from repro_torch.kernels import _build, api
+    from repro_torch.kernels.flash import flash_cuda
+    from repro_torch.kernels.flash import ref as flash_ref
     from repro_torch.kernels.gpp import gpp_cuda, problem, ref
     from repro_torch.tune import measure, tuner
 
@@ -103,6 +171,9 @@ def main() -> None:
     dev = torch.device("cuda")
     spec = hw.spec_for_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 matmuls accumulate in f32 (the JAX package's
+    # preferred_element_type), with no reduced-precision reductions
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -110,8 +181,14 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     attrs = {c.name: gpp_cuda.kernel_attrs(c) for c in gpp_cuda.CONFIGS.values()}
     model = {c.name: c.regs_estimate() for c in gpp_cuda.CONFIGS.values()}
-    print(f"[2] built {sorted(libs)} in {build_s:.1f} s; compiled (regs, spill "
-          f"bytes) per config: {attrs}; register table: {model}", flush=True)
+    print(f"[2] built {sorted(libs)} in {build_s:.1f} s; gpp compiled (regs, "
+          f"spill bytes) per config: {attrs}; register table: {model}",
+          flush=True)
+    fattrs = {f"hd{hd}/kv{bkv}": flash_cuda.kernel_attrs(hd, bkv)
+              for hd in flash_cuda.HD_INSTANCES
+              for bkv in flash_cuda.BLK_KV_INSTANCES}
+    print(f"[2] flash_fwd compiled (regs, spill bytes) per instance: {fattrs}; "
+          f"register table: {flash_cuda.REGS_BY_INSTANCE}", flush=True)
 
     # -- 3. each kernel against its plain version ----------------------------
     checks = (("gpp_fused", gpp_cuda.gpp_fused, gpp_cuda.gpp_fused_plain,
@@ -167,7 +244,7 @@ def main() -> None:
     # -- 4. the main path: dispatch at Si-214 (v10, tuned on the card) --------
     size = problem.SI214
     inp = problem.make_inputs(size)
-    counters = (gpp_cuda.gpp_fused, gpp_cuda.gpp_banded)
+    counters = (gpp_cuda.gpp_fused, gpp_cuda.gpp_banded, flash_cuda.flash_fwd)
 
     def zero_counts():
         for f in counters:
@@ -207,7 +284,7 @@ def main() -> None:
     by_path["journey"] = read_counts()
     for r in rows:
         print(f"[5] {format_row(r)} [{card}]", flush=True)
-    print(f"[5] journey launches {by_path['journey']}", flush=True)
+    print(f"[5] journey launches {by_path['journey']} [{card}]", flush=True)
     for path, names in (("dispatch", ("gpp_fused",)),
                         ("journey", ("gpp_fused", "gpp_banded"))):
         for name in names:
@@ -264,29 +341,356 @@ def main() -> None:
           f"{spec.fp32_flops / 1e12:.0f} TFLOP/s, {bytes_ms:.4f} ms of bytes) "
           f"[{card}]", flush=True)
     banded = compared[("gpp_banded", "v8", "si214")]
+
+    # -- 7. flash_fwd at op level --------------------------------------------
+    zero_counts()
+    flash_rows = flash_checks(torch, dev, spec, card, flash_cuda, flash_ref)
+    torch.cuda.synchronize()
+    by_path["flash-check"] = read_counts()
+
+    # -- 8. dense serving: qwen2-1.5b at full width through ServeEngine -------
+    serve = serve_phase(torch, np, dev, card, flash_cuda, zero_counts,
+                        read_counts, by_path)
+
+    names = ("gpp_fused", "gpp_banded", "flash_fwd")
     launches = {name: {path: n[name] for path, n in by_path.items()}
-                for name in ("gpp_fused", "gpp_banded")}
+                for name in names}
+    f512 = flash_rows["s512"]
     kernels = [
         {"name": "gpp_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/gpp.cu",
          "replaces": "src/repro/kernels/gpp/pallas_gpp.py:219",
-         "launches": sum(launches["gpp_fused"].values()),
+         "launches": launches["gpp_fused"]["dispatch"]
+         + launches["gpp_fused"]["journey"],
          "launches_by_path": launches["gpp_fused"], "max_abs_err": fused_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": None},
         {"name": "gpp_banded", "route": "cuda",
          "source": "src/repro_torch/csrc/gpp.cu",
          "replaces": "src/repro/kernels/gpp/pallas_gpp.py:192",
-         "launches": sum(launches["gpp_banded"].values()),
+         "launches": launches["gpp_banded"]["dispatch"]
+         + launches["gpp_banded"]["journey"],
          "launches_by_path": launches["gpp_banded"],
          "max_abs_err": banded["max_abs_err"], "ms": banded["ms"],
          "plain_ms": banded["plain_ms"], "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": None},
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash.cu",
+         "replaces": "src/repro/kernels/flash/flash.py:37",
+         "launches": launches["flash_fwd"]["serve"],
+         "launches_by_path": launches["flash_fwd"],
+         "max_abs_err": f512["max_abs_err"], "ms": f512["ms"],
+         "plain_ms": f512["plain_ms"], "bound_ms": f512["bound_ms"],
+         "bound_by": f512["bound_by"], "library_ms": f512["library_ms"],
+         "shape": f512["shape"], "at_s4096": flash_rows["s4096"]},
     ]
+    print(f"[8] serving summary: {json.dumps(serve)} [{card}]", flush=True)
+    print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
+          f"(build {build_s:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def flash_checks(torch, dev, spec, card, flash_cuda, flash_ref):
+    """Phase 7: flash_fwd against flash_fwd_plain (and the f32 oracle at
+    S=512); times, bound. Returns the rows keyed 's512' and 's4096' (the
+    serving shape at the larger bucket, and the operations-bound size)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = (("s256", 1, 256, 12, 2, 128, None),
+             ("s512", 1, 512, 12, 2, 128, None),
+             ("s4096", 1, 4096, 12, 2, 128, None),
+             ("mha512", 1, 512, 32, 32, 128, None),
+             ("s512-q128-kv32", 1, 512, 12, 2, 128, (128, 32)))
+    from repro_torch.kernels import api
+    from repro_torch.tune import tuner
+    rows = {}
+    for tag, b, s, h, kvh, hd, blocks in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev
+                               ).to(torch.bfloat16)
+                   for shape in ((b, s, h, hd), (b, s, kvh, hd),
+                                 (b, s, kvh, hd)))
+        if blocks is None:      # what the model path dispatches at this shape
+            key = api.get_kernel("flash").problem_key(q, k, v)
+            cfg = tuner.tune_kernel("flash", key, measure_mode=False,
+                                    device=dev).config
+        else:
+            cfg = flash_cuda.FlashBlockConfig("check", *blocks)
+        out, lse = flash_cuda.flash_fwd(q, k, v, cfg, True)
+        torch.cuda.synchronize()
+        p_out, p_lse = flash_cuda.flash_fwd_plain(q, k, v, cfg, True)
+        torch.cuda.synchronize()
+        ulps = bf16_ulps(out, p_out)
+        lse_err = float((lse - p_lse).abs().max())
+        max_abs = float((out.float() - p_out.float()).abs().max())
+        line = (f"[7] flash_fwd {tag} (B={b}, S={s}, H={h}, KvH={kvh}, "
+                f"Hd={hd}) blocks ({cfg.blk_q},{cfg.blk_kv}): out vs plain "
+                f"max_abs {max_abs:.3e} = {ulps:.2f} bf16 ulps (tol "
+                f"{FLASH_OUT_ULPS}), lse {lse_err:.2e} (tol {FLASH_LSE_ATOL})")
+        if not (torch.isfinite(out.float()).all() and ulps <= FLASH_OUT_ULPS
+                and lse_err <= FLASH_LSE_ATOL):
+            fail(line)
+        if tag == "s512":
+            qp = q.transpose(1, 2).reshape(b * h, s, hd).float()
+            kp = k.transpose(1, 2).reshape(b * kvh, s, hd).float()
+            vp = v.transpose(1, 2).reshape(b * kvh, s, hd).float()
+            want = flash_ref.reference(qp, kp, vp).reshape(b, h, s, hd
+                                                           ).transpose(1, 2)
+            r_ulps = bf16_ulps(out, want)
+            line += f"; vs f32 ref.reference {r_ulps:.2f} ulps (tol {FLASH_OUT_ULPS})"
+            if r_ulps > FLASH_OUT_ULPS:
+                fail(line)
+        ms = cuda_ms(lambda: flash_cuda.flash_fwd(q, k, v, cfg, True))
+        plain_ms = cuda_ms(lambda: flash_cuda.flash_fwd_plain(q, k, v, cfg,
+                                                              True), reps=5)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                      enable_gqa=True))
+        ops_ms = flash_cuda.useful_flops(b, h, s, s, hd, True) \
+            / spec.bf16_tc_flops * 1e3
+        bytes_ms = flash_cuda.min_bytes(b, h, kvh, s, s, hd) / spec.hbm_bw * 1e3
+        bound = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
+                 f"{lib_ms:.4f} ms; bound {bound:.4f} ms ({by}: "
+                 f"{ops_ms:.4f} ms of bf16 at {spec.bf16_tc_flops / 1e12:.0f} "
+                 f"TFLOP/s, {bytes_ms:.4f} ms of bytes) [{card}]")
+        print(line, flush=True)
+        rows[tag] = {"shape": [b, s, h, kvh, hd],
+                     "blocks": [cfg.blk_q, cfg.blk_kv], "max_abs_err": max_abs,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib_ms}
+    return rows
+
+
+def first_token_logits(torch, eng, prompt):
+    """Logits of a prompt's first generated token through `eng`'s own
+    admission path (bucket padding, prefill_into_slot) on a fresh cache."""
+    plen = len(prompt)
+    toks = torch.zeros((1, eng._bucket_len(plen, eng.cache_len)),
+                       dtype=torch.long, device=eng.device)
+    toks[0, :plen] = torch.as_tensor(prompt, device=eng.device)
+    logits, _ = eng.model.prefill_into_slot(
+        eng.params, eng._fresh_cache(), 0, {"tokens": toks}, plen)
+    return logits[0, 0].float()
+
+
+def serve_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
+                by_path):
+    """Phase 8: ServeEngine on qwen2-1.5b at full width, flash on."""
+    import dataclasses
+    import repro_torch
+    from repro_torch.serve.engine import Request, ServeEngine
+    base = repro_torch.get_config("qwen2-1.5b")
+    cfg = dataclasses.replace(base, use_flash_attention=True)
+    t0 = time.perf_counter()
+    params = repro_torch.build_model(cfg).init_params(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    init_s = time.perf_counter() - t0
+    eng = ServeEngine(cfg, params, max_batch=4, cache_len=1024, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_PROMPTS]
+    hot = rng.integers(0, cfg.vocab_size, 200)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    reqs.append(Request(rid=len(prompts), prompt=hot, max_new_tokens=32,
+                        temperature=0.8))
+    # warm-up: one short request (cuBLAS handles, the flash tune pick)
+    eng.run([Request(rid=99, prompt=prompts[0], max_new_tokens=2)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    eng.reset()
+    for r in reqs:
+        eng.submit(r, t_enqueue=eng._t_start)
+    decode_ms, admit_ms = [], []
+    while not eng.idle:
+        t1 = time.perf_counter()
+        rep = eng.step()
+        dt = (time.perf_counter() - t1) * 1e3     # step ends on the host
+        (admit_ms if rep.admitted else decode_ms).append(dt)
+    stats = eng.finalize()
+    torch.cuda.synchronize()
+    by_path["serve"] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_pre = stats["prefills"]
+    got = by_path["serve"]["flash_fwd"]
+    line = (f"[8] serve qwen2-1.5b (full width, {cfg.n_layers} layers, "
+            f"{n_params / 1e9:.3f}e9 params, init {init_s:.1f} s), flash on: "
+            f"{stats['requests']} requests, {n_pre} prefills, "
+            f"{stats['decode_steps']} decode steps, {stats['new_tokens']} "
+            f"tokens; launches {by_path['serve']} (flash_fwd expected "
+            f"{cfg.n_layers} x {n_pre} = {cfg.n_layers * n_pre}) [{card}]")
+    print(line, flush=True)
+    if got != cfg.n_layers * n_pre or n_pre != len(reqs):
+        fail(line)
+    if by_path["serve"]["gpp_fused"] or by_path["serve"]["gpp_banded"]:
+        fail(line)
+    out = eng.outputs
+    for r in reqs:
+        toks = out[r.rid]
+        if len(toks) != r.max_new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            fail(f"request {r.rid}: {len(toks)} tokens, range "
+                 f"[{min(toks)}, {max(toks)}]")
+    decode_ms.sort()
+    res = {"requests": stats["requests"], "prefills": n_pre,
+           "decode_steps": stats["decode_steps"],
+           "new_tokens": stats["new_tokens"],
+           "p50_ttft_ms": stats["p50_ttft_s"] * 1e3,
+           "p99_ttft_ms": stats["p99_ttft_s"] * 1e3,
+           "mean_ttft_ms": stats["mean_ttft_s"] * 1e3,
+           "p50_tpot_ms": stats["p50_tpot_s"] * 1e3,
+           "decode_step_ms_p50": decode_ms[len(decode_ms) // 2],
+           "decode_step_ms_max": decode_ms[-1],
+           "admit_step_ms_p50": sorted(admit_ms)[len(admit_ms) // 2],
+           "tok_per_s": stats["tok_per_s"], "wall_s": stats["wall_s"],
+           "occupancy": stats["occupancy"], "peak_mem_gb": peak / 1e9}
+    print(f"[8] serve metrics: TTFT p50 {res['p50_ttft_ms']:.1f} ms, p99 "
+          f"{res['p99_ttft_ms']:.1f} ms (all {len(reqs)} submitted at once, "
+          f"4 slots); decode step p50 {res['decode_step_ms_p50']:.2f} ms "
+          f"({len(decode_ms)} steps without admissions); TPOT p50 "
+          f"{res['p50_tpot_ms']:.2f} ms; {res['tok_per_s']:.1f} tokens/s over "
+          f"{res['wall_s']:.2f} s; occupancy {res['occupancy']:.3f}; peak "
+          f"device memory {res['peak_mem_gb']:.2f} GB [{card}]", flush=True)
+
+    # where a step's time goes: one admission round (4 prefills at the
+    # 256 and 512 buckets, then a decode) and three decode-only rounds,
+    # each under torch.profiler
+    eng.reset()
+    for r in reqs[1:8:2]:
+        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=8))
+    zero_counts()
+    for tag, n_steps in (("admit", 1), ("decode", 3)):
+        wall, busy, kernels, host = profile_steps(torch, eng, n_steps)
+        res[f"profile_{tag}"] = {"steps": n_steps, "wall_ms": wall,
+                                 "device_busy_ms": busy}
+        print(f"[8] profile {tag} ({n_steps} step(s)): wall {wall:.2f} ms, "
+              f"device busy {busy:.2f} ms ({busy / wall:.1%}); top kernels "
+              f"(ms, calls): {kernels}; top host ops (self ms, calls): "
+              f"{host} [{card}]", flush=True)
+    torch.cuda.synchronize()
+    by_path["profile"] = read_counts()
+
+    # each prompt prefilled again through the flash engine (a), holding
+    # every flash_fwd launch against flash_fwd_plain on the same inputs;
+    # then through the same model with flash_fwd_plain in the kernel's
+    # place (b) and through the chunked plain path (c)
+    zero_counts()
+    plain = ServeEngine(base, params, max_batch=4, cache_len=1024, device=dev)
+    rows, launch_ulps = [], []
+
+    def checked(run, q, k, v, **kw):
+        out = run(q, k, v, **kw)
+        want, _ = flash_cuda.flash_fwd_plain(q, k, v, flash_blocks(q, k, v, kw),
+                                             kw["causal"])
+        launch_ulps.append(bf16_ulps(out, want))
+        return out
+
+    def plain_in_place(run, q, k, v, **kw):
+        return flash_cuda.flash_fwd_plain(q, k, v, flash_blocks(q, k, v, kw),
+                                          kw["causal"])[0]
+
+    for r in reqs:
+        with route_flash(checked):
+            a = first_token_logits(torch, eng, r.prompt)
+        with route_flash(plain_in_place):
+            b = first_token_logits(torch, eng, r.prompt)
+        c = first_token_logits(torch, plain, r.prompt)
+        rows.append((r.rid, len(r.prompt), logit_rel(a, b), logit_rel(a, c),
+                     logit_rel(b, c), int(a.argmax() == b.argmax()),
+                     int(a.argmax() == c.argmax()),
+                     bool(torch.isfinite(a).all())))
+    torch.cuda.synchronize()
+    by_path["serve-check"] = read_counts()
+    worst = {i: max(x[i] for x in rows) for i in (2, 3, 4)}
+    line = (f"[8] {len(launch_ulps)} flash_fwd launches in {len(reqs)} "
+            f"prefills held against flash_fwd_plain on their own inputs: "
+            f"worst {max(launch_ulps):.2f} bf16 ulps (tol {FLASH_OUT_ULPS}); "
+            f"first-token logits, max |diff| / max |logit|, worst: kernel path "
+            f"vs plain version in its place {worst[2]:.3e}, kernel path vs "
+            f"chunked {worst[3]:.3e} (tol {SERVE_LOGIT_RTOL} each), plain "
+            f"version vs chunked {worst[4]:.3e}; argmax agrees on "
+            f"{sum(x[5] for x in rows)}/{len(rows)} and "
+            f"{sum(x[6] for x in rows)}/{len(rows)}; per request (rid, prompt, "
+            f"a-b, a-c, b-c): "
+            f"{[(x[0], x[1]) + tuple(round(e, 5) for e in x[2:5]) for x in rows]}"
+            f"; launches {by_path['serve-check']} [{card}]")
+    print(line, flush=True)
+    if (len(launch_ulps) != cfg.n_layers * len(reqs)
+            or max(launch_ulps) > FLASH_OUT_ULPS
+            or max(worst[2], worst[3]) > SERVE_LOGIT_RTOL
+            or not all(x[7] for x in rows)):
+        fail(line)
+    res["launch_ulps_max"] = max(launch_ulps)
+    res["logits_rel_vs_plain"] = worst[2]
+    res["logits_rel_vs_chunked"] = worst[3]
+    return res
+
+
+@contextlib.contextmanager
+def route_flash(fn):
+    """While open, the flash descriptor's run(q, k, v, **kw) calls
+    fn(run, q, k, v, **kw) with the real run."""
+    from repro_torch.kernels import api
+    fk = api.get_kernel("flash")
+    run = fk.run
+    fk.run = lambda q, k, v, **kw: fn(run, q, k, v, **kw)
+    try:
+        yield
+    finally:
+        del fk.run
+
+
+def flash_blocks(q, k, v, kw):
+    """The blocks the descriptor's run launches for these arguments."""
+    from repro_torch.kernels import api
+    from repro_torch.kernels.flash.flash_cuda import FlashBlockConfig
+    key = api.get_kernel("flash").problem_key(q, k, v, causal=kw["causal"])
+    return (kw["config"] or FlashBlockConfig()).clamped(key)
+
+
+def logit_rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def profile_steps(torch, eng, n_steps):
+    """Run eng.step() n_steps times under torch.profiler. Returns (wall ms,
+    device-busy ms: the sum of the kernels' times, the 8 kernels with the
+    most device time as (name, ms, calls), the 8 host ops with the most
+    self CPU time as (name, ms, calls))."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels, host = [], []
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            kernels.append((e.key[:60], e.self_device_time_total / 1e3,
+                            e.count))
+        else:
+            host.append((e.key[:40], e.self_cpu_time_total / 1e3, e.count))
+    busy = sum(k[1] for k in kernels)
+    top = sorted(kernels, key=lambda k: -k[1])[:8]
+    top_host = sorted(host, key=lambda k: -k[1])[:8]
+    return (wall, busy, [(n, round(ms, 3), c) for n, ms, c in top],
+            [(n, round(ms, 3), c) for n, ms, c in top_host])
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 if __name__ == "__main__":

@@ -13,11 +13,21 @@ JAX package `repro`, which stays the reference.
         Model-then-measure tuner; winners persist to kernel_tune_torch.json.
     run_journey(size, device=)
         The paper's Table I, v0-v10, measured on the card.
+    get_config(arch) / build_model(cfg)
+        Model configs (a copy of the JAX package's) and the dense decoder
+        (init_params / prefill / decode_step / prefill_into_slot).
+    ServeEngine(cfg, params, max_batch=, cache_len=, device=) / Request
+        The slot-level continuous-batching server.
 
     import repro_torch
     from repro_torch.kernels.gpp import problem
     ach, asx = repro_torch.dispatch("gpp", problem.make_inputs(problem.SI214))
     rows = repro_torch.run_journey("si214")
+
+    cfg = repro_torch.get_config("qwen2-1.5b")
+    params = repro_torch.build_model(cfg).init_params(0)
+    eng = repro_torch.ServeEngine(cfg, params, max_batch=4, cache_len=1024)
+    out = eng.run([repro_torch.Request(rid=0, prompt=np.arange(300))])
 """
 
 _EXPORTS = {
@@ -26,6 +36,10 @@ _EXPORTS = {
     "list_kernels": "repro_torch.kernels.api",
     "tune_kernel": "repro_torch.tune.tuner",
     "run_journey": "repro_torch.core.journey",
+    "get_config": "repro_torch.configs.base",
+    "build_model": "repro_torch.models.registry",
+    "ServeEngine": "repro_torch.serve.engine",
+    "Request": "repro_torch.serve.engine",
 }
 
 __all__ = sorted(_EXPORTS)

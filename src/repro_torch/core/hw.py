@@ -2,8 +2,11 @@
 counterpart of `repro.core.hw`'s TPU table.
 
 Each spec names the part it describes, because the published tables
-disagree: the H100 SXM5 data sheet gives 67 TFLOP/s FP32 and 3.35 TB/s
-(700 W), the PCIe card 51 TFLOP/s and 2.0 TB/s (350 W). The FP32 rate is
+disagree: the H100 SXM5 data sheet gives 67 TFLOP/s FP32, 3.35 TB/s and
+989 TFLOP/s dense bf16 on the tensor cores (700 W), the PCIe card 51
+TFLOP/s FP32, 2.0 TB/s and 756 TFLOP/s dense bf16 (350 W; the H100 data
+sheet lists 1,513 TFLOP/s bf16 with sparsity, which is twice the dense
+rate). The FP32 rate is
 SMs x 128 FP32 lanes x 2 (FMA) x boost clock. `spec_for_name` picks the
 spec from `torch.cuda.get_device_name()`. The rates assume the card's full
 power limit; a card set below it runs slower under load, so every
@@ -25,6 +28,7 @@ class GpuSpec:
     boost_hz: float
     fp32_flops: float            # FMA counted as 2 FLOP
     hbm_bw: float                # bytes/s
+    bf16_tc_flops: float         # dense bf16 tensor-core peak (no sparsity)
     smem_per_block: int = 232_448    # opt-in dynamic shared memory a block can use
     smem_per_sm: int = 233_472       # 228 KiB of the SM's 256 KiB (rest is L1)
     regs_per_sm: int = 65_536
@@ -43,11 +47,13 @@ class GpuSpec:
 
 H100_SXM5 = GpuSpec(
     name="h100-sxm5", part="NVIDIA H100 SXM5 80GB (700 W)",
-    sms=132, boost_hz=1.98e9, fp32_flops=67e12, hbm_bw=3.35e12)
+    sms=132, boost_hz=1.98e9, fp32_flops=67e12, hbm_bw=3.35e12,
+    bf16_tc_flops=989e12)
 
 H100_PCIE = GpuSpec(
     name="h100-pcie", part="NVIDIA H100 PCIe 80GB (350 W)",
-    sms=114, boost_hz=1.755e9, fp32_flops=51e12, hbm_bw=2.0e12)
+    sms=114, boost_hz=1.755e9, fp32_flops=51e12, hbm_bw=2.0e12,
+    bf16_tc_flops=756e12)
 
 SPECS = {s.name: s for s in (H100_SXM5, H100_PCIE)}
 

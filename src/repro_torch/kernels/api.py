@@ -130,6 +130,7 @@ def _ensure_builtins() -> None:
     global _BUILTINS_LOADED
     if _BUILTINS_LOADED:
         return
+    from repro_torch.kernels.flash import kernel_def as _f  # noqa: F401
     from repro_torch.kernels.gpp import kernel_def as _g    # noqa: F401
     _BUILTINS_LOADED = True
 
@@ -161,7 +162,7 @@ def list_kernels() -> List[str]:
     Example::
 
         import repro_torch
-        repro_torch.list_kernels()    # ['gpp']
+        repro_torch.list_kernels()    # ['flash', 'gpp']
     """
     _ensure_builtins()
     return sorted(_REGISTRY)

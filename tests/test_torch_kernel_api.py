@@ -4,8 +4,10 @@ v10, stray kwargs, problem_key=, the clamped-static fallback at shapes the
 tune menu cannot tile), dispatch on the card by default, the lazy public
 surface, and that the port imports neither jax nor repro."""
 
+import ast
 import dataclasses
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -27,7 +29,7 @@ def _rel(a, b):
 
 
 def test_gpp_registered():
-    assert api.list_kernels() == ["gpp"]
+    assert api.list_kernels() == ["flash", "gpp"]
     k = api.get_kernel("gpp")
     assert k.versions == ("v0", "v1", "v2", "v3", "v4", "v5", "v6", "v7",
                           "v8", "v9", "v10")
@@ -136,7 +138,9 @@ def test_dispatch_defaults_to_the_card_and_raises_without_one(monkeypatch):
 def test_public_surface():
     assert set(repro_torch.__all__) == {"dispatch", "get_kernel",
                                         "list_kernels", "run_journey",
-                                        "tune_kernel"}
+                                        "tune_kernel", "get_config",
+                                        "build_model", "ServeEngine",
+                                        "Request"}
     assert repro_torch.dispatch is api.dispatch
     assert repro_torch.get_kernel is api.get_kernel
     with pytest.raises(AttributeError):
@@ -161,16 +165,36 @@ print(len(names), bad)
 """
 
 
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _imported_roots(path: pathlib.Path):
+    """Top-level names of every import statement in one source file."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
 def test_port_imports_neither_jax_nor_repro():
     """In a fresh interpreter, importing repro_torch and every submodule
-    leaves `jax` and `repro` (the exact names, and their submodules) out
-    of sys.modules."""
-    src = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "src")
+    that pkgutil.walk_packages finds — which must be every .py file of the
+    package — leaves `jax` and `repro` (the exact names, and their
+    submodules) out of sys.modules. No source file of the package, and not
+    chip_smoke.py, names either in an import statement."""
+    src = ROOT / "src"
     r = subprocess.run([sys.executable, "-c", IMPORT_GUARD],
                        capture_output=True, text=True, timeout=300,
-                       env=dict(os.environ, PYTHONPATH=src))
+                       env=dict(os.environ, PYTHONPATH=str(src)))
     assert r.returncode == 0, r.stderr
     count, bad = r.stdout.strip().split(" ", 1)
-    assert int(count) >= 14
+    files = sorted((src / "repro_torch").rglob("*.py"))
+    modules = [f for f in files if f.name != "__init__.py" or
+               f.parent != src / "repro_torch"]
+    assert int(count) == len(modules) >= 40
     assert bad == "[]", bad
+    for f in files + [ROOT / "chip_smoke.py"]:
+        assert not _imported_roots(f) & {"jax", "jaxlib", "repro"}, f
