@@ -27,6 +27,14 @@ Phases (one line each, more where noted):
      one config with blk_q != blk_kv; at S = 512 also against the f32
      oracle ref.reference; each with the kernel's, the plain version's and
      scaled_dot_product_attention's ms (timed here only) and the bound;
+  7b. flash_bwd_dq and flash_bwd_dkv at op level: each kernel against its
+     plain version on the kernel forward's lse (within one bf16 ulp at the
+     largest element, BWD_ULPS) at the training shape (B=8, S=512, H=12,
+     KvH=2, Hd=128) and at B=1, S=4096, at codeqwen's MHA shape, with
+     blk_q=64 over blk_kv=32 and non-causal; at the training shape also
+     the FlashAttention gradient against autograd through the f32 oracle
+     (BWD_REF_RTOL); the kernels', the plain versions' and the backward
+     of scaled_dot_product_attention's ms (timed here only) and the bounds;
   8. dense serving, the slice's path: ServeEngine on qwen2-1.5b at full
      width and depth with use_flash_attention=True, weights from seed 0,
      max_batch=4, cache_len=1024: 8 greedy requests (prompts of 160, 256,
@@ -40,12 +48,25 @@ Phases (one line each, more where noted):
      first-token logits against the same model with flash_fwd_plain in
      the kernel's place and against the engine with flash off (the
      chunked plain path), both within SERVE_LOGIT_RTOL; the kernels line.
+  10. training, the third slice's path: Trainer(...).run() on qwen2-1.5b
+     at full width and depth (remat "full", AdamW, flash on), the
+     TrainLoopConfig defaults (seq_len 512, global_batch 8), 4 steps,
+     one checkpoint at the end under build/. The step-0 loss within
+     LOSS0_ATOL of what random weights give (see LOSS0_ATOL), every loss
+     finite; every step
+     launches flash_fwd 56 times (forward and remat recompute) and each
+     backward kernel 28 times; step ms, tokens/s, mfu, peak memory; the
+     save's size and time; resume_or_init restores every leaf bit-equal
+     to the state in memory. Then one step under torch.profiler and one
+     more with every backward launch held against its plain version on
+     its own inputs (BWD_ULPS).
 Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
-phase 8's serving run) runs with the launch counters zeroed just before it
-and read just after; the kernels line gives each path's counts, and the
-script fails unless every kernel launched on the paths that run it
-(gpp_fused on dispatch and journey, gpp_banded on the journey, flash_fwd
-28 times a prefill on the serving run).
+phase 8's serving run, phase 10's training run) runs with the launch
+counters zeroed just before it and read just after; the kernels line
+gives each path's counts, and the script fails unless every kernel
+launched on the paths that run it (gpp_fused on dispatch and journey,
+gpp_banded on the journey, flash_fwd 28 times a prefill on the serving
+run, flash_fwd 56 and each backward kernel 28 times a training step).
 
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero without it. Without a card, or outside the repository, the
@@ -95,6 +116,25 @@ FLASH_LSE_ATOL = 1e-4
 # FLASH_OUT_ULPS against its plain version on the same inputs.
 SERVE_LOGIT_RTOL = 6e-2
 SERVE_PROMPTS = (160, 160, 256, 256, 300, 300, 480, 480)
+# flash_bwd_dq / flash_bwd_dkv against their plain versions, both bf16
+# out: max |difference| within one bf16 ulp at the largest |plain| element
+# (2^(floor(log2 max) - 7)): both sum in f32 and round once, the kernel
+# multiplies ds and p as a bf16 hi + lo split and sums in another order
+BWD_ULPS = 1
+# the FlashAttention gradient (bf16 in and out) against autograd through
+# the f32 oracle on the same values, max-norm relative: the kernel path
+# rounds out to bf16 before delta = rowsum(dout * out) and the grads to
+# bf16 (2^-9 and 2^-8 of the largest), the oracle neither
+BWD_REF_RTOL = 2.0 ** -6
+# training from random weights: the final norm leaves each hidden row at
+# RMS 1 and the tied table's entries are N(0, 0.02^2), so the step-0
+# logits are ~N(0, s2), s2 = 0.02^2 d_model, independent of the label:
+# E[lse] = ln V + s2 / 2, and the loss is lse + 1e-4 lse^2 (the z-loss).
+# At qwen2-1.5b's d_model 1536 that is 12.2536; ln V + 1e-4 (ln V)^2 alone
+# (11.945) leaves out the logits' spread.
+LOSS0_ATOL = 0.05
+INIT_SCALE = 0.02
+TRAIN_STEPS = 4
 
 
 def fail(msg: str) -> None:
@@ -107,6 +147,12 @@ def rel(a, b) -> float:
     import numpy as np
     a, b = np.asarray(a), np.asarray(b)
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+def ulp_at_max(want) -> float:
+    """One bf16 ulp at the largest |want| element."""
+    import math
+    return 2.0 ** (math.floor(math.log2(float(want.float().abs().max()))) - 7)
 
 
 def bf16_ulps(got, want) -> float:
@@ -189,6 +235,12 @@ def main() -> None:
               for bkv in flash_cuda.BLK_KV_INSTANCES}
     print(f"[2] flash_fwd compiled (regs, spill bytes) per instance: {fattrs}; "
           f"register table: {flash_cuda.REGS_BY_INSTANCE}", flush=True)
+    battrs = {f"{kind}/hd{hd}/inner{inner}": flash_cuda.bwd_kernel_attrs(
+        kind, hd, inner) for kind in ("dq", "dkv")
+        for hd in flash_cuda.HD_INSTANCES
+        for inner in flash_cuda.BWD_INNER_INSTANCES}
+    print(f"[2] flash_bwd compiled (regs, spill bytes) per instance: {battrs}; "
+          f"backward blocks {flash_cuda.BWD_BLOCKS}", flush=True)
 
     # -- 3. each kernel against its plain version ----------------------------
     checks = (("gpp_fused", gpp_cuda.gpp_fused, gpp_cuda.gpp_fused_plain,
@@ -244,7 +296,8 @@ def main() -> None:
     # -- 4. the main path: dispatch at Si-214 (v10, tuned on the card) --------
     size = problem.SI214
     inp = problem.make_inputs(size)
-    counters = (gpp_cuda.gpp_fused, gpp_cuda.gpp_banded, flash_cuda.flash_fwd)
+    counters = (gpp_cuda.gpp_fused, gpp_cuda.gpp_banded, flash_cuda.flash_fwd,
+                flash_cuda.flash_bwd_dq, flash_cuda.flash_bwd_dkv)
 
     def zero_counts():
         for f in counters:
@@ -348,11 +401,23 @@ def main() -> None:
     torch.cuda.synchronize()
     by_path["flash-check"] = read_counts()
 
+    # -- 7b. the backward kernels at op level ----------------------------------
+    zero_counts()
+    bwd_rows = flash_bwd_checks(torch, dev, spec, card, flash_cuda, flash_ref)
+    torch.cuda.synchronize()
+    by_path["bwd-check"] = read_counts()
+
     # -- 8. dense serving: qwen2-1.5b at full width through ServeEngine -------
     serve = serve_phase(torch, np, dev, card, flash_cuda, zero_counts,
                         read_counts, by_path)
+    torch.cuda.empty_cache()
 
-    names = ("gpp_fused", "gpp_banded", "flash_fwd")
+    # -- 10. training: qwen2-1.5b at full width through Trainer ---------------
+    train = train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
+                        read_counts, by_path)
+
+    names = ("gpp_fused", "gpp_banded", "flash_fwd", "flash_bwd_dq",
+             "flash_bwd_dkv")
     launches = {name: {path: n[name] for path, n in by_path.items()}
                 for name in names}
     f512 = flash_rows["s512"]
@@ -384,7 +449,19 @@ def main() -> None:
          "bound_by": f512["bound_by"], "library_ms": f512["library_ms"],
          "shape": f512["shape"], "at_s4096": flash_rows["s4096"]},
     ]
+    for name, tpu in (("flash_bwd_dq", 142), ("flash_bwd_dkv", 179)):
+        row = bwd_rows["train"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_bwd.cu",
+            "replaces": f"src/repro/kernels/flash/flash.py:{tpu}",
+            "launches": launches[name]["train"],
+            "launches_by_path": launches[name], **row,
+            "library_covers": "dq, dk and dv together (SDPA backward)",
+            "shape": bwd_rows["train"]["shape"],
+            "at_s4096": bwd_rows["s4096"][name]})
     print(f"[8] serving summary: {json.dumps(serve)} [{card}]", flush=True)
+    print(f"[10] training summary: {json.dumps(train)} [{card}]", flush=True)
     print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"(build {build_s:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -463,6 +540,307 @@ def flash_checks(torch, dev, spec, card, flash_cuda, flash_ref):
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": by, "library_ms": lib_ms}
     return rows
+
+
+def flash_bwd_checks(torch, dev, spec, card, flash_cuda, flash_ref):
+    """Phase 7b: flash_bwd_dq and flash_bwd_dkv against their plain versions
+    on the kernel forward's lse (and, at the training shape, the
+    FlashAttention gradient against the f32 oracle); times, bounds.
+    Returns the rows keyed by case, each with one entry per kernel."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = (("train", 8, 512, 12, 2, 128, None, True),
+             ("s4096", 1, 4096, 12, 2, 128, None, True),
+             ("mha512", 1, 512, 32, 32, 128, None, True),
+             ("s512-q64-kv32", 1, 512, 12, 2, 128, (64, 32), True),
+             ("s512-noncausal", 1, 512, 12, 2, 128, None, False))
+    plain = {"flash_bwd_dq": flash_cuda.flash_bwd_dq_plain,
+             "flash_bwd_dkv": flash_cuda.flash_bwd_dkv_plain}
+    rows = {}
+    for tag, b, s, h, kvh, hd, blocks, causal in cases:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev
+                                   ).to(torch.bfloat16)
+                       for shape in ((b, s, h, hd), (b, s, kvh, hd),
+                                     (b, s, kvh, hd), (b, s, h, hd)))
+        out, lse = flash_cuda.flash_fwd(q, k, v, flash_cuda.FlashBlockConfig(),
+                                        causal)
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(
+            b * h, s).contiguous()
+        cfg = (flash_cuda.bwd_config(s, s) if blocks is None
+               else flash_cuda.FlashBlockConfig("check", *blocks))
+        args = (q, k, v, do, lse, delta, cfg, causal)
+        got = {"flash_bwd_dq": (flash_cuda.flash_bwd_dq(*args),),
+               "flash_bwd_dkv": flash_cuda.flash_bwd_dkv(*args)}
+        torch.cuda.synchronize()
+        row = {"shape": [b, s, h, kvh, hd], "blocks": [cfg.blk_q, cfg.blk_kv],
+               "causal": causal}
+        line = (f"[7b] {tag} (B={b}, S={s}, H={h}, KvH={kvh}, Hd={hd}, "
+                f"{'causal' if causal else 'full'}) blocks ({cfg.blk_q},"
+                f"{cfg.blk_kv}):")
+        ok = True
+        for name, outs in got.items():
+            want = plain[name](*args)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = [(float((g.float() - w.float()).abs().max()), ulp_at_max(w))
+                    for g, w in zip(outs, want)]
+            ok &= all(bool(torch.isfinite(g.float()).all()) for g in outs)
+            ok &= all(e <= BWD_ULPS * u for e, u in errs)
+            row[name] = {"max_abs_err": max(e for e, _ in errs),
+                         "err_over_ulp_at_max": max(e / u for e, u in errs)}
+            line += (f" {name} vs plain max_abs "
+                     f"{[f'{e:.3e}' for e, _ in errs]} = "
+                     f"{row[name]['err_over_ulp_at_max']:.2f} ulp at max "
+                     f"(tol {BWD_ULPS});")
+        if not ok:
+            fail(line)
+        if tag == "train":
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out2 = flash_cuda.flash_attention_diff(
+                *leaves, flash_cuda.FlashBlockConfig(), causal)
+            grads = torch.autograd.grad(out2, leaves, do)
+            ref = [x.float().requires_grad_(True) for x in (q, k, v)]
+            planar = [x.transpose(1, 2).reshape(-1, s, hd) for x in ref]
+            r_out = flash_ref.reference(*planar, causal=causal).reshape(
+                b, h, s, hd).transpose(1, 2)
+            want = torch.autograd.grad(r_out, ref, do.float())
+            rels = [float((g.float() - w).abs().max() / w.abs().max())
+                    for g, w in zip(grads, want)]
+            line += (f" FlashAttention grads vs f32 ref.reference, max-norm "
+                     f"rel (dq, dk, dv) {[f'{r:.2e}' for r in rels]} (tol "
+                     f"{BWD_REF_RTOL:.2e});")
+            if max(rels) > BWD_REF_RTOL:
+                fail(line)
+            row["grad_vs_ref_rel"] = max(rels)
+            del leaves, out2, grads, ref, planar, r_out, want
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        o_t = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            o_t, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+        for name, kern in (("flash_bwd_dq", flash_cuda.flash_bwd_dq),
+                           ("flash_bwd_dkv", flash_cuda.flash_bwd_dkv)):
+            kind = name.split("_")[-1]
+            ms = cuda_ms(lambda: kern(*args))
+            plain_ms = cuda_ms(lambda: plain[name](*args), reps=5, warmup=1)
+            ops_ms = flash_cuda.bwd_useful_flops(b, h, s, s, hd, causal, kind) \
+                / spec.bf16_tc_flops * 1e3
+            bytes_ms = flash_cuda.bwd_min_bytes(b, h, kvh, s, s, hd, kind) \
+                / spec.hbm_bw * 1e3
+            bound = max(ops_ms, bytes_ms)
+            by = "operations" if ops_ms >= bytes_ms else "bytes"
+            row[name].update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                              "bound_by": by, "library_ms": lib_ms})
+            line += (f" {name} {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                     f"{bound:.4f} ms ({by}: {ops_ms:.4f} ms of bf16, "
+                     f"{bytes_ms:.4f} ms of bytes);")
+        line += (f" sdpa backward (dq, dk, dv) {lib_ms:.4f} ms [{card}]")
+        print(line, flush=True)
+        rows[tag] = row
+        del q, k, v, do, out, lse, delta, got, qt, kt, vt, o_t
+    return rows
+
+
+def _bits(t):
+    """t's bit patterns as an integer tensor of the same width."""
+    import torch
+    width = {2: torch.int16, 4: torch.int32, 8: torch.int64, 1: torch.int8}
+    return t.view(width[t.element_size()])
+
+
+def train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
+                read_counts, by_path):
+    """Phase 10: Trainer(...).run() on qwen2-1.5b at full width, flash on."""
+    import dataclasses
+    import math
+    import repro_torch
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.dist.fault import resume_or_init
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.trainer import TrainLoopConfig, Trainer
+    cfg = dataclasses.replace(repro_torch.get_config("qwen2-1.5b"),
+                              use_flash_attention=True)
+    n_layers = cfg.n_layers
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    os.makedirs(ckpt_dir)
+    free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
+    loop = TrainLoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+                           log_every=1, ckpt_dir=ckpt_dir)
+    print(f"[10] train qwen2-1.5b (full width, {n_layers} layers, remat "
+          f"{cfg.remat!r}, {cfg.optimizer}, flash on): seq_len "
+          f"{loop.seq_len}, global_batch {loop.global_batch}, {TRAIN_STEPS} "
+          f"steps; free disk under build/ {free_gb:.1f} GB", flush=True)
+    tr = Trainer(cfg, loop, device=dev)
+    step_ms, step_counts, save = [], [], {}
+    real_step, real_write, real_save = tr.step_fn, tr.ckpt._write, tr.ckpt.save
+
+    def timed_step(params, opt_state, batch):
+        torch.cuda.synchronize()
+        before, t0 = read_counts(), time.perf_counter()
+        out = real_step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = read_counts()
+        step_counts.append({k: after[k] - before[k] for k in after})
+        return out
+
+    def timed_save(step, tree, **kw):
+        t0 = time.perf_counter()
+        real_save(step, tree, **kw)
+        save["snapshot_s"] = time.perf_counter() - t0
+
+    def timed_write(step, flat):
+        t0 = time.perf_counter()
+        real_write(step, flat)
+        save["write_s"] = time.perf_counter() - t0
+
+    tr.step_fn, tr.ckpt.save, tr.ckpt._write = timed_step, timed_save, timed_write
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = tr.run(verbose=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    by_path["train"] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = out["losses"]
+    v = cfg.vocab_size
+    lse0 = math.log(v) + INIT_SCALE ** 2 * cfg.d_model / 2
+    loss0 = lse0 + 1e-4 * lse0 ** 2
+    per_step = {"gpp_fused": 0, "gpp_banded": 0, "flash_fwd": 2 * n_layers,
+                "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+    line = (f"[10] losses {[round(x, 4) for x in losses]} (step 0 expected "
+            f"{loss0:.4f} +- {LOSS0_ATOL}); launches a step {step_counts} "
+            f"(expected {per_step}); whole run {by_path['train']} [{card}]")
+    print(line, flush=True)
+    if (len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses)
+            or abs(losses[0] - loss0) > LOSS0_ATOL
+            or any(c != per_step for c in step_counts)
+            or by_path["train"] != {k: n * TRAIN_STEPS
+                                    for k, n in per_step.items()}):
+        fail(line)
+    tokens = loop.seq_len * loop.global_batch
+    n_params = cfg.param_count()
+    attn = 3 * n_layers * flash_cuda.useful_flops(
+        loop.global_batch, cfg.n_heads, loop.seq_len, loop.seq_len,
+        cfg.head_dim, True)
+    steady = sorted(step_ms[1:])
+    step_p50 = steady[len(steady) // 2]
+    mfu = (6 * n_params * tokens + attn) / (step_p50 / 1e3) / spec.bf16_tc_flops
+    step_dir = os.path.join(ckpt_dir, f"step_{TRAIN_STEPS:08d}")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+    res = {"losses": losses, "step_ms": step_ms, "step_ms_p50": step_p50,
+           "tokens_per_step": tokens, "tok_per_s": tokens / step_p50 * 1e3,
+           "mfu": mfu, "model_flops_per_step": 6 * n_params * tokens + attn,
+           "n_params": n_params, "peak_mem_gb": peak / 1e9, "run_s": run_s,
+           "ckpt_gb": ckpt_bytes / 1e9, **save, "free_disk_gb": free_gb}
+    print(f"[10] step ms {[round(x, 2) for x in step_ms]} (p50 after the "
+          f"first {step_p50:.2f}); {res['tok_per_s']:.1f} tokens/s; mfu "
+          f"{mfu:.4f} ((6 N tokens + attention {attn:.3e}) / step / "
+          f"{spec.bf16_tc_flops / 1e12:.0f} TFLOP/s, N = {n_params}); peak "
+          f"device memory {peak / 1e9:.2f} GB; checkpoint "
+          f"{ckpt_bytes / 1e9:.2f} GB, snapshot {save.get('snapshot_s', 0):.2f} "
+          f"s, write {save.get('write_s', 0):.2f} s [{card}]", flush=True)
+
+    # the final checkpoint restored bit-equal to the state in memory
+    t0 = time.perf_counter()
+    step, restored = resume_or_init(tr.ckpt, lambda: None, device=dev)
+    torch.cuda.synchronize()
+    res["restore_s"] = time.perf_counter() - t0
+    mine, back = tree_leaves(tr.state), tree_leaves(restored)
+    same = (step == TRAIN_STEPS and len(mine) == len(back) and all(
+        a.dtype == b.dtype and a.shape == b.shape
+        and torch.equal(_bits(a), _bits(b)) for a, b in zip(mine, back)))
+    line = (f"[10] resume_or_init restored step {step} in "
+            f"{res['restore_s']:.2f} s: {len(back)} leaves, bit-equal to the "
+            f"{len(mine)} in memory: {same} [{card}]")
+    print(line, flush=True)
+    if not same:
+        fail(line)
+    del restored, back
+
+    # one more step under torch.profiler
+    src = TokenSource(DataConfig(seq_len=loop.seq_len,
+                                 global_batch=loop.global_batch,
+                                 vocab_size=v, seed=loop.seed))
+    params, opt_state = tr.state["params"], tr.state["opt"]
+
+    def batch_at(step):
+        return {k: torch.from_numpy(a).to(dev)
+                for k, a in src.batch_at(step).items()}
+
+    zero_counts()
+    batch = batch_at(TRAIN_STEPS)
+    wall, busy, kernels, host, n_launch = profile_window(
+        torch, lambda: real_step(params, opt_state, batch))
+    by_path["train-profile"] = read_counts()
+    res["profile"] = {"wall_ms": wall, "device_busy_ms": busy,
+                      "cuda_launch_kernel": n_launch}
+    print(f"[10] profile one step: wall {wall:.2f} ms, device busy "
+          f"{busy:.2f} ms ({busy / wall:.1%}); cudaLaunchKernel {n_launch}; "
+          f"top kernels (ms, calls): {kernels}; top host ops (self ms, "
+          f"calls): {host} [{card}]", flush=True)
+
+    # one more step with every backward launch held against its plain
+    # version on its own inputs
+    errs = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+    real = {name: getattr(flash_cuda, name) for name in errs}
+    plain = {"flash_bwd_dq": flash_cuda.flash_bwd_dq_plain,
+             "flash_bwd_dkv": flash_cuda.flash_bwd_dkv_plain}
+
+    class Checked:
+        """Stands in for a backward wrapper in flash_cuda's namespace:
+        calls the real one, holds its result against the plain version on
+        the same inputs, and forwards `launches` (which the real wrapper
+        counts through its module-level name) to the real function."""
+
+        def __init__(self, name):
+            self.name = name
+
+        @property
+        def launches(self):
+            return real[self.name].launches
+
+        @launches.setter
+        def launches(self, n):
+            real[self.name].launches = n
+
+        def __call__(self, *args):
+            got = real[self.name](*args)
+            want = plain[self.name](*args)
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            errs[self.name].append(max(
+                float((g.float() - w.float()).abs().max()) / ulp_at_max(w)
+                for g, w in pairs))
+            return got
+
+    zero_counts()
+    for name in errs:
+        setattr(flash_cuda, name, Checked(name))
+    try:
+        real_step(params, opt_state, batch_at(TRAIN_STEPS + 1))
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(flash_cuda, name, fn)
+    by_path["train-check"] = read_counts()
+    worst = {name: max(e) for name, e in errs.items()}
+    line = (f"[10] one checked step: {len(errs['flash_bwd_dq'])} flash_bwd_dq "
+            f"and {len(errs['flash_bwd_dkv'])} flash_bwd_dkv launches held "
+            f"against their plain versions on their own inputs: worst "
+            f"{worst} in bf16 ulps at the largest element (tol {BWD_ULPS}); "
+            f"launches {by_path['train-check']} [{card}]")
+    print(line, flush=True)
+    if (len(errs["flash_bwd_dq"]) != n_layers
+            or len(errs["flash_bwd_dkv"]) != n_layers
+            or max(worst.values()) > BWD_ULPS):
+        fail(line)
+    res["bwd_launch_worst_ulps"] = worst
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del tr, params, opt_state
+    return res
 
 
 def first_token_logits(torch, eng, prompt):
@@ -565,7 +943,8 @@ def serve_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
         eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=8))
     zero_counts()
     for tag, n_steps in (("admit", 1), ("decode", 3)):
-        wall, busy, kernels, host = profile_steps(torch, eng, n_steps)
+        wall, busy, kernels, host, _ = profile_window(
+            torch, lambda: [eng.step() for _ in range(n_steps)])
         res[f"profile_{tag}"] = {"steps": n_steps, "wall_ms": wall,
                                  "device_busy_ms": busy}
         print(f"[8] profile {tag} ({n_steps} step(s)): wall {wall:.2f} ms, "
@@ -657,32 +1036,34 @@ def logit_rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
-def profile_steps(torch, eng, n_steps):
-    """Run eng.step() n_steps times under torch.profiler. Returns (wall ms,
-    device-busy ms: the sum of the kernels' times, the 8 kernels with the
-    most device time as (name, ms, calls), the 8 host ops with the most
-    self CPU time as (name, ms, calls))."""
+def profile_window(torch, fn):
+    """Run fn() under torch.profiler. Returns (wall ms, device-busy ms: the
+    sum of the kernels' times, the 8 kernels with the most device time as
+    (name, ms, calls), the 8 host ops with the most self CPU time as
+    (name, ms, calls), the count of cudaLaunchKernel calls)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            eng.step()
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels, host = [], []
+    launches = 0
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA"):
             kernels.append((e.key[:60], e.self_device_time_total / 1e3,
                             e.count))
         else:
             host.append((e.key[:40], e.self_cpu_time_total / 1e3, e.count))
+            if e.key == "cudaLaunchKernel":
+                launches = e.count
     busy = sum(k[1] for k in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     top_host = sorted(host, key=lambda k: -k[1])[:8]
     return (wall, busy, [(n, round(ms, 3), c) for n, ms, c in top],
-            [(n, round(ms, 3), c) for n, ms, c in top_host])
+            [(n, round(ms, 3), c) for n, ms, c in top_host], launches)
 
 
 def _leaves(tree):

@@ -1,9 +1,11 @@
-"""Flash-attention forward for Hopper — the port of
-`repro.kernels.flash.flash`'s forward (`_kernel` under `_fwd_with_stats`
-and `flash_attention_bhsd`, :37-120 and :220-250): the hand-written CUDA
-kernel in `repro_torch/csrc/flash.cu`, its launcher and launch counter,
-its plain-torch version, and the Hopper shared-memory size that replaces
-`vmem_bytes`.
+"""Flash attention for Hopper — the port of `repro.kernels.flash.flash`:
+the forward (`_kernel` under `_fwd_with_stats` and `flash_attention_bhsd`,
+:37-120 and :220-250), the two backward kernels (`_bwd_dq_kernel`,
+`_bwd_dkv_kernel`, :142-216) and the custom VJP around them
+(`flash_attention_diff`, :253-311). For each kernel: the hand-written CUDA
+kernel (`repro_torch/csrc/flash.cu`, `csrc/flash_bwd.cu`), its launcher
+and launch counter, and its plain-torch version; plus the Hopper
+shared-memory size that replaces `vmem_bytes`.
 
     out, lse = flash_fwd(q, k, v, cfg, causal=True)
 
@@ -16,8 +18,19 @@ takes `flash_fwd_plain`. The kernel reads q/k/v through their strides
 (the last axis contiguous), so the model's strided q/k/v views need no
 copy; out is written contiguous.
 
-The backward kernels (`_bwd_dq_kernel`, `_bwd_dkv_kernel`) belong to the
-training slice and are not here.
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, bwd_cfg, causal=True)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, bwd_cfg, causal=True)
+
+take the forward's q/k/v and lse, dout (B, Sq, H, Hd) and delta =
+rowsum(dout * out) (B*H, Sq) f32, and return dq (B, Sq, H, Hd) and dk/dv
+(B, Skv, KvH, Hd) in q's dtype. dk/dv are summed over the kv head's group
+of q heads inside the kernel. A CUDA tensor launches the kernel (bf16, Hd
+64 or 128; dq: blk_kv 32 or 64, blk_q 16..128 by 16s; dkv: blk_q 32 or
+64, blk_kv 16..128 by 16s) or raises; a CPU tensor takes the plain
+version. `FlashAttention` (a torch.autograd.Function) and
+`flash_attention_diff(q, k, v, cfg, causal)` put the three together: the
+forward saves q, k, v, out and lse, and the backward computes delta with
+torch and launches both backward kernels.
 """
 
 from __future__ import annotations
@@ -42,6 +55,10 @@ SMEM_PAD = 8                       # bf16 of padding a staged row carries
 # (kernel_attrs) beside these; the ranking model reads them for occupancy
 REGS_BY_INSTANCE = {(64, 32): 98, (64, 64): 128, (64, 128): 184,
                     (128, 32): 128, (128, 64): 169, (128, 128): 244}
+# the backward kernels' compiled inner blocks (csrc/flash_bwd.cu): blk_kv
+# of flash_bwd_dq, blk_q of flash_bwd_dkv; the outer block (blk_q of dq,
+# blk_kv of dkv) is 16..MAX_BLK_Q by 16s at run time
+BWD_INNER_INSTANCES = (32, 64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +83,16 @@ class FlashBlockConfig:
 
     def regs_estimate(self, hd: int) -> int:
         return REGS_BY_INSTANCE.get((hd, self.blk_kv), 256)
+
+
+# the backward's blocks (blk_q, blk_kv) before clamping to the shape,
+# picked from the compiled registers (nvcc 12.8 for sm_90a; chip_smoke.py
+# prints them): dkv at Hd 128 holds dk and dv (128 f32 a thread) and
+# spills 24 bytes at 255 registers with 64-row q steps, 236 registers and
+# none with 32; dq at Hd 128 takes 242 registers, no spill, with 64-row
+# kv steps. So: 32 query rows a dq CTA (64 threads) stepping 64 kv rows,
+# 64 kv rows a dkv CTA (128 threads) stepping 32 query rows.
+BWD_BLOCKS = FlashBlockConfig("bwd", 32, 64)
 
 
 def div_clamp(blk: int, s: int) -> int:
@@ -164,19 +191,29 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_launchable(q, k, v, cfg: FlashBlockConfig, hd: int) -> None:
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def rows_aligned(x: torch.Tensor) -> bool:
+    """Whether the kernels can read x (B, S, heads, Hd) through its
+    strides: the last axis contiguous and every row on a 16-byte
+    boundary."""
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and not any(st % 8 for st in x.stride()[:3]))
+
+
+def _check_operands(hd: int, **tensors) -> None:
+    for name, x in tensors.items():
         if x.device.type != "cuda":
             raise ValueError(f"{name} is on {x.device}, the kernel needs CUDA")
         if x.dtype != torch.bfloat16:
             raise ValueError(f"{name} is {x.dtype}, the kernel takes bfloat16")
-        if x.stride(-1) != 1:
-            raise ValueError(f"{name}'s last axis is not contiguous")
-        if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
-            raise ValueError(f"{name}'s rows are not 16-byte aligned "
-                             f"(strides {x.stride()})")
+        if not rows_aligned(x):
+            raise ValueError(f"{name}'s rows are not contiguous and 16-byte "
+                             f"aligned (strides {x.stride()})")
     if hd not in HD_INSTANCES:
         raise ValueError(f"head_dim {hd} not compiled (have {HD_INSTANCES})")
+
+
+def _check_launchable(q, k, v, cfg: FlashBlockConfig, hd: int) -> None:
+    _check_operands(hd, q=q, k=k, v=v)
     if cfg.blk_kv not in BLK_KV_INSTANCES:
         raise ValueError(f"{cfg}: blk_kv not compiled "
                          f"(have {BLK_KV_INSTANCES})")
@@ -230,6 +267,262 @@ def kernel_attrs(hd: int, blk_kv: int) -> Tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
+# backward: plain versions (torch)
+# ---------------------------------------------------------------------------
+
+def _check_stats(lse: torch.Tensor, delta: torch.Tensor, bh: int, sq: int,
+                 device) -> None:
+    for name, x in (("lse", lse), ("delta", delta)):
+        if tuple(x.shape) != (bh, sq) or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({bh}, {sq}) float32: "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, q on {device}")
+
+
+def _bwd_setup(q, k, v, dout, lse, delta, cfg):
+    b, sq, h, kvh, skv, hd = _check_shapes(q, k, v)
+    if tuple(dout.shape) != tuple(q.shape) or dout.device != q.device:
+        raise ValueError(f"dout {tuple(dout.shape)} on {dout.device} does "
+                         f"not match q {tuple(q.shape)} on {q.device}")
+    _check_tiles(sq, skv, cfg)
+    _check_stats(lse, delta, b * h, sq, q.device)
+    return b, sq, h, kvh, skv, hd
+
+
+def _planar_groups(x: torch.Tensor, kvh: int) -> torch.Tensor:
+    """(B, S, H, Hd) -> (B, KvH, G, S, Hd) f32: head h = kv head h // G."""
+    b, s, h, hd = x.shape
+    return x.float().permute(0, 2, 1, 3).reshape(b, kvh, h // kvh, s, hd)
+
+
+def flash_bwd_dq_plain(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
+                       causal: bool = True) -> torch.Tensor:
+    """dq of `_bwd_dq_kernel` in torch, f32: for every query row, over kv
+    blocks of cfg.blk_kv in order, p = exp(q k^T * scale - lse) (the
+    causal mask as NEG_INF before the exp), ds = p * (dout v^T - delta) *
+    scale, dq += ds k; cast once to q's dtype. A kv block above a row's
+    diagonal contributes exactly 0, so this equals skipping it as the
+    kernel does. Returns dq (B, Sq, H, Hd)."""
+    b, sq, h, kvh, skv, hd = _bwd_setup(q, k, v, dout, lse, delta, cfg)
+    g = h // kvh
+    scale = hd ** -0.5
+    qf, of = _planar_groups(q, kvh), _planar_groups(dout, kvh)
+    lse_r = lse.reshape(b, kvh, g, sq, 1)
+    dd = delta.reshape(b, kvh, g, sq, 1)
+    dq = torch.zeros_like(qf)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    for kv0 in range(0, skv, cfg.blk_kv):
+        kb = k[:, kv0:kv0 + cfg.blk_kv].float()          # (B, bkv, KvH, Hd)
+        vb = v[:, kv0:kv0 + cfg.blk_kv].float()
+        s = torch.einsum("bkgqd,bskd->bkgqs", qf, kb) * scale
+        if causal:
+            k_pos = kv0 + torch.arange(cfg.blk_kv, device=q.device)[None, :]
+            s = torch.where(k_pos <= q_pos, s, torch.full_like(s, NEG_INF))
+        p = torch.exp(s - lse_r)
+        dp = torch.einsum("bkgqd,bskd->bkgqs", of, vb)
+        ds = p * (dp - dd) * scale
+        dq = dq + torch.einsum("bkgqs,bskd->bkgqd", ds, kb)
+    return dq.reshape(b, h, sq, hd).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
+                        causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk, dv of `_bwd_dkv_kernel` and the group sum after it
+    (flash.py:305-306) in torch, f32: over q blocks of cfg.blk_q in order,
+    dv += p^T dout and dk += ds^T q, summed over each kv head's q heads;
+    cast once to k's dtype. Returns (dk, dv), each (B, Skv, KvH, Hd)."""
+    b, sq, h, kvh, skv, hd = _bwd_setup(q, k, v, dout, lse, delta, cfg)
+    g = h // kvh
+    scale = hd ** -0.5
+    qf, of = _planar_groups(q, kvh), _planar_groups(dout, kvh)
+    kf = k.float().permute(0, 2, 1, 3)                   # (B, KvH, Skv, Hd)
+    vf = v.float().permute(0, 2, 1, 3)
+    lse_r = lse.reshape(b, kvh, g, sq, 1)
+    dd = delta.reshape(b, kvh, g, sq, 1)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    for q0 in range(0, sq, cfg.blk_q):
+        rows = slice(q0, q0 + cfg.blk_q)
+        qb, ob = qf[:, :, :, rows], of[:, :, :, rows]
+        s = torch.einsum("bkgqd,bksd->bkgqs", qb, kf) * scale
+        if causal:
+            q_pos = q0 + torch.arange(cfg.blk_q, device=q.device)[:, None]
+            s = torch.where(k_pos <= q_pos, s, torch.full_like(s, NEG_INF))
+        p = torch.exp(s - lse_r[:, :, :, rows])
+        dv = dv + torch.einsum("bkgqs,bkgqd->bksd", p, ob)
+        dp = torch.einsum("bkgqd,bksd->bkgqs", ob, vf)
+        ds = p * (dp - dd[:, :, :, rows]) * scale
+        dk = dk + torch.einsum("bkgqs,bkgqd->bksd", ds, qb)
+    return (dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# backward: kernel wrappers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_bwd.cu")
+    lib.flash_bwd_dq_launch.argtypes = ([_I] * 4 + [_P] * 7 + [_I] * 5
+                                        + [_L] * 12 + [ctypes.c_float, _P])
+    lib.flash_bwd_dq_launch.restype = _I
+    lib.flash_bwd_dkv_launch.argtypes = ([_I] * 4 + [_P] * 8 + [_I] * 5
+                                         + [_L] * 12 + [ctypes.c_float, _P])
+    lib.flash_bwd_dkv_launch.restype = _I
+    lib.flash_bwd_func_attrs.argtypes = [_I, _I, _I, ctypes.POINTER(_I),
+                                         ctypes.POINTER(_I)]
+    lib.flash_bwd_func_attrs.restype = _I
+    return lib
+
+
+def _check_bwd_launchable(q, k, v, dout, lse, delta, outer: int, inner: int,
+                          hd: int, cfg: FlashBlockConfig) -> None:
+    _check_operands(hd, q=q, k=k, v=v, dout=dout)
+    if not (lse.is_contiguous() and delta.is_contiguous()):
+        raise ValueError("lse and delta must be contiguous")
+    if inner not in BWD_INNER_INSTANCES:
+        raise ValueError(f"{cfg}: inner block {inner} not compiled "
+                         f"(have {BWD_INNER_INSTANCES})")
+    if outer % 16 or not 16 <= outer <= MAX_BLK_Q:
+        raise ValueError(f"{cfg}: outer block {outer} must be a multiple "
+                         f"of 16 up to {MAX_BLK_Q}")
+    smem = (2 * outer + 2 * inner) * (hd + SMEM_PAD) * 2 + 8 * inner
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"{cfg}: {smem} B of shared memory > "
+                         f"{SMEM_PER_BLOCK}")
+
+
+def _bwd_args(q, k, v, dout):
+    return (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *dout.stride()[:3])
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
+                 causal: bool = True) -> torch.Tensor:
+    """dq (B, Sq, H, Hd): the CUDA kernel for CUDA tensors (raises if it
+    cannot launch; blk_q query rows a CTA, blk_kv kv rows a step), the
+    plain version for CPU ones."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, dout, lse, delta, cfg, causal)
+    b, sq, h, kvh, skv, hd = _bwd_setup(q, k, v, dout, lse, delta, cfg)
+    _check_bwd_launchable(q, k, v, dout, lse, delta, cfg.blk_q, cfg.blk_kv,
+                          hd, cfg)
+    dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _bwd_lib().flash_bwd_dq_launch(
+            hd, cfg.blk_q, cfg.blk_kv, int(causal), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), b, h, kvh, sq, skv,
+            *_bwd_args(q, k, v, dout), hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed with CUDA error {rc} "
+                           f"for {cfg} at q {tuple(q.shape)}")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
+                  causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv), each (B, Skv, KvH, Hd), summed over each kv head's q
+    heads: the CUDA kernel for CUDA tensors (raises if it cannot launch;
+    blk_kv kv rows a CTA, blk_q query rows a step), the plain version for
+    CPU ones."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, cfg, causal)
+    b, sq, h, kvh, skv, hd = _bwd_setup(q, k, v, dout, lse, delta, cfg)
+    _check_bwd_launchable(q, k, v, dout, lse, delta, cfg.blk_kv, cfg.blk_q,
+                          hd, cfg)
+    dk = torch.empty((b, skv, kvh, hd), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    with torch.cuda.device(q.device):
+        rc = _bwd_lib().flash_bwd_dkv_launch(
+            hd, cfg.blk_q, cfg.blk_kv, int(causal), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kvh, sq,
+            skv, *_bwd_args(q, k, v, dout), hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkv launch failed with CUDA error "
+                           f"{rc} for {cfg} at q {tuple(q.shape)}")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def bwd_kernel_attrs(kind: str, hd: int, inner: int) -> Tuple[int, int]:
+    """(registers a thread, spilled local bytes) of the compiled backward
+    instance: kind "dq" (inner = blk_kv) or "dkv" (inner = blk_q); card
+    only (builds the library)."""
+    regs, local = _I(), _I()
+    rc = _bwd_lib().flash_bwd_func_attrs(("dq", "dkv").index(kind), hd, inner,
+                                         ctypes.byref(regs),
+                                         ctypes.byref(local))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_func_attrs failed with CUDA error {rc}")
+    return regs.value, local.value
+
+
+# ---------------------------------------------------------------------------
+# the differentiable attention (the custom VJP of flash.py:253-311)
+# ---------------------------------------------------------------------------
+
+def bwd_config(sq: int, skv: int) -> FlashBlockConfig:
+    """The backward's blocks: BWD_BLOCKS clamped to the shape."""
+    return FlashBlockConfig("bwd", div_clamp(BWD_BLOCKS.blk_q, sq),
+                            div_clamp(BWD_BLOCKS.blk_kv, skv))
+
+
+class FlashAttention(torch.autograd.Function):
+    """out = attention(q, k, v) with the flash kernels both ways. forward
+    runs flash_fwd under `cfg` and saves q, k, v, out and lse; backward
+    computes delta = rowsum(dout * out) in f32 with torch (as the JAX
+    backward does outside Pallas, flash.py:272) and launches flash_bwd_dq
+    and flash_bwd_dkv under `bwd_cfg`. A dout whose rows the kernels cannot
+    read through strides is copied contiguous first (one (B, S, H, Hd) bf16
+    copy); the model's dout needs none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg, causal, bwd_cfg):
+        out, lse = flash_fwd(q, k, v, cfg, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.bwd_cfg = causal, bwd_cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.is_cuda and not rows_aligned(dout):
+            dout = dout.contiguous()
+        b, sq, h, _ = q.shape
+        delta = (dout.float() * out.float()).sum(-1)     # (B, Sq, H)
+        delta = delta.permute(0, 2, 1).reshape(b * h, sq).contiguous()
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.bwd_cfg, ctx.causal)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.bwd_cfg,
+                               ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_diff(q, k, v, cfg: FlashBlockConfig, causal: bool = True
+                         ) -> torch.Tensor:
+    """Differentiable flash attention, q: (B, Sq, H, Hd), k/v: (B, Skv,
+    KvH, Hd) -> out (B, Sq, H, Hd): the forward under cfg, the backward
+    under `bwd_config`. Under torch.no_grad, or when no input requires
+    grad, it records nothing and saves nothing."""
+    return FlashAttention.apply(q, k, v, cfg, causal,
+                                bwd_config(q.shape[1], k.shape[1]))
+
+
+# ---------------------------------------------------------------------------
 # work and traffic (for the ranking model and the bound)
 # ---------------------------------------------------------------------------
 
@@ -248,14 +541,38 @@ def useful_flops(b: int, h: int, sq: int, skv: int, hd: int,
                  causal: bool) -> float:
     """FLOPs the attention needs on these shapes: 2 products (QK^T, PV) of
     2*hd FLOPs for every score element that is not masked."""
-    if causal:
-        elems = sum(min(i + 1, skv) for i in range(sq))
-    else:
-        elems = sq * skv
-    return 4.0 * b * h * elems * hd
+    return 4.0 * b * h * attended_elems(sq, skv, causal) * hd
 
 
 def min_bytes(b: int, h: int, kvh: int, sq: int, skv: int, hd: int) -> int:
     """Bytes the function must move: q, k, v read once (bf16), out written
     once (bf16), lse written once (f32)."""
     return 2 * b * hd * (2 * sq * h + 2 * skv * kvh) + 4 * b * h * sq
+
+
+def attended_elems(sq: int, skv: int, causal: bool) -> int:
+    """Score elements one head needs: those on or below the diagonal when
+    causal."""
+    if causal:
+        return sum(min(i + 1, skv) for i in range(sq))
+    return sq * skv
+
+
+def bwd_useful_flops(b: int, h: int, sq: int, skv: int, hd: int,
+                     causal: bool, kernel: str) -> float:
+    """FLOPs one backward kernel needs: 2*hd for every product and score
+    element that is not masked — dq recomputes s and forms dp and ds k (3
+    products), dkv recomputes s and forms dp, p^T dout and ds^T q (4)."""
+    products = {"dq": 3, "dkv": 4}[kernel]
+    return 2.0 * products * hd * b * h * attended_elems(sq, skv, causal)
+
+
+def bwd_min_bytes(b: int, h: int, kvh: int, sq: int, skv: int, hd: int,
+                  kernel: str) -> int:
+    """Bytes one backward kernel must move: q, dout, k, v read once
+    (bf16), lse and delta once (f32); dq (dq) or dk and dv (dkv) written
+    once (bf16)."""
+    q_bytes = 2 * b * sq * h * hd
+    kv_bytes = 2 * b * skv * kvh * hd
+    reads = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * h * sq
+    return reads + (q_bytes if kernel == "dq" else 2 * kv_bytes)

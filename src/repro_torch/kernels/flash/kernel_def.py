@@ -2,9 +2,12 @@
 the port of `repro.kernels.flash.kernel_def` (:41-216).
 
 Versions ("ref", "cuda"): "ref" is the one-shot f32 oracle (ref.py) on
-planar heads, "cuda" is the hand-written Hopper kernel (flash_cuda.py
-over csrc/flash.cu; its plain version on CPU tensors). The JAX version
-name "pallas" maps to "cuda". Default and tunable: "cuda".
+planar heads, differentiable by plain autograd; "cuda" is the
+hand-written Hopper kernels through `flash_cuda.flash_attention_diff`
+(csrc/flash.cu forward, csrc/flash_bwd.cu backward; their plain versions
+on CPU tensors), the counterpart of the JAX custom VJP. The JAX version
+name "pallas" maps to "cuda". Default and tunable: "cuda"; the config
+tunes the forward, the backward takes `flash_cuda.bwd_config`.
 
 The config space is (blk_q, blk_kv) over the compiled instances, each
 dividing its sequence length and fitting Hopper's shared memory a block
@@ -118,10 +121,10 @@ class FlashKernel(api.Kernel):
 
     def run(self, q, k, v, *, version: str,
             config: Optional[FlashBlockConfig], device, causal: bool = True):
-        """q: (B,S,H,Hd); k/v: (B,S,KvH,Hd) -> (B,S,H,Hd). "cuda" hands the
-        model layout to the kernel as it is (it reads through strides and
-        writes (B,S,H,Hd): no copies); "ref" goes through planar heads as
-        the JAX descriptor does."""
+        """q: (B,S,H,Hd); k/v: (B,S,KvH,Hd) -> (B,S,H,Hd), differentiable.
+        "cuda" hands the model layout to the kernels as it is (they read
+        through strides and write (B,S,H,Hd): no copies); "ref" goes
+        through planar heads as the JAX descriptor does."""
         q, k, v = (x.to(device) for x in (q, k, v))
         b, sq, h, hd = q.shape
         _, skv, kvh, _ = k.shape
@@ -134,8 +137,7 @@ class FlashKernel(api.Kernel):
             return out.reshape(b, h, sq, hd).transpose(1, 2)
         cfg = (config or FlashBlockConfig()).clamped(
             self.problem_key(q, k, v, causal=causal))
-        out, _ = flash_cuda.flash_fwd(q, k, v, cfg, causal)
-        return out
+        return flash_cuda.flash_attention_diff(q, k, v, cfg, causal)
 
 
 KERNEL = api.register(FlashKernel())

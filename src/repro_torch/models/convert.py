@@ -1,4 +1,4 @@
-"""Carry weights and caches across from the JAX package.
+"""Carry weights, optimizer state and caches across from the JAX package.
 
 The two packages draw different random weights from the same seed, so a
 parity test hands the JAX params to the port instead: exported to numpy
@@ -25,9 +25,9 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     16-bit patterns)."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
-        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        bits = torch.from_numpy(np.asarray(a, order="C").view(np.uint16).copy())
         return bits.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(np.asarray(a, order="C").copy()).to(device)
 
 
 class _Shapes:
@@ -76,6 +76,20 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig,
         return tensor_from_numpy(given[node], dev)
 
     return fill(skeleton)
+
+
+def opt_state_from_numpy(state: Dict, device=backend.DEFAULT_DEVICE) -> Dict:
+    """A JAX optimizer state (AdamW {"m", "v", "step"} or Adafactor {"f",
+    "step"}; numpy leaves) as the port's on `device`: every leaf bit for
+    bit, "step" a 0-d int32 tensor."""
+    dev = backend.resolve_device(device)
+
+    def fill(node):
+        if isinstance(node, dict):
+            return {k: fill(v) for k, v in node.items()}
+        return tensor_from_numpy(node, dev)
+
+    return fill(state)
 
 
 def cache_from_numpy(cache: Dict, device=backend.DEFAULT_DEVICE) -> Dict:

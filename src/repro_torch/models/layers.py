@@ -1,5 +1,6 @@
 """Shared model building blocks — the port of `repro.models.layers`
-(numerics, rotary embedding, embedding/head, parameter init).
+(numerics, rotary embedding, embedding/head, the cross-entropy, parameter
+init).
 
 Conventions, as in the JAX package:
   * params are nested dicts of tensors whose keys are the JAX tree's
@@ -122,3 +123,15 @@ def lm_logits(x: torch.Tensor, table_or_head: torch.Tensor) -> torch.Tensor:
     """Project to the vocabulary in f32: bf16 operands, whose products are
     exact in f32, multiplied and summed in f32."""
     return torch.matmul(x.float(), table_or_head.float())
+
+
+def softmax_xent(logits_f32: torch.Tensor, labels: torch.Tensor, *,
+                 z_loss: float = 1e-4) -> torch.Tensor:
+    """Cross-entropy with the PaLM-style z-loss: lse - ll + z_loss * lse^2
+    per token. logits: (..., V) f32; labels: (...) int (each in [0, V))."""
+    lse = torch.logsumexp(logits_f32, dim=-1)
+    ll = torch.gather(logits_f32, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return loss

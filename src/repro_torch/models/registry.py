@@ -1,9 +1,9 @@
-"""Model assembly: config -> Model (init / prefill / decode_step /
+"""Model assembly: config -> Model (init / loss / prefill / decode_step /
 prefill_into_slot / init_cache) — the port of `repro.models.registry` for
-the dense family (`Model` :31, `_dense_prefill_stack` :114,
-`_dense_decode_stack` :137, the dense `make_cache` :347, `build_model`
-:426, `_logits` :458, `prefill` :559, `decode_step` :652,
-`prefill_into_slot` :726).
+the dense family (`Model` :31, `_maybe_remat` :60, `_dense_stack` :92,
+`_dense_prefill_stack` :114, `_dense_decode_stack` :137, the dense
+`make_cache` :347, `build_model` :426, `_logits` :458, `loss_fn` :516,
+`prefill` :559, `decode_step` :652, `prefill_into_slot` :726).
 
 Layouts are the JAX package's: activations (B, S, D), caches
 {"k", "v": (L, B, Lcache, KvH, Hd) bf16, "pos": int32 scalar or (B,)},
@@ -12,15 +12,23 @@ is a Python loop over the stacked params, and the decode steps update the
 cache's k/v IN PLACE (the returned cache shares them; only "pos" is a new
 tensor), where the JAX steps return new arrays.
 
-`loss_fn`, `decode_verify`, `prefill_continue` and every family but
-"dense" wait for later slices (ROADMAP queue 1).
+Training: `loss_fn` runs `_dense_stack`, each layer under
+`torch.utils.checkpoint` as `cfg.remat` says ("none"; "full"; "dots",
+which keeps the non-batched matmul outputs, the JAX
+`dots_with_no_batch_dims_saveable`), then the cross-entropy in sequence
+chunks, each under its own checkpoint. Serving (`prefill`, `decode_step`,
+`prefill_into_slot`) runs under `torch.no_grad()`, so params that require
+grad (a trainer's) record no graph there.
+
+`decode_verify`, `prefill_continue` and every family but "dense" wait for
+later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -28,7 +36,8 @@ from repro_torch import backend
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import (PARAM_DTYPE, ParamInit, embed,
-                                       lm_logits, rms_norm, swiglu)
+                                       lm_logits, rms_norm, softmax_xent,
+                                       swiglu)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -37,6 +46,8 @@ Cache = Dict[str, torch.Tensor]
 class Model:
     cfg: ModelConfig
     init_params: Callable[..., Dict]
+    # (params, batch) -> (total loss, {"loss", "aux", "ntokens"}), f32
+    loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     prefill: Callable[..., Tuple[torch.Tensor, Cache]]
     decode_step: Callable[..., Tuple[torch.Tensor, Cache]]
     # single-row prefill written into one slot of a batched decode cache
@@ -53,6 +64,70 @@ def _layer(layers: Dict, i: int) -> Dict:
     """Layer i's params: views into the stacked (L, ...) leaves."""
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
             for k, v in layers.items()}
+
+
+def _unstack(layers: Dict) -> List[Dict]:
+    """Every layer's params as views of the stacked (L, ...) leaves, each
+    leaf split by one `torch.unbind`: its backward stacks the L layer
+    gradients in one copy (L single-layer `select`s would each scatter
+    into a zeroed (L, ...) gradient)."""
+    def split(node):
+        if isinstance(node, dict):
+            return {k: split(v) for k, v in node.items()}
+        return torch.unbind(node, 0)
+
+    def pick(node, i):
+        if isinstance(node, dict):
+            return {k: pick(v, i) for k, v in node.items()}
+        return node[i]
+
+    parts = split(layers)
+    return [pick(parts, i) for i in range(layers["ln1"].shape[0])]
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep the outputs of non-batched matrix
+    products (aten mm / addmm: the projections), recompute the rest (the
+    batched attention einsums, norms, casts)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, remat: str):
+    """fn under torch.utils.checkpoint (non-reentrant) as the JAX
+    `_maybe_remat`: "none" keeps every activation, "dots" keeps the
+    non-batched matmul outputs, anything else ("full") keeps only fn's
+    inputs and recomputes fn in the backward."""
+    if remat == "none":
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    if remat == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _dots_saveable)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=context_fn)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
+def _dense_stack(cfg: ModelConfig, layers, x, positions, *, remat: str):
+    """The decoder layers over x (B,S,D) for training, each under
+    `_maybe_remat`. Returns (x, aux loss), aux 0 for the dense family."""
+
+    def body(x, lp):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        a, _ = T.attn_block(lp["attn"], h, cfg, positions=positions)
+        x = x + a
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + swiglu(h, lp["ffn"]["wi"], lp["ffn"]["wg"],
+                          lp["ffn"]["wo"])
+
+    body = _maybe_remat(body, remat)
+    for lp in _unstack(layers):
+        x = body(x, lp)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _dense_prefill_stack(cfg: ModelConfig, layers, x, positions, *,
@@ -112,9 +187,9 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # ===========================================================================
 
 def build_model(cfg: ModelConfig) -> Model:
-    """Assemble a `Model` for one dense config: init_params / prefill /
-    decode_step / prefill_into_slot / init_cache, in the JAX package's
-    layouts. Any other family raises NotImplementedError naming its
+    """Assemble a `Model` for one dense config: init_params / loss_fn /
+    prefill / decode_step / prefill_into_slot / init_cache, in the JAX
+    package's layouts. Any other family raises NotImplementedError naming its
     ROADMAP item.
 
     Example::
@@ -142,6 +217,48 @@ def build_model(cfg: ModelConfig) -> Model:
         table = params["embed"].T if cfg.tie_embeddings else params["head"]
         return lm_logits(x, table)
 
+    def loss_fn(params, batch):
+        """(total, {"loss", "aux", "ntokens"}) of batch["tokens"] (B, S)
+        against batch["labels"] (B, S): the mean over labels >= 0 of the
+        cross-entropy with z-loss 1e-4, all f32 scalars. The xent runs in
+        sequence chunks (512, 256, 128 or 64, the largest that divides S
+        and is below it), each under its own checkpoint, so one (B, chunk,
+        V) f32 logits block is live at a time."""
+        x = embed(batch["tokens"], params["embed"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux = _dense_stack(cfg, params["layers"], x, positions,
+                              remat=cfg.remat)
+        labels = batch["labels"]
+        s = x.shape[1]
+        chunk = s
+        for c in (512, 256, 128, 64):
+            if s % c == 0 and s > c:
+                chunk = c
+                break
+
+        def xent_chunk(x_c, labels_c):
+            logits = _logits(params, x_c)
+            mask = (labels_c >= 0).float()
+            per_tok = softmax_xent(logits, torch.clamp_min(labels_c, 0))
+            return (per_tok * mask).sum(), mask.sum()
+
+        if chunk == s:
+            lsum, msum = xent_chunk(x, labels)
+        else:
+            from torch.utils.checkpoint import checkpoint
+            lsum = msum = torch.zeros((), dtype=torch.float32,
+                                      device=x.device)
+            for c0 in range(0, s, chunk):
+                dl, dm = checkpoint(xent_chunk, x[:, c0:c0 + chunk],
+                                    labels[:, c0:c0 + chunk],
+                                    use_reentrant=False)
+                lsum, msum = lsum + dl, msum + dm
+        ntok = torch.clamp_min(msum, 1.0)
+        loss = lsum / ntok
+        total = loss + cfg.router_aux_coef * aux
+        return total, {"loss": loss, "aux": aux, "ntokens": ntok}
+
+    @torch.no_grad()
     def prefill(params, batch, *, last_index=None):
         """Full forward; returns (last-token logits (B,1,V) f32, cache).
 
@@ -175,6 +292,7 @@ def build_model(cfg: ModelConfig) -> Model:
             last = x.index_select(1, idx)
         return _logits(params, last), cache
 
+    @torch.no_grad()
     def decode_step(params, cache: Cache, tokens):
         """tokens: (B, 1). Returns (logits (B,1,V) f32, cache): k/v are
         written in place, "pos" (a scalar or a (B,) per-row vector)
@@ -183,6 +301,7 @@ def build_model(cfg: ModelConfig) -> Model:
         x, cache = _dense_decode_stack(cfg, params["layers"], x, cache)
         return _logits(params, x), cache
 
+    @torch.no_grad()
     def prefill_into_slot(params, cache: Cache, slot, batch, prompt_len):
         """Prefill ONE request (batch row of size 1) and overwrite `slot`'s
         cache lines in a batched decode cache whose "pos" is a (B,) per-row
@@ -204,6 +323,7 @@ def build_model(cfg: ModelConfig) -> Model:
         pos[slot] = plen.to(pos.dtype)
         return logits, {**cache, "pos": pos}
 
-    return Model(cfg=cfg, init_params=init_params, prefill=prefill,
+    return Model(cfg=cfg, init_params=init_params, loss_fn=loss_fn,
+                 prefill=prefill,
                  decode_step=decode_step, prefill_into_slot=prefill_into_slot,
                  init_cache=functools.partial(make_cache, cfg))

@@ -160,7 +160,8 @@ for n in names:
 for name in repro_torch.__all__:
     getattr(repro_torch, name)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+             if m in ("jax", "repro", "ml_dtypes")
+             or m.startswith(("jax.", "repro.", "ml_dtypes.")))
 print(len(names), bad)
 """
 
@@ -182,9 +183,10 @@ def _imported_roots(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_repro():
     """In a fresh interpreter, importing repro_torch and every submodule
     that pkgutil.walk_packages finds — which must be every .py file of the
-    package — leaves `jax` and `repro` (the exact names, and their
-    submodules) out of sys.modules. No source file of the package, and not
-    chip_smoke.py, names either in an import statement."""
+    package — leaves `jax`, `repro` and `ml_dtypes` (the exact names, and
+    their submodules) out of sys.modules: the card's machine has none of
+    them. No source file of the package, and not chip_smoke.py, names any
+    of them in an import statement."""
     src = ROOT / "src"
     r = subprocess.run([sys.executable, "-c", IMPORT_GUARD],
                        capture_output=True, text=True, timeout=300,
@@ -197,4 +199,5 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(count) == len(modules) >= 40
     assert bad == "[]", bad
     for f in files + [ROOT / "chip_smoke.py"]:
-        assert not _imported_roots(f) & {"jax", "jaxlib", "repro"}, f
+        assert not _imported_roots(f) & {"jax", "jaxlib", "repro",
+                                         "ml_dtypes"}, f

@@ -199,3 +199,40 @@ def test_other_families_raise():
                  "whisper-small", "internvl2-26b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             repro_torch.build_model(get_config(arch))
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_serving_with_trainer_params_records_no_graph(small, flash):
+    """Params that require grad (as the trainer leaves them) serve the same
+    greedy tokens as plain ones, and prefill, decode_step and
+    prefill_into_slot return tensors without a grad_fn: serving runs
+    under torch.no_grad, so no graph is recorded and FlashAttention saves
+    nothing."""
+    _, tcfg, _, tp = small
+    cfg = dataclasses.replace(tcfg, use_flash_attention=flash)
+
+    def requiring(node):
+        if isinstance(node, dict):
+            return {k: requiring(v) for k, v in node.items()}
+        return node.detach().clone().requires_grad_(True)
+
+    trained = requiring(tp)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=n)
+            for i, p, n in _requests([(0, 256, 4), (1, 200, 3)])]
+    want = ServeEngine(cfg, tp, max_batch=2, cache_len=272,
+                       device="cpu").run(reqs)
+    got = ServeEngine(cfg, trained, max_batch=2, cache_len=272,
+                      device="cpu").run(reqs)
+    assert got == want
+    model = repro_torch.build_model(cfg)
+    toks = torch.from_numpy(_requests([(0, 256, 1)])[0][1][None].astype(
+        np.int64))
+    logits, cache = model.prefill(trained, {"tokens": toks})
+    assert logits.grad_fn is None and cache["k"].grad_fn is None
+    slots = model.init_cache(2, 272, device="cpu")
+    slots["pos"] = torch.zeros((2,), dtype=torch.int32)
+    logits, slots = model.prefill_into_slot(trained, slots, 1,
+                                            {"tokens": toks}, 256)
+    assert logits.grad_fn is None and slots["k"].grad_fn is None
+    logits, slots = model.decode_step(trained, slots, toks[:, -2:].T)
+    assert logits.grad_fn is None and slots["k"].grad_fn is None
