@@ -48,6 +48,13 @@ Phases (one line each, more where noted):
      first-token logits against the same model with flash_fwd_plain in
      the kernel's place and against the engine with flash off (the
      chunked plain path), both within SERVE_LOGIT_RTOL; the kernels line.
+  7c. ssm_scan at op level: the kernel against ssm_scan_plain on the card
+     (y within SSM_RTOL of the largest |y|, hT within SSM_RTOL of the
+     largest |hT|) at hymba-1.5b's prefill (B=1, T=1152, C=3200, N=16),
+     T=4096, B=4 x T=256, a small N=8 shape with a ragged time tile, and
+     the prefill shape with a nonzero h0; the kernel's and the plain
+     version's ms and the bound (no PyTorch call computes the scan); at
+     the prefill shape every blk_c of the config space, modeled and timed;
   10. training, the third slice's path: Trainer(...).run() on qwen2-1.5b
      at full width and depth (remat "full", AdamW, flash on), the
      TrainLoopConfig defaults (seq_len 512, global_batch 8), 4 steps,
@@ -60,13 +67,27 @@ Phases (one line each, more where noted):
      to the state in memory. Then one step under torch.profiler and one
      more with every backward launch held against its plain version on
      its own inputs (BWD_ULPS).
+  11. hybrid serving, the fourth slice's path: ServeEngine on hymba-1.5b
+     at full width and depth with ssm_impl="pallas", weights from seed 0,
+     max_batch=4, cache_len=2048: 8 greedy requests (SERVE_PROMPTS) and
+     one of 1152 tokens (longer than the 1024 window: the prefill's ring
+     roll and ring decode), 32 new tokens each, all submitted at once.
+     ssm_scan must launch 32 times a prefill; TTFT, decode ms a round,
+     tokens/s and peak device memory are printed; one admission round and
+     three decode rounds run under torch.profiler. Then the long prompt
+     is prefilled again with every ssm_scan launch held against
+     ssm_scan_plain on its inputs (SSM_RTOL), and every prompt's
+     first-token logits against the engine with ssm_impl="chunked"
+     (SERVE_LOGIT_RTOL).
 Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
-phase 8's serving run, phase 10's training run) runs with the launch
-counters zeroed just before it and read just after; the kernels line
-gives each path's counts, and the script fails unless every kernel
-launched on the paths that run it (gpp_fused on dispatch and journey,
-gpp_banded on the journey, flash_fwd 28 times a prefill on the serving
-run, flash_fwd 56 and each backward kernel 28 times a training step).
+phase 8's serving run, phase 10's training run, phase 11's hybrid serving
+run) runs with the launch counters zeroed just before it and read just
+after; the kernels line gives each path's counts, and the script fails
+unless every kernel launched on the paths that run it (gpp_fused on
+dispatch and journey, gpp_banded on the journey, flash_fwd 28 times a
+prefill on the serving run, flash_fwd 56 and each backward kernel 28
+times a training step, ssm_scan 32 times a prefill on the hybrid serving
+run).
 
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero without it. Without a card, or outside the repository, the
@@ -74,6 +95,7 @@ script fails before printing any result.
 """
 
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -135,6 +157,16 @@ BWD_REF_RTOL = 2.0 ** -6
 LOSS0_ATOL = 0.05
 INIT_SCALE = 0.02
 TRAIN_STEPS = 4
+# ssm_scan against ssm_scan_plain, both f32: max |difference| of y within
+# 1e-5 of the largest |y| (and of hT within 1e-5 of the largest |hT|):
+# both run the recurrence in the same order along T; the kernel's expf,
+# its FMA for the state update and its butterfly sum over N round
+# differently from the plain version's exp, mul/add and einsum
+SSM_RTOL = 1e-5
+# hybrid serving: the long prompt is longer than hymba's 1024-token window
+# and a multiple of 64 (the chunked comparison then really chunks)
+HYBRID_LONG_PROMPT = 1152
+HYBRID_CACHE_LEN = 2048
 
 
 def fail(msg: str) -> None:
@@ -208,6 +240,7 @@ def main() -> None:
     from repro_torch.kernels.flash import flash_cuda
     from repro_torch.kernels.flash import ref as flash_ref
     from repro_torch.kernels.gpp import gpp_cuda, problem, ref
+    from repro_torch.kernels.ssm import ssm_cuda
     from repro_torch.tune import measure, tuner
 
     # a fresh tune cache, so the main path tunes on this card
@@ -241,6 +274,10 @@ def main() -> None:
         for inner in flash_cuda.BWD_INNER_INSTANCES}
     print(f"[2] flash_bwd compiled (regs, spill bytes) per instance: {battrs}; "
           f"backward blocks {flash_cuda.BWD_BLOCKS}", flush=True)
+    sattrs = {f"n{n}/{'bf16' if bf else 'f32'}": ssm_cuda.kernel_attrs(n, bf)
+              for n in ssm_cuda.N_INSTANCES for bf in (False, True)}
+    print(f"[2] ssm_scan compiled (regs, spill bytes) per instance: {sattrs}",
+          flush=True)
 
     # -- 3. each kernel against its plain version ----------------------------
     checks = (("gpp_fused", gpp_cuda.gpp_fused, gpp_cuda.gpp_fused_plain,
@@ -297,7 +334,8 @@ def main() -> None:
     size = problem.SI214
     inp = problem.make_inputs(size)
     counters = (gpp_cuda.gpp_fused, gpp_cuda.gpp_banded, flash_cuda.flash_fwd,
-                flash_cuda.flash_bwd_dq, flash_cuda.flash_bwd_dkv)
+                flash_cuda.flash_bwd_dq, flash_cuda.flash_bwd_dkv,
+                ssm_cuda.ssm_scan)
 
     def zero_counts():
         for f in counters:
@@ -407,6 +445,12 @@ def main() -> None:
     torch.cuda.synchronize()
     by_path["bwd-check"] = read_counts()
 
+    # -- 7c. the selective scan at op level -------------------------------------
+    zero_counts()
+    ssm_rows = ssm_checks(torch, dev, spec, card, ssm_cuda)
+    torch.cuda.synchronize()
+    by_path["ssm-check"] = read_counts()
+
     # -- 8. dense serving: qwen2-1.5b at full width through ServeEngine -------
     serve = serve_phase(torch, np, dev, card, flash_cuda, zero_counts,
                         read_counts, by_path)
@@ -415,9 +459,15 @@ def main() -> None:
     # -- 10. training: qwen2-1.5b at full width through Trainer ---------------
     train = train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
                         read_counts, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 11. hybrid serving: hymba-1.5b at full width through ServeEngine -----
+    hybrid = hybrid_phase(torch, np, dev, card, ssm_cuda, zero_counts,
+                          read_counts, by_path)
 
     names = ("gpp_fused", "gpp_banded", "flash_fwd", "flash_bwd_dq",
-             "flash_bwd_dkv")
+             "flash_bwd_dkv", "ssm_scan")
     launches = {name: {path: n[name] for path, n in by_path.items()}
                 for name in names}
     f512 = flash_rows["s512"]
@@ -460,8 +510,22 @@ def main() -> None:
             "library_covers": "dq, dk and dv together (SDPA backward)",
             "shape": bwd_rows["train"]["shape"],
             "at_s4096": bwd_rows["s4096"][name]})
+    row = ssm_rows["hymba-prefill"]
+    kernels.append({
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm/ssm_scan.py:30",
+        "launches": launches["ssm_scan"]["hybrid-serve"],
+        "launches_by_path": launches["ssm_scan"],
+        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "shape", "blk_c")},
+        "library_ms": None,
+        "library_note": "no PyTorch call computes the selective scan",
+        "at_t4096": ssm_rows["t4096"]})
     print(f"[8] serving summary: {json.dumps(serve)} [{card}]", flush=True)
     print(f"[10] training summary: {json.dumps(train)} [{card}]", flush=True)
+    print(f"[11] hybrid serving summary: {json.dumps(hybrid)} [{card}]",
+          flush=True)
     print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"(build {build_s:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -640,6 +704,201 @@ def flash_bwd_checks(torch, dev, spec, card, flash_cuda, flash_ref):
     return rows
 
 
+def ssm_inputs(torch, dev, b, t, c, n, seed, h0_scale):
+    """The scan's operands as the model hands them over: x, dt, b, c f32
+    (x, b, c ~ N(0, 1), dt = softplus(N(0, 1) - 2)), a_log = log(1..N) and
+    d ~ N(0, 1) as bf16 params, h0 = h0_scale N(0, 1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = rnd(b, t, c)
+    dt = torch.nn.functional.softplus(rnd(b, t, c) - 2)
+    bm, cm = rnd(b, t, n), rnd(b, t, n)
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device=dev))[None].repeat(c, 1)
+    d = rnd(c)
+    h0 = h0_scale * rnd(b, c, n)
+    return (x, dt, bm, cm, a_log.to(torch.bfloat16), d.to(torch.bfloat16), h0)
+
+
+def ssm_errors(got, want):
+    """(max |y diff| / max |y|, max |hT diff| / max |hT|, max |y diff|)."""
+    (y, h), (py, ph) = got, want
+    dy = float((y - py).abs().max())
+    dh = float((h - ph).abs().max())
+    return (dy / float(py.abs().max()), dh / max(float(ph.abs().max()), 1e-30),
+            dy)
+
+
+def ssm_checks(torch, dev, spec, card, ssm_cuda):
+    """Phase 7c: ssm_scan against ssm_scan_plain; times, bound; at the
+    prefill shape the blk_c sweep. Returns the rows keyed by case."""
+    from repro_torch.kernels.ssm.kernel_def import SsmKey
+    from repro_torch.tune import tuner
+    cases = (("hymba-prefill", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.0),
+             ("t4096", 1, 4096, 3200, 16, 0.0),
+             ("b4-t256", 4, 256, 3200, 16, 0.0),
+             ("small-n8", 2, 100, 48, 8, 0.1),
+             ("hymba-prefill-h0", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.1))
+    rows = {}
+    for i, (tag, b, t, c, n, h0) in enumerate(cases):
+        args = ssm_inputs(torch, dev, b, t, c, n, seed=10 + i, h0_scale=h0)
+        key = SsmKey(b=b, t=t, c=c, n=n)
+        # the blk_c the model path takes (mamba_path's model-only pick)
+        cfg = tuner.tune_kernel("ssm", key, measure_mode=False,
+                                device=dev).config
+        got = ssm_cuda.ssm_scan(*args, cfg)
+        torch.cuda.synchronize()
+        want = ssm_cuda.ssm_scan_plain(*args, cfg)
+        y_rel, h_rel, dy = ssm_errors(got, want)
+        line = (f"[7c] ssm_scan {tag} (B={b}, T={t}, C={c}, N={n}, h0 "
+                f"{h0}) blk_c {cfg.blk_c}: y vs plain max_abs {dy:.3e} = "
+                f"{y_rel:.2e} of max |y|, hT {h_rel:.2e} of max |hT| (tol "
+                f"{SSM_RTOL})")
+        finite = bool(torch.isfinite(got[0]).all() and
+                      torch.isfinite(got[1]).all())
+        if not finite or max(y_rel, h_rel) > SSM_RTOL:
+            fail(line)
+        ms = cuda_ms(lambda: ssm_cuda.ssm_scan(*args, cfg))
+        plain_ms = cuda_ms(lambda: ssm_cuda.ssm_scan_plain(*args, cfg),
+                           reps=3, warmup=1)
+        io = sum(x.numel() * x.element_size() for x in args + got)
+        bytes_ms = io / spec.hbm_bw * 1e3
+        ops_ms = ssm_cuda.useful_flops(b, t, c, n) / spec.fp32_flops * 1e3
+        bound = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+                 f"{bound:.4f} ms ({by}: {bytes_ms:.4f} ms of {io / 1e6:.2f} "
+                 f"MB at {spec.hbm_bw / 1e12:.2f} TB/s, {ops_ms:.4f} ms of "
+                 f"FP32 at {spec.fp32_flops / 1e12:.0f} TFLOP/s); no PyTorch "
+                 f"call computes the scan [{card}]")
+        print(line, flush=True)
+        rows[tag] = {"shape": [b, t, c, n], "blk_c": cfg.blk_c,
+                     "max_abs_err": dy, "y_rel": y_rel, "h_rel": h_rel,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by}
+        if tag == "hymba-prefill":
+            sweep = [(c_.blk_c, round(s_ * 1e3, 4),
+                      round(cuda_ms(lambda c_=c_: ssm_cuda.ssm_scan(*args, c_)),
+                            4))
+                     for c_, s_ in tuner.rank_kernel("ssm", key, device=dev)]
+            rows[tag]["sweep"] = sweep
+            print(f"[7c] ssm_scan {tag}: every blk_c of the config space, "
+                  f"(blk_c, modeled ms, measured ms) in the model's order: "
+                  f"{sweep} [{card}]", flush=True)
+        del args, got, want
+    return rows
+
+
+def hybrid_phase(torch, np, dev, card, ssm_cuda, zero_counts, read_counts,
+                 by_path):
+    """Phase 11: ServeEngine on hymba-1.5b at full width, ssm_impl "pallas"."""
+    import dataclasses
+    import repro_torch
+    from repro_torch.serve.engine import Request, ServeEngine
+    base = repro_torch.get_config("hymba-1.5b")
+    cfg = dataclasses.replace(base, ssm_impl="pallas")
+    t0 = time.perf_counter()
+    params = repro_torch.build_model(cfg).init_params(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    init_s = time.perf_counter() - t0
+    eng = ServeEngine(cfg, params, max_batch=4, cache_len=HYBRID_CACHE_LEN,
+                      device=dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n)
+               for n in SERVE_PROMPTS + (HYBRID_LONG_PROMPT,)]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    # warm-up: one short request (cuBLAS handles, the library's first load)
+    eng.run([Request(rid=99, prompt=prompts[0][:64], max_new_tokens=2)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    stats, decode_ms, admit_ms = drive(eng, reqs)
+    torch.cuda.synchronize()
+    by_path["hybrid-serve"] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_pre = stats["prefills"]
+    got = by_path["hybrid-serve"]
+    line = (f"[11] serve hymba-1.5b (full width, {cfg.n_layers} layers, "
+            f"{n_params / 1e9:.3f}e9 params, init {init_s:.1f} s), ssm_impl "
+            f"'pallas': {stats['requests']} requests (prompts "
+            f"{[len(p) for p in prompts]}), {n_pre} prefills, "
+            f"{stats['decode_steps']} decode steps, {stats['new_tokens']} "
+            f"tokens; launches {got} (ssm_scan expected {cfg.n_layers} x "
+            f"{n_pre} = {cfg.n_layers * n_pre}) [{card}]")
+    print(line, flush=True)
+    others = {k: v for k, v in got.items() if k != "ssm_scan"}
+    if (got["ssm_scan"] != cfg.n_layers * n_pre or n_pre != len(reqs)
+            or any(others.values())):
+        fail(line)
+    check_outputs(eng, reqs, cfg.vocab_size)
+    res = serve_metrics("11", stats, decode_ms, admit_ms, peak, len(reqs),
+                        card)
+    res["n_params"] = n_params
+
+    # one admission round (the long prompt and three others) and three
+    # decode rounds under torch.profiler
+    zero_counts()
+    profile_rounds(torch, "11", eng, [reqs[-1]] + reqs[1:6:2], res, card)
+    torch.cuda.synchronize()
+    by_path["hybrid-profile"] = read_counts()
+
+    # the long prompt prefilled again, every ssm_scan launch held against
+    # ssm_scan_plain on its own inputs
+    errs = []
+
+    def against_plain(args, out):
+        errs.append(ssm_errors(out, ssm_cuda.ssm_scan_plain(*args)))
+
+    zero_counts()
+    with hold_launches(ssm_cuda, "ssm_scan", against_plain):
+        first_token_logits(torch, eng, reqs[-1].prompt)
+    torch.cuda.synchronize()
+    by_path["hybrid-check"] = read_counts()
+    worst_y = max(e[0] for e in errs)
+    worst_h = max(e[1] for e in errs)
+    line = (f"[11] {len(errs)} ssm_scan launches of one {HYBRID_LONG_PROMPT}-"
+            f"token prefill held against ssm_scan_plain on their own inputs: "
+            f"worst y {worst_y:.2e} of max |y|, hT {worst_h:.2e} of max |hT| "
+            f"(tol {SSM_RTOL}); launches {by_path['hybrid-check']} [{card}]")
+    print(line, flush=True)
+    if len(errs) != cfg.n_layers or max(worst_y, worst_h) > SSM_RTOL:
+        fail(line)
+    res["launch_y_rel_max"], res["launch_h_rel_max"] = worst_y, worst_h
+
+    # every prompt's first-token logits against the chunked scan
+    zero_counts()
+    chunked = ServeEngine(base, params, max_batch=4,
+                          cache_len=HYBRID_CACHE_LEN, device=dev)
+    rows = []
+    for r in reqs:
+        a = first_token_logits(torch, eng, r.prompt)
+        c = first_token_logits(torch, chunked, r.prompt)
+        rows.append((r.rid, len(r.prompt), logit_rel(a, c),
+                     int(a.argmax() == c.argmax()),
+                     bool(torch.isfinite(a).all())))
+    torch.cuda.synchronize()
+    by_path["hybrid-compare"] = read_counts()
+    worst = max(x[2] for x in rows)
+    line = (f"[11] first-token logits, ssm_impl 'pallas' against 'chunked' "
+            f"(the chunked scan at T % 64 == 0, the sequential scan "
+            f"otherwise), max |diff| / max |logit|: worst {worst:.3e} (tol "
+            f"{SERVE_LOGIT_RTOL}); argmax agrees on "
+            f"{sum(x[3] for x in rows)}/{len(rows)}; per request (rid, "
+            f"prompt, rel): {[(x[0], x[1], round(x[2], 6)) for x in rows]}; "
+            f"launches {by_path['hybrid-compare']} [{card}]")
+    print(line, flush=True)
+    if worst > SERVE_LOGIT_RTOL or not all(x[4] for x in rows):
+        fail(line)
+    res["logits_rel_vs_chunked"] = worst
+    del eng, chunked, params
+    return res
+
+
 def _bits(t):
     """t's bit patterns as an integer tensor of the same width."""
     import torch
@@ -709,7 +968,8 @@ def train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
     lse0 = math.log(v) + INIT_SCALE ** 2 * cfg.d_model / 2
     loss0 = lse0 + 1e-4 * lse0 ** 2
     per_step = {"gpp_fused": 0, "gpp_banded": 0, "flash_fwd": 2 * n_layers,
-                "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+                "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers,
+                "ssm_scan": 0}
     line = (f"[10] losses {[round(x, 4) for x in losses]} (step 0 expected "
             f"{loss0:.4f} +- {LOSS0_ATOL}); launches a step {step_counts} "
             f"(expected {per_step}); whole run {by_path['train']} [{card}]")
@@ -786,45 +1046,25 @@ def train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
     # one more step with every backward launch held against its plain
     # version on its own inputs
     errs = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
-    real = {name: getattr(flash_cuda, name) for name in errs}
     plain = {"flash_bwd_dq": flash_cuda.flash_bwd_dq_plain,
              "flash_bwd_dkv": flash_cuda.flash_bwd_dkv_plain}
 
-    class Checked:
-        """Stands in for a backward wrapper in flash_cuda's namespace:
-        calls the real one, holds its result against the plain version on
-        the same inputs, and forwards `launches` (which the real wrapper
-        counts through its module-level name) to the real function."""
-
-        def __init__(self, name):
-            self.name = name
-
-        @property
-        def launches(self):
-            return real[self.name].launches
-
-        @launches.setter
-        def launches(self, n):
-            real[self.name].launches = n
-
-        def __call__(self, *args):
-            got = real[self.name](*args)
-            want = plain[self.name](*args)
+    def against_plain(name):
+        def check(args, got):
+            want = plain[name](*args)
             pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-            errs[self.name].append(max(
+            errs[name].append(max(
                 float((g.float() - w.float()).abs().max()) / ulp_at_max(w)
                 for g, w in pairs))
-            return got
+        return check
 
     zero_counts()
-    for name in errs:
-        setattr(flash_cuda, name, Checked(name))
-    try:
+    with hold_launches(flash_cuda, "flash_bwd_dq",
+                       against_plain("flash_bwd_dq")), \
+            hold_launches(flash_cuda, "flash_bwd_dkv",
+                          against_plain("flash_bwd_dkv")):
         real_step(params, opt_state, batch_at(TRAIN_STEPS + 1))
         torch.cuda.synchronize()
-    finally:
-        for name, fn in real.items():
-            setattr(flash_cuda, name, fn)
     by_path["train-check"] = read_counts()
     worst = {name: max(e) for name, e in errs.items()}
     line = (f"[10] one checked step: {len(errs['flash_bwd_dq'])} flash_bwd_dq "
@@ -841,6 +1081,76 @@ def train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     del tr, params, opt_state
     return res
+
+
+def drive(eng, reqs):
+    """Submit every request at once and step the engine until it is idle.
+    Returns (engine stats, sorted ms of the rounds without an admission,
+    sorted ms of the rounds with one); each round ends on the host, after
+    sampling."""
+    eng.reset()
+    for r in reqs:
+        eng.submit(r, t_enqueue=eng._t_start)
+    decode_ms, admit_ms = [], []
+    while not eng.idle:
+        t1 = time.perf_counter()
+        rep = eng.step()
+        dt = (time.perf_counter() - t1) * 1e3
+        (admit_ms if rep.admitted else decode_ms).append(dt)
+    return eng.finalize(), sorted(decode_ms), sorted(admit_ms)
+
+
+def check_outputs(eng, reqs, vocab):
+    """Every request got its max_new_tokens tokens, each in the vocabulary."""
+    for r in reqs:
+        toks = eng.outputs[r.rid]
+        if len(toks) != r.max_new_tokens or not all(0 <= t < vocab
+                                                    for t in toks):
+            fail(f"request {r.rid}: {len(toks)} tokens, range "
+                 f"[{min(toks)}, {max(toks)}]")
+
+
+def serve_metrics(tag, stats, decode_ms, admit_ms, peak, n_reqs, card):
+    """The serving metrics of one drive() run, printed and returned."""
+    res = {"requests": stats["requests"], "prefills": stats["prefills"],
+           "decode_steps": stats["decode_steps"],
+           "new_tokens": stats["new_tokens"],
+           "p50_ttft_ms": stats["p50_ttft_s"] * 1e3,
+           "p99_ttft_ms": stats["p99_ttft_s"] * 1e3,
+           "mean_ttft_ms": stats["mean_ttft_s"] * 1e3,
+           "p50_tpot_ms": stats["p50_tpot_s"] * 1e3,
+           "decode_step_ms_p50": decode_ms[len(decode_ms) // 2],
+           "decode_step_ms_max": decode_ms[-1],
+           "admit_step_ms_p50": admit_ms[len(admit_ms) // 2],
+           "tok_per_s": stats["tok_per_s"], "wall_s": stats["wall_s"],
+           "occupancy": stats["occupancy"], "peak_mem_gb": peak / 1e9}
+    print(f"[{tag}] serve metrics: TTFT p50 {res['p50_ttft_ms']:.1f} ms, p99 "
+          f"{res['p99_ttft_ms']:.1f} ms (all {n_reqs} submitted at once, "
+          f"4 slots); decode step p50 {res['decode_step_ms_p50']:.2f} ms "
+          f"({len(decode_ms)} steps without admissions); admission round p50 "
+          f"{res['admit_step_ms_p50']:.2f} ms; TPOT p50 "
+          f"{res['p50_tpot_ms']:.2f} ms; {res['tok_per_s']:.1f} tokens/s over "
+          f"{res['wall_s']:.2f} s; occupancy {res['occupancy']:.3f}; peak "
+          f"device memory {res['peak_mem_gb']:.2f} GB [{card}]", flush=True)
+    return res
+
+
+def profile_rounds(torch, tag, eng, reqs, res, card):
+    """One admission round and three decode rounds of `reqs` (at most 8 new
+    tokens each) under torch.profiler; the device-busy share into res."""
+    from repro_torch.serve.engine import Request
+    eng.reset()
+    for r in reqs:
+        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=8))
+    for kind, n_steps in (("admit", 1), ("decode", 3)):
+        wall, busy, kernels, host, _ = profile_window(
+            torch, lambda: [eng.step() for _ in range(n_steps)])
+        res[f"profile_{kind}"] = {"steps": n_steps, "wall_ms": wall,
+                                  "device_busy_ms": busy}
+        print(f"[{tag}] profile {kind} ({n_steps} step(s)): wall {wall:.2f} "
+              f"ms, device busy {busy:.2f} ms ({busy / wall:.1%}); top "
+              f"kernels (ms, calls): {kernels}; top host ops (self ms, "
+              f"calls): {host} [{card}]", flush=True)
 
 
 def first_token_logits(torch, eng, prompt):
@@ -881,16 +1191,7 @@ def serve_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
-    eng.reset()
-    for r in reqs:
-        eng.submit(r, t_enqueue=eng._t_start)
-    decode_ms, admit_ms = [], []
-    while not eng.idle:
-        t1 = time.perf_counter()
-        rep = eng.step()
-        dt = (time.perf_counter() - t1) * 1e3     # step ends on the host
-        (admit_ms if rep.admitted else decode_ms).append(dt)
-    stats = eng.finalize()
+    stats, decode_ms, admit_ms = drive(eng, reqs)
     torch.cuda.synchronize()
     by_path["serve"] = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -907,50 +1208,15 @@ def serve_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
         fail(line)
     if by_path["serve"]["gpp_fused"] or by_path["serve"]["gpp_banded"]:
         fail(line)
-    out = eng.outputs
-    for r in reqs:
-        toks = out[r.rid]
-        if len(toks) != r.max_new_tokens or not all(
-                0 <= t < cfg.vocab_size for t in toks):
-            fail(f"request {r.rid}: {len(toks)} tokens, range "
-                 f"[{min(toks)}, {max(toks)}]")
-    decode_ms.sort()
-    res = {"requests": stats["requests"], "prefills": n_pre,
-           "decode_steps": stats["decode_steps"],
-           "new_tokens": stats["new_tokens"],
-           "p50_ttft_ms": stats["p50_ttft_s"] * 1e3,
-           "p99_ttft_ms": stats["p99_ttft_s"] * 1e3,
-           "mean_ttft_ms": stats["mean_ttft_s"] * 1e3,
-           "p50_tpot_ms": stats["p50_tpot_s"] * 1e3,
-           "decode_step_ms_p50": decode_ms[len(decode_ms) // 2],
-           "decode_step_ms_max": decode_ms[-1],
-           "admit_step_ms_p50": sorted(admit_ms)[len(admit_ms) // 2],
-           "tok_per_s": stats["tok_per_s"], "wall_s": stats["wall_s"],
-           "occupancy": stats["occupancy"], "peak_mem_gb": peak / 1e9}
-    print(f"[8] serve metrics: TTFT p50 {res['p50_ttft_ms']:.1f} ms, p99 "
-          f"{res['p99_ttft_ms']:.1f} ms (all {len(reqs)} submitted at once, "
-          f"4 slots); decode step p50 {res['decode_step_ms_p50']:.2f} ms "
-          f"({len(decode_ms)} steps without admissions); TPOT p50 "
-          f"{res['p50_tpot_ms']:.2f} ms; {res['tok_per_s']:.1f} tokens/s over "
-          f"{res['wall_s']:.2f} s; occupancy {res['occupancy']:.3f}; peak "
-          f"device memory {res['peak_mem_gb']:.2f} GB [{card}]", flush=True)
+    check_outputs(eng, reqs, cfg.vocab_size)
+    res = serve_metrics("8", stats, decode_ms, admit_ms, peak, len(reqs),
+                        card)
 
     # where a step's time goes: one admission round (4 prefills at the
     # 256 and 512 buckets, then a decode) and three decode-only rounds,
     # each under torch.profiler
-    eng.reset()
-    for r in reqs[1:8:2]:
-        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=8))
     zero_counts()
-    for tag, n_steps in (("admit", 1), ("decode", 3)):
-        wall, busy, kernels, host, _ = profile_window(
-            torch, lambda: [eng.step() for _ in range(n_steps)])
-        res[f"profile_{tag}"] = {"steps": n_steps, "wall_ms": wall,
-                                 "device_busy_ms": busy}
-        print(f"[8] profile {tag} ({n_steps} step(s)): wall {wall:.2f} ms, "
-              f"device busy {busy:.2f} ms ({busy / wall:.1%}); top kernels "
-              f"(ms, calls): {kernels}; top host ops (self ms, calls): "
-              f"{host} [{card}]", flush=True)
+    profile_rounds(torch, "8", eng, reqs[1:8:2], res, card)
     torch.cuda.synchronize()
     by_path["profile"] = read_counts()
 
@@ -1008,6 +1274,35 @@ def serve_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
     res["logits_rel_vs_plain"] = worst[2]
     res["logits_rel_vs_chunked"] = worst[3]
     return res
+
+
+@contextlib.contextmanager
+def hold_launches(module, name, check):
+    """While open, module.<name> (a kernel wrapper) is a stand-in that calls
+    the real wrapper, then check(args, result), and returns the result.
+    The stand-in forwards `launches` to the real wrapper, which counts
+    through its module-level name."""
+    real = getattr(module, name)
+
+    class Held:
+        @property
+        def launches(self):
+            return real.launches
+
+        @launches.setter
+        def launches(self, n):
+            real.launches = n
+
+        def __call__(self, *args):
+            out = real(*args)
+            check(args, out)
+            return out
+
+    setattr(module, name, Held())
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
 
 
 @contextlib.contextmanager

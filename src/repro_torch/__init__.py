@@ -14,8 +14,9 @@ JAX package `repro`, which stays the reference.
     run_journey(size, device=)
         The paper's Table I, v0-v10, measured on the card.
     get_config(arch) / build_model(cfg)
-        Model configs (a copy of the JAX package's) and the dense decoder
-        (init_params / prefill / decode_step / prefill_into_slot).
+        Model configs (a copy of the JAX package's) and the dense and
+        hybrid (hymba) decoders (init_params / prefill / decode_step /
+        prefill_into_slot; loss_fn for the dense family).
     ServeEngine(cfg, params, max_batch=, cache_len=, device=) / Request
         The slot-level continuous-batching server.
 

@@ -20,6 +20,10 @@ It ranks configs; it does not predict a measured time closely (latency
 with few resident warps, the reciprocals' MUFU work and the staging are
 not in it), so the tuner times the model's top picks and the static v9
 config on the card, and the timing decides.
+
+Flash forward (`flash_step_s`) and the selective scan (`ssm_step_s`) are
+ranked the same way; the model path takes their picks without timing
+(as the JAX package does), so their docstrings say what they count.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from repro_torch.kernels.flash import flash_cuda
 from repro_torch.kernels.gpp import gpp_cuda
 from repro_torch.kernels.gpp.gpp_cuda import BlockConfig
 from repro_torch.kernels.gpp.problem import GppSize
+from repro_torch.kernels.ssm import ssm_cuda
 
 # the flash kernel's products run through warp-level mma.sync, not wgmma
 # (the only path to the card's full tensor-core rate): taken as half of
@@ -109,3 +114,61 @@ def flash_step_s(key, cfg, spec: GpuSpec = DEFAULT_SPEC) -> float:
         return math.inf
     waves = math.ceil(blocks / slots) * slots / blocks
     return max(mma_s, bytes_ / spec.hbm_bw) * waves
+
+
+# ---------------------------------------------------------------------------
+# selective scan
+# ---------------------------------------------------------------------------
+
+# Fitted to csrc/ssm_scan.cu on an H100 SXM5 at 700 W (the blk_c sweep
+# chip_smoke.py prints at hymba-1.5b's shapes): a warp issues ~37
+# instructions a time step (shared-memory loads, dt*a, expf, the state
+# FMA, h*c and its share of the shuffle butterfly), a step takes at least
+# ~174 cycles however few warps share the SM (the dependent chain of
+# loads, exp and FMAs), and each resident CTA costs ~250 cycles a 64-step
+# tile (staging, two barriers, the y write-back).
+SSM_INSTR_PER_STEP = 37.0
+SSM_STEP_LATENCY_CYCLES = 174.0
+SSM_TILE_OVERHEAD_CYCLES = 250.0
+SSM_REGS_PER_THREAD = 46              # compiled (chip_smoke.py prints it)
+SCHEDULERS_PER_SM = 4
+
+
+def ssm_resident_blocks(cfg, n: int, spec: GpuSpec = DEFAULT_SPEC) -> int:
+    """CTAs of `cfg` (an ssm_cuda.SsmScanConfig) one SM holds at state
+    size n."""
+    threads = cfg.threads(n)
+    regs = -(-SSM_REGS_PER_THREAD // REG_ALLOC_UNIT) * REG_ALLOC_UNIT
+    by_threads = spec.max_threads_per_sm // threads
+    by_regs = spec.regs_per_sm // (threads * regs)
+    by_smem = spec.smem_per_sm // (cfg.smem_bytes(n) + 1024)
+    return max(0, min(by_threads, by_regs, by_smem, spec.max_blocks_per_sm))
+
+
+def ssm_step_s(key, cfg, spec: GpuSpec = DEFAULT_SPEC) -> float:
+    """Modeled seconds of one ssm_scan call (key: kernel_def.SsmKey):
+
+        max(sum over the busiest SM's rounds of T x step cycles / clock,
+            bytes / HBM bandwidth)
+
+    The busiest SM runs ceil(CTAs / SMs) CTAs, `resident` at a time. A
+    round of m CTAs takes T steps of
+        max(SSM_STEP_LATENCY_CYCLES, m x warps x SSM_INSTR_PER_STEP / 4)
+        + m x SSM_TILE_OVERHEAD_CYCLES / TIME_TILE
+    cycles (warps include the padding lanes of a CTA whose blk_c x N is
+    not a multiple of 32). Bytes: `ssm_cuda.kernel_hbm_bytes`."""
+    resident = ssm_resident_blocks(cfg, key.n, spec)
+    if resident == 0:
+        return math.inf
+    warps = cfg.threads(key.n) // 32
+    per_sm = math.ceil(key.b * (key.c // cfg.blk_c) / spec.sms)
+    cycles = 0.0
+    while per_sm > 0:
+        m = min(resident, per_sm)
+        per_sm -= m
+        step = max(SSM_STEP_LATENCY_CYCLES,
+                   m * warps * SSM_INSTR_PER_STEP / SCHEDULERS_PER_SM)
+        step += m * SSM_TILE_OVERHEAD_CYCLES / ssm_cuda.TIME_TILE
+        cycles += key.t * step
+    bytes_ = ssm_cuda.kernel_hbm_bytes(key.b, key.t, key.c, key.n)
+    return max(cycles / spec.boost_hz, bytes_ / spec.hbm_bw)

@@ -132,6 +132,7 @@ def _ensure_builtins() -> None:
         return
     from repro_torch.kernels.flash import kernel_def as _f  # noqa: F401
     from repro_torch.kernels.gpp import kernel_def as _g    # noqa: F401
+    from repro_torch.kernels.ssm import kernel_def as _s    # noqa: F401
     _BUILTINS_LOADED = True
 
 
@@ -162,7 +163,7 @@ def list_kernels() -> List[str]:
     Example::
 
         import repro_torch
-        repro_torch.list_kernels()    # ['flash', 'gpp']
+        repro_torch.list_kernels()    # ['flash', 'gpp', 'ssm']
     """
     _ensure_builtins()
     return sorted(_REGISTRY)

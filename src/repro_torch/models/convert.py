@@ -54,9 +54,10 @@ def _flatten(tree: Dict, pre: str = "") -> Dict[str, Any]:
 
 def params_from_numpy(tree: Dict, cfg: ModelConfig,
                       device=backend.DEFAULT_DEVICE) -> Dict:
-    """The JAX param tree of `cfg` (numpy leaves) as the port's params on
-    `device`. Raises ValueError when a path is missing or extra, or a
-    shape differs from the one the port builds."""
+    """The JAX param tree of `cfg` (numpy leaves, dense or hybrid) as the
+    port's params on `device`, each leaf bit for bit in its own dtype.
+    Raises ValueError when a path is missing or extra, or a shape differs
+    from the one the port builds."""
     dev = backend.resolve_device(device)
     rec = _Shapes()
     skeleton = T.build_param_fn(cfg)(rec)
@@ -93,8 +94,10 @@ def opt_state_from_numpy(state: Dict, device=backend.DEFAULT_DEVICE) -> Dict:
 
 
 def cache_from_numpy(cache: Dict, device=backend.DEFAULT_DEVICE) -> Dict:
-    """A JAX decode cache ({"k", "v", "pos"}, numpy leaves) as the port's
-    cache on `device`; pos becomes an int32 tensor (scalar or (B,))."""
+    """A JAX decode cache (numpy leaves: dense {"k", "v", "pos"}; hybrid
+    also "conv" bf16 and "h" f32) as the port's cache on `device`, every
+    leaf bit for bit in its own dtype; pos becomes an int32 tensor
+    (scalar or (B,))."""
     dev = backend.resolve_device(device)
     out = {k: tensor_from_numpy(v, dev) for k, v in cache.items()
            if k != "pos"}

@@ -30,9 +30,10 @@ NORM_DTYPE = torch.float32
 class ParamInit:
     """Creates parameters in the JAX ParamBuilder's order, from one
     explicit `torch.Generator`: "normal" is N(0, 1) x scale drawn in f32
-    and cast, "ones"/"zeros" are constants. The values differ from
-    jax.random's; tests carry the JAX weights across with
-    models.convert.params_from_numpy instead.
+    and cast; "ones"/"zeros", "const:<v>" and "a_log" (log(1..N) along
+    the last axis, the mamba A init) are constants that draw nothing. The
+    values differ from jax.random's; tests carry the JAX weights across
+    with models.convert.params_from_numpy instead.
 
         init = ParamInit(seed=0, device="cuda")
         w = init.param("layers/attn/wq", (L, D, H * Hd))
@@ -56,6 +57,13 @@ class ParamInit:
             w = torch.randn(shape, generator=self.gen, dtype=torch.float32,
                             device=self.device)
             return (w * self.scale).to(dtype)
+        if init == "a_log":  # mamba: A = -arange(1..N) broadcast over channels
+            row = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                         device=self.device))
+            return row.to(dtype).expand(shape).contiguous()
+        if init.startswith("const:"):
+            return torch.full(shape, float(init.split(":")[1]), dtype=dtype,
+                              device=self.device)
         raise ValueError(init)
 
 

@@ -12,9 +12,13 @@ StepReports and the stats counters) is host logic and is the JAX
 engine's exactly.
 
 The cache lives on `device` (the card unless device='cpu') and the model
-steps update its k/v in place; "pos" is a (B,) vector so every slot
+steps update its leaves in place; "pos" is a (B,) vector so every slot
 decodes at its own offset. Finished slots are masked: their pos is held,
-so their rows stop growing.
+so their rows stop growing. Dense prompts are right-padded to a shape
+bucket; hybrid prompts are prefilled at their exact length (a pad would
+enter the recurrent state). Admission holds every family to prompt +
+max_new_tokens <= cache_len, as the JAX engine does, though the hybrid
+cache keeps only the attention window.
 
 Sampling: greedy rows (temperature 0) take the argmax of the f32 logits,
 exactly. A temperature row draws with a `torch.Generator` seeded from
@@ -229,8 +233,13 @@ class ServeEngine:
     # ------------------------------------------------------------ admission
 
     def _bucket_len(self, n: int, room: int) -> int:
-        # the smallest bucket that holds n and fits the cache; the
-        # exact-length families (ssm/hybrid/moe) come with their slices
+        # exact-length families: recurrent state (ssm/hybrid) folds every
+        # token in, and MoE capacity dispatch is token-count sensitive, so
+        # a right pad would change the result. Pure-attention stacks are
+        # causal, so right pads are invisible to real tokens: the smallest
+        # bucket that holds n and fits the cache (`room`)
+        if self.cfg.family in ("ssm", "hybrid", "moe"):
+            return n
         for b in PREFILL_BUCKETS:
             if n <= b <= room:
                 return b

@@ -143,7 +143,7 @@ def test_registered_versions():
     k = api.get_kernel("flash")
     assert k.versions == ("ref", "cuda")
     assert k.default_version == "cuda" and k.tunable == ("cuda",)
-    assert api.list_kernels() == ["flash", "gpp"]
+    assert api.list_kernels() == ["flash", "gpp", "ssm"]
 
 
 @pytest.mark.parametrize("version", ["ref", "cuda"])

@@ -29,7 +29,7 @@ def _rel(a, b):
 
 
 def test_gpp_registered():
-    assert api.list_kernels() == ["flash", "gpp"]
+    assert api.list_kernels() == ["flash", "gpp", "ssm"]
     k = api.get_kernel("gpp")
     assert k.versions == ("v0", "v1", "v2", "v3", "v4", "v5", "v6", "v7",
                           "v8", "v9", "v10")

@@ -195,8 +195,8 @@ def test_engine_defaults_to_the_card(port_small, monkeypatch):
 
 
 def test_other_families_raise():
-    for arch in ("deepseek-moe-16b", "rwkv6-7b", "hymba-1.5b",
-                 "whisper-small", "internvl2-26b"):
+    for arch in ("deepseek-moe-16b", "rwkv6-7b", "whisper-small",
+                 "internvl2-26b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             repro_torch.build_model(get_config(arch))
 
