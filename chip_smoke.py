@@ -8,7 +8,10 @@ Phases (one line each, more where noted):
   1. require a CUDA card of capability (9, 0); print its name and power
      limit as nvidia-smi reports them;
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print each
-     compiled instance's registers and spills;
+     compiled instance's registers and spills, and how many clusters of
+     flash_bwd_dkv CTAs the card holds at once; hold the shared helpers of
+     csrc/sm90.cuh alone: one wgmma product per operand mode, N and K
+     against torch.matmul (SM90_RTOL) and TMA boxes against slices;
   3. hold each kernel against its plain version on the card at BENCH and
      Si-214 (gpp_fused at V9, gpp_banded at V6, V7 and V8): partials and
      totals within max-norm relative TOL_PLAIN[size]; at BENCH also the totals
@@ -23,18 +26,24 @@ Phases (one line each, more where noted):
   7. flash_fwd at op level: the kernel against flash_fwd_plain on the card
      (out within FLASH_OUT_ULPS bf16 ulps, lse within FLASH_LSE_ATOL) at
      qwen2-1.5b's attention shape (B=1, H=12, KvH=2, Hd=128) for S = 256,
-     512 and 4096, at codeqwen's MHA shape (H = KvH = 32, S = 512) and at
-     one config with blk_q != blk_kv; at S = 512 also against the f32
-     oracle ref.reference; each with the kernel's, the plain version's and
-     scaled_dot_product_attention's ms (timed here only) and the bound;
+     512 and 4096 and at the training shape (B=8, S=512), at codeqwen's MHA
+     shape (H = KvH = 32, S = 512) and at one config with blk_q != blk_kv;
+     at S = 512 also against the f32 oracle ref.reference; each with the
+     kernel's, the plain version's and scaled_dot_product_attention's ms
+     (timed here only) and the bound, and the kernel's and SDPA's device
+     ms replayed from a CUDA graph; at S = 512 and 4096 and the training
+     shape the model's block pick beside a timed sweep of the whole menu;
   7b. flash_bwd_dq and flash_bwd_dkv at op level: each kernel against its
      plain version on the kernel forward's lse (within one bf16 ulp at the
      largest element, BWD_ULPS) at the training shape (B=8, S=512, H=12,
-     KvH=2, Hd=128) and at B=1, S=4096, at codeqwen's MHA shape, with
-     blk_q=64 over blk_kv=32 and non-causal; at the training shape also
-     the FlashAttention gradient against autograd through the f32 oracle
-     (BWD_REF_RTOL); the kernels', the plain versions' and the backward
-     of scaled_dot_product_attention's ms (timed here only) and the bounds;
+     KvH=2, Hd=128) and at B=1, S=4096, at codeqwen's MHA shape (group 1),
+     phi4-mini's heads (H=24, KvH=8: group 3), a group of 16 (dkv's f32
+     partials), other blocks for each kernel and non-causal; at the
+     training shape and S=4096 flash_bwd_dkv bit-equal over two launches;
+     at the training shape also the FlashAttention gradient against
+     autograd through the f32 oracle (BWD_REF_RTOL); the kernels', the
+     plain versions' and the backward of scaled_dot_product_attention's ms
+     (timed here only) and the bounds;
   8. dense serving, the slice's path: ServeEngine on qwen2-1.5b at full
      width and depth with use_flash_attention=True, weights from seed 0,
      max_batch=4, cache_len=1024: 8 greedy requests (prompts of 160, 256,
@@ -138,6 +147,10 @@ FLASH_LSE_ATOL = 1e-4
 # FLASH_OUT_ULPS against its plain version on the same inputs.
 SERVE_LOGIT_RTOL = 6e-2
 SERVE_PROMPTS = (160, 160, 256, 256, 300, 300, 480, 480)
+# sm90.cuh's wgmma alone against torch.matmul in f32 on the same bf16
+# values: the products are exact in f32 and the sums (K <= 128 terms) run
+# in another order, a few f32 ulps of the largest product
+SM90_RTOL = 1e-5
 # flash_bwd_dq / flash_bwd_dkv against their plain versions, both bf16
 # out: max |difference| within one bf16 ulp at the largest |plain| element
 # (2^(floor(log2 max) - 7)): both sum in f32 and round once, the kernel
@@ -211,6 +224,35 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return sorted(a.elapsed_time(b) for a, b in ev)[reps // 2]
 
 
+def graph_ms(fn, n: int = 10, reps: int = 5) -> float:
+    """Median ms of one fn() replayed from a CUDA graph that holds n calls
+    back to back: the kernel's device time, without the host's work of
+    each call between launches (cuda_ms times the call as a caller sees
+    it, host work included)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
+    return sorted(times)[reps // 2]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -263,17 +305,27 @@ def main() -> None:
     print(f"[2] built {sorted(libs)} in {build_s:.1f} s; gpp compiled (regs, "
           f"spill bytes) per config: {attrs}; register table: {model}",
           flush=True)
-    fattrs = {f"hd{hd}/kv{bkv}": flash_cuda.kernel_attrs(hd, bkv)
+    fattrs = {f"hd{hd}/q{bq}/kv{bkv}": flash_cuda.kernel_attrs(hd, bq, bkv)
               for hd in flash_cuda.HD_INSTANCES
+              for bq in flash_cuda.BLK_Q_INSTANCES
               for bkv in flash_cuda.BLK_KV_INSTANCES}
     print(f"[2] flash_fwd compiled (regs, spill bytes) per instance: {fattrs}; "
           f"register table: {flash_cuda.REGS_BY_INSTANCE}", flush=True)
     battrs = {f"{kind}/hd{hd}/inner{inner}": flash_cuda.bwd_kernel_attrs(
-        kind, hd, inner) for kind in ("dq", "dkv")
-        for hd in flash_cuda.HD_INSTANCES
-        for inner in flash_cuda.BWD_INNER_INSTANCES}
-    print(f"[2] flash_bwd compiled (regs, spill bytes) per instance: {battrs}; "
-          f"backward blocks {flash_cuda.BWD_BLOCKS}", flush=True)
+        kind, hd, inner) for kind, inners in (
+            ("dq", flash_cuda.DQ_BLK_KV_INSTANCES),
+            ("dkv", flash_cuda.DKV_BLK_Q_INSTANCES))
+        for hd in flash_cuda.HD_INSTANCES for inner in inners}
+    print(f"[2] flash_bwd compiled (regs, spill bytes) per instance (dq: "
+          f"inner = blk_kv; dkv: inner = blk_q): {battrs}; backward blocks "
+          f"dq {flash_cuda.DQ_BLOCKS}, dkv {flash_cuda.DKV_BLOCKS}", flush=True)
+    clusters = {f"hd{hd}/q{bq}/group{g}": flash_cuda.dkv_cluster_occupancy(
+        hd, bq, g) for hd in flash_cuda.HD_INSTANCES
+        for bq in flash_cuda.DKV_BLK_Q_INSTANCES for g in (1, 3, 5, 6, 8)}
+    print(f"[2] flash_bwd_dkv clusters of `group` CTAs the card holds at "
+          f"once (cudaOccupancyMaxActiveClusters): {clusters}", flush=True)
+    sm90_line = sm90_checks(torch, dev)
+    print(f"[2] sm90.cuh helpers alone: {sm90_line}", flush=True)
     sattrs = {f"n{n}/{'bf16' if bf else 'f32'}": ssm_cuda.kernel_attrs(n, bf)
               for n in ssm_cuda.N_INSTANCES for bf in (False, True)}
     print(f"[2] ssm_scan compiled (regs, spill bytes) per instance: {sattrs}",
@@ -497,7 +549,8 @@ def main() -> None:
          "max_abs_err": f512["max_abs_err"], "ms": f512["ms"],
          "plain_ms": f512["plain_ms"], "bound_ms": f512["bound_ms"],
          "bound_by": f512["bound_by"], "library_ms": f512["library_ms"],
-         "shape": f512["shape"], "at_s4096": flash_rows["s4096"]},
+         "shape": f512["shape"], "at_s4096": flash_rows["s4096"],
+         "at_train": flash_rows["train"]},
     ]
     for name, tpu in (("flash_bwd_dq", 142), ("flash_bwd_dkv", 179)):
         row = bwd_rows["train"][name]
@@ -534,6 +587,44 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def sm90_checks(torch, dev) -> str:
+    """Phase 2: the shared helpers of csrc/sm90.cuh on their own — one
+    wgmma product for every operand mode, N and K against torch.matmul in
+    f32 (products exact, only the summation order differs: within
+    SM90_RTOL of the largest |product|), and TMA boxes of a contiguous and
+    a strided (B, S, heads, Hd) tensor against slices (bit-equal)."""
+    from repro_torch.kernels import sm90_check
+    gen = torch.Generator(device=dev).manual_seed(7)
+    worst = 0.0
+    for mode in sm90_check.MODES:
+        for k in sm90_check.K_SIZES:
+            for n in sm90_check.N_SIZES:
+                a = torch.randn((64, k), generator=gen, device=dev).to(torch.bfloat16)
+                b = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+                want = a.float() @ b.float()
+                got = sm90_check.wgmma_product(a, b, mode)
+                err = float((got - want).abs().max() / want.abs().max())
+                if err > SM90_RTOL:
+                    fail(f"[2] wgmma {mode} n{n} k{k}: max-norm rel {err:.2e} "
+                         f"(tol {SM90_RTOL})")
+                worst = max(worst, err)
+    boxes = 0
+    for hd in (64, 128):
+        x = torch.randn((2, 256, 3, hd), generator=gen, device=dev).to(torch.bfloat16)
+        for t in (x, x.transpose(1, 2).contiguous().transpose(1, 2)):
+            for rows, head, row0, b in ((64, 1, 64, 1), (128, 2, 128, 0)):
+                if not torch.equal(sm90_check.tma_rows(t, rows, head, row0, b),
+                                   t[b, row0:row0 + rows, head]):
+                    fail(f"[2] TMA box ({rows} rows, head {head}, row {row0}, "
+                         f"batch {b}) of {tuple(t.shape)} strides {t.stride()} "
+                         f"differs from the slice")
+                boxes += 1
+    return (f"wgmma {len(sm90_check.MODES)} modes x N {sm90_check.N_SIZES} x "
+            f"K {sm90_check.K_SIZES} vs torch.matmul f32, worst max-norm rel "
+            f"{worst:.2e} (tol {SM90_RTOL}); {boxes} TMA boxes bit-equal to "
+            f"their slices")
+
+
 def flash_checks(torch, dev, spec, card, flash_cuda, flash_ref):
     """Phase 7: flash_fwd against flash_fwd_plain (and the f32 oracle at
     S=512); times, bound. Returns the rows keyed 's512' and 's4096' (the
@@ -543,8 +634,9 @@ def flash_checks(torch, dev, spec, card, flash_cuda, flash_ref):
     cases = (("s256", 1, 256, 12, 2, 128, None),
              ("s512", 1, 512, 12, 2, 128, None),
              ("s4096", 1, 4096, 12, 2, 128, None),
+             ("train", 8, 512, 12, 2, 128, None),
              ("mha512", 1, 512, 32, 32, 128, None),
-             ("s512-q128-kv32", 1, 512, 12, 2, 128, (128, 32)))
+             ("s512-q128-kv64", 1, 512, 12, 2, 128, (128, 64)))
     from repro_torch.kernels import api
     from repro_torch.tune import tuner
     rows = {}
@@ -584,26 +676,64 @@ def flash_checks(torch, dev, spec, card, flash_cuda, flash_ref):
             if r_ulps > FLASH_OUT_ULPS:
                 fail(line)
         ms = cuda_ms(lambda: flash_cuda.flash_fwd(q, k, v, cfg, True))
+        dev_ms = graph_ms(lambda: flash_cuda.flash_fwd(q, k, v, cfg, True))
         plain_ms = cuda_ms(lambda: flash_cuda.flash_fwd_plain(q, k, v, cfg,
                                                               True), reps=5)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                       enable_gqa=True))
+        lib_dev_ms = graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True))
         ops_ms = flash_cuda.useful_flops(b, h, s, s, hd, True) \
             / spec.bf16_tc_flops * 1e3
         bytes_ms = flash_cuda.min_bytes(b, h, kvh, s, s, hd) / spec.hbm_bw * 1e3
         bound = max(ops_ms, bytes_ms)
         by = "operations" if ops_ms >= bytes_ms else "bytes"
-        line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
-                 f"{lib_ms:.4f} ms; bound {bound:.4f} ms ({by}: "
+        line += (f"; kernel {ms:.4f} ms (device {dev_ms:.4f} ms from a CUDA "
+                 f"graph), plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms "
+                 f"(device {lib_dev_ms:.4f} ms); bound {bound:.4f} ms ({by}: "
                  f"{ops_ms:.4f} ms of bf16 at {spec.bf16_tc_flops / 1e12:.0f} "
                  f"TFLOP/s, {bytes_ms:.4f} ms of bytes) [{card}]")
         print(line, flush=True)
         rows[tag] = {"shape": [b, s, h, kvh, hd],
                      "blocks": [cfg.blk_q, cfg.blk_kv], "max_abs_err": max_abs,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": by, "library_ms": lib_ms}
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                     "library_device_ms": lib_dev_ms}
+        if tag in ("s512", "s4096", "train"):
+            rows[tag]["sweep"] = flash_sweep(torch, flash_cuda, q, k, v, cfg,
+                                             tag, card)
     return rows
+
+
+def flash_sweep(torch, flash_cuda, q, k, v, pick, tag, card):
+    """Phase 7's model pick beside a timed sweep of the whole menu at one
+    shape: each config's modeled ms and its device ms (graph_ms: at short
+    S a call's host work hides the kernel), every one held against the
+    plain version (FLASH_OUT_ULPS). Returns {"b_q x b_kv": device ms}."""
+    from repro_torch.core import gpu_model
+    from repro_torch.kernels import api
+    kern = api.get_kernel("flash")
+    key = kern.problem_key(q, k, v)
+    timed = {}
+    parts = []
+    for cfg in kern.config_space(key, "cuda"):
+        out, _ = flash_cuda.flash_fwd(q, k, v, cfg, True)
+        p_out, _ = flash_cuda.flash_fwd_plain(q, k, v, cfg, True)
+        ulps = bf16_ulps(out, p_out)
+        if ulps > FLASH_OUT_ULPS:
+            fail(f"[7] flash_fwd {tag} sweep ({cfg.blk_q},{cfg.blk_kv}): "
+                 f"{ulps:.2f} bf16 ulps off the plain version")
+        ms = graph_ms(lambda: flash_cuda.flash_fwd(q, k, v, cfg, True))
+        name = f"{cfg.blk_q}x{cfg.blk_kv}"
+        timed[name] = ms
+        parts.append(f"{name} modeled {gpu_model.flash_step_s(key, cfg) * 1e3:.4f}"
+                     f" ms, device {ms:.4f} ms")
+    best = min(timed, key=timed.get)
+    print(f"[7] flash_fwd {tag} model pick {pick.blk_q}x{pick.blk_kv} beside "
+          f"the timed sweep: {'; '.join(parts)}; fastest on the device {best} "
+          f"[{card}]", flush=True)
+    return timed
 
 
 def flash_bwd_checks(torch, dev, spec, card, flash_cuda, flash_ref):
@@ -613,10 +743,14 @@ def flash_bwd_checks(torch, dev, spec, card, flash_cuda, flash_ref):
     Returns the rows keyed by case, each with one entry per kernel."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device=dev).manual_seed(1)
+    # blocks: None for bwd_configs, else ((dq's blk_q, blk_kv), (dkv's))
     cases = (("train", 8, 512, 12, 2, 128, None, True),
              ("s4096", 1, 4096, 12, 2, 128, None, True),
              ("mha512", 1, 512, 32, 32, 128, None, True),
-             ("s512-q64-kv32", 1, 512, 12, 2, 128, (64, 32), True),
+             ("group3", 1, 512, 24, 8, 128, None, True),     # phi4-mini's heads
+             ("group16", 1, 512, 16, 1, 128, None, True),    # f32 partials
+             ("s512-dq64x32-dkv32x64", 1, 512, 12, 2, 128,
+              ((64, 32), (32, 64)), True),
              ("s512-noncausal", 1, 512, 12, 2, 128, None, False))
     plain = {"flash_bwd_dq": flash_cuda.flash_bwd_dq_plain,
              "flash_bwd_dkv": flash_cuda.flash_bwd_dkv_plain}
@@ -630,20 +764,25 @@ def flash_bwd_checks(torch, dev, spec, card, flash_cuda, flash_ref):
                                         causal)
         delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(
             b * h, s).contiguous()
-        cfg = (flash_cuda.bwd_config(s, s) if blocks is None
-               else flash_cuda.FlashBlockConfig("check", *blocks))
-        args = (q, k, v, do, lse, delta, cfg, causal)
-        got = {"flash_bwd_dq": (flash_cuda.flash_bwd_dq(*args),),
-               "flash_bwd_dkv": flash_cuda.flash_bwd_dkv(*args)}
+        cfgs = (flash_cuda.bwd_configs(s, s) if blocks is None else
+                tuple(flash_cuda.FlashBlockConfig("check", *bl)
+                      for bl in blocks))
+        kargs = {name: (q, k, v, do, lse, delta, c, causal)
+                 for name, c in zip(plain, cfgs)}
+        got = {"flash_bwd_dq": (flash_cuda.flash_bwd_dq(*kargs["flash_bwd_dq"]),),
+               "flash_bwd_dkv": flash_cuda.flash_bwd_dkv(*kargs["flash_bwd_dkv"])}
         torch.cuda.synchronize()
-        row = {"shape": [b, s, h, kvh, hd], "blocks": [cfg.blk_q, cfg.blk_kv],
+        row = {"shape": [b, s, h, kvh, hd],
+               "blocks": {name: [c.blk_q, c.blk_kv]
+                          for name, c in zip(plain, cfgs)},
                "causal": causal}
         line = (f"[7b] {tag} (B={b}, S={s}, H={h}, KvH={kvh}, Hd={hd}, "
-                f"{'causal' if causal else 'full'}) blocks ({cfg.blk_q},"
-                f"{cfg.blk_kv}):")
+                f"{'causal' if causal else 'full'}) blocks dq "
+                f"({cfgs[0].blk_q},{cfgs[0].blk_kv}) dkv ({cfgs[1].blk_q},"
+                f"{cfgs[1].blk_kv}):")
         ok = True
         for name, outs in got.items():
-            want = plain[name](*args)
+            want = plain[name](*kargs[name])
             want = want if isinstance(want, tuple) else (want,)
             errs = [(float((g.float() - w.float()).abs().max()), ulp_at_max(w))
                     for g, w in zip(outs, want)]
@@ -655,6 +794,14 @@ def flash_bwd_checks(torch, dev, spec, card, flash_cuda, flash_ref):
                      f"{[f'{e:.3e}' for e, _ in errs]} = "
                      f"{row[name]['err_over_ulp_at_max']:.2f} ulp at max "
                      f"(tol {BWD_ULPS});")
+        if tag in ("train", "s4096"):
+            again = flash_cuda.flash_bwd_dkv(*kargs["flash_bwd_dkv"])
+            same = all(torch.equal(a, b_) for a, b_ in
+                       zip(again, got["flash_bwd_dkv"]))
+            ok &= same
+            row["dkv_bit_equal_rerun"] = same
+            line += f" flash_bwd_dkv bit-equal over two launches: {same};"
+            del again
         if not ok:
             fail(line)
         if tag == "train":
@@ -684,7 +831,9 @@ def flash_bwd_checks(torch, dev, spec, card, flash_cuda, flash_ref):
         for name, kern in (("flash_bwd_dq", flash_cuda.flash_bwd_dq),
                            ("flash_bwd_dkv", flash_cuda.flash_bwd_dkv)):
             kind = name.split("_")[-1]
+            args = kargs[name]
             ms = cuda_ms(lambda: kern(*args))
+            dev_ms = graph_ms(lambda: kern(*args))
             plain_ms = cuda_ms(lambda: plain[name](*args), reps=5, warmup=1)
             ops_ms = flash_cuda.bwd_useful_flops(b, h, s, s, hd, causal, kind) \
                 / spec.bf16_tc_flops * 1e3
@@ -692,9 +841,11 @@ def flash_bwd_checks(torch, dev, spec, card, flash_cuda, flash_ref):
                 / spec.hbm_bw * 1e3
             bound = max(ops_ms, bytes_ms)
             by = "operations" if ops_ms >= bytes_ms else "bytes"
-            row[name].update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            row[name].update({"ms": ms, "device_ms": dev_ms,
+                              "plain_ms": plain_ms, "bound_ms": bound,
                               "bound_by": by, "library_ms": lib_ms})
-            line += (f" {name} {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            line += (f" {name} {ms:.4f} ms (device {dev_ms:.4f} ms from a CUDA "
+                     f"graph), plain {plain_ms:.3f} ms, bound "
                      f"{bound:.4f} ms ({by}: {ops_ms:.4f} ms of bf16, "
                      f"{bytes_ms:.4f} ms of bytes);")
         line += (f" sdpa backward (dq, dk, dv) {lib_ms:.4f} ms [{card}]")
@@ -1033,13 +1184,14 @@ def train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
 
     zero_counts()
     batch = batch_at(TRAIN_STEPS)
-    wall, busy, kernels, host, n_launch = profile_window(
+    wall, busy, kernels, host, n_launch, ours = profile_window(
         torch, lambda: real_step(params, opt_state, batch))
     by_path["train-profile"] = read_counts()
     res["profile"] = {"wall_ms": wall, "device_busy_ms": busy,
-                      "cuda_launch_kernel": n_launch}
+                      "cuda_launch_kernel": n_launch, "own_kernels": ours}
     print(f"[10] profile one step: wall {wall:.2f} ms, device busy "
           f"{busy:.2f} ms ({busy / wall:.1%}); cudaLaunchKernel {n_launch}; "
+          f"the port's kernels (device ms, calls): {ours}; "
           f"top kernels (ms, calls): {kernels}; top host ops (self ms, "
           f"calls): {host} [{card}]", flush=True)
 
@@ -1143,14 +1295,15 @@ def profile_rounds(torch, tag, eng, reqs, res, card):
     for r in reqs:
         eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=8))
     for kind, n_steps in (("admit", 1), ("decode", 3)):
-        wall, busy, kernels, host, _ = profile_window(
+        wall, busy, kernels, host, _, ours = profile_window(
             torch, lambda: [eng.step() for _ in range(n_steps)])
         res[f"profile_{kind}"] = {"steps": n_steps, "wall_ms": wall,
-                                  "device_busy_ms": busy}
+                                  "device_busy_ms": busy, "own_kernels": ours}
         print(f"[{tag}] profile {kind} ({n_steps} step(s)): wall {wall:.2f} "
-              f"ms, device busy {busy:.2f} ms ({busy / wall:.1%}); top "
-              f"kernels (ms, calls): {kernels}; top host ops (self ms, "
-              f"calls): {host} [{card}]", flush=True)
+              f"ms, device busy {busy:.2f} ms ({busy / wall:.1%}); the port's "
+              f"kernels (device ms, calls): {ours}; top kernels (ms, calls): "
+              f"{kernels}; top host ops (self ms, calls): {host} [{card}]",
+              flush=True)
 
 
 def first_token_logits(torch, eng, prompt):
@@ -1335,7 +1488,8 @@ def profile_window(torch, fn):
     """Run fn() under torch.profiler. Returns (wall ms, device-busy ms: the
     sum of the kernels' times, the 8 kernels with the most device time as
     (name, ms, calls), the 8 host ops with the most self CPU time as
-    (name, ms, calls), the count of cudaLaunchKernel calls)."""
+    (name, ms, calls), the count of cudaLaunchKernel calls, and the port's
+    own kernels (csrc/) as {name: (ms, calls)})."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1357,8 +1511,15 @@ def profile_window(torch, fn):
     busy = sum(k[1] for k in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     top_host = sorted(host, key=lambda k: -k[1])[:8]
+    ours = {}
+    for n, ms, c in kernels:
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "dkv_group_sum", "ssm_scan", "gpp"):
+            if f"{name}_kernel" in n or (name == "gpp" and name in n):
+                old = ours.get(name, (0.0, 0))
+                ours[name] = (round(old[0] + ms, 3), old[1] + c)
     return (wall, busy, [(n, round(ms, 3), c) for n, ms, c in top],
-            [(n, round(ms, 3), c) for n, ms, c in top_host], launches)
+            [(n, round(ms, 3), c) for n, ms, c in top_host], launches, ours)
 
 
 def _leaves(tree):

@@ -37,10 +37,13 @@ from repro_torch.kernels.gpp.gpp_cuda import BlockConfig
 from repro_torch.kernels.gpp.problem import GppSize
 from repro_torch.kernels.ssm import ssm_cuda
 
-# the flash kernel's products run through warp-level mma.sync, not wgmma
-# (the only path to the card's full tensor-core rate): taken as half of
-# the dense bf16 peak — an assumption for ranking, not a measurement
-MMA_SYNC_SHARE = 0.5
+# flash_fwd's consumer warpgroups (64 query rows each) wait on their own
+# wgmma before the softmax that follows it, so one warpgroup alone leaves
+# the SM's tensor cores idle for the softmax; two on an SM (two in one
+# CTA, or two CTAs) overlap one's softmax with the other's products. Taken
+# as the tensor-core share a warpgroup alone reaches, for ranking, not a
+# measurement
+FLASH_LONE_WG_SHARE = 0.5
 INSTR_PER_TERM = 54.0 + 14.0 + 3.0     # basic + fma + rcp, core/vpu_model v9
 REG_ALLOC_UNIT = 8                     # registers are allocated in 8s
 
@@ -94,26 +97,37 @@ def flash_resident_blocks(cfg, hd: int, spec: GpuSpec = DEFAULT_SPEC) -> int:
 def flash_step_s(key, cfg, spec: GpuSpec = DEFAULT_SPEC) -> float:
     """Modeled seconds of one flash_fwd call (key: kernel_def.FlashKey):
 
-        max(mma FLOPs of the visited pairs / the mma.sync rate,
-            bytes / HBM bandwidth) x wave quantisation
+        max(wgmma FLOPs of the visited pairs / (bf16 peak x share),
+            bytes / HBM bandwidth) x SM quantisation
 
-    mma FLOPs: each visited (q, kv) block pair computes blk_q x blk_kv
+    wgmma FLOPs: each visited (q, kv) block pair computes blk_q x blk_kv
     scores with 2*hd FLOPs for QK^T and 2 x 2*hd for PV (P split into a
-    bf16 high and low part), masked or not. Bytes: q, out and lse once,
-    K and V once for each visited pair (L2 hits counted as misses). Wave
-    quantisation over the B*H x n_q blocks, as for GPP."""
+    bf16 high and low part: 1.5x the useful work), masked or not, at the
+    dense bf16 rate wgmma reaches. share: 1 when two consumer warpgroups
+    run on an SM (resident CTAs from threads, registers and shared memory,
+    times blk_q / 64), FLASH_LONE_WG_SHARE when one does. Bytes: q, out,
+    lse, K and V once (`flash_cuda.min_bytes`): a kv head's K and V are
+    read again by every q block and every q head of its group, but at the
+    shapes the port runs they are a few MB and stay in the 50 MB L2 (the
+    device-timed sweep chip_smoke.py phase 7 prints finds 64-row blocks,
+    which read K/V twice as often, the fastest at S=4096).
+    SM quantisation: the busiest SM gets ceil(CTAs / SMs) of the B*H x n_q
+    CTAs, however many of them are resident at once (they share its tensor
+    cores)."""
     bh = key.b * key.h
     pairs = flash_cuda.visited_pairs(key.sq, key.skv, cfg, key.causal)
     elems = bh * pairs * cfg.blk_q * cfg.blk_kv
-    mma_s = 6.0 * elems * key.hd / (spec.bf16_tc_flops * MMA_SYNC_SHARE)
-    bytes_ = bh * (key.sq * key.hd * 2 * 2 + key.sq * 4
-                   + pairs * 2 * cfg.blk_kv * key.hd * 2)
     blocks = bh * (key.sq // cfg.blk_q)
-    slots = spec.sms * flash_resident_blocks(cfg, key.hd, spec)
-    if slots == 0:
+    resident = flash_resident_blocks(cfg, key.hd, spec)
+    if resident == 0:
         return math.inf
-    waves = math.ceil(blocks / slots) * slots / blocks
-    return max(mma_s, bytes_ / spec.hbm_bw) * waves
+    per_sm = min(resident, math.ceil(blocks / spec.sms))
+    share = 1.0 if per_sm * cfg.blk_q // 64 >= 2 else FLASH_LONE_WG_SHARE
+    mma_s = 6.0 * elems * key.hd / (spec.bf16_tc_flops * share)
+    bytes_ = flash_cuda.min_bytes(key.b, key.h, key.kvh, key.sq, key.skv,
+                                  key.hd)
+    quant = math.ceil(blocks / spec.sms) * spec.sms / blocks
+    return max(mma_s, bytes_ / spec.hbm_bw) * quant
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@
 Each `csrc/*.cu` file is compiled by `nvcc` into a shared library with a
 plain C interface and loaded with `ctypes` (no PyTorch headers, so a build
 takes seconds). Libraries land in `<repo>/build/repro_torch/`, named by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing is built when a module is
+hash of the source, every shared header (`csrc/*.cuh`, in sorted order)
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is loaded as it is. What nvcc prints on a successful build (ptxas
+warnings) is kept beside the library as `<name>.log`. Nothing is built when a module is
 imported: the first kernel launch (or `load()`) builds.
 
 Flags: sm_90a, -O3, and no --use_fast_math, so `1.0f / x` stays IEEE as
@@ -45,13 +47,16 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build(source: str) -> Path:
-    """Compile csrc/<source> unless the library for this exact source and
-    flags exists; returns the library's path."""
+    """Compile csrc/<source> unless the library for this exact source,
+    headers and flags exists; returns the library's path."""
     out = library_path(source)
     if out.exists():
         return out
@@ -62,6 +67,8 @@ def build(source: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source} ({proc.returncode}):\n"
                            f"{proc.stderr[-4000:]}")
+    if proc.stderr.strip():
+        out.with_suffix(".log").write_text(proc.stderr)
     os.replace(tmp, out)
     return out
 

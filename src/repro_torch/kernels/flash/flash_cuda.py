@@ -3,9 +3,10 @@ the forward (`_kernel` under `_fwd_with_stats` and `flash_attention_bhsd`,
 :37-120 and :220-250), the two backward kernels (`_bwd_dq_kernel`,
 `_bwd_dkv_kernel`, :142-216) and the custom VJP around them
 (`flash_attention_diff`, :253-311). For each kernel: the hand-written CUDA
-kernel (`repro_torch/csrc/flash.cu`, `csrc/flash_bwd.cu`), its launcher
-and launch counter, and its plain-torch version; plus the Hopper
-shared-memory size that replaces `vmem_bytes`.
+kernel (`repro_torch/csrc/flash.cu`, `csrc/flash_bwd.cu`, both built on
+the shared Hopper helpers of `csrc/sm90.cuh`), its launcher and launch
+counter, and its plain-torch version; plus the Hopper shared-memory size
+that replaces `vmem_bytes`.
 
     out, lse = flash_fwd(q, k, v, cfg, causal=True)
 
@@ -13,24 +14,26 @@ q: (B, Sq, H, Hd); k/v: (B, Skv, KvH, Hd), in the model's layout, with
 H % KvH == 0 (head h reads kv head h // (H // KvH)). Returns out
 (B, Sq, H, Hd) in q's dtype and lse (B*H, Sq) f32, lse = m + log l of the
 online softmax. A CUDA tensor launches the kernel (bf16, Hd 64 or 128,
-blk_q in 16..128 by 16s, blk_kv in 32/64/128) or raises; a CPU tensor
-takes `flash_fwd_plain`. The kernel reads q/k/v through their strides
-(the last axis contiguous), so the model's strided q/k/v views need no
-copy; out is written contiguous.
+blk_q 64 or 128, blk_kv 64 or 128) or raises; a CPU tensor takes
+`flash_fwd_plain`. The kernel reads q/k/v through their strides with TMA
+(the last axis contiguous, 16-byte rows), so the model's strided q/k/v
+views need no copy; out is written contiguous.
 
-    dq = flash_bwd_dq(q, k, v, dout, lse, delta, bwd_cfg, causal=True)
-    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, bwd_cfg, causal=True)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, dq_cfg, causal=True)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, dkv_cfg, causal=True)
 
 take the forward's q/k/v and lse, dout (B, Sq, H, Hd) and delta =
 rowsum(dout * out) (B*H, Sq) f32, and return dq (B, Sq, H, Hd) and dk/dv
 (B, Skv, KvH, Hd) in q's dtype. dk/dv are summed over the kv head's group
-of q heads inside the kernel. A CUDA tensor launches the kernel (bf16, Hd
-64 or 128; dq: blk_kv 32 or 64, blk_q 16..128 by 16s; dkv: blk_q 32 or
-64, blk_kv 16..128 by 16s) or raises; a CPU tensor takes the plain
-version. `FlashAttention` (a torch.autograd.Function) and
-`flash_attention_diff(q, k, v, cfg, causal)` put the three together: the
-forward saves q, k, v, out and lse, and the backward computes delta with
-torch and launches both backward kernels.
+of q heads in q-head order: inside a thread-block cluster for groups of
+up to 8, through f32 per-q-head partials and a second kernel above. A
+CUDA tensor launches the kernel (bf16, Hd 64 or 128; dq: blk_kv 32 or 64,
+blk_q 16..128 by 16s; dkv: blk_q 32 or 64, blk_kv 64) or raises; a CPU
+tensor takes the plain version. `FlashAttention` (a
+torch.autograd.Function) and `flash_attention_diff(q, k, v, cfg, causal)`
+put the three together: the forward saves q, k, v, out and lse, and the
+backward computes delta with torch and launches both backward kernels,
+each under its own blocks (`bwd_configs`).
 """
 
 from __future__ import annotations
@@ -46,19 +49,34 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HD_INSTANCES = (64, 128)           # head dims compiled in flash.cu
-BLK_KV_INSTANCES = (32, 64, 128)   # kv block rows compiled in flash.cu
-MAX_BLK_Q = 128                    # 2 * blk_q threads, launch bound 256
+# the forward's compiled blocks (csrc/flash.cu): 64 query rows a consumer
+# warpgroup (wgmma's M), one or two warpgroups a CTA; blk_kv rows a stage
+# of the 2-stage K/V ring
+BLK_Q_INSTANCES = (64, 128)
+BLK_KV_INSTANCES = (64, 128)
+KV_STAGES = 2
 SMEM_PER_BLOCK = 232_448           # Hopper opt-in dynamic shared memory
-SMEM_PAD = 8                       # bf16 of padding a staged row carries
-# registers a thread of each compiled (hd, blk_kv) instance, as nvcc -O3
-# lays out flash.cu for sm_90a: chip_smoke.py prints the compiled counts
-# (kernel_attrs) beside these; the ranking model reads them for occupancy
-REGS_BY_INSTANCE = {(64, 32): 98, (64, 64): 128, (64, 128): 184,
-                    (128, 32): 128, (128, 64): 169, (128, 128): 244}
-# the backward kernels' compiled inner blocks (csrc/flash_bwd.cu): blk_kv
-# of flash_bwd_dq, blk_q of flash_bwd_dkv; the outer block (blk_q of dq,
-# blk_kv of dkv) is 16..MAX_BLK_Q by 16s at run time
-BWD_INNER_INSTANCES = (32, 64)
+SMEM_ALIGN = 1024                  # the swizzled tiles start on 1 KiB
+# registers a thread of each compiled (hd, blk_q, blk_kv) instance, as
+# nvcc -O3 (12.8) lays out flash.cu for sm_90a (launch bounds: 160
+# threads x 2 CTAs an SM at blk_q 64, 288 x 1 at 128, both capping a
+# thread at 168): chip_smoke.py prints the compiled counts (kernel_attrs)
+# beside these; the ranking model reads them for occupancy
+REGS_BY_INSTANCE = {(64, 64, 64): 128, (64, 64, 128): 168,
+                    (64, 128, 64): 128, (64, 128, 128): 168,
+                    (128, 64, 64): 161, (128, 64, 128): 168,
+                    (128, 128, 64): 161, (128, 128, 128): 168}
+# the backward kernels' compiled blocks (csrc/flash_bwd.cu). dq keeps the
+# first port's mma.sync kernel: blk_kv (its kv step) 32 or 64, blk_q 16..
+# MAX_DQ_BLK_Q by 16s at run time. dkv is the wgmma kernel: 64 kv rows a
+# CTA (one consumer warpgroup), blk_q (its q stage) 32 or 64; groups of
+# up to MAX_CLUSTER q heads sum in one thread-block cluster
+DQ_BLK_KV_INSTANCES = (32, 64)
+MAX_DQ_BLK_Q = 128
+DQ_SMEM_PAD = 8                    # bf16 of padding a dq staged row carries
+DKV_BLK_Q_INSTANCES = (32, 64)
+DKV_BLK_KV = 64
+MAX_CLUSTER = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,25 +92,31 @@ class FlashBlockConfig:
                                    blk_kv=div_clamp(self.blk_kv, key.skv))
 
     def threads(self) -> int:
-        return 2 * self.blk_q
+        """The forward CTA: blk_q / 64 consumer warpgroups and one
+        producer warp."""
+        return 2 * self.blk_q + 32
 
     def smem_bytes(self, hd: int) -> int:
-        """Dynamic shared memory a block stages: the q tile and one K and
-        one V tile, bf16, each row padded by SMEM_PAD."""
-        return (self.blk_q + 2 * self.blk_kv) * (hd + SMEM_PAD) * 2
+        """Dynamic shared memory a forward CTA asks for: the q tile and
+        KV_STAGES stages of one K and one V tile, bf16, unpadded (the
+        tiles are 128-byte swizzled), the ring's mbarriers and the slack
+        to align the tiles to SMEM_ALIGN."""
+        return ((self.blk_q + 2 * KV_STAGES * self.blk_kv) * hd * 2 + 64
+                + SMEM_ALIGN)
 
     def regs_estimate(self, hd: int) -> int:
-        return REGS_BY_INSTANCE.get((hd, self.blk_kv), 256)
+        return REGS_BY_INSTANCE.get((hd, self.blk_q, self.blk_kv), 256)
 
 
-# the backward's blocks (blk_q, blk_kv) before clamping to the shape,
-# picked from the compiled registers (nvcc 12.8 for sm_90a; chip_smoke.py
-# prints them): dkv at Hd 128 holds dk and dv (128 f32 a thread) and
-# spills 24 bytes at 255 registers with 64-row q steps, 236 registers and
-# none with 32; dq at Hd 128 takes 242 registers, no spill, with 64-row
-# kv steps. So: 32 query rows a dq CTA (64 threads) stepping 64 kv rows,
-# 64 kv rows a dkv CTA (128 threads) stepping 32 query rows.
-BWD_BLOCKS = FlashBlockConfig("bwd", 32, 64)
+# the backward's blocks before clamping to the shape, one pair a kernel,
+# picked from the compiled registers and spills (nvcc 12.8 for sm_90a;
+# chip_smoke.py prints them). dq keeps the first port's pick: at Hd 128
+# it takes 242 registers, no spill, with 64-row kv steps, so 32 query rows
+# a CTA (64 threads) stepping 64 kv rows. dkv: 64 kv rows a CTA (one
+# consumer warpgroup holding dk and dv, 128 f32 a thread at Hd 128)
+# stepping 64 query rows a stage.
+DQ_BLOCKS = FlashBlockConfig("bwd-dq", 32, 64)
+DKV_BLOCKS = FlashBlockConfig("bwd-dkv", 64, DKV_BLK_KV)
 
 
 def div_clamp(blk: int, s: int) -> int:
@@ -185,7 +209,7 @@ def _lib() -> ctypes.CDLL:
     lib.flash_fwd_launch.argtypes = ([_I] * 4 + [_P] * 5 + [_I] * 5
                                      + [_L] * 9 + [ctypes.c_float, _P])
     lib.flash_fwd_launch.restype = _I
-    lib.flash_func_attrs.argtypes = [_I, _I, ctypes.POINTER(_I),
+    lib.flash_func_attrs.argtypes = [_I, _I, _I, ctypes.POINTER(_I),
                                      ctypes.POINTER(_I)]
     lib.flash_func_attrs.restype = _I
     return lib
@@ -217,9 +241,9 @@ def _check_launchable(q, k, v, cfg: FlashBlockConfig, hd: int) -> None:
     if cfg.blk_kv not in BLK_KV_INSTANCES:
         raise ValueError(f"{cfg}: blk_kv not compiled "
                          f"(have {BLK_KV_INSTANCES})")
-    if cfg.blk_q % 16 or not 16 <= cfg.blk_q <= MAX_BLK_Q:
-        raise ValueError(f"{cfg}: blk_q must be a multiple of 16 up to "
-                         f"{MAX_BLK_Q}")
+    if cfg.blk_q not in BLK_Q_INSTANCES:
+        raise ValueError(f"{cfg}: blk_q not compiled "
+                         f"(have {BLK_Q_INSTANCES})")
     if cfg.smem_bytes(hd) > SMEM_PER_BLOCK:
         raise ValueError(f"{cfg}: {cfg.smem_bytes(hd)} B of shared memory "
                          f"> {SMEM_PER_BLOCK}")
@@ -255,11 +279,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd.launches = 0
 
 
-def kernel_attrs(hd: int, blk_kv: int) -> Tuple[int, int]:
-    """(registers a thread, spilled local bytes) of the compiled (hd,
-    blk_kv) instance (card only: builds the library)."""
+def kernel_attrs(hd: int, blk_q: int, blk_kv: int) -> Tuple[int, int]:
+    """(registers a thread at launch, spilled local bytes) of the compiled
+    (hd, blk_q, blk_kv) instance (card only: builds the library)."""
     regs, local = _I(), _I()
-    rc = _lib().flash_func_attrs(hd, blk_kv, ctypes.byref(regs),
+    rc = _lib().flash_func_attrs(hd, blk_q, blk_kv, ctypes.byref(regs),
                                  ctypes.byref(local))
     if rc != 0:
         raise RuntimeError(f"flash_func_attrs failed with CUDA error {rc}")
@@ -330,9 +354,11 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
                         causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk, dv of `_bwd_dkv_kernel` and the group sum after it
-    (flash.py:305-306) in torch, f32: over q blocks of cfg.blk_q in order,
-    dv += p^T dout and dk += ds^T q, summed over each kv head's q heads;
-    cast once to k's dtype. Returns (dk, dv), each (B, Skv, KvH, Hd)."""
+    (flash.py:296-306) in torch, f32: for every q head, over q blocks of
+    cfg.blk_q in order, dv_h += p^T dout and dk_h += ds^T q (the JAX
+    per-q-head partials); then each kv head's dk = dk_h0 + dk_h1 + ... in
+    q-head order, as the kernel's fixed-order group sum; cast once to k's
+    dtype. Returns (dk, dv), each (B, Skv, KvH, Hd)."""
     b, sq, h, kvh, skv, hd = _bwd_setup(q, k, v, dout, lse, delta, cfg)
     g = h // kvh
     scale = hd ** -0.5
@@ -341,8 +367,9 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
     vf = v.float().permute(0, 2, 1, 3)
     lse_r = lse.reshape(b, kvh, g, sq, 1)
     dd = delta.reshape(b, kvh, g, sq, 1)
-    dk = torch.zeros_like(kf)
-    dv = torch.zeros_like(vf)
+    dk_h = torch.zeros((b, kvh, g, skv, hd), dtype=torch.float32,
+                       device=q.device)
+    dv_h = torch.zeros_like(dk_h)
     k_pos = torch.arange(skv, device=q.device)[None, :]
     for q0 in range(0, sq, cfg.blk_q):
         rows = slice(q0, q0 + cfg.blk_q)
@@ -352,10 +379,14 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
             q_pos = q0 + torch.arange(cfg.blk_q, device=q.device)[:, None]
             s = torch.where(k_pos <= q_pos, s, torch.full_like(s, NEG_INF))
         p = torch.exp(s - lse_r[:, :, :, rows])
-        dv = dv + torch.einsum("bkgqs,bkgqd->bksd", p, ob)
+        dv_h = dv_h + torch.einsum("bkgqs,bkgqd->bkgsd", p, ob)
         dp = torch.einsum("bkgqd,bksd->bkgqs", ob, vf)
         ds = p * (dp - dd[:, :, :, rows]) * scale
-        dk = dk + torch.einsum("bkgqs,bkgqd->bksd", ds, qb)
+        dk_h = dk_h + torch.einsum("bkgqs,bkgqd->bkgsd", ds, qb)
+    dk, dv = dk_h[:, :, 0], dv_h[:, :, 0]
+    for i in range(1, g):
+        dk = dk + dk_h[:, :, i]
+        dv = dv + dv_h[:, :, i]
     return (dk.permute(0, 2, 1, 3).to(k.dtype),
             dv.permute(0, 2, 1, 3).to(v.dtype))
 
@@ -370,30 +401,39 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.flash_bwd_dq_launch.argtypes = ([_I] * 4 + [_P] * 7 + [_I] * 5
                                         + [_L] * 12 + [ctypes.c_float, _P])
     lib.flash_bwd_dq_launch.restype = _I
-    lib.flash_bwd_dkv_launch.argtypes = ([_I] * 4 + [_P] * 8 + [_I] * 5
+    lib.flash_bwd_dkv_launch.argtypes = ([_I] * 4 + [_P] * 9 + [_I] * 5
                                          + [_L] * 12 + [ctypes.c_float, _P])
     lib.flash_bwd_dkv_launch.restype = _I
+    lib.flash_bwd_dkv_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.flash_bwd_dkv_occupancy.restype = _I
     lib.flash_bwd_func_attrs.argtypes = [_I, _I, _I, ctypes.POINTER(_I),
                                          ctypes.POINTER(_I)]
     lib.flash_bwd_func_attrs.restype = _I
     return lib
 
 
-def _check_bwd_launchable(q, k, v, dout, lse, delta, outer: int, inner: int,
-                          hd: int, cfg: FlashBlockConfig) -> None:
+def _check_bwd_launchable(kernel: str, q, k, v, dout, lse, delta, hd: int,
+                          cfg: FlashBlockConfig) -> None:
     _check_operands(hd, q=q, k=k, v=v, dout=dout)
     if not (lse.is_contiguous() and delta.is_contiguous()):
         raise ValueError("lse and delta must be contiguous")
-    if inner not in BWD_INNER_INSTANCES:
-        raise ValueError(f"{cfg}: inner block {inner} not compiled "
-                         f"(have {BWD_INNER_INSTANCES})")
-    if outer % 16 or not 16 <= outer <= MAX_BLK_Q:
-        raise ValueError(f"{cfg}: outer block {outer} must be a multiple "
-                         f"of 16 up to {MAX_BLK_Q}")
-    smem = (2 * outer + 2 * inner) * (hd + SMEM_PAD) * 2 + 8 * inner
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"{cfg}: {smem} B of shared memory > "
-                         f"{SMEM_PER_BLOCK}")
+    if kernel == "dq":
+        if cfg.blk_kv not in DQ_BLK_KV_INSTANCES:
+            raise ValueError(f"{cfg}: dq's blk_kv not compiled "
+                             f"(have {DQ_BLK_KV_INSTANCES})")
+        if cfg.blk_q % 16 or not 16 <= cfg.blk_q <= MAX_DQ_BLK_Q:
+            raise ValueError(f"{cfg}: dq's blk_q must be a multiple of 16 "
+                             f"up to {MAX_DQ_BLK_Q}")
+        smem = (2 * cfg.blk_q + 2 * cfg.blk_kv) * (hd + DQ_SMEM_PAD) * 2
+        if smem > SMEM_PER_BLOCK:
+            raise ValueError(f"{cfg}: {smem} B of shared memory > "
+                             f"{SMEM_PER_BLOCK}")
+        return
+    if cfg.blk_q not in DKV_BLK_Q_INSTANCES or cfg.blk_kv != DKV_BLK_KV:
+        raise ValueError(f"{cfg}: dkv takes blk_q in {DKV_BLK_Q_INSTANCES} "
+                         f"and blk_kv {DKV_BLK_KV}")
+    if lse.data_ptr() % 16 or delta.data_ptr() % 16:
+        raise ValueError("lse and delta must start on 16-byte boundaries")
 
 
 def _bwd_args(q, k, v, dout):
@@ -409,8 +449,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, dout, lse, delta, cfg, causal)
     b, sq, h, kvh, skv, hd = _bwd_setup(q, k, v, dout, lse, delta, cfg)
-    _check_bwd_launchable(q, k, v, dout, lse, delta, cfg.blk_q, cfg.blk_kv,
-                          hd, cfg)
+    _check_bwd_launchable("dq", q, k, v, dout, lse, delta, hd, cfg)
     dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         rc = _bwd_lib().flash_bwd_dq_launch(
@@ -432,21 +471,25 @@ flash_bwd_dq.launches = 0
 def flash_bwd_dkv(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
                   causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv), each (B, Skv, KvH, Hd), summed over each kv head's q
-    heads: the CUDA kernel for CUDA tensors (raises if it cannot launch;
-    blk_kv kv rows a CTA, blk_q query rows a step), the plain version for
+    heads in q-head order: the CUDA kernel for CUDA tensors (raises if it
+    cannot launch; blk_kv = 64 kv rows of one q head a CTA, blk_q query
+    rows a stage; a group of more than MAX_CLUSTER q heads goes through
+    (2, B, Skv, H, Hd) f32 partials allocated here), the plain version for
     CPU ones."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, cfg, causal)
     b, sq, h, kvh, skv, hd = _bwd_setup(q, k, v, dout, lse, delta, cfg)
-    _check_bwd_launchable(q, k, v, dout, lse, delta, cfg.blk_kv, cfg.blk_q,
-                          hd, cfg)
+    _check_bwd_launchable("dkv", q, k, v, dout, lse, delta, hd, cfg)
     dk = torch.empty((b, skv, kvh, hd), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
+    part = (torch.empty((2, b, skv, h, hd), dtype=torch.float32,
+                        device=q.device) if h // kvh > MAX_CLUSTER else None)
     with torch.cuda.device(q.device):
         rc = _bwd_lib().flash_bwd_dkv_launch(
             hd, cfg.blk_q, cfg.blk_kv, int(causal), q.data_ptr(),
             k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kvh, sq,
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), b, h, kvh, sq,
             skv, *_bwd_args(q, k, v, dout), hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
@@ -472,14 +515,28 @@ def bwd_kernel_attrs(kind: str, hd: int, inner: int) -> Tuple[int, int]:
     return regs.value, local.value
 
 
+def dkv_cluster_occupancy(hd: int, blk_q: int, group: int) -> int:
+    """Clusters of `group` flash_bwd_dkv CTAs the card holds at once
+    (cudaOccupancyMaxActiveClusters; card only)."""
+    n = _I()
+    rc = _bwd_lib().flash_bwd_dkv_occupancy(hd, blk_q, group, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkv_occupancy failed with CUDA error "
+                           f"{rc}")
+    return n.value
+
+
 # ---------------------------------------------------------------------------
 # the differentiable attention (the custom VJP of flash.py:253-311)
 # ---------------------------------------------------------------------------
 
-def bwd_config(sq: int, skv: int) -> FlashBlockConfig:
-    """The backward's blocks: BWD_BLOCKS clamped to the shape."""
-    return FlashBlockConfig("bwd", div_clamp(BWD_BLOCKS.blk_q, sq),
-                            div_clamp(BWD_BLOCKS.blk_kv, skv))
+def bwd_configs(sq: int, skv: int
+                ) -> Tuple[FlashBlockConfig, FlashBlockConfig]:
+    """The backward's blocks, (dq's, dkv's): DQ_BLOCKS and DKV_BLOCKS
+    clamped to the shape."""
+    return tuple(dataclasses.replace(c, blk_q=div_clamp(c.blk_q, sq),
+                                     blk_kv=div_clamp(c.blk_kv, skv))
+                 for c in (DQ_BLOCKS, DKV_BLOCKS))
 
 
 class FlashAttention(torch.autograd.Function):
@@ -487,15 +544,15 @@ class FlashAttention(torch.autograd.Function):
     runs flash_fwd under `cfg` and saves q, k, v, out and lse; backward
     computes delta = rowsum(dout * out) in f32 with torch (as the JAX
     backward does outside Pallas, flash.py:272) and launches flash_bwd_dq
-    and flash_bwd_dkv under `bwd_cfg`. A dout whose rows the kernels cannot
-    read through strides is copied contiguous first (one (B, S, H, Hd) bf16
-    copy); the model's dout needs none."""
+    and flash_bwd_dkv under `bwd_cfgs` (dq's, dkv's). A dout whose rows the
+    kernels cannot read through strides is copied contiguous first (one
+    (B, S, H, Hd) bf16 copy); the model's dout needs none."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cfg, causal, bwd_cfg):
+    def forward(ctx, q, k, v, cfg, causal, bwd_cfgs):
         out, lse = flash_fwd(q, k, v, cfg, causal)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.bwd_cfg = causal, bwd_cfg
+        ctx.causal, ctx.bwd_cfgs = causal, bwd_cfgs
         return out
 
     @staticmethod
@@ -506,9 +563,9 @@ class FlashAttention(torch.autograd.Function):
         b, sq, h, _ = q.shape
         delta = (dout.float() * out.float()).sum(-1)     # (B, Sq, H)
         delta = delta.permute(0, 2, 1).reshape(b * h, sq).contiguous()
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.bwd_cfg, ctx.causal)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.bwd_cfg,
-                               ctx.causal)
+        dq_cfg, dkv_cfg = ctx.bwd_cfgs
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, dq_cfg, ctx.causal)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, dkv_cfg, ctx.causal)
         return dq, dk, dv, None, None, None
 
 
@@ -516,10 +573,10 @@ def flash_attention_diff(q, k, v, cfg: FlashBlockConfig, causal: bool = True
                          ) -> torch.Tensor:
     """Differentiable flash attention, q: (B, Sq, H, Hd), k/v: (B, Skv,
     KvH, Hd) -> out (B, Sq, H, Hd): the forward under cfg, the backward
-    under `bwd_config`. Under torch.no_grad, or when no input requires
+    under `bwd_configs`. Under torch.no_grad, or when no input requires
     grad, it records nothing and saves nothing."""
     return FlashAttention.apply(q, k, v, cfg, causal,
-                                bwd_config(q.shape[1], k.shape[1]))
+                                bwd_configs(q.shape[1], k.shape[1]))
 
 
 # ---------------------------------------------------------------------------

@@ -7,16 +7,18 @@ hand-written Hopper kernels through `flash_cuda.flash_attention_diff`
 (csrc/flash.cu forward, csrc/flash_bwd.cu backward; their plain versions
 on CPU tensors), the counterpart of the JAX custom VJP. The JAX version
 name "pallas" maps to "cuda". Default and tunable: "cuda"; the config
-tunes the forward, the backward takes `flash_cuda.bwd_config`.
+tunes the forward, the backward takes `flash_cuda.bwd_configs`.
 
-The config space is (blk_q, blk_kv) over the compiled instances, each
-dividing its sequence length and fitting Hopper's shared memory a block
-can use (`GpuSpec.smem_per_block`), not the TPU's VMEM. The static config
-is re-chosen for Hopper: 64 x 64 (four warps of 16 rows, 128 threads; the
-TPU's 256 x 256 tiles would need 512 threads and registers the card does
-not have), clamped to the problem as the JAX one is. The ranking model is
-`core.gpu_model.flash_step_s`. The static-analysis hooks wait, as they
-did for GPP.
+The config space is (blk_q, blk_kv) over the card kernel's compiled
+instances (blk_q 64 or 128: one or two consumer warpgroups of wgmma's 64
+rows; blk_kv 64 or 128 rows a stage of the K/V ring), each dividing its
+sequence length and fitting Hopper's shared memory a block can use
+(`GpuSpec.smem_per_block`), not the TPU's VMEM. The static config is
+re-chosen for Hopper: 64 x 64 (one consumer warpgroup and a producer
+warp, two CTAs an SM; the TPU's 256 x 256 tiles would need registers the
+card does not have), clamped to the problem as the JAX one is. The
+ranking model is `core.gpu_model.flash_step_s`. The static-analysis hooks
+wait, as they did for GPP.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from repro_torch.kernels import api
 from repro_torch.kernels.flash import flash_cuda
 from repro_torch.kernels.flash.flash_cuda import FlashBlockConfig
 
-BLK_Q_MENU = (16, 32, 64, 128)
+BLK_Q_MENU = flash_cuda.BLK_Q_INSTANCES
 BLK_KV_MENU = flash_cuda.BLK_KV_INSTANCES
 
 _div_clamp = flash_cuda.div_clamp

@@ -108,6 +108,34 @@ def test_plain_backward_matches_pallas(b, h, kvh, s, hd, blk_q, blk_kv, causal):
             flash_cuda.flash_bwd_dkv.launches) == n
 
 
+@pytest.mark.parametrize("h,kvh", [(6, 1), (6, 2), (4, 4)])
+def test_plain_dkv_group_sum_matches_pallas(h, kvh):
+    """flash_bwd_dkv_plain at group 6, 3 and 1 against the JAX backward
+    (its per-q-head partials summed over the group, flash.py:296-306), and
+    its group sum in q-head order: dk/dv of a group equal the f32 per-head
+    results of the same function run head by head (MHA, k/v repeated),
+    added in q-head order and cast once."""
+    b, s, hd, blk = 1, 128, 32, 32
+    q, k, v, do = _inputs(b, h, kvh, s, hd, ml_dtypes.bfloat16, seed=3)
+    _, jdk, jdv = _jax_grads(q, k, v, do, blk, blk, True)
+    tq, tk, tv, tdo = (_model(_torch(x), b) for x in (q, k, v, do))
+    cfg = FlashBlockConfig("t", blk, blk)
+    out, lse = flash_cuda.flash_fwd_plain(tq, tk, tv, cfg, True)
+    delta = _planar(tdo.float() * out.float()).sum(-1)
+    dk, dv = flash_cuda.flash_bwd_dkv_plain(tq, tk, tv, tdo, lse, delta, cfg)
+    _within_ulp(_planar(dk).float().numpy(), jdk)
+    _within_ulp(_planar(dv).float().numpy(), jdv)
+    g = h // kvh
+    rk, rv = (x.repeat_interleave(g, dim=2).float() for x in (tk, tv))
+    per_head = flash_cuda.flash_bwd_dkv_plain(tq.float(), rk, rv, tdo.float(),
+                                              lse, delta, cfg)
+    for got, heads in zip((dk, dv), per_head):
+        want = heads[:, :, ::g]
+        for i in range(1, g):
+            want = want + heads[:, :, i::g]
+        assert torch.equal(got, want.to(got.dtype))
+
+
 @pytest.mark.parametrize("b,h,kvh,s,hd,blk_q,blk_kv,causal",
                          [CASES[1], CASES[2], CASES[4]])
 def test_flash_attention_diff_grads_match_pallas(b, h, kvh, s, hd, blk_q,
@@ -178,9 +206,13 @@ def test_backward_bounds_and_config():
         == 3 * q_bytes + 2 * kv_bytes + stats
     assert flash_cuda.bwd_min_bytes(8, 12, 2, 512, 512, 128, "dkv") \
         == 2 * q_bytes + 4 * kv_bytes + stats
-    cfg = flash_cuda.bwd_config(512, 512)
-    assert (cfg.blk_q, cfg.blk_kv) == (flash_cuda.BWD_BLOCKS.blk_q,
-                                       flash_cuda.BWD_BLOCKS.blk_kv)
-    assert cfg.blk_q in flash_cuda.BWD_INNER_INSTANCES
-    assert cfg.blk_kv in flash_cuda.BWD_INNER_INSTANCES
-    assert flash_cuda.bwd_config(48, 48).blk_q == 24        # clamped to tile
+    dq_cfg, dkv_cfg = flash_cuda.bwd_configs(512, 512)
+    assert (dq_cfg.blk_q, dq_cfg.blk_kv) == (flash_cuda.DQ_BLOCKS.blk_q,
+                                             flash_cuda.DQ_BLOCKS.blk_kv)
+    assert (dkv_cfg.blk_q, dkv_cfg.blk_kv) == (flash_cuda.DKV_BLOCKS.blk_q,
+                                               flash_cuda.DKV_BLOCKS.blk_kv)
+    assert dq_cfg.blk_kv in flash_cuda.DQ_BLK_KV_INSTANCES
+    assert dkv_cfg.blk_q in flash_cuda.DKV_BLK_Q_INSTANCES
+    assert dkv_cfg.blk_kv == flash_cuda.DKV_BLK_KV
+    small_dq, small_dkv = flash_cuda.bwd_configs(48, 48)     # clamped to tile
+    assert (small_dq.blk_q, small_dkv.blk_kv) == (24, 48)

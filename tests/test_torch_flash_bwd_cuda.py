@@ -1,6 +1,7 @@
 """The port's flash-attention backward kernels on a card: flash_bwd_dq and
 flash_bwd_dkv against their plain versions across the compiled instances
-(Hd 64 and 128, each inner block 32 and 64), with GQA and MHA, causal and
+(Hd 64 and 128; dq's blk_kv and dkv's blk_q 32 and 64), with GQA groups
+1, 2, 3, 6 and 16 (the last through dkv's f32 partials), causal and
 non-causal, blk_q != blk_kv, and a strided dout; the FlashAttention
 gradient against autograd through the f32 oracle; the wrapper's refusals.
 Every test here needs a CUDA card with sm_90a and skips without one; the
@@ -60,27 +61,33 @@ def _close(got, want):
     return float((got.float() - want.float()).abs().max()) <= ulp_at_max(want)
 
 
-CARD_CASES = [(1, 512, 12, 2, 128, 64, 64, True),     # the training shape's heads
-              (2, 256, 12, 2, 128, 32, 64, True),
-              (1, 256, 32, 32, 128, 64, 32, True),    # MHA
-              (2, 128, 4, 2, 64, 64, 64, True),
-              (1, 256, 6, 1, 64, 32, 32, True),
-              (1, 256, 12, 2, 128, 64, 64, False)]
+# b, s, h, kvh, hd, dq's (blk_q, blk_kv), dkv's (blk_q, blk_kv), causal
+CARD_CASES = [(1, 512, 12, 2, 128, (64, 64), (64, 64), True),   # training heads
+              (2, 256, 12, 2, 128, (32, 64), (32, 64), True),
+              (1, 256, 32, 32, 128, (64, 32), (64, 64), True),  # MHA
+              (2, 128, 4, 2, 64, (64, 64), (64, 64), True),
+              (1, 256, 6, 1, 64, (32, 32), (32, 64), True),
+              (1, 256, 12, 2, 128, (64, 64), (64, 64), False),
+              (1, 256, 24, 8, 128, (32, 64), (64, 64), True),   # group 3
+              (1, 256, 16, 1, 128, (32, 64), (32, 64), True)]   # group 16
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,kvh,hd,blk_q,blk_kv,causal", CARD_CASES)
-def test_bwd_kernels_match_plain_on_card(cuda, b, s, h, kvh, hd, blk_q, blk_kv,
-                                         causal):
+@pytest.mark.parametrize("b,s,h,kvh,hd,dq_blocks,dkv_blocks,causal",
+                         CARD_CASES)
+def test_bwd_kernels_match_plain_on_card(cuda, b, s, h, kvh, hd, dq_blocks,
+                                         dkv_blocks, causal):
     q, k, v, do, lse, delta = _inputs(cuda, b, s, h, kvh, hd, causal)
-    cfg = flash_cuda.FlashBlockConfig("t", blk_q, blk_kv)
+    dq_cfg = flash_cuda.FlashBlockConfig("t", *dq_blocks)
+    cfg = flash_cuda.FlashBlockConfig("t", *dkv_blocks)
     n_dq, n_dkv = flash_cuda.flash_bwd_dq.launches, flash_cuda.flash_bwd_dkv.launches
-    dq = flash_cuda.flash_bwd_dq(q, k, v, do, lse, delta, cfg, causal)
+    dq = flash_cuda.flash_bwd_dq(q, k, v, do, lse, delta, dq_cfg, causal)
     dk, dv = flash_cuda.flash_bwd_dkv(q, k, v, do, lse, delta, cfg, causal)
     torch.cuda.synchronize()
     assert flash_cuda.flash_bwd_dq.launches == n_dq + 1
     assert flash_cuda.flash_bwd_dkv.launches == n_dkv + 1
-    p_dq = flash_cuda.flash_bwd_dq_plain(q, k, v, do, lse, delta, cfg, causal)
+    p_dq = flash_cuda.flash_bwd_dq_plain(q, k, v, do, lse, delta, dq_cfg,
+                                         causal)
     p_dk, p_dv = flash_cuda.flash_bwd_dkv_plain(q, k, v, do, lse, delta, cfg,
                                                 causal)
     assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
@@ -91,11 +98,11 @@ def test_bwd_kernels_match_plain_on_card(cuda, b, s, h, kvh, hd, blk_q, blk_kv,
 
 @pytest.mark.cuda
 def test_outer_block_128(cuda):
-    """The outer blocks at their largest: 128 query rows a dq CTA, 128 kv
-    rows a dkv CTA (256 threads)."""
+    """dq's outer block at its largest, 128 query rows a CTA (256
+    threads), beside dkv's default blocks."""
     q, k, v, do, lse, delta = _inputs(cuda, 1, 512, 12, 2, 128, True, seed=2)
     cfg_dq = flash_cuda.FlashBlockConfig("t", 128, 64)
-    cfg_dkv = flash_cuda.FlashBlockConfig("t", 64, 128)
+    cfg_dkv = flash_cuda.DKV_BLOCKS
     dq = flash_cuda.flash_bwd_dq(q, k, v, do, lse, delta, cfg_dq)
     dk, dv = flash_cuda.flash_bwd_dkv(q, k, v, do, lse, delta, cfg_dkv)
     assert _close(dq, flash_cuda.flash_bwd_dq_plain(q, k, v, do, lse, delta,
@@ -154,6 +161,9 @@ def test_bwd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):          # dkv's inner block not compiled
         flash_cuda.flash_bwd_dkv(q, k, v, do, lse, delta,
                                  flash_cuda.FlashBlockConfig("t", 128, 64))
+    with pytest.raises(ValueError):          # dkv takes 64 kv rows a CTA
+        flash_cuda.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                 flash_cuda.FlashBlockConfig("t", 64, 32))
     with pytest.raises(ValueError):          # lse of the wrong shape
         flash_cuda.flash_bwd_dkv(q, k, v, do, lse[:, :128], delta, cfg)
     q96, k96, v96, do96, lse96, d96 = _inputs(cuda, 1, 256, 4, 2, 96, True)

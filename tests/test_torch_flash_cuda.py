@@ -1,6 +1,7 @@
 """The port's flash-attention kernel on a card: flash_fwd against its
 plain version (out and lse) at the serving slice's attention shape, an
-MHA shape, blk_q != blk_kv, Hd = 64 and non-causal; and a strided q view
+MHA shape, blk_q != blk_kv, Hd = 64 and non-causal (blk_q 64 and 128,
+blk_kv 64 and 128, the compiled instances); and a strided q view
 (the model layout after rope) against a contiguous copy. Every test here
 needs a CUDA card with sm_90a and skips without one; the file imports
 nothing of jax, so it runs on a machine with the card and PyTorch alone:
@@ -43,10 +44,11 @@ def _ulps(got, want):
 
 
 CARD_CASES = [(1, 256, 12, 2, 128, 64, 64, True),
-              (1, 512, 12, 2, 128, 128, 32, True),
-              (1, 512, 32, 32, 128, 32, 128, True),
-              (2, 128, 4, 2, 64, 16, 64, True),
-              (1, 256, 12, 2, 128, 64, 64, False)]
+              (1, 512, 12, 2, 128, 128, 64, True),
+              (1, 512, 32, 32, 128, 64, 128, True),
+              (2, 128, 4, 2, 64, 128, 128, True),
+              (1, 256, 12, 2, 128, 64, 64, False),
+              (2, 256, 4, 2, 64, 128, 64, False)]
 
 
 @pytest.mark.cuda
@@ -87,5 +89,7 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         flash_cuda.flash_fwd(q96, k96, v96, flash_cuda.FlashBlockConfig())
     with pytest.raises(ValueError):          # blk_kv not compiled
         flash_cuda.flash_fwd(q, k, v, flash_cuda.FlashBlockConfig("t", 64, 16))
+    with pytest.raises(ValueError):          # blk_q not compiled
+        flash_cuda.flash_fwd(q, k, v, flash_cuda.FlashBlockConfig("t", 32, 64))
     with pytest.raises(AssertionError):      # blocks do not tile S
         flash_cuda.flash_fwd(q, k, v, flash_cuda.FlashBlockConfig("t", 96, 64))
