@@ -12,6 +12,13 @@ Phases (one line each, more where noted):
      flash_bwd_dkv CTAs the card holds at once; hold the shared helpers of
      csrc/sm90.cuh alone: one wgmma product per operand mode, N and K
      against torch.matmul (SM90_RTOL) and TMA boxes against slices;
+  2b. GPP's band loop counted from the SASS: the built gpp.cu library
+     disassembled (cuobjdump -sass) and the innermost reciprocal loop of
+     gpp_fused_kernel<2, EPT, true> counted by opcode class for every
+     compiled EPT (repro_torch.core.sass): instructions a term (with and
+     without the reciprocals' slow-path call stubs), the FMA ratio, and
+     the issue and MUFU bounds at Si-214; phase 6 sets the tuned config's
+     issue bound beside the kernel's time;
   3. hold each kernel against its plain version on the card at BENCH and
      Si-214 (gpp_fused at V9, gpp_banded at V6, V7 and V8): partials and
      totals within max-norm relative TOL_PLAIN[size]; at BENCH also the totals
@@ -28,7 +35,9 @@ Phases (one line each, more where noted):
      qwen2-1.5b's attention shape (B=1, H=12, KvH=2, Hd=128) for S = 256,
      512 and 4096 and at the training shape (B=8, S=512), at codeqwen's MHA
      shape (H = KvH = 32, S = 512) and at one config with blk_q != blk_kv;
-     at S = 512 also against the f32 oracle ref.reference; each with the
+     and at Hd 32 (B=2, S=512, H=12, KvH=2: reduce_config's head dim,
+     zero-padded to the Hd 64 instances); at S = 512 also against the f32
+     oracle ref.reference; each with the
      kernel's, the plain version's and scaled_dot_product_attention's ms
      (timed here only) and the bound, and the kernel's and SDPA's device
      ms replayed from a CUDA graph; at S = 512 and 4096 and the training
@@ -38,18 +47,29 @@ Phases (one line each, more where noted):
      largest element, BWD_ULPS) at the training shape (B=8, S=512, H=12,
      KvH=2, Hd=128) and at B=1, S=4096, at codeqwen's MHA shape (group 1),
      phi4-mini's heads (H=24, KvH=8: group 3), a group of 16 (dkv's f32
-     partials), other blocks for each kernel and non-causal; at the
-     training shape and S=4096 flash_bwd_dkv bit-equal over two launches;
+     partials), other blocks for each kernel, non-causal, Hd 64, and Hd 32
+     (reduce_config's head dim, zero-padded to the Hd 64 instances); at
+     every case flash_bwd_dq bit-equal over two launches, with its
+     registers and spills; at the training shape and S=4096
+     flash_bwd_dkv bit-equal over two launches;
      at the training shape also the FlashAttention gradient against
      autograd through the f32 oracle (BWD_REF_RTOL); the kernels', the
      plain versions' and the backward of scaled_dot_product_attention's ms
      (timed here only) and the bounds;
+  7d. a reduced qwen2 (reduce_config: Hd 32, 12/2 heads, 2 layers) with
+     flash on: one loss and its gradients through the model at B=2,
+     S=512; flash_fwd, flash_bwd_dq and flash_bwd_dkv each launch once a
+     layer at Hd 32 and every launch is held against its plain version;
   8. dense serving, the slice's path: ServeEngine on qwen2-1.5b at full
      width and depth with use_flash_attention=True, weights from seed 0,
      max_batch=4, cache_len=1024: 8 greedy requests (prompts of 160, 256,
      300 and 480 tokens, two each) and one at temperature 0.8, 32 new
      tokens each. flash_fwd must launch 28 times a prefill; TTFT, decode
-     ms a step, tokens/s and peak device memory are printed; one admission
+     ms a step, tokens/s and peak device memory are printed (the CUDA
+     matmul flags are printed before the phase, as the process has them,
+     and read inside the engine's work at every flash call of a warm-up
+     request: the port's guard, backend.f32_accumulation, must have both
+     off); one admission
      round and three decode rounds run under torch.profiler (device-busy
      share, top kernels, top host ops). Each request's prompt is then
      prefilled again: every flash_fwd launch is held against
@@ -75,7 +95,8 @@ Phases (one line each, more where noted):
      save's size and time; resume_or_init restores every leaf bit-equal
      to the state in memory. Then one step under torch.profiler and one
      more with every backward launch held against its plain version on
-     its own inputs (BWD_ULPS).
+     its own inputs (BWD_ULPS), the matmul flags read at each of those
+     launches (both off: the port's guard; the script sets none).
   11. hybrid serving, the fourth slice's path: ServeEngine on hymba-1.5b
      at full width and depth with ssm_impl="pallas", weights from seed 0,
      max_batch=4, cache_len=2048: 8 greedy requests (SERVE_PROMPTS) and
@@ -89,10 +110,11 @@ Phases (one line each, more where noted):
      first-token logits against the engine with ssm_impl="chunked"
      (SERVE_LOGIT_RTOL).
 Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
-phase 8's serving run, phase 10's training run, phase 11's hybrid serving
-run) runs with the launch counters zeroed just before it and read just
-after; the kernels line gives each path's counts, and the script fails
-unless every kernel launched on the paths that run it (gpp_fused on
+phase 7d's Hd 32 model check, phase 8's serving run, phase 10's training
+run, phase 11's hybrid serving run) runs with the launch counters zeroed
+just before it and read just after; the kernels line gives each path's
+counts, and the script fails unless every kernel launched on the paths
+that run it (gpp_fused on
 dispatch and journey, gpp_banded on the journey, flash_fwd 28 times a
 prefill on the serving run, flash_fwd 56 and each backward kernel 28
 times a training step, ssm_scan 32 times a prefill on the hybrid serving
@@ -291,10 +313,6 @@ def main() -> None:
     os.environ["REPRO_TUNE_CACHE"] = tune_dir
     dev = torch.device("cuda")
     spec = hw.spec_for_device(dev)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    # bf16 matmuls accumulate in f32 (the JAX package's
-    # preferred_element_type), with no reduced-precision reductions
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -302,9 +320,15 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     attrs = {c.name: gpp_cuda.kernel_attrs(c) for c in gpp_cuda.CONFIGS.values()}
     model = {c.name: c.regs_estimate() for c in gpp_cuda.CONFIGS.values()}
+    # every compiled EPT: the most registers of its four instances (fused
+    # or banded, either aqsm layout), what REGS_BY_EPT records
+    by_ept = {ept: max(gpp_cuda.kernel_attrs(gpp_cuda.BlockConfig(
+        "e", 16, 32 * ept, 8, tr, fused, 512)) for tr in (False, True)
+        for fused in (False, True)) for ept in gpp_cuda.EPT_INSTANCES}
     print(f"[2] built {sorted(libs)} in {build_s:.1f} s; gpp compiled (regs, "
-          f"spill bytes) per config: {attrs}; register table: {model}",
-          flush=True)
+          f"spill bytes) per config: {attrs}; register table: {model}; per "
+          f"EPT (the most of its instances): {by_ept}, REGS_BY_EPT "
+          f"{gpp_cuda.REGS_BY_EPT}", flush=True)
     fattrs = {f"hd{hd}/q{bq}/kv{bkv}": flash_cuda.kernel_attrs(hd, bq, bkv)
               for hd in flash_cuda.HD_INSTANCES
               for bq in flash_cuda.BLK_Q_INSTANCES
@@ -316,9 +340,13 @@ def main() -> None:
             ("dq", flash_cuda.DQ_BLK_KV_INSTANCES),
             ("dkv", flash_cuda.DKV_BLK_Q_INSTANCES))
         for hd in flash_cuda.HD_INSTANCES for inner in inners}
+    dq_model = {f"hd{hd}/kv{kv}": (regs, flash_cuda.dq_resident_ctas(hd, kv))
+                for (hd, kv), regs in flash_cuda.DQ_REGS_BY_INSTANCE.items()}
     print(f"[2] flash_bwd compiled (regs, spill bytes) per instance (dq: "
-          f"inner = blk_kv; dkv: inner = blk_q): {battrs}; backward blocks "
-          f"dq {flash_cuda.DQ_BLOCKS}, dkv {flash_cuda.DKV_BLOCKS}", flush=True)
+          f"inner = blk_kv; dkv: inner = blk_q): {battrs}; dq's register "
+          f"table and the CTAs an SM it and the shared-memory model give: "
+          f"{dq_model}; backward blocks dq {flash_cuda.DQ_BLOCKS}, dkv "
+          f"{flash_cuda.DKV_BLOCKS}", flush=True)
     clusters = {f"hd{hd}/q{bq}/group{g}": flash_cuda.dkv_cluster_occupancy(
         hd, bq, g) for hd in flash_cuda.HD_INSTANCES
         for bq in flash_cuda.DKV_BLK_Q_INSTANCES for g in (1, 3, 5, 6, 8)}
@@ -330,6 +358,9 @@ def main() -> None:
               for n in ssm_cuda.N_INSTANCES for bf in (False, True)}
     print(f"[2] ssm_scan compiled (regs, spill bytes) per instance: {sattrs}",
           flush=True)
+
+    # -- 2b. GPP's band loop counted from the SASS (the paper's census) -------
+    census = gpp_census(libs["gpp.cu"], spec, card)
 
     # -- 3. each kernel against its plain version ----------------------------
     checks = (("gpp_fused", gpp_cuda.gpp_fused, gpp_cuda.gpp_fused_plain,
@@ -476,13 +507,21 @@ def main() -> None:
     bytes_ms = size.min_hbm_bytes() / spec.hbm_bw * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    term = census[tuned.ept_instance()]
     print(f"[6] dispatch('gpp') si214: {disp_ms:.3f} ms "
           f"{size.total_flops() / disp_ms / 1e9:.3f} TFLOP/s "
           f"({size.total_flops() / disp_ms / 1e9 / spec.fp32_flops * 1e12:.1%} "
           f"of the {spec.part} FP32 peak); gpp_fused alone {fused_ms:.3f} ms; "
           f"bound {bound_ms:.3f} ms ({bound_by}: {ops_ms:.3f} ms of FP32 at "
-          f"{spec.fp32_flops / 1e12:.0f} TFLOP/s, {bytes_ms:.4f} ms of bytes) "
-          f"[{card}]", flush=True)
+          f"{spec.fp32_flops / 1e12:.0f} TFLOP/s, {bytes_ms:.4f} ms of bytes); "
+          f"issue bound of the tuned config's SASS (EPT "
+          f"{tuned.ept_instance()}, {term['instructions_per_term']:.2f} "
+          f"instructions a term) {term['issue_bound_ms']:.3f} ms, the kernel "
+          f"at {term['issue_bound_ms'] / fused_ms:.1%} of it (fast path "
+          f"{term['fast_path_per_term']:.2f} a term: "
+          f"{term['fast_path_issue_bound_ms']:.3f} ms, "
+          f"{term['fast_path_issue_bound_ms'] / fused_ms:.1%}); MUFU bound "
+          f"{term['mufu_bound_ms']:.3f} ms [{card}]", flush=True)
     banded = compared[("gpp_banded", "v8", "si214")]
 
     # -- 7. flash_fwd at op level --------------------------------------------
@@ -503,12 +542,22 @@ def main() -> None:
     torch.cuda.synchronize()
     by_path["ssm-check"] = read_counts()
 
+    # -- 7d. a reduced qwen2 at Hd 32 with flash on, forward and backward ------
+    zero_counts()
+    hd32 = hd32_model_check(torch, np, dev, card, flash_cuda)
+    torch.cuda.synchronize()
+    by_path["hd32-check"] = read_counts()
+
     # -- 8. dense serving: qwen2-1.5b at full width through ServeEngine -------
+    print(f"[8] matmul flags before serving (the process's): "
+          f"{matmul_flags(torch)}", flush=True)
     serve = serve_phase(torch, np, dev, card, flash_cuda, zero_counts,
                         read_counts, by_path)
     torch.cuda.empty_cache()
 
     # -- 10. training: qwen2-1.5b at full width through Trainer ---------------
+    print(f"[10] matmul flags before training (the process's): "
+          f"{matmul_flags(torch)}", flush=True)
     train = train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
                         read_counts, by_path)
     gc.collect()
@@ -531,7 +580,11 @@ def main() -> None:
          + launches["gpp_fused"]["journey"],
          "launches_by_path": launches["gpp_fused"], "max_abs_err": fused_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms, "bound_ms": bound_ms,
-         "bound_by": bound_by, "library_ms": None},
+         "bound_by": bound_by, "library_ms": None,
+         "sass_census": {k: term[k] for k in (
+             "instructions_per_term", "fast_path_per_term", "fma_ratio",
+             "mufu_per_term", "issue_bound_ms", "fast_path_issue_bound_ms",
+             "mufu_bound_ms")}},
         {"name": "gpp_banded", "route": "cuda",
          "source": "src/repro_torch/csrc/gpp.cu",
          "replaces": "src/repro/kernels/gpp/pallas_gpp.py:192",
@@ -562,7 +615,8 @@ def main() -> None:
             "launches_by_path": launches[name], **row,
             "library_covers": "dq, dk and dv together (SDPA backward)",
             "shape": bwd_rows["train"]["shape"],
-            "at_s4096": bwd_rows["s4096"][name]})
+            "at_s4096": bwd_rows["s4096"][name],
+            "hd32_model_worst_ulps": hd32["worst"][name]})
     row = ssm_rows["hymba-prefill"]
     kernels.append({
         "name": "ssm_scan", "route": "cuda",
@@ -585,6 +639,126 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def matmul_flags(torch) -> dict:
+    """The two CUDA matmul flags the port's f32-accumulation guard turns
+    off (repro_torch.backend.f32_accumulation)."""
+    m = torch.backends.cuda.matmul
+    return {"allow_bf16_reduced_precision_reduction":
+            m.allow_bf16_reduced_precision_reduction,
+            "allow_tf32": m.allow_tf32}
+
+
+def check_flags_inside(tag, seen, card):
+    """Print the flags recorded inside a phase's own work; fail unless
+    every record has both off."""
+    off = {"allow_bf16_reduced_precision_reduction": False,
+           "allow_tf32": False}
+    line = (f"[{tag}] matmul flags inside the phase ({len(seen)} reads from "
+            f"the port's own calls): {seen[0] if seen else None}; all off "
+            f"(the port's guard): {bool(seen) and all(s == off for s in seen)}")
+    print(f"{line} [{card}]", flush=True)
+    if not seen or any(s != off for s in seen):
+        fail(line)
+
+
+def gpp_census(lib_path, spec, card) -> dict:
+    """Phase 2b: gpp.cu's built library disassembled (cuobjdump -sass); the
+    band loop of gpp_fused_kernel<2, EPT, true> counted by opcode class
+    for every compiled EPT (repro_torch.core.sass): instructions a term,
+    the FMA ratio, and the issue and MUFU bounds at Si-214. Returns
+    {ept: census}."""
+    from repro_torch.core import sass
+    from repro_torch.kernels.gpp import gpp_cuda, problem
+    text, tool = sass.disassemble(str(lib_path))
+    terms = problem.SI214.inner_iters
+    out = {}
+    for ept in gpp_cuda.EPT_INSTANCES:
+        c = sass.term_census(text, rf"gpp_fused_kernelILi2ELi{ept}ELb1E",
+                             gpp_cuda.RECIPROCALS_PER_TERM)
+        c["issue_bound_ms"] = sass.issue_bound_s(
+            terms, c["instructions_per_term"], spec) * 1e3
+        c["fast_path_issue_bound_ms"] = sass.issue_bound_s(
+            terms, c["fast_path_per_term"], spec) * 1e3
+        c["mufu_bound_ms"] = sass.mufu_bound_s(
+            terms, c["mufu_per_term"], spec) * 1e3
+        out[ept] = c
+        per = {k: round(v, 2) for k, v in c["per_term"].items()}
+        print(f"[2b] gpp_fused EPT {ept} band loop ({tool}): "
+              f"{c['loop_instructions']} instructions for "
+              f"{c['terms_per_iteration']} terms = "
+              f"{c['instructions_per_term']:.2f} a term {json.dumps(per)}, "
+              f"{c['fast_path_per_term']:.2f} without the reciprocals' "
+              f"slow-path call stubs; FMA ratio {c['fma_ratio']:.3f}; Si-214 "
+              f"issue bound {c['issue_bound_ms']:.3f} ms "
+              f"({c['fast_path_issue_bound_ms']:.3f} ms on the fast path), "
+              f"MUFU bound {c['mufu_bound_ms']:.3f} ms [{card}]", flush=True)
+    return out
+
+
+def hd32_model_check(torch, np, dev, card, flash_cuda):
+    """Phase 7d: a reduced qwen2 (Hd 32, reduce_config) with flash on, one
+    loss and its gradients through the model at S=512: flash_fwd,
+    flash_bwd_dq and flash_bwd_dkv launch on the card at Hd 32 (zero-padded
+    to the Hd 64 instances) and every launch is held against its plain
+    version on its own inputs (FLASH_OUT_ULPS forward, BWD_ULPS backward)."""
+    import dataclasses
+    import repro_torch
+    from repro_torch.configs.base import reduce_config
+    cfg = dataclasses.replace(
+        reduce_config(repro_torch.get_config("qwen2-1.5b"), layers=2,
+                      d_model=384, vocab=1024), use_flash_attention=True)
+    model = repro_torch.build_model(cfg)
+    params = model.init_params(0, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 512))).to(dev)
+    errs = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
+
+    def fwd_check(args, got):
+        errs["flash_fwd"].append(bf16_ulps(got[0], flash_cuda.flash_fwd_plain(
+            *args)[0]))
+
+    def bwd_check(name, plain):
+        def check(args, got):
+            want = plain(*args)
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            errs[name].append(max(
+                float((g.float() - w.float()).abs().max()) / ulp_at_max(w)
+                for g, w in pairs))
+        return check
+
+    leaves = [p for p in _leaves(params)]
+    for p in leaves:
+        p.requires_grad_(True)
+    with hold_launches(flash_cuda, "flash_fwd", fwd_check), \
+            hold_launches(flash_cuda, "flash_bwd_dq", bwd_check(
+                "flash_bwd_dq", flash_cuda.flash_bwd_dq_plain)), \
+            hold_launches(flash_cuda, "flash_bwd_dkv", bwd_check(
+                "flash_bwd_dkv", flash_cuda.flash_bwd_dkv_plain)):
+        loss, _ = model.loss_fn(params, {"tokens": tokens, "labels": tokens})
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    worst = {k: max(v) if v else None for k, v in errs.items()}
+    n = {k: len(v) for k, v in errs.items()}
+    line = (f"[7d] reduced qwen2 (Hd {cfg.head_dim}, {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads, {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}) with flash on, B=2, S=512: loss {float(loss.detach()):.4f}, "
+            f"grads finite {finite}; launches {n} (expected "
+            f"{cfg.n_layers} each); worst vs plain: flash_fwd "
+            f"{worst['flash_fwd']} bf16 ulps (tol {FLASH_OUT_ULPS}), "
+            f"flash_bwd_dq {worst['flash_bwd_dq']} and flash_bwd_dkv "
+            f"{worst['flash_bwd_dkv']} ulps at the largest element (tol "
+            f"{BWD_ULPS}) [{card}]")
+    print(line, flush=True)
+    if (not finite or any(c != cfg.n_layers for c in n.values())
+            or worst["flash_fwd"] > FLASH_OUT_ULPS
+            or max(worst["flash_bwd_dq"], worst["flash_bwd_dkv"]) > BWD_ULPS):
+        fail(line)
+    del params, grads, leaves
+    return {"launches": n, "worst": worst}
 
 
 def sm90_checks(torch, dev) -> str:
@@ -636,7 +810,8 @@ def flash_checks(torch, dev, spec, card, flash_cuda, flash_ref):
              ("s4096", 1, 4096, 12, 2, 128, None),
              ("train", 8, 512, 12, 2, 128, None),
              ("mha512", 1, 512, 32, 32, 128, None),
-             ("s512-q128-kv64", 1, 512, 12, 2, 128, (128, 64)))
+             ("s512-q128-kv64", 1, 512, 12, 2, 128, (128, 64)),
+             ("hd32", 2, 512, 12, 2, 32, None))     # reduce_config's Hd, padded
     from repro_torch.kernels import api
     from repro_torch.tune import tuner
     rows = {}
@@ -749,9 +924,11 @@ def flash_bwd_checks(torch, dev, spec, card, flash_cuda, flash_ref):
              ("mha512", 1, 512, 32, 32, 128, None, True),
              ("group3", 1, 512, 24, 8, 128, None, True),     # phi4-mini's heads
              ("group16", 1, 512, 16, 1, 128, None, True),    # f32 partials
-             ("s512-dq64x32-dkv32x64", 1, 512, 12, 2, 128,
-              ((64, 32), (32, 64)), True),
-             ("s512-noncausal", 1, 512, 12, 2, 128, None, False))
+             ("s512-dq64x128-dkv32x64", 1, 512, 12, 2, 128,
+              ((64, 128), (32, 64)), True),
+             ("s512-noncausal", 1, 512, 12, 2, 128, None, False),
+             ("hd64", 1, 512, 12, 2, 64, None, True),
+             ("hd32", 2, 512, 12, 2, 32, None, True))    # padded to Hd 64
     plain = {"flash_bwd_dq": flash_cuda.flash_bwd_dq_plain,
              "flash_bwd_dkv": flash_cuda.flash_bwd_dkv_plain}
     rows = {}
@@ -802,6 +979,16 @@ def flash_bwd_checks(torch, dev, spec, card, flash_cuda, flash_ref):
             row["dkv_bit_equal_rerun"] = same
             line += f" flash_bwd_dkv bit-equal over two launches: {same};"
             del again
+        again = flash_cuda.flash_bwd_dq(*kargs["flash_bwd_dq"])
+        same = torch.equal(again, got["flash_bwd_dq"][0])
+        ok &= same
+        row["flash_bwd_dq"]["bit_equal_rerun"] = same
+        dq_regs = flash_cuda.bwd_kernel_attrs(
+            "dq", flash_cuda.run_head_dim(hd), cfgs[0].blk_kv)
+        row["flash_bwd_dq"]["regs_spill"] = list(dq_regs)
+        line += (f" flash_bwd_dq bit-equal over two launches: {same}, "
+                 f"(regs, spill bytes) {dq_regs};")
+        del again
         if not ok:
             fail(line)
         if tag == "train":
@@ -1201,8 +1388,11 @@ def train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
     plain = {"flash_bwd_dq": flash_cuda.flash_bwd_dq_plain,
              "flash_bwd_dkv": flash_cuda.flash_bwd_dkv_plain}
 
+    seen = []
+
     def against_plain(name):
         def check(args, got):
+            seen.append(matmul_flags(torch))
             want = plain[name](*args)
             pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
             errs[name].append(max(
@@ -1218,6 +1408,7 @@ def train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
         real_step(params, opt_state, batch_at(TRAIN_STEPS + 1))
         torch.cuda.synchronize()
     by_path["train-check"] = read_counts()
+    check_flags_inside("10", seen, card)
     worst = {name: max(e) for name, e in errs.items()}
     line = (f"[10] one checked step: {len(errs['flash_bwd_dq'])} flash_bwd_dq "
             f"and {len(errs['flash_bwd_dkv'])} flash_bwd_dkv launches held "
@@ -1339,9 +1530,18 @@ def serve_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
             for i, p in enumerate(prompts)]
     reqs.append(Request(rid=len(prompts), prompt=hot, max_new_tokens=32,
                         temperature=0.8))
-    # warm-up: one short request (cuBLAS handles, the flash tune pick)
-    eng.run([Request(rid=99, prompt=prompts[0], max_new_tokens=2)])
+    # warm-up: one short request (cuBLAS handles, the flash tune pick), with
+    # the matmul flags read inside the engine's work, at each flash call
+    seen = []
+
+    def read_flags(run, q, k, v, **kw):
+        seen.append(matmul_flags(torch))
+        return run(q, k, v, **kw)
+
+    with route_flash(read_flags):
+        eng.run([Request(rid=99, prompt=prompts[0], max_new_tokens=2)])
     torch.cuda.synchronize()
+    check_flags_inside("8", seen, card)
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     stats, decode_ms, admit_ms = drive(eng, reqs)

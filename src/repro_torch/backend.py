@@ -7,9 +7,21 @@ to the CPU. Whether a kernel or its plain version runs is decided by the
 device of the tensors a wrapper is given (a CUDA tensor launches the
 kernel, a CPU tensor takes the plain version), so there is no override
 switch like the JAX package's REPRO_INTERPRET.
+
+The numerics contract: the JAX package's bf16 matmuls accumulate in f32
+(`preferred_element_type`) and its f32 matmuls are full f32. On the card
+PyTorch's defaults let cuBLAS reduce bf16 partial sums in bf16
+(`torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction` is
+True), and a caller may turn TF32 on. So the port's entry points
+(`Model`'s loss_fn, prefill, decode_step and prefill_into_slot, the train
+step, `ServeEngine.step`, `Trainer.run`, `api.dispatch`) run under
+`f32_accumulation()`, which turns both off and gives the caller's values
+back on exit.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -39,3 +51,20 @@ def device_tag(device=DEFAULT_DEVICE) -> str:
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     major, minor = torch.cuda.get_device_capability(index)
     return f"cuda:{torch.cuda.get_device_name(index)}:sm{major}{minor}"
+
+
+@contextlib.contextmanager
+def f32_accumulation():
+    """While open (a `with` block, or a decorator: @f32_accumulation()),
+    bf16 matmuls on the card reduce in f32 and f32 matmuls run in full
+    f32: allow_bf16_reduced_precision_reduction and allow_tf32 of
+    torch.backends.cuda.matmul are False. The caller's values are put
+    back on exit; nesting is fine. The flags touch only CUDA matmuls."""
+    m = torch.backends.cuda.matmul
+    saved = (m.allow_bf16_reduced_precision_reduction, m.allow_tf32)
+    m.allow_bf16_reduced_precision_reduction = False
+    m.allow_tf32 = False
+    try:
+        yield
+    finally:
+        m.allow_bf16_reduced_precision_reduction, m.allow_tf32 = saved

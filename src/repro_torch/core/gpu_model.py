@@ -6,9 +6,10 @@ GPP (`step_s`):
 
     step_s = max(issue_s x wave_quantisation, bytes / HBM bandwidth)
 
-  issue_s     the terms' FP32 instructions over the card's issue rate
-              (SMs x 128 lanes x clock): ~71 a GPP term, the v9 census
-              (54 basic + 14 FMA + 3 reciprocals).
+  issue_s     the terms' instructions over the card's issue rate (SMs x
+              4 schedulers x 32 lanes x clock): INSTR_PER_TERM, the
+              count of csrc/gpp.cu's band loop in its SASS
+              (core/sass.py; chip_smoke.py phase 2b prints it).
   wave_quantisation
               blocks ÷ (SMs x resident blocks), rounded up to whole waves,
               over the same ratio unrounded: a last partial wave leaves
@@ -17,9 +18,9 @@ GPP (`step_s`):
   bytes       `gpp_cuda.hbm_traffic_model`.
 
 It ranks configs; it does not predict a measured time closely (latency
-with few resident warps, the reciprocals' MUFU work and the staging are
-not in it), so the tuner times the model's top picks and the static v9
-config on the card, and the timing decides.
+with few resident warps and the staging are not in it; the kernel ran at
+~86% of the issue bound it gives), so the tuner times the model's top
+picks and the static v9 config on the card, and the timing decides.
 
 Flash forward (`flash_step_s`) and the selective scan (`ssm_step_s`) are
 ranked the same way; the model path takes their picks without timing
@@ -44,7 +45,11 @@ from repro_torch.kernels.ssm import ssm_cuda
 # as the tensor-core share a warpgroup alone reaches, for ranking, not a
 # measurement
 FLASH_LONE_WG_SHARE = 0.5
-INSTR_PER_TERM = 54.0 + 14.0 + 3.0     # basic + fma + rcp, core/vpu_model v9
+# instructions one (ig, igp, band, iw) term issues: the SASS census of
+# gpp_fused's band loop at one element a thread (nvcc 12.8, sm_90a; PERF.md,
+# PR 16), every class counted (FP32, MUFU, selects, LDS, integer, control),
+# on the fast path (the IEEE reciprocals' slow-path call stubs skipped)
+INSTR_PER_TERM = 89.5
 REG_ALLOC_UNIT = 8                     # registers are allocated in 8s
 
 

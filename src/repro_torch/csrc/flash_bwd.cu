@@ -15,23 +15,34 @@
 //
 // What bounds them on this card. At the training slice's shape (B=8, H=12,
 // KvH=2, S=512, Hd=128, causal) dq does 9.7 GFLOP (9.8 us at 989 TFLOP/s
-// bf16) and moves ~42 MB (12.6 us at 3.35 TB/s): bound by bytes; dk/dv
-// does 12.9 GFLOP (13.1 us; 19.6 us with the hi/lo split of its two f32
-// operands) against ~34 MB (10.1 us): bound by operations, as both are at
-// S=4096 (dkv 104 us). Every sum is kept in registers until one bf16
-// store, and the products that take an f32 operand split it into a bf16
-// high and low part.
+// bf16; 13.1 us of wgmma with the hi/lo split of ds) and moves ~42 MB (12.6
+// us at 3.35 TB/s); dk/dv does 12.9 GFLOP (13.1 us; 19.6 us with the hi/lo
+// split of its two f32 operands) against ~34 MB (10.1 us). At S=4096 both
+// are bound by operations (dq 78 us useful, 104 us split; dkv 104 us
+// useful). Every sum is kept in registers until one bf16 store, and the
+// products that take an f32 operand split it into a bf16 high and low part.
 //
-// flash_bwd_dq (the first port's design, mma.sync):
-//   * grid (Sq / blk_q, B*H), one CTA owns blk_q query rows of one head
-//     (blk_q / 16 warps, warp w owns rows 16w..16w+15). The Pallas kv grid
-//     axis with its revisited dq block becomes a loop over kv blocks of
-//     BKV rows inside the CTA; the causal skip (pl.when, :175) is the
-//     loop's bound. The q and dout tiles stay in shared memory; each kv
-//     step stages one K and one V tile. dq accumulates in f32 registers
-//     and is written once, in bf16 (the JAX cast at :311).
-//   * products: mma.sync.aligned.m16n8k16 bf16 x bf16 -> f32; ds k takes
-//     ds split into hi = bf16(x) and lo = bf16(x - hi), both multiplied.
+// flash_bwd_dq (wgmma over a TMA ring of K/V tiles):
+//   * grid (Sq / 64, B*H), issued heaviest q block first: one CTA owns 64
+//     query rows (wgmma's M) of one head, one warpgroup (128 threads, two
+//     CTAs an SM, up to 255 registers a thread). The Pallas kv grid axis
+//     with its revisited dq block becomes a loop over kv blocks of BKV
+//     rows; the causal skip (pl.when, :175) is the loop's bound.
+//   * thread 0 loads the q and dout tiles once (TMA, 128-byte swizzled,
+//     from the model layout through 4-D tensor maps) with the lse and
+//     delta rows (bulk copies), and the first K/V tiles into a ring of 2
+//     stages handed over by mbarriers: full when the bytes have arrived;
+//     empty when all 128 threads are done with the stage, after which one
+//     elected lane of warp 0 (a warp-uniform branch, so ptxas does not
+//     serialize the wgmma) refills it with the step 2 ahead.
+//   * products on wgmma: s = q k^T and dp = dout v^T with both operands
+//     K-major in shared memory; dq += ds k takes ds from registers (the
+//     f32 accumulator re-packed as the A operand, split into bf16 hi + lo:
+//     two wgmma) and k MN-major (the transpose bit). dq has no sum across
+//     CTAs, so two launches give the same bits.
+//   * the arithmetic order of the Pallas kernel: s * scale, the mask,
+//     exp(s - lse), p * (dp - D) * scale, in f32 with expf (built without
+//     --use_fast_math); dq written once in bf16 (the JAX cast at :311).
 //
 // flash_bwd_dkv (wgmma over a TMA ring, the group summed in a cluster):
 //   * grid (H, Skv / 64 x B): one CTA owns 64 kv rows (wgmma's M) of one
@@ -71,9 +82,9 @@
 //     through element strides (the last axis contiguous, 16-byte rows);
 //     dq, dk and dv are written contiguous.
 //
-// Instances: dq: Hd in {64, 128} x BKV in {32, 64}, blk_q 16..128 by 16s
-// at run time (blockDim.x = 2 * blk_q). dkv: Hd in {64, 128} x BQ in {32,
-// 64}, 64 kv rows a CTA.
+// Instances: dq: Hd in {64, 128} x BKV in {64, 128}, 64 q rows a CTA. dkv:
+// Hd in {64, 128} x BQ in {32, 64}, 64 kv rows a CTA. A head dim of 32
+// runs on the Hd 64 instances, zero-padded by the wrapper.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,222 +94,204 @@
 
 namespace {
 
-struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;
+constexpr int kAlign = 1024;       // the swizzled tiles start on 1 KiB
+
+// ---------------------------------------------------------------------------
+// dq: one CTA per (64 q rows, batch * head)
+// ---------------------------------------------------------------------------
+
+constexpr int kDqRows = 64;        // q rows a CTA: one warpgroup, wgmma's M
+
+struct DqParams {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;   // 4-D (hd, heads, S, B) maps
   const float* lse;     // (B*H, Sq)
   const float* delta;   // (B*H, Sq)
   __nv_bfloat16* dq;    // (B, Sq, H, Hd) contiguous
-  __nv_bfloat16* dk;    // (B, Skv, KvH, Hd) contiguous
-  __nv_bfloat16* dv;    // (B, Skv, KvH, Hd) contiguous
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;   // dout
-  int H, KvH, Sq, Skv, blk, causal;
+  int H, KvH, Sq, Skv, causal;
   float scale;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-using sm90::as_u32;
-using sm90::split2;
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return as_u32(__halves2bfloat162(lo, hi));
-}
-
-// A fragment (16 x 16, row major) of rows row0.. of a padded smem tile
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* s,
-                                       int ld, int row0, int kk, int g, int t) {
-  const __nv_bfloat16* p = s + (row0 + g) * ld + kk * 16 + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
-// B fragment (16 x 8) with B[k][n] = tile[n0 + n][k0 + k]: rows of the
-// tile are the product's columns (the X^T of A X^T)
-__device__ __forceinline__ void load_b_rows(uint32_t (&b)[2],
-                                            const __nv_bfloat16* s, int ld,
-                                            int n0, int k0, int g, int t) {
-  const __nv_bfloat16* p = s + (n0 + g) * ld + k0 + 2 * t;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment (16 x 8) with B[k][n] = tile[k0 + k][n0 + n]: the tile as it
-// is (the X of A X)
-__device__ __forceinline__ void load_b_cols(uint32_t (&b)[2],
-                                            const __nv_bfloat16* s, int ld,
-                                            int k0, int n0, int g, int t) {
-  const __nv_bfloat16* p = s + (k0 + 2 * t) * ld + n0 + g;
-  b[0] = pack2(p[0], p[ld]);
-  b[1] = pack2(p[8 * ld], p[9 * ld]);
-}
-
-// stage `rows` rows of Hd bf16 from global (row stride `rs`) into smem
-template <int HD>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst,
-                                      const __nv_bfloat16* src, long long rs,
-                                      int rows, int tid, int nthr) {
-  constexpr int LD = HD + 8;
-  constexpr int CH = HD / 8;
-  for (int c = tid; c < rows * CH; c += nthr) {
-    const int r = c / CH, col = (c % CH) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LD + col) =
-        *reinterpret_cast<const uint4*>(src + (long long)r * rs + col);
-  }
-}
-
-// acc[HD/8] += A (16 x 16*NK, f32 in C-fragment layout, split hi + lo) x
-// tile (rows k0.., HD columns)
-template <int HD, int NK>
-__device__ __forceinline__ void mma_f32a(float (&acc)[HD / 8][4],
-                                         const float (&x)[2 * NK][4],
-                                         const __nv_bfloat16* tile, int ld,
-                                         int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    uint32_t ah[4], al[4];
-    split2(x[2 * kk][0], x[2 * kk][1], ah[0], al[0]);
-    split2(x[2 * kk][2], x[2 * kk][3], ah[1], al[1]);
-    split2(x[2 * kk + 1][0], x[2 * kk + 1][1], ah[2], al[2]);
-    split2(x[2 * kk + 1][2], x[2 * kk + 1][3], ah[3], al[3]);
-#pragma unroll
-    for (int d = 0; d < HD / 8; ++d) {
-      uint32_t bb[2];
-      load_b_cols(bb, tile, ld, kk * 16, d * 8, g, t);
-      mma_bf16(acc[d], ah, bb);
-      mma_bf16(acc[d], al, bb);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dq: one CTA per (q block, batch * head)
-// ---------------------------------------------------------------------------
+template <int HD, int BKV>
+struct DqSmem {
+  static constexpr int kStages = 2;
+  static constexpr int kQ = kDqRows * HD;        // bf16 elements of q or dout
+  static constexpr int kKV = BKV * HD;           // of one K or V tile
+  static constexpr int kTiles = (2 * kQ + kStages * 2 * kKV) * 2;   // bytes
+  static constexpr int kMain = kTiles + 2 * kDqRows * 4;            // + stats
+  static constexpr int kBytes = kMain + 64 + kAlign;   // + barriers, align
+};
 
 template <int HD, int BKV>
-__global__ void __launch_bounds__(256) flash_bwd_dq_kernel(Params p) {
-  constexpr int LD = HD + 8;
-  constexpr int NT = BKV / 8;
-  constexpr int DT = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int blk_q = p.blk;
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* o_s = q_s + blk_q * LD;
-  __nv_bfloat16* k_s = o_s + blk_q * LD;
-  __nv_bfloat16* v_s = k_s + BKV * LD;
+__global__ void __launch_bounds__(128, 2)
+    flash_bwd_dq_kernel(const __grid_constant__ DqParams p) {
+  using S = DqSmem<HD, BKV>;
+  constexpr int ST = S::kStages;
+  constexpr int NT = BKV / 8;           // 8-column blocks of s
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) &
+      ~uintptr_t(kAlign - 1));
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* o_s = q_s + S::kQ;
+  __nv_bfloat16* ring = o_s + S::kQ;    // stage st: K at 2 st, V at 2 st + 1
+  float* lse_s = reinterpret_cast<float*>(base + S::kTiles);
+  float* dd_s = lse_s + kDqRows;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + S::kMain);
+  uint64_t* qo_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + ST;
 
   const int qi = gridDim.x - 1 - blockIdx.x;     // heaviest q blocks first
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
   const int kvh = h / (p.H / p.KvH);
-  const int q0 = qi * blk_q;
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = warp * 16;
-  const int qpos0 = q0 + row0 + g, qpos1 = qpos0 + 8;
-
-  const __nv_bfloat16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
-  stage<HD>(q_s, p.q + b * p.q_sb + h * p.q_sh + (long long)q0 * p.q_ss,
-            p.q_ss, blk_q, tid, nthr);
-  stage<HD>(o_s, p.dout + b * p.o_sb + h * p.o_sh + (long long)q0 * p.o_ss,
-            p.o_ss, blk_q, tid, nthr);
-  const float lse0 = p.lse[(long long)bh * p.Sq + qpos0];
-  const float lse1 = p.lse[(long long)bh * p.Sq + qpos1];
-  const float dd0 = p.delta[(long long)bh * p.Sq + qpos0];
-  const float dd1 = p.delta[(long long)bh * p.Sq + qpos1];
-
-  float acc[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
-
+  const int q0 = qi * kDqRows;
   const int n_kv = p.Skv / BKV;
-  const int kv_end = p.causal ? min(n_kv, (q0 + blk_q - 1) / BKV + 1) : n_kv;
-  for (int j = 0; j < kv_end; ++j) {
-    const int kv0 = j * BKV;
-    __syncthreads();    // the previous tiles are consumed (and q/dout staged)
-    stage<HD>(k_s, kg + (long long)kv0 * p.k_ss, p.k_ss, BKV, tid, nthr);
-    stage<HD>(v_s, vg + (long long)kv0 * p.v_ss, p.v_ss, BKV, tid, nthr);
-    __syncthreads();
+  const int n_steps =
+      p.causal ? min(n_kv, (q0 + kDqRows - 1) / BKV + 1) : n_kv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // warp 0, read through a shuffle so the compiler sees it is uniform
+  const bool warp0 = __shfl_sync(0xffffffffu, warp, 0) == 0;
 
-    // s = q k^T and dp = dout v^T over this warp's 16 rows x BKV columns
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      load_a(aq, q_s, LD, row0, kk, g, t);
-      load_a(ao, o_s, LD, row0, kk, g, t);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t bk[2], bv[2];
-        load_b_rows(bk, k_s, LD, n * 8, kk * 16, g, t);
-        load_b_rows(bv, v_s, LD, n * 8, kk * 16, g, t);
-        mma_bf16(s[n], aq, bk);
-        mma_bf16(dp[n], ao, bv);
-      }
+  // the K and V tiles of kv step it into its stage
+  auto load_step = [&](int it) {
+    const int st = it % ST;
+    sm90::mbar_expect_tx(&full[st], 2 * S::kKV * 2);
+    __nv_bfloat16* k_t = ring + 2 * st * S::kKV;
+    sm90::tma_load_rows<HD>(k_t, &p.tm_k, &full[st], BKV, kvh, it * BKV, b);
+    sm90::tma_load_rows<HD>(k_t + S::kKV, &p.tm_v, &full[st], BKV, kvh,
+                            it * BKV, b);
+  };
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(qo_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128);
     }
-    // p = exp(s * scale - lse) (0 where masked); ds = p * (dp - D) * scale,
-    // kept in s
-    const bool masked = p.causal && (kv0 + BKV - 1 > q0 + row0);
+    sm90::fence_barrier_init();
+    // q, dout, lse and delta of the CTA's rows once, then the ring's first
+    // ST kv steps
+    sm90::mbar_expect_tx(qo_full, 2 * S::kQ * 2 + 2 * kDqRows * 4);
+    sm90::tma_load_rows<HD>(q_s, &p.tm_q, qo_full, kDqRows, h, q0, b);
+    sm90::tma_load_rows<HD>(o_s, &p.tm_do, qo_full, kDqRows, h, q0, b);
+    sm90::bulk_load(lse_s, p.lse + (long long)bh * p.Sq + q0, kDqRows * 4,
+                    qo_full);
+    sm90::bulk_load(dd_s, p.delta + (long long)bh * p.Sq + q0, kDqRows * 4,
+                    qo_full);
+    for (int it = 0; it < min(ST, n_steps); ++it) load_step(it);
+  }
+  __syncthreads();
+
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16 + g, r1 = r0 + 8;     // this thread's two rows
+  const int qpos0 = q0 + r0, qpos1 = q0 + r1;
+  float dq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+
+  sm90::mbar_wait(qo_full, 0);
+  const float lse0 = lse_s[r0], lse1 = lse_s[r1];
+  const float dd0 = dd_s[r0], dd1 = dd_s[r1];
+  for (int it = 0; it < n_steps; ++it) {
+    const int st = it % ST, ph = (it / ST) & 1;
+    const int kv0 = it * BKV;
+    sm90::mbar_wait(&full[st], ph);
+    const __nv_bfloat16* k_t = ring + 2 * st * S::kKV;
+    const __nv_bfloat16* v_t = k_t + S::kKV;
+
+    // s = q k^T and dp = dout v^T: 64 q rows x BKV kv columns
+    float s[BKV / 2], dp[BKV / 2];
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) s[i] = dp[i] = 0.f;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      sm90::wgmma_ss<0>(s, sm90::desc_kmajor(q_s, kDqRows, kk),
+                        sm90::desc_kmajor(k_t, BKV, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      sm90::wgmma_ss<0>(dp, sm90::desc_kmajor(o_s, kDqRows, kk),
+                        sm90::desc_kmajor(v_t, BKV, kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+
+    // p = exp(s * scale - lse), 0 above the diagonal; ds = p * (dp - D) *
+    // scale, kept in s. Column c is kv position kv0 + c.
+    const bool masked = p.causal && (kv0 + BKV - 1 > q0 + warp * 16);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const bool r1 = e >= 2;
-        float pr = expf(s[n][e] * p.scale - (r1 ? lse1 : lse0));
-        if (masked && kv0 + n * 8 + 2 * t + (e & 1) > (r1 ? qpos1 : qpos0))
-          pr = 0.f;
-        s[n][e] = pr * (dp[n][e] - (r1 ? dd1 : dd0)) * p.scale;
+        const bool hi_row = e >= 2;
+        const int c = n * 8 + 2 * t + (e & 1);
+        float pr = expf(s[4 * n + e] * p.scale - (hi_row ? lse1 : lse0));
+        if (masked && kv0 + c > (hi_row ? qpos1 : qpos0)) pr = 0.f;
+        s[4 * n + e] = pr * (dp[4 * n + e] - (hi_row ? dd1 : dd0)) * p.scale;
       }
     }
-    // dq += ds k
-    mma_f32a<HD, BKV / 16>(acc, s, k_s, LD, g, t);
+    // dq += ds k: ds from registers split into bf16 hi + lo, k MN-major
+    uint32_t ds_hi[BKV / 16][4], ds_lo[BKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      sm90::split_a(s, kk, ds_hi[kk], ds_lo[kk]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const uint64_t bk = sm90::desc_mnmajor(k_t, BKV, kk);
+      sm90::wgmma_rs<1>(dq, ds_hi[kk], bk, 1);
+      sm90::wgmma_rs<1>(dq, ds_lo[kk], bk, 1);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dq);
+    sm90::mbar_arrive(&empty[st]);
+    // once every thread is done with the stage, warp 0 refills it with kv
+    // step it + ST, which then loads under the next steps' math
+    if (warp0 && it + ST < n_steps) {
+      sm90::mbar_wait(&empty[st], ph);
+      if (sm90::elect_one()) load_step(it + ST);
+      __syncwarp();
+    }
   }
 
+  // one bf16 store of the f32 sums (the JAX cast at flash.py:311)
   __nv_bfloat16* out0 = p.dq + ((long long)(b * p.Sq + qpos0) * p.H + h) * HD;
   __nv_bfloat16* out1 = p.dq + ((long long)(b * p.Sq + qpos1) * p.H + h) * HD;
 #pragma unroll
-  for (int d = 0; d < DT; ++d) {
+  for (int d = 0; d < HD / 8; ++d) {
     const int col = d * 8 + 2 * t;
     *reinterpret_cast<__nv_bfloat162*>(out0 + col) =
-        __floats2bfloat162_rn(acc[d][0], acc[d][1]);
+        __floats2bfloat162_rn(dq[4 * d], dq[4 * d + 1]);
     *reinterpret_cast<__nv_bfloat162*>(out1 + col) =
-        __floats2bfloat162_rn(acc[d][2], acc[d][3]);
+        __floats2bfloat162_rn(dq[4 * d + 2], dq[4 * d + 3]);
   }
 }
 
-using KernelFn = void (*)(Params);
+using DqFn = void (*)(DqParams);
 
-// kind 0: dq (inner = BKV)
-KernelFn pick(int kind, int hd, int inner) {
-  if (kind == 0) {
-    if (hd == 64 && inner == 32) return flash_bwd_dq_kernel<64, 32>;
-    if (hd == 64 && inner == 64) return flash_bwd_dq_kernel<64, 64>;
-    if (hd == 128 && inner == 32) return flash_bwd_dq_kernel<128, 32>;
-    if (hd == 128 && inner == 64) return flash_bwd_dq_kernel<128, 64>;
-  }
-  return nullptr;
+struct DqInstance {
+  DqFn fn;
+  int smem;
+  cudaError_t smem_set;   // setting the dynamic shared memory, once
+};
+
+template <int HD, int BKV>
+DqInstance dq_inst() {
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<HD, BKV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, DqSmem<HD, BKV>::kBytes);
+  return {flash_bwd_dq_kernel<HD, BKV>, DqSmem<HD, BKV>::kBytes, smem_set};
+}
+
+DqInstance pick_dq(int hd, int blk_kv) {
+  if (hd == 64 && blk_kv == 64) return dq_inst<64, 64>();
+  if (hd == 64 && blk_kv == 128) return dq_inst<64, 128>();
+  if (hd == 128 && blk_kv == 64) return dq_inst<128, 64>();
+  if (hd == 128 && blk_kv == 128) return dq_inst<128, 128>();
+  return {nullptr, 0, cudaSuccess};
 }
 
 // ---------------------------------------------------------------------------
@@ -307,7 +300,6 @@ KernelFn pick(int kind, int hd, int inner) {
 
 constexpr int kDkvRows = 64;       // kv rows a CTA: one consumer warpgroup
 constexpr int kMaxCluster = 8;     // portable thread-block cluster size
-constexpr int kAlign = 1024;
 
 struct DkvParams {
   CUtensorMap tm_q, tm_k, tm_v, tm_do;   // 4-D (hd, heads, S, B) maps
@@ -606,10 +598,11 @@ cudaLaunchConfig_t dkv_config(const DkvInstance& in, dim3 grid, int cluster,
 
 extern "C" {
 
-// dq = flash_bwd_dq(q, k, v, dout, lse, delta) on `stream`: blk_q query
-// rows a CTA (a multiple of 16 up to 128), blk_kv (32 or 64) kv rows a
-// step. Strides are in elements; every row's last axis is contiguous and
-// 16-byte aligned (the wrapper checks). Returns cudaGetLastError().
+// dq = flash_bwd_dq(q, k, v, dout, lse, delta) on `stream`: 64 query rows
+// (blk_q) a CTA, blk_kv (64 or 128) kv rows a ring stage. Strides are in
+// elements; every row's last axis is contiguous and 16-byte aligned, lse
+// and delta start on 16-byte boundaries (the wrapper checks). `scale` is
+// the softmax scale. Returns cudaGetLastError().
 int flash_bwd_dq_launch(int hd, int blk_q, int blk_kv, int causal,
                         const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
@@ -619,26 +612,35 @@ int flash_bwd_dq_launch(int hd, int blk_q, int blk_kv, int causal,
                         long long v_sb, long long v_ss, long long v_sh,
                         long long o_sb, long long o_ss, long long o_sh,
                         float scale, void* stream) {
-  Params p{static_cast<const __nv_bfloat16*>(q),
-           static_cast<const __nv_bfloat16*>(k),
-           static_cast<const __nv_bfloat16*>(v),
-           static_cast<const __nv_bfloat16*>(dout),
-           static_cast<const float*>(lse), static_cast<const float*>(delta),
-           static_cast<__nv_bfloat16*>(dq), nullptr, nullptr,
-           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-           o_sb, o_ss, o_sh, H, KvH, Sq, Skv, blk_q, causal, scale};
-  KernelFn fn = pick(0, hd, blk_kv);
-  if (fn == nullptr || blk_q % 16 != 0 || blk_q < 16 || blk_q > 128 ||
-      Sq % blk_q != 0 || Skv % blk_kv != 0 || KvH <= 0 || H % KvH != 0)
+  DqInstance in = pick_dq(hd, blk_kv);
+  if (in.fn == nullptr || blk_q != kDqRows || Sq % kDqRows != 0 ||
+      Skv % blk_kv != 0 || KvH <= 0 || H % KvH != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(2 * blk_q + 2 * blk_kv) * (hd + 8) * 2;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid(Sq / blk_q, B * H);
-  fn<<<grid, 2 * blk_q, smem, (cudaStream_t)stream>>>(p);
+  DqParams p;
+  int rc = sm90_host::encode_rows(&p.tm_q, q, B, Sq, H, hd, q_sb, q_ss, q_sh,
+                                  kDqRows);
+  if (rc == 0)
+    rc = sm90_host::encode_rows(&p.tm_do, dout, B, Sq, H, hd, o_sb, o_ss,
+                                o_sh, kDqRows);
+  if (rc == 0)
+    rc = sm90_host::encode_rows(&p.tm_k, k, B, Skv, KvH, hd, k_sb, k_ss,
+                                k_sh, blk_kv);
+  if (rc == 0)
+    rc = sm90_host::encode_rows(&p.tm_v, v, B, Skv, KvH, hd, v_sb, v_ss,
+                                v_sh, blk_kv);
+  if (rc != 0) return rc;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.H = H;
+  p.KvH = KvH;
+  p.Sq = Sq;
+  p.Skv = Skv;
+  p.causal = causal;
+  p.scale = scale;
+  if (in.smem_set != cudaSuccess) return (int)in.smem_set;
+  const dim3 grid(Sq / kDqRows, B * H);
+  in.fn<<<grid, 128, in.smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -716,7 +718,7 @@ int flash_bwd_dkv_launch(int hd, int blk_q, int blk_kv, int causal,
 int flash_bwd_func_attrs(int kind, int hd, int inner, int* regs,
                          int* local_bytes) {
   const void* fn = nullptr;
-  if (kind == 0) fn = reinterpret_cast<const void*>(pick(0, hd, inner));
+  if (kind == 0) fn = reinterpret_cast<const void*>(pick_dq(hd, inner).fn);
   if (kind == 1) fn = reinterpret_cast<const void*>(pick_dkv(hd, inner).fn);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;

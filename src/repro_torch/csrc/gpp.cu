@@ -4,16 +4,25 @@
 // gpp_banded  (v6-v8)  replaces src/repro/kernels/gpp/pallas_gpp.py::_kernel
 // Both share band_sweep(), as the Pallas kernels share _band_sweep.
 //
-// What bounds them on this card: instruction issue, not bytes. Each inner
-// (ig, igp, band, iw) term is ~71 FP32 instructions and 3 IEEE reciprocals
-// (MUFU plus refinement); at Si-214 that is 1.72e10 terms against 210 MB
-// of compulsory traffic, two orders of magnitude above the card's ridge.
+// What bounds them on this card: instruction issue, not bytes. At Si-214
+// there are 1.72e10 (ig, igp, band, iw) terms against 210 MB of
+// compulsory traffic, two orders of magnitude above the card's ridge. The
+// SASS census of the band loop (repro_torch.core.sass; chip_smoke.py
+// phase 2b) counts 95.5 instructions a term at one element a thread (the
+// tuned config): 24 FFMA, 20 FMUL, 8 FADD, 2 MUFU, 15.5 selects and
+// compares, 2.5 LDS, 9.5 integer and 12 control, an FMA ratio of 0.46;
+// 89.5 of them issue when no reciprocal takes its slow path. Each IEEE
+// 1.0f/x is 13 (see recip()). The first port's term took 111.5 (102.5 on
+// the fast path), with three reciprocals. The kernel runs at ~86% of its
+// fast-path issue bound (terms x instructions / (SMs x 4 schedulers x 32
+// lanes x clock)).
 //
 // What the design does about it:
 //   * every term's operands come from registers or shared memory: a thread
-//     owns EPT (ig, igp) elements and keeps wtilde, eps, wtilde^2, Omega^2
-//     and vcoul (9 floats an element) in registers for its whole band
-//     sweep — the reuse the TPU kernel gets from a VMEM-resident tile;
+//     owns EPT (ig, igp) elements and keeps wtilde, eps, wtilde^2, Omega^2,
+//     vcoul and the term's band invariants (14 floats an element) in
+//     registers for its whole band sweep — the reuse the TPU kernel gets
+//     from a VMEM-resident tile;
 //   * per band chunk the block stages aqsn^T[band, ig-tile], aqsm[band,
 //     igp-tile] and wx[band, :] in shared memory with one load per float;
 //   * each thread accumulates 4*NW sums in registers; at the end a warp
@@ -28,10 +37,16 @@
 //     neighbouring threads read addresses nbands floats apart (the paper's
 //     v6 layout); TRANSPOSED=true reads the (nbands, ngpown) transpose
 //     with neighbouring threads on neighbouring addresses (v7 onwards).
+//   * the term takes two reciprocals, not three: the reference computes
+//     both branches' ssx and keeps one; term() chooses the branch's
+//     numerator, denominator and |denominator|^2 first and takes one
+//     reciprocal and one complex product of them. Band invariants (wt_im^2,
+//     wt_re wt_im, wt2_im^2, 4 wt2: each exact) live in Elem.
 //
-// The arithmetic is pallas_gpp.py:140-184 term for term: the guard
-// c2sq == 0 -> 1, no guard on c1sq, cond1/cond2 as written. Division stays
-// IEEE (built without --use_fast_math); nvcc's default FMA contraction is on.
+// The arithmetic is pallas_gpp.py:140-184's function, and every kept
+// result goes through its operations in its order: the guard c2sq == 0 ->
+// 1, no guard on c1sq, cond1/cond2 as written. Division stays IEEE (built
+// without --use_fast_math); nvcc's default FMA contraction is on.
 //
 // Launch: grid (n_igp, n_ig, 1) fused or (n_igp, n_ig, n_band_blocks)
 // banded; blockDim.x = threads (a multiple of 32); dynamic shared memory
@@ -51,6 +66,11 @@ struct Elem {
   float wt_re, wt_im, eps_re, eps_im;
   float wt2_re, wt2_im, om2_re, om2_im;
   float vc;
+  // band-invariant factors of the term, hoisted out of the band loop
+  float wt_im_sq;             // wt_im^2 = wd_im^2, since wd_im = -wt_im
+  float wt_re_im;             // wt_re wt_im (wt_re wd_im = -wt_re_im)
+  float wt2_im_sq;            // wt2_im^2 = cden1_im^2
+  float wt2x4_re, wt2x4_im;   // 4 wt2, exact: wt2 f4 = wt2x4 (delw + 1/2)
 };
 
 struct Args {
@@ -69,7 +89,18 @@ struct Args {
   int blk_ig, blk_igp, blk_band;
 };
 
-// One (element, band) step of the sweep for every frequency iw.
+// IEEE 1/x (no --use_fast_math): MUFU.RCP, a refinement, an exponent
+// test and the branch around a slow-path call, 13 instructions. MUFU.RCP
+// and one Newton step (3) was faster but moved the Si-214 totals further
+// from float64 (PERF.md, PR 16), so the reciprocal stays IEEE.
+__device__ __forceinline__ float recip(float x) { return 1.0f / x; }
+
+// One (element, band) step of the sweep for every frequency iw. The
+// reference computes both branches' ssx, each with its own reciprocal,
+// and keeps one (pallas_gpp.py:159-177); here the branch's numerator,
+// denominator and |denominator|^2 are chosen first and go through one
+// reciprocal and one complex product, the same operations in the same
+// order for every element that keeps its result.
 template <int NW>
 __device__ __forceinline__ void term(const Elem& e, float an_re, float an_im,
                                      float am_re, float am_im,
@@ -84,40 +115,34 @@ __device__ __forceinline__ void term(const Elem& e, float an_re, float an_im,
   for (int iw = 0; iw < NW; ++iw) {
     const float wxv = wxb[iw];
     const float wd_re = wxv - e.wt_re;
-    const float wd_im = -e.wt_im;
-    const float wdiffr = wd_re * wd_re + wd_im * wd_im;
-    const float rden = 1.0f / wdiffr;
-    const float delw_re = (e.wt_re * wd_re + e.wt_im * wd_im) * rden;
-    const float delw_im = (e.wt_im * wd_re - e.wt_re * wd_im) * rden;
+    const float wdiffr = wd_re * wd_re + e.wt_im_sq;
+    const float rden = recip(wdiffr);
+    const float delw_re = (e.wt_re * wd_re - e.wt_im_sq) * rden;
+    const float delw_im = (e.wt_im * wd_re + e.wt_re_im) * rden;
     const float delwr = delw_re * delw_re + delw_im * delw_im;
     const bool cond1 = (wdiffr > kLimitTwo) && (delwr < kLimitOne);
-    const bool cond2 = (!cond1) && (delwr > kTolZero);
+    const bool keep = cond1 || (delwr > kTolZero);   // cond1 or cond2
 
-    const float sch1_re = delw_re * e.eps_re - delw_im * e.eps_im;
-    const float sch1_im = delw_re * e.eps_im + delw_im * e.eps_re;
+    const float sch_re = cond1 ? delw_re * e.eps_re - delw_im * e.eps_im : 0.0f;
+    const float sch_im = cond1 ? delw_re * e.eps_im + delw_im * e.eps_re : 0.0f;
+
+    // branch 1: om2 / cden1; branch 2: n2 / cd2
     const float cden1_re = wxv * wxv - e.wt2_re;
-    const float cden1_im = -e.wt2_im;
-    const float c1sq = cden1_re * cden1_re + cden1_im * cden1_im;
-    const float r1 = 1.0f / c1sq;
-    const float ssx1_re = (e.om2_re * cden1_re + e.om2_im * cden1_im) * r1;
-    const float ssx1_im = (e.om2_im * cden1_re - e.om2_re * cden1_im) * r1;
-
-    const float f4_re = 4.0f * (delw_re + 0.5f);
-    const float f4_im = 4.0f * delw_im;
-    const float cd2_re = e.wt2_re * f4_re - e.wt2_im * f4_im;
-    const float cd2_im = e.wt2_re * f4_im + e.wt2_im * f4_re;
+    const float c1sq = cden1_re * cden1_re + e.wt2_im_sq;
+    const float dh = delw_re + 0.5f;
+    const float cd2_re = e.wt2x4_re * dh - e.wt2x4_im * delw_im;
+    const float cd2_im = e.wt2x4_re * delw_im + e.wt2x4_im * dh;
     float c2sq = cd2_re * cd2_re + cd2_im * cd2_im;
     c2sq = (c2sq == 0.0f) ? 1.0f : c2sq;
     const float n2_re = -(e.om2_re * delw_re - e.om2_im * delw_im);
     const float n2_im = -(e.om2_re * delw_im + e.om2_im * delw_re);
-    const float r2 = 1.0f / c2sq;
-    const float ssx2_re = (n2_re * cd2_re + n2_im * cd2_im) * r2;
-    const float ssx2_im = (n2_im * cd2_re - n2_re * cd2_im) * r2;
-
-    const float sch_re = cond1 ? sch1_re : 0.0f;
-    const float sch_im = cond1 ? sch1_im : 0.0f;
-    const float ssx_re = cond1 ? ssx1_re : (cond2 ? ssx2_re : 0.0f);
-    const float ssx_im = cond1 ? ssx1_im : (cond2 ? ssx2_im : 0.0f);
+    const float num_re = cond1 ? e.om2_re : n2_re;
+    const float num_im = cond1 ? e.om2_im : n2_im;
+    const float den_re = cond1 ? cden1_re : cd2_re;
+    const float den_im = cond1 ? -e.wt2_im : cd2_im;
+    const float r = recip(cond1 ? c1sq : c2sq);
+    const float ssx_re = keep ? (num_re * den_re + num_im * den_im) * r : 0.0f;
+    const float ssx_im = keep ? (num_im * den_re - num_re * den_im) * r : 0.0f;
 
     acc[0][iw] += wre * sch_re - wim * sch_im;
     acc[1][iw] += wre * sch_im + wim * sch_re;
@@ -127,7 +152,7 @@ __device__ __forceinline__ void term(const Elem& e, float an_re, float an_im,
 }
 
 // Load this thread's elements of the (ig0.., igp0..) tile and hoist the
-// band-invariant subexpressions (the paper's v5 hoist).
+// band-invariant subexpressions (the paper's v5 hoist, and the term's own).
 template <int EPT>
 __device__ __forceinline__ void load_elems(const Args& a, int ig0, int igp0,
                                            Elem (&el)[EPT], int (&g)[EPT],
@@ -151,6 +176,11 @@ __device__ __forceinline__ void load_elems(const Args& a, int ig0, int igp0,
       x.wt2_im = 2.0f * x.wt_re * x.wt_im;
       x.om2_re = x.wt2_re * x.eps_re - x.wt2_im * x.eps_im;
       x.om2_im = x.wt2_re * x.eps_im + x.wt2_im * x.eps_re;
+      x.wt_im_sq = x.wt_im * x.wt_im;
+      x.wt_re_im = x.wt_re * x.wt_im;
+      x.wt2_im_sq = x.wt2_im * x.wt2_im;
+      x.wt2x4_re = 4.0f * x.wt2_re;
+      x.wt2x4_im = 4.0f * x.wt2_im;
     }
     el[k] = x;
   }

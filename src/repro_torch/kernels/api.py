@@ -169,6 +169,7 @@ def list_kernels() -> List[str]:
     return sorted(_REGISTRY)
 
 
+@backend.f32_accumulation()
 def dispatch(name: str, *args, version: Optional[str] = None,
              config: Any = None, device=backend.DEFAULT_DEVICE,
              problem_key: Any = None, **kwargs) -> Any:

@@ -15,9 +15,13 @@ H % KvH == 0 (head h reads kv head h // (H // KvH)). Returns out
 (B, Sq, H, Hd) in q's dtype and lse (B*H, Sq) f32, lse = m + log l of the
 online softmax. A CUDA tensor launches the kernel (bf16, Hd 64 or 128,
 blk_q 64 or 128, blk_kv 64 or 128) or raises; a CPU tensor takes
-`flash_fwd_plain`. The kernel reads q/k/v through their strides with TMA
-(the last axis contiguous, 16-byte rows), so the model's strided q/k/v
-views need no copy; out is written contiguous.
+`flash_fwd_plain`. Hd 32 runs on the Hd 64 instances: every wrapper
+zero-pads q, k, v (and dout) to Hd 64, launches with the scale of the true
+head dim, 1/sqrt(32), and slices the result back to 32 columns; the
+padded columns add exact zeros to every product (PAD_HEAD_DIM). The
+kernel reads q/k/v through their strides with TMA (the last axis
+contiguous, 16-byte rows), so the model's strided q/k/v views need no
+copy; out is written contiguous.
 
     dq = flash_bwd_dq(q, k, v, dout, lse, delta, dq_cfg, causal=True)
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, dkv_cfg, causal=True)
@@ -27,9 +31,9 @@ rowsum(dout * out) (B*H, Sq) f32, and return dq (B, Sq, H, Hd) and dk/dv
 (B, Skv, KvH, Hd) in q's dtype. dk/dv are summed over the kv head's group
 of q heads in q-head order: inside a thread-block cluster for groups of
 up to 8, through f32 per-q-head partials and a second kernel above. A
-CUDA tensor launches the kernel (bf16, Hd 64 or 128; dq: blk_kv 32 or 64,
-blk_q 16..128 by 16s; dkv: blk_q 32 or 64, blk_kv 64) or raises; a CPU
-tensor takes the plain version. `FlashAttention` (a
+CUDA tensor launches the kernel (bf16, Hd 64 or 128, or 32 padded; dq:
+blk_q 64, blk_kv 64 or 128; dkv: blk_q 32 or 64, blk_kv 64) or raises; a
+CPU tensor takes the plain version. `FlashAttention` (a
 torch.autograd.Function) and `flash_attention_diff(q, k, v, cfg, causal)`
 put the three together: the forward saves q, k, v, out and lse, and the
 backward computes delta with torch and launches both backward kernels,
@@ -41,14 +45,19 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.hw import DEFAULT_SPEC
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HD_INSTANCES = (64, 128)           # head dims compiled in flash.cu
+# head dims the wrappers zero-pad to a compiled one (the padded columns add
+# exact zeros to q k^T, P V, ds k, ds^T q and p^T dout; the scale stays the
+# true head dim's)
+PAD_HEAD_DIM = {32: 64}
 # the forward's compiled blocks (csrc/flash.cu): 64 query rows a consumer
 # warpgroup (wgmma's M), one or two warpgroups a CTA; blk_kv rows a stage
 # of the 2-stage K/V ring
@@ -66,14 +75,20 @@ REGS_BY_INSTANCE = {(64, 64, 64): 128, (64, 64, 128): 168,
                     (64, 128, 64): 128, (64, 128, 128): 168,
                     (128, 64, 64): 161, (128, 64, 128): 168,
                     (128, 128, 64): 161, (128, 128, 128): 168}
-# the backward kernels' compiled blocks (csrc/flash_bwd.cu). dq keeps the
-# first port's mma.sync kernel: blk_kv (its kv step) 32 or 64, blk_q 16..
-# MAX_DQ_BLK_Q by 16s at run time. dkv is the wgmma kernel: 64 kv rows a
-# CTA (one consumer warpgroup), blk_q (its q stage) 32 or 64; groups of
-# up to MAX_CLUSTER q heads sum in one thread-block cluster
-DQ_BLK_KV_INSTANCES = (32, 64)
-MAX_DQ_BLK_Q = 128
-DQ_SMEM_PAD = 8                    # bf16 of padding a dq staged row carries
+# the backward kernels' compiled blocks (csrc/flash_bwd.cu), both wgmma
+# kernels of one warpgroup a CTA (128 threads, launch bounds 2 CTAs an SM).
+# dq: 64 q rows a CTA (DQ_BLK_Q), blk_kv (a stage of its DQ_STAGES-stage
+# K/V ring) 64 or 128. dkv: 64 kv rows a CTA, blk_q (its q stage) 32 or
+# 64; groups of up to MAX_CLUSTER q heads sum in one thread-block cluster
+DQ_BLK_Q = 64
+DQ_BLK_KV_INSTANCES = (64, 128)
+DQ_STAGES = 2
+DQ_THREADS = 128
+# registers a thread of each compiled dq (hd, blk_kv) instance, as nvcc
+# -O3 (12.8) lays out flash_bwd.cu for sm_90a: chip_smoke.py prints the
+# compiled counts (bwd_kernel_attrs) beside these
+DQ_REGS_BY_INSTANCE = {(64, 64): 127, (64, 128): 197,
+                       (128, 64): 161, (128, 128): 227}
 DKV_BLK_Q_INSTANCES = (32, 64)
 DKV_BLK_KV = 64
 MAX_CLUSTER = 8
@@ -110,13 +125,32 @@ class FlashBlockConfig:
 
 # the backward's blocks before clamping to the shape, one pair a kernel,
 # picked from the compiled registers and spills (nvcc 12.8 for sm_90a;
-# chip_smoke.py prints them). dq keeps the first port's pick: at Hd 128
-# it takes 242 registers, no spill, with 64-row kv steps, so 32 query rows
-# a CTA (64 threads) stepping 64 kv rows. dkv: 64 kv rows a CTA (one
-# consumer warpgroup holding dk and dv, 128 f32 a thread at Hd 128)
-# stepping 64 query rows a stage.
-DQ_BLOCKS = FlashBlockConfig("bwd-dq", 32, 64)
+# chip_smoke.py prints them). dq: 64 q rows a CTA (one warpgroup holding
+# dq, 64 f32 a thread at Hd 128) stepping 64 kv rows, two CTAs an SM.
+# dkv: 64 kv rows a CTA (one warpgroup holding dk and dv, 128 f32 a
+# thread at Hd 128) stepping 64 query rows a stage.
+DQ_BLOCKS = FlashBlockConfig("bwd-dq", DQ_BLK_Q, 64)
 DKV_BLOCKS = FlashBlockConfig("bwd-dkv", 64, DKV_BLK_KV)
+
+
+def dq_smem_bytes(hd: int, blk_kv: int) -> int:
+    """Dynamic shared memory a dq CTA asks for: the q and dout tiles, the
+    DQ_STAGES-stage ring of one K and one V tile (bf16, 128-byte
+    swizzled, unpadded), the lse and delta rows (f32), the mbarriers and
+    the slack to align the tiles to SMEM_ALIGN."""
+    tiles = (2 * DQ_BLK_Q + DQ_STAGES * 2 * blk_kv) * hd * 2
+    return tiles + 2 * DQ_BLK_Q * 4 + 64 + SMEM_ALIGN
+
+
+def dq_resident_ctas(hd: int, blk_kv: int, spec=None) -> int:
+    """dq CTAs of (hd, blk_kv) one SM holds at once: the fewest its
+    shared memory, its registers (DQ_REGS_BY_INSTANCE, allocated in 8s)
+    and the launch bounds (2) allow."""
+    spec = spec or DEFAULT_SPEC
+    regs = -(-DQ_REGS_BY_INSTANCE.get((hd, blk_kv), 256) // 8) * 8
+    by_regs = spec.regs_per_sm // (DQ_THREADS * regs)
+    by_smem = spec.smem_per_sm // (dq_smem_bytes(hd, blk_kv) + 1024)
+    return min(2, by_regs, by_smem)
 
 
 def div_clamp(blk: int, s: int) -> int:
@@ -155,19 +189,22 @@ def _check_tiles(sq: int, skv: int, cfg: FlashBlockConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    cfg: FlashBlockConfig, causal: bool = True
+                    cfg: FlashBlockConfig, causal: bool = True,
+                    scale: Optional[float] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's arithmetic in torch, f32: for every query row, the
     online softmax over kv blocks of cfg.blk_kv in order (m, corr, l, acc
     as flash.py:61-70), then out = acc / max(l, 1e-30) in q's dtype and
     lse = m + log(max(l, 1e-30)). All q rows run at once; a kv block
     above a row's diagonal contributes exactly nothing (p = 0, corr = 1),
-    so this equals skipping it as the kernel does. Any Hd and dtype.
-    Returns (out (B, Sq, H, Hd), lse (B*H, Sq) f32)."""
+    so this equals skipping it as the kernel does. Any Hd and dtype; the
+    softmax scale is hd ** -0.5 unless `scale` is given (a zero-padded
+    head dim keeps its true one). Returns (out (B, Sq, H, Hd), lse (B*H,
+    Sq) f32)."""
     b, sq, h, kvh, skv, hd = _check_shapes(q, k, v)
     _check_tiles(sq, skv, cfg)
     g = h // kvh
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     # (B, KvH, G, Sq, Hd): head h = kvh_index * G + g, as the kernel maps it
     qf = q.float().permute(0, 2, 1, 3).reshape(b, kvh, g, sq, hd)
     acc = torch.zeros_like(qf)
@@ -192,6 +229,24 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = (acc / den).to(q.dtype)
     lse = (m + torch.log(den)).reshape(b * h, sq)
     return out.reshape(b, h, sq, hd).permute(0, 2, 1, 3), lse
+
+
+# ---------------------------------------------------------------------------
+# head dims without an instance: zero-padded to one
+# ---------------------------------------------------------------------------
+
+def run_head_dim(hd: int) -> int:
+    """The compiled head dim a call at head dim `hd` launches: hd itself,
+    or the instance PAD_HEAD_DIM pads it to."""
+    return PAD_HEAD_DIM.get(hd, hd)
+
+
+def pad_head_dim(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """x (B, S, heads, Hd) with its last axis zero-padded to hd columns
+    (x itself when it has hd already)."""
+    if x.shape[-1] == hd:
+        return x
+    return torch.nn.functional.pad(x, (0, hd - x.shape[-1]))
 
 
 # ---------------------------------------------------------------------------
@@ -253,18 +308,21 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               cfg: FlashBlockConfig, causal: bool = True
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal (or full) GQA attention forward: the CUDA kernel for CUDA
-    tensors (raises if it cannot launch), the plain version for CPU ones.
-    Returns (out (B, Sq, H, Hd), lse (B*H, Sq) f32)."""
+    tensors (raises if it cannot launch; a head dim in PAD_HEAD_DIM runs
+    zero-padded), the plain version for CPU ones. Returns (out (B, Sq, H,
+    Hd), lse (B*H, Sq) f32)."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, cfg, causal)
     b, sq, h, kvh, skv, hd = _check_shapes(q, k, v)
     _check_tiles(sq, skv, cfg)
-    _check_launchable(q, k, v, cfg, hd)
-    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    hd_run = run_head_dim(hd)
+    q, k, v = (pad_head_dim(x, hd_run) for x in (q, k, v))
+    _check_launchable(q, k, v, cfg, hd_run)
+    out = torch.empty((b, sq, h, hd_run), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = _lib().flash_fwd_launch(
-            hd, cfg.blk_q, cfg.blk_kv, int(causal),
+            hd_run, cfg.blk_q, cfg.blk_kv, int(causal),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, kvh, sq, skv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -273,6 +331,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_fwd launch failed with CUDA error {rc} "
                            f"for {cfg} at q {tuple(q.shape)}")
     flash_fwd.launches += 1
+    if hd_run != hd:
+        out = out[..., :hd].contiguous()
     return out, lse
 
 
@@ -321,16 +381,18 @@ def _planar_groups(x: torch.Tensor, kvh: int) -> torch.Tensor:
 
 
 def flash_bwd_dq_plain(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
-                       causal: bool = True) -> torch.Tensor:
+                       causal: bool = True,
+                       scale: Optional[float] = None) -> torch.Tensor:
     """dq of `_bwd_dq_kernel` in torch, f32: for every query row, over kv
     blocks of cfg.blk_kv in order, p = exp(q k^T * scale - lse) (the
     causal mask as NEG_INF before the exp), ds = p * (dout v^T - delta) *
     scale, dq += ds k; cast once to q's dtype. A kv block above a row's
     diagonal contributes exactly 0, so this equals skipping it as the
-    kernel does. Returns dq (B, Sq, H, Hd)."""
+    kernel does. scale: hd ** -0.5 unless given. Returns dq (B, Sq, H,
+    Hd)."""
     b, sq, h, kvh, skv, hd = _bwd_setup(q, k, v, dout, lse, delta, cfg)
     g = h // kvh
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     qf, of = _planar_groups(q, kvh), _planar_groups(dout, kvh)
     lse_r = lse.reshape(b, kvh, g, sq, 1)
     dd = delta.reshape(b, kvh, g, sq, 1)
@@ -351,17 +413,18 @@ def flash_bwd_dq_plain(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
 
 
 def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
-                        causal: bool = True
+                        causal: bool = True, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk, dv of `_bwd_dkv_kernel` and the group sum after it
     (flash.py:296-306) in torch, f32: for every q head, over q blocks of
     cfg.blk_q in order, dv_h += p^T dout and dk_h += ds^T q (the JAX
     per-q-head partials); then each kv head's dk = dk_h0 + dk_h1 + ... in
     q-head order, as the kernel's fixed-order group sum; cast once to k's
-    dtype. Returns (dk, dv), each (B, Skv, KvH, Hd)."""
+    dtype. scale: hd ** -0.5 unless given. Returns (dk, dv), each (B, Skv,
+    KvH, Hd)."""
     b, sq, h, kvh, skv, hd = _bwd_setup(q, k, v, dout, lse, delta, cfg)
     g = h // kvh
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     qf, of = _planar_groups(q, kvh), _planar_groups(dout, kvh)
     kf = k.float().permute(0, 2, 1, 3)                   # (B, KvH, Skv, Hd)
     vf = v.float().permute(0, 2, 1, 3)
@@ -417,23 +480,19 @@ def _check_bwd_launchable(kernel: str, q, k, v, dout, lse, delta, hd: int,
     _check_operands(hd, q=q, k=k, v=v, dout=dout)
     if not (lse.is_contiguous() and delta.is_contiguous()):
         raise ValueError("lse and delta must be contiguous")
+    if lse.data_ptr() % 16 or delta.data_ptr() % 16:
+        raise ValueError("lse and delta must start on 16-byte boundaries")
     if kernel == "dq":
-        if cfg.blk_kv not in DQ_BLK_KV_INSTANCES:
-            raise ValueError(f"{cfg}: dq's blk_kv not compiled "
-                             f"(have {DQ_BLK_KV_INSTANCES})")
-        if cfg.blk_q % 16 or not 16 <= cfg.blk_q <= MAX_DQ_BLK_Q:
-            raise ValueError(f"{cfg}: dq's blk_q must be a multiple of 16 "
-                             f"up to {MAX_DQ_BLK_Q}")
-        smem = (2 * cfg.blk_q + 2 * cfg.blk_kv) * (hd + DQ_SMEM_PAD) * 2
-        if smem > SMEM_PER_BLOCK:
-            raise ValueError(f"{cfg}: {smem} B of shared memory > "
-                             f"{SMEM_PER_BLOCK}")
+        if cfg.blk_q != DQ_BLK_Q or cfg.blk_kv not in DQ_BLK_KV_INSTANCES:
+            raise ValueError(f"{cfg}: dq takes blk_q {DQ_BLK_Q} and blk_kv "
+                             f"in {DQ_BLK_KV_INSTANCES}")
+        if dq_smem_bytes(hd, cfg.blk_kv) > SMEM_PER_BLOCK:
+            raise ValueError(f"{cfg}: {dq_smem_bytes(hd, cfg.blk_kv)} B of "
+                             f"shared memory > {SMEM_PER_BLOCK}")
         return
     if cfg.blk_q not in DKV_BLK_Q_INSTANCES or cfg.blk_kv != DKV_BLK_KV:
         raise ValueError(f"{cfg}: dkv takes blk_q in {DKV_BLK_Q_INSTANCES} "
                          f"and blk_kv {DKV_BLK_KV}")
-    if lse.data_ptr() % 16 or delta.data_ptr() % 16:
-        raise ValueError("lse and delta must start on 16-byte boundaries")
 
 
 def _bwd_args(q, k, v, dout):
@@ -444,16 +503,19 @@ def _bwd_args(q, k, v, dout):
 def flash_bwd_dq(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
                  causal: bool = True) -> torch.Tensor:
     """dq (B, Sq, H, Hd): the CUDA kernel for CUDA tensors (raises if it
-    cannot launch; blk_q query rows a CTA, blk_kv kv rows a step), the
-    plain version for CPU ones."""
+    cannot launch; blk_q = 64 query rows a CTA, blk_kv kv rows a ring
+    stage; a head dim in PAD_HEAD_DIM runs zero-padded), the plain version
+    for CPU ones."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, dout, lse, delta, cfg, causal)
     b, sq, h, kvh, skv, hd = _bwd_setup(q, k, v, dout, lse, delta, cfg)
-    _check_bwd_launchable("dq", q, k, v, dout, lse, delta, hd, cfg)
-    dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    hd_run = run_head_dim(hd)
+    q, k, v, dout = (pad_head_dim(x, hd_run) for x in (q, k, v, dout))
+    _check_bwd_launchable("dq", q, k, v, dout, lse, delta, hd_run, cfg)
+    dq = torch.empty((b, sq, h, hd_run), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         rc = _bwd_lib().flash_bwd_dq_launch(
-            hd, cfg.blk_q, cfg.blk_kv, int(causal), q.data_ptr(),
+            hd_run, cfg.blk_q, cfg.blk_kv, int(causal), q.data_ptr(),
             k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), b, h, kvh, sq, skv,
             *_bwd_args(q, k, v, dout), hd ** -0.5,
@@ -462,7 +524,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
         raise RuntimeError(f"flash_bwd_dq launch failed with CUDA error {rc} "
                            f"for {cfg} at q {tuple(q.shape)}")
     flash_bwd_dq.launches += 1
-    return dq
+    return dq if hd_run == hd else dq[..., :hd].contiguous()
 
 
 flash_bwd_dq.launches = 0
@@ -475,18 +537,20 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
     cannot launch; blk_kv = 64 kv rows of one q head a CTA, blk_q query
     rows a stage; a group of more than MAX_CLUSTER q heads goes through
     (2, B, Skv, H, Hd) f32 partials allocated here), the plain version for
-    CPU ones."""
+    CPU ones; a head dim in PAD_HEAD_DIM runs zero-padded."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, cfg, causal)
     b, sq, h, kvh, skv, hd = _bwd_setup(q, k, v, dout, lse, delta, cfg)
-    _check_bwd_launchable("dkv", q, k, v, dout, lse, delta, hd, cfg)
-    dk = torch.empty((b, skv, kvh, hd), dtype=k.dtype, device=k.device)
+    hd_run = run_head_dim(hd)
+    q, k, v, dout = (pad_head_dim(x, hd_run) for x in (q, k, v, dout))
+    _check_bwd_launchable("dkv", q, k, v, dout, lse, delta, hd_run, cfg)
+    dk = torch.empty((b, skv, kvh, hd_run), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    part = (torch.empty((2, b, skv, h, hd), dtype=torch.float32,
+    part = (torch.empty((2, b, skv, h, hd_run), dtype=torch.float32,
                         device=q.device) if h // kvh > MAX_CLUSTER else None)
     with torch.cuda.device(q.device):
         rc = _bwd_lib().flash_bwd_dkv_launch(
-            hd, cfg.blk_q, cfg.blk_kv, int(causal), q.data_ptr(),
+            hd_run, cfg.blk_q, cfg.blk_kv, int(causal), q.data_ptr(),
             k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if part is None else part.data_ptr(), b, h, kvh, sq,
@@ -496,6 +560,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, cfg: FlashBlockConfig,
         raise RuntimeError(f"flash_bwd_dkv launch failed with CUDA error "
                            f"{rc} for {cfg} at q {tuple(q.shape)}")
     flash_bwd_dkv.launches += 1
+    if hd_run != hd:
+        dk, dv = dk[..., :hd].contiguous(), dv[..., :hd].contiguous()
     return dk, dv
 
 

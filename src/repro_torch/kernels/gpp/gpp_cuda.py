@@ -37,8 +37,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gpp import variants
-from repro_torch.kernels.gpp.problem import GppSize
+from repro_torch.kernels.gpp.problem import (LIMITONE, LIMITTWO, TOL_ZERO,
+                                             GppSize)
 
 SMEM_PER_BLOCK = 232_448          # Hopper opt-in dynamic shared memory
 REGS_PER_THREAD = 255
@@ -48,10 +48,14 @@ NW_INSTANCES = (2,)               # nw values compiled in gpp.cu
 RED_SMEM_BYTES = 32 * 4 * 4       # static block-reduction scratch, per nw
 REGS_PER_SM = 65_536
 # registers a thread of each compiled instance, by elements a thread owns
-# (the larger of the two aqsm layouts), as nvcc -O3 lays out gpp.cu for
-# sm_90a: chip_smoke.py prints the compiled counts (kernel_attrs) beside
-# these, and the launcher checks the compiled count before each launch
-REGS_BY_EPT = {1: 56, 2: 80, 4: 108, 8: 188}
+# (the most of its fused/banded and aqsm-layout instances), as nvcc -O3
+# (12.8) lays out gpp.cu for sm_90a: chip_smoke.py prints the compiled
+# counts (kernel_attrs) beside these, and the launcher checks the compiled
+# count before each launch
+REGS_BY_EPT = {1: 54, 2: 77, 4: 96, 8: 176}
+# IEEE reciprocals one (ig, igp, band, iw) term of csrc/gpp.cu takes (the
+# SASS census divides the band loop's MUFU.RCP by it)
+RECIPROCALS_PER_TERM = 2
 
 @dataclasses.dataclass(frozen=True)
 class BlockConfig:
@@ -146,20 +150,71 @@ def _size(t: Dict[str, torch.Tensor]) -> GppSize:
 # plain versions (torch): the kernels' block decomposition, same partials
 # ---------------------------------------------------------------------------
 
+def hoisted(t: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The (ncouls, ngpown) planes csrc/gpp.cu's Elem holds for a whole
+    band sweep: wtilde, eps, vcoul (as a column), wt2 = wtilde^2, om2 =
+    wt2 eps, and the term's own band invariants wt_im^2, wt_re wt_im,
+    wt2_im^2 and 4 wt2."""
+    wt_re, wt_im = t["wtilde_re"], t["wtilde_im"]
+    eps_re, eps_im = t["eps_re"], t["eps_im"]
+    wt2_re = wt_re * wt_re - wt_im * wt_im
+    wt2_im = 2.0 * wt_re * wt_im
+    return {"wt_re": wt_re, "wt_im": wt_im, "eps_re": eps_re,
+            "eps_im": eps_im, "vc": t["vcoul"][:, None],
+            "wt2_re": wt2_re, "wt2_im": wt2_im,
+            "om2_re": wt2_re * eps_re - wt2_im * eps_im,
+            "om2_im": wt2_re * eps_im + wt2_im * eps_re,
+            "wt_im_sq": wt_im * wt_im, "wt_re_im": wt_re * wt_im,
+            "wt2_im_sq": wt2_im * wt2_im,
+            "wt2x4_re": 4.0 * wt2_re, "wt2x4_im": 4.0 * wt2_im}
+
+
+def term_planes(wxv, e: Dict[str, torch.Tensor]):
+    """csrc/gpp.cu's term() for one (band, iw) value wxv over every
+    element's planes `e` (`hoisted`), in its order: the branch's
+    numerator, denominator and |denominator|^2 chosen before the one
+    reciprocal, the band invariants taken from `e`. The same function as
+    pallas_gpp.py:140-177 (the c2sq == 0 -> 1 guard, cond1 and cond2 as
+    written). Returns (sch_re, sch_im, ssx_re, ssx_im)."""
+    wd_re = wxv - e["wt_re"]
+    wdiffr = wd_re * wd_re + e["wt_im_sq"]
+    rden = 1.0 / wdiffr
+    delw_re = (e["wt_re"] * wd_re - e["wt_im_sq"]) * rden
+    delw_im = (e["wt_im"] * wd_re + e["wt_re_im"]) * rden
+    delwr = delw_re * delw_re + delw_im * delw_im
+    cond1 = (wdiffr > LIMITTWO) & (delwr < LIMITONE)
+    keep = cond1 | (delwr > TOL_ZERO)
+    zero = torch.zeros((), dtype=wdiffr.dtype, device=wdiffr.device)
+    sch_re = torch.where(cond1, delw_re * e["eps_re"] - delw_im * e["eps_im"],
+                         zero)
+    sch_im = torch.where(cond1, delw_re * e["eps_im"] + delw_im * e["eps_re"],
+                         zero)
+    cden1_re = wxv * wxv - e["wt2_re"]
+    c1sq = cden1_re * cden1_re + e["wt2_im_sq"]
+    dh = delw_re + 0.5
+    cd2_re = e["wt2x4_re"] * dh - e["wt2x4_im"] * delw_im
+    cd2_im = e["wt2x4_re"] * delw_im + e["wt2x4_im"] * dh
+    c2sq = cd2_re * cd2_re + cd2_im * cd2_im
+    c2sq = torch.where(c2sq == 0, 1.0, c2sq)
+    n2_re = -(e["om2_re"] * delw_re - e["om2_im"] * delw_im)
+    n2_im = -(e["om2_re"] * delw_im + e["om2_im"] * delw_re)
+    num_re = torch.where(cond1, e["om2_re"], n2_re)
+    num_im = torch.where(cond1, e["om2_im"], n2_im)
+    den_re = torch.where(cond1, cden1_re, cd2_re)
+    den_im = torch.where(cond1, -e["wt2_im"], cd2_im)
+    r = 1.0 / torch.where(cond1, c1sq, c2sq)
+    ssx_re = torch.where(keep, (num_re * den_re + num_im * den_im) * r, zero)
+    ssx_im = torch.where(keep, (num_im * den_re - num_re * den_im) * r, zero)
+    return sch_re, sch_im, ssx_re, ssx_im
+
+
 def _plain_partials(t: Dict[str, torch.Tensor], cfg: BlockConfig,
                     banded: bool) -> torch.Tensor:
     size = _size(t)
     n_igp, n_ig, n_b = check_tiles(size, cfg)
-    wt_re, wt_im = t["wtilde_re"], t["wtilde_im"]
-    eps_re, eps_im = t["eps_re"], t["eps_im"]
-    vcoul = t["vcoul"][:, None]
-    wt2_re = wt_re * wt_re - wt_im * wt_im
-    wt2_im = 2.0 * wt_re * wt_im
-    om2_re = wt2_re * eps_re - wt2_im * eps_im
-    om2_im = wt2_re * eps_im + wt2_im * eps_re
-
+    e = hoisted(t)
     out = torch.zeros((n_igp, n_ig, n_b if banded else 1, 4, size.nw),
-                      dtype=wt_re.dtype, device=wt_re.device)
+                      dtype=e["wt_re"].dtype, device=e["wt_re"].device)
 
     def tile_sums(plane):              # (ncouls, ngpown) -> (n_igp, n_ig)
         return plane.reshape(n_ig, cfg.blk_ig, n_igp, cfg.blk_igp
@@ -168,14 +223,11 @@ def _plain_partials(t: Dict[str, torch.Tensor], cfg: BlockConfig,
     for b in range(size.nbands):
         an_re, an_im = t["aqsn_re"][:, b, None], t["aqsn_im"][:, b, None]
         am_re, am_im = t["aqsm_re"][None, :, b], t["aqsm_im"][None, :, b]
-        wre = vcoul * (an_re * am_re + an_im * am_im)
-        wim = vcoul * (an_im * am_re - an_re * am_im)
+        wre = e["vc"] * (an_re * am_re + an_im * am_im)
+        wim = e["vc"] * (an_im * am_re - an_re * am_im)
         slot = b // cfg.blk_band if banded else 0
         for iw in range(size.nw):
-            sch_re, sch_im, ssx_re, ssx_im = variants._body(
-                t["wx"][iw, b], wt_re, wt_im, eps_re, eps_im,
-                wt2_re, wt2_im, om2_re, om2_im,
-                use_div=False, use_abs=False, three_way=False)
+            sch_re, sch_im, ssx_re, ssx_im = term_planes(t["wx"][iw, b], e)
             for q, plane in enumerate((wre * sch_re - wim * sch_im,
                                        wre * sch_im + wim * sch_re,
                                        wre * ssx_re - wim * ssx_im,
@@ -203,14 +255,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("gpp.cu")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from gpp.cu."""
     lib.gpp_launch.argtypes = [_I] * 5 + [_P] * 11 + [_I] * 6 + [_P]
     lib.gpp_launch.restype = _I
     lib.gpp_func_attrs.argtypes = [_I] * 4 + [ctypes.POINTER(_I)] * 2
     lib.gpp_func_attrs.restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load("gpp.cu"))
 
 
 def _check_launchable(t: Dict[str, torch.Tensor], cfg: BlockConfig,

@@ -289,6 +289,7 @@ def build_model(cfg: ModelConfig) -> Model:
         table = params["embed"].T if cfg.tie_embeddings else params["head"]
         return lm_logits(x, table)
 
+    @backend.f32_accumulation()
     def loss_fn(params, batch):
         """(total, {"loss", "aux", "ntokens"}) of batch["tokens"] (B, S)
         against batch["labels"] (B, S): the mean over labels >= 0 of the
@@ -335,6 +336,7 @@ def build_model(cfg: ModelConfig) -> Model:
         total = loss + cfg.router_aux_coef * aux
         return total, {"loss": loss, "aux": aux, "ntokens": ntok}
 
+    @backend.f32_accumulation()
     @torch.no_grad()
     def prefill(params, batch, *, last_index=None):
         """Full forward; returns (last-token logits (B,1,V) f32, cache).
@@ -382,6 +384,7 @@ def build_model(cfg: ModelConfig) -> Model:
             last = x.index_select(1, idx)
         return _logits(params, last), cache
 
+    @backend.f32_accumulation()
     @torch.no_grad()
     def decode_step(params, cache: Cache, tokens):
         """tokens: (B, 1). Returns (logits (B,1,V) f32, cache): k/v (and
@@ -393,6 +396,7 @@ def build_model(cfg: ModelConfig) -> Model:
         x, cache = stack(cfg, params["layers"], x, cache)
         return _logits(params, x), cache
 
+    @backend.f32_accumulation()
     @torch.no_grad()
     def prefill_into_slot(params, cache: Cache, slot, batch, prompt_len):
         """Prefill ONE request (batch row of size 1) and overwrite `slot`'s

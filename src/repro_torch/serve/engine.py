@@ -345,6 +345,7 @@ class ServeEngine:
         self._slots[i] = None
         return s.rid
 
+    @backend.f32_accumulation()
     def step(self) -> StepReport:
         """One scheduler round: refill every free slot from the queue
         (each free slot index gets at most one admission attempt per

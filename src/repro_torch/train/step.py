@@ -20,6 +20,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch import backend
 from repro_torch.models.registry import Model
 from repro_torch.optim.adafactor import make_optimizer
 from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
@@ -52,6 +53,7 @@ def build_train_step(model: Model, *, optimizer_name: str = None,
         return (total.detach(), {k: v.detach() for k, v in metrics.items()},
                 tree_unflatten(params, grads))
 
+    @backend.f32_accumulation()
     def train_step(params, opt_state, batch):
         if microbatches > 1:
             n = microbatches

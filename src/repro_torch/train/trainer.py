@@ -82,6 +82,7 @@ class Trainer:
 
     # ------------------------------------------------------------------ run
 
+    @backend.f32_accumulation()
     def run(self, *, verbose: bool = True) -> Dict[str, Any]:
         loop = self.loop
 

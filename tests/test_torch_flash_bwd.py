@@ -211,8 +211,9 @@ def test_backward_bounds_and_config():
                                              flash_cuda.DQ_BLOCKS.blk_kv)
     assert (dkv_cfg.blk_q, dkv_cfg.blk_kv) == (flash_cuda.DKV_BLOCKS.blk_q,
                                                flash_cuda.DKV_BLOCKS.blk_kv)
+    assert dq_cfg.blk_q == flash_cuda.DQ_BLK_Q
     assert dq_cfg.blk_kv in flash_cuda.DQ_BLK_KV_INSTANCES
     assert dkv_cfg.blk_q in flash_cuda.DKV_BLK_Q_INSTANCES
     assert dkv_cfg.blk_kv == flash_cuda.DKV_BLK_KV
     small_dq, small_dkv = flash_cuda.bwd_configs(48, 48)     # clamped to tile
-    assert (small_dq.blk_q, small_dkv.blk_kv) == (24, 48)
+    assert (small_dq.blk_q, small_dkv.blk_kv) == (48, 48)

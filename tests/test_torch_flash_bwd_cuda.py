@@ -1,9 +1,11 @@
 """The port's flash-attention backward kernels on a card: flash_bwd_dq and
 flash_bwd_dkv against their plain versions across the compiled instances
-(Hd 64 and 128; dq's blk_kv and dkv's blk_q 32 and 64), with GQA groups
-1, 2, 3, 6 and 16 (the last through dkv's f32 partials), causal and
-non-causal, blk_q != blk_kv, and a strided dout; the FlashAttention
-gradient against autograd through the f32 oracle; the wrapper's refusals.
+(Hd 64 and 128, and Hd 32 zero-padded to 64; dq's blk_kv 64 and 128, dkv's
+blk_q 32 and 64), with GQA groups 1, 2, 3, 6 and 16 (the last through
+dkv's f32 partials), causal and non-causal, blk_q != blk_kv, and a strided
+dout; dq bit-equal over two launches at the shapes chip_smoke.py's phase
+7b checks; the FlashAttention gradient against autograd through the f32
+oracle; the wrapper's refusals.
 Every test here needs a CUDA card with sm_90a and skips without one; the
 file imports nothing of jax, so it runs on a machine with the card and
 PyTorch alone:
@@ -63,13 +65,15 @@ def _close(got, want):
 
 # b, s, h, kvh, hd, dq's (blk_q, blk_kv), dkv's (blk_q, blk_kv), causal
 CARD_CASES = [(1, 512, 12, 2, 128, (64, 64), (64, 64), True),   # training heads
-              (2, 256, 12, 2, 128, (32, 64), (32, 64), True),
-              (1, 256, 32, 32, 128, (64, 32), (64, 64), True),  # MHA
+              (2, 256, 12, 2, 128, (64, 128), (32, 64), True),
+              (1, 256, 32, 32, 128, (64, 64), (64, 64), True),  # MHA
               (2, 128, 4, 2, 64, (64, 64), (64, 64), True),
-              (1, 256, 6, 1, 64, (32, 32), (32, 64), True),
+              (1, 256, 6, 1, 64, (64, 128), (32, 64), True),
               (1, 256, 12, 2, 128, (64, 64), (64, 64), False),
-              (1, 256, 24, 8, 128, (32, 64), (64, 64), True),   # group 3
-              (1, 256, 16, 1, 128, (32, 64), (32, 64), True)]   # group 16
+              (1, 256, 24, 8, 128, (64, 64), (64, 64), True),   # group 3
+              (1, 256, 16, 1, 128, (64, 64), (32, 64), True),   # group 16
+              (2, 256, 4, 2, 32, (64, 64), (64, 64), True),     # Hd 32, padded
+              (1, 256, 4, 4, 32, (64, 128), (32, 64), False)]
 
 
 @pytest.mark.cuda
@@ -98,10 +102,10 @@ def test_bwd_kernels_match_plain_on_card(cuda, b, s, h, kvh, hd, dq_blocks,
 
 @pytest.mark.cuda
 def test_outer_block_128(cuda):
-    """dq's outer block at its largest, 128 query rows a CTA (256
-    threads), beside dkv's default blocks."""
+    """dq's kv block at its largest, 128 kv rows a ring stage, beside
+    dkv's default blocks."""
     q, k, v, do, lse, delta = _inputs(cuda, 1, 512, 12, 2, 128, True, seed=2)
-    cfg_dq = flash_cuda.FlashBlockConfig("t", 128, 64)
+    cfg_dq = flash_cuda.FlashBlockConfig("t", 64, 128)
     cfg_dkv = flash_cuda.DKV_BLOCKS
     dq = flash_cuda.flash_bwd_dq(q, k, v, do, lse, delta, cfg_dq)
     dk, dv = flash_cuda.flash_bwd_dkv(q, k, v, do, lse, delta, cfg_dkv)
@@ -157,7 +161,10 @@ def test_bwd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
                                 lse, delta, cfg)
     with pytest.raises(ValueError):          # dq's inner block not compiled
         flash_cuda.flash_bwd_dq(q, k, v, do, lse, delta,
-                                flash_cuda.FlashBlockConfig("t", 64, 128))
+                                flash_cuda.FlashBlockConfig("t", 64, 32))
+    with pytest.raises(ValueError):          # dq takes 64 q rows a CTA
+        flash_cuda.flash_bwd_dq(q, k, v, do, lse, delta,
+                                flash_cuda.FlashBlockConfig("t", 32, 64))
     with pytest.raises(ValueError):          # dkv's inner block not compiled
         flash_cuda.flash_bwd_dkv(q, k, v, do, lse, delta,
                                  flash_cuda.FlashBlockConfig("t", 128, 64))
@@ -169,3 +176,31 @@ def test_bwd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     q96, k96, v96, do96, lse96, d96 = _inputs(cuda, 1, 256, 4, 2, 96, True)
     with pytest.raises(ValueError):          # head_dim not compiled
         flash_cuda.flash_bwd_dq(q96, k96, v96, do96, lse96, d96, cfg)
+
+
+# phase 7b's op-level cases: b, s, h, kvh, hd, causal
+DQ_CASES = [(8, 512, 12, 2, 128, True),      # the training shape
+            (1, 4096, 12, 2, 128, True),
+            (1, 512, 32, 32, 128, True),     # MHA
+            (1, 512, 24, 8, 128, True),      # group 3
+            (1, 512, 16, 1, 128, True),      # group 16
+            (1, 512, 12, 2, 128, False),     # non-causal
+            (1, 512, 12, 2, 64, True),       # Hd 64
+            (1, 512, 12, 2, 32, True)]       # Hd 32, padded to 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kvh,hd,causal", DQ_CASES)
+def test_dq_bit_equal_over_two_launches(cuda, b, s, h, kvh, hd, causal):
+    """The wgmma dq kernel under the backward's default blocks: within one
+    bf16 ulp at the largest element of its plain version, and the same
+    bits from two launches (no sum crosses CTAs)."""
+    q, k, v, do, lse, delta = _inputs(cuda, b, s, h, kvh, hd, causal, seed=4)
+    cfg, _ = flash_cuda.bwd_configs(s, s)
+    dq1 = flash_cuda.flash_bwd_dq(q, k, v, do, lse, delta, cfg, causal)
+    dq2 = flash_cuda.flash_bwd_dq(q, k, v, do, lse, delta, cfg, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(dq1, dq2)
+    assert dq1.shape == q.shape and torch.isfinite(dq1.float()).all()
+    assert _close(dq1, flash_cuda.flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                     cfg, causal))

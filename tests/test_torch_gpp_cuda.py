@@ -43,6 +43,12 @@ CARD_CASES = [
     ("gpp_banded", gpp_cuda.V6, SMALL_ODD),             # ngpown=4
     ("gpp_fused", gpp_cuda.BlockConfig("odd", 8, 32, 4, True, True, 96),
      problem.BENCH),                                    # threads not a divisor
+    # the rewritten term (one reciprocal chosen before it is taken) under
+    # the config dispatch tunes to at Si-214, and at 4 elements a thread
+    ("gpp_fused", gpp_cuda.BlockConfig("tuned", 16, 32, 128, True, True, 512),
+     problem.BENCH),
+    ("gpp_fused", gpp_cuda.BlockConfig("ept4", 32, 64, 16, True, True, 512),
+     problem.BENCH),
 ]
 
 

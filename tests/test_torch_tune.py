@@ -76,10 +76,11 @@ def test_model_terms():
         assert gpu_model.wave_quantisation(s, cfg) >= 1.0
         compute, memory = gpu_model.step_terms(s, cfg)
         assert compute > memory          # compute-bound at Si-214
-    # the issue roof: ~71 instructions a term over SMs x 128 lanes x clock
+    # the issue roof: the SASS census's instructions a term (89.5) over SMs
+    # x 128 lanes x clock
     issue = s.inner_iters * gpu_model.INSTR_PER_TERM / \
         hw.H100_SXM5.fp32_lane_ops_per_s
-    assert 0.030 < issue < 0.040
+    assert 0.040 < issue < 0.050
     assert issue <= gpu_model.step_terms(s, gpp_cuda.V9)[0] < 1.02 * issue
     # v7 -> v8 raises the warps a SM holds (registers: 4 elements a thread
     # -> 1); the resident-block count the wave term uses sees it
