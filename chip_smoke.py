@@ -18,7 +18,13 @@ Phases (one line each, more where noted):
      compiled EPT (repro_torch.core.sass): instructions a term (with and
      without the reciprocals' slow-path call stubs), the FMA ratio, and
      the issue and MUFU bounds at Si-214; phase 6 sets the tuned config's
-     issue bound beside the kernel's time;
+     issue bound beside the kernel's time; and the selective scan's step
+     loop: the built ssm_scan.cu library's ssm_scan_kernel<16, S, bf16>
+     (hymba-1.5b's instances, S states a thread) counted per (t, c, n)
+     element, one MUFU.EX2 each: instructions an element by class, the
+     shuffles among them, the FMA ratio, the issue bound at hymba's
+     prefill and at T=4096 on the SMs the grid uses and on all of them,
+     and the MUFU bound;
   3. hold each kernel against its plain version on the card at BENCH and
      Si-214 (gpp_fused at V9, gpp_banded at V6, V7 and V8): partials and
      totals within max-norm relative TOL_PLAIN[size]; at BENCH also the totals
@@ -79,11 +85,15 @@ Phases (one line each, more where noted):
      chunked plain path), both within SERVE_LOGIT_RTOL; the kernels line.
   7c. ssm_scan at op level: the kernel against ssm_scan_plain on the card
      (y within SSM_RTOL of the largest |y|, hT within SSM_RTOL of the
-     largest |hT|) at hymba-1.5b's prefill (B=1, T=1152, C=3200, N=16),
-     T=4096, B=4 x T=256, a small N=8 shape with a ragged time tile, and
-     the prefill shape with a nonzero h0; the kernel's and the plain
-     version's ms and the bound (no PyTorch call computes the scan); at
-     the prefill shape every blk_c of the config space, modeled and timed;
+     largest |hT|) and bit-equal over two launches at hymba-1.5b's prefill
+     (B=1, T=1152, C=3200, N=16), T=4096, B=4 x T=256, a small N=8 shape
+     with a ragged time tile, and the prefill shape with a nonzero h0;
+     the distance of y and hT from a float64 run of the plain version on
+     the same inputs (the plain f32 version's beside it); the kernel's
+     call and device (CUDA graph) ms, the plain version's ms and the
+     bound (no PyTorch call computes the scan); at the prefill shape and
+     T=4096 every config of the space, modeled beside its device ms, the
+     model's pick against the measured best;
   10. training, the third slice's path: Trainer(...).run() on qwen2-1.5b
      at full width and depth (remat "full", AdamW, flash on), the
      TrainLoopConfig defaults (seq_len 512, global_batch 8), 4 steps,
@@ -202,6 +212,12 @@ SSM_RTOL = 1e-5
 # and a multiple of 64 (the chunked comparison then really chunks)
 HYBRID_LONG_PROMPT = 1152
 HYBRID_CACHE_LEN = 2048
+# phase 7c's cases: (tag, B, T, C, N, h0 scale); inputs from seed 10 + index
+SSM_CASES = (("hymba-prefill", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.0),
+             ("t4096", 1, 4096, 3200, 16, 0.0),
+             ("b4-t256", 4, 256, 3200, 16, 0.0),
+             ("small-n8", 2, 100, 48, 8, 0.1),
+             ("hymba-prefill-h0", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.1))
 
 
 def fail(msg: str) -> None:
@@ -354,13 +370,15 @@ def main() -> None:
           f"once (cudaOccupancyMaxActiveClusters): {clusters}", flush=True)
     sm90_line = sm90_checks(torch, dev)
     print(f"[2] sm90.cuh helpers alone: {sm90_line}", flush=True)
-    sattrs = {f"n{n}/{'bf16' if bf else 'f32'}": ssm_cuda.kernel_attrs(n, bf)
-              for n in ssm_cuda.N_INSTANCES for bf in (False, True)}
-    print(f"[2] ssm_scan compiled (regs, spill bytes) per instance: {sattrs}",
-          flush=True)
+    sattrs = {f"n{n}/s{st}/{'bf16' if bf else 'f32'}":
+              ssm_cuda.kernel_attrs(n, st, bf)
+              for n, st in ssm_cuda.instances() for bf in (False, True)}
+    print(f"[2] ssm_scan compiled (regs, spill bytes) per instance (N, "
+          f"states a thread, params): {sattrs}", flush=True)
 
-    # -- 2b. GPP's band loop counted from the SASS (the paper's census) -------
+    # -- 2b. GPP's band loop and the scan's step loop counted from the SASS ----
     census = gpp_census(libs["gpp.cu"], spec, card)
+    scan_census = ssm_census(libs["ssm_scan.cu"], spec, card)
 
     # -- 3. each kernel against its plain version ----------------------------
     checks = (("gpp_fused", gpp_cuda.gpp_fused, gpp_cuda.gpp_fused_plain,
@@ -624,10 +642,14 @@ def main() -> None:
         "replaces": "src/repro/kernels/ssm/ssm_scan.py:30",
         "launches": launches["ssm_scan"]["hybrid-serve"],
         "launches_by_path": launches["ssm_scan"],
-        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "shape", "blk_c")},
+        **{k: row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                               "bound_ms", "bound_by", "shape", "blk_c",
+                               "states", "from_float64")},
         "library_ms": None,
         "library_note": "no PyTorch call computes the selective scan",
+        "sass_census": {k: scan_census[row["states"]][k] for k in (
+            "instructions_per_element", "shfl_per_element", "fma_ratio",
+            "mufu_per_element", "bounds")},
         "at_t4096": ssm_rows["t4096"]})
     print(f"[8] serving summary: {json.dumps(serve)} [{card}]", flush=True)
     print(f"[10] training summary: {json.dumps(train)} [{card}]", flush=True)
@@ -694,6 +716,49 @@ def gpp_census(lib_path, spec, card) -> dict:
               f"issue bound {c['issue_bound_ms']:.3f} ms "
               f"({c['fast_path_issue_bound_ms']:.3f} ms on the fast path), "
               f"MUFU bound {c['mufu_bound_ms']:.3f} ms [{card}]", flush=True)
+    return out
+
+
+def ssm_census(lib_path, spec, card) -> dict:
+    """Phase 2b: ssm_scan.cu's built library disassembled; the step loop of
+    every ssm_scan_kernel<16, S, bf16> instance (hymba-1.5b's) counted by
+    class per (t, c, n) element, one MUFU.EX2 each (ssm_cuda.census):
+    instructions an element, shuffles, the FMA ratio, and at hymba's
+    prefill and at T=4096 the issue bound on the SMs the grid of the
+    model's best config at that S uses and on all of them, and the MUFU
+    bound. Returns {states: census}."""
+    from repro_torch.core import sass
+    from repro_torch.kernels.ssm import ssm_cuda
+    from repro_torch.kernels.ssm.kernel_def import SsmKey
+    from repro_torch.tune import tuner
+    text, tool = sass.disassemble(str(lib_path))
+    out = ssm_cuda.census(text)
+    for states, c in sorted(out.items()):
+        c.pop("body")
+        bounds = {}
+        for tag, t in (("hymba-prefill", HYBRID_LONG_PROMPT), ("t4096", 4096)):
+            key = SsmKey(1, t, 3200, 16)
+            cfg = next(cfg for cfg, _ in tuner.rank_kernel(
+                "ssm", key, device="cuda") if cfg.states == states)
+            elems = key.b * key.t * key.c * key.n
+            used = min(spec.sms, key.b * key.c // cfg.blk_c)
+            ipe = c["instructions_per_element"]
+            bounds[tag] = {
+                "blk_c": cfg.blk_c, "sms": used,
+                "issue_ms": sass.issue_bound_s(elems, ipe, spec, used) * 1e3,
+                "issue_ms_all_sms": sass.issue_bound_s(elems, ipe, spec) * 1e3,
+                "mufu_ms": sass.mufu_bound_s(elems, c["mufu_per_element"],
+                                             spec, used) * 1e3}
+        c["bounds"] = bounds
+        per = {k: round(v, 3) for k, v in c["per_element"].items()}
+        print(f"[2b] ssm_scan_kernel<16, S={states}, bf16> step loop ({tool}): "
+              f"{c['loop_instructions']} instructions for "
+              f"{c['elements_per_iteration']} (t, c, n) elements = "
+              f"{c['instructions_per_element']:.3f} an element "
+              f"{json.dumps(per)}, of them SHFL {c['shfl_per_element']:.3f}; "
+              f"FMA ratio {c['fma_ratio']:.3f}; bounds (issue on the grid's "
+              f"SMs and on all {spec.sms}, MUFU): {json.dumps(bounds)} "
+              f"[{card}]", flush=True)
     return out
 
 
@@ -1071,35 +1136,44 @@ def ssm_errors(got, want):
 
 
 def ssm_checks(torch, dev, spec, card, ssm_cuda):
-    """Phase 7c: ssm_scan against ssm_scan_plain; times, bound; at the
-    prefill shape the blk_c sweep. Returns the rows keyed by case."""
+    """Phase 7c: ssm_scan against ssm_scan_plain, bit-equal over two
+    launches, and the distance of both from a float64 run of the plain
+    version on the same inputs; call and device ms, bound; at the prefill
+    and T=4096 the config sweep. Returns the rows keyed by case."""
     from repro_torch.kernels.ssm.kernel_def import SsmKey
     from repro_torch.tune import tuner
-    cases = (("hymba-prefill", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.0),
-             ("t4096", 1, 4096, 3200, 16, 0.0),
-             ("b4-t256", 4, 256, 3200, 16, 0.0),
-             ("small-n8", 2, 100, 48, 8, 0.1),
-             ("hymba-prefill-h0", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.1))
     rows = {}
-    for i, (tag, b, t, c, n, h0) in enumerate(cases):
+    for i, (tag, b, t, c, n, h0) in enumerate(SSM_CASES):
         args = ssm_inputs(torch, dev, b, t, c, n, seed=10 + i, h0_scale=h0)
         key = SsmKey(b=b, t=t, c=c, n=n)
-        # the blk_c the model path takes (mamba_path's model-only pick)
+        # the config the model path takes (mamba_path's model-only pick)
         cfg = tuner.tune_kernel("ssm", key, measure_mode=False,
                                 device=dev).config
         got = ssm_cuda.ssm_scan(*args, cfg)
+        again = ssm_cuda.ssm_scan(*args, cfg)
         torch.cuda.synchronize()
         want = ssm_cuda.ssm_scan_plain(*args, cfg)
         y_rel, h_rel, dy = ssm_errors(got, want)
+        same = all(bool(torch.equal(_bits(a), _bits(b_)))
+                   for a, b_ in zip(got, again))
+        y64, h64 = ssm_cuda.ssm_scan_plain(*args, cfg, dtype=torch.float64)
+        f64 = {"y": rel(got[0].double().cpu(), y64.cpu()),
+               "hT": rel(got[1].double().cpu(), h64.cpu()),
+               "plain_y": rel(want[0].double().cpu(), y64.cpu()),
+               "plain_hT": rel(want[1].double().cpu(), h64.cpu())}
         line = (f"[7c] ssm_scan {tag} (B={b}, T={t}, C={c}, N={n}, h0 "
-                f"{h0}) blk_c {cfg.blk_c}: y vs plain max_abs {dy:.3e} = "
-                f"{y_rel:.2e} of max |y|, hT {h_rel:.2e} of max |hT| (tol "
-                f"{SSM_RTOL})")
+                f"{h0}) states {cfg.states} blk_c {cfg.blk_c}: y vs plain "
+                f"max_abs {dy:.3e} = {y_rel:.2e} of max |y|, hT {h_rel:.2e} "
+                f"of max |hT| (tol {SSM_RTOL}); two launches bit-equal "
+                f"{same}; from float64 (max |diff| / max |y64|): kernel y "
+                f"{f64['y']:.3e} hT {f64['hT']:.3e}, plain f32 y "
+                f"{f64['plain_y']:.3e} hT {f64['plain_hT']:.3e}")
         finite = bool(torch.isfinite(got[0]).all() and
                       torch.isfinite(got[1]).all())
-        if not finite or max(y_rel, h_rel) > SSM_RTOL:
+        if not finite or not same or max(y_rel, h_rel) > SSM_RTOL:
             fail(line)
         ms = cuda_ms(lambda: ssm_cuda.ssm_scan(*args, cfg))
+        dev_ms = graph_ms(lambda: ssm_cuda.ssm_scan(*args, cfg))
         plain_ms = cuda_ms(lambda: ssm_cuda.ssm_scan_plain(*args, cfg),
                            reps=3, warmup=1)
         io = sum(x.numel() * x.element_size() for x in args + got)
@@ -1107,26 +1181,31 @@ def ssm_checks(torch, dev, spec, card, ssm_cuda):
         ops_ms = ssm_cuda.useful_flops(b, t, c, n) / spec.fp32_flops * 1e3
         bound = max(ops_ms, bytes_ms)
         by = "operations" if ops_ms >= bytes_ms else "bytes"
-        line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
-                 f"{bound:.4f} ms ({by}: {bytes_ms:.4f} ms of {io / 1e6:.2f} "
-                 f"MB at {spec.hbm_bw / 1e12:.2f} TB/s, {ops_ms:.4f} ms of "
-                 f"FP32 at {spec.fp32_flops / 1e12:.0f} TFLOP/s); no PyTorch "
-                 f"call computes the scan [{card}]")
+        line += (f"; kernel {ms:.4f} ms a call, {dev_ms:.4f} ms on the device "
+                 f"(CUDA graph), plain {plain_ms:.3f} ms; bound {bound:.4f} ms "
+                 f"({by}: {bytes_ms:.4f} ms of {io / 1e6:.2f} MB at "
+                 f"{spec.hbm_bw / 1e12:.2f} TB/s, {ops_ms:.4f} ms of FP32 at "
+                 f"{spec.fp32_flops / 1e12:.0f} TFLOP/s); no PyTorch call "
+                 f"computes the scan [{card}]")
         print(line, flush=True)
         rows[tag] = {"shape": [b, t, c, n], "blk_c": cfg.blk_c,
-                     "max_abs_err": dy, "y_rel": y_rel, "h_rel": h_rel,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": by}
-        if tag == "hymba-prefill":
-            sweep = [(c_.blk_c, round(s_ * 1e3, 4),
-                      round(cuda_ms(lambda c_=c_: ssm_cuda.ssm_scan(*args, c_)),
-                            4))
+                     "states": cfg.states, "max_abs_err": dy, "y_rel": y_rel,
+                     "h_rel": h_rel, "from_float64": f64, "ms": ms,
+                     "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by}
+        if tag in ("hymba-prefill", "t4096"):
+            sweep = [(c_.states, c_.blk_c, round(s_ * 1e3, 4),
+                      round(graph_ms(lambda c_=c_: ssm_cuda.ssm_scan(*args,
+                                                                     c_)), 4))
                      for c_, s_ in tuner.rank_kernel("ssm", key, device=dev)]
+            best = min(sweep, key=lambda r: r[3])
             rows[tag]["sweep"] = sweep
-            print(f"[7c] ssm_scan {tag}: every blk_c of the config space, "
-                  f"(blk_c, modeled ms, measured ms) in the model's order: "
-                  f"{sweep} [{card}]", flush=True)
-        del args, got, want
+            print(f"[7c] ssm_scan {tag}: every config of the space, (states, "
+                  f"blk_c, modeled ms, measured device ms) in the model's "
+                  f"order: {sweep}; the model's pick {sweep[0][:2]} at "
+                  f"{sweep[0][3]} ms, the measured best {best[:2]} at "
+                  f"{best[3]} ms [{card}]", flush=True)
+        del args, got, again, want, y64, h64
     return rows
 
 

@@ -139,17 +139,23 @@ def flash_step_s(key, cfg, spec: GpuSpec = DEFAULT_SPEC) -> float:
 # selective scan
 # ---------------------------------------------------------------------------
 
-# Fitted to csrc/ssm_scan.cu on an H100 SXM5 at 700 W (the blk_c sweep
-# chip_smoke.py prints at hymba-1.5b's shapes): a warp issues ~37
-# instructions a time step (shared-memory loads, dt*a, expf, the state
-# FMA, h*c and its share of the shuffle butterfly), a step takes at least
-# ~174 cycles however few warps share the SM (the dependent chain of
-# loads, exp and FMAs), and each resident CTA costs ~250 cycles a 64-step
-# tile (staging, two barriers, the y write-back).
-SSM_INSTR_PER_STEP = 37.0
-SSM_STEP_LATENCY_CYCLES = 174.0
-SSM_TILE_OVERHEAD_CYCLES = 250.0
-SSM_REGS_PER_THREAD = 46              # compiled (chip_smoke.py prints it)
+# Instructions one (t, c, n) element issues in csrc/ssm_scan.cu's step
+# loop, by states a thread: the SASS census of ssm_scan_kernel<16, S, bf16>
+# (core/sass.py loop_census; chip_smoke.py phase 2b prints it; nvcc 12.8,
+# sm_90a; PERF.md), every class counted. The per-tile staging and the two
+# barriers a 64-step tile are outside the loop and not counted.
+SSM_INSTR_PER_ELEMENT = {2: 18.547, 4: 15.781, 8: 14.508}
+# a warp's MUFU.EX2 holds its scheduler's quarter of the SM's 16 SFU lanes
+# for 32 / 4 = 8 clocks; one exp an element
+SSM_MUFU_CLOCKS = 8
+# clocks a scheduler spends per instruction it issues from one warp alone
+# and from two or more: measured, not counted (phase 7c's sweep at hymba's
+# prefill on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md): ptxas's schedule
+# of the unrolled steps leaves one warp stalled ~1.5 clocks an instruction
+# on fixed latencies (the SASS control bits), which a second warp partly
+# fills
+SSM_CLOCKS_PER_INSTR = {1: 1.9, 2: 1.5}
+SSM_REGS_PER_THREAD = {2: 80, 4: 80, 8: 95}   # compiled (phase 2 prints it)
 SCHEDULERS_PER_SM = 4
 
 
@@ -157,7 +163,7 @@ def ssm_resident_blocks(cfg, n: int, spec: GpuSpec = DEFAULT_SPEC) -> int:
     """CTAs of `cfg` (an ssm_cuda.SsmScanConfig) one SM holds at state
     size n."""
     threads = cfg.threads(n)
-    regs = -(-SSM_REGS_PER_THREAD // REG_ALLOC_UNIT) * REG_ALLOC_UNIT
+    regs = -(-SSM_REGS_PER_THREAD[cfg.states] // REG_ALLOC_UNIT) * REG_ALLOC_UNIT
     by_threads = spec.max_threads_per_sm // threads
     by_regs = spec.regs_per_sm // (threads * regs)
     by_smem = spec.smem_per_sm // (cfg.smem_bytes(n) + 1024)
@@ -167,15 +173,20 @@ def ssm_resident_blocks(cfg, n: int, spec: GpuSpec = DEFAULT_SPEC) -> int:
 def ssm_step_s(key, cfg, spec: GpuSpec = DEFAULT_SPEC) -> float:
     """Modeled seconds of one ssm_scan call (key: kernel_def.SsmKey):
 
-        max(sum over the busiest SM's rounds of T x step cycles / clock,
+        max(T x the busiest scheduler's clocks a step / clock,
             bytes / HBM bandwidth)
 
-    The busiest SM runs ceil(CTAs / SMs) CTAs, `resident` at a time. A
-    round of m CTAs takes T steps of
-        max(SSM_STEP_LATENCY_CYCLES, m x warps x SSM_INSTR_PER_STEP / 4)
-        + m x SSM_TILE_OVERHEAD_CYCLES / TIME_TILE
-    cycles (warps include the padding lanes of a CTA whose blk_c x N is
-    not a multiple of 32). Bytes: `ssm_cuda.kernel_hbm_bytes`."""
+    summed over the rounds of resident CTAs the busiest SM runs. The
+    busiest SM gets ceil(CTAs / SMs) of the B x C / blk_c CTAs, `resident`
+    at a time; its busiest scheduler holds w = ceil(m x warps / 4) warps of
+    a round of m CTAs (warps include the padding lanes of a CTA whose
+    blk_c x N / S is not a multiple of 32). Each warp issues, a step,
+    S x SSM_INSTR_PER_ELEMENT[S] instructions (the census) and S MUFU.EX2
+    of SSM_MUFU_CLOCKS each, so a step takes
+        w x S x max(SSM_INSTR_PER_ELEMENT[S] x SSM_CLOCKS_PER_INSTR[w],
+                    SSM_MUFU_CLOCKS)
+    clocks. Phase 7c prints it beside the device time of every config.
+    Bytes: `ssm_cuda.kernel_hbm_bytes`."""
     resident = ssm_resident_blocks(cfg, key.n, spec)
     if resident == 0:
         return math.inf
@@ -185,9 +196,9 @@ def ssm_step_s(key, cfg, spec: GpuSpec = DEFAULT_SPEC) -> float:
     while per_sm > 0:
         m = min(resident, per_sm)
         per_sm -= m
-        step = max(SSM_STEP_LATENCY_CYCLES,
-                   m * warps * SSM_INSTR_PER_STEP / SCHEDULERS_PER_SM)
-        step += m * SSM_TILE_OVERHEAD_CYCLES / ssm_cuda.TIME_TILE
-        cycles += key.t * step
+        w = math.ceil(m * warps / SCHEDULERS_PER_SM)
+        issue = (SSM_INSTR_PER_ELEMENT[cfg.states]
+                 * SSM_CLOCKS_PER_INSTR[min(w, 2)])
+        cycles += key.t * w * cfg.states * max(issue, SSM_MUFU_CLOCKS)
     bytes_ = ssm_cuda.kernel_hbm_bytes(key.b, key.t, key.c, key.n)
     return max(cycles / spec.boost_hz, bytes_ / spec.hbm_bw)

@@ -3,8 +3,13 @@ roofline, read from what the card runs instead of modeled.
 
     text = disassemble(library_path)              # cuobjdump -sass (card machine)
     c = term_census(text, r"gpp_fused_kernelILi2ELi1ELb1E", rcp_per_term=2)
+    s = loop_census(text, r"ssm_scan_kernelILi16ELi4E", "MUFU.EX2", 1)
 
-`term_census` finds one kernel's innermost loop that holds a reciprocal
+`loop_census` finds one kernel's innermost loop that holds a marker
+instruction, one or more per element of work (the selective scan's
+MUFU.EX2, one per (t, c, n)), and counts its instructions by class per
+element, with the warp shuffles (SHFL) apart. `term_census` is its GPP
+form: it finds one kernel's innermost loop that holds a reciprocal
 (`MUFU.RCP`) and ends in a backward branch — GPP's band loop — and counts
 its instructions by opcode class. The loop may hold several (element,
 band, iw) terms (EPT elements, NW frequencies, any unrolling); the caller
@@ -165,44 +170,70 @@ def slow_path_stubs(body: List[Tuple[int, str]]) -> int:
     return n
 
 
-def term_census(text: str, kernel: str, rcp_per_term: int) -> Dict:
-    """The census of the innermost reciprocal loop of the one kernel whose
-    mangled name matches the regex `kernel`: total and per-class
-    instructions a term, the same without the slow-path call stubs, MUFU
-    a term, the FMA ratio and the raw counts."""
+def loop_census(text: str, kernel: str, marker: str,
+                marker_per_element: int) -> Dict:
+    """The census of the innermost loop holding `marker` instructions (e.g.
+    MUFU.EX2) of the one kernel whose mangled name matches the regex
+    `kernel`, per element of work, where one element issues
+    `marker_per_element` of them: elements an iteration, total and
+    per-class instructions an element, the shuffles (SHFL, classed OTHER)
+    and MUFU an element, the FMA ratio and the raw counts. Also returns
+    the loop body (`body`)."""
     funcs = {n: ins for n, ins in functions(text).items()
              if re.search(kernel, n)}
     if len(funcs) != 1:
         raise ValueError(f"{len(funcs)} kernels match {kernel!r}: "
                          f"{sorted(funcs)}")
     (name, instrs), = funcs.items()
-    body = innermost_loop(instrs)
+    body = innermost_loop(instrs, must_hold=marker)
     counts = count_classes(body)
-    rcp = sum(opcode(ins) == "MUFU.RCP" for _, ins in body)
-    if rcp % rcp_per_term:
-        raise ValueError(f"{rcp} MUFU.RCP in the loop is not a multiple of "
-                         f"{rcp_per_term} a term")
-    terms = rcp // rcp_per_term
+    marks = sum(opcode(ins) == marker for _, ins in body)
+    if marks % marker_per_element:
+        raise ValueError(f"{marks} {marker} in the loop is not a multiple of "
+                         f"{marker_per_element} an element")
+    elements = marks // marker_per_element
+    shfl = sum(opcode(ins).split(".")[0] == "SHFL" for _, ins in body)
     fp32 = counts["FFMA"] + counts["FMUL"] + counts["FADD"]
     return {"kernel": name, "loop_instructions": len(body),
+            "elements_per_iteration": elements,
+            "instructions_per_element": len(body) / elements,
+            "per_element": {c: n / elements for c, n in counts.items()},
+            "shfl_per_element": shfl / elements,
+            "mufu_per_element": counts["MUFU"] / elements,
+            "fma_ratio": counts["FFMA"] / fp32 if fp32 else 0.0,
+            "counts": counts, "shfl": shfl, "body": body}
+
+
+def term_census(text: str, kernel: str, rcp_per_term: int) -> Dict:
+    """The census of the innermost reciprocal loop of the one kernel whose
+    mangled name matches the regex `kernel`: total and per-class
+    instructions a term, the same without the slow-path call stubs, MUFU
+    a term, the FMA ratio and the raw counts."""
+    c = loop_census(text, kernel, "MUFU.RCP", rcp_per_term)
+    terms = c["elements_per_iteration"]
+    body = c["body"]
+    return {"kernel": c["kernel"], "loop_instructions": len(body),
             "terms_per_iteration": terms,
             "instructions_per_term": len(body) / terms,
             "fast_path_per_term": (len(body) - slow_path_stubs(body)) / terms,
-            "per_term": {c: n / terms for c, n in counts.items()},
-            "mufu_per_term": counts["MUFU"] / terms,
-            "fma_ratio": counts["FFMA"] / fp32 if fp32 else 0.0,
-            "counts": counts}
+            "per_term": c["per_element"],
+            "mufu_per_term": c["mufu_per_element"],
+            "fma_ratio": c["fma_ratio"], "counts": c["counts"]}
 
 
-def issue_bound_s(terms: float, instr_per_term: float, spec) -> float:
+def issue_bound_s(terms: float, instr_per_term: float, spec,
+                  sms: Optional[int] = None) -> float:
     """Seconds to issue terms x instr_per_term lane-instructions at one
-    warp instruction a scheduler a clock."""
-    rate = spec.sms * SCHEDULERS_PER_SM * LANES_PER_WARP * spec.boost_hz
+    warp instruction a scheduler a clock, on `sms` SMs (all the card's by
+    default)."""
+    rate = ((sms or spec.sms) * SCHEDULERS_PER_SM * LANES_PER_WARP
+            * spec.boost_hz)
     return terms * instr_per_term / rate
 
 
-def mufu_bound_s(terms: float, mufu_per_term: float, spec) -> float:
+def mufu_bound_s(terms: float, mufu_per_term: float, spec,
+                 sms: Optional[int] = None) -> float:
     """Seconds for the SFUs to return terms x mufu_per_term results at 16
-    an SM a clock."""
-    return terms * mufu_per_term / (spec.sms * MUFU_PER_SM_CLOCK
+    an SM a clock, on `sms` SMs (all the card's by default)."""
+    return terms * mufu_per_term / ((sms or spec.sms) * MUFU_PER_SM_CLOCK
                                     * spec.boost_hz)

@@ -11,13 +11,16 @@ d: (C,); h0: (B,C,N)):
              ssm_cuda.ssm_scan; its plain version on CPU tensors)
 
 The JAX version name "pallas" maps to "cuda". Default and tunable: "cuda",
-whose config is the channel block `blk_c`. The config space is re-derived
-for Hopper: blk_c dividing C, blk_c x N threads within a CTA's 1024, and
-the staged tiles within the shared memory a block can use
-(`GpuSpec.smem_per_block`), not the TPU's VMEM. The static config is 16
-channels (256 threads at N = 16), clamped to C as the JAX one is. The
-ranking model is `core.gpu_model.ssm_step_s`. The static-analysis hooks
-wait, as they did for GPP and flash.
+whose config is the channel block `blk_c` and the states a thread
+`states`. The config space is re-derived for Hopper: states in
+{2, 4, 8} dividing N, blk_c a multiple of 8 (a CTA's x, dt and y rows
+cover whole 32-byte sectors) dividing C, blk_c x N / states threads within
+the kernel's 256, and the staged ring within the shared memory a block can
+use (`GpuSpec.smem_per_block`), not the TPU's VMEM. The static config is
+8 channels x 2 states (two warps at N = 16, the model's pick at
+hymba-1.5b's prefill), clamped to C. The ranking
+model is `core.gpu_model.ssm_step_s`. The static-analysis hooks wait, as
+they did for GPP and flash.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from repro_torch.kernels.ssm import ssm_cuda
 from repro_torch.kernels.ssm.ssm_cuda import SsmScanConfig
 from repro_torch.models import mamba
 
-BLK_C_MENU = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+BLK_C_MENU = (8, 16, 32, 64, 128)
 
 _div_clamp = ssm_cuda.div_clamp
 
@@ -63,13 +66,16 @@ class SsmKernel(api.Kernel):
     def config_space(self, key: SsmKey, version: str) -> List[SsmScanConfig]:
         spec = hw.DEFAULT_SPEC
         out = []
-        for blk in BLK_C_MENU:
-            if blk > key.c or key.c % blk:
+        for states in ssm_cuda.STATE_INSTANCES:
+            if states > key.n or key.n % states:
                 continue
-            cfg = SsmScanConfig("tune", blk)
-            if (cfg.threads(key.n) <= ssm_cuda.MAX_THREADS
-                    and cfg.smem_bytes(key.n) <= spec.smem_per_block):
-                out.append(cfg)
+            for blk in BLK_C_MENU:
+                if blk > key.c or key.c % blk:
+                    continue
+                cfg = SsmScanConfig("tune", blk, states)
+                if (cfg.threads(key.n) <= ssm_cuda.MAX_THREADS
+                        and cfg.smem_bytes(key.n) <= spec.smem_per_block):
+                    out.append(cfg)
         return out
 
     def static_config(self, key: SsmKey, version: str
@@ -77,7 +83,8 @@ class SsmKernel(api.Kernel):
         return SsmScanConfig().clamped(key)
 
     def tie_break(self, config: SsmScanConfig) -> Tuple:
-        return (-config.blk_c,)
+        # of configs the model ties, the one spread over the most SMs
+        return (config.blk_c, -config.states)
 
     def finalize_config(self, config: SsmScanConfig, version: str
                         ) -> SsmScanConfig:

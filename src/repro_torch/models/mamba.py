@@ -39,21 +39,23 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, conv_state=None):
     return out.to(x.dtype), xp[:, -(k - 1):]
 
 
-def ssm_scan(x, dt, bmat, cmat, a_log, d, h0):
+def ssm_scan(x, dt, bmat, cmat, a_log, d, h0, *, dtype=torch.float32):
     """Sequential oracle.
     x, dt: (B,T,C);  bmat, cmat: (B,T,N);  a_log: (C,N) (A = -exp(a_log));
-    d: (C,); h0: (B,C,N). Returns (y (B,T,C) f32, hT (B,C,N) f32)."""
-    a = -torch.exp(a_log.float())                          # (C,N)
-    h = h0.float()
+    d: (C,); h0: (B,C,N). Returns (y (B,T,C), hT (B,C,N)), computed in
+    `dtype` (f32, as the JAX package; float64 measures how far an f32
+    result is from exact arithmetic on the same inputs)."""
+    a = -torch.exp(a_log.to(dtype))                        # (C,N)
+    h = h0.to(dtype)
     ys = []
     for t in range(x.shape[1]):
-        xt, dtt = x[:, t].float(), dt[:, t].float()       # (B,C)
-        bt, ct = bmat[:, t].float(), cmat[:, t].float()   # (B,N)
+        xt, dtt = x[:, t].to(dtype), dt[:, t].to(dtype)   # (B,C)
+        bt, ct = bmat[:, t].to(dtype), cmat[:, t].to(dtype)   # (B,N)
         da = torch.exp(dtt[..., None] * a[None])          # (B,C,N)
         dbx = (dtt * xt)[..., None] * bt[:, None, :]      # (B,C,N)
         h = da * h + dbx
         ys.append(torch.einsum("bcn,bn->bc", h, ct))
-    y = torch.stack(ys, dim=1) + x.float() * d.float()[None, None]
+    y = torch.stack(ys, dim=1) + x.to(dtype) * d.to(dtype)[None, None]
     return y, h
 
 

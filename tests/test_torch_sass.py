@@ -137,3 +137,83 @@ def test_issue_and_mufu_bounds():
     assert issue == pytest.approx(36.45e-3, rel=1e-3)
     assert sass.mufu_bound_s(terms, 3.0, spec) == pytest.approx(
         terms * 3 / (132 * 16 * 1.98e9))
+
+
+# ssm_scan-like: a step loop of two (t, c, n) elements (S = 2 states, one
+# MUFU.EX2 each) with a butterfly stage, in the S = 4 bf16 instance; the
+# f32-params instance and the one-state kernel's name beside it
+SCAN_FIXTURE = """
+		Function : _ZN12_GLOBAL__N_115ssm_scan_kernelILi16ELi4E13__nv_bfloat16EEvNS_6ParamsE
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDS R2, [R1] ;
+        /*0020*/                   LDS R3, [R1+0x100] ;
+        /*0030*/                   FMUL R4, R3, R2 ;
+        /*0040*/                   LDS.64 R6, [R5] ;
+        /*0050*/                   LDS.64 R8, [R5+0x40] ;
+        /*0060*/                   FMUL R10, R3, R20 ;
+        /*0070*/                   MUFU.EX2 R10, R10 ;
+        /*0080*/                   FMUL R11, R4, R6 ;
+        /*0090*/                   FFMA R21, R10, R21, R11 ;
+        /*00a0*/                   FMUL R12, R3, R22 ;
+        /*00b0*/                   MUFU.EX2 R12, R12 ;
+        /*00c0*/                   FMUL R13, R4, R7 ;
+        /*00d0*/                   FFMA R23, R12, R23, R13 ;
+        /*00e0*/                   FMUL R14, R21, R8 ;
+        /*00f0*/                   FFMA R14, R23, R9, R14 ;
+        /*0100*/                   SHFL.BFLY PT, R15, R14, 0x1, 0x1f ;
+        /*0110*/                   FADD R14, R14, R15 ;
+        /*0120*/                   IADD3 R1, R1, 0x4, RZ ;
+        /*0130*/                   ISETP.NE.AND P0, PT, R1, R30, PT ;
+        /*0140*/               @P0 BRA 0x10 ;
+        /*0150*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_115ssm_scan_kernelILi16ELi4EfEEvNS_6ParamsE
+        /*0000*/                   MUFU.EX2 R8, R6 ;
+        /*0010*/                   BRA 0x0 ;
+		Function : _ZN12_GLOBAL__N_115ssm_scan_kernelILi16E13__nv_bfloat16EEvNS_6ParamsE
+        /*0000*/                   MUFU.EX2 R8, R6 ;
+        /*0010*/                   MUFU.EX2 R9, R6 ;
+        /*0020*/                   BRA 0x0 ;
+"""
+SCAN_BF16 = r"ssm_scan_kernelILi16ELi4E13__nv_bfloat16E"
+
+
+def test_loop_census_of_an_ex2_loop():
+    c = sass.loop_census(SCAN_FIXTURE, SCAN_BF16, "MUFU.EX2", 1)
+    assert c["loop_instructions"] == 20 and c["elements_per_iteration"] == 2
+    assert c["instructions_per_element"] == 10.0
+    assert c["counts"] == {"FFMA": 3, "FMUL": 6, "FADD": 1, "MUFU": 2,
+                           "SELECT": 1, "LDS": 4, "INT": 1, "CONTROL": 1,
+                           "OTHER": 1}
+    assert c["per_element"]["LDS"] == 2.0 and c["per_element"]["FMUL"] == 3.0
+    assert c["shfl"] == 1 and c["shfl_per_element"] == 0.5
+    assert c["mufu_per_element"] == 1.0
+    assert c["fma_ratio"] == 3 / 10
+    assert (c["body"][0][0], c["body"][-1][0]) == (0x10, 0x140)
+    with pytest.raises(ValueError):          # 2 EX2 is not a multiple of 3
+        sass.loop_census(SCAN_FIXTURE, SCAN_BF16, "MUFU.EX2", 3)
+    with pytest.raises(ValueError):          # no loop holds a reciprocal
+        sass.loop_census(SCAN_FIXTURE, SCAN_BF16, "MUFU.RCP", 1)
+
+
+def test_scan_census_finds_every_instance():
+    from repro_torch.kernels.ssm import ssm_cuda
+    got = ssm_cuda.census(SCAN_FIXTURE)
+    # the S = 4 instance and the one-state kernel (S = 1), both bf16
+    assert sorted(got) == [1, 4]
+    assert got[4]["instructions_per_element"] == 10.0
+    assert got[1]["elements_per_iteration"] == 2
+    assert got[1]["loop_instructions"] == 3
+    f32 = ssm_cuda.census(SCAN_FIXTURE, bf16_params=False)
+    assert sorted(f32) == [4] and f32[4]["loop_instructions"] == 2
+    with pytest.raises(ValueError):
+        ssm_cuda.census(SCAN_FIXTURE, n=8)
+
+
+def test_bounds_on_the_sms_a_grid_uses():
+    spec = hw.H100_SXM5
+    elems = 1152 * 3200 * 16                      # hymba-1.5b's prefill
+    all_sms = sass.issue_bound_s(elems, 22.0, spec)
+    assert sass.issue_bound_s(elems, 22.0, spec, sms=100) == pytest.approx(
+        all_sms * 132 / 100)
+    assert sass.mufu_bound_s(elems, 1.0, spec, sms=100) == pytest.approx(
+        elems / (100 * 16 * 1.98e9))

@@ -11,6 +11,9 @@ tests/test_ssm_kernel.py holds the Pallas kernel to the oracle (f32,
 other summation orders and exp implementations). The conv is bf16 out of
 an f32 sum in tap order: within one bf16 ulp of each value."""
 
+import dataclasses
+import json
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from repro.kernels.ssm import kernel_def as jkdef
 from repro.kernels.ssm.ssm_scan import kernel_hbm_bytes as jbytes
 from repro.kernels.ssm.ssm_scan import ssm_scan_pallas
 from repro.models import mamba as jmamba
+from repro_torch.core import gpu_model
 from repro_torch.kernels import api
 from repro_torch.kernels.ssm import kernel_def, ops, ssm_cuda
 from repro_torch.kernels.ssm.kernel_def import SsmKey
@@ -170,15 +174,80 @@ def test_config_space_is_hopper_sized():
     k = api.get_kernel("ssm")
     key = SsmKey(b=1, t=1152, c=3200, n=16)
     space = k.config_space(key, "cuda")
-    assert [cfg.blk_c for cfg in space] == [1, 2, 4, 8, 16, 32, 64]
+    assert [(cfg.states, cfg.blk_c) for cfg in space] == [
+        (2, 8), (2, 16), (2, 32), (4, 8), (4, 16), (4, 32), (4, 64),
+        (8, 8), (8, 16), (8, 32), (8, 64), (8, 128)]
     for cfg in space:
         assert cfg.threads(16) <= ssm_cuda.MAX_THREADS
-        assert 3200 % cfg.blk_c == 0
+        assert cfg.smem_bytes(16) <= ssm_cuda.SMEM_PER_BLOCK
+        assert 3200 % cfg.blk_c == 0 and cfg.blk_c % 8 == 0
+    # N = 4 has no 8-state instance; C = 48 no 32-channel block
+    small = k.config_space(SsmKey(b=2, t=100, c=48, n=4), "cuda")
+    assert {(c.states, c.blk_c) for c in small} == {
+        (2, 8), (2, 16), (4, 8), (4, 16)}
     assert k.static_config(key, "cuda") == SsmScanConfig()
-    assert k.static_config(SsmKey(1, 8, 24, 4), "cuda").blk_c == 12
+    assert k.static_config(SsmKey(1, 8, 24, 4), "cuda") == SsmScanConfig(
+        blk_c=8, states=2)
+    assert k.static_config(SsmKey(1, 8, 12, 4), "cuda").blk_c == 6
     ranked = tuner.rank_kernel("ssm", key, device="cpu")
     assert len(ranked) == len(space)
     assert all(s > 0 and np.isfinite(s) for _, s in ranked)
+
+
+def test_old_cache_entry_loads(tmp_path, monkeypatch):
+    """A tune-cache entry written before `states` existed ({"name",
+    "blk_c"}) loads with the default states, through config_from_json and
+    through the tuner's cache."""
+    k = api.get_kernel("ssm")
+    assert k.config_from_json({"name": "cuda", "blk_c": 16}) == SsmScanConfig(
+        "cuda", 16, SsmScanConfig().states)
+    monkeypatch.setenv(tuner.CACHE_ENV, str(tmp_path))
+    tuner.clear_memo()
+    key = SsmKey(b=1, t=64, c=32, n=16)
+    ckey = tuner.cache_key_for("ssm", key, "cpu", "cuda")
+    (tmp_path / tuner.CACHE_FILE).write_text(json.dumps({ckey: {
+        "kernel": "ssm", "config": {"name": "cuda", "blk_c": 16},
+        "modeled_s": 1e-5, "measured_s": None, "key": ckey,
+        "source": "model"}}))
+    tc = tuner.tune_kernel("ssm", key, device="cpu")
+    assert tc.source == "cache" and tc.config == SsmScanConfig("cuda", 16)
+    args = _inputs(1, 64, 32, 16, seed=7)
+    _close(ops.ssm_scan(*_t(args), device="cpu"), jmamba.ssm_scan(*_j(args)))
+
+
+@pytest.mark.parametrize("b,t,c,n", [(1, 1152, 3200, 16), (1, 4096, 3200, 16),
+                                     (4, 256, 3200, 16), (2, 100, 48, 8)])
+def test_ranking_model_order(b, t, c, n):
+    """The census model ranks every config finite and positive, at least the
+    bytes' time; at hymba's prefill two states a thread over small CTAs
+    first (two warps on the busiest scheduler fill each other's stalls,
+    which a lone warp of four states cannot), and a longer T never
+    faster."""
+    key = SsmKey(b=b, t=t, c=c, n=n)
+    ranked = tuner.rank_kernel("ssm", key, device="cpu")
+    floor = ssm_cuda.kernel_hbm_bytes(b, t, c, n) / 3.35e12
+    assert ranked and all(np.isfinite(s) and s >= floor for _, s in ranked)
+    assert [s for _, s in ranked] == sorted(s for _, s in ranked)
+    longer = dataclasses.replace(key, t=2 * t)
+    for cfg, s in ranked:
+        assert gpu_model.ssm_step_s(longer, cfg) >= s
+    if (b, t, c, n) == (1, 1152, 3200, 16):
+        assert (ranked[0][0].states, ranked[0][0].blk_c) == (2, 8)
+        assert ranked[-1][0].blk_c == 128
+
+
+def test_plain_version_in_float64():
+    """ssm_scan_plain(dtype=float64): the same recurrence in float64 on the
+    same inputs, which phase 7c measures the f32 results against."""
+    args = _t(_inputs(2, 40, 16, 8, seed=8, bf16_params=True))
+    y64, h64 = ssm_cuda.ssm_scan_plain(*args, dtype=torch.float64)
+    assert y64.dtype == h64.dtype == torch.float64
+    y, h = ssm_cuda.ssm_scan_plain(*args)
+    assert y.dtype == torch.float32
+    np.testing.assert_allclose(y.double().numpy(), y64.numpy(), rtol=0,
+                               atol=1e-5 * float(y64.abs().max()))
+    np.testing.assert_allclose(h.double().numpy(), h64.numpy(), rtol=0,
+                               atol=1e-5 * float(h64.abs().max()))
 
 
 def test_problem_key_override(tmp_path, monkeypatch):
