@@ -119,16 +119,44 @@ Phases (one line each, more where noted):
      ssm_scan_plain on its inputs (SSM_RTOL), and every prompt's
      first-token logits against the engine with ssm_impl="chunked"
      (SERVE_LOGIT_RTOL).
+  12a. paged serving, the fifth slice's path: ServeEngine on qwen2-1.5b
+     at full width and depth, flash on, max_batch 4, cache_len 1024,
+     kv_page_size 16: 8 greedy requests behind one 256-token system
+     prompt (suffixes PAGED_SUFFIXES), 32 new tokens each, all submitted
+     at once; the first admission is cold and publishes the prefix, the
+     others hit it. flash_fwd launches 28 times in the cold admission and
+     0 in a hit's suffix prefill; the kvcache stats (hit rate, tokens
+     saved, peak live pages, bytes a slot against the static layout),
+     TTFT of hits and misses, the admission's own ms, decode round ms,
+     tokens/s and peak memory are printed; page conservation and pages
+     live == index pages after the run. Every hit's restored K/V lines
+     are bit-equal to a cold prefill's of the same prompt, and its
+     first-token logits within SERVE_LOGIT_RTOL of it. Then the first 4
+     requests through the unpaged engine, through prefix_reuse=False
+     (bit-equal tokens: the same path) and through kv_dtype="int8"
+     (conservation, finite logits, the distance from bf16 printed).
+  12b. the paged decode kernels: dispatch("paged_decode") for gather,
+     int8 and verify at qwen2-1.5b's decode shape (B=4, H=12, KvH=2,
+     Hd=128, page 16, 64 pages a row; the tuner times the menu), then
+     each entry point against its plain version (within PAGED_OUT_ULPS,
+     bit-equal reruns, gather also against ref within PAGED_REF_ATOL) at
+     that shape with a permuted table, full and ragged cache_len (one
+     ending mid-page), int8 pools, verify at Q=4 on bf16 and int8 pools,
+     rows that see nothing, every pages_per_block of the menu, and B=8 at
+     a context of 8192; call, device (CUDA graph) and plain ms, the bound,
+     the model's time per block, and SDPA on the already-gathered K/V
+     (gather not counted) as the yardstick.
 Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
 phase 7d's Hd 32 model check, phase 8's serving run, phase 10's training
-run, phase 11's hybrid serving run) runs with the launch counters zeroed
-just before it and read just after; the kernels line gives each path's
-counts, and the script fails unless every kernel launched on the paths
-that run it (gpp_fused on
-dispatch and journey, gpp_banded on the journey, flash_fwd 28 times a
-prefill on the serving run, flash_fwd 56 and each backward kernel 28
-times a training step, ssm_scan 32 times a prefill on the hybrid serving
-run).
+run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
+12b's dispatch) runs with the launch counters zeroed just before it and
+read just after; the kernels line gives each path's counts, and the
+script fails unless every kernel launched on the paths that run it
+(gpp_fused on dispatch and journey, gpp_banded on the journey, flash_fwd
+28 times a prefill on the serving run and a cold paged admission,
+flash_fwd 56 and each backward kernel 28 times a training step, ssm_scan
+32 times a prefill on the hybrid serving run, each paged_decode entry
+point on phase 12b's dispatch).
 
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero without it. Without a card, or outside the repository, the
@@ -212,6 +240,19 @@ SSM_RTOL = 1e-5
 # and a multiple of 64 (the chunked comparison then really chunks)
 HYBRID_LONG_PROMPT = 1152
 HYBRID_CACHE_LEN = 2048
+# paged serving (phase 12a): one shared system prompt, page 16; the cold
+# prompt and every hit's bucket to 512 (flash's S % 256 == 0 on a cold
+# prefill, the same GEMM shapes for the bit-equality of restored lines)
+PAGED_PAGE = 16
+PAGED_SYSTEM_PROMPT = 256
+PAGED_SUFFIXES = (32, 224, 96, 160, 64, 192, 128, 48)
+# the paged decode kernels against their plain versions (phase 12b): both
+# bf16 out of f32 sums taken in another order, each rounded once; within
+# 2 bf16 ulps of the magnitude (bf16_ulps). gather against the ref oracle
+# (which rounds p to bf16 before the value product) within 8e-3, as the
+# JAX package's tests/test_kvcache.py holds its pair
+PAGED_OUT_ULPS = 2
+PAGED_REF_ATOL = 8e-3
 # phase 7c's cases: (tag, B, T, C, N, h0 scale); inputs from seed 10 + index
 SSM_CASES = (("hymba-prefill", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.0),
              ("t4096", 1, 4096, 3200, 16, 0.0),
@@ -320,6 +361,7 @@ def main() -> None:
     from repro_torch.kernels.flash import flash_cuda
     from repro_torch.kernels.flash import ref as flash_ref
     from repro_torch.kernels.gpp import gpp_cuda, problem, ref
+    from repro_torch.kernels.paged import paged_cuda
     from repro_torch.kernels.ssm import ssm_cuda
     from repro_torch.tune import measure, tuner
 
@@ -375,6 +417,12 @@ def main() -> None:
               for n, st in ssm_cuda.instances() for bf in (False, True)}
     print(f"[2] ssm_scan compiled (regs, spill bytes) per instance (N, "
           f"states a thread, params): {sattrs}", flush=True)
+    print(f"[2] paged_decode compiled (regs, spill bytes): bf16 pool "
+          f"{paged_cuda.kernel_attrs(False)}, int8 pool "
+          f"{paged_cuda.kernel_attrs(True)}; shared memory at qwen2's decode "
+          f"(6 rows, ppb 16) and verify (24 rows) "
+          f"{paged_cuda.library_smem_bytes(6, 128, 256, 16, 2)}, "
+          f"{paged_cuda.library_smem_bytes(24, 128, 256, 16, 2)} B", flush=True)
 
     # -- 2b. GPP's band loop and the scan's step loop counted from the SASS ----
     census = gpp_census(libs["gpp.cu"], spec, card)
@@ -436,7 +484,7 @@ def main() -> None:
     inp = problem.make_inputs(size)
     counters = (gpp_cuda.gpp_fused, gpp_cuda.gpp_banded, flash_cuda.flash_fwd,
                 flash_cuda.flash_bwd_dq, flash_cuda.flash_bwd_dkv,
-                ssm_cuda.ssm_scan)
+                ssm_cuda.ssm_scan) + paged_cuda.ENTRY_POINTS
 
     def zero_counts():
         for f in counters:
@@ -584,9 +632,22 @@ def main() -> None:
     # -- 11. hybrid serving: hymba-1.5b at full width through ServeEngine -----
     hybrid = hybrid_phase(torch, np, dev, card, ssm_cuda, zero_counts,
                           read_counts, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 12a. paged serving: qwen2-1.5b through ServeEngine(kv_page_size=16) --
+    paged_serve = paged_serve_phase(torch, np, dev, card, flash_cuda,
+                                    zero_counts, read_counts, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 12b. the paged decode kernels: dispatch, then op level ---------------
+    paged_rows = paged_checks(torch, np, dev, spec, card, zero_counts,
+                              read_counts, by_path)
 
     names = ("gpp_fused", "gpp_banded", "flash_fwd", "flash_bwd_dq",
-             "flash_bwd_dkv", "ssm_scan")
+             "flash_bwd_dkv", "ssm_scan", "paged_decode_gather",
+             "paged_decode_int8", "paged_decode_verify")
     launches = {name: {path: n[name] for path, n in by_path.items()}
                 for name in names}
     f512 = flash_rows["s512"]
@@ -651,9 +712,33 @@ def main() -> None:
             "instructions_per_element", "shfl_per_element", "fma_ratio",
             "mufu_per_element", "bounds")},
         "at_t4096": ssm_rows["t4096"]})
+    for name, line_no, tag, at in (
+            ("paged_decode_gather", 123, "decode", ("decode-ragged", "long",
+                                                    "empty-rows")),
+            ("paged_decode_int8", 222, "int8", ()),
+            ("paged_decode_verify", 182, "verify-bf16", ("verify-int8",
+                                                        "empty-rows"))):
+        row = paged_rows[tag]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_decode.cu",
+            "replaces": f"src/repro/kernels/paged/paged.py:{line_no}",
+            "launches": launches[name]["paged"],
+            "launches_by_path": launches[name],
+            **{k: row[k] for k in ("max_abs_err", "ms", "device_ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "library_device_ms",
+                                   "shape", "ppb", "worst_ulps")},
+            "library_note": "scaled_dot_product_attention on the already-"
+                            "gathered dense K/V (gather not counted)",
+            **{f"at_{t}": {k: paged_rows[t][k] for k in (
+                "device_ms", "bound_ms", "bound_by", "library_device_ms",
+                "plain_ms", "ppb", "worst_ulps")} for t in at}})
     print(f"[8] serving summary: {json.dumps(serve)} [{card}]", flush=True)
     print(f"[10] training summary: {json.dumps(train)} [{card}]", flush=True)
     print(f"[11] hybrid serving summary: {json.dumps(hybrid)} [{card}]",
+          flush=True)
+    print(f"[12a] paged serving summary: {json.dumps(paged_serve)} [{card}]",
           flush=True)
     print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"(build {build_s:.1f} s)", flush=True)
@@ -1386,7 +1471,8 @@ def train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
     loss0 = lse0 + 1e-4 * lse0 ** 2
     per_step = {"gpp_fused": 0, "gpp_banded": 0, "flash_fwd": 2 * n_layers,
                 "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers,
-                "ssm_scan": 0}
+                "ssm_scan": 0, "paged_decode_gather": 0,
+                "paged_decode_int8": 0, "paged_decode_verify": 0}
     line = (f"[10] losses {[round(x, 4) for x in losses]} (step 0 expected "
             f"{loss0:.4f} +- {LOSS0_ATOL}); launches a step {step_counts} "
             f"(expected {per_step}); whole run {by_path['train']} [{card}]")
@@ -1793,12 +1879,444 @@ def profile_window(torch, fn):
     ours = {}
     for n, ms, c in kernels:
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                     "dkv_group_sum", "ssm_scan", "gpp"):
+                     "dkv_group_sum", "ssm_scan", "paged_decode", "gpp"):
             if f"{name}_kernel" in n or (name == "gpp" and name in n):
                 old = ours.get(name, (0.0, 0))
                 ours[name] = (round(old[0] + ms, 3), old[1] + c)
     return (wall, busy, [(n, round(ms, 3), c) for n, ms, c in top],
             [(n, round(ms, 3), c) for n, ms, c in top_host], launches, ours)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the paged K/V cache (12a) and the paged decode kernels (12b)
+# ---------------------------------------------------------------------------
+
+def cold_prefill(torch, eng, prompt):
+    """A cold full-prompt prefill through `eng`'s model at its admission
+    bucket on a fresh cache: (first-token logits, the cache)."""
+    plen = len(prompt)
+    toks = torch.zeros((1, eng._bucket_len(plen, eng.cache_len)),
+                       dtype=torch.long, device=eng.device)
+    toks[0, :plen] = torch.as_tensor(prompt, device=eng.device)
+    logits, cache = eng.model.prefill_into_slot(
+        eng.params, eng._fresh_cache(), 0, {"tokens": toks}, plen)
+    return logits[0, 0].float(), cache
+
+
+def watch_admissions(torch, eng, flash_cuda, keep_rows):
+    """Wrap eng._admit and eng._sample_rows (instance attributes): per rid,
+    the prefix tokens a hit restored, the flash_fwd launches of its
+    admission, the admission's host ms, its first-token logits, and (with
+    keep_rows) a copy of the restored K/V lines taken right after the
+    admission (later admissions reuse the slot)."""
+    seen = {}
+    real_admit, real_sample = eng._admit, eng._sample_rows
+
+    def admit(cache, slot_idx, r, t_enqueue):
+        saved0 = eng.kv.prefill_tokens_saved
+        f0 = flash_cuda.flash_fwd.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_admit(cache, slot_idx, r, t_enqueue)
+        torch.cuda.synchronize()
+        rec = seen.setdefault(r.rid, {})
+        rec["hit_tokens"] = eng.kv.prefill_tokens_saved - saved0
+        rec["flash"] = flash_cuda.flash_fwd.launches - f0
+        rec["admit_ms"] = (time.perf_counter() - t0) * 1e3
+        if keep_rows and rec["hit_tokens"]:
+            n = rec["hit_tokens"]
+            rec["rows"] = {k: out[0][k][:, slot_idx, :n].clone()
+                           for k in ("k", "v")}
+        return out
+
+    def sample(logits, slots):
+        if len(slots) == 1:          # an admission's first token
+            seen.setdefault(slots[0].rid, {})["logits"] = \
+                logits.reshape(-1).float().clone()
+        return real_sample(logits, slots)
+
+    eng._admit, eng._sample_rows = admit, sample
+    return seen
+
+
+def paged_serve_phase(torch, np, dev, card, flash_cuda, zero_counts,
+                      read_counts, by_path):
+    """Phase 12a: ServeEngine(kv_page_size=16) on qwen2-1.5b at full width,
+    flash on, 8 requests behind one 256-token system prompt."""
+    import dataclasses
+    import repro_torch
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = dataclasses.replace(repro_torch.get_config("qwen2-1.5b"),
+                              use_flash_attention=True)
+    params = repro_torch.build_model(cfg).init_params(0, device=dev)
+    rng = np.random.default_rng(2)
+    system = rng.integers(0, cfg.vocab_size, PAGED_SYSTEM_PROMPT)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size, n)])
+               for n in PAGED_SUFFIXES]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+
+    def engine(**kw):
+        return ServeEngine(cfg, params, max_batch=4, cache_len=1024,
+                           device=dev, **kw)
+
+    eng = engine(kv_page_size=PAGED_PAGE)
+    # warm-up: one short request (cuBLAS handles, the flash pick)
+    eng.run([Request(rid=99, prompt=prompts[0][:300], max_new_tokens=2)])
+    torch.cuda.synchronize()
+    seen = watch_admissions(torch, eng, flash_cuda, keep_rows=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    stats, decode_ms, admit_ms = drive(eng, reqs)
+    torch.cuda.synchronize()
+    by_path["paged-serve"] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    kv = stats["kvcache"]
+    eng.kv.check_conservation()
+    hits = [r.rid for r in reqs if seen[r.rid]["hit_tokens"]]
+    misses = [r.rid for r in reqs if not seen[r.rid]["hit_tokens"]]
+    flash_by = {rid: seen[rid]["flash"] for rid in seen}
+    line = (f"[12a] serve qwen2-1.5b (full width, {cfg.n_layers} layers), "
+            f"flash on, kv_page_size {PAGED_PAGE}: {len(reqs)} requests "
+            f"(a {PAGED_SYSTEM_PROMPT}-token system prompt + suffixes "
+            f"{list(PAGED_SUFFIXES)}), misses {misses}, hits {hits} "
+            f"(restored tokens {[seen[r]['hit_tokens'] for r in hits]}); "
+            f"flash_fwd launches per admission {flash_by} (cold "
+            f"{cfg.n_layers}, suffix 0); kvcache: hit rate "
+            f"{kv['prefix_hit_rate']:.3f}, prefill tokens saved "
+            f"{kv['prefill_tokens_saved']}, peak live pages "
+            f"{kv['peak_live_pages']} of {kv['n_pages']}, pages live at the "
+            f"end {kv['pages_live']} = index pages {kv['index_pages']}, KV "
+            f"bytes a slot {kv['kv_bytes_per_slot']:.0f} against "
+            f"{kv['static_bytes_per_slot']} static "
+            f"({kv['bytes_per_slot_reduction']:.1%} less); launches "
+            f"{by_path['paged-serve']} [{card}]")
+    print(line, flush=True)
+    if (misses != [0] or kv["pages_live"] != kv["index_pages"]
+            or any(flash_by[r] != cfg.n_layers for r in misses)
+            or any(flash_by[r] != 0 for r in hits)
+            or any(v for k, v in by_path["paged-serve"].items()
+                   if k.startswith("paged_decode"))):
+        fail(line)
+    check_outputs(eng, reqs, cfg.vocab_size)
+    res = serve_metrics("12a", stats, decode_ms, admit_ms, peak, len(reqs),
+                        card)
+    res["kvcache"] = kv
+    ttft = {rid: eng.request_stats[rid].ttft_s * 1e3 for rid in seen
+            if rid != 99}
+    res["ttft_ms_p50_hit"] = float(np.median([ttft[r] for r in hits]))
+    res["ttft_ms_p50_miss"] = float(np.median([ttft[r] for r in misses]))
+    res["admit_ms_p50_hit"] = float(np.median([seen[r]["admit_ms"]
+                                               for r in hits]))
+    res["admit_ms_miss"] = float(np.median([seen[r]["admit_ms"]
+                                            for r in misses]))
+    print(f"[12a] TTFT p50 hit {res['ttft_ms_p50_hit']:.1f} ms, miss "
+          f"{res['ttft_ms_p50_miss']:.1f} ms (every request submitted at "
+          f"once: a TTFT holds the admissions before it); the admission "
+          f"alone (restore + suffix prefill + publish, to the first token) "
+          f"p50 {res['admit_ms_p50_hit']:.1f} ms on a hit, "
+          f"{res['admit_ms_miss']:.1f} ms cold [{card}]", flush=True)
+
+    # every hit: restored lines bit-equal to a cold prefill's of the same
+    # prompt, first-token logits against the cold prefill's
+    zero_counts()
+    rows = []
+    for rid in hits:
+        cold_logits, cold = cold_prefill(torch, eng, prompts[rid])
+        n = seen[rid]["hit_tokens"]
+        same = all(torch.equal(_bits(seen[rid]["rows"][k]),
+                               _bits(cold[k][:, 0, :n])) for k in ("k", "v"))
+        lg = seen[rid]["logits"]
+        rows.append((rid, n, same, logit_rel(lg, cold_logits),
+                     int(lg.argmax() == cold_logits.argmax()),
+                     bool(torch.isfinite(lg).all())))
+        del cold
+    torch.cuda.synchronize()
+    by_path["paged-serve-check"] = read_counts()
+    worst = max(x[3] for x in rows)
+    line = (f"[12a] hits against a cold full-prompt prefill (flash on, the "
+            f"same bucket): restored K/V lines bit-equal "
+            f"{sum(x[2] for x in rows)}/{len(rows)}; first-token logits max "
+            f"|diff| / max |logit| worst {worst:.3e} (tol "
+            f"{SERVE_LOGIT_RTOL}; the suffix runs chunked attention and "
+            f"GEMMs of another M), argmax agrees {sum(x[4] for x in rows)}/"
+            f"{len(rows)}; per hit (rid, restored, bit-equal, rel): "
+            f"{[(x[0], x[1], x[2], round(x[3], 5)) for x in rows]} [{card}]")
+    print(line, flush=True)
+    if not all(x[2] and x[5] for x in rows) or worst > SERVE_LOGIT_RTOL:
+        fail(line)
+    res["restored_rows_bit_equal"] = len(rows)
+    res["hit_logits_rel_vs_cold"] = worst
+
+    # the unpaged engine and prefix_reuse=False on the first 4 requests
+    # (the same path: bit-equal tokens), the reuse run's agreement with it,
+    # then the int8 pool
+    few = reqs[:4]
+    zero_counts()
+    base = engine().run(few)
+    off_eng = engine(kv_page_size=PAGED_PAGE, prefix_reuse=False)
+    off = off_eng.run(few)
+    off_eng.kv.check_conservation()
+    agree = sum(int(a == b) for r in few
+                for a, b in zip(eng.outputs[r.rid], base[r.rid]))
+    total = sum(len(base[r.rid]) for r in few)
+    i8 = engine(kv_page_size=PAGED_PAGE, kv_dtype="int8")
+    seen8 = watch_admissions(torch, i8, flash_cuda, keep_rows=False)
+    out8 = i8.run(few)
+    torch.cuda.synchronize()
+    by_path["paged-serve-compare"] = read_counts()
+    i8.kv.check_conservation()
+    st8 = i8.last_stats["kvcache"]
+    d8 = max(logit_rel(seen8[r.rid]["logits"], seen[r.rid]["logits"])
+             for r in few)
+    agree8 = sum(int(a == b) for r in few
+                 for a, b in zip(out8[r.rid], eng.outputs[r.rid]))
+    line = (f"[12a] first 4 requests: prefix_reuse=False tokens bit-equal to "
+            f"the unpaged engine's: {off == base}; the prefix-reuse run's "
+            f"greedy tokens agree with the unpaged engine's on {agree}/"
+            f"{total}; kv_dtype int8: hits {st8['prefix_hits']}, pages live "
+            f"{st8['pages_live']} = index {st8['index_pages']}, KV bytes a "
+            f"slot {st8['kv_bytes_per_slot']:.0f} against "
+            f"{st8['static_bytes_per_slot']}, first-token logits finite "
+            f"{all(bool(torch.isfinite(seen8[r.rid]['logits']).all()) for r in few)}, "
+            f"max |diff| / max |logit| from bf16 {d8:.3e}, tokens agreeing "
+            f"with bf16 {agree8}/{total} [{card}]")
+    print(line, flush=True)
+    if (off != base or st8["kv_dtype"] != "int8"
+            or st8["pages_live"] != st8["index_pages"]
+            or not all(bool(torch.isfinite(seen8[r.rid]["logits"]).all())
+                       for r in few)):
+        fail(line)
+    res.update(reuse_off_bit_equal=True, tokens_agree_vs_unpaged=agree,
+               tokens_compared=total, int8_logits_rel_vs_bf16=d8,
+               int8_tokens_agree=agree8, int8_kvcache=st8)
+    del eng, off_eng, i8, params
+    return res
+
+
+def paged_inputs(torch, dev, b, qlen, h, kvh, hd, page, npt, clens, seed,
+                 int8=False):
+    """q, pools (a permuted table into a pool of b*npt + 40 pages), table,
+    cache_len, kscale, vscale on the card, from a seed."""
+    from repro_torch.kernels.paged import paged
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    n_pages = b * npt + 40
+    q = rnd(b, h, hd) if qlen == 1 else rnd(b, qlen, h, hd)
+    kp, vp = rnd(n_pages, page, kvh, hd), rnd(n_pages, page, kvh, hd)
+    table = torch.randperm(n_pages, generator=g, device=dev)[:b * npt]
+    table = table.reshape(b, npt).to(torch.int32).contiguous()
+    clen = torch.tensor(clens, dtype=torch.int32, device=dev)
+    ks = vs = None
+    if int8:
+        kp, ks = paged.quantize_pool(kp)
+        vp, vs = paged.quantize_pool(vp)
+    return q, kp, vp, table, clen, ks, vs
+
+
+def sdpa_on_gathered(torch, q, kp, vp, table, clen, ks, vs):
+    """The yardstick: scaled_dot_product_attention on the already-gathered
+    dense K/V (the gather, and an int8 pool's dequantization, done before
+    and not timed). Returns the call to time."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged import paged
+    k = paged.gather_pages(kp, table)
+    v = paged.gather_pages(vp, table)
+    if ks is not None:
+        lines = kp.shape[1]
+        k = (k.float() * ks[table.long()].repeat_interleave(lines, 1)[
+            ..., None, None]).to(torch.bfloat16)
+        v = (v.float() * vs[table.long()].repeat_interleave(lines, 1)[
+            ..., None, None]).to(torch.bfloat16)
+    q4 = q[:, None] if q.dim() == 3 else q
+    qn, L = q4.shape[1], k.shape[1]
+    pos = torch.arange(L, device=q.device)
+    q_pos = clen[:, None] - qn + torch.arange(qn, device=q.device)[None]
+    mask = (pos[None, None] <= q_pos[..., None])[:, None]       # (B,1,Q,L)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q4, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def paged_calls(entry, plain, version, args, ppb):
+    """(kernel call, plain call) of `version` on args at ppb."""
+    q, kp, vp, tbl, cl, ks, vs = args
+    if version == "int8":
+        return (lambda: entry[version](q, kp, vp, tbl, cl, ks, vs, ppb),
+                lambda: plain[version](q, kp, vp, tbl, cl, ks, vs,
+                                       pages_per_block=ppb))
+    if version == "verify":
+        return (lambda: entry[version](q, kp, vp, tbl, cl, ppb, ks, vs),
+                lambda: plain[version](q, kp, vp, tbl, cl,
+                                       pages_per_block=ppb, kscale=ks,
+                                       vscale=vs))
+    return (lambda: entry[version](q, kp, vp, tbl, cl, ppb),
+            lambda: plain[version](q, kp, vp, tbl, cl, pages_per_block=ppb))
+
+
+def paged_bound(spec, q, kv_itemsize, kvh, hd, clens, ctx, int8_pages):
+    """(bound ms, 'bytes' or 'operations'): the K/V lines this run's
+    cache_len needs, each read once (a row's valid lines; all ctx lines
+    of a row in which a query sees nothing, whose output is their mean), q
+    and out in bf16, page scales; against 4 Hd FP32 operations a (row,
+    query, head, line) pair."""
+    b, h = q.shape[0], q.shape[-2]
+    qn = q.shape[1] if q.dim() == 4 else 1
+    lines = sum(c if c >= qn else ctx for c in clens)
+    bytes_ = (2 * lines * kvh * hd * kv_itemsize + 8 * int8_pages
+              + 2 * b * qn * h * hd * 2)
+    ops = 4.0 * qn * h * lines * hd
+    bytes_ms, ops_ms = bytes_ / spec.hbm_bw * 1e3, ops / spec.fp32_flops * 1e3
+    return ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+            else (ops_ms, "operations"))
+
+
+def paged_checks(torch, np, dev, spec, card, zero_counts, read_counts,
+                 by_path):
+    """Phase 12b: the three paged decode entry points at op level: the
+    registry's path, then every case against the plain versions."""
+    from repro_torch import dispatch
+    from repro_torch.kernels.api import get_kernel
+    from repro_torch.kernels.paged import paged, paged_cuda
+    from repro_torch.kernels.paged.kernel_def import PPB_MENU, PagedBlockConfig
+    from repro_torch.tune import tuner
+    h, kvh, hd, page = 12, 2, 128, PAGED_PAGE
+    entry = {"gather": paged_cuda.paged_decode_gather,
+             "int8": paged_cuda.paged_decode_int8,
+             "verify": paged_cuda.paged_decode_verify}
+    plain = {"gather": paged.paged_decode_gather,
+             "int8": paged.paged_decode_int8,
+             "verify": paged.paged_decode_verify}
+
+    # the path: dispatch("paged_decode", version=v) at qwen2's decode shape
+    # (config None: the tuner times the menu on the card)
+    dec = paged_inputs(torch, dev, 4, 1, h, kvh, hd, page, 64,
+                       (1024,) * 4, seed=20)
+    ver = paged_inputs(torch, dev, 4, 4, h, kvh, hd, page, 64,
+                       (1024, 1000, 777, 517), seed=21)
+    zero_counts()
+    outs = {v: dispatch("paged_decode", *(ver if v == "verify" else dec)[:5],
+                        version=v, device=dev)
+            for v in ("gather", "int8", "verify")}
+    torch.cuda.synchronize()
+    by_path["paged"] = read_counts()
+    kernel = get_kernel("paged_decode")
+    picks = {}
+    for v in outs:
+        args = (ver if v == "verify" else dec)[:5]
+        tc = tuner.tune_kernel("paged_decode", kernel.problem_key(*args),
+                               version=v, device=dev)       # the memoized pick
+        picks[v] = (tc.config.pages_per_block,
+                    {c.pages_per_block: round(t * 1e3, 4)
+                     for c, t, _ in tc.timings})
+        want = (paged.paged_decode_verify(*args, pages_per_block=picks[v][0])
+                if v == "verify" else paged.paged_decode_gather(
+                    *args, pages_per_block=picks[v][0]))
+        if v != "int8" and bf16_ulps(outs[v], want) > PAGED_OUT_ULPS:
+            fail(f"[12b] dispatch {v}: {bf16_ulps(outs[v], want):.2f} bf16 "
+                 f"ulps from the plain version")
+    line = (f"[12b] dispatch('paged_decode') at qwen2-1.5b's decode shape "
+            f"(B=4, H=12, KvH=2, Hd=128, page 16, 64 pages a row; verify "
+            f"Q=4): launches {by_path['paged']}; the tuner's pick per "
+            f"version (ppb, {{ppb: timed ms}}): {picks} [{card}]")
+    print(line, flush=True)
+    for name in ("paged_decode_gather", "paged_decode_int8",
+                 "paged_decode_verify"):
+        if by_path["paged"][name] <= 0:
+            fail(f"{name} was not launched on the paged path: {line}")
+    for v, out in outs.items():
+        if not torch.isfinite(out.float()).all():
+            fail(f"dispatch('paged_decode', version={v!r}) non-finite")
+
+    # each case against the plain version (every ppb of the menu on the
+    # decode shapes), bit-equal reruns, times and the bound
+    cases = (("decode", "gather", 4, 1, 64, (1024,) * 4, False),
+             ("decode-ragged", "gather", 4, 1, 64, (1024, 1000, 777, 517),
+              False),
+             ("int8", "int8", 4, 1, 64, (1024, 1000, 777, 517), True),
+             ("verify-bf16", "verify", 4, 4, 64, (1024, 1000, 777, 517),
+              False),
+             ("verify-int8", "verify", 4, 4, 64, (1024, 1000, 777, 517),
+              True),
+             ("empty-rows", "verify", 4, 4, 64, (0, 2, 1024, 17), False),
+             ("long", "gather", 8, 1, 512, (8192,) * 8, False))
+    zero_counts()
+    rows = {}
+    for i, (tag, version, b, qn, npt, clens, int8) in enumerate(cases):
+        args = paged_inputs(torch, dev, b, qn, h, kvh, hd, page, npt, clens,
+                            30 + i, int8)
+        q, kp, vp, tbl, cl, ks, vs = args
+        key = kernel.problem_key(q, kp, vp, tbl, cl)
+        menu = PPB_MENU if tag != "long" else (8, 16)
+        per_ppb = {}
+        for ppb in menu:
+            call, ref = paged_calls(entry, plain, version, args, ppb)
+            got, again, want = call(), call(), ref()
+            torch.cuda.synchronize()
+            ulps = bf16_ulps(got, want)
+            same = torch.equal(_bits(got), _bits(again))
+            per_ppb[ppb] = {
+                "ulps": ulps, "bit_equal": same,
+                "max_abs_err": float((got.float() - want.float()).abs().max()),
+                "device_ms": graph_ms(call),
+                "modeled_ms": kernel.model_step_s(
+                    key, PagedBlockConfig("t", ppb),
+                    "int8" if int8 else version, dev) * 1e3}
+            if ulps > PAGED_OUT_ULPS or not same \
+                    or not torch.isfinite(got.float()).all():
+                fail(f"[12b] {tag} ppb {ppb}: {ulps:.2f} bf16 ulps from the "
+                     f"plain version (tol {PAGED_OUT_ULPS}), rerun bit-equal "
+                     f"{same} [{card}]")
+        best = min(per_ppb, key=lambda p: per_ppb[p]["device_ms"])
+        call, ref = paged_calls(entry, plain, version, args, best)
+        call_ms = cuda_ms(call)
+        plain_ms = cuda_ms(ref, reps=5, warmup=1)
+        sdpa = sdpa_on_gathered(torch, q, kp, vp, tbl, cl, ks, vs)
+        lib_ms, lib_dev_ms = cuda_ms(sdpa), graph_ms(sdpa)
+        bound_ms, bound_by = paged_bound(spec, q, 1 if int8 else 2, kvh, hd,
+                                         clens, npt * page,
+                                         b * npt if int8 else 0)
+        ref_err = None
+        if version == "gather":
+            ref_err = float((entry["gather"](q, kp, vp, tbl, cl, best).float()
+                             - paged.paged_decode_ref(q, kp, vp, tbl, cl)
+                             .float()).abs().max())
+            if ref_err > PAGED_REF_ATOL:
+                fail(f"[12b] {tag}: gather against ref {ref_err:.3e} "
+                     f"(tol {PAGED_REF_ATOL})")
+        rows[tag] = {"shape": {"b": b, "q": qn, "h": h, "kvh": kvh, "hd": hd,
+                               "page": page, "npt": npt,
+                               "cache_len": list(clens), "int8": int8},
+                     "ppb": best, "ms": call_ms,
+                     "device_ms": per_ppb[best]["device_ms"],
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms,
+                     "library_device_ms": lib_dev_ms,
+                     "max_abs_err": per_ppb[best]["max_abs_err"],
+                     "worst_ulps": max(x["ulps"] for x in per_ppb.values()),
+                     "vs_ref": ref_err,
+                     "by_ppb": {p: {k: (round(x[k], 5) if isinstance(x[k], float)
+                                        else x[k]) for k in x}
+                                for p, x in per_ppb.items()}}
+        print(f"[12b] {tag} ({version}, B={b}, Q={qn}, {npt} pages a row, "
+              f"cache_len {list(clens)}{', int8 pool' if int8 else ''}): "
+              f"every ppb within {rows[tag]['worst_ulps']:.2f} bf16 ulps of "
+              f"the plain version (tol {PAGED_OUT_ULPS}), reruns bit-equal"
+              f"{'' if ref_err is None else f', vs ref {ref_err:.2e}'}; "
+              f"best ppb {best}: call {call_ms:.4f} ms, device "
+              f"{rows[tag]['device_ms']:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), SDPA on the gathered "
+              f"K/V (gather not counted) {lib_ms:.4f} ms, device "
+              f"{lib_dev_ms:.4f} ms; by ppb (device ms, modeled ms): "
+              f"{ {p: (round(x['device_ms'], 4), round(x['modeled_ms'], 4)) for p, x in per_ppb.items()} } "
+              f"[{card}]", flush=True)
+        del args, q, kp, vp, tbl, cl, ks, vs
+    torch.cuda.synchronize()
+    by_path["paged-check"] = read_counts()
+    return rows
 
 
 def _leaves(tree):

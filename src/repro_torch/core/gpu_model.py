@@ -22,9 +22,10 @@ with few resident warps and the staging are not in it; the kernel ran at
 ~86% of the issue bound it gives), so the tuner times the model's top
 picks and the static v9 config on the card, and the timing decides.
 
-Flash forward (`flash_step_s`) and the selective scan (`ssm_step_s`) are
-ranked the same way; the model path takes their picks without timing
-(as the JAX package does), so their docstrings say what they count.
+Flash forward (`flash_step_s`), the selective scan (`ssm_step_s`) and
+paged decode (`paged_step_s`) are ranked the same way; the model path
+takes the first two's picks without timing (as the JAX package does), so
+their docstrings say what they count.
 """
 
 from __future__ import annotations
@@ -202,3 +203,34 @@ def ssm_step_s(key, cfg, spec: GpuSpec = DEFAULT_SPEC) -> float:
         cycles += key.t * w * cfg.states * max(issue, SSM_MUFU_CLOCKS)
     bytes_ = ssm_cuda.kernel_hbm_bytes(key.b, key.t, key.c, key.n)
     return max(cycles / spec.boost_hz, bytes_ / spec.hbm_bw)
+
+
+# ---------------------------------------------------------------------------
+# paged decode
+# ---------------------------------------------------------------------------
+
+# what one online-softmax step of csrc/paged_decode.cu costs a CTA beyond
+# its bytes: the block's page ids, its staged loads' round trip to device
+# memory and three barriers, in turn on one SM. An estimate for ranking
+# (a few microseconds of latency a step), not a measurement: chip_smoke.py
+# phase 12b prints the modeled time beside the device time of every
+# pages_per_block
+PAGED_BLOCK_S = 2e-6
+
+
+def paged_step_s(key, cfg, kv_itemsize: int,
+                 spec: GpuSpec = DEFAULT_SPEC) -> float:
+    """Modeled seconds of one paged decode call (key:
+    kernel_def.PagedKey, cfg its clamped PagedBlockConfig):
+
+        K/V bytes / HBM bandwidth + (npt / pages_per_block) x PAGED_BLOCK_S
+
+    Bytes: every K and V line the table names, read once (kv_itemsize 1
+    for an int8 pool, plus its two f32 scales a page), and q and out in
+    bf16. The steps of a CTA run in turn; the CTAs (a row and kv head
+    each) run side by side."""
+    kv = 2 * key.b * key.npt * key.page * key.kvh * key.hd * kv_itemsize
+    scales = 8 * key.b * key.npt if kv_itemsize == 1 else 0
+    bytes_ = kv + scales + 2 * key.b * key.qlen * key.h * key.hd * 2
+    n_blocks = key.npt // cfg.pages_per_block
+    return bytes_ / spec.hbm_bw + n_blocks * PAGED_BLOCK_S

@@ -1,6 +1,6 @@
-"""Attention — the port of `repro.models.attention` (:30-124, :264-275):
-chunked-causal attention for prefill, single-token decode attention, and
-the flash-kernel route through the registry.
+"""Attention — the port of `repro.models.attention` (:30-157, :264-275):
+chunked-causal attention for prefill, single-token and multi-query decode
+attention, and the flash-kernel route through the registry.
 
 Memory design as in the JAX package: the plain prefill path never holds
 more than one (chunk x S) score block a head group; the flash route
@@ -10,8 +10,7 @@ bf16 before the value product, which accumulates in f32 — the JAX
 einsums with preferred_element_type=f32, written as f32 products of
 bf16-valued operands.
 
-`flash_decode_sharded` and `decode_attention_multi` wait for the mesh and
-speculative-decoding slices.
+`flash_decode_sharded` waits for the mesh slice.
 """
 
 from __future__ import annotations
@@ -94,6 +93,35 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0
     p = torch.softmax(scores, dim=-1).to(PARAM_DTYPE)
     out = torch.einsum("bkgs,bskd->bkgd", p.float(), v_cache.float())
     return out.reshape(b, 1, h, hd).to(PARAM_DTYPE)
+
+
+def decode_attention_multi(q, k_cache, v_cache, cache_len, *,
+                           window: int = 0) -> torch.Tensor:
+    """Multi-query decode: Q=k+1 candidate tokens per row attend against a
+    cache whose last Q lines are the candidates themselves (speculative
+    verify). q: (B,Q,H,Hd); caches: (B,L,KvH,Hd). cache_len counts valid
+    positions INCLUDING the Q candidate lines, so candidate j sits at
+    absolute position cache_len - Q + j and sees every cache position <=
+    its own. cache_len: scalar or (B,) per-row."""
+    b, qn, h, hd = q.shape
+    _, lc, n_kv, _ = k_cache.shape
+    g = h // n_kv
+    scale = hd ** -0.5
+    qr = q.reshape(b, qn, n_kv, g, hd).permute(0, 2, 3, 1, 4).float()
+    scores = torch.einsum("bkgqd,bskd->bkgqs", qr, k_cache.float()) * scale
+    pos = torch.arange(lc, device=q.device)
+    clen = torch.as_tensor(cache_len, device=q.device)
+    if clen.dim() == 0:
+        clen = clen.expand(b)
+    q_pos = clen[:, None] - qn + torch.arange(qn, device=q.device)[None, :]
+    mask = pos[None, None, :] <= q_pos[:, :, None]             # (B,Q,L)
+    if window:
+        mask &= pos[None, None, :] > (q_pos[:, :, None] - window)
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(PARAM_DTYPE)
+    out = torch.einsum("bkgqs,bskd->bkgqd", p.float(), v_cache.float())
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, qn, h, hd)
+    return out.to(PARAM_DTYPE)
 
 
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:

@@ -4,7 +4,7 @@ the dense and hybrid families (`Model` :31, `_maybe_remat` :60,
 `_dense_stack` :92, `_dense_prefill_stack` :114, `_dense_decode_stack`
 :137, `_hymba_stack` :186-252 for prefill and decode, `make_cache` :347,
 `build_model` :426, `_logits` :458, `loss_fn` :516, `prefill` :559,
-`decode_step` :652, `prefill_into_slot` :726).
+`decode_step` :652, `prefill_into_slot` :726, `prefill_continue` :763).
 
 Layouts are the JAX package's: activations (B, S, D), caches
 {"k", "v": (L, B, Lcache, KvH, Hd) bf16, "pos": int32 scalar or (B,)},
@@ -21,18 +21,20 @@ Training (dense only): `loss_fn` runs `_dense_stack`, each layer under
 which keeps the non-batched matmul outputs, the JAX
 `dots_with_no_batch_dims_saveable`), then the cross-entropy in sequence
 chunks, each under its own checkpoint. Serving (`prefill`, `decode_step`,
-`prefill_into_slot`) runs under `torch.no_grad()`, so params that require
-grad (a trainer's) record no graph there.
+`prefill_into_slot`, `prefill_continue`) runs under `torch.no_grad()`, so
+params that require grad (a trainer's) record no graph there.
 
-`decode_verify`, `prefill_continue`, hybrid training and every family but
-"dense" and "hybrid" wait for later slices (ROADMAP queue 1).
+`prefill_continue` (the paged cache's suffix prefill) is the dense
+family's only, None for hybrid, as in the JAX package. `decode_verify`,
+hybrid training and every family but "dense" and "hybrid" wait for later
+slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -59,6 +61,10 @@ class Model:
     # (continuous batching refill — see serve/engine.py)
     prefill_into_slot: Callable[..., Tuple[torch.Tensor, Cache]]
     init_cache: Callable[..., Cache]
+    # suffix-only prefill continuing from cached prefix K/V lines (paged
+    # K/V cache prefix reuse — serve/kvcache.py); dense family only
+    prefill_continue: Optional[Callable[..., Tuple[torch.Tensor, Cache]]] \
+        = None
 
 
 # ===========================================================================
@@ -424,7 +430,40 @@ def build_model(cfg: ModelConfig) -> Model:
         pos[slot] = plen.to(pos.dtype)
         return logits, {**cache, "pos": pos}
 
+    @backend.f32_accumulation()
+    @torch.no_grad()
+    def prefill_continue(params, cache: Cache, slot, batch, start, n_real):
+        """Prefill ONLY the unseen suffix of a request whose first `start`
+        prompt positions already sit in `slot`'s cache rows (restored
+        prefix pages). batch["tokens"]: (1, S) suffix tokens, right-padded
+        to a shape bucket (pad lines land past the real suffix and stay
+        masked by the row's pos). n_real: the real suffix length; logits
+        are taken at suffix index n_real - 1.
+
+        Returns (logits (1,1,V), cache): row `slot` of k/v written in
+        place at start..start+S, pos[slot] = start + n_real in a new "pos"
+        tensor."""
+        x = embed(batch["tokens"], params["embed"])
+        positions = start + torch.arange(x.shape[1], device=x.device)
+        for i in range(params["layers"]["ln1"].shape[0]):
+            lp = _layer(params["layers"], i)
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            a, _ = T.attn_block_continue(
+                lp["attn"], h, cfg, cache_k=cache["k"][i],
+                cache_v=cache["v"][i], slot=slot, start=start,
+                positions=positions)
+            x = x + a
+            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + swiglu(h, lp["ffn"]["wi"], lp["ffn"]["wg"],
+                           lp["ffn"]["wo"])
+        pos = cache["pos"].clone()
+        pos[slot] = start + n_real
+        return (_logits(params, x[:, n_real - 1:n_real]),
+                {**cache, "pos": pos})
+
     return Model(cfg=cfg, init_params=init_params, loss_fn=loss_fn,
                  prefill=prefill,
                  decode_step=decode_step, prefill_into_slot=prefill_into_slot,
-                 init_cache=functools.partial(make_cache, cfg))
+                 init_cache=functools.partial(make_cache, cfg),
+                 prefill_continue=(prefill_continue if cfg.family == "dense"
+                                   else None))

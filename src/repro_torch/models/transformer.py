@@ -3,11 +3,12 @@
 `_ffn_params`, `_mamba_params`, the dense and hybrid branches of
 `build_param_fn`, :45-76, :130-147, :150-188, :217-222), `_qkv` (:231),
 `attn_block` (:245), `attn_block_decode` (:276, the scalar-pos, per-row
-and ring-buffer branches) and `mamba_path` (:450-510, every `ssm_impl`).
+and ring-buffer branches), `attn_block_continue` (:352) and `mamba_path`
+(:450-510, every `ssm_impl`).
 
 The other families' blocks (moe, rwkv, whisper, vlm), the sharded-decode
-branch of `attn_block_decode`, `attn_block_decode_k` and
-`attn_block_continue` wait for their slices.
+branch of `attn_block_decode` and `attn_block_decode_k` wait for their
+slices.
 """
 
 from __future__ import annotations
@@ -193,6 +194,34 @@ def attn_block_decode(lp, x, cfg: ModelConfig, *, cache_k, cache_v, pos,
         out = attn_lib.decode_attention(q, cache_k, cache_v, pos + 1,
                                         window=window)
     out = matmul_rp(out.reshape(b_, 1, -1), lp["wo"])
+    return out, (cache_k, cache_v)
+
+
+def attn_block_continue(lp, x, cfg: ModelConfig, *, cache_k, cache_v, slot,
+                        start, positions):
+    """Suffix attention for prefix-continue prefill (the paged K/V cache's
+    prefix reuse). x: (1,S,D) suffix hidden states whose first token sits
+    at absolute position `start`; cache_k/v: (B,Lcache,KvH,Hd) slot caches
+    whose `slot` row already holds the first `start` K/V lines (restored
+    prefix pages). positions: (S,) = start + arange(S).
+
+    The suffix k/v are written into the slot row at `start` IN PLACE, and
+    the queries attend against the whole row with q_offset=start
+    (chunked_causal_attention: no flash on the suffix, as in the JAX
+    package): keys past each query are causally masked, so lines beyond
+    the written region get exact-0 weight. Returns (out, (cache_k,
+    cache_v))."""
+    b_, s, _ = x.shape
+    assert b_ == 1
+    q, k, v = _qkv(lp, x, cfg)
+    if cfg.rope_theta:
+        q = apply_rope(q.transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)
+        k = apply_rope(k.transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)
+    cache_k[slot, start:start + s] = k[0].to(cache_k.dtype)
+    cache_v[slot, start:start + s] = v[0].to(cache_v.dtype)
+    out = attn_lib.chunked_causal_attention(
+        q, cache_k[slot:slot + 1], cache_v[slot:slot + 1], q_offset=start)
+    out = matmul_rp(out.reshape(b_, s, -1), lp["wo"])
     return out, (cache_k, cache_v)
 
 

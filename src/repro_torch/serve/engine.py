@@ -1,6 +1,6 @@
 """Slot-level continuous-batching serving engine — the port of
-`repro.serve.engine` (:71-208 and `ServeEngine` without the mesh, paged
-cache and speculative-decoding parts).
+`repro.serve.engine` (:71-208 and `ServeEngine` with its paged K/V cache,
+without the mesh and speculative-decoding parts).
 
 The engine owns a fixed pool of `max_batch` slots over ONE decode batch.
 Requests wait in a FIFO admission queue; whenever a slot's request
@@ -28,8 +28,19 @@ order, but NOT the JAX engine's threefry stream (`fold_in`, engine.py
 :405-407): temperature > 0 is held to determinism only until threefry is
 ported (ROADMAP).
 
-`mesh=`, `kv_page_size>0` and `spec_k>0` raise ValueError naming their
-ROADMAP item; `evict_inflight` and the router come later.
+Paged K/V cache (`kv_page_size > 0`, serve/kvcache.py): admission opens
+the request's block table; on a prefix hit the cached pages are copied
+into the slot's rows and only the suffix is prefilled
+(`Model.prefill_continue`: chunked attention over the row, no flash);
+then the prompt's full pages are published to the prefix index. Decode
+grows the block table a page at a time and a finished request releases it
+once; `last_stats["kvcache"]` holds the cache's stats. Decode still reads
+the dense slot cache, as in the JAX engine: the paged decode kernels are
+reached through the registry only. Families whose cache is not paged K/V
+(hybrid) serve unpaged. `kv_dtype="int8"` quantizes the published pages.
+
+`mesh=` and `spec_k>0` raise ValueError naming their ROADMAP item;
+`evict_inflight` and the router come later.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ import torch
 from repro_torch import backend
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.registry import Model, build_model
+from repro_torch.serve.kvcache import PagedKVCache
 
 # right-padding shape buckets for slot prefill (the JAX engine compiles one
 # prefill per bucket; here they keep the flash kernel's S % 256 == 0 rule
@@ -189,13 +201,12 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
                  cache_len: int = 512, rng_seed: int = 0,
                  device=backend.DEFAULT_DEVICE, mesh=None,
-                 kv_page_size: int = 0, spec_k: int = 0):
+                 kv_page_size: int = 0, kv_pages: Optional[int] = None,
+                 kv_dtype: str = "bf16", prefix_reuse: bool = True,
+                 spec_k: int = 0):
         if mesh is not None:
             raise ValueError("mesh= (tensor-parallel serving) is not ported "
                              "yet: ROADMAP queue 1, item 9 (distribution)")
-        if kv_page_size:
-            raise ValueError("kv_page_size>0 (the paged K/V cache) is not "
-                             "ported yet: ROADMAP queue 1, item 6 (serving)")
         if spec_k:
             raise ValueError("spec_k>0 (speculative decoding) is not ported "
                              "yet: ROADMAP queue 1, item 6 (serving)")
@@ -206,6 +217,11 @@ class ServeEngine:
         self.cache_len = cache_len
         self.rng_seed = rng_seed
         self.params = _to_device(params, self.device)
+        self.kv_page_size = kv_page_size
+        self.kv_pages = kv_pages
+        self.kv_dtype = kv_dtype
+        self.prefix_reuse = prefix_reuse
+        self._kv: Optional[PagedKVCache] = None
         self.last_stats: Optional[Dict[str, Any]] = None
         self._cache = None
         self._queue: deque = deque()
@@ -261,13 +277,30 @@ class ServeEngine:
             raise ValueError(f"request {r.rid}: prompt {plen} + max_new "
                              f"{r.max_new_tokens} exceeds cache_len "
                              f"{self.cache_len}")
+        # paged cache: open the block table and consult the prefix index;
+        # a hit restores the cached pages into the slot row and prefills
+        # only the unseen suffix
+        prompt = np.asarray(r.prompt, np.int32)
+        hit = None
+        if self._kv is not None:
+            hit = self._kv.admit(r.rid, prompt, plen, r.max_new_tokens)
         t_admit = time.perf_counter()
-        padded = self._bucket_len(plen, self.cache_len)
-        toks = np.zeros((1, padded), np.int64)
-        toks[0, :plen] = r.prompt            # right pad: masked by pos
+        start = hit.tokens if hit is not None else 0
+        n = plen - start
+        toks = np.zeros((1, self._bucket_len(n, self.cache_len - start)),
+                        np.int64)
+        toks[0, :n] = prompt[start:]         # right pad: masked by pos
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
-        logits, cache = self.model.prefill_into_slot(
-            self.params, cache, slot_idx, batch, plen)
+        if hit is not None:
+            cache = self._kv.restore_prefix(cache, slot_idx, hit)
+            logits, cache = self.model.prefill_continue(
+                self.params, cache, slot_idx, batch, start, n)
+        else:
+            logits, cache = self.model.prefill_into_slot(
+                self.params, cache, slot_idx, batch, plen)
+        if self._kv is not None and self._kv.prefix_reuse:
+            # publish this prompt's full pages for future admissions
+            cache = self._kv.insert_prefix(prompt, r.rid, cache, slot_idx)
         slot = _Slot(rid=r.rid, temperature=r.temperature,
                      remaining=r.max_new_tokens, n_gen=0, prompt_len=plen,
                      t_enqueue=t_enqueue, t_admit=t_admit, t_first=0.0)
@@ -289,6 +322,12 @@ class ServeEngine:
         self._per_req: Dict[int, RequestStats] = {}
         self._slots = [None] * self.max_batch
         self._cache = self._fresh_cache()
+        if self.kv_page_size:
+            self._kv = PagedKVCache(
+                self.cfg, max_batch=self.max_batch,
+                cache_len=self.cache_len, page_size=self.kv_page_size,
+                n_pages=self.kv_pages, kv_dtype=self.kv_dtype,
+                prefix_reuse=self.prefix_reuse, device=self.device)
         self._cur = np.zeros((self.max_batch, 1), np.int64)
         self._n_steps = 0
         self._n_prefills = 0
@@ -300,6 +339,12 @@ class ServeEngine:
     def idle(self) -> bool:
         """True when nothing is queued and every slot is free."""
         return not self._queue and all(s is None for s in self._slots)
+
+    @property
+    def kv(self) -> Optional[PagedKVCache]:
+        """The run's PagedKVCache (None until reset() on a paged engine,
+        always None with kv_page_size=0)."""
+        return self._kv
 
     @property
     def queue_depth(self) -> int:
@@ -343,6 +388,8 @@ class ServeEngine:
             decode_steps=s.decode_steps, total_s=now - s.t_enqueue,
             tok_per_s=s.n_gen / max(now - s.t_admit, 1e-9))
         self._slots[i] = None
+        if self._kv is not None:
+            self._kv.release(s.rid)     # terminal outcome: free pages once
         return s.rid
 
     @backend.f32_accumulation()
@@ -398,6 +445,9 @@ class ServeEngine:
             s.n_gen += 1
             s.remaining -= 1
             s.decode_steps += 1
+            if self._kv is not None:
+                # decode growth: pos covers prompt_len + n_gen lines
+                self._kv.grow(s.rid, s.prompt_len + s.n_gen)
             if s.remaining <= 0:
                 finished.append(self._finish(i))
         return StepReport(admitted=admitted, finished=finished,
@@ -413,6 +463,9 @@ class ServeEngine:
             n_steps=self._n_steps, n_prefills=self._n_prefills,
             slot_steps_active=self._slot_steps_active,
             max_batch=self.max_batch, wall_s=wall)
+        if self._kv is not None:
+            # merged here, outside aggregate_engine_stats's schema
+            engine_stats["kvcache"] = self._kv.stats()
         self.last_stats = engine_stats
         return engine_stats
 

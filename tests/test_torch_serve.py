@@ -177,8 +177,7 @@ def test_request_larger_than_the_cache_raises(port_small):
         eng.run([Request(rid=0, prompt=np.arange(10), max_new_tokens=7)])
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()},
-                                    {"kv_page_size": 16}, {"spec_k": 2}])
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"spec_k": 2}])
 def test_unported_options_raise(port_small, kwargs):
     cfg, params = port_small
     with pytest.raises(ValueError, match="ROADMAP"):
