@@ -138,14 +138,18 @@ Phases (one line each, more where noted):
   12b. the paged decode kernels: dispatch("paged_decode") for gather,
      int8 and verify at qwen2-1.5b's decode shape (B=4, H=12, KvH=2,
      Hd=128, page 16, 64 pages a row; the tuner times the menu), then
-     each entry point against its plain version (within PAGED_OUT_ULPS,
-     bit-equal reruns, gather also against ref within PAGED_REF_ATOL) at
-     that shape with a permuted table, full and ragged cache_len (one
-     ending mid-page), int8 pools, verify at Q=4 on bf16 and int8 pools,
-     rows that see nothing, every pages_per_block of the menu, and B=8 at
-     a context of 8192; call, device (CUDA graph) and plain ms, the bound,
-     the model's time per block, and SDPA on the already-gathered K/V
-     (gather not counted) as the yardstick.
+     each entry point against its plain version at the same split count
+     (within PAGED_OUT_ULPS, bit-equal reruns, gather also against ref
+     within PAGED_REF_ATOL) at that shape with a permuted table, full and
+     ragged cache_len (one ending mid-page), int8 pools, verify at Q=4 on
+     bf16 and int8 pools, rows that see nothing, every pages_per_block of
+     the menu, and B=8 at a context of 8192; each case's grid (splits,
+     KvH, B x row groups), its ring stages and CTAs an SM at every ppb,
+     and every split count 1-64 at the best ppb (held to the same gates);
+     call, device (CUDA graph) and plain ms, the bound, the model's time
+     beside each device time, and two yardsticks: SDPA on the
+     already-gathered K/V (gather not counted) and gather + SDPA timed
+     together (the same function).
 Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
 phase 7d's Hd 32 model check, phase 8's serving run, phase 10's training
 run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
@@ -417,12 +421,19 @@ def main() -> None:
               for n, st in ssm_cuda.instances() for bf in (False, True)}
     print(f"[2] ssm_scan compiled (regs, spill bytes) per instance (N, "
           f"states a thread, params): {sattrs}", flush=True)
-    print(f"[2] paged_decode compiled (regs, spill bytes): bf16 pool "
-          f"{paged_cuda.kernel_attrs(False)}, int8 pool "
-          f"{paged_cuda.kernel_attrs(True)}; shared memory at qwen2's decode "
-          f"(6 rows, ppb 16) and verify (24 rows) "
-          f"{paged_cuda.library_smem_bytes(6, 128, 256, 16, 2)}, "
-          f"{paged_cuda.library_smem_bytes(24, 128, 256, 16, 2)} B", flush=True)
+    pattrs = {f"{'int8' if i8 else 'bf16'}/hd{hd}/tiles{mt}":
+              paged_cuda.kernel_attrs(i8, hd, mt) for i8 in (False, True)
+              for hd in paged_cuda.HEAD_DIMS for mt in (1, 2)}
+    pattrs["combine"] = paged_cuda.kernel_attrs(False, 128, 0)
+    print(f"[2] paged_decode compiled (regs, spill bytes) per instance (pool, "
+          f"head dim, 16-row tiles): {pattrs}; (shared memory B, stages) at "
+          f"qwen2's decode (6 rows, ppb 16, 16 splits) "
+          f"{paged_cuda.library_smem_bytes(6, 128, 16, 64, 16, 16, 2)}, "
+          f"verify (24 rows) "
+          f"{paged_cuda.library_smem_bytes(24, 128, 16, 64, 16, 16, 2)}, "
+          f"B=8 x 8192 (ppb 4) "
+          f"{paged_cuda.library_smem_bytes(6, 128, 16, 512, 4, 16, 2)}",
+          flush=True)
 
     # -- 2b. GPP's band loop and the scan's step loop counted from the SASS ----
     census = gpp_census(libs["gpp.cu"], spec, card)
@@ -728,12 +739,16 @@ def main() -> None:
             **{k: row[k] for k in ("max_abs_err", "ms", "device_ms",
                                    "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "library_device_ms",
-                                   "shape", "ppb", "worst_ulps")},
+                                   "library_gather_ms",
+                                   "library_gather_device_ms", "shape", "ppb",
+                                   "splits", "grid", "worst_ulps")},
             "library_note": "scaled_dot_product_attention on the already-"
-                            "gathered dense K/V (gather not counted)",
+                            "gathered dense K/V (gather not counted); "
+                            "library_gather_*: gather + the same SDPA",
             **{f"at_{t}": {k: paged_rows[t][k] for k in (
                 "device_ms", "bound_ms", "bound_by", "library_device_ms",
-                "plain_ms", "ppb", "worst_ulps")} for t in at}})
+                "library_gather_device_ms", "plain_ms",
+                "ppb", "splits", "grid", "worst_ulps")} for t in at}})
     print(f"[8] serving summary: {json.dumps(serve)} [{card}]", flush=True)
     print(f"[10] training summary: {json.dumps(train)} [{card}]", flush=True)
     print(f"[11] hybrid serving summary: {json.dumps(hybrid)} [{card}]",
@@ -2118,58 +2133,77 @@ def paged_inputs(torch, dev, b, qlen, h, kvh, hd, page, npt, clens, seed,
 
 
 def sdpa_on_gathered(torch, q, kp, vp, table, clen, ks, vs):
-    """The yardstick: scaled_dot_product_attention on the already-gathered
+    """The yardsticks: scaled_dot_product_attention on the already-gathered
     dense K/V (the gather, and an int8 pool's dequantization, done before
-    and not timed). Returns the call to time."""
+    and not timed), and one callable that gathers (paged.gather_pages,
+    dequantizing an int8 pool) and then runs the same SDPA: the same
+    function as the kernel. Returns the two calls to time."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged import paged
-    k = paged.gather_pages(kp, table)
-    v = paged.gather_pages(vp, table)
-    if ks is not None:
-        lines = kp.shape[1]
-        k = (k.float() * ks[table.long()].repeat_interleave(lines, 1)[
-            ..., None, None]).to(torch.bfloat16)
-        v = (v.float() * vs[table.long()].repeat_interleave(lines, 1)[
-            ..., None, None]).to(torch.bfloat16)
     q4 = q[:, None] if q.dim() == 3 else q
-    qn, L = q4.shape[1], k.shape[1]
-    pos = torch.arange(L, device=q.device)
+    qn = q4.shape[1]
+    qt = q4.transpose(1, 2).contiguous()
     q_pos = clen[:, None] - qn + torch.arange(qn, device=q.device)[None]
-    mask = (pos[None, None] <= q_pos[..., None])[:, None]       # (B,1,Q,L)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q4, k, v))
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                  enable_gqa=True)
+
+    def gathered():
+        k = paged.gather_pages(kp, table)
+        v = paged.gather_pages(vp, table)
+        if ks is not None:
+            lines = kp.shape[1]
+            k = (k.float() * ks[table.long()].repeat_interleave(lines, 1)[
+                ..., None, None]).to(torch.bfloat16)
+            v = (v.float() * vs[table.long()].repeat_interleave(lines, 1)[
+                ..., None, None]).to(torch.bfloat16)
+        pos = torch.arange(k.shape[1], device=q.device)
+        mask = (pos[None, None] <= q_pos[..., None])[:, None]    # (B,1,Q,L)
+        return k.transpose(1, 2), v.transpose(1, 2), mask
+
+    kt, vt, mask = (x.contiguous() for x in gathered())
+
+    def with_gather():
+        k, v, m = gathered()
+        return F.scaled_dot_product_attention(qt, k, v, attn_mask=m,
+                                              enable_gqa=True)
+
+    return (lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)), with_gather
 
 
-def paged_calls(entry, plain, version, args, ppb):
-    """(kernel call, plain call) of `version` on args at ppb."""
+def paged_calls(entry, plain, version, args, ppb, splits):
+    """(kernel call, plain call) of `version` on args at ppb and splits."""
     q, kp, vp, tbl, cl, ks, vs = args
     if version == "int8":
-        return (lambda: entry[version](q, kp, vp, tbl, cl, ks, vs, ppb),
+        return (lambda: entry[version](q, kp, vp, tbl, cl, ks, vs, ppb,
+                                       splits=splits),
                 lambda: plain[version](q, kp, vp, tbl, cl, ks, vs,
-                                       pages_per_block=ppb))
+                                       pages_per_block=ppb, splits=splits))
     if version == "verify":
-        return (lambda: entry[version](q, kp, vp, tbl, cl, ppb, ks, vs),
+        return (lambda: entry[version](q, kp, vp, tbl, cl, ppb, ks, vs,
+                                       splits=splits),
                 lambda: plain[version](q, kp, vp, tbl, cl,
                                        pages_per_block=ppb, kscale=ks,
-                                       vscale=vs))
-    return (lambda: entry[version](q, kp, vp, tbl, cl, ppb),
-            lambda: plain[version](q, kp, vp, tbl, cl, pages_per_block=ppb))
+                                       vscale=vs, splits=splits))
+    return (lambda: entry[version](q, kp, vp, tbl, cl, ppb, splits=splits),
+            lambda: plain[version](q, kp, vp, tbl, cl, pages_per_block=ppb,
+                                   splits=splits))
 
 
 def paged_bound(spec, q, kv_itemsize, kvh, hd, clens, ctx, int8_pages):
     """(bound ms, 'bytes' or 'operations'): the K/V lines this run's
     cache_len needs, each read once (a row's valid lines; all ctx lines
     of a row in which a query sees nothing, whose output is their mean), q
-    and out in bf16, page scales; against 4 Hd FP32 operations a (row,
-    query, head, line) pair."""
+    and out in bf16, page scales; against the operations of a (row,
+    query, head, line) pair by their type: q.k, 2 Hd on bf16 operands
+    (an int8 line is exact in bf16) at the bf16 tensor-core peak, and p v,
+    2 Hd with the f32 p of the contract at the FP32 peak."""
     b, h = q.shape[0], q.shape[-2]
     qn = q.shape[1] if q.dim() == 4 else 1
     lines = sum(c if c >= qn else ctx for c in clens)
     bytes_ = (2 * lines * kvh * hd * kv_itemsize + 8 * int8_pages
               + 2 * b * qn * h * hd * 2)
-    ops = 4.0 * qn * h * lines * hd
-    bytes_ms, ops_ms = bytes_ / spec.hbm_bw * 1e3, ops / spec.fp32_flops * 1e3
+    pairs = 2.0 * qn * h * lines * hd
+    bytes_ms = bytes_ / spec.hbm_bw * 1e3
+    ops_ms = (pairs / spec.bf16_tc_flops + pairs / spec.fp32_flops) * 1e3
     return ((bytes_ms, "bytes") if bytes_ms >= ops_ms
             else (ops_ms, "operations"))
 
@@ -2177,8 +2211,10 @@ def paged_bound(spec, q, kv_itemsize, kvh, hd, clens, ctx, int8_pages):
 def paged_checks(torch, np, dev, spec, card, zero_counts, read_counts,
                  by_path):
     """Phase 12b: the three paged decode entry points at op level: the
-    registry's path, then every case against the plain versions."""
+    registry's path, then every case against the split-aware plain
+    versions, every ppb and split count."""
     from repro_torch import dispatch
+    from repro_torch.core import gpu_model
     from repro_torch.kernels.api import get_kernel
     from repro_torch.kernels.paged import paged, paged_cuda
     from repro_torch.kernels.paged.kernel_def import PPB_MENU, PagedBlockConfig
@@ -2212,9 +2248,11 @@ def paged_checks(torch, np, dev, spec, card, zero_counts, read_counts,
         picks[v] = (tc.config.pages_per_block,
                     {c.pages_per_block: round(t * 1e3, 4)
                      for c, t, _ in tc.timings})
-        want = (paged.paged_decode_verify(*args, pages_per_block=picks[v][0])
+        splits = paged_cuda.splits_for(*args[:2], args[3])
+        want = (paged.paged_decode_verify(*args, pages_per_block=picks[v][0],
+                                          splits=splits)
                 if v == "verify" else paged.paged_decode_gather(
-                    *args, pages_per_block=picks[v][0]))
+                    *args, pages_per_block=picks[v][0], splits=splits))
         if v != "int8" and bf16_ulps(outs[v], want) > PAGED_OUT_ULPS:
             fail(f"[12b] dispatch {v}: {bf16_ulps(outs[v], want):.2f} bf16 "
                  f"ulps from the plain version")
@@ -2231,8 +2269,9 @@ def paged_checks(torch, np, dev, spec, card, zero_counts, read_counts,
         if not torch.isfinite(out.float()).all():
             fail(f"dispatch('paged_decode', version={v!r}) non-finite")
 
-    # each case against the plain version (every ppb of the menu on the
-    # decode shapes), bit-equal reruns, times and the bound
+    # each case against the plain version at the wrapper's split count
+    # (every ppb of the menu on the decode shapes), then every split count
+    # at the best ppb; bit-equal reruns, times, the bound, the yardsticks
     cases = (("decode", "gather", 4, 1, 64, (1024,) * 4, False),
              ("decode-ragged", "gather", 4, 1, 64, (1024, 1000, 777, 517),
               False),
@@ -2250,69 +2289,104 @@ def paged_checks(torch, np, dev, spec, card, zero_counts, read_counts,
                             30 + i, int8)
         q, kp, vp, tbl, cl, ks, vs = args
         key = kernel.problem_key(q, kp, vp, tbl, cl)
-        menu = PPB_MENU if tag != "long" else (8, 16)
-        per_ppb = {}
-        for ppb in menu:
-            call, ref = paged_calls(entry, plain, version, args, ppb)
+        rule = paged_cuda.splits_for(q, kp, tbl)
+        groups = paged_cuda.row_tiles(h // kvh * qn)[1]
+        kvb = 1 if int8 else 2
+
+        def measure(ppb, splits):
+            call, ref = paged_calls(entry, plain, version, args, ppb, splits)
             got, again, want = call(), call(), ref()
             torch.cuda.synchronize()
             ulps = bf16_ulps(got, want)
             same = torch.equal(_bits(got), _bits(again))
-            per_ppb[ppb] = {
-                "ulps": ulps, "bit_equal": same,
-                "max_abs_err": float((got.float() - want.float()).abs().max()),
-                "device_ms": graph_ms(call),
-                "modeled_ms": kernel.model_step_s(
-                    key, PagedBlockConfig("t", ppb),
-                    "int8" if int8 else version, dev) * 1e3}
             if ulps > PAGED_OUT_ULPS or not same \
                     or not torch.isfinite(got.float()).all():
-                fail(f"[12b] {tag} ppb {ppb}: {ulps:.2f} bf16 ulps from the "
-                     f"plain version (tol {PAGED_OUT_ULPS}), rerun bit-equal "
-                     f"{same} [{card}]")
+                fail(f"[12b] {tag} ppb {ppb} splits {splits}: {ulps:.2f} bf16 "
+                     f"ulps from the plain version (tol {PAGED_OUT_ULPS}), "
+                     f"rerun bit-equal {same} [{card}]")
+            return {"ulps": ulps, "bit_equal": same,
+                    "max_abs_err": float((got.float() - want.float()).abs()
+                                         .max()),
+                    "device_ms": graph_ms(call),
+                    "modeled_ms": gpu_model.paged_step_s(
+                        key, PagedBlockConfig("t", ppb).clamped(key), kvb,
+                        spec, splits) * 1e3}
+
+        menu = PPB_MENU if tag != "long" else (4, 8, 16)
+        per_ppb = {}
+        for ppb in menu:
+            per_ppb[ppb] = measure(ppb, rule)
+            per_ppb[ppb]["stages"] = paged_cuda.plan(
+                h // kvh * qn, hd, page, npt, ppb, rule, kvb)["stages"]
+            per_ppb[ppb]["ctas_an_sm"] = paged_cuda.occupancy(
+                int8, h // kvh * qn, hd, page, npt, ppb, rule)
         best = min(per_ppb, key=lambda p: per_ppb[p]["device_ms"])
-        call, ref = paged_calls(entry, plain, version, args, best)
+        per_split = {}
+        for sp in (1, 2, 4, 8, 16, 32, 64):
+            if sp <= npt:
+                per_split[sp] = (per_ppb[best] if sp == rule
+                                 else measure(best, sp))
+        best_split = min(per_split, key=lambda s: per_split[s]["device_ms"])
+        rule_loss = (per_split[rule]["device_ms"]
+                     / per_split[best_split]["device_ms"] - 1)
+        call, ref = paged_calls(entry, plain, version, args, best, rule)
         call_ms = cuda_ms(call)
         plain_ms = cuda_ms(ref, reps=5, warmup=1)
-        sdpa = sdpa_on_gathered(torch, q, kp, vp, tbl, cl, ks, vs)
+        sdpa, gather_sdpa = sdpa_on_gathered(torch, q, kp, vp, tbl, cl, ks,
+                                             vs)
         lib_ms, lib_dev_ms = cuda_ms(sdpa), graph_ms(sdpa)
-        bound_ms, bound_by = paged_bound(spec, q, 1 if int8 else 2, kvh, hd,
-                                         clens, npt * page,
-                                         b * npt if int8 else 0)
+        lib_g_ms, lib_g_dev_ms = cuda_ms(gather_sdpa), graph_ms(gather_sdpa)
+        bound_ms, bound_by = paged_bound(spec, q, kvb, kvh, hd, clens,
+                                         npt * page, b * npt if int8 else 0)
         ref_err = None
         if version == "gather":
-            ref_err = float((entry["gather"](q, kp, vp, tbl, cl, best).float()
+            ref_err = float((call().float()
                              - paged.paged_decode_ref(q, kp, vp, tbl, cl)
                              .float()).abs().max())
             if ref_err > PAGED_REF_ATOL:
                 fail(f"[12b] {tag}: gather against ref {ref_err:.3e} "
                      f"(tol {PAGED_REF_ATOL})")
+        rnd5 = (lambda x: {k: (round(v, 5) if isinstance(v, float) else v)
+                           for k, v in x.items()})
         rows[tag] = {"shape": {"b": b, "q": qn, "h": h, "kvh": kvh, "hd": hd,
                                "page": page, "npt": npt,
                                "cache_len": list(clens), "int8": int8},
-                     "ppb": best, "ms": call_ms,
+                     "ppb": best, "splits": rule,
+                     "grid": [rule, kvh, b * groups], "ms": call_ms,
                      "device_ms": per_ppb[best]["device_ms"],
+                     "modeled_ms": per_ppb[best]["modeled_ms"],
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms,
                      "library_device_ms": lib_dev_ms,
+                     "library_gather_ms": lib_g_ms,
+                     "library_gather_device_ms": lib_g_dev_ms,
                      "max_abs_err": per_ppb[best]["max_abs_err"],
-                     "worst_ulps": max(x["ulps"] for x in per_ppb.values()),
-                     "vs_ref": ref_err,
-                     "by_ppb": {p: {k: (round(x[k], 5) if isinstance(x[k], float)
-                                        else x[k]) for k in x}
-                                for p, x in per_ppb.items()}}
+                     "worst_ulps": max(x["ulps"] for x in list(
+                         per_ppb.values()) + list(per_split.values())),
+                     "vs_ref": ref_err, "best_splits": best_split,
+                     "rule_loss": rule_loss,
+                     "by_ppb": {p: rnd5(x) for p, x in per_ppb.items()},
+                     "by_splits": {s: rnd5(x) for s, x in per_split.items()}}
         print(f"[12b] {tag} ({version}, B={b}, Q={qn}, {npt} pages a row, "
               f"cache_len {list(clens)}{', int8 pool' if int8 else ''}): "
-              f"every ppb within {rows[tag]['worst_ulps']:.2f} bf16 ulps of "
-              f"the plain version (tol {PAGED_OUT_ULPS}), reruns bit-equal"
+              f"grid {tuple(rows[tag]['grid'])} (splits {rule}, KvH, B x "
+              f"{groups} row groups); every ppb and split count within "
+              f"{rows[tag]['worst_ulps']:.2f} bf16 ulps of the plain version "
+              f"(tol {PAGED_OUT_ULPS}), reruns bit-equal"
               f"{'' if ref_err is None else f', vs ref {ref_err:.2e}'}; "
               f"best ppb {best}: call {call_ms:.4f} ms, device "
-              f"{rows[tag]['device_ms']:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}), SDPA on the gathered "
+              f"{rows[tag]['device_ms']:.4f} ms (modeled "
+              f"{rows[tag]['modeled_ms']:.4f}), plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}); SDPA on the gathered "
               f"K/V (gather not counted) {lib_ms:.4f} ms, device "
-              f"{lib_dev_ms:.4f} ms; by ppb (device ms, modeled ms): "
-              f"{ {p: (round(x['device_ms'], 4), round(x['modeled_ms'], 4)) for p, x in per_ppb.items()} } "
-              f"[{card}]", flush=True)
+              f"{lib_dev_ms:.4f} ms; gather + SDPA {lib_g_ms:.4f} ms, device "
+              f"{lib_g_dev_ms:.4f} ms; by ppb (device ms, modeled "
+              f"ms, stages, CTAs an SM): "
+              f"{ {p: (round(x['device_ms'], 4), round(x['modeled_ms'], 4), x['stages'], x['ctas_an_sm']) for p, x in per_ppb.items()} }; "
+              f"by splits at ppb {best} (device ms, modeled ms): "
+              f"{ {s: (round(x['device_ms'], 4), round(x['modeled_ms'], 4)) for s, x in per_split.items()} }, "
+              f"best {best_split}, the rule's {rule} {100 * rule_loss:.1f}% "
+              f"slower [{card}]", flush=True)
         del args, q, kp, vp, tbl, cl, ks, vs
     torch.cuda.synchronize()
     by_path["paged-check"] = read_counts()

@@ -209,28 +209,93 @@ def ssm_step_s(key, cfg, spec: GpuSpec = DEFAULT_SPEC) -> float:
 # paged decode
 # ---------------------------------------------------------------------------
 
-# what one online-softmax step of csrc/paged_decode.cu costs a CTA beyond
-# its bytes: the block's page ids, its staged loads' round trip to device
-# memory and three barriers, in turn on one SM. An estimate for ranking
-# (a few microseconds of latency a step), not a measurement: chip_smoke.py
-# phase 12b prints the modeled time beside the device time of every
-# pages_per_block
-PAGED_BLOCK_S = 2e-6
+# Costs of csrc/paged_decode.cu's split kernel, fitted (least squares on
+# the log of the ratio) to the 75 device times of phase 12b's sweeps over
+# pages_per_block and split counts at its seven qwen2-1.5b cases, on an
+# NVIDIA H100 80GB HBM3 at 700 W; tools/paged_decode_probe.py --model
+# holds it to shapes outside that fit (PERF.md §6). For ranking: phase
+# 12b prints the modeled time beside every device time. A row tile's
+# fixed path (launch, page ids and q, the first round trip, the warps'
+# merge, the partials' write); a stage's wait and barrier; a warp's
+# 16-line chunk of one 16-row tile at Hd 128, by pool itemsize (an int8
+# chunk also widens its lines to bf16); the combine kernel, and its part for each
+# split; the rate one SM's ring takes in from L2, and the card's from HBM
+PAGED_FIXED_TILE_S = 3.15e-6
+PAGED_STAGE_S = 0.39e-6
+PAGED_CHUNK_S = {2: 0.51e-6, 1: 1.46e-6}
+PAGED_COMBINE_S = 2.4e-6
+PAGED_COMBINE_SPLIT_S = 0.14e-6
+PAGED_SM_BW = 31.5e9
+PAGED_HBM_BW = 2.5e12
+# K/V that fit the 50 MB L2 stay there from call to call (graph replays
+# of one call): then only the SMs' own rate bounds the loads
+L2_BYTES = 50e6
+
+
+def paged_terms(key, cfg, kv_itemsize: int, spec: GpuSpec = DEFAULT_SPEC,
+                splits=None) -> dict:
+    """The modeled parts of one paged decode call (key:
+    kernel_def.PagedKey, cfg its clamped PagedBlockConfig), every row at
+    its full npt pages, at `splits` (None: `paged_cuda.split_count` on
+    spec's SMs, the wrapper's rule), in seconds:
+
+      load_s     a stage's lines at the CTA's rate: PAGED_SM_BW shared by
+                 the m CTAs resident together on its SM, or, when the
+                 call's K/V exceed the L2, PAGED_HBM_BW shared by every
+                 resident CTA if that is less
+      compute_s  a stage's chunk waves (ceil(chunks / 4 warps)) x row tiles
+                 x PAGED_CHUNK_S[itemsize] (a chunk at Hd 128; its products
+                 scale with Hd) x m (the m CTAs share the SM's schedulers)
+      cta_s      stages x (PAGED_STAGE_S + the load and the chunks: the
+                 longer of the two where HBM bounds the loads and the ring
+                 has two stages or more to hide the chunks, else both)
+      total_s    PAGED_FIXED_TILE_S a row tile + waves x cta_s, plus the
+                 combine at splits > 1 (PAGED_COMBINE_S +
+                 PAGED_COMBINE_SPLIT_S a split)
+
+    Waves: CTAs over SMs x the CTAs an SM holds (shared memory, threads)."""
+    from repro_torch.kernels.paged import paged_cuda
+    rows = key.h // key.kvh * key.qlen
+    if splits is None:
+        splits = paged_cuda.split_count(key.b, key.kvh, rows, key.npt,
+                                        spec.sms)
+    shape = paged_cuda.plan(rows, key.hd, key.page, key.npt,
+                            cfg.pages_per_block, splits, kv_itemsize)
+    if shape["stages"] == 0:
+        return {"load_s": math.inf, "compute_s": math.inf,
+                "cta_s": math.inf, "total_s": math.inf}
+    mt, groups = paged_cuda.row_tiles(rows)
+    ctas = splits * key.kvh * key.b * groups
+    resident = max(1, min(spec.smem_per_sm // (shape["smem"] + 1024),
+                          spec.max_threads_per_sm // (32 * paged_cuda.WARPS),
+                          spec.max_blocks_per_sm))
+    waves = math.ceil(ctas / (spec.sms * resident))
+    together = min(resident, math.ceil(ctas / spec.sms))
+    kv = 2 * key.b * key.npt * key.page * key.kvh * key.hd * kv_itemsize
+    rate = PAGED_SM_BW / together
+    from_hbm = (kv > L2_BYTES
+                and PAGED_HBM_BW / min(ctas, spec.sms * resident) < rate)
+    if from_hbm:
+        rate = PAGED_HBM_BW / min(ctas, spec.sms * resident)
+    sp = shape["pages_a_stage"]
+    stages = math.ceil(math.ceil(key.npt / splits) / sp)
+    load = 2 * sp * key.page * key.hd * kv_itemsize / rate
+    waves_a_stage = math.ceil(shape["lines"] / paged_cuda.CHUNK
+                              / paged_cuda.WARPS)
+    compute = (waves_a_stage * mt * PAGED_CHUNK_S[kv_itemsize] * together
+               * key.hd / 128)
+    if from_hbm and shape["stages"] > 1:
+        cta = stages * (PAGED_STAGE_S + max(load, compute))
+    else:
+        cta = stages * (PAGED_STAGE_S + load + compute)
+    total = PAGED_FIXED_TILE_S * mt + waves * cta
+    if splits > 1:
+        total += PAGED_COMBINE_S + PAGED_COMBINE_SPLIT_S * splits
+    return {"load_s": load, "compute_s": compute, "cta_s": cta,
+            "total_s": total}
 
 
 def paged_step_s(key, cfg, kv_itemsize: int,
-                 spec: GpuSpec = DEFAULT_SPEC) -> float:
-    """Modeled seconds of one paged decode call (key:
-    kernel_def.PagedKey, cfg its clamped PagedBlockConfig):
-
-        K/V bytes / HBM bandwidth + (npt / pages_per_block) x PAGED_BLOCK_S
-
-    Bytes: every K and V line the table names, read once (kv_itemsize 1
-    for an int8 pool, plus its two f32 scales a page), and q and out in
-    bf16. The steps of a CTA run in turn; the CTAs (a row and kv head
-    each) run side by side."""
-    kv = 2 * key.b * key.npt * key.page * key.kvh * key.hd * kv_itemsize
-    scales = 8 * key.b * key.npt if kv_itemsize == 1 else 0
-    bytes_ = kv + scales + 2 * key.b * key.qlen * key.h * key.hd * 2
-    n_blocks = key.npt // cfg.pages_per_block
-    return bytes_ / spec.hbm_bw + n_blocks * PAGED_BLOCK_S
+                 spec: GpuSpec = DEFAULT_SPEC, splits=None) -> float:
+    """Modeled seconds of one paged decode call (`paged_terms`'s total)."""
+    return paged_terms(key, cfg, kv_itemsize, spec, splits)["total_s"]

@@ -18,9 +18,13 @@ gather-then-contract problem:
     verify route; "int8" given a float pool quantizes it on the fly
     (`paged.quantize_pool`); an int8 pool without kscale/vscale raises.
 
-The config space keeps a block only when the kernel's shared memory for
-it (`paged_cuda.smem_bytes`, bf16 lines for "gather" and "verify", int8
-for "int8") fits one CTA (`GpuSpec.smem_per_block`), not the TPU's VMEM.
+The config space is empty at a head dim the kernel is not built for
+(`paged_cuda.HEAD_DIMS`), and keeps a block only when the kernel's shared
+memory for it at one split (`paged_cuda.smem_bytes`, bf16 lines for
+"gather" and "verify", int8 for "int8"; a split's stage is never larger)
+fits one CTA (`GpuSpec.smem_per_block`), not the TPU's VMEM. The split
+count is not a config: the wrapper sets it from the shape and the SM
+count of the card it launches on.
 The ranking model is `core.gpu_model.paged_step_s`. The static-analysis
 hooks wait, as they did for GPP, flash and ssm.
 """
@@ -79,10 +83,12 @@ class PagedBlockConfig:
             self, pages_per_block=_div_clamp(self.pages_per_block, key.npt))
 
     def smem_bytes(self, key: PagedKey, kv_itemsize: int) -> int:
-        """The kernel's dynamic shared memory at this block."""
+        """The kernel's dynamic shared memory at this block and one split,
+        where a stage is largest: a block that fits there fits at every
+        split count the wrapper may take."""
         return paged_cuda.smem_bytes(key.h // key.kvh * key.qlen, key.hd,
-                                     self.pages_per_block * key.page,
-                                     self.pages_per_block, kv_itemsize)
+                                     key.page, key.npt, self.pages_per_block,
+                                     1, kv_itemsize)
 
 
 def kv_itemsize(version: str) -> int:
@@ -108,7 +114,7 @@ class PagedDecodeKernel(api.Kernel):
 
     def config_space(self, key: PagedKey, version: str
                      ) -> List[PagedBlockConfig]:
-        if version == "ref":
+        if version == "ref" or key.hd not in paged_cuda.HEAD_DIMS:
             return []
         out = []
         for ppb in PPB_MENU:

@@ -193,8 +193,9 @@ def test_config_space_is_the_blocks_that_fit_one_cta():
     assert [c.pages_per_block for c in k.config_space(key, "verify")] \
         == list(PPB_MENU)
     assert k.config_space(key, "ref") == []
-    # a wide group at a large head dim: the biggest blocks do not fit
-    wide = PagedKey(b=1, h=32, kvh=2, page=16, npt=64, hd=256, qlen=4)
+    # a wide group at large pages and a long context: the biggest blocks
+    # do not fit even at one split
+    wide = PagedKey(b=1, h=32, kvh=2, page=32, npt=512, hd=128, qlen=4)
     fits = [c.pages_per_block for c in k.config_space(wide, "gather")]
     for ppb in PPB_MENU:
         need = PagedBlockConfig("t", ppb).smem_bytes(wide, 2)
@@ -205,8 +206,25 @@ def test_config_space_is_the_blocks_that_fit_one_cta():
     ranked = [k.model_step_s(key, c, "verify") for c in
               k.config_space(key, "verify")]
     assert ranked == sorted(ranked, reverse=True)
-    assert gpu_model.paged_step_s(key, PagedBlockConfig("t", 16), 1) \
-        < gpu_model.paged_step_s(key, PagedBlockConfig("t", 16), 2)
+    # an int8 pool loads half the bytes a stage and pays the widening of
+    # its lines to bf16 in the chunks
+    i8, bf = (gpu_model.paged_terms(key, PagedBlockConfig("t", 16), kvb)
+              for kvb in (1, 2))
+    assert i8["load_s"] < bf["load_s"] and i8["compute_s"] > bf["compute_s"]
+
+
+@pytest.mark.parametrize("hd", [16, 48, 80, 256])
+def test_head_dims_outside_the_built_instances_have_no_configs(hd):
+    """The kernel is built for Hd 32, 64 and 128 (every config's head dim
+    and reduce_config's 32): another head dim offers the tuner nothing."""
+    k = api.get_kernel("paged_decode")
+    key = PagedKey(b=2, h=4, kvh=2, page=16, npt=8, hd=hd)
+    for version in ("gather", "int8", "verify"):
+        assert k.config_space(key, version) == []
+    for built in paged_cuda.HEAD_DIMS:
+        key = PagedKey(b=2, h=4, kvh=2, page=16, npt=8, hd=built)
+        assert [c.pages_per_block for c in k.config_space(key, "gather")] \
+            == [1, 2, 4, 8]
 
 
 def test_missing_scales_raise_and_int8_pool_form_matches_on_the_fly():
