@@ -143,24 +143,60 @@ Phases (one line each, more where noted):
      within PAGED_REF_ATOL) at that shape with a permuted table, full and
      ragged cache_len (one ending mid-page), int8 pools, verify at Q=4 on
      bf16 and int8 pools, rows that see nothing, every pages_per_block of
-     the menu, and B=8 at a context of 8192; each case's grid (splits,
+     the menu, and B=8 at a context of 8192 on bf16 and int8 pools; each
+     case's grid (splits,
      KvH, B x row groups), its ring stages and CTAs an SM at every ppb,
      and every split count 1-64 at the best ppb (held to the same gates);
      call, device (CUDA graph) and plain ms, the bound, the model's time
      beside each device time, and two yardsticks: SDPA on the
      already-gathered K/V (gather not counted) and gather + SDPA timed
      together (the same function).
+  13. speculative serving, sampling on the card and the Router, the sixth
+     slice's path (its own seconds printed):
+     13a. qwen2-1.5b at full width and depth, flash on, seed 0, served by
+     ServeEngine(spec_k=SPEC_K, max_batch 4, cache_len 1024) with the
+     target's own first layer as the draft (the stacked layer leaves
+     sliced [:1], views of the same params), and by the plain engine, on
+     phase 8's nine requests (the ninth at SPEC_HOT_T). flash_fwd must
+     launch 29 times an admission (28 target + 1 draft) and nowhere else;
+     acceptance rate, accepted tokens a verify step and accepted +
+     rejected + bonus == tokens emitted; spec round ms p50 beside the
+     plain decode round's, tokens/s, TTFT p50 and peak memory of both; one
+     admission round and three spec rounds under torch.profiler; every
+     greedy token a round emits is its verify argmax at that position; a
+     greedy output that diverges from plain fails unless the plain top-2
+     gap there lies within the bf16 floor (SERVE_LOGIT_RTOL x max |logit|;
+     position and gap printed, bitexact_frac the share of equal outputs);
+     decode_verify within SERVE_LOGIT_RTOL of Q sequential decode_step
+     calls on a copy of the cache.
+     13b. the same requests with kv_page_size 16: page conservation, peak
+     live pages within the committed lines' pages, tokens and spec
+     counters equal to 13a's.
+     13c. Threefry (serve/rng.py) over 64 (seed, rid, n_gen) keys at
+     V=151,936: keys, random_bits and categorical bit-equal on the card and
+     the CPU; the SPEC_HOT_T row's first 4 tokens against the same spec
+     engine on the CPU, failing on a difference only where every
+     decision's margin (first token, draft draws, accepts, the residual or
+     bonus draw) clears its bf16 floor (printed).
+     13d. Router with 2 replicas of qwen2-1.5b sharing one params tree on
+     the card over generate_trace(ROUTER_TRACE), replica 1 flapped
+     (ROUTER_FLAP): every request one outcome, all completed, one
+     recovery; flash_fwd 28 times an admission of a 129-256 token prompt;
+     TTFT/TPOT ticks p50/p99, wall time; completed greedy outputs against
+     one undisturbed engine's under 13a's near-tie rule.
 Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
 phase 7d's Hd 32 model check, phase 8's serving run, phase 10's training
 run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
-12b's dispatch) runs with the launch counters zeroed just before it and
-read just after; the kernels line gives each path's counts, and the
-script fails unless every kernel launched on the paths that run it
-(gpp_fused on dispatch and journey, gpp_banded on the journey, flash_fwd
-28 times a prefill on the serving run and a cold paged admission,
-flash_fwd 56 and each backward kernel 28 times a training step, ssm_scan
-32 times a prefill on the hybrid serving run, each paged_decode entry
-point on phase 12b's dispatch).
+12b's dispatch, phase 13's spec serving run (spec_serve), paged spec run
+(spec_paged) and Router run (router)) runs with the launch counters
+zeroed just before it and read just after; the kernels line gives each
+path's counts, and the script fails unless every kernel launched on the
+paths that run it (gpp_fused on dispatch and journey, gpp_banded on the
+journey, flash_fwd 28 times a prefill on the serving run and a cold
+paged admission, 29 an admission on the spec runs and 28 a flash-sized
+admission on the Router run, flash_fwd 56 and each backward kernel 28
+times a training step, ssm_scan 32 times a prefill on the hybrid serving
+run, each paged_decode entry point on phase 12b's dispatch).
 
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero without it. Without a card, or outside the repository, the
@@ -257,6 +293,14 @@ PAGED_SUFFIXES = (32, 224, 96, 160, 64, 192, 128, 48)
 # JAX package's tests/test_kvcache.py holds its pair
 PAGED_OUT_ULPS = 2
 PAGED_REF_ATOL = 8e-3
+# speculative serving (phase 13): the draft proposes SPEC_K tokens a round;
+# phase 8's ninth request samples at SPEC_HOT_T
+SPEC_K = 3
+SPEC_HOT_T = 0.8
+# the Router (phase 13d): 2 replicas over this trace, replica 1 flapped
+ROUTER_TRACE = dict(n_requests=16, prompt_median=128, prompt_max=256,
+                    out_median=16, out_max=24, seed=0)
+ROUTER_FLAP = dict(at_tick=6, down_ticks=4, times=1)
 # phase 7c's cases: (tag, B, T, C, N, h0 scale); inputs from seed 10 + index
 SSM_CASES = (("hymba-prefill", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.0),
              ("t4096", 1, 4096, 3200, 16, 0.0),
@@ -656,6 +700,24 @@ def main() -> None:
     paged_rows = paged_checks(torch, np, dev, spec, card, zero_counts,
                               read_counts, by_path)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 13. speculative serving, sampling on the card, the Router ------------
+    t13 = time.perf_counter()
+    spec_serve = spec_phase(torch, np, dev, card, flash_cuda, zero_counts,
+                            read_counts, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    router = router_phase(torch, np, dev, card, flash_cuda, zero_counts,
+                          read_counts, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_serve["router"] = router
+    spec_serve["phase_s"] = time.perf_counter() - t13
+    print(f"[13] phase 13 ran {spec_serve['phase_s']:.1f} s [{card}]",
+          flush=True)
+
     names = ("gpp_fused", "gpp_banded", "flash_fwd", "flash_bwd_dq",
              "flash_bwd_dkv", "ssm_scan", "paged_decode_gather",
              "paged_decode_int8", "paged_decode_verify")
@@ -726,7 +788,7 @@ def main() -> None:
     for name, line_no, tag, at in (
             ("paged_decode_gather", 123, "decode", ("decode-ragged", "long",
                                                     "empty-rows")),
-            ("paged_decode_int8", 222, "int8", ()),
+            ("paged_decode_int8", 222, "int8", ("long-int8",)),
             ("paged_decode_verify", 182, "verify-bf16", ("verify-int8",
                                                         "empty-rows"))):
         row = paged_rows[tag]
@@ -755,6 +817,8 @@ def main() -> None:
           flush=True)
     print(f"[12a] paged serving summary: {json.dumps(paged_serve)} [{card}]",
           flush=True)
+    print(f"[13] spec serving and router summary: {json.dumps(spec_serve)} "
+          f"[{card}]", flush=True)
     print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"(build {build_s:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2281,7 +2345,8 @@ def paged_checks(torch, np, dev, spec, card, zero_counts, read_counts,
              ("verify-int8", "verify", 4, 4, 64, (1024, 1000, 777, 517),
               True),
              ("empty-rows", "verify", 4, 4, 64, (0, 2, 1024, 17), False),
-             ("long", "gather", 8, 1, 512, (8192,) * 8, False))
+             ("long", "gather", 8, 1, 512, (8192,) * 8, False),
+             ("long-int8", "int8", 8, 1, 512, (8192,) * 8, True))
     zero_counts()
     rows = {}
     for i, (tag, version, b, qn, npt, clens, int8) in enumerate(cases):
@@ -2312,7 +2377,7 @@ def paged_checks(torch, np, dev, spec, card, zero_counts, read_counts,
                         key, PagedBlockConfig("t", ppb).clamped(key), kvb,
                         spec, splits) * 1e3}
 
-        menu = PPB_MENU if tag != "long" else (4, 8, 16)
+        menu = PPB_MENU if not tag.startswith("long") else (4, 8, 16)
         per_ppb = {}
         for ppb in menu:
             per_ppb[ppb] = measure(ppb, rule)
@@ -2391,6 +2456,514 @@ def paged_checks(torch, np, dev, spec, card, zero_counts, read_counts,
     torch.cuda.synchronize()
     by_path["paged-check"] = read_counts()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 13: speculative serving (13a, 13b), sampling on the card (13c) and
+# the multi-replica Router (13d)
+# ---------------------------------------------------------------------------
+
+def first_layer(tree):
+    """The stacked layer leaves sliced to layer 0 (views: no copy)."""
+    if isinstance(tree, dict):
+        return {k: first_layer(v) for k, v in tree.items()}
+    return tree[:1]
+
+
+def watch_gaps(torch, eng):
+    """Wrap eng._sample_rows: per (rid, token index), the top-2 logit gap
+    and max |logit| of the row the engine samples from (kept on the
+    device until read)."""
+    seen = {}
+    real = eng._sample_rows
+
+    def sample(logits, slots):
+        lg = logits.float().reshape(len(slots), -1)
+        top = torch.topk(lg, 2, dim=-1).values
+        stat = torch.stack([top[:, 0] - top[:, 1], lg.abs().amax(-1)], -1)
+        for i, s in enumerate(slots):
+            if s is not None:
+                seen[(s.rid, s.n_gen)] = stat[i]
+        return real(logits, slots)
+
+    eng._sample_rows = sample
+    return seen
+
+
+def watch_verify(torch, eng):
+    """Wrap eng.model.decode_verify: per call, the slots (rid, tokens
+    before the round, temperature) and the argmax at each verify position
+    (on the device until read)."""
+    calls = []
+    real = eng.model.decode_verify
+
+    def verify(params, cache, tokens):
+        logits, new = real(params, cache, tokens)
+        calls.append(([(s.rid, s.n_gen, s.temperature) if s else None
+                       for s in eng._slots], logits.argmax(-1)))
+        return logits, new
+
+    eng.model.decode_verify = verify
+    return calls
+
+
+def first_logits(eng):
+    """Wrap eng._sample_rows: the f32 logits (numpy) of the first sample
+    of a run, under "logits"."""
+    seen = {}
+    real = eng._sample_rows
+
+    def sample(logits, slots):
+        seen.setdefault("logits", logits.reshape(-1).float().cpu().numpy())
+        return real(logits, slots)
+
+    eng._sample_rows = sample
+    return seen
+
+
+def count_admissions(eng, flash_cuda, into):
+    """Wrap eng._admit: (rid, prompt length, flash_fwd launches) per
+    admission, appended to `into`."""
+    real = eng._admit
+
+    def admit(cache, slot_idx, r, t_enqueue):
+        f0 = flash_cuda.flash_fwd.launches
+        out = real(cache, slot_idx, r, t_enqueue)
+        into.append((r.rid, len(r.prompt), flash_cuda.flash_fwd.launches - f0))
+        return out
+
+    eng._admit = admit
+
+
+def first_divergence(got, want):
+    """Index of the first token where two outputs differ, else None."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return i
+    return None if len(got) == len(want) else min(len(got), len(want))
+
+
+def held_to_plain(tag, outs, base, gaps, rids, card):
+    """Greedy outputs against an undisturbed plain run: a divergence fails
+    unless the plain run's top-2 logit gap at that position lies within
+    the bf16 floor (SERVE_LOGIT_RTOL x max |logit|): a verify of M = B Q
+    rows and a decode of M = B rows may take different GEMMs on the card.
+    Returns (bit-exact fraction, [(rid, position, gap, floor)])."""
+    div = []
+    for rid in rids:
+        p = first_divergence(outs[rid], base[rid])
+        if p is None:
+            continue
+        gap, top = (float(x) for x in gaps[(rid, p)])
+        div.append((rid, p, gap, SERVE_LOGIT_RTOL * top))
+    frac = 1.0 - len(div) / len(rids)
+    line = (f"[{tag}] greedy outputs against the plain run: bit-exact "
+            f"{len(rids) - len(div)}/{len(rids)} ({frac:.3f}); divergences "
+            f"(rid, position, plain top-2 gap, floor "
+            f"{SERVE_LOGIT_RTOL} x max|logit|): "
+            f"{[(r, p, round(g, 5), round(f, 5)) for r, p, g, f in div]} "
+            f"[{card}]")
+    print(line, flush=True)
+    if any(g > f for _, _, g, f in div):
+        fail(line)
+    return frac, div
+
+
+def verify_vs_steps(torch, eng, q):
+    """decode_verify on a copy of eng's cache against q sequential
+    decode_step calls on another copy, over the occupied rows: max |diff|
+    / max |logit|, and whether the positions agree."""
+    copy = {k: v.clone() for k, v in eng._cache.items()}
+    seq = {k: v.clone() for k, v in eng._cache.items()}
+    g = torch.Generator(device=eng.device).manual_seed(13)
+    toks = torch.randint(0, eng.cfg.vocab_size, (eng.max_batch, q),
+                         generator=g, device=eng.device)
+    toks[:, 0] = torch.as_tensor(eng._cur[:, 0], device=eng.device)
+    rows = [i for i, s in enumerate(eng._slots) if s is not None]
+    vl, vc = eng.model.decode_verify(eng.params, copy, toks)
+    worst = 0.0
+    for j in range(q):
+        sl, seq = eng.model.decode_step(eng.params, seq, toks[:, j:j + 1])
+        worst = max(worst, logit_rel(vl[rows, j], sl[rows, 0]))
+    same_pos = bool(torch.equal(vc["pos"], seq["pos"]))
+    del copy, seq
+    return worst, same_pos, len(rows)
+
+
+def spec_margins(np, spec_lib, trng, temperature, key, rid, n_gen, dlg, tlg,
+                 k):
+    """The decisions of one spec round of a temperature row, recomputed
+    from its logits (draft (k, V), verify (k+1, V), f32 numpy): each
+    draft draw's Gumbel margin (top-2 gap of z/T + g), each accept's
+    |log u - log(p_t/p_d)|, and the residual or bonus draw's margin, each
+    beside its floor (SERVE_LOGIT_RTOL x max |logit| moves z/T by that
+    over T: twice that for a draw, four times for an accept)."""
+    def gap(z):
+        s = np.sort(z)
+        return float(s[-1] - s[-2])
+
+    def gumbel(salt, j, n):
+        sk = spec_lib.spec_sample_key(key, rid, n_gen + j, salt)
+        return trng.gumbel(sk, (n,)).cpu().numpy()
+
+    out = []
+    delta = SERVE_LOGIT_RTOL * float(max(np.abs(dlg).max(),
+                                         np.abs(tlg).max()))
+    toks = []
+    for j in range(k):
+        z = dlg[j] / np.float32(temperature) + gumbel(spec_lib.SALT_DRAFT,
+                                                       j, dlg.shape[1])
+        toks.append(int(np.argmax(z)))
+        out.append(("draft", gap(z), 2 * delta / temperature))
+    pt = spec_lib._softmax(tlg.astype(np.float64) / temperature)
+    pd = spec_lib._softmax(dlg.astype(np.float64) / temperature)
+    for j in range(k):
+        u = float(trng.uniform(spec_lib.spec_sample_key(
+            key, rid, n_gen + j, spec_lib.SALT_ACCEPT)))
+        ratio = pt[j, toks[j]] / max(pd[j, toks[j]], 1e-30)
+        out.append(("accept", float(abs(np.log(u) - np.log(ratio))),
+                    4 * delta / temperature))
+        if u >= ratio:
+            resid = np.maximum(pt[j] - pd[j], 0.0)
+            z = (np.log(resid / resid.sum() + 1e-300).astype(np.float32)
+                 + gumbel(spec_lib.SALT_RESIDUAL, j, tlg.shape[1]))
+            out.append(("residual", gap(z), 4 * delta / temperature))
+            return out
+    z = (np.log(pt[k] + 1e-300).astype(np.float32)
+         + gumbel(spec_lib.SALT_BONUS, k, tlg.shape[1]))
+    out.append(("bonus", gap(z), 4 * delta / temperature))
+    return out
+
+
+def spec_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
+               by_path):
+    """Phase 13a-c: qwen2-1.5b at full width served speculatively (the
+    draft is the target's own first layer), over the dense and the paged
+    cache; Threefry on the card against the CPU."""
+    import dataclasses
+    import repro_torch
+    from repro_torch.serve import rng as trng
+    from repro_torch.serve import spec as spec_lib
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = dataclasses.replace(repro_torch.get_config("qwen2-1.5b"),
+                              use_flash_attention=True)
+    params = repro_torch.build_model(cfg).init_params(0, device=dev)
+    # the JAX package's zero-train draft (benchmarks/run.py:587-614): the
+    # target's first layer over the shared embedding and final norm
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    dparams = {**params, "layers": first_layer(params["layers"])}
+    rng = np.random.default_rng(0)             # phase 8's nine requests
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_PROMPTS]
+    hot = rng.integers(0, cfg.vocab_size, 200)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    hot_rid = len(prompts)
+    reqs.append(Request(rid=hot_rid, prompt=hot, max_new_tokens=32,
+                        temperature=SPEC_HOT_T))
+    greedy = [r.rid for r in reqs if r.temperature == 0]
+
+    def engine(**kw):
+        return ServeEngine(cfg, params, max_batch=4, cache_len=1024,
+                           device=dev, **kw)
+
+    spec_kw = dict(draft_cfg=dcfg, draft_params=dparams, spec_k=SPEC_K)
+    plain, spec = engine(), engine(**spec_kw)
+    for eng in (plain, spec):      # warm-up: cuBLAS handles, the flash pick
+        eng.run([Request(rid=99, prompt=prompts[0], max_new_tokens=4)])
+    torch.cuda.synchronize()
+
+    # -- 13a. plain, then spec, on the same params and requests -------------
+    gaps = watch_gaps(torch, plain)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pstats, p_dec, p_adm = drive(plain, reqs)
+    torch.cuda.synchronize()
+    p_peak = torch.cuda.max_memory_allocated(dev)
+    real_verify = spec.model.decode_verify
+    vcalls = watch_verify(torch, spec)
+    admits = []
+    count_admissions(spec, flash_cuda, admits)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    sstats, s_dec, s_adm = drive(spec, reqs)
+    torch.cuda.synchronize()
+    by_path["spec_serve"] = read_counts()
+    s_peak = torch.cuda.max_memory_allocated(dev)
+    spec_out = dict(spec.outputs)
+    spec.model.decode_verify = real_verify
+    sp = sstats["spec"]
+    per_admit = sorted({f for _, _, f in admits})
+    line = (f"[13a] serve qwen2-1.5b (full width, {cfg.n_layers} layers, "
+            f"flash on) speculatively: draft = its own first layer, spec_k "
+            f"{SPEC_K}, {len(reqs)} requests (8 greedy, 1 at T={SPEC_HOT_T}), "
+            f"{sstats['prefills']} prefills, {sp['verify_steps']} row-verify "
+            f"steps in {sstats['decode_steps']} rounds; acceptance rate "
+            f"{sp['acceptance_rate']:.4f}, accepted tokens a verify step "
+            f"{sp['accepted_tokens_per_step']:.4f}; accepted {sp['accepted']} "
+            f"+ rejected {sp['rejected']} + bonus {sp['bonus']} = "
+            f"{sp['accepted'] + sp['rejected'] + sp['bonus']} (tokens emitted "
+            f"{sp['tokens_emitted']}); flash_fwd launches per admission "
+            f"{per_admit} (expected {cfg.n_layers} + {dcfg.n_layers}); "
+            f"launches {by_path['spec_serve']} [{card}]")
+    print(line, flush=True)
+    if (sp["accepted"] + sp["rejected"] + sp["bonus"] != sp["tokens_emitted"]
+            or per_admit != [cfg.n_layers + dcfg.n_layers]
+            or len(admits) != len(reqs)
+            or by_path["spec_serve"]["flash_fwd"]
+            != (cfg.n_layers + dcfg.n_layers) * len(reqs)
+            or any(v for k, v in by_path["spec_serve"].items()
+                   if k != "flash_fwd")):
+        fail(line)
+    check_outputs(spec, reqs, cfg.vocab_size)
+    res = {"plain": serve_metrics("13a plain", pstats, p_dec, p_adm, p_peak,
+                                  len(reqs), card),
+           "spec": serve_metrics("13a spec", sstats, s_dec, s_adm, s_peak,
+                                 len(reqs), card)}
+    res["spec"].update({k: sp[k] for k in (
+        "acceptance_rate", "accepted_tokens_per_step", "accepted",
+        "rejected", "bonus", "tokens_emitted", "verify_steps", "proposed")})
+    res["flash_per_admission"] = per_admit[0]
+    print(f"[13a] spec round p50 {res['spec']['decode_step_ms_p50']:.2f} ms "
+          f"(k {SPEC_K}: {SPEC_K + 1} draft steps + one {SPEC_K + 1}-position "
+          f"verify) against the plain decode round p50 "
+          f"{res['plain']['decode_step_ms_p50']:.2f} ms; tokens/s spec "
+          f"{res['spec']['tok_per_s']:.1f}, plain "
+          f"{res['plain']['tok_per_s']:.1f}; TTFT p50 spec "
+          f"{res['spec']['p50_ttft_ms']:.1f} ms, plain "
+          f"{res['plain']['p50_ttft_ms']:.1f} ms; peak device memory spec "
+          f"{s_peak / 1e9:.2f} GB, plain {p_peak / 1e9:.2f} GB [{card}]",
+          flush=True)
+
+    # where a spec round's time goes: one admission round and three spec
+    # rounds under torch.profiler (after the outputs are kept)
+    profile_rounds(torch, "13a spec", spec, reqs[1:8:2], res["spec"], card)
+    torch.cuda.synchronize()
+
+    # every greedy token a round emitted is the argmax of its verify
+    # logits at that position (a round emits up to the next round's start)
+    rounds = [(s[0], s[1], arg, i) for slots, arg in vcalls
+              for i, s in enumerate(slots) if s is not None and s[2] == 0]
+    bad = []
+    for rid, n0, arg, i in rounds:
+        n1 = min([n for r, n, _, _ in rounds if r == rid and n > n0],
+                 default=len(spec_out[rid]))
+        emitted = spec_out[rid][n0:n1]
+        want = arg[i].tolist()[:len(emitted)]
+        if not emitted or emitted != want:
+            bad.append((rid, n0, emitted, want))
+    line = (f"[13a] greedy tokens against their round's verify argmax: "
+            f"{len(vcalls)} rounds, mismatches {bad[:4]} [{card}]")
+    print(line, flush=True)
+    if bad:
+        fail(line)
+    frac, div = held_to_plain("13a", spec_out, plain.outputs, gaps, greedy,
+                              card)
+    res["bitexact_frac"] = frac
+    res["divergences"] = [(r, p) for r, p, _, _ in div]
+
+    # decode_verify against Q sequential decode_step calls on a copy of
+    # the cache, after one admission round of 4 requests
+    spec.reset()
+    for r in reqs[:4]:
+        spec.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=8))
+    spec.step()
+    worst, same_pos, n_rows = verify_vs_steps(torch, spec, SPEC_K + 1)
+    line = (f"[13a] decode_verify (Q={SPEC_K + 1}) against {SPEC_K + 1} "
+            f"sequential decode_step calls on a copy of the cache, {n_rows} "
+            f"rows: max |diff| / max |logit| {worst:.3e} (tol "
+            f"{SERVE_LOGIT_RTOL}), positions equal {same_pos} [{card}]")
+    print(line, flush=True)
+    if worst > SERVE_LOGIT_RTOL or not same_pos:
+        fail(line)
+    res["verify_vs_steps_rel"] = worst
+
+    # -- 13b. the same requests over the paged cache ------------------------
+    paged = engine(kv_page_size=PAGED_PAGE, **spec_kw)
+    zero_counts()
+    bstats, b_dec, b_adm = drive(paged, reqs)
+    torch.cuda.synchronize()
+    by_path["spec_paged"] = read_counts()
+    paged.kv.check_conservation()
+    kv = bstats["kvcache"]
+    same = all(paged.outputs[r.rid] == spec_out[r.rid] for r in reqs)
+    # pages cover committed lines only: each request's peak is
+    # ceil((prompt + max_new) / page), never the speculated tip beyond it
+    need = sorted((-(-(len(r.prompt) + r.max_new_tokens) // PAGED_PAGE)
+                   for r in reqs), reverse=True)
+    bound = sum(need[:4]) + kv["index_pages"]
+    line = (f"[13b] spec over kv_page_size {PAGED_PAGE}: tokens equal to "
+            f"13a's spec run {same}; peak live pages {kv['peak_live_pages']} "
+            f"of {kv['n_pages']} (committed lines of the 4 largest requests + "
+            f"index pages: {bound}); pages live at the end "
+            f"{kv['pages_live']} = index {kv['index_pages']}; conservation "
+            f"holds; spec round p50 {b_dec[len(b_dec) // 2]:.2f} ms; "
+            f"acceptance {bstats['spec']['acceptance_rate']:.4f}; launches "
+            f"{by_path['spec_paged']} [{card}]")
+    print(line, flush=True)
+    if (not same or kv["pages_live"] != kv["index_pages"]
+            or kv["peak_live_pages"] > bound
+            or bstats["spec"] != sstats["spec"]):
+        fail(line)
+    res["paged"] = {"peak_live_pages": kv["peak_live_pages"],
+                    "n_pages": kv["n_pages"],
+                    "decode_step_ms_p50": b_dec[len(b_dec) // 2],
+                    "tok_per_s": bstats["tok_per_s"]}
+    del paged
+
+    # -- 13c. Threefry on the card against the CPU --------------------------
+    r = np.random.default_rng(13)
+    trip = [(int(r.integers(-2 ** 31, 2 ** 31)), int(r.integers(0, 2 ** 32)),
+             int(r.integers(0, 64))) for _ in range(64)]
+
+    def keys(device):
+        return torch.stack([trng.fold_in(trng.fold_in(
+            trng.prng_key(s, device=device), rid), n) for s, rid, n in trip])
+
+    kd, kc = keys(dev), keys("cpu")
+    logits = torch.randn((64, cfg.vocab_size),
+                         generator=torch.Generator().manual_seed(13)) * 2.0
+    t0 = time.perf_counter()
+    bits_d = trng.random_bits(kd, (cfg.vocab_size,))
+    cat_d = trng.categorical(kd, logits.to(dev))
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    bits_eq = bool(torch.equal(bits_d.cpu(),
+                               trng.random_bits(kc, (cfg.vocab_size,))))
+    cat_eq = bool(torch.equal(cat_d.cpu(), trng.categorical(kc, logits)))
+    keys_eq = bool(torch.equal(kd.cpu(), kc))
+
+    # the T=0.8 row: its first 4 tokens against the same engine on the CPU
+    # (tokens 1-3 come from one spec round; each decision's margin beside
+    # the floor the two devices' logits may differ by)
+    host = ServeEngine(cfg, params, max_batch=4, cache_len=1024,
+                       device="cpu", **spec_kw)
+    rec = {"draft": [], "verify": []}
+    real_d, real_v = host.draft_model.decode_step, host.model.decode_verify
+
+    def d_step(p, c, t):
+        lg, new = real_d(p, c, t)
+        rec["draft"].append(lg[0, 0].float().numpy().copy())
+        return lg, new
+
+    def v_step(p, c, t):
+        lg, new = real_v(p, c, t)
+        rec["verify"].append(lg[0].float().numpy().copy())
+        return lg, new
+
+    host.draft_model.decode_step, host.model.decode_verify = d_step, v_step
+    hgaps = first_logits(host)
+    t0 = time.perf_counter()
+    hout = host.run([Request(rid=hot_rid, prompt=hot, max_new_tokens=4,
+                             temperature=SPEC_HOT_T)])[hot_rid]
+    host_s = time.perf_counter() - t0
+    first = trng.fold_in(trng.fold_in(host.rng, hot_rid), 0)
+    z0 = hgaps["logits"] / np.float32(SPEC_HOT_T) + trng.gumbel(
+        first, (cfg.vocab_size,)).numpy()
+    top2 = np.sort(z0)[-2:]
+    margins = [("first", float(top2[1] - top2[0]),
+                2 * SERVE_LOGIT_RTOL * float(np.abs(hgaps["logits"]).max())
+                / SPEC_HOT_T)]
+    margins += spec_margins(np, spec_lib, trng, SPEC_HOT_T, host.rng,
+                            hot_rid, 1, np.stack(rec["draft"][:SPEC_K]),
+                            rec["verify"][0], SPEC_K)
+    card_out = spec_out[hot_rid][:4]
+    clears = all(m > f for _, m, f in margins)
+    line = (f"[13c] Threefry on the card against the CPU over 64 (seed, rid, "
+            f"n_gen) keys at V={cfg.vocab_size}: keys equal {keys_eq}, "
+            f"random_bits equal {bits_eq}, categorical equal {cat_eq} (card "
+            f"{card_ms:.1f} ms for bits + categorical); the T={SPEC_HOT_T} "
+            f"row's first 4 tokens on the card {card_out[:4]} and on the CPU "
+            f"{hout} (CPU run {host_s:.1f} s); margins (decision, margin, "
+            f"floor): {[(k, round(m, 5), round(f, 5)) for k, m, f in margins]}"
+            f" [{card}]")
+    print(line, flush=True)
+    if not (keys_eq and bits_eq and cat_eq):
+        fail(line)
+    if card_out != hout and clears:
+        fail(line)
+    res["sampling"] = {"bits_equal": bits_eq, "categorical_equal": cat_eq,
+                       "hot_row_equal": card_out == hout,
+                       "margins_clear_floor": clears,
+                       "min_margin_over_floor": min(m / f for _, m, f
+                                                    in margins)}
+    del host, plain, spec, params, dparams
+    return res
+
+
+def router_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
+                 by_path):
+    """Phase 13d: Router with 2 replicas of qwen2-1.5b (flash on) sharing
+    one params tree on the card, a generate_trace trace and a flap of
+    replica 1; outputs against an undisturbed single engine."""
+    import dataclasses
+    import repro_torch
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.router import FaultPlan, Router
+    from repro_torch.serve.trace import TraceConfig, generate_trace
+    cfg = dataclasses.replace(repro_torch.get_config("qwen2-1.5b"),
+                              use_flash_attention=True)
+    params = repro_torch.build_model(cfg).init_params(0, device=dev)
+    trace = generate_trace(TraceConfig(vocab=cfg.vocab_size, **ROUTER_TRACE))
+    single = ServeEngine(cfg, params, max_batch=4, cache_len=512, device=dev)
+    gaps = watch_gaps(torch, single)
+    base = single.run(trace.plain_requests())
+    hb = os.path.join(ROOT, "build", "chip_smoke_router_hb")
+    shutil.rmtree(hb, ignore_errors=True)
+    router = Router(cfg, params, replicas=2, max_batch=4, cache_len=512,
+                    device=dev, heartbeat_dir=hb,
+                    fault_plan=FaultPlan().flap(1, **ROUTER_FLAP))
+    shared = all(rep.engine.params["embed"] is params["embed"]
+                 for rep in router.replicas)
+    admits = []
+    for rep in router.replicas:
+        count_admissions(rep.engine, flash_cuda, admits)
+    zero_counts()
+    t0 = time.perf_counter()
+    out, st = router.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path["router"] = read_counts()
+    n = len(trace.requests)
+    outcomes = st["outcomes"]
+    # flash_fwd runs on a prefill whose bucket is 256 (S % 256 == 0):
+    # prompts of 129-256 tokens
+    want_flash = sum(cfg.n_layers for _, plen, _ in admits if plen > 128)
+    line = (f"[13d] Router, 2 replicas of qwen2-1.5b (full width, flash on) "
+            f"on one card, params shared {shared}: {n} requests "
+            f"(generate_trace {ROUTER_TRACE}), replica 1 flapped "
+            f"{ROUTER_FLAP}; outcomes {sorted(set(outcomes.values()))} for "
+            f"{len(outcomes)} rids, completed {st['completed']}, killed "
+            f"{st['killed']}, fenced {st['fenced']}, recovered "
+            f"{st['recovered']} (recoveries {st['recoveries']}, "
+            f"fence-to-recover ticks {st['recovery_ticks']}), requeued "
+            f"{st['requeued']}, wasted tokens {st['wasted_toks']}; ticks "
+            f"{st['ticks']}: TTFT p50 {st['p50_ttft_ticks']} p99 "
+            f"{st['p99_ttft_ticks']} ticks, TPOT p50 "
+            f"{st['p50_tpot_ticks']:.3f} p99 {st['p99_tpot_ticks']:.3f} "
+            f"ticks; wall {wall:.2f} s, {st['goodput_tok_per_s']:.1f} "
+            f"tokens/s goodput; {len(admits)} admissions, flash_fwd "
+            f"{by_path['router']['flash_fwd']} (expected {want_flash}) "
+            f"[{card}]")
+    print(line, flush=True)
+    if (sorted(outcomes) != [tr.request.rid for tr in trace.requests]
+            or st["completed"] + st["shed"] + st["deadline_missed"] != n
+            or st["completed"] != n or st["recoveries"] != 1
+            or not shared or by_path["router"]["flash_fwd"] != want_flash
+            or any(v for k, v in by_path["router"].items()
+                   if k != "flash_fwd")):
+        fail(line)
+    frac, div = held_to_plain("13d", out, base, gaps, sorted(out), card)
+    res = {"requests": n, "completed": st["completed"],
+           "recoveries": st["recoveries"], "requeued": st["requeued"],
+           "wasted_toks": st["wasted_toks"], "ticks": st["ticks"],
+           "p50_ttft_ticks": st["p50_ttft_ticks"],
+           "p99_ttft_ticks": st["p99_ttft_ticks"],
+           "p50_tpot_ticks": st["p50_tpot_ticks"],
+           "p99_tpot_ticks": st["p99_tpot_ticks"], "wall_s": wall,
+           "goodput_tok_per_s": st["goodput_tok_per_s"],
+           "bitexact_frac": frac, "divergences": [(r, p) for r, p, _, _
+                                                  in div]}
+    del router, single, params
+    return res
 
 
 def _leaves(tree):

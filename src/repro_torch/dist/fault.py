@@ -1,6 +1,6 @@
-"""Fault-tolerance primitives for the training loop — the port of the
-parts of `repro.dist.fault` the trainer uses (`backoff_ticks` waits for
-the router slice). Three small pieces, composed by train/trainer.py:
+"""Fault-tolerance primitives for the training loop and the serving
+router — the port of `repro.dist.fault`. Four small pieces, composed by
+train/trainer.py and serve/router.py:
 
   * HeartbeatFile — atomically-updated liveness file next to the
     checkpoints. An external supervisor (or another host in the fleet)
@@ -9,6 +9,8 @@ the router slice). Three small pieces, composed by train/trainer.py:
   * StepWatchdog — EWMA straggler detector over per-step wall-clock. On a
     real fleet a sustained straggler triggers re-slicing; here it fires a
     callback and records the event (asserted on by tests).
+  * backoff_ticks — deterministic exponential retry backoff on a virtual
+    tick clock (the router's shed-retry path).
   * resume_or_init — the restart-idempotence entry point: restore the
     latest valid checkpoint onto a device or build fresh state. Combined
     with step-keyed data order, kill + rerun resumes bit-identically
@@ -121,6 +123,22 @@ class HeartbeatFile:
             os.remove(self.path)
         except FileNotFoundError:
             pass
+
+
+def backoff_ticks(attempt: int, *, base: int = 1, cap: int = 32) -> int:
+    """Deterministic exponential backoff: the delay before retry `attempt`
+    (1-indexed) is base * 2**(attempt-1), capped at `cap`. Pure integer
+    arithmetic — no jitter, no wall clock — so schedulers on a virtual
+    tick clock (repro_torch.serve.router) stay seed-reproducible.
+
+        >>> [backoff_ticks(k, base=2, cap=12) for k in (1, 2, 3, 4)]
+        [2, 4, 8, 12]
+    """
+    if attempt < 1:
+        raise ValueError(f"attempt is 1-indexed, got {attempt}")
+    if base < 0 or cap < 0:
+        raise ValueError(f"base/cap must be >= 0, got {base}/{cap}")
+    return min(base * (1 << (attempt - 1)), cap)
 
 
 class StepWatchdog:

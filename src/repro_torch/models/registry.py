@@ -4,7 +4,8 @@ the dense and hybrid families (`Model` :31, `_maybe_remat` :60,
 `_dense_stack` :92, `_dense_prefill_stack` :114, `_dense_decode_stack`
 :137, `_hymba_stack` :186-252 for prefill and decode, `make_cache` :347,
 `build_model` :426, `_logits` :458, `loss_fn` :516, `prefill` :559,
-`decode_step` :652, `prefill_into_slot` :726, `prefill_continue` :763).
+`decode_step` :652, `decode_verify` :691, `prefill_into_slot` :726,
+`prefill_continue` :763).
 
 Layouts are the JAX package's: activations (B, S, D), caches
 {"k", "v": (L, B, Lcache, KvH, Hd) bf16, "pos": int32 scalar or (B,)},
@@ -21,13 +22,14 @@ Training (dense only): `loss_fn` runs `_dense_stack`, each layer under
 which keeps the non-batched matmul outputs, the JAX
 `dots_with_no_batch_dims_saveable`), then the cross-entropy in sequence
 chunks, each under its own checkpoint. Serving (`prefill`, `decode_step`,
-`prefill_into_slot`, `prefill_continue`) runs under `torch.no_grad()`, so
-params that require grad (a trainer's) record no graph there.
+`decode_verify`, `prefill_into_slot`, `prefill_continue`) runs under
+`torch.no_grad()`, so params that require grad (a trainer's) record no
+graph there.
 
-`prefill_continue` (the paged cache's suffix prefill) is the dense
-family's only, None for hybrid, as in the JAX package. `decode_verify`,
-hybrid training and every family but "dense" and "hybrid" wait for later
-slices (ROADMAP queue 1).
+`prefill_continue` (the paged cache's suffix prefill) and `decode_verify`
+(speculative decoding's multi-position step) are the dense family's only,
+None for hybrid, as in the JAX package. Hybrid training and every family
+but "dense" and "hybrid" wait for later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -65,6 +67,9 @@ class Model:
     # K/V cache prefix reuse — serve/kvcache.py); dense family only
     prefill_continue: Optional[Callable[..., Tuple[torch.Tensor, Cache]]] \
         = None
+    # multi-position decode over draft candidates (speculative decoding —
+    # serve/spec.py); dense family only
+    decode_verify: Optional[Callable[..., Tuple[torch.Tensor, Cache]]] = None
 
 
 # ===========================================================================
@@ -404,6 +409,33 @@ def build_model(cfg: ModelConfig) -> Model:
 
     @backend.f32_accumulation()
     @torch.no_grad()
+    def decode_verify(params, cache: Cache, tokens):
+        """tokens: (B, Q) — per row, the last committed token followed by
+        Q-1 draft candidates. Returns (logits (B,Q,V) f32, cache):
+        logits[:, j] is the target distribution AFTER consuming
+        tokens[:, j], what Q sequential decode_step calls would give.
+
+        cache["pos"] must be the (B,) per-row slot-scheduler layout; row
+        writes land at pos..pos+Q-1 in place (a line past the cache end is
+        dropped) and "pos" advances by Q (the speculated tip) in a new
+        tensor. The caller rolls pos back to the last ACCEPTED line after
+        the accept decision (serve/spec.py)."""
+        x = embed(tokens, params["embed"])
+        pos = cache["pos"]
+        for i in range(params["layers"]["ln1"].shape[0]):
+            lp = _layer(params["layers"], i)
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            a, _ = T.attn_block_decode_k(lp["attn"], h, cfg,
+                                         cache_k=cache["k"][i],
+                                         cache_v=cache["v"][i], pos=pos)
+            x = x + a
+            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + swiglu(h, lp["ffn"]["wi"], lp["ffn"]["wg"],
+                           lp["ffn"]["wo"])
+        return _logits(params, x), {**cache, "pos": pos + tokens.shape[1]}
+
+    @backend.f32_accumulation()
+    @torch.no_grad()
     def prefill_into_slot(params, cache: Cache, slot, batch, prompt_len):
         """Prefill ONE request (batch row of size 1) and overwrite `slot`'s
         cache lines in a batched decode cache whose "pos" is a (B,) per-row
@@ -466,4 +498,6 @@ def build_model(cfg: ModelConfig) -> Model:
                  decode_step=decode_step, prefill_into_slot=prefill_into_slot,
                  init_cache=functools.partial(make_cache, cfg),
                  prefill_continue=(prefill_continue if cfg.family == "dense"
-                                   else None))
+                                   else None),
+                 decode_verify=(decode_verify if cfg.family == "dense"
+                                else None))

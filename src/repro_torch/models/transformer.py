@@ -3,12 +3,11 @@
 `_ffn_params`, `_mamba_params`, the dense and hybrid branches of
 `build_param_fn`, :45-76, :130-147, :150-188, :217-222), `_qkv` (:231),
 `attn_block` (:245), `attn_block_decode` (:276, the scalar-pos, per-row
-and ring-buffer branches), `attn_block_continue` (:352) and `mamba_path`
-(:450-510, every `ssm_impl`).
+and ring-buffer branches), `attn_block_decode_k` (:321), `attn_block_continue`
+(:352) and `mamba_path` (:450-510, every `ssm_impl`).
 
-The other families' blocks (moe, rwkv, whisper, vlm), the sharded-decode
-branch of `attn_block_decode` and `attn_block_decode_k` wait for their
-slices.
+The other families' blocks (moe, rwkv, whisper, vlm) and the
+sharded-decode branch of `attn_block_decode` wait for their slices.
 """
 
 from __future__ import annotations
@@ -194,6 +193,47 @@ def attn_block_decode(lp, x, cfg: ModelConfig, *, cache_k, cache_v, pos,
         out = attn_lib.decode_attention(q, cache_k, cache_v, pos + 1,
                                         window=window)
     out = matmul_rp(out.reshape(b_, 1, -1), lp["wo"])
+    return out, (cache_k, cache_v)
+
+
+def attn_block_decode_k(lp, x, cfg: ModelConfig, *, cache_k, cache_v, pos,
+                        window=0):
+    """Q-token verify attention against a cache (speculative decoding —
+    serve/spec.py). x: (B,Q,D) holds the Q=k+1 candidate tokens per row;
+    pos: (B,) per-row write offset of the FIRST candidate (the plain
+    decode write position, so a round that accepts no draft writes the
+    line plain decode would have). cache_k/v: (B,L,KvH,Hd), updated IN
+    PLACE (the JAX version returns new arrays).
+
+    Candidate j's k/v land on line pos + j, then one multi-query causal
+    attention runs where candidate j sees cache positions <= pos + j.
+    The JAX one-hot select drops a line past the cache end; so does this
+    write, without a host sync: such a line is redirected to (pos + j) mod
+    L, a line no other candidate of the row writes (Q <= L), and writes
+    that line's own bytes back. Rejected candidates' lines stay beyond the
+    rolled-back position, invisible and overwritten by the step that
+    first reaches them."""
+    b_, qn, _ = x.shape
+    q, k, v = _qkv(lp, x, cfg)
+    pos = torch.as_tensor(pos, device=x.device)
+    lines = pos.long()[:, None] + torch.arange(qn, device=x.device)  # (B,Q)
+    if cfg.rope_theta:
+        q = apply_rope(q.transpose(1, 2), lines[:, None],
+                       cfg.rope_theta).transpose(1, 2)
+        k = apply_rope(k.transpose(1, 2), lines[:, None],
+                       cfg.rope_theta).transpose(1, 2)
+    lcache = cache_k.shape[1]
+    assert qn <= lcache, (qn, lcache)
+    keep = (lines < lcache)[..., None, None]
+    at = lines % lcache
+    rows = torch.arange(b_, device=x.device)[:, None].expand(b_, qn)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        old = cache[rows, at]
+        cache.index_put_((rows, at), torch.where(keep, new.to(cache.dtype),
+                                                 old))
+    out = attn_lib.decode_attention_multi(q, cache_k, cache_v, pos + qn,
+                                          window=window)
+    out = matmul_rp(out.reshape(b_, qn, -1), lp["wo"])
     return out, (cache_k, cache_v)
 
 

@@ -1,6 +1,6 @@
 """Slot-level continuous-batching serving engine — the port of
 `repro.serve.engine` (:71-208 and `ServeEngine` with its paged K/V cache,
-without the mesh and speculative-decoding parts).
+speculative decoding and `evict_inflight`, without the mesh part).
 
 The engine owns a fixed pool of `max_batch` slots over ONE decode batch.
 Requests wait in a FIFO admission queue; whenever a slot's request
@@ -17,30 +17,39 @@ decodes at its own offset. Finished slots are masked: their pos is held,
 so their rows stop growing. Dense prompts are right-padded to a shape
 bucket; hybrid prompts are prefilled at their exact length (a pad would
 enter the recurrent state). Admission holds every family to prompt +
-max_new_tokens <= cache_len, as the JAX engine does, though the hybrid
-cache keeps only the attention window.
+max_new_tokens (+ spec_k) <= cache_len, as the JAX engine does, though
+the hybrid cache keeps only the attention window.
 
-Sampling: greedy rows (temperature 0) take the argmax of the f32 logits,
-exactly. A temperature row draws with a `torch.Generator` seeded from
-(rng_seed, rid, n_gen) by Gumbel-max on the CPU — deterministic per
-request and independent of slot placement, batch-mates and admission
-order, but NOT the JAX engine's threefry stream (`fold_in`, engine.py
-:405-407): temperature > 0 is held to determinism only until threefry is
-ported (ROADMAP).
+Sampling is the JAX engine's stream: greedy rows (temperature 0) take the
+argmax of the f32 logits; token n_gen of request rid at temperature T is
+`categorical(fold_in(fold_in(prng_key(rng_seed), rid), n_gen), logits /
+max(T, 1e-6))`, Threefry drawn on the engine's device (serve/rng.py), so
+identical requests draw identical tokens whatever their slot, batch-mates
+or admission order, and whichever replica serves them.
 
 Paged K/V cache (`kv_page_size > 0`, serve/kvcache.py): admission opens
 the request's block table; on a prefix hit the cached pages are copied
 into the slot's rows and only the suffix is prefilled
 (`Model.prefill_continue`: chunked attention over the row, no flash);
 then the prompt's full pages are published to the prefix index. Decode
-grows the block table a page at a time and a finished request releases it
-once; `last_stats["kvcache"]` holds the cache's stats. Decode still reads
-the dense slot cache, as in the JAX engine: the paged decode kernels are
-reached through the registry only. Families whose cache is not paged K/V
-(hybrid) serve unpaged. `kv_dtype="int8"` quantizes the published pages.
+grows the block table a page at a time and a finished or evicted request
+releases it once; `last_stats["kvcache"]` holds the cache's stats.
+Decode still reads the dense slot cache, as in the JAX engine: the paged
+decode kernels are reached through the registry only. Families whose
+cache is not paged K/V (hybrid) serve unpaged. `kv_dtype="int8"`
+quantizes the published pages.
 
-`mesh=` and `spec_k>0` raise ValueError naming their ROADMAP item;
-`evict_inflight` and the router come later.
+Speculative decoding (`spec_k > 0` with `draft_cfg=`/`draft_params=`,
+serve/spec.py): each round the dense draft proposes spec_k candidates per
+active slot, one `Model.decode_verify` forward of the target scores them
+all, the host accepts, and both caches roll back to the last accepted
+line; `last_stats["spec"]` holds the counters. The draft keeps its own
+slot cache on the device (never page-accounted). As in the JAX engine,
+the verify reads the dense slot cache, not the paged kernels.
+
+The stepwise surface (`reset`, `submit`, `step`, `evict_inflight`,
+`finalize`) is what the multi-replica router (serve/router.py) drives.
+`mesh=` raises ValueError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +65,8 @@ import torch
 from repro_torch import backend
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.registry import Model, build_model
+from repro_torch.serve import rng
+from repro_torch.serve import spec as spec_lib
 from repro_torch.serve.kvcache import PagedKVCache
 
 # right-padding shape buckets for slot prefill (the JAX engine compiles one
@@ -175,13 +186,6 @@ def aggregate_engine_stats(per_req: Dict[int, RequestStats], *,
     }
 
 
-def sample_seed(rng_seed: int, rid: int, n_gen: int) -> int:
-    """The generator seed of token n_gen of request rid."""
-    state = np.random.SeedSequence([rng_seed, rid, n_gen]).generate_state(
-        1, np.uint64)[0]
-    return int(state) & (2 ** 63 - 1)
-
-
 class ServeEngine:
     """Slot-level continuous-batching LM server. See the module docstring
     for the scheduling model.
@@ -203,25 +207,50 @@ class ServeEngine:
                  device=backend.DEFAULT_DEVICE, mesh=None,
                  kv_page_size: int = 0, kv_pages: Optional[int] = None,
                  kv_dtype: str = "bf16", prefix_reuse: bool = True,
+                 draft_cfg: Optional[ModelConfig] = None, draft_params=None,
                  spec_k: int = 0):
         if mesh is not None:
             raise ValueError("mesh= (tensor-parallel serving) is not ported "
                              "yet: ROADMAP queue 1, item 9 (distribution)")
-        if spec_k:
-            raise ValueError("spec_k>0 (speculative decoding) is not ported "
-                             "yet: ROADMAP queue 1, item 6 (serving)")
         self.cfg = cfg
         self.device = backend.resolve_device(device)
         self.model: Model = build_model(cfg)
         self.max_batch = max_batch
         self.cache_len = cache_len
-        self.rng_seed = rng_seed
         self.params = _to_device(params, self.device)
         self.kv_page_size = kv_page_size
         self.kv_pages = kv_pages
         self.kv_dtype = kv_dtype
         self.prefix_reuse = prefix_reuse
         self._kv: Optional[PagedKVCache] = None
+        # speculative decoding: the accept loop and the per-row position
+        # rollback are host-managed, like the page pool
+        self.spec_k = spec_k
+        self.draft_model: Optional[Model] = None
+        self.draft_params = None
+        self._draft_cache = None
+        self._spec_inflight: Dict[int, int] = {}
+        self._spec: Optional[Dict[str, int]] = None
+        if spec_k:
+            if draft_cfg is None or draft_params is None:
+                raise ValueError("spec_k>0 requires draft_cfg= and "
+                                 "draft_params=")
+            if draft_cfg.family != "dense":
+                raise ValueError("draft model must be a dense decoder "
+                                 f"(per-row K/V rollback): {draft_cfg.family!r}")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    "draft/target vocab mismatch: "
+                    f"{draft_cfg.vocab_size} vs {cfg.vocab_size}")
+            if self.model.decode_verify is None:
+                raise ValueError(
+                    "target family has no multi-position decode_verify "
+                    f"entry (spec_k>0 needs one): {cfg.family!r}")
+            self.draft_model = build_model(draft_cfg)
+            self.draft_params = _to_device(draft_params, self.device)
+        # never split: per-request keys are fold_in derivations of this
+        # base, so no shared RNG state advances across requests
+        self.rng = rng.prng_key(rng_seed, device=self.device)
         self.last_stats: Optional[Dict[str, Any]] = None
         self._cache = None
         self._queue: deque = deque()
@@ -229,22 +258,38 @@ class ServeEngine:
 
     # ------------------------------------------------------------- sampling
 
+    def _draw(self, logits: torch.Tensor, slots: List[Optional[_Slot]],
+              n_gens: np.ndarray, salt: Optional[int] = None) -> np.ndarray:
+        """Next token per row: argmax for greedy (and free) rows; a row at
+        temperature T draws categorical(key, logits / max(T, 1e-6)) with
+        key = fold_in(fold_in(base, rid), n_gen), folded once more with
+        `salt` for a spec-round draft draw (the JAX engine's
+        `_sample_batch_impl` and `_spec_sample_impl`)."""
+        lg = logits.float().reshape(logits.shape[0], -1)
+        toks = lg.argmax(dim=-1)
+        hot = [i for i, s in enumerate(slots) if s is not None
+               and s.temperature > 0]
+        if hot:
+            idx = torch.tensor(hot, device=self.device)
+            rids = torch.tensor([slots[i].rid for i in hot],
+                                device=self.device)
+            ngen = torch.tensor([int(n_gens[i]) for i in hot],
+                                device=self.device)
+            temps = torch.tensor([slots[i].temperature for i in hot],
+                                 dtype=torch.float32, device=self.device)
+            keys = rng.fold_in(rng.fold_in(self.rng.expand(len(hot), 2),
+                                           rids), ngen)
+            if salt is not None:
+                keys = rng.fold_in(keys, salt)
+            rows = lg.index_select(0, idx)
+            toks[idx] = rng.categorical(
+                keys, rows / torch.clamp_min(temps, 1e-6)[:, None])
+        return toks.cpu().numpy()
+
     def _sample_rows(self, logits: torch.Tensor,
                      slots: List[Optional[_Slot]]) -> np.ndarray:
-        """Next token per row: argmax for greedy rows (and free rows), a
-        Gumbel-max draw at the row's temperature for the others."""
-        lg = logits.float().reshape(logits.shape[0], -1)
-        toks = lg.argmax(dim=-1).cpu().numpy().astype(np.int32)
-        for i, s in enumerate(slots):
-            if s is None or s.temperature <= 0:
-                continue
-            gen = torch.Generator().manual_seed(
-                sample_seed(self.rng_seed, s.rid, s.n_gen))
-            u = torch.rand(lg.shape[1], generator=gen, dtype=torch.float64)
-            gumbel = -torch.log(-torch.log(u.clamp_min(1e-300)))
-            z = lg[i].cpu().double() / max(s.temperature, 1e-6) + gumbel
-            toks[i] = int(z.argmax())
-        return toks
+        return self._draw(logits, slots,
+                          np.array([s.n_gen if s else 0 for s in slots]))
 
     # ------------------------------------------------------------ admission
 
@@ -273,10 +318,13 @@ class ServeEngine:
         """Prefill r into slot_idx's cache lines; returns
         (cache, slot state, first sampled token)."""
         plen = len(r.prompt)
-        if plen + r.max_new_tokens > self.cache_len:
+        # spec rounds write up to spec_k speculative lines past the
+        # committed region before the accept rolls pos back, so a spec
+        # engine reserves that headroom in every slot
+        if plen + r.max_new_tokens + self.spec_k > self.cache_len:
             raise ValueError(f"request {r.rid}: prompt {plen} + max_new "
-                             f"{r.max_new_tokens} exceeds cache_len "
-                             f"{self.cache_len}")
+                             f"{r.max_new_tokens} + spec_k {self.spec_k} "
+                             f"exceeds cache_len {self.cache_len}")
         # paged cache: open the block table and consult the prefix index;
         # a hit restores the cached pages into the slot row and prefills
         # only the unseen suffix
@@ -301,6 +349,17 @@ class ServeEngine:
         if self._kv is not None and self._kv.prefix_reuse:
             # publish this prompt's full pages for future admissions
             cache = self._kv.insert_prefix(prompt, r.rid, cache, slot_idx)
+        if self.spec_k:
+            # the draft keeps its own slot-resident lines (the page pool
+            # tracks committed target lines only) and prefills the whole
+            # prompt; its first-token logits are discarded (the first
+            # token is the target's)
+            dtoks = np.zeros((1, self._bucket_len(plen, self.cache_len)),
+                             np.int64)
+            dtoks[0, :plen] = prompt
+            _, self._draft_cache = self.draft_model.prefill_into_slot(
+                self.draft_params, self._draft_cache, slot_idx,
+                {"tokens": torch.from_numpy(dtoks).to(self.device)}, plen)
         slot = _Slot(rid=r.rid, temperature=r.temperature,
                      remaining=r.max_new_tokens, n_gen=0, prompt_len=plen,
                      t_enqueue=t_enqueue, t_admit=t_admit, t_first=0.0)
@@ -317,6 +376,7 @@ class ServeEngine:
         zeroed counters. run() calls it; a stepwise driver calls it once
         before its first submit()."""
         self._queue = deque()
+        self._reqs: Dict[int, Request] = {}      # in-flight rid -> Request
         self._t_enq: Dict[int, float] = {}
         self._out: Dict[int, List[int]] = {}
         self._per_req: Dict[int, RequestStats] = {}
@@ -328,6 +388,17 @@ class ServeEngine:
                 cache_len=self.cache_len, page_size=self.kv_page_size,
                 n_pages=self.kv_pages, kv_dtype=self.kv_dtype,
                 prefix_reuse=self.prefix_reuse, device=self.device)
+        self._draft_cache = None
+        if self.spec_k:
+            dc = self.draft_model.init_cache(self.max_batch, self.cache_len,
+                                             device=self.device)
+            dc["pos"] = torch.zeros((self.max_batch,), dtype=torch.int32,
+                                    device=self.device)
+            self._draft_cache = dc
+        self._spec_inflight = {}
+        self._spec = {"proposed": 0, "accepted": 0, "rejected": 0,
+                      "bonus": 0, "tokens_emitted": 0, "verify_steps": 0,
+                      "draft_steps": 0}
         self._cur = np.zeros((self.max_batch, 1), np.int64)
         self._n_steps = 0
         self._n_prefills = 0
@@ -373,6 +444,7 @@ class ServeEngine:
         if self._cache is None:
             self.reset()
         self._queue.append(r)
+        self._reqs[r.rid] = r
         self._t_enq[r.rid] = (time.perf_counter() if t_enqueue is None
                               else t_enqueue)
         self._out[r.rid] = []
@@ -388,6 +460,7 @@ class ServeEngine:
             decode_steps=s.decode_steps, total_s=now - s.t_enqueue,
             tok_per_s=s.n_gen / max(now - s.t_admit, 1e-9))
         self._slots[i] = None
+        self._reqs.pop(s.rid, None)
         if self._kv is not None:
             self._kv.release(s.rid)     # terminal outcome: free pages once
         return s.rid
@@ -409,6 +482,7 @@ class ServeEngine:
                         rid=r.rid, prompt_len=len(r.prompt),
                         new_tokens=0, queue_wait_s=0.0, ttft_s=0.0,
                         decode_steps=0, total_s=0.0, tok_per_s=0.0)
+                    self._reqs.pop(r.rid, None)
                     finished.append(r.rid)
                     continue
                 self._cache, slot, first = self._admit(
@@ -423,16 +497,12 @@ class ServeEngine:
         if not any(s is not None for s in self._slots):
             return StepReport(admitted=admitted, finished=finished,
                               decoded=0, queue_depth=len(self._queue))
+        if self.spec_k:
+            return self._spec_round(admitted, finished)
         active = np.array([s is not None for s in self._slots])
-        old_pos = self._cache["pos"]
-        logits, new = self.model.decode_step(
-            self.params, self._cache,
-            torch.from_numpy(self._cur.copy()).to(self.device))
-        # done-row masking: hold finished slots' pos so their rows stop
-        # growing (the step wrote one masked, invisible line there)
-        new["pos"] = torch.where(torch.from_numpy(active).to(self.device),
-                                 new["pos"], old_pos)
-        self._cache = new
+        logits, self._cache = _masked(
+            self.model.decode_step, self.params, self._cache,
+            self._tokens(self._cur), self._active(active))
         self._n_steps += 1
         self._slot_steps_active += int(active.sum())
         toks = self._sample_rows(logits, self._slots)
@@ -454,6 +524,175 @@ class ServeEngine:
                           decoded=int(active.sum()),
                           queue_depth=len(self._queue))
 
+    def _tokens(self, toks: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(toks, np.int64)).to(
+            self.device)
+
+    def _active(self, active: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(active).to(self.device)
+
+    def _spec_round(self, admitted: List[int], finished: List[int]
+                    ) -> StepReport:
+        """One speculative scheduler round (in place of the plain batched
+        decode when spec_k > 0): propose spec_k draft candidates per
+        active slot, verify them all plus the committed current token in
+        ONE target forward, accept host-side (serve/spec.py), then roll
+        every slot's cache position back to its last accepted line.
+
+        Position contract: a round starts with both caches' pos at the
+        committed offset P = prompt_len + n_gen - 1 (cur's line unwritten,
+        the plain-decode invariant). Propose advances the draft to
+        P + spec_k + 1 (spec_k candidate feeds plus one catch-up feed that
+        writes the last candidate's line, needed only on a full accept);
+        verify advances the target to the speculated tip P + spec_k + 1.
+        After accepting a tokens (+1 correction or bonus), BOTH roll back
+        to P + a + 1. Rejected candidates' lines stay in the buffer beyond
+        the committed region: invisible and overwritten by the step that
+        first reaches them.
+
+        Greedy rows need only the target argmax at each verify position,
+        taken on the device; the logits of temperature rows come to the
+        host for the float64 accept arithmetic."""
+        k = self.spec_k
+        slots = self._slots
+        active = np.array([s is not None for s in slots])
+        act = self._active(active)
+        n_active = int(active.sum())
+        base_gen = np.array([s.n_gen if s else 0 for s in slots])
+        hot = [i for i, s in enumerate(slots) if s is not None
+               and s.temperature > 0]
+        # ---- propose: k sequential draft steps + the catch-up feed
+        draft_toks = np.zeros((self.max_batch, k), np.int64)
+        draft_logits = []
+        feed = self._tokens(self._cur)
+        for j in range(k):
+            dlg, self._draft_cache = _masked(
+                self.draft_model.decode_step, self.draft_params,
+                self._draft_cache, feed, act)
+            draft_toks[:, j] = self._draw(dlg, slots, base_gen + j,
+                                          salt=spec_lib.SALT_DRAFT)
+            if hot:
+                draft_logits.append(dlg[:, 0].float().cpu().numpy())
+            feed = self._tokens(draft_toks[:, j:j + 1])
+        _, self._draft_cache = _masked(
+            self.draft_model.decode_step, self.draft_params,
+            self._draft_cache, feed, act)
+        # ---- verify: one (k+1)-position target forward over
+        # [cur, d_0..d_{k-1}]; device pos advances to the speculated tip,
+        # recorded in _spec_inflight so an eviction before the accept
+        # rolls back to the last accepted line
+        for i, s in enumerate(slots):
+            if s is not None:
+                self._spec_inflight[i] = s.prompt_len + s.n_gen - 1
+        vtoks = np.concatenate([self._cur, draft_toks], axis=1)
+        vlg, self._cache = _masked(self.model.decode_verify, self.params,
+                                   self._cache, self._tokens(vtoks), act)
+        v_arg = vlg.argmax(dim=-1).cpu().numpy()
+        v_hot = vlg[hot].float().cpu().numpy() if hot else None
+        self._n_steps += 1
+        self._slot_steps_active += n_active
+        self._spec["verify_steps"] += n_active
+        self._spec["draft_steps"] += n_active * (k + 1)
+        self._spec["proposed"] += n_active * k
+        # ---- accept + commit (host), then roll positions back
+        new_pos = self._cache["pos"].cpu().numpy().copy()
+        draft_pos = self._draft_cache["pos"].cpu().numpy().copy()
+        for i, s in enumerate(slots):
+            if s is None:
+                continue
+            if s.temperature > 0:
+                h = hot.index(i)
+                emitted, kinds = spec_lib.accept_tokens(
+                    draft_toks[i], np.stack([d[i] for d in draft_logits]),
+                    v_hot[h], temperature=s.temperature, base_key=self.rng,
+                    rid=s.rid, n_gen=s.n_gen)
+            else:
+                emitted, kinds = spec_lib.accept_greedy(draft_toks[i],
+                                                        v_arg[i])
+            # cap at the request budget; counters follow the kept tokens
+            # so accepted + rejected + bonus == tokens_emitted survives
+            m = min(len(emitted), s.remaining)
+            emitted, kinds = emitted[:m], kinds[:m]
+            self._out[s.rid].extend(emitted)
+            self._cur[i, 0] = emitted[-1]
+            s.n_gen += m
+            s.remaining -= m
+            s.decode_steps += 1
+            for kind in kinds:
+                self._spec[kind] += 1
+            self._spec["tokens_emitted"] += m
+            committed = s.prompt_len + s.n_gen - 1
+            new_pos[i] = committed
+            draft_pos[i] = committed
+            if self._kv is not None:
+                # page accounting covers committed lines only: the
+                # speculated tip is never page-backed
+                self._kv.grow(s.rid, s.prompt_len + s.n_gen)
+            self._spec_inflight.pop(i, None)
+            if s.remaining <= 0:
+                finished.append(self._finish(i))
+        self._cache["pos"] = torch.from_numpy(new_pos).to(self.device)
+        self._draft_cache["pos"] = torch.from_numpy(draft_pos).to(
+            self.device)
+        return StepReport(admitted=admitted, finished=finished,
+                          decoded=n_active, queue_depth=len(self._queue))
+
+    def evict_inflight(self, rids: Optional[Iterable[int]] = None
+                       ) -> Tuple[List[Request], int]:
+        """Pull unfinished requests (occupied slots first, then the
+        waiting queue) OUT of the engine. Two callers:
+
+          * failover (rids=None): a router fencing a dead replica evicts
+            EVERYTHING so survivors can re-serve it;
+          * targeted eviction (rids={...}): the router's deadline sweep
+            removes exactly the expired requests; batch-mates keep
+            decoding undisturbed (their sample keys are per-request).
+
+        Partial outputs and timing of the evicted rids are discarded: a
+        re-queued request restarts from scratch, and the per-request keys
+        make the restart token-for-token identical to an undisturbed run.
+        Returns (evicted requests, tokens thrown away). A freed slot's
+        rows need no scrubbing while its held pos never overstates the
+        row's committed content; a spec engine evicted between verify and
+        accept holds the speculated tip, so its slot (and the draft's)
+        rolls back to the last ACCEPTED line here. A paged engine
+        releases an evicted slot's pages once (queued requests hold
+        none)."""
+        target = None if rids is None else set(rids)
+        evicted: List[Request] = []
+        wasted = 0
+        for i, s in enumerate(self._slots):
+            if s is None or (target is not None and s.rid not in target):
+                continue
+            if self.spec_k and self._cache is not None:
+                # _spec_inflight holds the committed offset recorded at
+                # verify launch; outside a round it is empty and the
+                # fallback equals the device pos
+                committed = self._spec_inflight.pop(
+                    i, s.prompt_len + s.n_gen - 1)
+                self._cache["pos"] = _set_row(self._cache["pos"], i,
+                                              committed)
+                self._draft_cache["pos"] = _set_row(
+                    self._draft_cache["pos"], i, committed)
+            evicted.append(self._reqs.pop(s.rid))
+            wasted += len(self._out.pop(s.rid, []))
+            self._t_enq.pop(s.rid, None)
+            self._slots[i] = None
+            if self._kv is not None:
+                self._kv.release(s.rid)
+        keep: deque = deque()
+        while self._queue:
+            r = self._queue.popleft()
+            if target is not None and r.rid not in target:
+                keep.append(r)
+                continue
+            evicted.append(self._reqs.pop(r.rid, r))
+            wasted += len(self._out.pop(r.rid, []))
+            self._t_enq.pop(r.rid, None)
+        self._queue = keep
+        self._n_submitted -= len(evicted)
+        return evicted, wasted
+
     def finalize(self) -> Dict[str, Any]:
         """Aggregate this run's counters into the engine-stats dict (also
         stored on last_stats)."""
@@ -466,6 +705,15 @@ class ServeEngine:
         if self._kv is not None:
             # merged here, outside aggregate_engine_stats's schema
             engine_stats["kvcache"] = self._kv.stats()
+        if self.spec_k and self._spec is not None:
+            sp: Dict[str, Any] = dict(self._spec)
+            sp["k"] = self.spec_k
+            sp["acceptance_rate"] = (sp["accepted"] / sp["proposed"]
+                                     if sp["proposed"] else 0.0)
+            sp["accepted_tokens_per_step"] = (
+                sp["tokens_emitted"] / sp["verify_steps"]
+                if sp["verify_steps"] else 0.0)
+            engine_stats["spec"] = sp
         self.last_stats = engine_stats
         return engine_stats
 
@@ -483,6 +731,22 @@ class ServeEngine:
         if collect_stats:
             return out, {"requests": self._per_req, "engine": engine_stats}
         return out
+
+
+def _masked(step, params, cache, tokens, active: torch.Tensor):
+    """One decode/verify step with done-row masking: rows that are not
+    active keep their pos, so their rows stop growing (the step wrote
+    masked, invisible lines there)."""
+    old_pos = cache["pos"]
+    logits, new = step(params, cache, tokens)
+    new["pos"] = torch.where(active, new["pos"], old_pos)
+    return logits, new
+
+
+def _set_row(pos: torch.Tensor, i: int, value: int) -> torch.Tensor:
+    pos = pos.clone()
+    pos[i] = value
+    return pos
 
 
 def _to_device(tree, device):

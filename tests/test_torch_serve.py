@@ -128,7 +128,7 @@ def port_small(small):
 def test_temperature_sampling_is_deterministic_and_independent(port_small):
     """A sampled request's tokens do not depend on slot placement,
     batch-mates or admission order (tests/test_serve.py:83 for the port;
-    the stream itself is not JAX's)."""
+    the stream is JAX's, held in tests/test_torch_spec.py)."""
     cfg, params = port_small
 
     def tgt():
@@ -177,7 +177,7 @@ def test_request_larger_than_the_cache_raises(port_small):
         eng.run([Request(rid=0, prompt=np.arange(10), max_new_tokens=7)])
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"spec_k": 2}])
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}])
 def test_unported_options_raise(port_small, kwargs):
     cfg, params = port_small
     with pytest.raises(ValueError, match="ROADMAP"):
