@@ -184,11 +184,50 @@ Phases (one line each, more where noted):
      recovery; flash_fwd 28 times an admission of a 129-256 token prompt;
      TTFT/TPOT ticks p50/p99, wall time; completed greedy outputs against
      one undisturbed engine's under 13a's near-tie rule.
+  14. the moe family, the seventh slice's path (its own seconds printed):
+     14a. ServeEngine on deepseek-moe-16b at full width and depth (28
+     layers: 1 dense + 27 moe of 64 experts top-6 + 2 shared; ~16.4e9
+     parameters), flash on, seed 0, max_batch 4, cache_len 1024: 8 greedy
+     requests (MOE_PROMPTS: 256, 512 and 512 tokens launch flash_fwd 28
+     times an admission, the others take the chunked route) and one of
+     MOE_HOT_PROMPT tokens at SPEC_HOT_T, 32 new tokens each, all at
+     once. flash_fwd launches exactly 28 x 3 times and no other kernel;
+     every token in the vocabulary; parameter count, init time, TTFT,
+     decode round ms, tokens/s and peak memory; the same requests again
+     with every output bit-equal to the first run's; one admission round
+     and three decode rounds under torch.profiler (device-busy share,
+     cudaLaunchKernel a round); the same requests through
+     kv_page_size 16 (k/v and dk/dv paged) with outputs equal to the
+     unpaged run's and every page released; each flash-sized prompt
+     prefilled once more through the engine's admission path with every
+     flash_fwd launch (group 1: B=1, H=KvH=16, Hd 128, S=256/512) held
+     against flash_fwd_plain on its own inputs (FLASH_OUT_ULPS), and the
+     first token's argmax equal to the first run's greedy token.
+     14b. models/moe.moe_ffn on that model's first moe layer at its
+     prefill (T=512) and decode (T=4) shapes, inputs from seed 3: two
+     runs on the card bit-equal (out, aux, gather_idx, gates); against
+     the port's CPU run of the same call where the routing is settled
+     (moe.settled at MOE_MARGIN), gather_idx equal, gates within
+     MOE_GATE_ATOL, out within MOE_OUT_ULPS; a call's ms, the device ms
+     from a CUDA graph and the bound (all expert weights read at both
+     shapes).
+     14c. Trainer(...).run() on deepseek-moe-16b at full width cut to
+     MOE_TRAIN_LAYERS layers (1 dense + 3 moe), remat "full", AdamW,
+     flash on, seq_len 512 x global_batch 8, TRAIN_STEPS steps, no
+     checkpoint written (phase 10 holds it): losses finite, step 0 within
+     MOE_LOSS0_ATOL of lse0 + 1e-4 lse0^2, every step flash_fwd 8 and
+     each backward kernel 4 times; loss, router aux, step ms, tokens/s,
+     mfu over the active parameters, peak memory; one more step with
+     every flash_fwd, flash_bwd_dq and flash_bwd_dkv launch (group 1: B=8,
+     S=512, H=KvH=16, Hd 128) held against its plain version on its own
+     inputs (FLASH_OUT_ULPS forward, BWD_ULPS backward).
 Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
 phase 7d's Hd 32 model check, phase 8's serving run, phase 10's training
 run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
 12b's dispatch, phase 13's spec serving run (spec_serve), paged spec run
-(spec_paged) and Router run (router)) runs with the launch counters
+(spec_paged) and Router run (router), phase 14's moe serving run
+(moe_serve), paged moe run (moe_paged) and moe training run
+(moe_train)) runs with the launch counters
 zeroed just before it and read just after; the kernels line gives each
 path's counts, and the script fails unless every kernel launched on the
 paths that run it (gpp_fused on dispatch and journey, gpp_banded on the
@@ -196,7 +235,9 @@ journey, flash_fwd 28 times a prefill on the serving run and a cold
 paged admission, 29 an admission on the spec runs and 28 a flash-sized
 admission on the Router run, flash_fwd 56 and each backward kernel 28
 times a training step, ssm_scan 32 times a prefill on the hybrid serving
-run, each paged_decode entry point on phase 12b's dispatch).
+run, each paged_decode entry point on phase 12b's dispatch, flash_fwd 28
+times a flash-sized admission on both moe serving runs, and 8 and each
+backward kernel 4 times a moe training step).
 
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero without it. Without a card, or outside the repository, the
@@ -301,6 +342,30 @@ SPEC_HOT_T = 0.8
 ROUTER_TRACE = dict(n_requests=16, prompt_median=128, prompt_max=256,
                     out_median=16, out_max=24, seed=0)
 ROUTER_FLAP = dict(at_tick=6, down_ticks=4, times=1)
+# the moe family (phase 14): deepseek-moe-16b served at full width with
+# flash on; three prompts are flash-sized (S % 256 == 0: 28 flash_fwd
+# launches an admission, moe admits at exact length), the others take the
+# chunked route; MOE_HOT_PROMPT tokens at SPEC_HOT_T
+MOE_PROMPTS = (256, 512, 512, 160, 224, 320, 400, 480)
+MOE_HOT_PROMPT = 200
+# 14b: the moe layer on the card against the port's CPU run of it. Routing
+# is discrete: where a token's k-th and (k+1)-th router probabilities, or
+# an expert's last taken and first dropped routed weights, lie within
+# MOE_MARGIN on the CPU run, the card's f32 router GEMM may choose the
+# other way, so the experts and tokens that could move are left out
+# (moe.settled; their counts printed); elsewhere gather_idx equal, gates
+# within MOE_GATE_ATOL (f32 softmax and renormalisation in another order)
+# and the output within MOE_OUT_ULPS bf16 ulps of the largest |out| (bf16
+# expert products summed in f32 in another order, rounded once)
+MOE_MARGIN = 1e-4
+MOE_GATE_ATOL = 1e-5
+MOE_OUT_ULPS = 2
+# 14c: deepseek-moe-16b at full width cut to 4 layers (first_k_dense 1 + 3
+# moe): the full depth's AdamW state does not fit one card. The step-0
+# loss within MOE_LOSS0_ATOL of lse0 + 1e-4 lse0^2 (see LOSS0_ATOL; d_model
+# 2048: lse0 = ln 102400 + 0.02^2 x 2048 / 2 = 11.946)
+MOE_TRAIN_LAYERS = 4
+MOE_LOSS0_ATOL = 0.3
 # phase 7c's cases: (tag, B, T, C, N, h0 scale); inputs from seed 10 + index
 SSM_CASES = (("hymba-prefill", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.0),
              ("t4096", 1, 4096, 3200, 16, 0.0),
@@ -718,6 +783,24 @@ def main() -> None:
     print(f"[13] phase 13 ran {spec_serve['phase_s']:.1f} s [{card}]",
           flush=True)
 
+    # -- 14. the moe family: deepseek-moe-16b served, its layer, trained -----
+    t14 = time.perf_counter()
+    moe_serve, moe_layer = moe_serve_phase(torch, np, dev, card, flash_cuda,
+                                           zero_counts, read_counts, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_rows = moe_layer_checks(torch, np, dev, spec, card, moe_layer)
+    del moe_layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train = moe_train_phase(torch, dev, spec, card, flash_cuda,
+                                zero_counts, read_counts, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = {"serve": moe_serve, "layer": moe_rows, "train": moe_train,
+           "phase_s": time.perf_counter() - t14}
+    print(f"[14] phase 14 ran {moe['phase_s']:.1f} s [{card}]", flush=True)
+
     names = ("gpp_fused", "gpp_banded", "flash_fwd", "flash_bwd_dq",
              "flash_bwd_dkv", "ssm_scan", "paged_decode_gather",
              "paged_decode_int8", "paged_decode_verify")
@@ -819,6 +902,7 @@ def main() -> None:
           flush=True)
     print(f"[13] spec serving and router summary: {json.dumps(spec_serve)} "
           f"[{card}]", flush=True)
+    print(f"[14] moe summary: {json.dumps(moe)} [{card}]", flush=True)
     print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"(build {build_s:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1730,12 +1814,14 @@ def profile_rounds(torch, tag, eng, reqs, res, card):
     for r in reqs:
         eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=8))
     for kind, n_steps in (("admit", 1), ("decode", 3)):
-        wall, busy, kernels, host, _, ours = profile_window(
+        wall, busy, kernels, host, n_launch, ours = profile_window(
             torch, lambda: [eng.step() for _ in range(n_steps)])
         res[f"profile_{kind}"] = {"steps": n_steps, "wall_ms": wall,
-                                  "device_busy_ms": busy, "own_kernels": ours}
+                                  "device_busy_ms": busy, "own_kernels": ours,
+                                  "cuda_launch_kernel": n_launch}
         print(f"[{tag}] profile {kind} ({n_steps} step(s)): wall {wall:.2f} "
-              f"ms, device busy {busy:.2f} ms ({busy / wall:.1%}); the port's "
+              f"ms, device busy {busy:.2f} ms ({busy / wall:.1%}); "
+              f"cudaLaunchKernel {n_launch}; the port's "
               f"kernels (device ms, calls): {ours}; top kernels (ms, calls): "
               f"{kernels}; top host ops (self ms, calls): {host} [{card}]",
               flush=True)
@@ -2963,6 +3049,389 @@ def router_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
            "bitexact_frac": frac, "divergences": [(r, p) for r, p, _, _
                                                   in div]}
     del router, single, params
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the moe family (14a serving, 14b the layer, 14c training)
+# ---------------------------------------------------------------------------
+
+def moe_serve_phase(torch, np, dev, card, flash_cuda, zero_counts,
+                    read_counts, by_path):
+    """Phase 14a: ServeEngine on deepseek-moe-16b at full width and depth,
+    flash on; the same requests again (bit-equal outputs), through the
+    paged cache (equal outputs), and the flash-sized admissions once more
+    with every flash_fwd launch held against its plain version. Returns
+    (metrics, the first moe layer's params, cloned, for 14b)."""
+    import dataclasses
+    import repro_torch
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = dataclasses.replace(repro_torch.get_config("deepseek-moe-16b"),
+                              use_flash_attention=True)
+    v = cfg.vocab_size
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = repro_torch.build_model(cfg).init_params(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in _leaves(params))
+    eng = ServeEngine(cfg, params, max_batch=4, cache_len=1024, device=dev)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, v, n) for n in MOE_PROMPTS]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    reqs.append(Request(rid=len(prompts),
+                        prompt=rng.integers(0, v, MOE_HOT_PROMPT),
+                        max_new_tokens=32, temperature=SPEC_HOT_T))
+    # warm-up: one flash-sized request (cuBLAS handles, the flash pick)
+    eng.run([Request(rid=99, prompt=prompts[0], max_new_tokens=2)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    stats, decode_ms, admit_ms = drive(eng, reqs)
+    torch.cuda.synchronize()
+    by_path["moe_serve"] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_flash = sum(len(r.prompt) % 256 == 0 for r in reqs)
+    want = {k: 0 for k in by_path["moe_serve"]}
+    want["flash_fwd"] = cfg.n_layers * n_flash
+    line = (f"[14a] serve deepseek-moe-16b (full width, {cfg.n_layers} "
+            f"layers: {cfg.first_k_dense} dense + "
+            f"{cfg.n_layers - cfg.first_k_dense} moe of {cfg.n_experts} "
+            f"experts top-{cfg.experts_per_token} + {cfg.n_shared_experts} "
+            f"shared; {n_params / 1e9:.3f}e9 params, init {init_s:.1f} s), "
+            f"flash on: {stats['requests']} requests (prompts "
+            f"{[len(r.prompt) for r in reqs]}), {stats['prefills']} "
+            f"prefills, {stats['decode_steps']} decode steps, "
+            f"{stats['new_tokens']} tokens; launches {by_path['moe_serve']} "
+            f"(flash_fwd expected {cfg.n_layers} x {n_flash} flash-sized "
+            f"prompts = {want['flash_fwd']}, every other kernel 0) [{card}]")
+    print(line, flush=True)
+    if by_path["moe_serve"] != want or stats["prefills"] != len(reqs):
+        fail(line)
+    check_outputs(eng, reqs, v)
+    first = {r.rid: list(eng.outputs[r.rid]) for r in reqs}
+    res = serve_metrics("14a", stats, decode_ms, admit_ms, peak, len(reqs),
+                        card)
+    res.update(n_params=n_params, init_s=init_s, flash_prompts=n_flash)
+
+    # determinism: the same requests again, every output bit-equal
+    drive(eng, reqs)
+    differ = [r.rid for r in reqs if eng.outputs[r.rid] != first[r.rid]]
+    line = (f"[14a] the same {len(reqs)} requests again: outputs bit-equal "
+            f"to the first run's except rids {differ} (none allowed) [{card}]")
+    print(line, flush=True)
+    if differ:
+        fail(line)
+
+    # where a round's time goes: one admission round (4 prefills) and three
+    # decode rounds under torch.profiler
+    zero_counts()
+    profile_rounds(torch, "14a", eng, reqs[:8:2], res, card)
+    torch.cuda.synchronize()
+    res["launches_per_decode_round"] = \
+        res["profile_decode"]["cuda_launch_kernel"] / 3
+
+    # the paged cache (k/v and dk/dv leaves paged; no prefix reuse for moe)
+    peng = ServeEngine(cfg, params, max_batch=4, cache_len=1024,
+                       kv_page_size=PAGED_PAGE, device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    pstats, pdecode, _ = drive(peng, reqs)
+    torch.cuda.synchronize()
+    by_path["moe_paged"] = read_counts()
+    kv = pstats["kvcache"]
+    peng.kv.check_conservation()
+    differ = [r.rid for r in reqs if peng.outputs[r.rid] != first[r.rid]]
+    line = (f"[14a] paged (kv_page_size {PAGED_PAGE}, leaves "
+            f"{list(peng.kv.leaves)}): outputs equal to the unpaged run's "
+            f"except rids {differ} (none allowed); launches "
+            f"{by_path['moe_paged']} (flash_fwd expected {want['flash_fwd']}); "
+            f"peak live pages {kv['peak_live_pages']} of {peng.kv.n_pages}, "
+            f"pages live after {peng.kv.pages_live}; decode round p50 "
+            f"{pdecode[len(pdecode) // 2]:.2f} ms [{card}]")
+    print(line, flush=True)
+    if differ or by_path["moe_paged"] != want or peng.kv.pages_live:
+        fail(line)
+    res["paged"] = {"decode_step_ms_p50": pdecode[len(pdecode) // 2],
+                    "peak_pages_live": kv["peak_live_pages"],
+                    "tok_per_s": pstats["tok_per_s"]}
+
+    # each flash-sized prompt prefilled once more through the admission
+    # path, every flash_fwd launch (group 1) held against flash_fwd_plain
+    # on its own inputs; the first token against the first run's
+    flash_reqs = [r for r in reqs if len(r.prompt) % 256 == 0]
+    launch_ulps, rows = [], []
+
+    def against_plain(args, got):
+        launch_ulps.append(bf16_ulps(got[0],
+                                     flash_cuda.flash_fwd_plain(*args)[0]))
+
+    zero_counts()
+    with hold_launches(flash_cuda, "flash_fwd", against_plain):
+        for r in flash_reqs:
+            lg = first_token_logits(torch, eng, r.prompt)
+            rows.append((r.rid, len(r.prompt), int(lg.argmax()),
+                         first[r.rid][0], bool(torch.isfinite(lg).all())))
+    torch.cuda.synchronize()
+    by_path["moe-serve-check"] = read_counts()
+    worst = max(launch_ulps) if launch_ulps else float("inf")
+    line = (f"[14a] {len(launch_ulps)} flash_fwd launches (group 1) in "
+            f"{len(flash_reqs)} flash-sized prefills held against "
+            f"flash_fwd_plain on their own inputs: worst {worst:.2f} bf16 "
+            f"ulps (tol {FLASH_OUT_ULPS}); per prompt (rid, tokens, argmax, "
+            f"first run's first token, finite): {rows}; launches "
+            f"{by_path['moe-serve-check']} [{card}]")
+    print(line, flush=True)
+    if (len(launch_ulps) != cfg.n_layers * len(flash_reqs)
+            or worst > FLASH_OUT_ULPS
+            or not all(x[2] == x[3] and x[4] for x in rows)):
+        fail(line)
+    res["launch_ulps_max"] = worst
+    layer = {k: t[0].clone() for k, t in params["layers"]["moe"].items()}
+    del eng, peng, params
+    return res, layer
+
+
+def moe_layer_checks(torch, np, dev, spec, card, layer):
+    """Phase 14b: the moe layer (models/moe.moe_ffn) on deepseek's first
+    moe layer at its prefill (T=512) and decode (T=4) shapes: two runs on
+    the card bit-equal, the card against the port's CPU run within the
+    MOE_* gates, a call's ms, the device ms from a CUDA graph, the
+    bound."""
+    import repro_torch
+    from repro_torch import backend
+    from repro_torch.models import moe
+    cfg = repro_torch.get_config("deepseek-moe-16b")
+    e, k, d = cfg.n_experts, cfg.experts_per_token, cfg.d_model
+    f, fs = cfg.moe_d_ff, cfg.moe_d_ff * cfg.n_shared_experts
+    cpu_layer = {n: t.cpu() for n, t in layer.items()}
+    w_bytes = sum(t.numel() * t.element_size() for t in layer.values())
+    rng = np.random.default_rng(3)
+    rows = {}
+    for tag, t in (("prefill", 512), ("decode", 4)):
+        x_cpu = torch.from_numpy(rng.standard_normal((t, d)).astype(
+            np.float32)).to(torch.bfloat16)
+        x = x_cpu.to(dev)
+
+        def call():
+            return moe.moe_ffn(x, layer, n_experts=e, k=k)
+
+        def route(x, layer):
+            gate, idx, _, _ = moe.dispatch(x, layer["router"], n_experts=e,
+                                           k=k)
+            return {"gather_idx": idx, "gate": gate}
+
+        with backend.f32_accumulation():
+            runs = []
+            for _ in range(2):
+                out, aux = call()
+                runs.append((out, aux, route(x, layer)))
+            torch.cuda.synchronize()
+            ms = cuda_ms(call)
+            device_ms = graph_ms(call)
+        (o1, a1, d1), (o2, a2, d2) = runs
+        rerun = (torch.equal(o1.view(torch.int16), o2.view(torch.int16))
+                 and torch.equal(a1, a2)
+                 and torch.equal(d1["gather_idx"], d2["gather_idx"])
+                 and torch.equal(d1["gate"], d2["gate"]))
+        t0 = time.perf_counter()
+        oc, ac = moe.moe_ffn(x_cpu, cpu_layer, n_experts=e, k=k)
+        cpu_s = time.perf_counter() - t0
+        dc = route(x_cpu, cpu_layer)
+        ok_e, ok_t = moe.settled(x_cpu, cpu_layer["router"], dc["gate"],
+                                 n_experts=e, k=k, margin=MOE_MARGIN)
+        gc_, oc_ = d1["gather_idx"].cpu().sort(-1)
+        gp_, op_ = dc["gather_idx"].sort(-1)
+        same_idx = torch.equal(gc_[ok_e], gp_[ok_e])
+        gate_err = float((d1["gate"].cpu().gather(-1, oc_)[ok_e]
+                          - dc["gate"].gather(-1, op_)[ok_e]).abs().max())
+        n_t = int(ok_t.sum())
+        want = oc.float()[ok_t]
+        out_ulps = (float((o1.cpu().float()[ok_t] - want).abs().max())
+                    / ulp_at_max(want)) if n_t else float("inf")
+        c = moe.capacity(t, k, e)
+        flops = 2 * e * c * d * f * 3 + 2 * t * d * fs * 3 + 2 * t * d * e
+        n_bytes = w_bytes + 2 * t * d * 2
+        ops_ms = flops / spec.bf16_tc_flops * 1e3
+        bytes_ms = n_bytes / spec.hbm_bw * 1e3
+        row = {"shape": {"T": t, "D": d, "E": e, "k": k, "F": f, "C": c},
+               "rerun_bit_equal": rerun, "experts_compared": int(ok_e.sum()),
+               "tokens_compared": n_t, "gather_idx_equal": same_idx,
+               "gate_max_abs_err": gate_err, "out_ulps": out_ulps,
+               "aux": float(a1), "aux_cpu": float(ac), "ms": ms,
+               "device_ms": device_ms, "cpu_s": cpu_s,
+               "bytes": n_bytes, "flops": flops,
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+        rows[tag] = row
+        line = (f"[14b] moe_ffn {tag} (T={t}, D={d}, E={e}, top-{k}, F={f}, "
+                f"C={c}, shared {fs}): two runs on the card bit-equal "
+                f"{rerun}; against the CPU run where the routing margins "
+                f"exceed {MOE_MARGIN}: {row['experts_compared']}/{e} experts "
+                f"(gather_idx equal {same_idx}, gates within {gate_err:.2e}, "
+                f"tol {MOE_GATE_ATOL}), {n_t}/{t} tokens (out within "
+                f"{out_ulps:.2f} bf16 ulps at the largest, tol "
+                f"{MOE_OUT_ULPS}); aux {float(a1):.6f} (CPU {float(ac):.6f}); "
+                f"a call {ms:.4f} ms, device {device_ms:.4f} ms (CUDA graph), "
+                f"the CPU run {cpu_s:.2f} s; bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}: {n_bytes / 1e9:.3f} GB at "
+                f"{spec.hbm_bw / 1e12:.2f} TB/s, {flops / 1e9:.2f} GFLOP at "
+                f"{spec.bf16_tc_flops / 1e12:.0f} TFLOP/s) [{card}]")
+        print(line, flush=True)
+        if (not rerun or not same_idx or gate_err > MOE_GATE_ATOL
+                or out_ulps > MOE_OUT_ULPS or 2 * n_t < t
+                or 4 * row["experts_compared"] < e):
+            fail(line)
+    return rows
+
+
+def moe_train_phase(torch, dev, spec, card, flash_cuda, zero_counts,
+                    read_counts, by_path):
+    """Phase 14c: Trainer(...).run() on deepseek-moe-16b at full width cut
+    to MOE_TRAIN_LAYERS layers, remat "full", flash on, the TrainLoopConfig
+    defaults (seq_len 512, global_batch 8), TRAIN_STEPS steps. Phase 10
+    holds the checkpoint; this one writes none (the save is counted)."""
+    import dataclasses
+    import math
+    import repro_torch
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.train.trainer import TrainLoopConfig, Trainer
+    cfg = dataclasses.replace(repro_torch.get_config("deepseek-moe-16b"),
+                              n_layers=MOE_TRAIN_LAYERS, remat="full",
+                              use_flash_attention=True)
+    n_layers = cfg.n_layers
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_moe_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    loop = TrainLoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+                           log_every=1, ckpt_dir=ckpt_dir)
+    tr = Trainer(cfg, loop, device=dev)
+    saves, step_ms, step_counts, metrics = [], [], [], []
+    real_step = tr.step_fn
+
+    def timed_step(params, opt_state, batch):
+        torch.cuda.synchronize()
+        before, t0 = read_counts(), time.perf_counter()
+        out = real_step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = read_counts()
+        step_counts.append({k: after[k] - before[k] for k in after})
+        metrics.append({k: float(x) for k, x in out[2].items()})
+        return out
+
+    tr.step_fn = timed_step
+    tr.ckpt.save = lambda step, tree, **kw: saves.append(step)
+    print(f"[14c] train deepseek-moe-16b at full width cut to {n_layers} "
+          f"layers ({cfg.first_k_dense} dense + "
+          f"{n_layers - cfg.first_k_dense} moe), remat {cfg.remat!r}, "
+          f"{cfg.optimizer}, flash on: seq_len {loop.seq_len}, global_batch "
+          f"{loop.global_batch}, {TRAIN_STEPS} steps", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = tr.run(verbose=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    by_path["moe_train"] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = out["losses"]
+    auxes = [m["aux"] for m in metrics]
+    lse0 = math.log(cfg.vocab_size) + INIT_SCALE ** 2 * cfg.d_model / 2
+    loss0 = lse0 + 1e-4 * lse0 ** 2
+    per_step = {k: 0 for k in by_path["moe_train"]}
+    per_step.update(flash_fwd=2 * n_layers, flash_bwd_dq=n_layers,
+                    flash_bwd_dkv=n_layers)
+    line = (f"[14c] losses {[round(x, 4) for x in losses]} (step 0 expected "
+            f"{loss0:.4f} +- {MOE_LOSS0_ATOL}); router aux a step "
+            f"{[round(a, 4) for a in auxes]} (summed over "
+            f"{n_layers - cfg.first_k_dense} moe layers, ~1 each at balanced "
+            f"routing); launches a step {step_counts[0]} (expected "
+            f"{per_step}); whole run {by_path['moe_train']}; saves {saves} "
+            f"[{card}]")
+    print(line, flush=True)
+    if (len(losses) != TRAIN_STEPS
+            or not all(math.isfinite(x) for x in losses + auxes)
+            or abs(losses[0] - loss0) > MOE_LOSS0_ATOL
+            or any(c != per_step for c in step_counts)
+            or saves != [TRAIN_STEPS]):
+        fail(line)
+    tokens = loop.seq_len * loop.global_batch
+    n_params = cfg.param_count()
+    # parameters a token meets: every expert but its top-k is skipped
+    n_active = n_params - ((n_layers - cfg.first_k_dense)
+                           * (cfg.n_experts - cfg.experts_per_token)
+                           * 3 * cfg.d_model * cfg.moe_d_ff)
+    attn = 3 * n_layers * flash_cuda.useful_flops(
+        loop.global_batch, cfg.n_heads, loop.seq_len, loop.seq_len,
+        cfg.head_dim, True)
+    steady = sorted(step_ms[1:])
+    step_p50 = steady[len(steady) // 2]
+    mfu = ((6 * n_active * tokens + attn) / (step_p50 / 1e3)
+           / spec.bf16_tc_flops)
+    res = {"losses": losses, "aux": auxes, "step_ms": step_ms,
+           "step_ms_p50": step_p50, "tokens_per_step": tokens,
+           "tok_per_s": tokens / step_p50 * 1e3, "mfu": mfu,
+           "n_params": n_params, "n_active_params": n_active,
+           "peak_mem_gb": peak / 1e9, "run_s": run_s,
+           "grad_norm": [m["grad_norm"] for m in metrics]}
+    print(f"[14c] step ms {[round(x, 2) for x in step_ms]} (p50 after the "
+          f"first {step_p50:.2f}); {res['tok_per_s']:.1f} tokens/s; mfu "
+          f"{mfu:.4f} ((6 N_active tokens + attention {attn:.3e}) / step / "
+          f"{spec.bf16_tc_flops / 1e12:.0f} TFLOP/s, N_active = {n_active} "
+          f"of N = {n_params}); peak device memory {peak / 1e9:.2f} GB "
+          f"[{card}]", flush=True)
+
+    # one more step with every flash launch (group 1) held against its
+    # plain version on its own inputs
+    src = TokenSource(DataConfig(seq_len=loop.seq_len,
+                                 global_batch=loop.global_batch,
+                                 vocab_size=cfg.vocab_size, seed=loop.seed))
+    batch = {k: torch.from_numpy(a).to(dev)
+             for k, a in src.batch_at(TRAIN_STEPS).items()}
+    plain = {"flash_fwd": lambda *a: flash_cuda.flash_fwd_plain(*a)[0],
+             "flash_bwd_dq": flash_cuda.flash_bwd_dq_plain,
+             "flash_bwd_dkv": flash_cuda.flash_bwd_dkv_plain}
+    errs = {name: [] for name in plain}
+
+    def against_plain(name):
+        def check(args, got):
+            want = plain[name](*args)
+            if name == "flash_fwd":
+                errs[name].append(bf16_ulps(got[0], want))
+                return
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            errs[name].append(max(
+                float((g.float() - w.float()).abs().max()) / ulp_at_max(w)
+                for g, w in pairs))
+        return check
+
+    zero_counts()
+    with hold_launches(flash_cuda, "flash_fwd", against_plain("flash_fwd")), \
+            hold_launches(flash_cuda, "flash_bwd_dq",
+                          against_plain("flash_bwd_dq")), \
+            hold_launches(flash_cuda, "flash_bwd_dkv",
+                          against_plain("flash_bwd_dkv")):
+        real_step(tr.state["params"], tr.state["opt"], batch)
+        torch.cuda.synchronize()
+    by_path["moe-train-check"] = read_counts()
+    worst = {name: max(e) if e else float("inf") for name, e in errs.items()}
+    line = (f"[14c] one checked step: launches held against their plain "
+            f"versions on their own inputs (group 1): "
+            f"{ {n: len(e) for n, e in errs.items()} } (expected "
+            f"{ {n: per_step[n] for n in errs} }), worst {worst} (flash_fwd "
+            f"in bf16 ulps, tol {FLASH_OUT_ULPS}; the backward kernels in "
+            f"bf16 ulps at the largest element, tol {BWD_ULPS}); launches "
+            f"{by_path['moe-train-check']} [{card}]")
+    print(line, flush=True)
+    if (any(len(e) != per_step[n] for n, e in errs.items())
+            or worst["flash_fwd"] > FLASH_OUT_ULPS
+            or max(worst["flash_bwd_dq"], worst["flash_bwd_dkv"]) > BWD_ULPS):
+        fail(line)
+    res["launch_worst_ulps"] = worst
+    del tr
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     return res
 
 

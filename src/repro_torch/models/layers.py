@@ -56,7 +56,9 @@ class ParamInit:
         if init == "normal":
             w = torch.randn(shape, generator=self.gen, dtype=torch.float32,
                             device=self.device)
-            return (w * self.scale).to(dtype)
+            # scaled in place: one f32 transient (a moe expert stack at
+            # full width is ~20 GB in f32)
+            return w.mul_(self.scale).to(dtype)
         if init == "a_log":  # mamba: A = -arange(1..N) broadcast over channels
             row = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
                                          device=self.device))

@@ -1,0 +1,205 @@
+"""Mixture-of-Experts FFN — the port of `repro.models.moe` (`router_topk`
+:25, `moe_ffn` :41): top-k routing, capacity-based static dispatch,
+shared experts, the Switch load-balance aux loss.
+
+Dispatch, as in the JAX package: for each expert the top `capacity`
+tokens of its (E, T) routed-weight row are gathered to (E, C, D), run
+through the expert SwiGLU as batched products (bf16 operands, f32
+accumulator, bf16 out: the reference's `einsum`), weighted by their gate
+in f32 and added back per token. Tokens past an expert's capacity are
+dropped; capacity is static, from T.
+
+Exactness on the card, where the reference pins it:
+
+  * `lax.top_k` breaks ties toward the lower index; `torch.topk` makes no
+    promise, so both top-k sites take a stable descending sort and slice
+    (`_top_k`). At decode (T = 4, C = 1) most of a routed row is 0 and
+    every filler pick is a tie.
+  * the two `.at[].add` scatters run in a fixed order with no atomics
+    (`index_add_` and `scatter_add_` on CUDA use atomics). The routed
+    matrix has no duplicate (e, t) pair, so an indexed write fills it.
+    The combine adds each token's contributions in ascending expert order
+    from 0.0, as XLA's sequential scatter does: only a token's own k
+    experts carry a nonzero gate (a filler pick adds an exact zero, a
+    no-op on an accumulator that is never -0.0), so an (E, T) slot map
+    from `gather_idx` finds each of them, and k adds sum them.
+
+Nothing here reads a value back to the host. `moe_ffn_ep` (the
+shard_map expert-parallel route) belongs to distribution (ROADMAP queue
+1, item 9).
+
+`dispatch` is moe_ffn's routing alone, which the checks compare across
+devices; `routing_margins` and `settled` are check helpers (how far a
+routing is from flipping, and which of its parts two devices may be held
+to), called by the tests and chip_smoke.py, never by the model.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.models.layers import PARAM_DTYPE, matmul, swiglu
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest entries along the last axis and their indices, ties
+    toward the lower index (`lax.top_k`'s order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def router_topk(x: torch.Tensor, w_router: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (T, D) -> (weights (T, k) f32, ids (T, k) int64, aux 0-d f32).
+
+    Logits and softmax in f32; the top-k weights renormalised to sum 1
+    (floor 1e-9); aux = E * sum_e f_e p_e, f the top-1 assignment share
+    and p the mean router probability of expert e."""
+    logits = torch.matmul(x.float(), w_router.float())          # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    weights, ids = _top_k(probs, k)
+    weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
+    e = probs.shape[-1]
+    assign = torch.nn.functional.one_hot(ids[:, 0], e).float()
+    aux = e * torch.sum(assign.mean(0) * probs.mean(0))
+    return weights, ids, aux
+
+
+def capacity(t: int, k: int, n_experts: int,
+             capacity_factor: float = 1.25) -> int:
+    """Tokens an expert takes: min(T, max(1, floor(T k cf) // E))."""
+    return min(int(max(1, (t * k * capacity_factor) // n_experts)), t)
+
+
+def _routed(weights: torch.Tensor, ids: torch.Tensor, n_experts: int
+            ) -> torch.Tensor:
+    """(E, T): the routed weight of each token for each expert, 0 where the
+    token is not routed there (no (e, t) pair repeats: one write each)."""
+    t, k = ids.shape
+    tok = torch.arange(t, device=ids.device)[:, None].expand(t, k)
+    routed = torch.zeros((n_experts, t), dtype=torch.float32,
+                         device=ids.device)
+    return routed.index_put((ids, tok), weights)
+
+
+@torch.no_grad()
+def routing_margins(x: torch.Tensor, w_router: torch.Tensor, *,
+                    n_experts: int, k: int, capacity_factor: float = 1.25,
+                    token_valid=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """How far moe_ffn's two discrete choices on x are from flipping:
+    (token (T,): each token's k-th router probability minus its (k+1)-th;
+    cut (E,): each expert's last taken routed weight minus its first
+    dropped one). inf where nothing can flip: k = E, C = T, or a cut
+    among weights that are exactly equal on any device (0, past the
+    routed tokens; 1, every routed token's weight at k = 1), which the
+    lower index decides. Two runs whose inputs differ by less than these
+    margins route alike."""
+    probs = torch.softmax(torch.matmul(x.float(), w_router.float()), -1)
+    top = torch.sort(probs, dim=-1, descending=True)[0]
+    inf = torch.full((x.shape[0],), float("inf"), device=x.device)
+    token = top[:, k - 1] - top[:, k] if k < n_experts else inf
+    weights, ids, _ = router_topk(x, w_router, k)
+    if token_valid is not None:
+        weights = weights * token_valid[:, None].to(weights.dtype)
+    t = x.shape[0]
+    c = capacity(t, k, n_experts, capacity_factor)
+    rows = torch.sort(_routed(weights, ids, n_experts), dim=-1,
+                      descending=True)[0]
+    if c == t:
+        return token, torch.full((n_experts,), float("inf"), device=x.device)
+    cut = rows[:, c - 1] - rows[:, c]
+    exact = (rows[:, c - 1] == 0) | ((cut == 0) & (rows[:, c] == 1))
+    return token, torch.where(exact, float("inf"), cut)
+
+
+@torch.no_grad()
+def settled(x: torch.Tensor, w_router: torch.Tensor, gate: torch.Tensor, *,
+            n_experts: int, k: int, margin: float
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Which parts of a moe_ffn run on x (gates (E, C), as `dispatch`
+    returns them) no change below `margin` in the router's inputs can
+    move: (experts (E,) whose picks, gather_idx and gates, are settled,
+    tokens (T,) whose output is), bool. What two devices may be held to.
+
+    A shaky token (k-th and (k+1)-th router probabilities within the
+    margin) may take either of those two experts. An expert's picks are
+    settled when its cut clears the margin and no shaky token may take
+    it. A token's place in an expert is settled when the cut clears the
+    margin and no shaky token can displace a pick: the expert is under
+    capacity (its lowest pick a filler 0: one token more or less still
+    fits), or the shaky token's k-th weight lies below the lowest pick by
+    the margin. A token's output is settled when it is not shaky and its
+    place in each of its k experts is."""
+    token, cut = routing_margins(x, w_router, n_experts=n_experts, k=k)
+    _, near, _ = router_topk(x, w_router, k + 1)
+    wk = router_topk(x, w_router, k)[0][:, k - 1]           # k-th weight
+    shaky = token <= margin
+    picks, places = cut > margin, cut > margin
+    either = near[shaky][:, k - 1:k + 1]                    # (S, 2)
+    lowest = gate[:, -1][either]
+    picks[either.reshape(-1)] = False
+    bump = (lowest > 0) & (wk[shaky][:, None] + margin >= lowest)
+    places[either[bump]] = False
+    return picks, ~shaky & places[near[:, :k]].all(1)
+
+
+def dispatch(x: torch.Tensor, w_router: torch.Tensor, *, n_experts: int,
+             k: int, capacity_factor: float = 1.25, token_valid=None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor]:
+    """moe_ffn's routing of x (T, D): (gate (E, C) f32 and gather_idx (E, C),
+    the tokens each expert takes and their weights; ids (T, k), each
+    token's experts; aux 0-d f32).
+
+    token_valid: optional (T,) bool; an invalid (pad) token gets router
+    weight 0, so it claims no capacity from real tokens and adds nothing
+    (capacity itself stays derived from T)."""
+    weights, ids, aux = router_topk(x, w_router, k)
+    if token_valid is not None:
+        weights = weights * token_valid[:, None].to(weights.dtype)
+    c = capacity(x.shape[0], k, n_experts, capacity_factor)
+    gate, gather_idx = _top_k(_routed(weights, ids, n_experts), c)
+    return gate, gather_idx, ids, aux
+
+
+def moe_ffn(x: torch.Tensor, params, *, n_experts: int, k: int,
+            capacity_factor: float = 1.25, token_valid=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (T, D) bf16. params: {router (D, E), wi/wg (E, D, F), wo (E, F,
+    D), shared_wi/wg (D, Fs) and shared_wo (Fs, D) optional}. Returns
+    (out (T, D) bf16, aux 0-d f32). token_valid as in `dispatch`."""
+    t, d = x.shape
+    dev = x.device
+    gate, gather_idx, ids, aux = dispatch(
+        x, params["router"], n_experts=n_experts, k=k,
+        capacity_factor=capacity_factor, token_valid=token_valid)
+    c = gate.shape[1]
+    x_e = x[gather_idx.reshape(-1)].reshape(n_experts, c, d)     # (E, C, D)
+    h = matmul(x_e, params["wi"])
+    g = matmul(x_e, params["wg"])
+    h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
+    y_e = matmul(h, params["wo"])                                # (E, C, D)
+    y_e = y_e.float() * gate[..., None]
+
+    # combine: slot[e, t] is the slot of token t in expert e's picks (c,
+    # past the last slot, where e did not take t); a token's own experts
+    # in ascending order, each contribution from its slot (a zero row for
+    # a dropped one), added from 0.0 one expert at a time
+    slot = torch.full((n_experts, t), c, dtype=torch.long, device=dev)
+    slot = slot.index_put(
+        (torch.arange(n_experts, device=dev)[:, None].expand(n_experts, c),
+         gather_idx), torch.arange(c, device=dev).expand(n_experts, c))
+    mine, _ = torch.sort(ids, dim=-1)                            # (T, k)
+    rows = mine * (c + 1) + slot[mine, torch.arange(t, device=dev)[:, None]]
+    y_rows = torch.cat([y_e, y_e.new_zeros((n_experts, 1, d))], 1)
+    contrib = y_rows.reshape(-1, d)[rows]                        # (T, k, D)
+    out = contrib[:, 0] + 0.0
+    for j in range(1, k):
+        out = out + contrib[:, j]
+
+    if "shared_wi" in params:
+        out = out + swiglu(x, params["shared_wi"], params["shared_wg"],
+                           params["shared_wo"]).float()
+    return out.to(PARAM_DTYPE), aux

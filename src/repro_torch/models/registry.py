@@ -1,35 +1,40 @@
 """Model assembly: config -> Model (init / loss / prefill / decode_step /
 prefill_into_slot / init_cache) — the port of `repro.models.registry` for
-the dense and hybrid families (`Model` :31, `_maybe_remat` :60,
-`_dense_stack` :92, `_dense_prefill_stack` :114, `_dense_decode_stack`
-:137, `_hymba_stack` :186-252 for prefill and decode, `make_cache` :347,
-`build_model` :426, `_logits` :458, `loss_fn` :516, `prefill` :559,
-`decode_step` :652, `decode_verify` :691, `prefill_into_slot` :726,
-`prefill_continue` :763).
+the dense, moe and hybrid families (`Model` :31, `_maybe_remat` :60,
+`_moe_apply` :69 (the capacity route, in `_ffn`), `_dense_stack` :92,
+`_dense_prefill_stack` :114, `_dense_decode_stack` :137, `_hymba_stack`
+:186-252 for prefill and decode, `make_cache` :347, `build_model` :426,
+`_logits` :458, `loss_fn` :516, `prefill` :559, `decode_step` :652,
+`decode_verify` :691, `prefill_into_slot` :726, `prefill_continue`
+:763).
 
 Layouts are the JAX package's: activations (B, S, D), caches
 {"k", "v": (L, B, Lcache, KvH, Hd) bf16, "pos": int32 scalar or (B,)},
 plus for the hybrid family (whose k/v keep only the attention window, a
 ring buffer: Lcache = cfg.attn_window) {"conv": (L, B, K-1, Ci) bf16,
-"h": (L, B, Ci, N) f32}; params with the JAX tree's keys. PyTorch runs
-eagerly, so the layer scan is a Python loop over the stacked params, and
+"h": (L, B, Ci, N) f32}; for the moe family k/v cover the L -
+first_k_dense moe layers and "dk"/"dv" the first_k_dense dense ones;
+params with the JAX tree's keys. PyTorch runs eagerly, so the layer scan
+is a Python loop over the stacked params, and
 the decode steps update every cache leaf but "pos" IN PLACE (the returned
 cache shares them; only "pos" is a new tensor), where the JAX steps
 return new arrays.
 
-Training (dense only): `loss_fn` runs `_dense_stack`, each layer under
+Training (dense and moe): `loss_fn` runs `_dense_stack`, each layer under
 `torch.utils.checkpoint` as `cfg.remat` says ("none"; "full"; "dots",
 which keeps the non-batched matmul outputs, the JAX
 `dots_with_no_batch_dims_saveable`), then the cross-entropy in sequence
-chunks, each under its own checkpoint. Serving (`prefill`, `decode_step`,
-`decode_verify`, `prefill_into_slot`, `prefill_continue`) runs under
-`torch.no_grad()`, so params that require grad (a trainer's) record no
-graph there.
+chunks, each under its own checkpoint; the moe layers' router aux losses
+are summed into the total at `cfg.router_aux_coef`. Serving (`prefill`,
+`decode_step`, `decode_verify`, `prefill_into_slot`, `prefill_continue`)
+runs under `torch.no_grad()`, so params that require grad (a trainer's)
+record no graph there.
 
 `prefill_continue` (the paged cache's suffix prefill) and `decode_verify`
 (speculative decoding's multi-position step) are the dense family's only,
-None for hybrid, as in the JAX package. Hybrid training and every family
-but "dense" and "hybrid" wait for later slices (ROADMAP queue 1).
+None for moe and hybrid, as in the JAX package. Hybrid training (ROADMAP
+queue 1, item 8.2) and the ssm, encdec and vlm families (items 8.3, 8.4)
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import torch
 from repro_torch import backend
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import (PARAM_DTYPE, ParamInit, embed,
                                        lm_logits, rms_norm, softmax_xent,
@@ -128,29 +134,51 @@ def _maybe_remat(fn, remat: str):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
+def _ffn(cfg: ModelConfig, lp, h, token_valid=None):
+    """A layer's FFN over h (B,S,D). Returns (out, aux). A moe layer ("moe"
+    in lp) runs `_moe_apply`'s capacity route: moe_ffn over the B*S tokens
+    flattened, token_valid an optional flattened (B*S,) bool, False at
+    pad tokens; a dense layer the SwiGLU, aux None."""
+    if "moe" in lp:
+        b_, s, d = h.shape
+        f, aux = moe_lib.moe_ffn(h.reshape(-1, d), lp["moe"],
+                                 n_experts=cfg.n_experts,
+                                 k=cfg.experts_per_token,
+                                 token_valid=token_valid)
+        return f.reshape(b_, s, d), aux
+    return swiglu(h, lp["ffn"]["wi"], lp["ffn"]["wg"], lp["ffn"]["wo"]), None
+
+
 def _dense_stack(cfg: ModelConfig, layers, x, positions, *, remat: str):
-    """The decoder layers over x (B,S,D) for training, each under
-    `_maybe_remat`. Returns (x, aux loss), aux 0 for the dense family."""
+    """The decoder layers (dense or moe) over x (B,S,D) for training, each
+    under `_maybe_remat`. Returns (x, the layers' aux losses summed in
+    layer order; 0 for dense layers)."""
 
     def body(x, lp):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = T.attn_block(lp["attn"], h, cfg, positions=positions)
         x = x + a
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + swiglu(h, lp["ffn"]["wi"], lp["ffn"]["wg"],
-                          lp["ffn"]["wo"])
+        f, aux = _ffn(cfg, lp, h)
+        return x + f, aux
 
     body = _maybe_remat(body, remat)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstack(layers):
-        x = body(x, lp)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = body(x, lp)
+        if aux is not None:
+            total = total + aux
+    return x, total
 
 
 def _dense_prefill_stack(cfg: ModelConfig, layers, x, positions, *,
                          window: int = 0, kv_valid=None):
-    """Run the decoder layers over x (B,S,D); also emits the per-layer
-    (k, v), stacked to (L, B, S, KvH, Hd)."""
+    """Run the decoder layers (dense or moe) over x (B,S,D); also emits the
+    per-layer (k, v), stacked to (L, B, S, KvH, Hd). A moe layer gets
+    kv_valid, flattened, as its token_valid: pad tokens claim no expert
+    capacity."""
     ks, vs = [], []
+    tv = None if kv_valid is None else kv_valid.reshape(-1)
     for i in range(layers["ln1"].shape[0]):
         lp = _layer(layers, i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -158,7 +186,7 @@ def _dense_prefill_stack(cfg: ModelConfig, layers, x, positions, *,
                                  window=window, kv_valid=kv_valid)
         x = x + a
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + swiglu(h, lp["ffn"]["wi"], lp["ffn"]["wg"], lp["ffn"]["wo"])
+        x = x + _ffn(cfg, lp, h, tv)[0]
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)
@@ -175,7 +203,7 @@ def _dense_decode_stack(cfg: ModelConfig, layers, x, cache: Cache, *,
                                    window=window)
         x = x + a
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + swiglu(h, lp["ffn"]["wi"], lp["ffn"]["wg"], lp["ffn"]["wo"])
+        x = x + _ffn(cfg, lp, h)[0]
     return x, {**cache, "pos": pos + 1}
 
 
@@ -242,20 +270,26 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device=backend.DEFAULT_DEVICE) -> Cache:
     """Decode-state dict on `device` (the card unless device='cpu'), zeroed,
     with a scalar int32 pos. Dense: k/v of (L, batch, cache_len, KvH, Hd)
-    bf16. Hybrid: cache_len is the longest context served, but the
+    bf16. Moe: k/v over the L - first_k_dense moe layers, and dk/dv of
+    the same lines over the first_k_dense dense layers (when there are
+    any). Hybrid: cache_len is the longest context served, but the
     attention keeps only its window: k/v of (L, batch, attn_window, KvH,
     Hd) bf16, conv (L, batch, CONV_K - 1, Ci) bf16 and h (L, batch, Ci, N)
     f32, Ci = 2 d_model."""
-    if cfg.family not in T.PORTED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
+    T.check_ported(cfg)
     dev = backend.resolve_device(device)
     L = cfg.n_layers
     lines = cfg.attn_window if cfg.family == "hybrid" else cache_len
-    shape = (L, batch, lines, cfg.n_kv_heads, cfg.head_dim)
-    cache = {"k": torch.zeros(shape, dtype=PARAM_DTYPE, device=dev),
-             "v": torch.zeros(shape, dtype=PARAM_DTYPE, device=dev),
+
+    def kv(n):
+        return torch.zeros((n, batch, lines, cfg.n_kv_heads, cfg.head_dim),
+                           dtype=PARAM_DTYPE, device=dev)
+
+    kd = cfg.first_k_dense if cfg.family == "moe" else 0
+    cache = {"k": kv(L - kd), "v": kv(L - kd),
              "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    if kd:
+        cache["dk"], cache["dv"] = kv(kd), kv(kd)
     if cfg.family == "hybrid":
         ci = 2 * cfg.d_model
         cache["conv"] = torch.zeros((L, batch, mamba_lib.CONV_K - 1, ci),
@@ -270,7 +304,7 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # ===========================================================================
 
 def build_model(cfg: ModelConfig) -> Model:
-    """Assemble a `Model` for one dense or hybrid config: init_params /
+    """Assemble a `Model` for one dense, moe or hybrid config: init_params /
     loss_fn / prefill / decode_step / prefill_into_slot / init_cache, in
     the JAX package's layouts. Any other family raises NotImplementedError
     naming its ROADMAP item, and so does the hybrid family's loss_fn.
@@ -284,10 +318,7 @@ def build_model(cfg: ModelConfig) -> Model:
         logits, cache = model.prefill(params, {"tokens": torch.ones(
             (1, 8), dtype=torch.long, device="cuda")})
     """
-    if cfg.family not in T.PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the port builds "
-            f"{T.PORTED_FAMILIES} (ROADMAP queue 1, item 8 lists the others)")
+    T.check_ported(cfg)
     param_fn = T.build_param_fn(cfg)
 
     def init_params(seed: int = 0, device=backend.DEFAULT_DEVICE) -> Dict:
@@ -304,17 +335,22 @@ def build_model(cfg: ModelConfig) -> Model:
     def loss_fn(params, batch):
         """(total, {"loss", "aux", "ntokens"}) of batch["tokens"] (B, S)
         against batch["labels"] (B, S): the mean over labels >= 0 of the
-        cross-entropy with z-loss 1e-4, all f32 scalars. The xent runs in
-        sequence chunks (512, 256, 128 or 64, the largest that divides S
-        and is below it), each under its own checkpoint, so one (B, chunk,
-        V) f32 logits block is live at a time."""
-        if cfg.family != "dense":
+        cross-entropy with z-loss 1e-4, all f32 scalars; total adds
+        router_aux_coef x aux, the moe layers' summed router aux loss (0
+        for dense). The xent runs in sequence chunks (512, 256, 128 or 64,
+        the largest that divides S and is below it), each under its own
+        checkpoint, so one (B, chunk, V) f32 logits block is live at a
+        time."""
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"loss_fn of the {cfg.family!r} family is not ported yet: "
                 "hybrid training is module work of ROADMAP queue 1, item "
                 "8.2 (the training stack of _hymba_stack)")
         x = embed(batch["tokens"], params["embed"])
         positions = torch.arange(x.shape[1], device=x.device)
+        if "dense_layers" in params:
+            x, _ = _dense_stack(cfg, params["dense_layers"], x, positions,
+                                remat=cfg.remat)
         x, aux = _dense_stack(cfg, params["layers"], x, positions,
                               remat=cfg.remat)
         labels = batch["labels"]
@@ -359,19 +395,22 @@ def build_model(cfg: ModelConfig) -> Model:
         (int or 0-d tensor); the logits are taken there instead of at -1
         (prefill_into_slot: a right-padded row's last real token).
 
-        Hybrid: pad_lens raises ValueError (the recurrent state would
-        consume the pads), and the cache's k/v hold the last min(S,
-        attn_window) positions in the ring layout."""
+        Moe: pad tokens get router weight 0 and claim no expert capacity,
+        but the capacity stays derived from the padded token count (the
+        JAX package's caveat). Hybrid: pad_lens raises ValueError (the
+        recurrent state would consume the pads), and the cache's k/v hold
+        the last min(S, attn_window) positions in the ring layout."""
         tokens = batch["tokens"]
         x = embed(tokens, params["embed"])
         s = x.shape[1]
         dev = x.device
         pad_lens = batch.get("pad_lens")
-        if pad_lens is not None and cfg.family != "dense":
+        if pad_lens is not None and cfg.family not in ("dense", "moe"):
             raise ValueError(
                 "pad_lens (left-padded prefill) is only defined for pure "
-                "attention stacks; the recurrent state of the "
-                f"{cfg.family!r} family would consume the pads")
+                "attention stacks (the dense and moe families); the "
+                f"recurrent state of the {cfg.family!r} family would "
+                "consume the pads")
         if pad_lens is None:
             positions = torch.arange(s, device=dev)
             kv_valid = None
@@ -384,9 +423,15 @@ def build_model(cfg: ModelConfig) -> Model:
             x, cache = _hymba_prefill_stack(cfg, params["layers"], x,
                                             positions)
         else:
+            cache = {}
+            if "dense_layers" in params:       # moe: the first_k_dense
+                x, dk, dv = _dense_prefill_stack(
+                    cfg, params["dense_layers"], x, positions,
+                    kv_valid=kv_valid)
+                cache.update(dk=dk, dv=dv)
             x, ks, vs = _dense_prefill_stack(cfg, params["layers"], x,
                                              positions, kv_valid=kv_valid)
-            cache = {"k": ks, "v": vs}
+            cache.update(k=ks, v=vs)
         cache["pos"] = torch.tensor(s, dtype=torch.int32, device=dev)
         if last_index is None:
             last = x[:, -1:]
@@ -398,13 +443,20 @@ def build_model(cfg: ModelConfig) -> Model:
     @backend.f32_accumulation()
     @torch.no_grad()
     def decode_step(params, cache: Cache, tokens):
-        """tokens: (B, 1). Returns (logits (B,1,V) f32, cache): k/v (and
-        the hybrid family's conv and h) are written in place, "pos" (a
-        scalar or a (B,) per-row vector) advances by one in a new tensor."""
+        """tokens: (B, 1). Returns (logits (B,1,V) f32, cache): k/v (the
+        moe family's dk/dv, the hybrid family's conv and h) are written in
+        place, "pos" (a scalar or a (B,) per-row vector) advances by one
+        in a new tensor. A moe layer routes all B rows, idle slots
+        included, as the JAX engine's decode does."""
         x = embed(tokens, params["embed"])
-        stack = (_hymba_decode_stack if cfg.family == "hybrid"
-                 else _dense_decode_stack)
-        x, cache = stack(cfg, params["layers"], x, cache)
+        if cfg.family == "hybrid":
+            x, cache = _hymba_decode_stack(cfg, params["layers"], x, cache)
+        else:
+            if "dense_layers" in params:
+                x, _ = _dense_decode_stack(
+                    cfg, params["dense_layers"], x,
+                    {"k": cache["dk"], "v": cache["dv"], "pos": cache["pos"]})
+            x, cache = _dense_decode_stack(cfg, params["layers"], x, cache)
         return _logits(params, x), cache
 
     @backend.f32_accumulation()
@@ -443,7 +495,8 @@ def build_model(cfg: ModelConfig) -> Model:
         (right padding to a shape bucket): pad lines land beyond
         prompt_len, stay masked by the per-row length, and are overwritten
         as decode advances. For the hybrid family (recurrent state folds
-        every token in) P must equal the real prompt length. Logits are
+        every token in) and the moe family (capacity dispatch counts the
+        tokens) P must equal the real prompt length. Logits are
         taken at prompt_len - 1.
 
         Returns (logits (1,1,V), cache): row `slot` of every cache leaf

@@ -1,13 +1,15 @@
 """The decoder's blocks — the port of the dense and hybrid parts of
 `repro.models.transformer`: parameter construction (`_attn_params`,
-`_ffn_params`, `_mamba_params`, the dense and hybrid branches of
-`build_param_fn`, :45-76, :130-147, :150-188, :217-222), `_qkv` (:231),
+`_ffn_params`, `_moe_params`, `_mamba_params`, the dense, moe and
+hybrid branches of `build_param_fn`, :45-90, :130-147, :150-188,
+:217-222), `_qkv` (:231),
 `attn_block` (:245), `attn_block_decode` (:276, the scalar-pos, per-row
 and ring-buffer branches), `attn_block_decode_k` (:321), `attn_block_continue`
 (:352) and `mamba_path` (:450-510, every `ssm_impl`).
 
-The other families' blocks (moe, rwkv, whisper, vlm) and the
-sharded-decode branch of `attn_block_decode` wait for their slices.
+The other families' blocks (rwkv, whisper, vlm) and the sharded-decode
+branch of `attn_block_decode` wait for their slices (ROADMAP queue 1,
+items 8.3, 8.4 and 9). The moe FFN itself is `models/moe.py`.
 """
 
 from __future__ import annotations
@@ -23,7 +25,19 @@ from repro_torch.models.layers import (PARAM_DTYPE, ParamInit, apply_rope,
                                        matmul, matmul_rp)
 
 # the families whose params, prefill and decode the port builds
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "hybrid")
+# the ROADMAP queue 1 item that ports each family still missing
+FAMILY_ITEMS = {"ssm": "8.3", "encdec": "8.4", "vlm": "8.4"}
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError naming the ROADMAP item of cfg's family
+    unless the port builds it."""
+    if cfg.family not in PORTED_FAMILIES:
+        item = FAMILY_ITEMS.get(cfg.family, "8")
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: the port builds "
+            f"{PORTED_FAMILIES} (ROADMAP queue 1, item {item})")
 
 
 # ===========================================================================
@@ -50,12 +64,28 @@ def _ffn_params(b: ParamInit, pre: str, L: int, d: int, f: int, act: str
                 ) -> Dict:
     if act != "swiglu":
         raise NotImplementedError(f"act {act!r}: the gelu FFN comes with the "
-                                  "encdec family (ROADMAP queue 1, item 8)")
+                                  "encdec family (ROADMAP queue 1, item 8.4)")
     return {
         "wi": b.param(f"{pre}/wi", (L, d, f)),
         "wg": b.param(f"{pre}/wg", (L, d, f)),
         "wo": b.param(f"{pre}/wo", (L, f, d)),
     }
+
+
+def _moe_params(b: ParamInit, pre: str, L: int, cfg: ModelConfig) -> Dict:
+    d, e, f = cfg.d_model, cfg.n_experts, (cfg.moe_d_ff or cfg.d_ff)
+    p = {
+        "router": b.param(f"{pre}/router", (L, d, e)),
+        "wi": b.param(f"{pre}/wi", (L, e, d, f)),
+        "wg": b.param(f"{pre}/wg", (L, e, d, f)),
+        "wo": b.param(f"{pre}/wo", (L, e, f, d)),
+    }
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared_wi"] = b.param(f"{pre}/shared_wi", (L, d, fs))
+        p["shared_wg"] = b.param(f"{pre}/shared_wg", (L, d, fs))
+        p["shared_wo"] = b.param(f"{pre}/shared_wo", (L, fs, d))
+    return p
 
 
 def _mamba_params(b: ParamInit, pre: str, L: int, cfg: ModelConfig) -> Dict:
@@ -79,25 +109,35 @@ def _mamba_params(b: ParamInit, pre: str, L: int, cfg: ModelConfig) -> Dict:
 
 
 def build_param_fn(cfg: ModelConfig) -> Callable[[ParamInit], Dict]:
-    """A function of a ParamInit that makes the param tree of a dense or
-    hybrid cfg, with the JAX tree's keys, shapes and draw order."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the port builds "
-            f"{PORTED_FAMILIES} (ROADMAP queue 1, item 8 lists the others)")
+    """A function of a ParamInit that makes the param tree of a dense, moe
+    or hybrid cfg, with the JAX tree's keys, shapes and draw order. moe:
+    the first `first_k_dense` layers are dense ("dense_layers", FFN width
+    d_ff), the rest ("layers") carry the router and the experts."""
+    check_ported(cfg)
     d, v, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
+
+    def stack(b: ParamInit, pre: str, n: int) -> Dict:
+        return {"ln1": b.param(f"{pre}/ln1", (n, d), "ones"),
+                "ln2": b.param(f"{pre}/ln2", (n, d), "ones"),
+                "attn": _attn_params(b, f"{pre}/attn", n, cfg)}
 
     def fn(b: ParamInit) -> Dict:
         p: Dict = {"embed": b.param("embed", (v, d))}
-        p["layers"] = {
-            "ln1": b.param("layers/ln1", (L, d), "ones"),
-            "ln2": b.param("layers/ln2", (L, d), "ones"),
-            "attn": _attn_params(b, "layers/attn", L, cfg),
-        }
-        if cfg.family == "hybrid":
-            p["layers"]["mamba"] = _mamba_params(b, "layers/mamba", L, cfg)
-        p["layers"]["ffn"] = _ffn_params(b, "layers/ffn", L, d, cfg.d_ff,
-                                         cfg.act)
+        if cfg.family == "moe":
+            kd = cfg.first_k_dense
+            if kd:
+                p["dense_layers"] = stack(b, "dense_layers", kd)
+                p["dense_layers"]["ffn"] = _ffn_params(
+                    b, "dense_layers/ffn", kd, d, cfg.d_ff, cfg.act)
+            p["layers"] = stack(b, "layers", L - kd)
+            p["layers"]["moe"] = _moe_params(b, "layers/moe", L - kd, cfg)
+        else:
+            p["layers"] = stack(b, "layers", L)
+            if cfg.family == "hybrid":
+                p["layers"]["mamba"] = _mamba_params(b, "layers/mamba", L,
+                                                     cfg)
+            p["layers"]["ffn"] = _ffn_params(b, "layers/ffn", L, d, cfg.d_ff,
+                                             cfg.act)
         p["final_norm"] = b.param("final_norm", (d,), "ones")
         if not cfg.tie_embeddings:
             p["head"] = b.param("head", (d, v))

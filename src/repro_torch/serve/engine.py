@@ -245,7 +245,9 @@ class ServeEngine:
             if self.model.decode_verify is None:
                 raise ValueError(
                     "target family has no multi-position decode_verify "
-                    f"entry (spec_k>0 needs one): {cfg.family!r}")
+                    f"entry (spec_k>0 needs one): {cfg.family!r}; as in "
+                    "the JAX package, only the dense family has one "
+                    "(ROADMAP queue 1, item 8.1)")
             self.draft_model = build_model(draft_cfg)
             self.draft_params = _to_device(draft_params, self.device)
         # never split: per-request keys are fold_in derivations of this
