@@ -221,13 +221,55 @@ Phases (one line each, more where noted):
      every flash_fwd, flash_bwd_dq and flash_bwd_dkv launch (group 1: B=8,
      S=512, H=KvH=16, Hd 128) held against its plain version on its own
      inputs (FLASH_OUT_ULPS forward, BWD_ULPS backward).
+  15. the rwkv6 family and the recurrent families' training, the eighth
+     slice's path (its own seconds printed):
+     15a. ServeEngine on rwkv6-7b at full width and depth (32 layers, d
+     4096, 64 heads of 64, ~7.58e9 parameters), seed 0, max_batch 4,
+     cache_len 1024: greedy prompts on every WKV form (RWKV_PROMPTS: one
+     chunk, the sequential scan, 64-step chunks) and one of
+     RWKV_HOT_PROMPT tokens at SPEC_HOT_T, 32 new tokens each, all at
+     once; no kernel launches (WKV is plain torch); TTFT by the WKV form
+     each admission ran (recorded at the call), decode round ms,
+     tokens/s, peak memory; the same requests again, every output
+     bit-equal; one admission round and three decode rounds under
+     torch.profiler; the matmul flags read at every WKV call (both off);
+     decode against prefill on the scan (200 -> 201) within
+     RWKV_DECODE_RTOL, and with f32 weights and activations within
+     RWKV_DECODE_F32_RTOL (the witness that the bf16 distance is
+     rounding), and across the -60 clamp (256 -> 257) printed; one
+     prefill's ms on each WKV form.
+     15b. that model's layer 0 (time mix and channel mix with their
+     residuals) forward and backward at B=1, T=RWKV_LAYER_T on the card
+     against the port's CPU run of the same code, every output and
+     gradient within RWKV_LAYER_ULPS bf16 ulps at its largest element;
+     wkv6_chunked in f32 against wkv6_scan in float64 at B=1, T=512, H=64,
+     D=64, at the reference test's decay and chunks 16, 32 and 64 (the
+     allclose gate WKV_F64_ATOL before each head's first clamped chunk,
+     the state on the heads free of the clamp where there are any; every
+     value finite) and at the model's initial decay (printed: every chunk
+     is clamped).
+     15c. Trainer(...).run() on hymba-1.5b at full width and depth
+     (ssm_impl "chunked", HYBRID_TRAIN_SEQ x HYBRID_TRAIN_BATCH) and on
+     rwkv6-7b at full width cut to RWKV_TRAIN_LAYERS layers
+     (RWKV_TRAIN_SEQ x RWKV_TRAIN_BATCH), remat "full", AdamW, TRAIN_STEPS
+     steps, no checkpoint: losses finite, step 0 within LOSS0_ATOL of
+     lse0 + 1e-4 lse0^2, no kernel launched; step ms, tokens/s, mfu
+     (hymba's attention counts min(t + 1, window) keys; rwkv has no
+     attention term), peak memory, one step each with the device traced
+     (busy share, kernels a step);
+     then one hymba train step with ssm_impl "pallas": ssm_scan launches
+     n_layers + 1 times (the forward and the last layer's recompute),
+     each held against ssm_scan_plain on its own inputs (SSM_RTOL), and
+     the backward must raise NotImplementedError.
 Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
 phase 7d's Hd 32 model check, phase 8's serving run, phase 10's training
 run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
 12b's dispatch, phase 13's spec serving run (spec_serve), paged spec run
 (spec_paged) and Router run (router), phase 14's moe serving run
 (moe_serve), paged moe run (moe_paged) and moe training run
-(moe_train)) runs with the launch counters
+(moe_train), phase 15's rwkv serving run (rwkv_serve), training runs
+(hybrid_train, rwkv_train) and pallas step (hybrid-train-pallas)) runs
+with the launch counters
 zeroed just before it and read just after; the kernels line gives each
 path's counts, and the script fails unless every kernel launched on the
 paths that run it (gpp_fused on dispatch and journey, gpp_banded on the
@@ -236,8 +278,10 @@ paged admission, 29 an admission on the spec runs and 28 a flash-sized
 admission on the Router run, flash_fwd 56 and each backward kernel 28
 times a training step, ssm_scan 32 times a prefill on the hybrid serving
 run, each paged_decode entry point on phase 12b's dispatch, flash_fwd 28
-times a flash-sized admission on both moe serving runs, and 8 and each
-backward kernel 4 times a moe training step).
+times a flash-sized admission on both moe serving runs, 8 and each
+backward kernel 4 times a moe training step, no kernel on phase 15's
+serving and training runs, and ssm_scan in the forward of the hymba
+pallas step).
 
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero without it. Without a card, or outside the repository, the
@@ -366,6 +410,60 @@ MOE_OUT_ULPS = 2
 # 2048: lse0 = ln 102400 + 0.02^2 x 2048 / 2 = 11.946)
 MOE_TRAIN_LAYERS = 4
 MOE_LOSS0_ATOL = 0.3
+# the rwkv6 family (phase 15a): rwkv6-7b served at full width, prompts on
+# every WKV form: 40 tokens (one chunk), 160, 200, 330 and 480 (64 or more,
+# not a multiple of 64: the sequential scan, T x 32 layer steps), 256, 384
+# and 512 (chunks of 64); RWKV_HOT_PROMPT tokens (the scan) at SPEC_HOT_T
+RWKV_PROMPTS = (40, 160, 200, 256, 330, 384, 480, 512)
+RWKV_HOT_PROMPT = 100
+# 15a's decode against prefill (200 -> 201, both the sequential scan),
+# max-norm relative, held to a fixed RWKV_DECODE_RTOL: on an H100 80GB
+# HBM3 at 700 W it read 6.95e-2 for the sound bf16 model (the same
+# 201-token prefill alone and as row 0 of two rows lay 6.09e-2 apart: this
+# model's bf16 floor is itself ~SERVE_LOGIT_RTOL), and 1.56 for a carried
+# state that left the scan (256 -> 257, across the -60 clamp). The same
+# comparison with the weights and activations in f32 (f32_storage) is the
+# witness that the bf16 reading is rounding alone: held to
+# RWKV_DECODE_F32_RTOL, far below the bf16 reading and far above f32's
+# rounding through 32 layers.
+RWKV_DECODE_RTOL = 0.15
+RWKV_DECODE_F32_RTOL = 1e-3
+# 15b: rwkv6-7b's layer 0 forward and backward on the card against the
+# port's CPU run of the same code, at T = RWKV_LAYER_T (two 64-step chunks:
+# the initial decay crosses the -60 clamp in each), every tensor within
+# RWKV_LAYER_ULPS bf16 ulps at its largest element (ulp_at_max). The card's
+# GEMMs sum in another order than the CPU's f32 products, so a bf16 value
+# can round one ulp apart and the gate, the group norm and the squared
+# relu carry it on; the token-shift mus' gradients are sums of signed
+# terms over every token, whose error stands against a small largest
+# element. On an H100 80GB HBM3 at 700 W the worst was 2.0 ulps (d
+# tm/wv), 1.5 on the output; the gate is twice that.
+RWKV_LAYER_T = 128
+RWKV_LAYER_ULPS = 4
+# wkv6_chunked in f32 against wkv6_scan in float64 (15b): the reference
+# test's assert_allclose(atol=1e-3, rtol=1e-3) (tests/
+# test_models_numerics.py:76-79) at its decay, w = exp(-exp(N(0,1) - 1)),
+# at its chunks, 16 and 32, and the model's, 64. That decay's log has a
+# heavy tail (a step of z = 5 alone is -e^4 = -55), so at full width
+# (2M draws) a few channel-chunks reach the -60 clamp even at chunk 16,
+# and the chunked form then leaves the scan for that head (on an H100:
+# 1.96 at chunk 16, 17.9 at 32, 44.7 at 64, of max |y| 135; the inputs
+# are seeded). So the gate holds every (row, head) up to the first chunk in
+# which one of its channels reaches the clamp (99.0%, 95.2% and 31.6% of
+# the positions there), and prints how far the rest is; at the model's
+# initial decay every channel-chunk reaches it, so that case is printed
+WKV_F64_ATOL = 1e-3
+WKV_F64_CASES = (("test decay", 16), ("test decay", 32), ("test decay", 64),
+                 ("initial decay", 64))
+# 15c: hymba-1.5b trained at full width: 2048 x 2 (phase 10's 4,096
+# tokens a step; at 2048 the 1024-token window masks half the keys);
+# rwkv6-7b at full width cut to 8 layers (the full depth's AdamW state
+# does not fit one card), 512 x 8
+HYBRID_TRAIN_SEQ = 2048
+HYBRID_TRAIN_BATCH = 2
+RWKV_TRAIN_LAYERS = 8
+RWKV_TRAIN_SEQ = 512
+RWKV_TRAIN_BATCH = 8
 # phase 7c's cases: (tag, B, T, C, N, h0 scale); inputs from seed 10 + index
 SSM_CASES = (("hymba-prefill", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.0),
              ("t4096", 1, 4096, 3200, 16, 0.0),
@@ -801,6 +899,27 @@ def main() -> None:
            "phase_s": time.perf_counter() - t14}
     print(f"[14] phase 14 ran {moe['phase_s']:.1f} s [{card}]", flush=True)
 
+    # -- 15. rwkv6-7b served, its layer; hymba and rwkv trained ---------------
+    t15 = time.perf_counter()
+    rwkv_serve, rwkv_layer = rwkv_serve_phase(torch, np, dev, card,
+                                              zero_counts, read_counts,
+                                              by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv_rows = rwkv_layer_checks(torch, np, dev, spec, card, rwkv_layer)
+    del rwkv_layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_train = ssm_train_phase(torch, dev, spec, card, zero_counts,
+                                read_counts, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    recurrent = {"serve": rwkv_serve, "layer": rwkv_rows, "train": ssm_train,
+                 "phase_s": time.perf_counter() - t15}
+    print(f"[15] phase 15 ran {recurrent['phase_s']:.1f} s (15a "
+          f"{rwkv_serve['phase_s']:.1f} s, 15b {rwkv_rows['phase_s']:.1f} s, "
+          f"15c {ssm_train['phase_s']:.1f} s) [{card}]", flush=True)
+
     names = ("gpp_fused", "gpp_banded", "flash_fwd", "flash_bwd_dq",
              "flash_bwd_dkv", "ssm_scan", "paged_decode_gather",
              "paged_decode_int8", "paged_decode_verify")
@@ -903,6 +1022,8 @@ def main() -> None:
     print(f"[13] spec serving and router summary: {json.dumps(spec_serve)} "
           f"[{card}]", flush=True)
     print(f"[14] moe summary: {json.dumps(moe)} [{card}]", flush=True)
+    print(f"[15] rwkv6 and recurrent training summary: "
+          f"{json.dumps(recurrent)} [{card}]", flush=True)
     print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"(build {build_s:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1699,7 +1820,7 @@ def train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
 
     zero_counts()
     batch = batch_at(TRAIN_STEPS)
-    wall, busy, kernels, host, n_launch, ours = profile_window(
+    wall, busy, kernels, host, n_launch, ours, _ = profile_window(
         torch, lambda: real_step(params, opt_state, batch))
     by_path["train-profile"] = read_counts()
     res["profile"] = {"wall_ms": wall, "device_busy_ms": busy,
@@ -1814,7 +1935,7 @@ def profile_rounds(torch, tag, eng, reqs, res, card):
     for r in reqs:
         eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=8))
     for kind, n_steps in (("admit", 1), ("decode", 3)):
-        wall, busy, kernels, host, n_launch, ours = profile_window(
+        wall, busy, kernels, host, n_launch, ours, _ = profile_window(
             torch, lambda: [eng.step() for _ in range(n_steps)])
         res[f"profile_{kind}"] = {"steps": n_steps, "wall_ms": wall,
                                   "device_busy_ms": busy, "own_kernels": ours,
@@ -2014,33 +2135,39 @@ def logit_rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
-def profile_window(torch, fn):
-    """Run fn() under torch.profiler. Returns (wall ms, device-busy ms: the
-    sum of the kernels' times, the 8 kernels with the most device time as
-    (name, ms, calls), the 8 host ops with the most self CPU time as
-    (name, ms, calls), the count of cudaLaunchKernel calls, and the port's
-    own kernels (csrc/) as {name: (ms, calls)})."""
+def profile_window(torch, fn, host=True):
+    """Run fn() under torch.profiler (tracing the device alone when host is
+    false: a training step issues ~10^5 kernels, and host events would
+    multiply the trace). Returns (wall ms, device-busy ms: the sum of the
+    kernels' times, the 8 kernels with the most device time as (name, ms,
+    calls), the 8 host ops with the most self CPU time as (name, ms,
+    calls), the count of cudaLaunchKernel calls (empty and 0 without host),
+    the port's own kernels (csrc/) as {name: (ms, calls)}, and the count
+    of kernels run)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels, host = [], []
+    kernels, host_ops = [], []
     launches = 0
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA"):
             kernels.append((e.key[:60], e.self_device_time_total / 1e3,
                             e.count))
-        else:
-            host.append((e.key[:40], e.self_cpu_time_total / 1e3, e.count))
+        elif host:
+            host_ops.append((e.key[:40], e.self_cpu_time_total / 1e3,
+                             e.count))
             if e.key == "cudaLaunchKernel":
                 launches = e.count
     busy = sum(k[1] for k in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:8]
-    top_host = sorted(host, key=lambda k: -k[1])[:8]
+    top_host = sorted(host_ops, key=lambda k: -k[1])[:8]
     ours = {}
     for n, ms, c in kernels:
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -2049,7 +2176,8 @@ def profile_window(torch, fn):
                 old = ours.get(name, (0.0, 0))
                 ours[name] = (round(old[0] + ms, 3), old[1] + c)
     return (wall, busy, [(n, round(ms, 3), c) for n, ms, c in top],
-            [(n, round(ms, 3), c) for n, ms, c in top_host], launches, ours)
+            [(n, round(ms, 3), c) for n, ms, c in top_host], launches, ours,
+            sum(k[2] for k in kernels))
 
 
 # ---------------------------------------------------------------------------
@@ -3432,6 +3560,561 @@ def moe_train_phase(torch, dev, spec, card, flash_cuda, zero_counts,
     res["launch_worst_ulps"] = worst
     del tr
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the rwkv6 family served (15a), its layer (15b), and training of
+# the recurrent families (15c)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def watch_calls(torch, seen, module, names, ran=None):
+    """While open, each module.<name> first records the matmul flags into
+    seen (and, when ran is a list, (name, its first argument's shape, its
+    chunk keyword) into ran), then runs (the port's own calls inside its
+    entry points)."""
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(fn):
+        def call(*args, **kw):
+            seen.append(matmul_flags(torch))
+            if ran is not None:
+                ran.append((fn.__name__, tuple(args[0].shape),
+                            kw.get("chunk")))
+            return fn(*args, **kw)
+        return call
+
+    for n in names:
+        setattr(module, n, wrap(real[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(module, n, real[n])
+
+
+WKV_FORMS = ("wkv6_scan", "wkv6_chunked", "wkv6_decode")
+
+
+def wkv_form(ran, n):
+    """The WKV form that ran on the (1, n, ...) segments recorded in ran
+    (watch_calls): "wkv6_scan" or "wkv6_chunked(chunk=c)"; fails unless
+    exactly one form ran there."""
+    forms = {name if chunk is None else f"{name}(chunk={chunk})"
+             for name, shape, chunk in ran
+             if name != "wkv6_decode" and shape[:2] == (1, n)}
+    if len(forms) != 1:
+        fail(f"[15a] WKV forms recorded on a {n}-token segment: {forms} "
+             f"(exactly one expected)")
+    return forms.pop()
+
+
+@contextlib.contextmanager
+def f32_storage(torch):
+    """While open, the port's model code keeps in f32 what it stores and
+    rounds to bf16 (PARAM_DTYPE of layers, transformer and registry): with
+    f32 weights, every product and activation of the rwkv family is f32
+    (TF32 stays off: f32_accumulation)."""
+    from repro_torch.models import layers, registry, transformer
+    mods = (layers, registry, transformer)
+    real = [m.PARAM_DTYPE for m in mods]
+    for m in mods:
+        m.PARAM_DTYPE = torch.float32
+    try:
+        yield
+    finally:
+        for m, dtype in zip(mods, real):
+            m.PARAM_DTYPE = dtype
+
+
+def decode_vs_prefill(model, params, toks, n):
+    """prefill(toks[:, :n]) then one decode step of toks[:, n], against
+    the last logits of prefill(toks[:, :n + 1]): max-norm relative."""
+    _, cache = model.prefill(params, {"tokens": toks[:, :n]})
+    got, _ = model.decode_step(params, cache, toks[:, n:n + 1])
+    want, _ = model.prefill(params, {"tokens": toks[:, :n + 1]})
+    return logit_rel(got, want)
+
+
+def rwkv_serve_phase(torch, np, dev, card, zero_counts, read_counts,
+                     by_path):
+    """Phase 15a: ServeEngine on rwkv6-7b at full width and depth; the same
+    requests again (bit-equal outputs); decode against prefill on the
+    sequential scan (gated) and across the -60 clamp (printed). Returns
+    (metrics, layer 0's params, cloned, for 15b)."""
+    import repro_torch
+    from repro_torch.models import rwkv6
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.serve.engine import Request, ServeEngine
+    t_phase = time.perf_counter()
+    cfg = repro_torch.get_config("rwkv6-7b")
+    v = cfg.vocab_size
+    model = repro_torch.build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in _leaves(params))
+    eng = ServeEngine(cfg, params, max_batch=4, cache_len=1024, device=dev)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, v, n) for n in RWKV_PROMPTS]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    reqs.append(Request(rid=len(prompts),
+                        prompt=rng.integers(0, v, RWKV_HOT_PROMPT),
+                        max_new_tokens=32, temperature=SPEC_HOT_T))
+    # warm-up: one short request on each WKV form, the matmul flags read at
+    # every WKV call inside the engine's work
+    seen = []
+    with watch_calls(torch, seen, rwkv6, WKV_FORMS):
+        eng.run([Request(rid=90 + i, prompt=prompts[-1][:n],
+                         max_new_tokens=2) for i, n in enumerate((40, 64, 70))])
+    check_flags_inside("15a", seen, card)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    seen, ran = [], []
+    zero_counts()
+    with watch_calls(torch, seen, rwkv6, WKV_FORMS, ran):
+        stats, decode_ms, admit_ms = drive(eng, reqs)
+    torch.cuda.synchronize()
+    by_path["rwkv_serve"] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_flags_inside("15a", seen, card)
+    ttft = {r.rid: eng.request_stats[r.rid].ttft_s * 1e3 for r in reqs}
+    by_route = {}
+    for r in reqs:         # the form each admission ran (B=1, exact length)
+        by_route.setdefault(wkv_form(ran, len(r.prompt)), []).append(
+            (len(r.prompt), round(ttft[r.rid], 1)))
+    line = (f"[15a] serve rwkv6-7b (full width, {cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} "
+            f"heads of {cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {v}; "
+            f"{n_params / 1e9:.3f}e9 params, init {init_s:.1f} s): "
+            f"{stats['requests']} requests (prompts "
+            f"{[len(r.prompt) for r in reqs]}), {stats['prefills']} "
+            f"prefills, {stats['decode_steps']} decode steps, "
+            f"{stats['new_tokens']} tokens; TTFT ms by the WKV form each "
+            f"admission ran (prompt, ms): {by_route}; launches "
+            f"{by_path['rwkv_serve']} (every "
+            f"kernel 0: WKV is plain torch, as the reference's is pure "
+            f"JAX) [{card}]")
+    print(line, flush=True)
+    if any(by_path["rwkv_serve"].values()) or stats["prefills"] != len(reqs):
+        fail(line)
+    check_outputs(eng, reqs, v)
+    first = {r.rid: list(eng.outputs[r.rid]) for r in reqs}
+    res = serve_metrics("15a", stats, decode_ms, admit_ms, peak, len(reqs),
+                        card)
+    res.update(n_params=n_params, init_s=init_s, ttft_ms=ttft,
+               ttft_by_route=by_route)
+
+    # determinism: the same requests again, every output bit-equal
+    drive(eng, reqs)
+    differ = [r.rid for r in reqs if eng.outputs[r.rid] != first[r.rid]]
+    line = (f"[15a] the same {len(reqs)} requests again: outputs bit-equal "
+            f"to the first run's except rids {differ} (none allowed) [{card}]")
+    print(line, flush=True)
+    if differ:
+        fail(line)
+
+    # one admission round (four prompts on the chunked forms: 40, 256, 384
+    # and 512 tokens) and three decode rounds under torch.profiler
+    zero_counts()
+    profile_rounds(torch, "15a", eng, [reqs[i] for i in (0, 3, 5, 7)], res,
+                   card)
+    torch.cuda.synchronize()
+    res["launches_per_decode_round"] = \
+        res["profile_decode"]["cuda_launch_kernel"] / 3
+
+    # decode against prefill: 200 -> 201 both on the sequential scan (gated
+    # at RWKV_DECODE_RTOL); 256 -> 257 leaves the 64-chunk form, whose
+    # carried state took the -60 clamp, for the scan (printed); both again
+    # with f32 weights and activations, where 200 -> 201 is held to
+    # RWKV_DECODE_F32_RTOL: the witness that the bf16 reading is rounding
+    del eng
+    toks = torch.as_tensor(rng.integers(0, v, (1, 257)), device=dev)
+    seen, ran, prefill_ms, rel = [], [], {}, {}
+    with watch_calls(torch, seen, rwkv6, WKV_FORMS, ran):
+        rel["bf16", 200] = decode_vs_prefill(model, params, toks, 200)
+        rel["bf16", 256] = decode_vs_prefill(model, params, toks, 256)
+        for n in (40, 200, 256):        # one chunk, the scan, 64-step chunks
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(params, {"tokens": toks[:, :n]})
+            torch.cuda.synchronize()
+            prefill_ms[n] = (time.perf_counter() - t0) * 1e3
+        p32 = tree_map(lambda t: t.float(), params)
+        with f32_storage(torch):
+            rel["f32", 200] = decode_vs_prefill(model, p32, toks, 200)
+            rel["f32", 256] = decode_vs_prefill(model, p32, toks, 256)
+        del p32
+    check_flags_inside("15a", seen, card)
+    forms = {n: wkv_form(ran, n) for n in (200, 201, 256, 257)}
+    line = (f"[15a] decode against prefill, max-norm relative: prefill(200) "
+            f"+ one decode step vs prefill(201) (WKV forms {forms[200]}, "
+            f"{forms[201]}): bf16 {rel['bf16', 200]:.3e} (tol "
+            f"{RWKV_DECODE_RTOL}), with f32 weights and activations "
+            f"{rel['f32', 200]:.3e} (tol {RWKV_DECODE_F32_RTOL}: the bf16 "
+            f"reading is rounding); prefill(256) ({forms[256]}, the carried "
+            f"state past the -60 clamp) + one step vs prefill(257) "
+            f"({forms[257]}): bf16 {rel['bf16', 256]:.3e}, f32 "
+            f"{rel['f32', 256]:.3e} (printed, not gated: the reference's "
+            f"chunked form leaves its scan there); one prefill's ms (B=1): "
+            f"40 tokens {prefill_ms[40]:.1f}, 200 {prefill_ms[200]:.1f}, 256 "
+            f"{prefill_ms[256]:.1f} [{card}]")
+    print(line, flush=True)
+    if not (rel["bf16", 200] <= RWKV_DECODE_RTOL
+            and rel["f32", 200] <= RWKV_DECODE_F32_RTOL
+            and forms[200] == forms[201] == "wkv6_scan"):
+        fail(line)
+    res.update(decode_vs_prefill={f"{p} {n}": r for (p, n), r in rel.items()},
+               prefill_ms=prefill_ms)
+    layer = {k: ({n: t[0].clone() for n, t in sub.items()}
+                 if isinstance(sub, dict) else sub[0].clone())
+             for k, sub in params["layers"].items()}
+    del params
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res, layer
+
+
+def rwkv_layer_checks(torch, np, dev, spec, card, layer):
+    """Phase 15b: rwkv6-7b's layer 0 (time mix, then channel mix, each with
+    its residual) forward and backward at B=1, T=RWKV_LAYER_T on the card
+    against the port's CPU run of the same code (RWKV_LAYER_ULPS); then
+    wkv6_chunked in f32 on the card against wkv6_scan in float64 at
+    T=512 (WKV_F64_ATOL at the reference test's decay; printed at the
+    model's initial decay)."""
+    import repro_torch
+    from repro_torch import backend
+    from repro_torch.models import rwkv6
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    cfg = repro_torch.get_config("rwkv6-7b")
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    h = d // hd
+    rng = np.random.default_rng(5)
+    x_np = rng.standard_normal((1, RWKV_LAYER_T, d)).astype(np.float32)
+    g_np = rng.standard_normal((1, RWKV_LAYER_T, d)).astype(np.float32)
+
+    def run(device):
+        lp = tree_map(lambda t: t.detach().to(device).requires_grad_(True),
+                      {"tm": layer["tm"], "cm": layer["cm"]})
+        x = torch.from_numpy(x_np).to(device).to(torch.bfloat16)
+        x.requires_grad_(True)
+        wkv0 = torch.zeros((1, h, hd, hd), dtype=torch.float32,
+                           device=device)
+        shift0 = torch.zeros((1, d), dtype=torch.bfloat16, device=device)
+        t0 = time.perf_counter()
+        with backend.f32_accumulation():
+            a, _, state = T.rwkv_time_mix(lp["tm"], x, shift0, wkv0, cfg,
+                                          decode=False)
+            y = x + a
+            c, _ = T.rwkv_channel_mix(lp["cm"], y, shift0)
+            out = y + c
+            leaves = [x] + tree_leaves(lp)
+            grads = torch.autograd.grad(
+                (out.float() * torch.from_numpy(g_np).to(device)).sum(),
+                leaves)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return ([out.detach().cpu(), state.detach().cpu()]
+                + [gr.cpu() for gr in grads], time.perf_counter() - t0)
+
+    got, card_s = run(dev)
+    want, cpu_s = run("cpu")
+    # tree_leaves' order: sorted keys, so cm before tm
+    names = ["out", "wkv state", "d x"] + [
+        f"d {part}/{n}" for part in ("cm", "tm") for n in sorted(layer[part])]
+    ulps = {}
+    for name, g, w in zip(names, got, want):
+        if not torch.isfinite(g).all():
+            fail(f"[15b] {name}: non-finite on the card [{card}]")
+        ulps[name] = float((g.float() - w.float()).abs().max()) / \
+            ulp_at_max(w)
+    worst = max(ulps, key=ulps.get)
+    line = (f"[15b] rwkv6-7b layer 0 (time mix + channel mix, residuals) at "
+            f"B=1, T={RWKV_LAYER_T}, forward and backward, the card against "
+            f"the port's CPU run of the same code: in bf16 ulps at each "
+            f"tensor's largest element {({k: round(u, 3) for k, u in ulps.items()})}; "
+            f"worst {worst} {ulps[worst]:.3f} (tol {RWKV_LAYER_ULPS}); the "
+            f"card {card_s:.2f} s, the CPU {cpu_s:.2f} s [{card}]")
+    print(line, flush=True)
+    if ulps[worst] > RWKV_LAYER_ULPS:
+        fail(line)
+    rows = {"layer_ulps": ulps, "layer_worst": [worst, ulps[worst]]}
+
+    # wkv6_chunked (f32, the card) against wkv6_scan (float64, the card)
+    b, t = 1, 512
+    inputs = {}
+    for tag, shift, scale in (("test decay", -1.0, 1.0),
+                              ("initial decay", 0.0, 0.02)):
+        r, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, hd)))
+                   for _ in range(3))
+        z = torch.from_numpy(rng.standard_normal((b, t, h, hd)))
+        w = torch.exp(-torch.exp(scale * z + shift))
+        u = 0.3 * torch.from_numpy(rng.standard_normal((h, hd)))
+        s0 = 0.1 * torch.from_numpy(rng.standard_normal((b, h, hd, hd)))
+        args = [a.to(dev) for a in (r, k, v, w, u, s0)]
+        inputs[tag] = (args, rwkv6.wkv6_scan(*args),
+                       f"w = exp(-exp({scale} N {shift:+.0f}))")
+
+    def excess(got, want, keep=None):
+        """max(|got - want| - WKV_F64_ATOL |want|) over `keep` (a mask of
+        got's leading axes; all when None): the reference test's
+        assert_allclose(atol, rtol) holds there where this is <=
+        WKV_F64_ATOL."""
+        diff = (got.double() - want).abs() - WKV_F64_ATOL * want.abs()
+        if keep is not None:
+            diff = diff[keep]
+        return float(diff.max()) if diff.numel() else float("nan")
+
+    for tag, chunk in WKV_F64_CASES:
+        args, (y64, st64), law = inputs[tag]
+        a32 = [a.float() for a in args]
+        # each (row, chunk, head) whose cumulative log-decay reaches -60 in
+        # one of its channels; a head is compared up to its first such
+        # chunk (y), and its state only if it has none
+        n = t // chunk
+        la = torch.cumsum(torch.log(a32[3]).reshape(b, n, chunk, h, hd), 2)
+        hit = (la < -60).any(2).any(-1)                      # (B, n, H)
+        clamped = float((la[:, :, -1] < -60).float().mean())
+        idx = torch.arange(n, device=dev)[None, :, None].expand_as(hit)
+        first = torch.where(hit, idx, n).min(1).values       # (B, H)
+        keep_y = (torch.arange(t, device=dev)[None, :, None]
+                  < first[:, None, :] * chunk)                # (B, T, H)
+        keep_s = first == n                                   # (B, H)
+        with backend.f32_accumulation():
+            y32, st32 = rwkv6.wkv6_chunked(*a32, chunk=chunk)
+            ys, sts = rwkv6.wkv6_scan(*a32)
+            ms = cuda_ms(lambda: rwkv6.wkv6_chunked(*a32, chunk=chunk),
+                         reps=5, warmup=1)
+        finite = bool(torch.isfinite(y32).all() and torch.isfinite(st32).all())
+        e_y, e_s = excess(y32, y64, keep_y), excess(st32, st64, keep_s)
+        share = float(keep_y.float().mean())
+        gated = share > 0
+        state_gated = bool(keep_s.any())
+        line = (f"[15b] wkv6_chunked (f32, chunk {chunk}) vs wkv6_scan "
+                f"(float64) at B=1, T={t}, H={h}, D={hd}, {tag} ({law}; "
+                f"{clamped:.3%} of channel-chunks reach the -60 clamp): "
+                f"before each head's first clamped chunk ({share:.1%} of "
+                f"the positions, {int(keep_s.sum())} of {b * h} heads' "
+                f"states) the allclose excess y {e_y:.3e}, state {e_s:.3e} "
+                f"(tol {WKV_F64_ATOL}; y {'gated' if gated else 'not gated'}, "
+                f"state "
+                f"{'gated' if state_gated else 'not gated: no head free of the clamp'}); "
+                f"every value finite: {finite}; everywhere (printed) y "
+                f"{float((y32.double() - y64).abs().max()):.3e} max |diff| "
+                f"(max |y| {float(y64.abs().max()):.3f}), state "
+                f"{float((st32.double() - st64).abs().max()):.3e}; the f32 "
+                f"scan: y {float((ys.double() - y64).abs().max()):.3e}, "
+                f"state {float((sts.double() - st64).abs().max()):.3e}; "
+                f"wkv6_chunked a call {ms:.3f} ms [{card}]")
+        print(line, flush=True)
+        rows[f"{tag}/chunk{chunk}"] = {"y_excess": e_y, "state_excess": e_s,
+                                       "state_gated": state_gated,
+                                       "compared_share": share,
+                                       "clamped_share": clamped,
+                                       "chunked_ms": ms}
+        if not finite or (tag == "test decay" and not (
+                share > 0.25 and e_y <= WKV_F64_ATOL
+                and (not state_gated or e_s <= WKV_F64_ATOL))):
+            fail(line)
+    rows["phase_s"] = time.perf_counter() - t_phase
+    return rows
+
+
+def _train_run(torch, dev, spec, card, zero_counts, read_counts, by_path,
+               tag, cfg, seq_len, global_batch, watch):
+    """One Trainer(...).run() of TRAIN_STEPS steps (AdamW, cfg.remat, no
+    checkpoint written: the save is counted), every kernel count 0 a step
+    and the step-0 loss within LOSS0_ATOL of lse0 + 1e-4 lse0^2. watch:
+    (module, names) whose calls read the matmul flags. Returns (metrics,
+    trainer). One more step runs with the device traced."""
+    import math
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.train.trainer import TrainLoopConfig, Trainer
+    ckpt_dir = os.path.join(ROOT, "build", f"chip_smoke_{tag}_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    loop = TrainLoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+                           log_every=1, ckpt_dir=ckpt_dir, seq_len=seq_len,
+                           global_batch=global_batch)
+    tr = Trainer(cfg, loop, device=dev)
+    saves, step_ms, step_counts = [], [], []
+    real_step = tr.step_fn
+
+    def timed_step(params, opt_state, batch):
+        torch.cuda.synchronize()
+        before, t0 = read_counts(), time.perf_counter()
+        out = real_step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = read_counts()
+        step_counts.append({k: after[k] - before[k] for k in after})
+        return out
+
+    tr.step_fn = timed_step
+    tr.ckpt.save = lambda step, tree, **kw: saves.append(step)
+    impl = f"ssm_impl {cfg.ssm_impl!r}, " if cfg.family == "hybrid" else ""
+    print(f"[15c] train {cfg.name} at full width, {cfg.n_layers} layers, "
+          f"{impl}remat {cfg.remat!r}, "
+          f"{cfg.optimizer}: seq_len {seq_len}, global_batch "
+          f"{global_batch}, {TRAIN_STEPS} steps", flush=True)
+    seen = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    with watch_calls(torch, seen, *watch):
+        out = tr.run(verbose=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    by_path[f"{tag}_train"] = read_counts()
+    check_flags_inside("15c", seen, card)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = out["losses"]
+    lse0 = math.log(cfg.vocab_size) + INIT_SCALE ** 2 * cfg.d_model / 2
+    loss0 = lse0 + 1e-4 * lse0 ** 2
+    zero = {k: 0 for k in by_path[f"{tag}_train"]}
+    line = (f"[15c] {cfg.name}: losses {[round(x, 4) for x in losses]} (step "
+            f"0 expected {loss0:.4f} +- {LOSS0_ATOL}); launches a step "
+            f"{step_counts[0]} (every kernel 0 expected: no flash under a "
+            f"window or without attention, the chunked scan); saves {saves} "
+            f"[{card}]")
+    print(line, flush=True)
+    if (len(losses) != TRAIN_STEPS
+            or not all(math.isfinite(x) for x in losses)
+            or abs(losses[0] - loss0) > LOSS0_ATOL
+            or any(c != zero for c in step_counts) or saves != [TRAIN_STEPS]):
+        fail(line)
+    steady = sorted(step_ms[1:])
+    step_p50 = steady[len(steady) // 2]
+    n_params = sum(x.numel() for x in _leaves(tr.state["params"]))
+    tokens = seq_len * global_batch
+    res = {"losses": losses, "step_ms": step_ms, "step_ms_p50": step_p50,
+           "tokens_per_step": tokens, "tok_per_s": tokens / step_p50 * 1e3,
+           "n_params": n_params, "peak_mem_gb": peak / 1e9, "run_s": run_s,
+           "loss0_expected": loss0}
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # where a step's time goes: one more step with the device traced
+    src = TokenSource(DataConfig(seq_len=seq_len, global_batch=global_batch,
+                                 vocab_size=cfg.vocab_size, seed=loop.seed))
+    batch = {k: torch.from_numpy(a).to(dev)
+             for k, a in src.batch_at(TRAIN_STEPS).items()}
+    wall, busy, kernels, _, _, _, n_kernels = profile_window(
+        torch, lambda: real_step(tr.state["params"], tr.state["opt"], batch),
+        host=False)
+    res["profile"] = {"wall_ms": wall, "device_busy_ms": busy,
+                      "kernels": n_kernels}
+    print(f"[15c] {cfg.name}: one step with the device traced: wall "
+          f"{wall:.2f} ms, device busy {busy:.2f} ms ({busy / wall:.1%}); "
+          f"{n_kernels} kernels; top kernels (ms, calls): {kernels} "
+          f"[{card}]", flush=True)
+    return res, tr
+
+
+def ssm_train_phase(torch, dev, spec, card, zero_counts, read_counts,
+                    by_path):
+    """Phase 15c: Trainer(...).run() on hymba-1.5b at full width and depth
+    (ssm_impl "chunked", HYBRID_TRAIN_SEQ x HYBRID_TRAIN_BATCH: the window
+    bites) and on rwkv6-7b at full width cut to RWKV_TRAIN_LAYERS layers
+    (RWKV_TRAIN_SEQ x RWKV_TRAIN_BATCH), remat "full", AdamW; then one
+    hymba train step with ssm_impl "pallas", which must raise the
+    kernel's no-backward error."""
+    import dataclasses
+    import repro_torch
+    from repro_torch.kernels.ssm import ssm_cuda
+    from repro_torch.models import mamba, rwkv6
+    from repro_torch.train import step as step_lib
+    t_phase = time.perf_counter()
+    res = {}
+    cfg = dataclasses.replace(repro_torch.get_config("hymba-1.5b"),
+                              remat="full", ssm_impl="chunked")
+    hy, tr = _train_run(torch, dev, spec, card, zero_counts, read_counts,
+                        by_path, "hybrid", cfg, HYBRID_TRAIN_SEQ,
+                        HYBRID_TRAIN_BATCH, (mamba, ("ssm_chunked",)))
+    s, w = HYBRID_TRAIN_SEQ, cfg.attn_window
+    # attention FLOPs: key t sees min(t + 1, window) keys; x3 for the backward
+    keys = sum(min(t + 1, w) for t in range(s))
+    attn = 3 * cfg.n_layers * 4.0 * HYBRID_TRAIN_BATCH * cfg.n_heads * keys \
+        * cfg.head_dim
+    hy["mfu"] = ((6 * hy["n_params"] * hy["tokens_per_step"] + attn)
+                 / (hy["step_ms_p50"] / 1e3) / spec.bf16_tc_flops)
+    print(f"[15c] hymba-1.5b: step ms {[round(x, 2) for x in hy['step_ms']]} "
+          f"(p50 after the first {hy['step_ms_p50']:.2f}); "
+          f"{hy['tok_per_s']:.1f} tokens/s; mfu {hy['mfu']:.4f} ((6 N tokens "
+          f"+ windowed attention {attn:.3e}: key t sees min(t + 1, {w}) "
+          f"keys) / step / {spec.bf16_tc_flops / 1e12:.0f} TFLOP/s, N = "
+          f"{hy['n_params']}; the scan's FLOPs not counted); peak device "
+          f"memory {hy['peak_mem_gb']:.2f} GB [{card}]", flush=True)
+
+    # one train step with ssm_impl "pallas": the forward launches the scan
+    # kernel once a layer and the backward's recompute of the last layer
+    # once more, every launch held against ssm_scan_plain on its own
+    # inputs; then the backward raises
+    pcfg = dataclasses.replace(cfg, ssm_impl="pallas")
+    step_fn, _ = step_lib.build_train_step(repro_torch.build_model(pcfg))
+    toks = torch.randint(0, cfg.vocab_size, (HYBRID_TRAIN_BATCH, s + 1),
+                         generator=torch.Generator().manual_seed(7)).to(dev)
+    errs, shapes = [], set()
+
+    def against_plain(args, out):
+        errs.append(ssm_errors(out, ssm_cuda.ssm_scan_plain(*args)))
+        shapes.add((*args[0].shape, args[4].shape[1]))      # B, T, C, N
+
+    zero_counts()
+    with hold_launches(ssm_cuda, "ssm_scan", against_plain):
+        try:
+            step_fn(tr.state["params"], tr.state["opt"],
+                    {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+            raised = None
+        except NotImplementedError as e:
+            raised = str(e)
+    torch.cuda.synchronize()
+    by_path["hybrid-train-pallas"] = read_counts()
+    n_scan = by_path["hybrid-train-pallas"]["ssm_scan"]
+    worst_y = max((e[0] for e in errs), default=float("nan"))
+    worst_h = max((e[1] for e in errs), default=float("nan"))
+    line = (f"[15c] hymba-1.5b, one train step with ssm_impl 'pallas': "
+            f"ssm_scan launched {n_scan} times at (B, T, C, N) {shapes} "
+            f"({cfg.n_layers + 1} expected: the forward, {cfg.n_layers}, and "
+            f"the last layer's recompute), each held against ssm_scan_plain "
+            f"on its own inputs: worst y {worst_y:.2e} of max |y|, hT "
+            f"{worst_h:.2e} of max |hT| (tol {SSM_RTOL}); then the backward "
+            f"raised NotImplementedError: {raised!r} (required) [{card}]")
+    print(line, flush=True)
+    if (raised is None or "no backward" not in raised
+            or n_scan != cfg.n_layers + 1 or len(errs) != n_scan
+            or not max(worst_y, worst_h) <= SSM_RTOL):
+        fail(line)
+    hy["pallas_refusal"] = {"ssm_scan_launches": n_scan, "error": raised,
+                            "launch_y_rel_max": worst_y,
+                            "launch_h_rel_max": worst_h}
+    res["hybrid"] = hy
+    del tr, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(repro_torch.get_config("rwkv6-7b"),
+                              n_layers=RWKV_TRAIN_LAYERS, remat="full")
+    rw, tr = _train_run(torch, dev, spec, card, zero_counts, read_counts,
+                        by_path, "rwkv", cfg, RWKV_TRAIN_SEQ,
+                        RWKV_TRAIN_BATCH, (rwkv6, WKV_FORMS))
+    rw["mfu"] = (6 * rw["n_params"] * rw["tokens_per_step"]
+                 / (rw["step_ms_p50"] / 1e3) / spec.bf16_tc_flops)
+    print(f"[15c] rwkv6-7b ({RWKV_TRAIN_LAYERS} layers): step ms "
+          f"{[round(x, 2) for x in rw['step_ms']]} (p50 after the first "
+          f"{rw['step_ms_p50']:.2f}); {rw['tok_per_s']:.1f} tokens/s; mfu "
+          f"{rw['mfu']:.4f} (6 N tokens / step / "
+          f"{spec.bf16_tc_flops / 1e12:.0f} TFLOP/s, N = {rw['n_params']}; "
+          f"no attention term: rwkv has no attention, and the WKV's own "
+          f"FLOPs are not counted); peak device memory "
+          f"{rw['peak_mem_gb']:.2f} GB [{card}]", flush=True)
+    res["rwkv"] = rw
+    del tr
+    res["phase_s"] = time.perf_counter() - t_phase
     return res
 
 

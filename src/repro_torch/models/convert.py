@@ -54,9 +54,10 @@ def _flatten(tree: Dict, pre: str = "") -> Dict[str, Any]:
 
 def params_from_numpy(tree: Dict, cfg: ModelConfig,
                       device=backend.DEFAULT_DEVICE) -> Dict:
-    """The JAX param tree of `cfg` (numpy leaves: dense, hybrid, or moe
-    with its "dense_layers" and "layers/moe/*") as the port's params on
-    `device`, each leaf bit for bit in its own dtype.
+    """The JAX param tree of `cfg` (numpy leaves: dense, hybrid, moe with
+    its "dense_layers" and "layers/moe/*", or ssm (rwkv6) with
+    "layers/tm/*" and "layers/cm/*") as the port's params on `device`,
+    each leaf bit for bit in its own dtype.
     Raises ValueError when a path is missing or extra, or a shape differs
     from the one the port builds."""
     dev = backend.resolve_device(device)
@@ -96,8 +97,9 @@ def opt_state_from_numpy(state: Dict, device=backend.DEFAULT_DEVICE) -> Dict:
 
 def cache_from_numpy(cache: Dict, device=backend.DEFAULT_DEVICE) -> Dict:
     """A JAX decode cache (numpy leaves: dense {"k", "v", "pos"}; moe also
-    "dk"/"dv" of its dense layers; hybrid also "conv" bf16 and "h" f32)
-    as the port's cache on `device`, every
+    "dk"/"dv" of its dense layers; hybrid also "conv" bf16 and "h" f32;
+    ssm {"wkv" f32, "tm", "cm" bf16, "pos"}) as the port's cache on
+    `device`, every
     leaf bit for bit in its own dtype; pos becomes an int32 tensor
     (scalar or (B,))."""
     dev = backend.resolve_device(device)

@@ -1,40 +1,46 @@
 """Model assembly: config -> Model (init / loss / prefill / decode_step /
 prefill_into_slot / init_cache) — the port of `repro.models.registry` for
-the dense, moe and hybrid families (`Model` :31, `_maybe_remat` :60,
-`_moe_apply` :69 (the capacity route, in `_ffn`), `_dense_stack` :92,
-`_dense_prefill_stack` :114, `_dense_decode_stack` :137, `_hymba_stack`
-:186-252 for prefill and decode, `make_cache` :347, `build_model` :426,
-`_logits` :458, `loss_fn` :516, `prefill` :559, `decode_step` :652,
-`decode_verify` :691, `prefill_into_slot` :726, `prefill_continue`
-:763).
+the dense, moe, ssm (rwkv6) and hybrid families (`Model` :31,
+`_maybe_remat` :60, `_moe_apply` :69 (the capacity route, in `_ffn`),
+`_dense_stack` :92, `_dense_prefill_stack` :114, `_dense_decode_stack`
+:137, `_rwkv_stack` :162 in its train, prefill and decode forms,
+`_hymba_stack` :186-252 in the same three, `make_cache` :347,
+`build_model` :426, `_logits` :458, `_backbone_train` :468, `loss_fn`
+:516, `prefill` :559, `decode_step` :652, `decode_verify` :691,
+`prefill_into_slot` :726, `prefill_continue` :763).
 
 Layouts are the JAX package's: activations (B, S, D), caches
 {"k", "v": (L, B, Lcache, KvH, Hd) bf16, "pos": int32 scalar or (B,)},
 plus for the hybrid family (whose k/v keep only the attention window, a
 ring buffer: Lcache = cfg.attn_window) {"conv": (L, B, K-1, Ci) bf16,
 "h": (L, B, Ci, N) f32}; for the moe family k/v cover the L -
-first_k_dense moe layers and "dk"/"dv" the first_k_dense dense ones;
-params with the JAX tree's keys. PyTorch runs eagerly, so the layer scan
-is a Python loop over the stacked params, and
-the decode steps update every cache leaf but "pos" IN PLACE (the returned
-cache shares them; only "pos" is a new tensor), where the JAX steps
-return new arrays.
+first_k_dense moe layers and "dk"/"dv" the first_k_dense dense ones; the
+ssm family (rwkv6) has no k/v but {"wkv": (L, B, H, Hd, Hd) f32, "tm",
+"cm": (L, B, D) bf16} (the WKV state and the time and channel mixes'
+last inputs); params with the JAX tree's keys. PyTorch runs eagerly, so
+the layer scan is a Python loop over the stacked params, and the decode
+steps update every cache leaf but "pos" IN PLACE (the returned cache
+shares them; only "pos" is a new tensor), where the JAX steps return new
+arrays.
 
-Training (dense and moe): `loss_fn` runs `_dense_stack`, each layer under
-`torch.utils.checkpoint` as `cfg.remat` says ("none"; "full"; "dots",
-which keeps the non-batched matmul outputs, the JAX
+Training (every ported family): `loss_fn` runs the family's train stack,
+each layer under `torch.utils.checkpoint` as `cfg.remat` says ("none";
+"full"; "dots", which keeps the non-batched matmul outputs, the JAX
 `dots_with_no_batch_dims_saveable`), then the cross-entropy in sequence
 chunks, each under its own checkpoint; the moe layers' router aux losses
-are summed into the total at `cfg.router_aux_coef`. Serving (`prefill`,
+are summed into the total at `cfg.router_aux_coef`. The hybrid train
+stack runs windowed chunked attention (never flash, as in the JAX
+package) beside `mamba_path` by `cfg.ssm_impl`; "pallas" raises in the
+backward (`transformer.SsmScanNoGrad`). The rwkv train stack starts from
+zero states and discards the states it ends with. Serving (`prefill`,
 `decode_step`, `decode_verify`, `prefill_into_slot`, `prefill_continue`)
 runs under `torch.no_grad()`, so params that require grad (a trainer's)
 record no graph there.
 
 `prefill_continue` (the paged cache's suffix prefill) and `decode_verify`
 (speculative decoding's multi-position step) are the dense family's only,
-None for moe and hybrid, as in the JAX package. Hybrid training (ROADMAP
-queue 1, item 8.2) and the ssm, encdec and vlm families (items 8.3, 8.4)
-wait for later slices.
+None for moe, ssm and hybrid, as in the JAX package. The encdec and vlm
+families (ROADMAP queue 1, item 8.4) wait for a later slice.
 """
 
 from __future__ import annotations
@@ -207,6 +213,76 @@ def _dense_decode_stack(cfg: ModelConfig, layers, x, cache: Cache, *,
     return x, {**cache, "pos": pos + 1}
 
 
+# --- rwkv ------------------------------------------------------------------
+
+def _rwkv_layer(cfg: ModelConfig, lp, x, wkv, tm_shift, cm_shift, *,
+                decode: bool = False):
+    """One rwkv layer: the time mix and the channel mix, each behind its
+    norm and residual. Returns (x, new wkv state, the time and channel
+    mixes' last inputs)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    a, tm_last, wkv = T.rwkv_time_mix(lp["tm"], h, tm_shift, wkv, cfg,
+                                      decode=decode)
+    x = x + a
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    c, cm_last = T.rwkv_channel_mix(lp["cm"], h, cm_shift)
+    return x + c, wkv, tm_last, cm_last
+
+
+def _rwkv_zero_states(cfg: ModelConfig, x):
+    """The zero wkv state (B, H, Hd, Hd) f32 and shift input (B, D) of a
+    segment that starts from nothing."""
+    hd = cfg.rwkv_head_dim
+    b_, d = x.shape[0], cfg.d_model
+    wkv = torch.zeros((b_, d // hd, hd, hd), dtype=torch.float32,
+                      device=x.device)
+    return wkv, torch.zeros((b_, d), dtype=x.dtype, device=x.device)
+
+
+def _rwkv_train_stack(cfg: ModelConfig, layers, x, *, remat: str):
+    """The rwkv layers over x (B,S,D) for training, each under
+    `_maybe_remat`, from zero states; the states they end with are
+    discarded."""
+
+    def body(x, lp):
+        wkv, shift = _rwkv_zero_states(cfg, x)
+        return _rwkv_layer(cfg, lp, x, wkv, shift, shift)[0]
+
+    body = _maybe_remat(body, remat)
+    for lp in _unstack(layers):
+        x = body(x, lp)
+    return x
+
+
+def _rwkv_prefill_stack(cfg: ModelConfig, layers, x):
+    """The rwkv layers over x (B,S,D) from zero states. Also emits the
+    cache: each layer's wkv state and last time/channel-mix inputs,
+    stacked to (L, ...)."""
+    wkvs, tms, cms = [], [], []
+    for i in range(layers["ln1"].shape[0]):
+        wkv, shift = _rwkv_zero_states(cfg, x)
+        x, wkv, tm_last, cm_last = _rwkv_layer(cfg, _layer(layers, i), x,
+                                               wkv, shift, shift)
+        wkvs.append(wkv)
+        tms.append(tm_last)
+        cms.append(cm_last)
+    return x, {"wkv": torch.stack(wkvs), "tm": torch.stack(tms),
+               "cm": torch.stack(cms)}
+
+
+def _rwkv_decode_stack(cfg: ModelConfig, layers, x, cache: Cache):
+    """One token through the rwkv layers; wkv, tm and cm are written in
+    place."""
+    for i in range(layers["ln1"].shape[0]):
+        x, wkv, tm_last, cm_last = _rwkv_layer(
+            cfg, _layer(layers, i), x, cache["wkv"][i], cache["tm"][i],
+            cache["cm"][i], decode=True)
+        cache["wkv"][i].copy_(wkv)
+        cache["tm"][i].copy_(tm_last)
+        cache["cm"][i].copy_(cm_last)
+    return x, {**cache, "pos": cache["pos"] + 1}
+
+
 # --- hymba -----------------------------------------------------------------
 
 def _hymba_fuse(cfg: ModelConfig, lp, attn_out, ssm_out):
@@ -214,6 +290,27 @@ def _hymba_fuse(cfg: ModelConfig, lp, attn_out, ssm_out):
     a = rms_norm(attn_out, lp["mamba"]["norm_attn"], cfg.norm_eps)
     s = rms_norm(ssm_out, lp["mamba"]["norm_ssm"], cfg.norm_eps)
     return 0.5 * (a + s)
+
+
+def _hymba_stack(cfg: ModelConfig, layers, x, positions, *, remat: str):
+    """The hybrid layers over x (B,S,D) for training, each under
+    `_maybe_remat`: windowed chunked attention beside `mamba_path` by
+    cfg.ssm_impl (no flash: the window rules it out, as in the JAX
+    package), no aux and no cache."""
+
+    def body(x, lp):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        a, _ = T.attn_block(lp["attn"], h, cfg, positions=positions,
+                            window=cfg.attn_window)
+        m, _, _ = T.mamba_path(lp["mamba"], h, cfg)
+        x = x + _hymba_fuse(cfg, lp, a, m)
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + swiglu(h, lp["ffn"]["wi"], lp["ffn"]["wg"], lp["ffn"]["wo"])
+
+    body = _maybe_remat(body, remat)
+    for lp in _unstack(layers):
+        x = body(x, lp)
+    return x
 
 
 def _hymba_prefill_stack(cfg: ModelConfig, layers, x, positions):
@@ -272,13 +369,25 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int,
     with a scalar int32 pos. Dense: k/v of (L, batch, cache_len, KvH, Hd)
     bf16. Moe: k/v over the L - first_k_dense moe layers, and dk/dv of
     the same lines over the first_k_dense dense layers (when there are
-    any). Hybrid: cache_len is the longest context served, but the
+    any). Ssm (rwkv6): no k/v, whatever cache_len; wkv (L, batch, H, Hd,
+    Hd) f32 (H = d_model / rwkv_head_dim), tm and cm (L, batch, d_model)
+    bf16. Hybrid: cache_len is the longest context served, but the
     attention keeps only its window: k/v of (L, batch, attn_window, KvH,
     Hd) bf16, conv (L, batch, CONV_K - 1, Ci) bf16 and h (L, batch, Ci, N)
     f32, Ci = 2 d_model."""
     T.check_ported(cfg)
     dev = backend.resolve_device(device)
-    L = cfg.n_layers
+    L, d = cfg.n_layers, cfg.d_model
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    if cfg.family == "ssm":
+        hd = cfg.rwkv_head_dim
+        return {"wkv": torch.zeros((L, batch, d // hd, hd, hd),
+                                   dtype=torch.float32, device=dev),
+                "tm": torch.zeros((L, batch, d), dtype=PARAM_DTYPE,
+                                  device=dev),
+                "cm": torch.zeros((L, batch, d), dtype=PARAM_DTYPE,
+                                  device=dev),
+                "pos": pos}
     lines = cfg.attn_window if cfg.family == "hybrid" else cache_len
 
     def kv(n):
@@ -286,12 +395,11 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int,
                            dtype=PARAM_DTYPE, device=dev)
 
     kd = cfg.first_k_dense if cfg.family == "moe" else 0
-    cache = {"k": kv(L - kd), "v": kv(L - kd),
-             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    cache = {"k": kv(L - kd), "v": kv(L - kd), "pos": pos}
     if kd:
         cache["dk"], cache["dv"] = kv(kd), kv(kd)
     if cfg.family == "hybrid":
-        ci = 2 * cfg.d_model
+        ci = 2 * d
         cache["conv"] = torch.zeros((L, batch, mamba_lib.CONV_K - 1, ci),
                                     dtype=PARAM_DTYPE, device=dev)
         cache["h"] = torch.zeros((L, batch, ci, cfg.ssm_state),
@@ -304,10 +412,12 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # ===========================================================================
 
 def build_model(cfg: ModelConfig) -> Model:
-    """Assemble a `Model` for one dense, moe or hybrid config: init_params /
-    loss_fn / prefill / decode_step / prefill_into_slot / init_cache, in
-    the JAX package's layouts. Any other family raises NotImplementedError
-    naming its ROADMAP item, and so does the hybrid family's loss_fn.
+    """Assemble a `Model` for one dense, moe, ssm (rwkv6) or hybrid config:
+    init_params / loss_fn / prefill / decode_step / prefill_into_slot /
+    init_cache, in the JAX package's layouts; loss_fn trains every one of
+    them (hybrid with ssm_impl="pallas" raises in the backward: the scan
+    kernel has none). Any other family raises NotImplementedError naming
+    its ROADMAP item.
 
     Example::
 
@@ -337,22 +447,24 @@ def build_model(cfg: ModelConfig) -> Model:
         against batch["labels"] (B, S): the mean over labels >= 0 of the
         cross-entropy with z-loss 1e-4, all f32 scalars; total adds
         router_aux_coef x aux, the moe layers' summed router aux loss (0
-        for dense). The xent runs in sequence chunks (512, 256, 128 or 64,
-        the largest that divides S and is below it), each under its own
-        checkpoint, so one (B, chunk, V) f32 logits block is live at a
-        time."""
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"loss_fn of the {cfg.family!r} family is not ported yet: "
-                "hybrid training is module work of ROADMAP queue 1, item "
-                "8.2 (the training stack of _hymba_stack)")
+        for dense, ssm and hybrid). The xent runs in sequence chunks (512,
+        256, 128 or 64, the largest that divides S and is below it), each
+        under its own checkpoint, so one (B, chunk, V) f32 logits block is
+        live at a time."""
         x = embed(batch["tokens"], params["embed"])
         positions = torch.arange(x.shape[1], device=x.device)
-        if "dense_layers" in params:
-            x, _ = _dense_stack(cfg, params["dense_layers"], x, positions,
-                                remat=cfg.remat)
-        x, aux = _dense_stack(cfg, params["layers"], x, positions,
-                              remat=cfg.remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family == "ssm":
+            x = _rwkv_train_stack(cfg, params["layers"], x, remat=cfg.remat)
+        elif cfg.family == "hybrid":
+            x = _hymba_stack(cfg, params["layers"], x, positions,
+                             remat=cfg.remat)
+        else:
+            if "dense_layers" in params:
+                x, _ = _dense_stack(cfg, params["dense_layers"], x,
+                                    positions, remat=cfg.remat)
+            x, aux = _dense_stack(cfg, params["layers"], x, positions,
+                                  remat=cfg.remat)
         labels = batch["labels"]
         s = x.shape[1]
         chunk = s
@@ -397,9 +509,12 @@ def build_model(cfg: ModelConfig) -> Model:
 
         Moe: pad tokens get router weight 0 and claim no expert capacity,
         but the capacity stays derived from the padded token count (the
-        JAX package's caveat). Hybrid: pad_lens raises ValueError (the
-        recurrent state would consume the pads), and the cache's k/v hold
-        the last min(S, attn_window) positions in the ring layout."""
+        JAX package's caveat). Ssm and hybrid: pad_lens raises ValueError
+        (the recurrent state would consume the pads). Hybrid: the cache's
+        k/v hold the last min(S, attn_window) positions in the ring layout.
+        Ssm: the cache holds the wkv states and last inputs of a segment
+        started from zero states (wkv6_chunked at chunk 64 when S % 64 ==
+        0, one chunk when S < 64, else the sequential scan)."""
         tokens = batch["tokens"]
         x = embed(tokens, params["embed"])
         s = x.shape[1]
@@ -422,6 +537,8 @@ def build_model(cfg: ModelConfig) -> Model:
         if cfg.family == "hybrid":
             x, cache = _hymba_prefill_stack(cfg, params["layers"], x,
                                             positions)
+        elif cfg.family == "ssm":
+            x, cache = _rwkv_prefill_stack(cfg, params["layers"], x)
         else:
             cache = {}
             if "dense_layers" in params:       # moe: the first_k_dense
@@ -444,13 +561,16 @@ def build_model(cfg: ModelConfig) -> Model:
     @torch.no_grad()
     def decode_step(params, cache: Cache, tokens):
         """tokens: (B, 1). Returns (logits (B,1,V) f32, cache): k/v (the
-        moe family's dk/dv, the hybrid family's conv and h) are written in
-        place, "pos" (a scalar or a (B,) per-row vector) advances by one
-        in a new tensor. A moe layer routes all B rows, idle slots
-        included, as the JAX engine's decode does."""
+        moe family's dk/dv, the hybrid family's conv and h; the ssm
+        family's wkv, tm and cm instead) are written in place, "pos" (a
+        scalar or a (B,) per-row vector) advances by one in a new tensor.
+        A moe layer routes all B rows, idle slots included, as the JAX
+        engine's decode does."""
         x = embed(tokens, params["embed"])
         if cfg.family == "hybrid":
             x, cache = _hymba_decode_stack(cfg, params["layers"], x, cache)
+        elif cfg.family == "ssm":
+            x, cache = _rwkv_decode_stack(cfg, params["layers"], x, cache)
         else:
             if "dense_layers" in params:
                 x, _ = _dense_decode_stack(
@@ -494,16 +614,17 @@ def build_model(cfg: ModelConfig) -> Model:
         vector. batch["tokens"] is (1, P); P may exceed the real prompt
         (right padding to a shape bucket): pad lines land beyond
         prompt_len, stay masked by the per-row length, and are overwritten
-        as decode advances. For the hybrid family (recurrent state folds
-        every token in) and the moe family (capacity dispatch counts the
-        tokens) P must equal the real prompt length. Logits are
+        as decode advances. For the ssm and hybrid families (recurrent
+        state folds every token in) and the moe family (capacity dispatch
+        counts the tokens) P must equal the real prompt length. Logits are
         taken at prompt_len - 1.
 
         Returns (logits (1,1,V), cache): row `slot` of every cache leaf
         but "pos" is written in place from the row's prefill cache, its
         leading lines along the third axis (the JAX dynamic_update_slice
         at (0, slot, 0, ...) of each leaf: P k/v lines, min(P, window) of
-        them for the hybrid ring, the whole conv tail and h state), and
+        them for the hybrid ring, the whole conv tail and h state, the
+        whole wkv state and tm/cm rows of the ssm family), and
         pos[slot] = prompt_len in a new "pos" tensor."""
         plen = torch.as_tensor(prompt_len, device=cache["pos"].device)
         logits, row = prefill(params, batch, last_index=plen - 1)

@@ -1,15 +1,23 @@
-"""The decoder's blocks — the port of the dense and hybrid parts of
-`repro.models.transformer`: parameter construction (`_attn_params`,
-`_ffn_params`, `_moe_params`, `_mamba_params`, the dense, moe and
-hybrid branches of `build_param_fn`, :45-90, :130-147, :150-188,
-:217-222), `_qkv` (:231),
-`attn_block` (:245), `attn_block_decode` (:276, the scalar-pos, per-row
-and ring-buffer branches), `attn_block_decode_k` (:321), `attn_block_continue`
-(:352) and `mamba_path` (:450-510, every `ssm_impl`).
+"""The decoder's blocks — the port of the dense, moe, ssm (rwkv6) and
+hybrid parts of `repro.models.transformer`: parameter construction
+(`_attn_params`, `_ffn_params`, `_moe_params`, `_rwkv_params`,
+`_mamba_params`, the dense, moe, ssm and hybrid branches of
+`build_param_fn`, :45-90, :94-127, :130-147, :150-188, :217-222),
+`_qkv` (:231), `attn_block` (:245), `attn_block_decode` (:276, the
+scalar-pos, per-row and ring-buffer branches), `attn_block_decode_k`
+(:321), `attn_block_continue` (:352), `rwkv_time_mix` (:389),
+`rwkv_channel_mix` (:440) and `mamba_path` (:450-510, every `ssm_impl`).
 
-The other families' blocks (rwkv, whisper, vlm) and the sharded-decode
-branch of `attn_block_decode` wait for their slices (ROADMAP queue 1,
-items 8.3, 8.4 and 9). The moe FFN itself is `models/moe.py`.
+`mamba_path`'s "pallas" scan runs under `SsmScanNoGrad`: the kernel has
+no backward, as the JAX package's Pallas scan has none, so a gradient
+through it raises (on the CPU too, where the plain version stands in the
+kernel's place and would otherwise differentiate). Training takes
+"chunked" or "scan".
+
+The whisper and vlm blocks and the sharded-decode branch of
+`attn_block_decode` wait for their slices (ROADMAP queue 1, items 8.4
+and 9). The moe FFN itself is `models/moe.py`, the WKV forms
+`models/rwkv6.py`.
 """
 
 from __future__ import annotations
@@ -21,13 +29,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.layers import (PARAM_DTYPE, ParamInit, apply_rope,
                                        matmul, matmul_rp)
 
 # the families whose params, prefill and decode the port builds
-PORTED_FAMILIES = ("dense", "moe", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # the ROADMAP queue 1 item that ports each family still missing
-FAMILY_ITEMS = {"ssm": "8.3", "encdec": "8.4", "vlm": "8.4"}
+FAMILY_ITEMS = {"encdec": "8.4", "vlm": "8.4"}
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -88,6 +97,42 @@ def _moe_params(b: ParamInit, pre: str, L: int, cfg: ModelConfig) -> Dict:
     return p
 
 
+def _rwkv_params(b: ParamInit, pre: str, L: int, cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    hd = cfg.rwkv_head_dim
+    h = d // hd
+    km, kd = rwkv_lib.LORA_MIX, rwkv_lib.LORA_DECAY
+    f = cfg.d_ff
+    return {
+        "ln1": b.param(f"{pre}/ln1", (L, d), "ones"),
+        "ln2": b.param(f"{pre}/ln2", (L, d), "ones"),
+        "tm": {
+            "mu_x": b.param(f"{pre}/tm/mu_x", (L, d)),
+            # the r, k, v, w and g streams' mus
+            "mu_5": b.param(f"{pre}/tm/mu_5", (L, 5, d)),
+            "lora_a": b.param(f"{pre}/tm/lora_a", (L, d, 5 * km)),
+            "lora_b": b.param(f"{pre}/tm/lora_b", (L, 5, km, d)),
+            "td_a": b.param(f"{pre}/tm/td_a", (L, d, kd)),
+            "td_b": b.param(f"{pre}/tm/td_b", (L, kd, d)),
+            "w0": b.param(f"{pre}/tm/w0", (L, d)),
+            "u": b.param(f"{pre}/tm/u", (L, h, hd)),
+            "wr": b.param(f"{pre}/tm/wr", (L, d, d)),
+            "wk": b.param(f"{pre}/tm/wk", (L, d, d)),
+            "wv": b.param(f"{pre}/tm/wv", (L, d, d)),
+            "wg": b.param(f"{pre}/tm/wg", (L, d, d)),
+            "wo": b.param(f"{pre}/tm/wo", (L, d, d)),
+            "ln_x": b.param(f"{pre}/tm/ln_x", (L, d), "ones"),
+        },
+        "cm": {
+            "mu_k": b.param(f"{pre}/cm/mu_k", (L, d)),
+            "mu_r": b.param(f"{pre}/cm/mu_r", (L, d)),
+            "wk": b.param(f"{pre}/cm/wk", (L, d, f)),
+            "wv": b.param(f"{pre}/cm/wv", (L, f, d)),
+            "wr": b.param(f"{pre}/cm/wr", (L, d, d)),
+        },
+    }
+
+
 def _mamba_params(b: ParamInit, pre: str, L: int, cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     ci = 2 * d                      # d_inner
@@ -109,10 +154,12 @@ def _mamba_params(b: ParamInit, pre: str, L: int, cfg: ModelConfig) -> Dict:
 
 
 def build_param_fn(cfg: ModelConfig) -> Callable[[ParamInit], Dict]:
-    """A function of a ParamInit that makes the param tree of a dense, moe
-    or hybrid cfg, with the JAX tree's keys, shapes and draw order. moe:
-    the first `first_k_dense` layers are dense ("dense_layers", FFN width
-    d_ff), the rest ("layers") carry the router and the experts."""
+    """A function of a ParamInit that makes the param tree of a dense, moe,
+    ssm or hybrid cfg, with the JAX tree's keys, shapes and draw order.
+    moe: the first `first_k_dense` layers are dense ("dense_layers", FFN
+    width d_ff), the rest ("layers") carry the router and the experts.
+    ssm (rwkv6): "layers" holds ln1/ln2, the time mix "tm" and the
+    channel mix "cm"."""
     check_ported(cfg)
     d, v, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
 
@@ -131,6 +178,8 @@ def build_param_fn(cfg: ModelConfig) -> Callable[[ParamInit], Dict]:
                     b, "dense_layers/ffn", kd, d, cfg.d_ff, cfg.act)
             p["layers"] = stack(b, "layers", L - kd)
             p["layers"]["moe"] = _moe_params(b, "layers/moe", L - kd, cfg)
+        elif cfg.family == "ssm":
+            p["layers"] = _rwkv_params(b, "layers", L, cfg)
         else:
             p["layers"] = stack(b, "layers", L)
             if cfg.family == "hybrid":
@@ -305,6 +354,77 @@ def attn_block_continue(lp, x, cfg: ModelConfig, *, cache_k, cache_v, slot,
     return out, (cache_k, cache_v)
 
 
+def rwkv_time_mix(tm, x, shift_in, wkv_state, cfg: ModelConfig, *,
+                  decode: bool):
+    """RWKV6 time mix. x: (B,T,D) bf16; shift_in: (B,D), the previous
+    segment's last input; wkv_state: (B,H,Hd,Hd) f32. Returns (out (B,T,D)
+    bf16, x's last token (B,D), new wkv state).
+
+    The WKV form by the reference's rule: decode runs wkv6_decode; a
+    prefill or training segment runs wkv6_chunked at chunk 64 when
+    T % 64 == 0, as one chunk of T when 1 < T < 64, and the sequential
+    scan otherwise. The token-shift mix runs in bf16, every step rounded
+    (the JAX package's code, compiled without excess precision); the LoRA
+    and decay products in f32."""
+    b_, t, d = x.shape
+    hd = cfg.rwkv_head_dim
+    h = d // hd
+    x_prev, last = rwkv_lib.token_shift(x, shift_in)
+
+    diff = x_prev - x
+    xx = x + diff * tm["mu_x"].to(x.dtype)
+    delta = torch.tanh(xx.float() @ tm["lora_a"].float())
+    delta = delta.reshape(b_, t, 5, rwkv_lib.LORA_MIX)
+    delta = torch.einsum("btsk,skd->btsd", delta,
+                         tm["lora_b"].float()).to(x.dtype)
+    mus = tm["mu_5"].to(x.dtype)                         # (5, D)
+    x_r, x_k, x_v, x_w, x_g = (x + diff * (mus[i] + delta[:, :, i])
+                               for i in range(5))
+
+    r = matmul(x_r, tm["wr"]).reshape(b_, t, h, hd).float()
+    k = matmul(x_k, tm["wk"]).reshape(b_, t, h, hd).float()
+    v = matmul(x_v, tm["wv"]).reshape(b_, t, h, hd).float()
+    g = torch.nn.functional.silu(matmul(x_g, tm["wg"]).float())
+
+    wlog = tm["w0"].float() + (torch.tanh(x_w.float() @ tm["td_a"].float())
+                               @ tm["td_b"].float())
+    w = torch.exp(-torch.exp(wlog)).reshape(b_, t, h, hd)
+    u = tm["u"].float()
+
+    if decode:
+        y, wkv_state = rwkv_lib.wkv6_decode(r[:, 0], k[:, 0], v[:, 0],
+                                            w[:, 0], u, wkv_state)
+        y = y[:, None]
+    else:
+        chunk = 64 if t % 64 == 0 else (t if t < 64 else 1)
+        if chunk > 1:
+            y, wkv_state = rwkv_lib.wkv6_chunked(r, k, v, w, u, wkv_state,
+                                                 chunk=chunk)
+        else:
+            y, wkv_state = rwkv_lib.wkv6_scan(r, k, v, w, u, wkv_state)
+
+    # per-head group norm (the population variance, as jnp.var), then the
+    # gate and the output projection
+    mu = y.mean(-1, keepdim=True)
+    var = y.var(-1, keepdim=True, correction=0)
+    y = (y - mu) * torch.rsqrt(var + 64e-5)
+    y = y.reshape(b_, t, d) * tm["ln_x"].float()
+    out = matmul((y * g).to(PARAM_DTYPE), tm["wo"])
+    return out, last, wkv_state
+
+
+def rwkv_channel_mix(cm, x, shift_in):
+    """RWKV6 channel mix. x: (B,T,D) bf16; shift_in: (B,D). Returns (out
+    (B,T,D) bf16, x's last token)."""
+    x_prev, last = rwkv_lib.token_shift(x, shift_in)
+    xk = x + (x_prev - x) * cm["mu_k"].to(x.dtype)
+    xr = x + (x_prev - x) * cm["mu_r"].to(x.dtype)
+    k = torch.square(torch.relu(matmul(xk, cm["wk"]).float()))
+    kv = matmul(k.to(PARAM_DTYPE), cm["wv"])
+    out = torch.sigmoid(matmul(xr, cm["wr"]).float()) * kv
+    return out.to(PARAM_DTYPE), last
+
+
 def mamba_path(mp, x, cfg: ModelConfig, *, conv_state=None, h_state=None,
                decode: bool = False):
     """Mamba selective-SSM path of the Hymba block. x: (B,T,D) bf16.
@@ -318,7 +438,8 @@ def mamba_path(mp, x, cfg: ModelConfig, *, conv_state=None, h_state=None,
     ssm_chunked at chunk 64 when T % 64 == 0 and the sequential scan
     otherwise; "scan" the sequential scan; "stub" (prefill only) skips the
     scan and keeps the projections. Decode runs ssm_decode whatever the
-    setting."""
+    setting. A gradient through the "pallas" scan raises
+    NotImplementedError (`SsmScanNoGrad`)."""
     b_, t, d = x.shape
     ci = 2 * d
     n = cfg.ssm_state
@@ -348,9 +469,9 @@ def mamba_path(mp, x, cfg: ModelConfig, *, conv_state=None, h_state=None,
             mp["d"], h_state)
         y = y[:, None]
     elif cfg.ssm_impl == "pallas":
-        y, h_state = _dispatch_ssm(xs.float(), dt, bmat.contiguous(),
-                                   cmat.contiguous(), mp["a_log"], mp["d"],
-                                   h_state)
+        y, h_state = SsmScanNoGrad.apply(xs.float(), dt, bmat.contiguous(),
+                                         cmat.contiguous(), mp["a_log"],
+                                         mp["d"], h_state)
     else:
         chunk = 64 if (t % 64 == 0 and cfg.ssm_impl == "chunked") else 1
         if chunk > 1:
@@ -364,6 +485,25 @@ def mamba_path(mp, x, cfg: ModelConfig, *, conv_state=None, h_state=None,
     y = y * torch.nn.functional.silu(z.float())
     out = matmul(y.to(PARAM_DTYPE), mp["out_proj"])
     return out, conv_state, h_state
+
+
+class SsmScanNoGrad(torch.autograd.Function):
+    """The "pallas" scan (`_dispatch_ssm`) as an autograd node whose
+    backward raises: the selective-scan kernel has no backward, as the
+    JAX package's Pallas scan has none (its jax.grad fails to linearize
+    it). The forward is the dispatch itself, one launch, whatever the
+    device; under torch.no_grad (serving) no node is recorded."""
+
+    @staticmethod
+    def forward(ctx, x, dt, bmat, cmat, a_log, d, h0):
+        return _dispatch_ssm(x, dt, bmat, cmat, a_log, d, h0)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "ssm_impl='pallas': the selective-scan kernel (csrc/ssm_scan.cu) "
+            "has no backward, as the JAX package's Pallas scan has none; "
+            "train with ssm_impl='chunked' or 'scan'")
 
 
 def _dispatch_ssm(x, dt, bmat, cmat, a_log, d, h0):

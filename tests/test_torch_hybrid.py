@@ -243,13 +243,20 @@ def test_prefill_into_slot_writes_every_leaf(weights):
 
 
 def test_prefill_rejects_pad_lens(weights):
-    _, tm, _, tp = _models(weights, "pallas")
+    """pad_lens is refused; loss_fn runs (hybrid training) and its forward
+    loss equals JAX's within 1e-3 (tests/test_torch_hybrid_train.py holds
+    the gradients)."""
+    jm, tm, jp, tp = _models(weights, "pallas")
     with pytest.raises(ValueError):
         tm.prefill(tp, {"tokens": torch.zeros((1, 8), dtype=torch.long),
                         "pad_lens": torch.tensor([2])})
-    with pytest.raises(NotImplementedError, match="8.2"):
-        tm.loss_fn(tp, {"tokens": torch.zeros((1, 8), dtype=torch.long),
-                        "labels": torch.zeros((1, 8), dtype=torch.long)})
+    toks = _tokens((1, 9), seed=7)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    jtotal, _ = jm.loss_fn(jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    total, met = tm.loss_fn(tp, {k: torch.from_numpy(v)
+                                 for k, v in batch.items()})
+    assert abs(float(total) - float(jtotal)) <= 1e-3
+    assert float(met["ntokens"]) == 8
 
 
 def test_engine_prefills_at_exact_length(weights):
