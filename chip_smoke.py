@@ -253,7 +253,11 @@ Phases (one line each, more where noted):
      rwkv6-7b at full width cut to RWKV_TRAIN_LAYERS layers
      (RWKV_TRAIN_SEQ x RWKV_TRAIN_BATCH), remat "full", AdamW, TRAIN_STEPS
      steps, no checkpoint: losses finite, step 0 within LOSS0_ATOL of
-     lse0 + 1e-4 lse0^2, no kernel launched; step ms, tokens/s, mfu
+     lse0 + 1e-4 lse0^2 and taken apart on its own params and batch
+     (mean lse within LOSS0_ATOL of ln V + s2 / 2, mean target logit
+     within LOSS0_SE standard errors of 0, the terms' sum within
+     LOSS0_SUM_ATOL of the run's loss), no kernel launched; step ms,
+     tokens/s, mfu
      (hymba's attention counts min(t + 1, window) keys; rwkv has no
      attention term), peak memory, one step each with the device traced
      (busy share, kernels a step);
@@ -261,6 +265,59 @@ Phases (one line each, more where noted):
      n_layers + 1 times (the forward and the last layer's recompute),
      each held against ssm_scan_plain on its own inputs (SSM_RTOL), and
      the backward must raise NotImplementedError.
+  16. the encdec and vlm families, the ninth slice's path (its own
+     seconds printed):
+     16a. ServeEngine on internvl2-26b at full width and depth (48
+     layers, d 6144, 48 heads over 8; ~19.86e9 parameters, ~39.7 GB),
+     flash on, seed 0, max_batch 4, cache_len VLM_CACHE_LEN: 8 greedy
+     requests (VLM_PROMPTS) and one of VLM_HOT_PROMPT tokens at
+     SPEC_HOT_T, each with 256 bf16 patch embeddings in Request.extra,
+     32 new tokens each, all at once; the text's bucket leaves room for
+     the vis lines, so six admissions prefill 512 or 768 rows (flash_fwd
+     48 times each) and three 384, 856 or 956 (chunked); the matmul flags
+     read at every flash call of a warm-up request; TTFT, decode round
+     ms, tokens/s, peak memory at init (each leaf drawn in f32) and while
+     serving; the same requests again, every output bit-equal; one
+     admission round and three decode rounds under torch.profiler; the
+     same requests through kv_page_size 16, outputs equal; each
+     flash-sized request prefilled again through the admission path with
+     every flash_fwd launch (group 6: H=48, KvH=8, Hd 128) held against
+     flash_fwd_plain (FLASH_OUT_ULPS), its first-token logits against the
+     plain version in the kernel's place and against flash off (at 48
+     layers within the sanity bound VLM_LOGIT_RTOL: this depth's bf16
+     floor lies above SERVE_LOGIT_RTOL); the witness at full width cut to
+     VLM_WITNESS_LAYERS layers: the same three routes for every
+     flash-sized request, each launch held to its plain version, the
+     kernel path against the other two within SERVE_LOGIT_RTOL, and the
+     two plain routes with f32 weights and activations within
+     VLM_F32_RTOL; then, printed only, flash_fwd and SDPA
+     device ms at B=1, S=VLM_OP_S, H=48, KvH=8, Hd=128 with the bound.
+     16b. ServeEngine on whisper-small at full width and depth (12 + 12
+     layers, 1500 frames), seed 0, max_batch 4, cache_len
+     WHISPER_CACHE_LEN: 8 greedy requests (WHISPER_PROMPTS) on bf16
+     frames and one of WHISPER_HOT_PROMPT tokens on f32 frames at
+     SPEC_HOT_T, 32 new tokens each, all at once; no kernel launches
+     (chunked attention everywhere, as in the reference); the serving
+     metrics, the same requests again (bit-equal), profiled rounds,
+     kv_page_size 16 (k/v paged, xk/xv dense; equal outputs), an
+     admission's own ms (the encoder runs in each); decode against
+     prefill at WHISPER_DECODE_AT -> + 1 within SERVE_LOGIT_RTOL in bf16
+     and within WHISPER_DECODE_F32_RTOL with f32 weights, activations and
+     frames (f32_storage).
+     16c. Trainer(...).run() on whisper-small at full width (AdamW,
+     WHISPER_TRAIN_SEQ x WHISPER_TRAIN_BATCH, the stub f32 frames) and on
+     internvl2-26b at full width cut to VLM_TRAIN_LAYERS layers
+     (Adafactor, flash on, VLM_TRAIN_SEQ x VLM_TRAIN_BATCH), remat
+     "full", TRAIN_STEPS steps, no checkpoint: losses finite, step 0
+     within LOSS0_ATOL of lse0 + 1e-4 lse0^2 and taken apart as in 15c,
+     no kernel on whisper's
+     steps, flash_fwd 16 and each backward kernel 8 times an internvl2
+     step; step ms, tokens/s, mfu (whisper: 6 (N_dec tokens + N_enc
+     frames) + the encoder's, decoder's and cross-attention's attention
+     FLOPs; internvl2: every backbone position, vis included), peak
+     memory, one traced step each; then one internvl2 step with every
+     flash launch held against its plain version (FLASH_OUT_ULPS,
+     BWD_ULPS) and the matmul flags read at each.
 Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
 phase 7d's Hd 32 model check, phase 8's serving run, phase 10's training
 run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
@@ -268,7 +325,9 @@ run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
 (spec_paged) and Router run (router), phase 14's moe serving run
 (moe_serve), paged moe run (moe_paged) and moe training run
 (moe_train), phase 15's rwkv serving run (rwkv_serve), training runs
-(hybrid_train, rwkv_train) and pallas step (hybrid-train-pallas)) runs
+(hybrid_train, rwkv_train) and pallas step (hybrid-train-pallas), phase
+16's serving runs (vlm_serve, vlm_paged, whisper_serve, whisper_paged)
+and training runs (whisper_train, vlm_train)) runs
 with the launch counters
 zeroed just before it and read just after; the kernels line gives each
 path's counts, and the script fails unless every kernel launched on the
@@ -281,7 +340,9 @@ run, each paged_decode entry point on phase 12b's dispatch, flash_fwd 28
 times a flash-sized admission on both moe serving runs, 8 and each
 backward kernel 4 times a moe training step, no kernel on phase 15's
 serving and training runs, and ssm_scan in the forward of the hymba
-pallas step).
+pallas step, flash_fwd 48 times a flash-sized admission on both vlm
+serving runs, 16 and each backward kernel 8 times a vlm training step,
+no kernel on whisper's runs).
 
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero without it. Without a card, or outside the repository, the
@@ -353,6 +414,15 @@ BWD_REF_RTOL = 2.0 ** -6
 # At qwen2-1.5b's d_model 1536 that is 12.2536; ln V + 1e-4 (ln V)^2 alone
 # (11.945) leaves out the logits' spread.
 LOSS0_ATOL = 0.05
+# the same loss taken apart (loss0_terms, phases 15c and 16c): its mean
+# lse held to LOSS0_ATOL of ln V + s2 / 2; its mean target logit, which
+# random weights leave at 0 with a standard error sqrt(s2 / N) over N
+# positions (internvl2-26b's 2048 text positions: 0.035, 70% of
+# LOSS0_ATOL), held to LOSS0_SE standard errors; the terms' sum to the
+# run's own step-0 loss within LOSS0_SUM_ATOL (no grad and flash's plain
+# version against the traced step's kernels)
+LOSS0_SE = 4.0
+LOSS0_SUM_ATOL = 2e-3
 INIT_SCALE = 0.02
 TRAIN_STEPS = 4
 # ssm_scan against ssm_scan_plain, both f32: max |difference| of y within
@@ -464,6 +534,55 @@ HYBRID_TRAIN_BATCH = 2
 RWKV_TRAIN_LAYERS = 8
 RWKV_TRAIN_SEQ = 512
 RWKV_TRAIN_BATCH = 8
+# the vlm family (phase 16a): internvl2-26b served at full width, flash on;
+# each prompt's text buckets under the room its 256 vis lines leave in a
+# 1024-line slot: 160, 256 and 200 (the SPEC_HOT_T request) prefill 512
+# rows and 300, 480 and 512 prefill 768 (flash_fwd, S % 256 == 0); 100
+# prefills 384 rows, 600 and 700 their exact 856 and 956 (chunked)
+VLM_CACHE_LEN = 1024
+VLM_PROMPTS = (100, 160, 256, 300, 480, 512, 600, 700)
+VLM_HOT_PROMPT = 200
+# flash_fwd and SDPA printed at internvl2's largest flash prefill
+VLM_OP_S = 768
+# 16a's first-token logits, max-norm relative. At 48 layers internvl2-26b's
+# bf16 floor lies above SERVE_LOGIT_RTOL: on an H100 80GB HBM3 at 700 W the
+# two plain routes, with no kernel in either (flash's plain version in the
+# kernel's place, and flash off: chunked attention, p rounded to bf16),
+# lay 8.1e-2 to 1.03e-1 apart, and the kernel path 6.5e-2 to 1.0e-1 from
+# either, with every flash_fwd launch within 1.0 bf16 ulp of its plain
+# version. So at 48 layers the three are held only to the sanity bound
+# VLM_LOGIT_RTOL. The gate the kernel path answers to is the witness at
+# full width cut to VLM_WITNESS_LAYERS layers (the plain routes 2.8e-2
+# apart there in bf16 on that card): every flash-sized request's kernel
+# path against the plain version in its place and against flash off, each
+# held to SERVE_LOGIT_RTOL; and with f32 weights and activations (48
+# layers in f32 do not fit the card) the two plain routes held to
+# VLM_F32_RTOL (7.0e-6 on that card), the witness that the bf16 distance
+# between the routes is rounding
+VLM_LOGIT_RTOL = 0.2
+VLM_WITNESS_LAYERS = 8
+VLM_F32_RTOL = 1e-3
+# the encdec family (phase 16b): whisper-small served at full width; 512
+# lines are past real whisper's 448-token decoder cap (dec_pos has 32768
+# rows); prompts of 16-400 tokens on bf16 frames, WHISPER_HOT_PROMPT on f32
+# frames at SPEC_HOT_T
+WHISPER_CACHE_LEN = 512
+WHISPER_PROMPTS = (16, 40, 64, 100, 160, 250, 330, 400)
+WHISPER_HOT_PROMPT = 120
+# 16b's decode against prefill (200 -> 201): bf16 held to SERVE_LOGIT_RTOL;
+# the same with f32 weights, activations and frames (f32_storage) to
+# WHISPER_DECODE_F32_RTOL, the witness that the bf16 distance is rounding
+WHISPER_DECODE_AT = 200
+WHISPER_DECODE_F32_RTOL = 1e-3
+# 16c: whisper-small at full width, 448 (whisper's decoder cap) x 8 on the
+# Trainer's stub f32 frames; internvl2-26b at full width cut to 8 layers
+# (4.258e9 parameters: the full depth's bf16 grads alone would be another
+# 39.7 GB), 768 x 4 positions (256 vis + 512 text a row), Adafactor
+VLM_TRAIN_LAYERS = 8
+VLM_TRAIN_SEQ = 768
+VLM_TRAIN_BATCH = 4
+WHISPER_TRAIN_SEQ = 448
+WHISPER_TRAIN_BATCH = 8
 # phase 7c's cases: (tag, B, T, C, N, h0 scale); inputs from seed 10 + index
 SSM_CASES = (("hymba-prefill", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.0),
              ("t4096", 1, 4096, 3200, 16, 0.0),
@@ -920,6 +1039,26 @@ def main() -> None:
           f"{rwkv_serve['phase_s']:.1f} s, 15b {rwkv_rows['phase_s']:.1f} s, "
           f"15c {ssm_train['phase_s']:.1f} s) [{card}]", flush=True)
 
+    # -- 16. internvl2-26b and whisper-small served; both trained -------------
+    t16 = time.perf_counter()
+    vlm_serve = vlm_serve_phase(torch, np, dev, spec, card, flash_cuda,
+                                zero_counts, read_counts, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper_serve = whisper_serve_phase(torch, np, dev, card, zero_counts,
+                                        read_counts, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ev_train = encdec_vlm_train_phase(torch, dev, spec, card, flash_cuda,
+                                      zero_counts, read_counts, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec_vlm = {"vlm_serve": vlm_serve, "whisper_serve": whisper_serve,
+                  "train": ev_train, "phase_s": time.perf_counter() - t16}
+    print(f"[16] phase 16 ran {encdec_vlm['phase_s']:.1f} s (16a "
+          f"{vlm_serve['phase_s']:.1f} s, 16b {whisper_serve['phase_s']:.1f} "
+          f"s, 16c {ev_train['phase_s']:.1f} s) [{card}]", flush=True)
+
     names = ("gpp_fused", "gpp_banded", "flash_fwd", "flash_bwd_dq",
              "flash_bwd_dkv", "ssm_scan", "paged_decode_gather",
              "paged_decode_int8", "paged_decode_verify")
@@ -1024,6 +1163,8 @@ def main() -> None:
     print(f"[14] moe summary: {json.dumps(moe)} [{card}]", flush=True)
     print(f"[15] rwkv6 and recurrent training summary: "
           f"{json.dumps(recurrent)} [{card}]", flush=True)
+    print(f"[16] encdec and vlm summary: {json.dumps(encdec_vlm)} [{card}]",
+          flush=True)
     print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"(build {build_s:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1642,7 +1783,7 @@ def hybrid_phase(torch, np, dev, card, ssm_cuda, zero_counts, read_counts,
 
     zero_counts()
     with hold_launches(ssm_cuda, "ssm_scan", against_plain):
-        first_token_logits(torch, eng, reqs[-1].prompt)
+        first_token_logits(eng, reqs[-1])
     torch.cuda.synchronize()
     by_path["hybrid-check"] = read_counts()
     worst_y = max(e[0] for e in errs)
@@ -1662,8 +1803,8 @@ def hybrid_phase(torch, np, dev, card, ssm_cuda, zero_counts, read_counts,
                           cache_len=HYBRID_CACHE_LEN, device=dev)
     rows = []
     for r in reqs:
-        a = first_token_logits(torch, eng, r.prompt)
-        c = first_token_logits(torch, chunked, r.prompt)
+        a = first_token_logits(eng, r)
+        c = first_token_logits(chunked, r)
         rows.append((r.rid, len(r.prompt), logit_rel(a, c),
                      int(a.argmax() == c.argmax()),
                      bool(torch.isfinite(a).all())))
@@ -1933,7 +2074,8 @@ def profile_rounds(torch, tag, eng, reqs, res, card):
     from repro_torch.serve.engine import Request
     eng.reset()
     for r in reqs:
-        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=8))
+        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=8,
+                           extra=r.extra))
     for kind, n_steps in (("admit", 1), ("decode", 3)):
         wall, busy, kernels, host, n_launch, ours, _ = profile_window(
             torch, lambda: [eng.step() for _ in range(n_steps)])
@@ -1948,16 +2090,94 @@ def profile_rounds(torch, tag, eng, reqs, res, card):
               flush=True)
 
 
-def first_token_logits(torch, eng, prompt):
-    """Logits of a prompt's first generated token through `eng`'s own
-    admission path (bucket padding, prefill_into_slot) on a fresh cache."""
-    plen = len(prompt)
-    toks = torch.zeros((1, eng._bucket_len(plen, eng.cache_len)),
-                       dtype=torch.long, device=eng.device)
-    toks[0, :plen] = torch.as_tensor(prompt, device=eng.device)
-    logits, _ = eng.model.prefill_into_slot(
-        eng.params, eng._fresh_cache(), 0, {"tokens": toks}, plen)
-    return logits[0, 0].float()
+def serve_checked(torch, dev, card, tag, name, eng, reqs, zero_counts,
+                  read_counts, by_path, describe, profile_reqs, want=None,
+                  paged=None, watch=contextlib.nullcontext):
+    """The serving run that 14a, 15a, 16a and 16b share, on a warmed-up
+    `eng`: every request of `reqs` submitted at once and served to the end
+    (under `watch()`), the counts zeroed just before and read just after
+    into by_path[name + "_serve"] and held to `want` (kernel -> launches,
+    every other kernel 0), one prefill a request and every output in the
+    vocabulary; the same requests again, every output bit-equal; one
+    admission round of `profile_reqs` and three decode rounds under the
+    profiler; and where `paged` (an engine over the same params with a
+    paged cache) is given, the same requests through it: equal outputs,
+    the same launches (by_path[name + "_paged"]), every page returned.
+    describe(stats) gives the first line's text. Returns (metrics, the
+    first run's outputs by rid)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    with watch():
+        stats, decode_ms, admit_ms = drive(eng, reqs)
+    torch.cuda.synchronize()
+    counts = by_path[f"{name}_serve"] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    full = {k: 0 for k in counts}
+    full.update(want or {})
+    line = (f"[{tag}] {describe(stats)}; launches {counts} (expected "
+            f"{full}) [{card}]")
+    print(line, flush=True)
+    if counts != full or stats["prefills"] != len(reqs):
+        fail(line)
+    check_outputs(eng, reqs, eng.cfg.vocab_size)
+    first = {r.rid: list(eng.outputs[r.rid]) for r in reqs}
+    res = serve_metrics(tag, stats, decode_ms, admit_ms, peak, len(reqs),
+                        card)
+
+    # determinism: the same requests again, every output bit-equal
+    drive(eng, reqs)
+    differ = [r.rid for r in reqs if eng.outputs[r.rid] != first[r.rid]]
+    line = (f"[{tag}] the same {len(reqs)} requests again: outputs bit-equal "
+            f"to the first run's except rids {differ} (none allowed) [{card}]")
+    print(line, flush=True)
+    if differ:
+        fail(line)
+
+    # where a round's time goes: one admission round and three decode
+    # rounds under torch.profiler
+    zero_counts()
+    profile_rounds(torch, tag, eng, profile_reqs, res, card)
+    torch.cuda.synchronize()
+    res["launches_per_decode_round"] = \
+        res["profile_decode"]["cuda_launch_kernel"] / 3
+    if paged is None:
+        return res, first
+
+    torch.cuda.synchronize()
+    zero_counts()
+    pstats, pdecode, _ = drive(paged, reqs)
+    torch.cuda.synchronize()
+    counts = by_path[f"{name}_paged"] = read_counts()
+    kv = pstats["kvcache"]
+    paged.kv.check_conservation()
+    differ = [r.rid for r in reqs if paged.outputs[r.rid] != first[r.rid]]
+    line = (f"[{tag}] paged (kv_page_size {paged.kv_page_size}, leaves "
+            f"{list(paged.kv.leaves)}): outputs equal to the unpaged run's "
+            f"except rids {differ} (none allowed); launches {counts} "
+            f"(expected {full}); peak live pages {kv['peak_live_pages']} of "
+            f"{paged.kv.n_pages}, pages live after {paged.kv.pages_live}; "
+            f"decode round p50 {pdecode[len(pdecode) // 2]:.2f} ms [{card}]")
+    print(line, flush=True)
+    if differ or counts != full or paged.kv.pages_live:
+        fail(line)
+    res["paged"] = {"decode_step_ms_p50": pdecode[len(pdecode) // 2],
+                    "peak_pages_live": kv["peak_live_pages"],
+                    "tok_per_s": pstats["tok_per_s"]}
+    return res, first
+
+
+def first_token_logits(eng, r):
+    """Logits of request r's first generated token through `eng`'s own
+    admission path on a fresh cache (see cold_prefill)."""
+    return cold_prefill(eng, r)[0]
+
+
+def prefill_rows(eng, r):
+    """The rows r's admission prefills: its vis lines and its tokens'
+    bucket, as the engine builds them."""
+    vis = eng.prompt_lines(r) - len(r.prompt)
+    return vis + eng.prefill_batch(r)["tokens"].shape[1]
 
 
 def serve_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
@@ -2039,16 +2259,12 @@ def serve_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
         launch_ulps.append(bf16_ulps(out, want))
         return out
 
-    def plain_in_place(run, q, k, v, **kw):
-        return flash_cuda.flash_fwd_plain(q, k, v, flash_blocks(q, k, v, kw),
-                                          kw["causal"])[0]
-
     for r in reqs:
         with route_flash(checked):
-            a = first_token_logits(torch, eng, r.prompt)
-        with route_flash(plain_in_place):
-            b = first_token_logits(torch, eng, r.prompt)
-        c = first_token_logits(torch, plain, r.prompt)
+            a = first_token_logits(eng, r)
+        with route_flash(plain_in_place(flash_cuda)):
+            b = first_token_logits(eng, r)
+        c = first_token_logits(plain, r)
         rows.append((r.rid, len(r.prompt), logit_rel(a, b), logit_rel(a, c),
                      logit_rel(b, c), int(a.argmax() == b.argmax()),
                      int(a.argmax() == c.argmax()),
@@ -2184,15 +2400,13 @@ def profile_window(torch, fn, host=True):
 # phase 12: the paged K/V cache (12a) and the paged decode kernels (12b)
 # ---------------------------------------------------------------------------
 
-def cold_prefill(torch, eng, prompt):
-    """A cold full-prompt prefill through `eng`'s model at its admission
-    bucket on a fresh cache: (first-token logits, the cache)."""
-    plen = len(prompt)
-    toks = torch.zeros((1, eng._bucket_len(plen, eng.cache_len)),
-                       dtype=torch.long, device=eng.device)
-    toks[0, :plen] = torch.as_tensor(prompt, device=eng.device)
+def cold_prefill(eng, r):
+    """Request r's whole prompt prefilled cold through `eng`'s admission
+    path (eng.prefill_batch: the bucket, the extra inputs; then
+    prefill_into_slot) on a fresh cache: (first-token logits, the cache)."""
     logits, cache = eng.model.prefill_into_slot(
-        eng.params, eng._fresh_cache(), 0, {"tokens": toks}, plen)
+        eng.params, eng._fresh_cache(), 0, eng.prefill_batch(r),
+        eng.prompt_lines(r))
     return logits[0, 0].float(), cache
 
 
@@ -2315,7 +2529,7 @@ def paged_serve_phase(torch, np, dev, card, flash_cuda, zero_counts,
     zero_counts()
     rows = []
     for rid in hits:
-        cold_logits, cold = cold_prefill(torch, eng, prompts[rid])
+        cold_logits, cold = cold_prefill(eng, reqs[rid])
         n = seen[rid]["hit_tokens"]
         same = all(torch.equal(_bits(seen[rid]["rows"][k]),
                                _bits(cold[k][:, 0, :n])) for k in ("k", "v"))
@@ -3213,77 +3427,29 @@ def moe_serve_phase(torch, np, dev, card, flash_cuda, zero_counts,
                         max_new_tokens=32, temperature=SPEC_HOT_T))
     # warm-up: one flash-sized request (cuBLAS handles, the flash pick)
     eng.run([Request(rid=99, prompt=prompts[0], max_new_tokens=2)])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    zero_counts()
-    stats, decode_ms, admit_ms = drive(eng, reqs)
-    torch.cuda.synchronize()
-    by_path["moe_serve"] = read_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
     n_flash = sum(len(r.prompt) % 256 == 0 for r in reqs)
-    want = {k: 0 for k in by_path["moe_serve"]}
-    want["flash_fwd"] = cfg.n_layers * n_flash
-    line = (f"[14a] serve deepseek-moe-16b (full width, {cfg.n_layers} "
-            f"layers: {cfg.first_k_dense} dense + "
-            f"{cfg.n_layers - cfg.first_k_dense} moe of {cfg.n_experts} "
-            f"experts top-{cfg.experts_per_token} + {cfg.n_shared_experts} "
-            f"shared; {n_params / 1e9:.3f}e9 params, init {init_s:.1f} s), "
-            f"flash on: {stats['requests']} requests (prompts "
-            f"{[len(r.prompt) for r in reqs]}), {stats['prefills']} "
-            f"prefills, {stats['decode_steps']} decode steps, "
-            f"{stats['new_tokens']} tokens; launches {by_path['moe_serve']} "
-            f"(flash_fwd expected {cfg.n_layers} x {n_flash} flash-sized "
-            f"prompts = {want['flash_fwd']}, every other kernel 0) [{card}]")
-    print(line, flush=True)
-    if by_path["moe_serve"] != want or stats["prefills"] != len(reqs):
-        fail(line)
-    check_outputs(eng, reqs, v)
-    first = {r.rid: list(eng.outputs[r.rid]) for r in reqs}
-    res = serve_metrics("14a", stats, decode_ms, admit_ms, peak, len(reqs),
-                        card)
-    res.update(n_params=n_params, init_s=init_s, flash_prompts=n_flash)
+    want = {"flash_fwd": cfg.n_layers * n_flash}
 
-    # determinism: the same requests again, every output bit-equal
-    drive(eng, reqs)
-    differ = [r.rid for r in reqs if eng.outputs[r.rid] != first[r.rid]]
-    line = (f"[14a] the same {len(reqs)} requests again: outputs bit-equal "
-            f"to the first run's except rids {differ} (none allowed) [{card}]")
-    print(line, flush=True)
-    if differ:
-        fail(line)
+    def describe(stats):
+        return (f"serve deepseek-moe-16b (full width, {cfg.n_layers} "
+                f"layers: {cfg.first_k_dense} dense + "
+                f"{cfg.n_layers - cfg.first_k_dense} moe of "
+                f"{cfg.n_experts} experts top-{cfg.experts_per_token} + "
+                f"{cfg.n_shared_experts} shared; {n_params / 1e9:.3f}e9 "
+                f"params, init {init_s:.1f} s), flash on: "
+                f"{stats['requests']} requests (prompts "
+                f"{[len(r.prompt) for r in reqs]}), {stats['prefills']} "
+                f"prefills, {stats['decode_steps']} decode steps, "
+                f"{stats['new_tokens']} tokens (flash_fwd: {cfg.n_layers} x "
+                f"{n_flash} flash-sized prompts)")
 
-    # where a round's time goes: one admission round (4 prefills) and three
-    # decode rounds under torch.profiler
-    zero_counts()
-    profile_rounds(torch, "14a", eng, reqs[:8:2], res, card)
-    torch.cuda.synchronize()
-    res["launches_per_decode_round"] = \
-        res["profile_decode"]["cuda_launch_kernel"] / 3
-
-    # the paged cache (k/v and dk/dv leaves paged; no prefix reuse for moe)
+    # the paged cache: k/v and dk/dv leaves paged, no prefix reuse for moe
     peng = ServeEngine(cfg, params, max_batch=4, cache_len=1024,
                        kv_page_size=PAGED_PAGE, device=dev)
-    torch.cuda.synchronize()
-    zero_counts()
-    pstats, pdecode, _ = drive(peng, reqs)
-    torch.cuda.synchronize()
-    by_path["moe_paged"] = read_counts()
-    kv = pstats["kvcache"]
-    peng.kv.check_conservation()
-    differ = [r.rid for r in reqs if peng.outputs[r.rid] != first[r.rid]]
-    line = (f"[14a] paged (kv_page_size {PAGED_PAGE}, leaves "
-            f"{list(peng.kv.leaves)}): outputs equal to the unpaged run's "
-            f"except rids {differ} (none allowed); launches "
-            f"{by_path['moe_paged']} (flash_fwd expected {want['flash_fwd']}); "
-            f"peak live pages {kv['peak_live_pages']} of {peng.kv.n_pages}, "
-            f"pages live after {peng.kv.pages_live}; decode round p50 "
-            f"{pdecode[len(pdecode) // 2]:.2f} ms [{card}]")
-    print(line, flush=True)
-    if differ or by_path["moe_paged"] != want or peng.kv.pages_live:
-        fail(line)
-    res["paged"] = {"decode_step_ms_p50": pdecode[len(pdecode) // 2],
-                    "peak_pages_live": kv["peak_live_pages"],
-                    "tok_per_s": pstats["tok_per_s"]}
+    res, first = serve_checked(torch, dev, card, "14a", "moe", eng, reqs,
+                               zero_counts, read_counts, by_path, describe,
+                               reqs[:8:2], want=want, paged=peng)
+    res.update(n_params=n_params, init_s=init_s, flash_prompts=n_flash)
 
     # each flash-sized prompt prefilled once more through the admission
     # path, every flash_fwd launch (group 1) held against flash_fwd_plain
@@ -3298,7 +3464,7 @@ def moe_serve_phase(torch, np, dev, card, flash_cuda, zero_counts,
     zero_counts()
     with hold_launches(flash_cuda, "flash_fwd", against_plain):
         for r in flash_reqs:
-            lg = first_token_logits(torch, eng, r.prompt)
+            lg = first_token_logits(eng, r)
             rows.append((r.rid, len(r.prompt), int(lg.argmax()),
                          first[r.rid][0], bool(torch.isfinite(lg).all())))
     torch.cuda.synchronize()
@@ -3613,11 +3779,11 @@ def wkv_form(ran, n):
 @contextlib.contextmanager
 def f32_storage(torch):
     """While open, the port's model code keeps in f32 what it stores and
-    rounds to bf16 (PARAM_DTYPE of layers, transformer and registry): with
-    f32 weights, every product and activation of the rwkv family is f32
-    (TF32 stays off: f32_accumulation)."""
-    from repro_torch.models import layers, registry, transformer
-    mods = (layers, registry, transformer)
+    rounds to bf16 (PARAM_DTYPE of layers, attention, transformer and
+    registry): with f32 weights, every product and activation of the rwkv
+    and whisper families is f32 (TF32 stays off: f32_accumulation)."""
+    from repro_torch.models import attention, layers, registry, transformer
+    mods = (layers, attention, registry, transformer)
     real = [m.PARAM_DTYPE for m in mods]
     for m in mods:
         m.PARAM_DTYPE = torch.float32
@@ -3672,60 +3838,35 @@ def rwkv_serve_phase(torch, np, dev, card, zero_counts, read_counts,
         eng.run([Request(rid=90 + i, prompt=prompts[-1][:n],
                          max_new_tokens=2) for i, n in enumerate((40, 64, 70))])
     check_flags_inside("15a", seen, card)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    seen, ran = [], []
-    zero_counts()
-    with watch_calls(torch, seen, rwkv6, WKV_FORMS, ran):
-        stats, decode_ms, admit_ms = drive(eng, reqs)
-    torch.cuda.synchronize()
-    by_path["rwkv_serve"] = read_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
-    check_flags_inside("15a", seen, card)
-    ttft = {r.rid: eng.request_stats[r.rid].ttft_s * 1e3 for r in reqs}
-    by_route = {}
-    for r in reqs:         # the form each admission ran (B=1, exact length)
-        by_route.setdefault(wkv_form(ran, len(r.prompt)), []).append(
-            (len(r.prompt), round(ttft[r.rid], 1)))
-    line = (f"[15a] serve rwkv6-7b (full width, {cfg.n_layers} layers, "
-            f"d_model {cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} "
-            f"heads of {cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {v}; "
-            f"{n_params / 1e9:.3f}e9 params, init {init_s:.1f} s): "
-            f"{stats['requests']} requests (prompts "
-            f"{[len(r.prompt) for r in reqs]}), {stats['prefills']} "
-            f"prefills, {stats['decode_steps']} decode steps, "
-            f"{stats['new_tokens']} tokens; TTFT ms by the WKV form each "
-            f"admission ran (prompt, ms): {by_route}; launches "
-            f"{by_path['rwkv_serve']} (every "
-            f"kernel 0: WKV is plain torch, as the reference's is pure "
-            f"JAX) [{card}]")
-    print(line, flush=True)
-    if any(by_path["rwkv_serve"].values()) or stats["prefills"] != len(reqs):
-        fail(line)
-    check_outputs(eng, reqs, v)
-    first = {r.rid: list(eng.outputs[r.rid]) for r in reqs}
-    res = serve_metrics("15a", stats, decode_ms, admit_ms, peak, len(reqs),
-                        card)
-    res.update(n_params=n_params, init_s=init_s, ttft_ms=ttft,
-               ttft_by_route=by_route)
+    seen, ran, by_route, ttft = [], [], {}, {}
 
-    # determinism: the same requests again, every output bit-equal
-    drive(eng, reqs)
-    differ = [r.rid for r in reqs if eng.outputs[r.rid] != first[r.rid]]
-    line = (f"[15a] the same {len(reqs)} requests again: outputs bit-equal "
-            f"to the first run's except rids {differ} (none allowed) [{card}]")
-    print(line, flush=True)
-    if differ:
-        fail(line)
+    def describe(stats):
+        ttft.update({r.rid: eng.request_stats[r.rid].ttft_s * 1e3
+                     for r in reqs})
+        for r in reqs:     # the form each admission ran (B=1, exact length)
+            by_route.setdefault(wkv_form(ran, len(r.prompt)), []).append(
+                (len(r.prompt), round(ttft[r.rid], 1)))
+        return (f"serve rwkv6-7b (full width, {cfg.n_layers} layers, "
+                f"d_model {cfg.d_model}, "
+                f"{cfg.d_model // cfg.rwkv_head_dim} heads of "
+                f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {v}; "
+                f"{n_params / 1e9:.3f}e9 params, init {init_s:.1f} s): "
+                f"{stats['requests']} requests (prompts "
+                f"{[len(r.prompt) for r in reqs]}), {stats['prefills']} "
+                f"prefills, {stats['decode_steps']} decode steps, "
+                f"{stats['new_tokens']} tokens; TTFT ms by the WKV form each "
+                f"admission ran (prompt, ms): {by_route} (every kernel 0: "
+                f"WKV is plain torch, as the reference's is pure JAX)")
 
     # one admission round (four prompts on the chunked forms: 40, 256, 384
-    # and 512 tokens) and three decode rounds under torch.profiler
-    zero_counts()
-    profile_rounds(torch, "15a", eng, [reqs[i] for i in (0, 3, 5, 7)], res,
-                   card)
-    torch.cuda.synchronize()
-    res["launches_per_decode_round"] = \
-        res["profile_decode"]["cuda_launch_kernel"] / 3
+    # and 512 tokens) and three decode rounds profiled
+    res, _ = serve_checked(
+        torch, dev, card, "15a", "rwkv", eng, reqs, zero_counts, read_counts,
+        by_path, describe, [reqs[i] for i in (0, 3, 5, 7)],
+        watch=lambda: watch_calls(torch, seen, rwkv6, WKV_FORMS, ran))
+    check_flags_inside("15a", seen, card)
+    res.update(n_params=n_params, init_s=init_s, ttft_ms=ttft,
+               ttft_by_route=by_route)
 
     # decode against prefill: 200 -> 201 both on the sequential scan (gated
     # at RWKV_DECODE_RTOL); 256 -> 257 leaves the 64-chunk form, whose
@@ -3925,15 +4066,106 @@ def rwkv_layer_checks(torch, np, dev, spec, card, layer):
     return rows
 
 
-def _train_run(torch, dev, spec, card, zero_counts, read_counts, by_path,
-               tag, cfg, seq_len, global_batch, watch):
-    """One Trainer(...).run() of TRAIN_STEPS steps (AdamW, cfg.remat, no
-    checkpoint written: the save is counted), every kernel count 0 a step
-    and the step-0 loss within LOSS0_ATOL of lse0 + 1e-4 lse0^2. watch:
-    (module, names) whose calls read the matmul flags. Returns (metrics,
-    trainer). One more step runs with the device traced."""
+def step_batch(torch, dev, cfg, loop, step):
+    """The batch Trainer.run() feeds at `step` (the data pipeline's tokens
+    and labels, whisper's stub frames or internvl2's stub patches
+    attached), on the card."""
+    from repro_torch.data.pipeline import (DataConfig, TokenSource,
+                                           make_stub_frontend_batch)
+    src = TokenSource(DataConfig(seq_len=loop.seq_len,
+                                 global_batch=loop.global_batch,
+                                 vocab_size=cfg.vocab_size, seed=loop.seed))
+    return {k: torch.from_numpy(a).to(dev) for k, a in
+            make_stub_frontend_batch(cfg, src.batch_at(step),
+                                     loop.seed).items()}
+
+
+def loss0_terms(torch, model, params, batch):
+    """The step-0 loss taken apart on the step's own params and batch,
+    with no grad and flash's plain version in the kernel's place (so no
+    kernel launch is counted): per labelled position the lse and the
+    target's logit (from the xent's own f32 logits), and per row the head
+    reads, its mean square; and the head table's mean square."""
+    from repro_torch.kernels.flash import flash_cuda
+    from repro_torch.models import registry
+    if not bool((batch["labels"] >= 0).all()):
+        fail("step 0's batch has masked labels: loss0_terms averages over "
+             "every position")
+    got = {"lse": [], "ll": [], "ms": []}
+    xent, logits_fn = registry.softmax_xent, registry.lm_logits
+
+    def rec_xent(logits, labels, **kw):
+        got["lse"].append(torch.logsumexp(logits, -1).flatten())
+        got["ll"].append(torch.gather(logits, -1, labels.long()[..., None])
+                         .flatten())
+        return xent(logits, labels, **kw)
+
+    def rec_logits(x, table):
+        got["ms"].append(x.float().square().mean(-1).flatten())
+        return logits_fn(x, table)
+
+    registry.softmax_xent, registry.lm_logits = rec_xent, rec_logits
+    try:
+        with torch.no_grad(), route_flash(plain_in_place(flash_cuda)):
+            _, m = model.loss_fn(params, batch)
+    finally:
+        registry.softmax_xent, registry.lm_logits = xent, logits_fn
+    lse, ll, ms = (torch.cat(got[k]).double() for k in ("lse", "ll", "ms"))
+    table = params["embed"] if model.cfg.tie_embeddings else params["head"]
+    table_ms = sum(float(t.double().square().sum())
+                   for t in table.split(4096)) / table.numel()
+    return {"positions": lse.numel(), "lse_mean": float(lse.mean()),
+            "lse_std": float(lse.std()), "ll_mean": float(ll.mean()),
+            "zloss_mean": float(1e-4 * lse.square().mean()),
+            "row_ms_mean": float(ms.mean()), "table_ms": table_ms,
+            "loss": float(m["loss"])}
+
+
+def loss0_check(label, cfg, t, loss0_run, card):
+    """Step 0's loss taken apart (loss0_terms), against what random
+    weights give: the logits of a row y are N(0, s2) with s2 = ms(table) x
+    d_model x ms(y), so the mean lse is ln V + s2 / 2 (held to LOSS0_ATOL)
+    and the mean target logit is 0 with a standard error sqrt(s2 / N) over
+    the batch's N positions (held to LOSS0_SE standard errors); the terms
+    add up to the loss the run reported (within LOSS0_SUM_ATOL)."""
     import math
-    from repro_torch.data.pipeline import DataConfig, TokenSource
+    s2 = t["table_ms"] * cfg.d_model * t["row_ms_mean"]
+    lse_want = math.log(cfg.vocab_size) + s2 / 2
+    se = math.sqrt(s2 / t["positions"])
+    total = t["lse_mean"] - t["ll_mean"] + t["zloss_mean"]
+    t.update(s2=s2, lse_expected=lse_want, ll_se=se)
+    line = (f"[{label}] {cfg.name}: step 0's loss taken apart over its "
+            f"{t['positions']} labelled positions (no grad, flash's plain "
+            f"version in place): mean lse {t['lse_mean']:.5f} (std over "
+            f"positions {t['lse_std']:.5f}; expected ln V + s2 / 2 = "
+            f"{lse_want:.5f}, s2 = ms(table) {t['table_ms']:.4e} x d_model "
+            f"{cfg.d_model} x ms(normed row) {t['row_ms_mean']:.5f} = "
+            f"{s2:.5f}; tol {LOSS0_ATOL}); mean target logit "
+            f"{t['ll_mean']:.5f} (expected 0, standard error sqrt(s2 / N) = "
+            f"{se:.5f}: {t['ll_mean'] / se:+.2f} se, tol {LOSS0_SE} se); "
+            f"z-loss {t['zloss_mean']:.5f}; lse - target + z-loss = "
+            f"{total:.5f} against the run's step-0 loss {loss0_run:.5f} "
+            f"(tol {LOSS0_SUM_ATOL}) [{card}]")
+    print(line, flush=True)
+    if not (abs(t["lse_mean"] - lse_want) <= LOSS0_ATOL
+            and abs(t["ll_mean"]) <= LOSS0_SE * se
+            and abs(total - loss0_run) <= LOSS0_SUM_ATOL
+            and abs(t["loss"] - total) <= 1e-4 * abs(total)):
+        fail(line)
+
+
+def _train_run(torch, dev, spec, card, zero_counts, read_counts, by_path,
+               tag, cfg, seq_len, global_batch, watch, label="15c",
+               per_step=None):
+    """One Trainer(...).run() of TRAIN_STEPS steps (cfg.optimizer,
+    cfg.remat, no checkpoint written: the save is counted), every step's
+    kernel counts equal to per_step (every kernel 0 when None), the
+    step-0 loss within LOSS0_ATOL of lse0 + 1e-4 lse0^2 and taken apart
+    (loss0_terms, loss0_check). watch: (module, names) whose calls read
+    the matmul flags. Returns (metrics, trainer).
+    One more step runs with the device traced, on the batch (stub frames
+    or patches attached) of step TRAIN_STEPS."""
+    import math
     from repro_torch.train.trainer import TrainLoopConfig, Trainer
     ckpt_dir = os.path.join(ROOT, "build", f"chip_smoke_{tag}_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -3941,10 +4173,12 @@ def _train_run(torch, dev, spec, card, zero_counts, read_counts, by_path,
                            log_every=1, ckpt_dir=ckpt_dir, seq_len=seq_len,
                            global_batch=global_batch)
     tr = Trainer(cfg, loop, device=dev)
-    saves, step_ms, step_counts = [], [], []
+    saves, step_ms, step_counts, terms = [], [], [], {}
     real_step = tr.step_fn
 
     def timed_step(params, opt_state, batch):
+        if not terms:           # step 0: its own params and batch
+            terms.update(loss0_terms(torch, tr.model, params, batch))
         torch.cuda.synchronize()
         before, t0 = read_counts(), time.perf_counter()
         out = real_step(params, opt_state, batch)
@@ -3957,7 +4191,7 @@ def _train_run(torch, dev, spec, card, zero_counts, read_counts, by_path,
     tr.step_fn = timed_step
     tr.ckpt.save = lambda step, tree, **kw: saves.append(step)
     impl = f"ssm_impl {cfg.ssm_impl!r}, " if cfg.family == "hybrid" else ""
-    print(f"[15c] train {cfg.name} at full width, {cfg.n_layers} layers, "
+    print(f"[{label}] train {cfg.name} at full width, {cfg.n_layers} layers, "
           f"{impl}remat {cfg.remat!r}, "
           f"{cfg.optimizer}: seq_len {seq_len}, global_batch "
           f"{global_batch}, {TRAIN_STEPS} steps", flush=True)
@@ -3971,23 +4205,23 @@ def _train_run(torch, dev, spec, card, zero_counts, read_counts, by_path,
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     by_path[f"{tag}_train"] = read_counts()
-    check_flags_inside("15c", seen, card)
+    check_flags_inside(label, seen, card)
     peak = torch.cuda.max_memory_allocated(dev)
     losses = out["losses"]
     lse0 = math.log(cfg.vocab_size) + INIT_SCALE ** 2 * cfg.d_model / 2
     loss0 = lse0 + 1e-4 * lse0 ** 2
-    zero = {k: 0 for k in by_path[f"{tag}_train"]}
-    line = (f"[15c] {cfg.name}: losses {[round(x, 4) for x in losses]} (step "
-            f"0 expected {loss0:.4f} +- {LOSS0_ATOL}); launches a step "
-            f"{step_counts[0]} (every kernel 0 expected: no flash under a "
-            f"window or without attention, the chunked scan); saves {saves} "
-            f"[{card}]")
+    want = {k: 0 for k in by_path[f"{tag}_train"]}
+    want.update(per_step or {})
+    line = (f"[{label}] {cfg.name}: losses {[round(x, 4) for x in losses]} "
+            f"(step 0 expected {loss0:.4f} +- {LOSS0_ATOL}); launches a step "
+            f"{step_counts[0]} (expected {want}); saves {saves} [{card}]")
     print(line, flush=True)
     if (len(losses) != TRAIN_STEPS
             or not all(math.isfinite(x) for x in losses)
             or abs(losses[0] - loss0) > LOSS0_ATOL
-            or any(c != zero for c in step_counts) or saves != [TRAIN_STEPS]):
+            or any(c != want for c in step_counts) or saves != [TRAIN_STEPS]):
         fail(line)
+    loss0_check(label, cfg, terms, losses[0], card)
     steady = sorted(step_ms[1:])
     step_p50 = steady[len(steady) // 2]
     n_params = sum(x.numel() for x in _leaves(tr.state["params"]))
@@ -3995,20 +4229,17 @@ def _train_run(torch, dev, spec, card, zero_counts, read_counts, by_path,
     res = {"losses": losses, "step_ms": step_ms, "step_ms_p50": step_p50,
            "tokens_per_step": tokens, "tok_per_s": tokens / step_p50 * 1e3,
            "n_params": n_params, "peak_mem_gb": peak / 1e9, "run_s": run_s,
-           "loss0_expected": loss0}
+           "loss0_expected": loss0, "loss0_terms": terms}
     shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     # where a step's time goes: one more step with the device traced
-    src = TokenSource(DataConfig(seq_len=seq_len, global_batch=global_batch,
-                                 vocab_size=cfg.vocab_size, seed=loop.seed))
-    batch = {k: torch.from_numpy(a).to(dev)
-             for k, a in src.batch_at(TRAIN_STEPS).items()}
+    batch = step_batch(torch, dev, cfg, loop, TRAIN_STEPS)
     wall, busy, kernels, _, _, _, n_kernels = profile_window(
         torch, lambda: real_step(tr.state["params"], tr.state["opt"], batch),
         host=False)
     res["profile"] = {"wall_ms": wall, "device_busy_ms": busy,
                       "kernels": n_kernels}
-    print(f"[15c] {cfg.name}: one step with the device traced: wall "
+    print(f"[{label}] {cfg.name}: one step with the device traced: wall "
           f"{wall:.2f} ms, device busy {busy:.2f} ms ({busy / wall:.1%}); "
           f"{n_kernels} kernels; top kernels (ms, calls): {kernels} "
           f"[{card}]", flush=True)
@@ -4113,6 +4344,544 @@ def ssm_train_phase(torch, dev, spec, card, zero_counts, read_counts,
           f"FLOPs are not counted); peak device memory "
           f"{rw['peak_mem_gb']:.2f} GB [{card}]", flush=True)
     res["rwkv"] = rw
+    del tr
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the vlm family served (16a), the encdec family served (16b), and
+# both trained (16c)
+# ---------------------------------------------------------------------------
+
+def stub_input(torch, dev, gen, shape, dtype):
+    """A stub frontend input (whisper's frames, internvl2's patch
+    embeddings) of N(0, 1) x INIT_SCALE, drawn on the card from `gen`."""
+    return (torch.randn(shape, generator=gen, device=dev)
+            * INIT_SCALE).to(dtype)
+
+
+def vlm_serve_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
+                    read_counts, by_path):
+    """Phase 16a: ServeEngine on internvl2-26b at full width and depth,
+    flash on, each request's 256 patch embeddings in Request.extra; the
+    same requests again (bit-equal outputs), through the paged cache
+    (equal outputs); each flash-sized admission again with every flash_fwd
+    launch held against its plain version, and its first-token logits
+    against the plain version in the kernel's place and against flash off;
+    flash_fwd and SDPA at this model's prefill shape."""
+    import dataclasses
+    import repro_torch
+    from repro_torch.kernels import api
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.tune import tuner
+    t_phase = time.perf_counter()
+    base = repro_torch.get_config("internvl2-26b")
+    cfg = dataclasses.replace(base, use_flash_attention=True)
+    v, n_vis = cfg.vocab_size, cfg.n_vis_tokens
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = repro_torch.build_model(cfg).init_params(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(x.numel() for x in _leaves(params))
+    eng = ServeEngine(cfg, params, max_batch=4, cache_len=VLM_CACHE_LEN,
+                      device=dev)
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shape = (1, n_vis, cfg.d_model)
+    reqs = [Request(rid=i, prompt=rng.integers(0, v, n), max_new_tokens=32,
+                    extra={"vis": stub_input(torch, dev, gen, shape,
+                                             torch.bfloat16)})
+            for i, n in enumerate(VLM_PROMPTS)]
+    reqs.append(Request(rid=len(reqs),
+                        prompt=rng.integers(0, v, VLM_HOT_PROMPT),
+                        max_new_tokens=32, temperature=SPEC_HOT_T,
+                        extra={"vis": stub_input(torch, dev, gen, shape,
+                                                 torch.bfloat16)}))
+    # the rows each admission prefills, as the engine builds them: the vis
+    # lines, then the text's bucket under the room they leave
+    rows = {r.rid: prefill_rows(eng, r) for r in reqs}
+    flash_rids = [r.rid for r in reqs if rows[r.rid] % 256 == 0]
+    # warm-up: one flash-sized request (cuBLAS handles, the flash pick), the
+    # matmul flags read at each flash call inside the engine's work
+    seen = []
+
+    def read_flags(run, q, k, v, **kw):
+        seen.append(matmul_flags(torch))
+        return run(q, k, v, **kw)
+
+    with route_flash(read_flags):
+        eng.run([Request(rid=99, prompt=reqs[1].prompt, max_new_tokens=2,
+                         extra=reqs[1].extra)])
+    torch.cuda.synchronize()
+    check_flags_inside("16a", seen, card)
+    want = {"flash_fwd": cfg.n_layers * len(flash_rids)}
+
+    def describe(stats):
+        return (f"serve internvl2-26b (full width, {cfg.n_layers} layers, "
+                f"d_model {cfg.d_model}, {cfg.n_heads} heads over "
+                f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {v}; "
+                f"{n_params / 1e9:.3f}e9 params, init {init_s:.1f} s), flash "
+                f"on: {stats['requests']} requests (text "
+                f"{[len(r.prompt) for r in reqs]} + {n_vis} vis; rows "
+                f"prefilled {[rows[r.rid] for r in reqs]}: flash-sized rids "
+                f"{flash_rids}, the others chunked), {stats['prefills']} "
+                f"prefills, {stats['decode_steps']} decode steps, "
+                f"{stats['new_tokens']} tokens (flash_fwd: {cfg.n_layers} x "
+                f"{len(flash_rids)})")
+
+    # one admission round (four prompts: chunked and flash routes) and
+    # three decode rounds profiled; the paged cache: k/v over the vis and
+    # text lines, no prefix reuse
+    peng = ServeEngine(cfg, params, max_batch=4, cache_len=VLM_CACHE_LEN,
+                       kv_page_size=PAGED_PAGE, device=dev)
+    res, first = serve_checked(torch, dev, card, "16a", "vlm", eng, reqs,
+                               zero_counts, read_counts, by_path, describe,
+                               reqs[:8:2], want=want, paged=peng)
+    del peng
+    res.update(n_params=n_params, init_s=init_s,
+               init_peak_mem_gb=init_peak / 1e9, flash_rids=flash_rids,
+               rows=list(rows.values()))
+    print(f"[16a] peak device memory at init {init_peak / 1e9:.2f} GB (each "
+          f"leaf drawn in f32, then rounded), while serving "
+          f"{res['peak_mem_gb']:.2f} GB (peak reset after init) [{card}]",
+          flush=True)
+
+    # each flash-sized request prefilled again through the admission path,
+    # three ways; at 48 layers the logits are held only to the sanity bound
+    # VLM_LOGIT_RTOL, the witness below holds them to SERVE_LOGIT_RTOL
+    plain = ServeEngine(base, params, max_batch=4, cache_len=VLM_CACHE_LEN,
+                        device=dev)
+    flash_reqs = [r for r in reqs if r.rid in flash_rids]
+    zero_counts()
+    launch_ulps, rows_chk = vlm_routes(torch, flash_cuda, eng, plain,
+                                       flash_reqs)
+    torch.cuda.synchronize()
+    by_path["vlm-serve-check"] = read_counts()
+    worst = {i: max(x[i] for x in rows_chk) for i in (1, 2, 3)}
+    worst_launch = max(launch_ulps, default=float("inf"))
+    served = all(x[4] == first[x[0]][0] or reqs[x[0]].temperature
+                 for x in rows_chk)
+    line = (f"[16a] {len(launch_ulps)} flash_fwd launches (group "
+            f"{cfg.n_heads // cfg.n_kv_heads}: H={cfg.n_heads}, "
+            f"KvH={cfg.n_kv_heads}, Hd {cfg.head_dim}) in {len(rows_chk)} "
+            f"flash-sized prefills (rows {[rows[r] for r in flash_rids]}) "
+            f"held against flash_fwd_plain on their own inputs: worst "
+            f"{worst_launch:.2f} bf16 ulps (tol {FLASH_OUT_ULPS}); "
+            f"first-token logits at {cfg.n_layers} layers, max |diff| / max "
+            f"|logit|, worst: kernel path vs plain version in its place "
+            f"{worst[1]:.3e}, kernel path vs flash off (chunked) "
+            f"{worst[2]:.3e}, plain version vs chunked (no kernel in either: "
+            f"this model's bf16 floor at this depth) {worst[3]:.3e} (sanity "
+            f"bound {VLM_LOGIT_RTOL} each); the kernel path's greedy argmax "
+            f"= the served first token: {served}; per request (rid, a-b, "
+            f"a-c, b-c, argmax, finite): {rows_chk}; launches "
+            f"{by_path['vlm-serve-check']} [{card}]")
+    print(line, flush=True)
+    if (len(launch_ulps) != cfg.n_layers * len(flash_rids)
+            or worst_launch > FLASH_OUT_ULPS
+            or max(worst.values()) > VLM_LOGIT_RTOL
+            or not served or not all(x[5] for x in rows_chk)):
+        fail(line)
+    res.update(launch_ulps_max=worst_launch,
+               logits_rel_vs_plain=worst[1], logits_rel_vs_chunked=worst[2],
+               logits_rel_plain_vs_chunked=worst[3])
+    del plain, eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    res["witness"] = vlm_route_witness(torch, dev, card, flash_cuda, base,
+                                       flash_reqs)
+    by_path["vlm-witness"] = read_counts()
+
+    # printed only: flash_fwd and SDPA at this model's largest flash prefill
+    b_, s_, h, kvh, hd = 1, VLM_OP_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, vv = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
+                for sh in ((b_, s_, h, hd), (b_, s_, kvh, hd),
+                           (b_, s_, kvh, hd)))
+    key = api.get_kernel("flash").problem_key(q, k, vv)
+    fcfg = tuner.tune_kernel("flash", key, measure_mode=False,
+                             device=dev).config
+    out, _ = flash_cuda.flash_fwd(q, k, vv, fcfg, True)
+    ulps = bf16_ulps(out, flash_cuda.flash_fwd_plain(q, k, vv, fcfg, True)[0])
+    dev_ms = graph_ms(lambda: flash_cuda.flash_fwd(q, k, vv, fcfg, True))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, vv))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_dev_ms = graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True))
+    ops_ms = flash_cuda.useful_flops(b_, h, s_, s_, hd, True) \
+        / spec.bf16_tc_flops * 1e3
+    bytes_ms = flash_cuda.min_bytes(b_, h, kvh, s_, s_, hd) / spec.hbm_bw * 1e3
+    bound = max(ops_ms, bytes_ms)
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    res["op_level"] = {"shape": [b_, s_, h, kvh, hd],
+                       "blocks": [fcfg.blk_q, fcfg.blk_kv], "ulps": ulps,
+                       "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+                       "bound_ms": bound, "bound_by": by}
+    print(f"[16a] flash_fwd at this model's prefill shape (B={b_}, S={s_}, "
+          f"H={h}, KvH={kvh}, Hd={hd}) blocks ({fcfg.blk_q},{fcfg.blk_kv}): "
+          f"{ulps:.2f} bf16 ulps from the plain version; device {dev_ms:.4f} "
+          f"ms (CUDA graph), SDPA device {lib_dev_ms:.4f} ms; bound "
+          f"{bound:.4f} ms ({by}: {ops_ms:.4f} ms of bf16 at "
+          f"{spec.bf16_tc_flops / 1e12:.0f} TFLOP/s, {bytes_ms:.4f} ms of "
+          f"bytes) [{card}]", flush=True)
+    if ulps > FLASH_OUT_ULPS:
+        fail(f"[16a] flash_fwd at ({b_}, {s_}, {h}, {kvh}, {hd}): {ulps:.2f} "
+             f"ulps")
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def vlm_routes(torch, flash_cuda, eng, chunked, reqs):
+    """First-token logits of each request of `reqs` three ways, each
+    through its engine's admission path: (a) on the kernel path (`eng`,
+    flash on), every flash_fwd launch held against flash_fwd_plain on its
+    own inputs; (b) `eng` with the plain version in the kernel's place;
+    (c) `chunked` (flash off). Returns (each launch's bf16 ulps, per
+    request (rid, a-b, a-c, b-c max-norm relative, a's argmax, a finite))."""
+    launch_ulps, out = [], []
+
+    def against_plain(args, got):
+        launch_ulps.append(bf16_ulps(got[0],
+                                     flash_cuda.flash_fwd_plain(*args)[0]))
+
+    for r in reqs:
+        with hold_launches(flash_cuda, "flash_fwd", against_plain):
+            a = first_token_logits(eng, r)
+        with route_flash(plain_in_place(flash_cuda)):
+            b = first_token_logits(eng, r)
+        c = first_token_logits(chunked, r)
+        out.append((r.rid, round(logit_rel(a, b), 6),
+                    round(logit_rel(a, c), 6), round(logit_rel(b, c), 6),
+                    int(a.argmax()), bool(torch.isfinite(a).all())))
+    return launch_ulps, out
+
+
+def plain_in_place(flash_cuda):
+    """A route_flash stand-in: flash_fwd_plain in the kernel's place."""
+    def run_plain(run, q, k, v, **kw):
+        return flash_cuda.flash_fwd_plain(q, k, v, flash_blocks(q, k, v, kw),
+                                          kw["causal"])[0]
+    return run_plain
+
+
+def vlm_route_witness(torch, dev, card, flash_cuda, base, reqs):
+    """16a's witness: internvl2-26b at full width cut to VLM_WITNESS_LAYERS
+    layers, seed 0. In bf16, each of `reqs`' first-token logits on the
+    kernel path (every flash_fwd launch held to its plain version) against
+    the plain version in the kernel's place and against flash off, each
+    held to SERVE_LOGIT_RTOL; then with f32 weights and activations
+    (f32_storage) the plain version in the kernel's place against flash
+    off, held to VLM_F32_RTOL: the distance between the routes is
+    rounding."""
+    import dataclasses
+    import repro_torch
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dataclasses.replace(base, n_layers=VLM_WITNESS_LAYERS)
+    fcfg = dataclasses.replace(cfg, use_flash_attention=True)
+    params = repro_torch.build_model(cfg).init_params(0, device=dev)
+
+    def engines():
+        return (ServeEngine(c, params, max_batch=1, cache_len=VLM_CACHE_LEN,
+                            device=dev) for c in (fcfg, cfg))
+
+    flash, chunked = engines()
+    launch_ulps, rows = vlm_routes(torch, flash_cuda, flash, chunked, reqs)
+    worst = {i: max(x[i] for x in rows) for i in (1, 2, 3)}
+    params = tree_map(lambda t: t.float(), params)
+    f32 = []
+    with f32_storage(torch):
+        flash, chunked = engines()
+        for r in reqs:
+            with route_flash(plain_in_place(flash_cuda)):
+                b = first_token_logits(flash, r)
+            f32.append(round(logit_rel(b, first_token_logits(chunked, r)),
+                             9))
+    del params, flash, chunked
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"launch_ulps_max": max(launch_ulps, default=float("inf")),
+           "bf16_kernel_vs_plain": worst[1],
+           "bf16_kernel_vs_chunked": worst[2],
+           "bf16_plain_vs_chunked": worst[3], "f32_plain_vs_chunked": max(f32)}
+    line = (f"[16a] witness at full width cut to {VLM_WITNESS_LAYERS} layers, "
+            f"rids {[r.rid for r in reqs]}: {len(launch_ulps)} flash_fwd "
+            f"launches, worst {out['launch_ulps_max']:.2f} bf16 ulps from "
+            f"the plain version (tol {FLASH_OUT_ULPS}); first-token logits, "
+            f"max |diff| / max |logit|, worst, in bf16: kernel path vs plain "
+            f"version in its place {worst[1]:.3e}, kernel path vs flash off "
+            f"{worst[2]:.3e} (tol {SERVE_LOGIT_RTOL} each), plain version vs "
+            f"flash off {worst[3]:.3e} (printed); with f32 weights and "
+            f"activations, plain version vs flash off, per request {f32} "
+            f"(tol {VLM_F32_RTOL}: the bf16 distance between the routes is "
+            f"rounding); bf16 per request (rid, a-b, a-c, b-c, argmax, "
+            f"finite): {rows} [{card}]")
+    print(line, flush=True)
+    if (len(launch_ulps) != VLM_WITNESS_LAYERS * len(reqs)
+            or out["launch_ulps_max"] > FLASH_OUT_ULPS
+            or max(worst[1], worst[2]) > SERVE_LOGIT_RTOL
+            or not all(x[5] for x in rows)
+            or not out["f32_plain_vs_chunked"] <= VLM_F32_RTOL):
+        fail(line)
+    return out
+
+
+def grow_kv(torch, cache, lines):
+    """A prefill cache with `lines` more zero k/v lines (room for decode
+    steps past the prompt)."""
+    out = dict(cache)
+    for key in ("k", "v"):
+        pad = torch.zeros_like(cache[key][:, :, :lines])
+        out[key] = torch.cat([cache[key], pad], dim=2)
+    return out
+
+
+def whisper_decode_vs_prefill(torch, model, params, toks, frames, n):
+    """prefill(toks[:, :n]) then one decode step of toks[:, n], against
+    the last logits of prefill(toks[:, :n + 1]), both on `frames`:
+    max-norm relative."""
+    _, cache = model.prefill(params, {"tokens": toks[:, :n],
+                                      "frames": frames})
+    got, _ = model.decode_step(params, grow_kv(torch, cache, 1),
+                               toks[:, n:n + 1])
+    want, _ = model.prefill(params, {"tokens": toks[:, :n + 1],
+                                     "frames": frames})
+    return logit_rel(got, want)
+
+
+def whisper_serve_phase(torch, np, dev, card, zero_counts, read_counts,
+                        by_path):
+    """Phase 16b: ServeEngine on whisper-small at full width and depth
+    (12 + 12 layers, 1500 frames), each request's frames in
+    Request.extra; the same requests again (bit-equal), through the paged
+    cache (equal); an admission's own ms; decode against prefill in bf16
+    and with f32 weights and activations."""
+    import repro_torch
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.serve.engine import Request, ServeEngine
+    t_phase = time.perf_counter()
+    cfg = repro_torch.get_config("whisper-small")
+    v = cfg.vocab_size
+    model = repro_torch.build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init_params(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(x.numel() for x in _leaves(params))
+    eng = ServeEngine(cfg, params, max_batch=4, cache_len=WHISPER_CACHE_LEN,
+                      device=dev)
+    rng = np.random.default_rng(6)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    shape = (1, cfg.enc_seq, cfg.d_model)
+    reqs = [Request(rid=i, prompt=rng.integers(0, v, n), max_new_tokens=32,
+                    extra={"frames": stub_input(torch, dev, gen, shape,
+                                                torch.bfloat16)})
+            for i, n in enumerate(WHISPER_PROMPTS)]
+    reqs.append(Request(rid=len(reqs),
+                        prompt=rng.integers(0, v, WHISPER_HOT_PROMPT),
+                        max_new_tokens=32, temperature=SPEC_HOT_T,
+                        extra={"frames": stub_input(torch, dev, gen, shape,
+                                                    torch.float32)}))
+    eng.run([Request(rid=99, prompt=reqs[0].prompt, max_new_tokens=2,
+                     extra=reqs[0].extra)])
+
+    def describe(stats):
+        return (f"serve whisper-small (full width, {cfg.n_enc_layers} "
+                f"encoder + {cfg.n_layers} decoder layers, d_model "
+                f"{cfg.d_model}, {cfg.enc_seq} frames, vocab {v}; "
+                f"{n_params / 1e9:.4f}e9 params, init {init_s:.1f} s): "
+                f"{stats['requests']} requests (prompts "
+                f"{[len(r.prompt) for r in reqs]}; frames bf16, the last "
+                f"f32), {stats['prefills']} prefills, "
+                f"{stats['decode_steps']} decode steps, "
+                f"{stats['new_tokens']} tokens (every kernel 0: the encoder, "
+                f"the cross-attention and the decoder run chunked attention, "
+                f"as in the reference)")
+
+    # the paged cache: the decoder's k/v paged, xk/xv dense
+    peng = ServeEngine(cfg, params, max_batch=4, cache_len=WHISPER_CACHE_LEN,
+                       kv_page_size=PAGED_PAGE, device=dev)
+    res, _ = serve_checked(torch, dev, card, "16b", "whisper", eng, reqs,
+                           zero_counts, read_counts, by_path, describe,
+                           reqs[:8:2], paged=peng)
+    del peng
+    res.update(n_params=n_params, init_s=init_s,
+               init_peak_mem_gb=init_peak / 1e9)
+
+    # an admission alone: the encoder over 1500 frames, the decoder's
+    # prefill and the slot write (prefill_into_slot), each timed to the end
+    adm = []
+    for r in reqs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first_token_logits(eng, r)
+        torch.cuda.synchronize()
+        adm.append((time.perf_counter() - t0) * 1e3)
+    res["admission_ms"] = adm
+    res["admission_ms_p50"] = sorted(adm)[len(adm) // 2]
+    print(f"[16b] an admission alone (encoder + decoder prefill + slot "
+          f"write), ms per request: {[round(x, 2) for x in adm]}; p50 "
+          f"{res['admission_ms_p50']:.2f} [{card}]", flush=True)
+    del eng
+
+    # decode against prefill (200 -> 201) on bf16 frames, and with f32
+    # weights, activations and frames: the witness that the bf16 distance
+    # is rounding
+    toks = torch.as_tensor(rng.integers(0, v, (1, WHISPER_DECODE_AT + 1)),
+                           device=dev)
+    frames = stub_input(torch, dev, gen, shape, torch.float32)
+    rel = {"bf16": whisper_decode_vs_prefill(
+        torch, model, params, toks, frames.bfloat16(), WHISPER_DECODE_AT)}
+    p32 = tree_map(lambda t: t.float(), params)
+    with f32_storage(torch):
+        rel["f32"] = whisper_decode_vs_prefill(torch, model, p32, toks,
+                                               frames, WHISPER_DECODE_AT)
+    del p32
+    n = WHISPER_DECODE_AT
+    line = (f"[16b] decode against prefill, max-norm relative: prefill({n}) "
+            f"+ one decode step vs prefill({n + 1}): bf16 "
+            f"{rel['bf16']:.3e} (tol {SERVE_LOGIT_RTOL}), with f32 weights, "
+            f"activations and frames {rel['f32']:.3e} (tol "
+            f"{WHISPER_DECODE_F32_RTOL}) [{card}]")
+    print(line, flush=True)
+    if not (rel["bf16"] <= SERVE_LOGIT_RTOL
+            and rel["f32"] <= WHISPER_DECODE_F32_RTOL):
+        fail(line)
+    res["decode_vs_prefill"] = rel
+    del params
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def encdec_vlm_train_phase(torch, dev, spec, card, flash_cuda, zero_counts,
+                           read_counts, by_path):
+    """Phase 16c: Trainer(...).run() on whisper-small at full width (AdamW,
+    WHISPER_TRAIN_SEQ x WHISPER_TRAIN_BATCH, the stub f32 frames) and on
+    internvl2-26b at full width cut to VLM_TRAIN_LAYERS layers (Adafactor,
+    flash on, VLM_TRAIN_SEQ x VLM_TRAIN_BATCH: 256 vis + 512 text), remat
+    "full", TRAIN_STEPS steps, no checkpoint; then one internvl2 step with
+    every flash launch held against its plain version."""
+    import dataclasses
+    import repro_torch
+    from repro_torch.models import attention
+    t_phase = time.perf_counter()
+    res = {}
+    cfg = dataclasses.replace(repro_torch.get_config("whisper-small"),
+                              remat="full")
+    wh, tr = _train_run(torch, dev, spec, card, zero_counts, read_counts,
+                        by_path, "whisper", cfg, WHISPER_TRAIN_SEQ,
+                        WHISPER_TRAIN_BATCH,
+                        (attention, ("chunked_causal_attention",)),
+                        label="16c")
+    b, s, f = WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, cfg.enc_seq
+    params = tr.state["params"]
+    n_enc = sum(x.numel() for k in ("enc_layers", "enc_ln", "enc_lnb")
+                for x in _leaves({k: params[k]}))
+    n_dec = wh["n_params"] - n_enc - params["dec_pos"].numel()
+    h, hd = cfg.n_heads, cfg.head_dim
+    attn = 3 * (cfg.n_enc_layers * flash_cuda.useful_flops(b, h, f, f, hd,
+                                                           False)
+                + cfg.n_layers * (flash_cuda.useful_flops(b, h, s, s, hd, True)
+                                  + flash_cuda.useful_flops(b, h, s, f, hd,
+                                                            False)))
+    wh["mfu"] = ((6 * (n_dec * b * s + n_enc * b * f) + attn)
+                 / (wh["step_ms_p50"] / 1e3) / spec.bf16_tc_flops)
+    wh.update(n_enc_params=n_enc, n_dec_params=n_dec)
+    print(f"[16c] whisper-small: step ms {[round(x, 2) for x in wh['step_ms']]}"
+          f" (p50 after the first {wh['step_ms_p50']:.2f}); "
+          f"{wh['tok_per_s']:.1f} tokens/s; mfu {wh['mfu']:.4f} ((6 (N_dec "
+          f"tokens + N_enc frames) + attention {attn:.3e}) / step / "
+          f"{spec.bf16_tc_flops / 1e12:.0f} TFLOP/s: N_dec = {n_dec} (every "
+          f"parameter but the encoder's and dec_pos), N_enc = {n_enc}, "
+          f"{b * s} tokens and {b * f} frames a step; attention x3 for the "
+          f"backward: the encoder's {f} x {f} non-causal, the decoder's "
+          f"causal {s} x {s}, the cross-attention's {s} x {f}); peak device "
+          f"memory {wh['peak_mem_gb']:.2f} GB [{card}]", flush=True)
+    res["whisper"] = wh
+    del tr, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(repro_torch.get_config("internvl2-26b"),
+                              n_layers=VLM_TRAIN_LAYERS, remat="full",
+                              use_flash_attention=True)
+    n_layers = cfg.n_layers
+    per_step = dict(flash_fwd=2 * n_layers, flash_bwd_dq=n_layers,
+                    flash_bwd_dkv=n_layers)
+    vl, tr = _train_run(torch, dev, spec, card, zero_counts, read_counts,
+                        by_path, "vlm", cfg, VLM_TRAIN_SEQ, VLM_TRAIN_BATCH,
+                        (attention, ("flash_attention",)), label="16c",
+                        per_step=per_step)
+    b, s = VLM_TRAIN_BATCH, VLM_TRAIN_SEQ
+    attn = 3 * n_layers * flash_cuda.useful_flops(b, cfg.n_heads, s, s,
+                                                  cfg.head_dim, True)
+    vl["mfu"] = ((6 * vl["n_params"] * b * s + attn)
+                 / (vl["step_ms_p50"] / 1e3) / spec.bf16_tc_flops)
+    print(f"[16c] internvl2-26b ({n_layers} layers, {cfg.optimizer}): step "
+          f"ms {[round(x, 2) for x in vl['step_ms']]} (p50 after the first "
+          f"{vl['step_ms_p50']:.2f}); {vl['tok_per_s']:.1f} tokens/s (text "
+          f"and vis positions); mfu {vl['mfu']:.4f} ((6 N positions + "
+          f"attention {attn:.3e}) / step / {spec.bf16_tc_flops / 1e12:.0f} "
+          f"TFLOP/s, N = {vl['n_params']}, {b} x {s} positions a step: "
+          f"{cfg.n_vis_tokens} vis + {s - cfg.n_vis_tokens} text a row); "
+          f"peak device memory {vl['peak_mem_gb']:.2f} GB [{card}]",
+          flush=True)
+
+    # one more step with every flash launch (group 6) held against its
+    # plain version on its own inputs, the matmul flags read at each
+    batch = step_batch(torch, dev, cfg, tr.loop, TRAIN_STEPS)
+    plain = {"flash_fwd": lambda *a: flash_cuda.flash_fwd_plain(*a)[0],
+             "flash_bwd_dq": flash_cuda.flash_bwd_dq_plain,
+             "flash_bwd_dkv": flash_cuda.flash_bwd_dkv_plain}
+    errs = {name: [] for name in plain}
+    seen = []
+
+    def against_plain(name):
+        def check(args, got):
+            seen.append(matmul_flags(torch))
+            want = plain[name](*args)
+            if name == "flash_fwd":
+                errs[name].append(bf16_ulps(got[0], want))
+                return
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            errs[name].append(max(
+                float((g.float() - w.float()).abs().max()) / ulp_at_max(w)
+                for g, w in pairs))
+        return check
+
+    zero_counts()
+    with hold_launches(flash_cuda, "flash_fwd", against_plain("flash_fwd")), \
+            hold_launches(flash_cuda, "flash_bwd_dq",
+                          against_plain("flash_bwd_dq")), \
+            hold_launches(flash_cuda, "flash_bwd_dkv",
+                          against_plain("flash_bwd_dkv")):
+        tr.step_fn(tr.state["params"], tr.state["opt"], batch)
+        torch.cuda.synchronize()
+    by_path["vlm-train-check"] = read_counts()
+    check_flags_inside("16c", seen, card)
+    worst = {name: max(e) if e else float("inf") for name, e in errs.items()}
+    line = (f"[16c] one checked internvl2 step: launches held against their "
+            f"plain versions on their own inputs (group "
+            f"{cfg.n_heads // cfg.n_kv_heads}: B={b}, S={s}, H={cfg.n_heads}, "
+            f"KvH={cfg.n_kv_heads}, Hd {cfg.head_dim}): "
+            f"{ {n: len(e) for n, e in errs.items()} } (expected {per_step}), "
+            f"worst {worst} (flash_fwd in bf16 ulps, tol {FLASH_OUT_ULPS}; "
+            f"the backward kernels in bf16 ulps at the largest element, tol "
+            f"{BWD_ULPS}); launches {by_path['vlm-train-check']} [{card}]")
+    print(line, flush=True)
+    if (any(len(e) != per_step[n] for n, e in errs.items())
+            or worst["flash_fwd"] > FLASH_OUT_ULPS
+            or max(worst["flash_bwd_dq"], worst["flash_bwd_dkv"]) > BWD_ULPS):
+        fail(line)
+    vl["launch_worst_ulps"] = worst
+    res["vlm"] = vl
     del tr
     res["phase_s"] = time.perf_counter() - t_phase
     return res

@@ -14,9 +14,10 @@ JAX package `repro`, which stays the reference.
     run_journey(size, device=)
         The paper's Table I, v0-v10, measured on the card.
     get_config(arch) / build_model(cfg)
-        Model configs (a copy of the JAX package's) and the dense and
-        hybrid (hymba) decoders (init_params / prefill / decode_step /
-        prefill_into_slot; loss_fn for the dense family).
+        Model configs (a copy of the JAX package's) and the models of
+        every family: dense, moe, ssm (rwkv6), hybrid (hymba), encdec
+        (whisper) and vlm (internvl2) (init_params / loss_fn / prefill /
+        decode_step / prefill_into_slot).
     ServeEngine(cfg, params, max_batch=, cache_len=, device=) / Request
         The slot-level continuous-batching server.
 

@@ -1,5 +1,6 @@
 """Attention — the port of `repro.models.attention` (:30-157, :264-275):
-chunked-causal attention for prefill, single-token and multi-query decode
+chunked attention for prefill (causal, or bidirectional for whisper's
+encoder and cross-attention), single-token and multi-query decode
 attention, and the flash-kernel route through the registry.
 
 Memory design as in the JAX package: the plain prefill path never holds
@@ -31,14 +32,18 @@ def _gqa_reshape(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 
 
 def chunked_causal_attention(q, k, v, *, chunk: int = 512, window: int = 0,
-                             q_offset: int = 0,
+                             q_offset: int = 0, causal: bool = True,
                              kv_valid: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
-    """q: (B,Sq,H,Hd), k/v: (B,Skv,KvH,Hd), causal. window: sliding-window
-    width (0 = none). q_offset: absolute position of q[0] relative to
-    k[0]. kv_valid: optional (B,Skv) bool — False columns (padding) are
-    masked out of every query's softmax. Queries run in chunks (the JAX
-    scan) so one (chunk x Skv) score block is live."""
+    """q: (B,Sq,H,Hd), k/v: (B,Skv,KvH,Hd). Causal by default; causal=False
+    is full bidirectional attention (whisper's encoder and
+    cross-attention), where window and q_offset play no part. window:
+    sliding-window width (0 = none). q_offset: absolute position of q[0]
+    relative to k[0]. kv_valid: optional (B,Skv) bool — False columns
+    (padding) are masked out of every query's softmax. Queries run in
+    chunks (the JAX scan) so one (chunk x Skv) score block is live; a
+    length the chunk does not divide runs in its largest divisor below
+    the chunk (whisper's 1500 frames in chunks of 500)."""
     b, sq, h, hd = q.shape
     _, skv, n_kv, _ = k.shape
     scale = hd ** -0.5
@@ -52,11 +57,12 @@ def chunked_causal_attention(q, k, v, *, chunk: int = 512, window: int = 0,
     for c0 in range(0, sq, chunk):
         qc = qr[:, c0:c0 + chunk].float()
         scores = torch.einsum("bqkgd,bskd->bkgqs", qc, kf) * scale
-        q_pos = q_offset + c0 + torch.arange(chunk, device=q.device)
-        mask = kv_pos[None, :] <= q_pos[:, None]
-        if window:
-            mask &= kv_pos[None, :] > (q_pos[:, None] - window)
-        scores = torch.where(mask, scores, NEG_INF)
+        if causal:
+            q_pos = q_offset + c0 + torch.arange(chunk, device=q.device)
+            mask = kv_pos[None, :] <= q_pos[:, None]
+            if window:
+                mask &= kv_pos[None, :] > (q_pos[:, None] - window)
+            scores = torch.where(mask, scores, NEG_INF)
         if kv_valid is not None:
             scores = torch.where(kv_valid[:, None, None, None, :], scores,
                                  NEG_INF)

@@ -54,10 +54,12 @@ def _flatten(tree: Dict, pre: str = "") -> Dict[str, Any]:
 
 def params_from_numpy(tree: Dict, cfg: ModelConfig,
                       device=backend.DEFAULT_DEVICE) -> Dict:
-    """The JAX param tree of `cfg` (numpy leaves: dense, hybrid, moe with
-    its "dense_layers" and "layers/moe/*", or ssm (rwkv6) with
-    "layers/tm/*" and "layers/cm/*") as the port's params on `device`,
-    each leaf bit for bit in its own dtype.
+    """The JAX param tree of `cfg` (numpy leaves: dense or vlm, hybrid, moe
+    with its "dense_layers" and "layers/moe/*", ssm (rwkv6) with
+    "layers/tm/*" and "layers/cm/*", or encdec (whisper) with
+    "enc_layers", "dec_layers" (and "dec_layers/xattn/*"), "enc_ln",
+    "enc_lnb", "dec_pos" and "final_normb") as the port's params on
+    `device`, each leaf bit for bit in its own dtype.
     Raises ValueError when a path is missing or extra, or a shape differs
     from the one the port builds."""
     dev = backend.resolve_device(device)
@@ -96,10 +98,10 @@ def opt_state_from_numpy(state: Dict, device=backend.DEFAULT_DEVICE) -> Dict:
 
 
 def cache_from_numpy(cache: Dict, device=backend.DEFAULT_DEVICE) -> Dict:
-    """A JAX decode cache (numpy leaves: dense {"k", "v", "pos"}; moe also
-    "dk"/"dv" of its dense layers; hybrid also "conv" bf16 and "h" f32;
-    ssm {"wkv" f32, "tm", "cm" bf16, "pos"}) as the port's cache on
-    `device`, every
+    """A JAX decode cache (numpy leaves: dense and vlm {"k", "v", "pos"};
+    moe also "dk"/"dv" of its dense layers; hybrid also "conv" bf16 and
+    "h" f32; encdec also the cross-attention's "xk"/"xv" bf16; ssm {"wkv"
+    f32, "tm", "cm" bf16, "pos"}) as the port's cache on `device`, every
     leaf bit for bit in its own dtype; pos becomes an int32 tensor
     (scalar or (B,))."""
     dev = backend.resolve_device(device)

@@ -13,8 +13,15 @@ Conventions, as in the JAX package:
 the caller disables reduced-precision bf16 reductions, as chip_smoke.py
 does); on the CPU it multiplies in f32 and casts once, so the CPU tests
 see exactly one rounding as XLA's dot_general with
-preferred_element_type=f32 does. No mesh exists in this slice, so the
-row-parallel `matmul_rp` is plain `matmul`.
+preferred_element_type=f32 does. An f32 activation (whisper's encoder
+stream when its frames are f32) meets the bf16-valued weight in an f32
+product on either device, as JAX promotes the pair, and the result is
+rounded once. No mesh exists in this slice, so the row-parallel
+`matmul_rp` is plain `matmul`.
+
+The whisper pieces: `layer_norm` (f32 statistics, population variance),
+`gelu_ffn` (bias adds in bf16, the tanh gelu of `jax.nn.gelu`'s default
+in f32) and `sinusoid_pos` (f32, rounded once to bf16).
 """
 
 from __future__ import annotations
@@ -75,9 +82,15 @@ class ParamInit:
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """bf16 x bf16 -> f32 accumulate -> bf16, contracting x's last axis
-    with w's first."""
+    with w's first. An f32 x against a bf16 w (whisper's encoder stream on
+    f32 frames) is multiplied in f32 and the result rounded once to
+    PARAM_DTYPE; on the card any other pair of types raises."""
     if x.is_cuda:
-        return torch.matmul(x, w)
+        if x.dtype == w.dtype:
+            return torch.matmul(x, w)
+        if x.dtype != torch.float32 or w.dtype != torch.bfloat16:
+            raise TypeError(f"matmul of {x.dtype} by {w.dtype}: only an f32 "
+                            f"activation may meet a bf16 weight")
     return torch.matmul(x.float(), w.float()).to(PARAM_DTYPE)
 
 
@@ -91,12 +104,32 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * scale.to(NORM_DTYPE)).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm with f32 statistics (the population variance, as jnp.var);
+    returns x's dtype."""
+    xf = x.to(NORM_DTYPE)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(NORM_DTYPE) + bias.to(NORM_DTYPE)).to(x.dtype)
+
+
 def swiglu(x, wi, wg, wo):
     """SwiGLU FFN: silu(x@wg) * (x@wi) @ wo."""
     h = matmul(x, wi)
     g = matmul(x, wg)
     h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
     return matmul_rp(h, wo)
+
+
+def gelu_ffn(x, wi, bi, wo, bo):
+    """Whisper's FFN: gelu(x@wi + bi) @ wo + bo, the bias adds rounded in
+    bf16 and the gelu the tanh form (jax.nn.gelu's default) in f32."""
+    h = matmul(x, wi) + bi.to(PARAM_DTYPE)
+    h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(
+        PARAM_DTYPE)
+    return matmul_rp(h, wo) + bo.to(PARAM_DTYPE)
 
 
 # ---------------------------------------------------------------------------
@@ -119,6 +152,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     y = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return y.to(x.dtype)
+
+
+def sinusoid_pos(seq: int, d: int, offset: int = 0, device=None
+                 ) -> torch.Tensor:
+    """(seq, d) sinusoidal positions from `offset`: the sines of the d/2
+    frequencies, then their cosines, computed in f32 and rounded once to
+    PARAM_DTYPE."""
+    pos = torch.arange(offset, offset + seq, dtype=torch.float32,
+                       device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    log_base = torch.log(torch.tensor(10000.0, device=device))
+    inv = torch.exp(-log_base * dim / d)
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(PARAM_DTYPE)
 
 
 # ---------------------------------------------------------------------------

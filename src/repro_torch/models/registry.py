@@ -1,13 +1,15 @@
 """Model assembly: config -> Model (init / loss / prefill / decode_step /
 prefill_into_slot / init_cache) — the port of `repro.models.registry` for
-the dense, moe, ssm (rwkv6) and hybrid families (`Model` :31,
-`_maybe_remat` :60, `_moe_apply` :69 (the capacity route, in `_ffn`),
-`_dense_stack` :92, `_dense_prefill_stack` :114, `_dense_decode_stack`
-:137, `_rwkv_stack` :162 in its train, prefill and decode forms,
-`_hymba_stack` :186-252 in the same three, `make_cache` :347,
-`build_model` :426, `_logits` :458, `_backbone_train` :468, `loss_fn`
-:516, `prefill` :559, `decode_step` :652, `decode_verify` :691,
-`prefill_into_slot` :726, `prefill_continue` :763).
+every family: dense, moe, ssm (rwkv6), hybrid, encdec (whisper) and vlm
+(internvl2) (`Model` :31, `_maybe_remat` :60, `_moe_apply` :69 (the
+capacity route, in `_ffn`), `_dense_stack` :92, `_dense_prefill_stack`
+:114, `_dense_decode_stack` :137, `_rwkv_stack` :162 in its train,
+prefill and decode forms, `_hymba_stack` :186-252 in the same three,
+`_whisper_encode` :255, `_whisper_dec_stack` :276 in the same three,
+`make_cache` :347, `build_model` :426, `_logits` :458, `_backbone_train`
+:468, `loss_fn` :516, `prefill` :559, `decode_step` :652,
+`decode_verify` :691, `prefill_into_slot` :726, `prefill_continue`
+:763).
 
 Layouts are the JAX package's: activations (B, S, D), caches
 {"k", "v": (L, B, Lcache, KvH, Hd) bf16, "pos": int32 scalar or (B,)},
@@ -17,14 +19,27 @@ ring buffer: Lcache = cfg.attn_window) {"conv": (L, B, K-1, Ci) bf16,
 first_k_dense moe layers and "dk"/"dv" the first_k_dense dense ones; the
 ssm family (rwkv6) has no k/v but {"wkv": (L, B, H, Hd, Hd) f32, "tm",
 "cm": (L, B, D) bf16} (the WKV state and the time and channel mixes'
-last inputs); params with the JAX tree's keys. PyTorch runs eagerly, so
-the layer scan is a Python loop over the stacked params, and the decode
-steps update every cache leaf but "pos" IN PLACE (the returned cache
-shares them; only "pos" is a new tensor), where the JAX steps return new
-arrays.
+last inputs); the encdec family (whisper) adds the cross-attention's
+{"xk", "xv": (L, B, enc_seq, KvH, Hd) bf16}, written by prefill and only
+read by decode; the vlm family's is the dense cache, its lines counting
+the n_vis_tokens patch embeddings before the text. Params with the JAX
+tree's keys. PyTorch runs eagerly, so the layer scan is a Python loop
+over the stacked params, and the decode steps update every cache leaf
+but "pos" IN PLACE (the returned cache shares them; only "pos" is a new
+tensor), where the JAX steps return new arrays.
 
-Training (every ported family): `loss_fn` runs the family's train stack,
-each layer under `torch.utils.checkpoint` as `cfg.remat` says ("none";
+Whisper: batch["frames"] (B, enc_seq, D) stands in for the conv frontend
+and keeps its own dtype: f32 frames keep the encoder's residual stream
+in f32 (JAX promotes frames + the bf16 positions), and its projections
+then multiply an f32 activation by the bf16-valued weights
+(layers.matmul). The encoder, the cross-attention and the decoder's
+self-attention run chunked attention, never flash, as in the JAX
+package. vlm: batch["vis"] (B, n_vis_tokens, D) is cast to bf16 and
+prepended to the text's embeddings; the loss counts the text positions
+only.
+
+Training (every family): `loss_fn` runs the family's train stack, each
+layer under `torch.utils.checkpoint` as `cfg.remat` says ("none";
 "full"; "dots", which keeps the non-batched matmul outputs, the JAX
 `dots_with_no_batch_dims_saveable`), then the cross-entropy in sequence
 chunks, each under its own checkpoint; the moe layers' router aux losses
@@ -32,15 +47,16 @@ are summed into the total at `cfg.router_aux_coef`. The hybrid train
 stack runs windowed chunked attention (never flash, as in the JAX
 package) beside `mamba_path` by `cfg.ssm_impl`; "pallas" raises in the
 backward (`transformer.SsmScanNoGrad`). The rwkv train stack starts from
-zero states and discards the states it ends with. Serving (`prefill`,
-`decode_step`, `decode_verify`, `prefill_into_slot`, `prefill_continue`)
-runs under `torch.no_grad()`, so params that require grad (a trainer's)
-record no graph there.
+zero states and discards the states it ends with. Whisper's encoder
+layers run under the same remat as its decoder's (the JAX encoder keeps
+its scan's residuals: the same numbers, more memory). Serving
+(`prefill`, `decode_step`, `decode_verify`, `prefill_into_slot`,
+`prefill_continue`) runs under `torch.no_grad()`, so params that require
+grad (a trainer's) record no graph there.
 
 `prefill_continue` (the paged cache's suffix prefill) and `decode_verify`
 (speculative decoding's multi-position step) are the dense family's only,
-None for moe, ssm and hybrid, as in the JAX package. The encdec and vlm
-families (ROADMAP queue 1, item 8.4) wait for a later slice.
+None for every other, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -53,12 +69,14 @@ import torch
 
 from repro_torch import backend
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import (PARAM_DTYPE, ParamInit, embed,
-                                       lm_logits, rms_norm, softmax_xent,
-                                       swiglu)
+                                       gelu_ffn, layer_norm, lm_logits,
+                                       matmul, rms_norm, sinusoid_pos,
+                                       softmax_xent, swiglu)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -359,6 +377,107 @@ def _hymba_decode_stack(cfg: ModelConfig, layers, x, cache: Cache):
     return x, {**cache, "pos": pos + 1}
 
 
+# --- whisper (encdec) ------------------------------------------------------
+
+def _whisper_encode(cfg: ModelConfig, params, frames, *, remat: str = "none"):
+    """frames: (B, enc_seq, D) stub embeddings -> the encoder output
+    (B, enc_seq, D) after its final LayerNorm, in the type of frames +
+    the bf16 positions (f32 for f32 frames). Bidirectional chunked
+    attention; each layer under `_maybe_remat`."""
+    x = frames + sinusoid_pos(frames.shape[1], cfg.d_model,
+                              device=frames.device)[None]
+
+    def body(x, lp):
+        h = layer_norm(x, lp["ln1"], lp["ln1b"], cfg.norm_eps)
+        q, k, v = T._qkv(lp["attn"], h, cfg)
+        a = attn_lib.chunked_causal_attention(q, k, v, causal=False)
+        x = x + matmul(a.reshape(*h.shape[:2], -1), lp["attn"]["wo"])
+        h = layer_norm(x, lp["ln2"], lp["ln2b"], cfg.norm_eps)
+        return x + _gelu(lp, h)
+
+    body = _maybe_remat(body, remat)
+    for lp in _unstack(params["enc_layers"]):
+        x = body(x, lp)
+    return layer_norm(x, params["enc_ln"], params["enc_lnb"], cfg.norm_eps)
+
+
+def _gelu(lp, h):
+    f = lp["ffn"]
+    return gelu_ffn(h, f["wi"], f["bi"], f["wo"], f["bo"])
+
+
+def _whisper_dec_layer(cfg: ModelConfig, lp, x, enc_out):
+    """One decoder layer over x (B,S,D): causal self-attention, then
+    cross-attention over enc_out, then the gelu FFN, each behind its
+    LayerNorm and residual. Returns (x, (k, v, xk, xv)): the
+    self-attention's and cross-attention's keys and values."""
+    b_, s, _ = x.shape
+    h = layer_norm(x, lp["ln1"], lp["ln1b"], cfg.norm_eps)
+    q, k, v = T._qkv(lp["attn"], h, cfg)
+    a = attn_lib.chunked_causal_attention(q, k, v)
+    x = x + matmul(a.reshape(b_, s, -1), lp["attn"]["wo"])
+    h = layer_norm(x, lp["lnx"], lp["lnxb"], cfg.norm_eps)
+    xp = lp["xattn"]
+    hh, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_enc = enc_out.shape[1]
+    q = matmul(h, xp["wq"]).reshape(b_, s, hh, hd)
+    xk = matmul(enc_out, xp["wk"]).reshape(b_, n_enc, kv, hd)
+    xv = matmul(enc_out, xp["wv"]).reshape(b_, n_enc, kv, hd)
+    a = attn_lib.chunked_causal_attention(q, xk, xv, causal=False)
+    x = x + matmul(a.reshape(b_, s, -1), xp["wo"])
+    h = layer_norm(x, lp["ln2"], lp["ln2b"], cfg.norm_eps)
+    return x + _gelu(lp, h), (k, v, xk, xv)
+
+
+def _whisper_train_stack(cfg: ModelConfig, layers, x, enc_out, *,
+                         remat: str):
+    """The decoder layers over x (B,S,D) for training, each under
+    `_maybe_remat`; no cache."""
+
+    def body(x, lp, enc_out):
+        return _whisper_dec_layer(cfg, lp, x, enc_out)[0]
+
+    body = _maybe_remat(body, remat)
+    for lp in _unstack(layers):
+        x = body(x, lp, enc_out)
+    return x
+
+
+def _whisper_prefill_stack(cfg: ModelConfig, layers, x, enc_out):
+    """The decoder layers over x (B,S,D); also emits the cache: each
+    layer's k/v and cross-attention xk/xv, stacked to (L, ...)."""
+    outs = {"k": [], "v": [], "xk": [], "xv": []}
+    for i in range(layers["ln1"].shape[0]):
+        x, kvs = _whisper_dec_layer(cfg, _layer(layers, i), x, enc_out)
+        for key, t in zip(("k", "v", "xk", "xv"), kvs):
+            outs[key].append(t)
+    return x, {key: torch.stack(ts) for key, ts in outs.items()}
+
+
+def _whisper_decode_stack(cfg: ModelConfig, layers, x, cache: Cache):
+    """One token through the decoder layers: self-attention against k/v
+    (written in place, no rope), cross-attention against every line of
+    xk/xv (read only)."""
+    pos = cache["pos"]
+    b_ = x.shape[0]
+    for i in range(layers["ln1"].shape[0]):
+        lp = _layer(layers, i)
+        h = layer_norm(x, lp["ln1"], lp["ln1b"], cfg.norm_eps)
+        a, _ = T.attn_block_decode(lp["attn"], h, cfg, cache_k=cache["k"][i],
+                                   cache_v=cache["v"][i], pos=pos,
+                                   rope=False)
+        x = x + a
+        h = layer_norm(x, lp["lnx"], lp["lnxb"], cfg.norm_eps)
+        xk, xv = cache["xk"][i], cache["xv"][i]
+        q = matmul(h, lp["xattn"]["wq"]).reshape(b_, 1, cfg.n_heads,
+                                                 cfg.head_dim)
+        a = attn_lib.decode_attention(q, xk, xv, xk.shape[1])
+        x = x + matmul(a.reshape(b_, 1, -1), lp["xattn"]["wo"])
+        h = layer_norm(x, lp["ln2"], lp["ln2b"], cfg.norm_eps)
+        x = x + _gelu(lp, h)
+    return x, {**cache, "pos": pos + 1}
+
+
 # ===========================================================================
 # cache construction
 # ===========================================================================
@@ -366,16 +485,18 @@ def _hymba_decode_stack(cfg: ModelConfig, layers, x, cache: Cache):
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device=backend.DEFAULT_DEVICE) -> Cache:
     """Decode-state dict on `device` (the card unless device='cpu'), zeroed,
-    with a scalar int32 pos. Dense: k/v of (L, batch, cache_len, KvH, Hd)
-    bf16. Moe: k/v over the L - first_k_dense moe layers, and dk/dv of
-    the same lines over the first_k_dense dense layers (when there are
-    any). Ssm (rwkv6): no k/v, whatever cache_len; wkv (L, batch, H, Hd,
-    Hd) f32 (H = d_model / rwkv_head_dim), tm and cm (L, batch, d_model)
-    bf16. Hybrid: cache_len is the longest context served, but the
+    with a scalar int32 pos. Dense and vlm: k/v of (L, batch, cache_len,
+    KvH, Hd) bf16 (vlm's lines hold the patch embeddings' keys, then the
+    text's). Encdec (whisper): those k/v over the decoder layers, and
+    xk/xv of (L, batch, enc_seq, KvH, Hd) bf16, the cross-attention's
+    keys and values. Moe: k/v over the L - first_k_dense moe layers, and
+    dk/dv of the same lines over the first_k_dense dense layers (when
+    there are any). Ssm (rwkv6): no k/v, whatever cache_len; wkv (L,
+    batch, H, Hd, Hd) f32 (H = d_model / rwkv_head_dim), tm and cm (L,
+    batch, d_model) bf16. Hybrid: cache_len is the longest context served, but the
     attention keeps only its window: k/v of (L, batch, attn_window, KvH,
     Hd) bf16, conv (L, batch, CONV_K - 1, Ci) bf16 and h (L, batch, Ci, N)
     f32, Ci = 2 d_model."""
-    T.check_ported(cfg)
     dev = backend.resolve_device(device)
     L, d = cfg.n_layers, cfg.d_model
     pos = torch.zeros((), dtype=torch.int32, device=dev)
@@ -398,6 +519,10 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int,
     cache = {"k": kv(L - kd), "v": kv(L - kd), "pos": pos}
     if kd:
         cache["dk"], cache["dv"] = kv(kd), kv(kd)
+    if cfg.family == "encdec":
+        shape = (L, batch, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+        cache["xk"] = torch.zeros(shape, dtype=PARAM_DTYPE, device=dev)
+        cache["xv"] = torch.zeros(shape, dtype=PARAM_DTYPE, device=dev)
     if cfg.family == "hybrid":
         ci = 2 * d
         cache["conv"] = torch.zeros((L, batch, mamba_lib.CONV_K - 1, ci),
@@ -412,12 +537,13 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # ===========================================================================
 
 def build_model(cfg: ModelConfig) -> Model:
-    """Assemble a `Model` for one dense, moe, ssm (rwkv6) or hybrid config:
-    init_params / loss_fn / prefill / decode_step / prefill_into_slot /
-    init_cache, in the JAX package's layouts; loss_fn trains every one of
-    them (hybrid with ssm_impl="pallas" raises in the backward: the scan
-    kernel has none). Any other family raises NotImplementedError naming
-    its ROADMAP item.
+    """Assemble a `Model` for one config of any family — dense, moe, ssm
+    (rwkv6), hybrid, encdec (whisper) or vlm (internvl2): init_params /
+    loss_fn / prefill / decode_step / prefill_into_slot / init_cache, in
+    the JAX package's layouts; loss_fn trains every one of them (hybrid
+    with ssm_impl="pallas" raises in the backward: the scan kernel has
+    none). Whisper's batches carry "frames" (B, enc_seq, D), internvl2's
+    "vis" (B, n_vis_tokens, D), beside "tokens".
 
     Example::
 
@@ -428,7 +554,6 @@ def build_model(cfg: ModelConfig) -> Model:
         logits, cache = model.prefill(params, {"tokens": torch.ones(
             (1, 8), dtype=torch.long, device="cuda")})
     """
-    T.check_ported(cfg)
     param_fn = T.build_param_fn(cfg)
 
     def init_params(seed: int = 0, device=backend.DEFAULT_DEVICE) -> Dict:
@@ -437,9 +562,24 @@ def build_model(cfg: ModelConfig) -> Model:
         return param_fn(ParamInit(seed, backend.resolve_device(device)))
 
     def _logits(params, x):
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if cfg.family == "encdec":
+            x = layer_norm(x, params["final_norm"], params["final_normb"],
+                           cfg.norm_eps)
+        else:
+            x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         table = params["embed"].T if cfg.tie_embeddings else params["head"]
         return lm_logits(x, table)
+
+    def _prefixed_embed(params, batch):
+        """The first layer's input: whisper's decoder embeddings plus its
+        learned positions (added in bf16); internvl2's patch embeddings,
+        cast to bf16, before the text's; the token embeddings else."""
+        x = embed(batch["tokens"], params["embed"])
+        if cfg.family == "encdec":
+            return x + params["dec_pos"][:x.shape[1]][None].to(x.dtype)
+        if cfg.family == "vlm":
+            x = torch.cat([batch["vis"].to(x.dtype), x], dim=1)
+        return x
 
     @backend.f32_accumulation()
     def loss_fn(params, batch):
@@ -447,14 +587,21 @@ def build_model(cfg: ModelConfig) -> Model:
         against batch["labels"] (B, S): the mean over labels >= 0 of the
         cross-entropy with z-loss 1e-4, all f32 scalars; total adds
         router_aux_coef x aux, the moe layers' summed router aux loss (0
-        for dense, ssm and hybrid). The xent runs in sequence chunks (512,
-        256, 128 or 64, the largest that divides S and is below it), each
-        under its own checkpoint, so one (B, chunk, V) f32 logits block is
-        live at a time."""
-        x = embed(batch["tokens"], params["embed"])
+        for every other family). Whisper's batch also carries "frames",
+        internvl2's "vis" (prepended; the loss is taken on the text
+        positions only). The xent runs in sequence chunks (512, 256, 128
+        or 64, the largest that divides S and is below it), each under its
+        own checkpoint, so one (B, chunk, V) f32 logits block is live at a
+        time."""
+        x = _prefixed_embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if cfg.family == "ssm":
+        if cfg.family == "encdec":
+            enc_out = _whisper_encode(cfg, params, batch["frames"],
+                                      remat=cfg.remat)
+            x = _whisper_train_stack(cfg, params["dec_layers"], x, enc_out,
+                                     remat=cfg.remat)
+        elif cfg.family == "ssm":
             x = _rwkv_train_stack(cfg, params["layers"], x, remat=cfg.remat)
         elif cfg.family == "hybrid":
             x = _hymba_stack(cfg, params["layers"], x, positions,
@@ -465,6 +612,8 @@ def build_model(cfg: ModelConfig) -> Model:
                                     positions, remat=cfg.remat)
             x, aux = _dense_stack(cfg, params["layers"], x, positions,
                                   remat=cfg.remat)
+        if cfg.family == "vlm":
+            x = x[:, batch["vis"].shape[1]:]
         labels = batch["labels"]
         s = x.shape[1]
         chunk = s
@@ -514,18 +663,24 @@ def build_model(cfg: ModelConfig) -> Model:
         k/v hold the last min(S, attn_window) positions in the ring layout.
         Ssm: the cache holds the wkv states and last inputs of a segment
         started from zero states (wkv6_chunked at chunk 64 when S % 64 ==
-        0, one chunk when S < 64, else the sequential scan)."""
-        tokens = batch["tokens"]
-        x = embed(tokens, params["embed"])
-        s = x.shape[1]
-        dev = x.device
+        0, one chunk when S < 64, else the sequential scan). Encdec: batch
+        also carries "frames" (B, enc_seq, D); the encoder runs, and the
+        cache holds the decoder's k/v and the cross-attention's xk/xv.
+        Vlm: batch also carries "vis" (B, n_vis_tokens, D), prepended, so
+        S and last_index count its lines. Ssm, hybrid, encdec and vlm:
+        pad_lens raises ValueError."""
         pad_lens = batch.get("pad_lens")
         if pad_lens is not None and cfg.family not in ("dense", "moe"):
             raise ValueError(
                 "pad_lens (left-padded prefill) is only defined for pure "
-                "attention stacks (the dense and moe families); the "
-                f"recurrent state of the {cfg.family!r} family would "
-                "consume the pads")
+                "attention stacks (the dense and moe families): the "
+                "recurrent state of ssm and hybrid would consume the pads, "
+                "and vlm and encdec prepend non-text tokens (the vis "
+                "prefix, the encoder's frames); family "
+                f"{cfg.family!r}")
+        x = _prefixed_embed(params, batch)
+        s = x.shape[1]
+        dev = x.device
         if pad_lens is None:
             positions = torch.arange(s, device=dev)
             kv_valid = None
@@ -534,7 +689,11 @@ def build_model(cfg: ModelConfig) -> Model:
             ar = torch.arange(s, device=dev)[None, :]
             positions = torch.clamp_min(ar - pad_lens[:, None], 0)
             kv_valid = ar >= pad_lens[:, None]
-        if cfg.family == "hybrid":
+        if cfg.family == "encdec":
+            enc_out = _whisper_encode(cfg, params, batch["frames"])
+            x, cache = _whisper_prefill_stack(cfg, params["dec_layers"], x,
+                                              enc_out)
+        elif cfg.family == "hybrid":
             x, cache = _hymba_prefill_stack(cfg, params["layers"], x,
                                             positions)
         elif cfg.family == "ssm":
@@ -565,9 +724,16 @@ def build_model(cfg: ModelConfig) -> Model:
         family's wkv, tm and cm instead) are written in place, "pos" (a
         scalar or a (B,) per-row vector) advances by one in a new tensor.
         A moe layer routes all B rows, idle slots included, as the JAX
-        engine's decode does."""
+        engine's decode does. Encdec: the learned position of each row's
+        pos is added to its embedding (in bf16), and xk/xv are read, not
+        written."""
         x = embed(tokens, params["embed"])
-        if cfg.family == "hybrid":
+        if cfg.family == "encdec":
+            pe = params["dec_pos"][cache["pos"].long()].to(x.dtype)
+            x = x + (pe[:, None] if pe.dim() == 2 else pe[None, None])
+            x, cache = _whisper_decode_stack(cfg, params["dec_layers"], x,
+                                             cache)
+        elif cfg.family == "hybrid":
             x, cache = _hymba_decode_stack(cfg, params["layers"], x, cache)
         elif cfg.family == "ssm":
             x, cache = _rwkv_decode_stack(cfg, params["layers"], x, cache)
@@ -617,14 +783,17 @@ def build_model(cfg: ModelConfig) -> Model:
         as decode advances. For the ssm and hybrid families (recurrent
         state folds every token in) and the moe family (capacity dispatch
         counts the tokens) P must equal the real prompt length. Logits are
-        taken at prompt_len - 1.
+        taken at prompt_len - 1. Vlm: prompt_len counts the n_vis_tokens
+        lines before the text; encdec and vlm: batch also carries the
+        row's "frames" or "vis".
 
         Returns (logits (1,1,V), cache): row `slot` of every cache leaf
         but "pos" is written in place from the row's prefill cache, its
         leading lines along the third axis (the JAX dynamic_update_slice
-        at (0, slot, 0, ...) of each leaf: P k/v lines, min(P, window) of
-        them for the hybrid ring, the whole conv tail and h state, the
-        whole wkv state and tm/cm rows of the ssm family), and
+        at (0, slot, 0, ...) of each leaf: P k/v lines (n_vis_tokens + P
+        for vlm), min(P, window) of them for the hybrid ring, the whole
+        conv tail and h state, the whole wkv state and tm/cm rows of the
+        ssm family, all enc_seq xk/xv lines of encdec), and
         pos[slot] = prompt_len in a new "pos" tensor."""
         plen = torch.as_tensor(prompt_len, device=cache["pos"].device)
         logits, row = prefill(params, batch, last_index=plen - 1)

@@ -1,12 +1,13 @@
-"""The decoder's blocks — the port of the dense, moe, ssm (rwkv6) and
-hybrid parts of `repro.models.transformer`: parameter construction
-(`_attn_params`, `_ffn_params`, `_moe_params`, `_rwkv_params`,
-`_mamba_params`, the dense, moe, ssm and hybrid branches of
-`build_param_fn`, :45-90, :94-127, :130-147, :150-188, :217-222),
+"""The model's blocks — the port of `repro.models.transformer` for every
+family: parameter construction (`_attn_params`, `_ffn_params` with its
+SwiGLU and gelu forms, `_moe_params`, `_rwkv_params`, `_mamba_params`,
+and `build_param_fn` :45-227, whose dense branch also builds vlm and
+whose encdec branch builds whisper's encoder and decoder stacks),
 `_qkv` (:231), `attn_block` (:245), `attn_block_decode` (:276, the
-scalar-pos, per-row and ring-buffer branches), `attn_block_decode_k`
-(:321), `attn_block_continue` (:352), `rwkv_time_mix` (:389),
-`rwkv_channel_mix` (:440) and `mamba_path` (:450-510, every `ssm_impl`).
+scalar-pos, per-row and ring-buffer branches; rope=False skips the
+rotation, as whisper's decoder asks), `attn_block_decode_k` (:321),
+`attn_block_continue` (:352), `rwkv_time_mix` (:389), `rwkv_channel_mix`
+(:440) and `mamba_path` (:450-510, every `ssm_impl`).
 
 `mamba_path`'s "pallas" scan runs under `SsmScanNoGrad`: the kernel has
 no backward, as the JAX package's Pallas scan has none, so a gradient
@@ -14,10 +15,10 @@ through it raises (on the CPU too, where the plain version stands in the
 kernel's place and would otherwise differentiate). Training takes
 "chunked" or "scan".
 
-The whisper and vlm blocks and the sharded-decode branch of
-`attn_block_decode` wait for their slices (ROADMAP queue 1, items 8.4
-and 9). The moe FFN itself is `models/moe.py`, the WKV forms
-`models/rwkv6.py`.
+The sharded-decode branch of `attn_block_decode` waits for the
+distribution slice (ROADMAP queue 1, item 9). The moe FFN itself is
+`models/moe.py`, the WKV forms `models/rwkv6.py`; whisper's encoder and
+decoder stacks are in `models/registry.py`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,22 +33,6 @@ from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.layers import (PARAM_DTYPE, ParamInit, apply_rope,
                                        matmul, matmul_rp)
-
-# the families whose params, prefill and decode the port builds
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-# the ROADMAP queue 1 item that ports each family still missing
-FAMILY_ITEMS = {"encdec": "8.4", "vlm": "8.4"}
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError naming the ROADMAP item of cfg's family
-    unless the port builds it."""
-    if cfg.family not in PORTED_FAMILIES:
-        item = FAMILY_ITEMS.get(cfg.family, "8")
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the port builds "
-            f"{PORTED_FAMILIES} (ROADMAP queue 1, item {item})")
-
 
 # ===========================================================================
 # parameter construction
@@ -71,13 +56,19 @@ def _attn_params(b: ParamInit, pre: str, L: int, cfg: ModelConfig) -> Dict:
 
 def _ffn_params(b: ParamInit, pre: str, L: int, d: int, f: int, act: str
                 ) -> Dict:
-    if act != "swiglu":
-        raise NotImplementedError(f"act {act!r}: the gelu FFN comes with the "
-                                  "encdec family (ROADMAP queue 1, item 8.4)")
+    """SwiGLU (wi, wg, wo) or, for any other act, whisper's gelu FFN (wi,
+    bi, wo, bo; the biases zero)."""
+    if act == "swiglu":
+        return {
+            "wi": b.param(f"{pre}/wi", (L, d, f)),
+            "wg": b.param(f"{pre}/wg", (L, d, f)),
+            "wo": b.param(f"{pre}/wo", (L, f, d)),
+        }
     return {
         "wi": b.param(f"{pre}/wi", (L, d, f)),
-        "wg": b.param(f"{pre}/wg", (L, d, f)),
+        "bi": b.param(f"{pre}/bi", (L, f), "zeros"),
         "wo": b.param(f"{pre}/wo", (L, f, d)),
+        "bo": b.param(f"{pre}/bo", (L, d), "zeros"),
     }
 
 
@@ -154,19 +145,35 @@ def _mamba_params(b: ParamInit, pre: str, L: int, cfg: ModelConfig) -> Dict:
 
 
 def build_param_fn(cfg: ModelConfig) -> Callable[[ParamInit], Dict]:
-    """A function of a ParamInit that makes the param tree of a dense, moe,
-    ssm or hybrid cfg, with the JAX tree's keys, shapes and draw order.
-    moe: the first `first_k_dense` layers are dense ("dense_layers", FFN
-    width d_ff), the rest ("layers") carry the router and the experts.
-    ssm (rwkv6): "layers" holds ln1/ln2, the time mix "tm" and the
-    channel mix "cm"."""
-    check_ported(cfg)
+    """A function of a ParamInit that makes the param tree of cfg, with the
+    JAX tree's keys, shapes and draw order. dense and vlm: one "layers"
+    stack (vlm's patch embeddings come with the batch). moe: the first
+    `first_k_dense` layers are dense ("dense_layers", FFN width d_ff), the
+    rest ("layers") carry the router and the experts. ssm (rwkv6):
+    "layers" holds ln1/ln2, the time mix "tm" and the channel mix "cm".
+    encdec (whisper): "enc_layers" (LayerNorm scales and biases, attention,
+    gelu FFN) and "dec_layers" (the same with the cross-attention "xattn"
+    behind "lnx"/"lnxb"), the encoder's final "enc_ln"/"enc_lnb", the
+    learned decoder positions "dec_pos" (32768, d) and the final norm's
+    bias "final_normb"."""
     d, v, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
 
     def stack(b: ParamInit, pre: str, n: int) -> Dict:
         return {"ln1": b.param(f"{pre}/ln1", (n, d), "ones"),
                 "ln2": b.param(f"{pre}/ln2", (n, d), "ones"),
                 "attn": _attn_params(b, f"{pre}/attn", n, cfg)}
+
+    def whisper_stack(b: ParamInit, pre: str, n: int, cross: bool) -> Dict:
+        norms = ("ln1", "lnx", "ln2") if cross else ("ln1", "ln2")
+        p = {}
+        for name in norms:
+            p[name] = b.param(f"{pre}/{name}", (n, d), "ones")
+            p[f"{name}b"] = b.param(f"{pre}/{name}b", (n, d), "zeros")
+        p["attn"] = _attn_params(b, f"{pre}/attn", n, cfg)
+        if cross:
+            p["xattn"] = _attn_params(b, f"{pre}/xattn", n, cfg)
+        p["ffn"] = _ffn_params(b, f"{pre}/ffn", n, d, cfg.d_ff, "gelu")
+        return p
 
     def fn(b: ParamInit) -> Dict:
         p: Dict = {"embed": b.param("embed", (v, d))}
@@ -180,6 +187,13 @@ def build_param_fn(cfg: ModelConfig) -> Callable[[ParamInit], Dict]:
             p["layers"]["moe"] = _moe_params(b, "layers/moe", L - kd, cfg)
         elif cfg.family == "ssm":
             p["layers"] = _rwkv_params(b, "layers", L, cfg)
+        elif cfg.family == "encdec":
+            p["enc_layers"] = whisper_stack(b, "enc_layers",
+                                            cfg.n_enc_layers, cross=False)
+            p["dec_layers"] = whisper_stack(b, "dec_layers", L, cross=True)
+            p["enc_ln"] = b.param("enc_ln", (d,), "ones")
+            p["enc_lnb"] = b.param("enc_lnb", (d,), "zeros")
+            p["dec_pos"] = b.param("dec_pos", (32768, d))
         else:
             p["layers"] = stack(b, "layers", L)
             if cfg.family == "hybrid":
@@ -188,6 +202,8 @@ def build_param_fn(cfg: ModelConfig) -> Callable[[ParamInit], Dict]:
             p["layers"]["ffn"] = _ffn_params(b, "layers/ffn", L, d, cfg.d_ff,
                                              cfg.act)
         p["final_norm"] = b.param("final_norm", (d,), "ones")
+        if cfg.family == "encdec":
+            p["final_normb"] = b.param("final_normb", (d,), "zeros")
         if not cfg.tie_embeddings:
             p["head"] = b.param("head", (d, v))
         return p
@@ -242,7 +258,7 @@ def attn_block(lp, x, cfg: ModelConfig, *, positions, window=0,
 
 
 def attn_block_decode(lp, x, cfg: ModelConfig, *, cache_k, cache_v, pos,
-                      window=0, ring=False):
+                      window=0, rope=True, ring=False):
     """One-token attention against a cache. cache_k/v: (B,L,KvH,Hd),
     updated IN PLACE (the JAX version returns new arrays).
 
@@ -254,13 +270,14 @@ def attn_block_decode(lp, x, cfg: ModelConfig, *, cache_k, cache_v, pos,
     lie inside the cache (the engine's admission guarantees it), unless
     ring: then the cache is a ring buffer of the last L positions (the
     hybrid family's sliding window), the line is pos % L, and every line
-    below min(pos + 1, L) is valid (the window is the buffer's size)."""
+    below min(pos + 1, L) is valid (the window is the buffer's size).
+    rope=False leaves q and k unrotated whatever cfg.rope_theta says."""
     b_, s, _ = x.shape
     assert s == 1
     pos = torch.as_tensor(pos, device=x.device)
     per_row = pos.dim() == 1
     q, k, v = _qkv(lp, x, cfg)
-    if cfg.rope_theta:
+    if rope and cfg.rope_theta:
         # scalar pos -> one shared position; vector pos -> (B,1,1) so the
         # angle table broadcasts over heads per row
         pvec = pos[:, None, None] if per_row else pos.reshape(1)

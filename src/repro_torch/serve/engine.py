@@ -18,7 +18,10 @@ so their rows stop growing. Dense prompts are right-padded to a shape
 bucket; hybrid prompts are prefilled at their exact length (a pad would
 enter the recurrent state). Admission holds every family to prompt +
 max_new_tokens (+ spec_k) <= cache_len, as the JAX engine does, though
-the hybrid cache keeps only the attention window.
+the hybrid cache keeps only the attention window; a vlm prompt counts its
+n_vis_tokens patch lines, which also come off the room its text bucket
+may take. A request's `extra` (whisper's "frames", internvl2's "vis")
+joins the batch of its admission.
 
 Sampling is the JAX engine's stream: greedy rows (temperature 0) take the
 argmax of the f32 logits; token n_gen of request rid at temperature T is
@@ -64,6 +67,7 @@ import torch
 
 from repro_torch import backend
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.convert import tensor_from_numpy
 from repro_torch.models.registry import Model, build_model
 from repro_torch.serve import rng
 from repro_torch.serve import spec as spec_lib
@@ -92,6 +96,10 @@ class Request:
     prompt: np.ndarray            # (S,) int32
     max_new_tokens: int = 16
     temperature: float = 0.0
+    # extra single-row model inputs, e.g. {"vis": (1, n_vis, D)} for vlm or
+    # {"frames": (1, enc_seq, D)} for encdec (numpy arrays or tensors; the
+    # engine moves them to its device in their own dtype)
+    extra: Optional[Dict[str, Any]] = None
 
 
 @dataclasses.dataclass
@@ -316,10 +324,35 @@ class ServeEngine:
                                    device=self.device)
         return cache
 
+    def prompt_lines(self, r: Request) -> int:
+        """The cache lines r's prompt takes: its tokens, and for vlm the
+        n_vis_tokens patch lines before them."""
+        vis = self.cfg.n_vis_tokens if self.cfg.family == "vlm" else 0
+        return len(r.prompt) + vis
+
+    def prefill_batch(self, r: Request, start: int = 0):
+        """The batch that prefills r past its first `start` tokens (a
+        restored prefix): the rest right-padded to the smallest bucket that
+        fits the slot's lines past the prefix and the vis lines, and, with
+        no prefix, r's extra inputs on the engine's device in their own
+        dtype. The rows it prefills are the vis lines and its tokens'
+        width."""
+        prompt = np.asarray(r.prompt, np.int32)
+        vis = self.prompt_lines(r) - len(prompt)
+        n = len(prompt) - start
+        toks = np.zeros((1, self._bucket_len(n, self.cache_len - start - vis)),
+                        np.int64)
+        toks[0, :n] = prompt[start:]         # right pad: masked by pos
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if r.extra and not start:
+            batch.update({k: _extra_tensor(v, self.device)
+                          for k, v in r.extra.items()})
+        return batch
+
     def _admit(self, cache, slot_idx: int, r: Request, t_enqueue: float):
         """Prefill r into slot_idx's cache lines; returns
         (cache, slot state, first sampled token)."""
-        plen = len(r.prompt)
+        plen = self.prompt_lines(r)
         # spec rounds write up to spec_k speculative lines past the
         # committed region before the accept rolls pos back, so a spec
         # engine reserves that headroom in every slot
@@ -336,11 +369,8 @@ class ServeEngine:
             hit = self._kv.admit(r.rid, prompt, plen, r.max_new_tokens)
         t_admit = time.perf_counter()
         start = hit.tokens if hit is not None else 0
-        n = plen - start
-        toks = np.zeros((1, self._bucket_len(n, self.cache_len - start)),
-                        np.int64)
-        toks[0, :n] = prompt[start:]         # right pad: masked by pos
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        n = len(prompt) - start
+        batch = self.prefill_batch(r, start)
         if hit is not None:
             cache = self._kv.restore_prefix(cache, slot_idx, hit)
             logits, cache = self.model.prefill_continue(
@@ -749,6 +779,14 @@ def _set_row(pos: torch.Tensor, i: int, value: int) -> torch.Tensor:
     pos = pos.clone()
     pos[i] = value
     return pos
+
+
+def _extra_tensor(v, device) -> torch.Tensor:
+    """A request's extra input on `device` in its own dtype (a numpy
+    bfloat16 array by its 16-bit patterns)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    return tensor_from_numpy(v, device)
 
 
 def _to_device(tree, device):

@@ -93,3 +93,43 @@ class Replay:
 
     def check_all_used(self):
         assert self.used == {k: len(v) for k, v in self.calls.items()}
+
+
+def record_sampled_logits(monkeypatch, eng, store):
+    """Wrap eng._sample_rows (a JAX or a port engine) to keep each live
+    row's f32 logits by (rid, n_gen), the token index it is about to
+    sample."""
+    inner = eng._sample_rows
+
+    def wrapped(logits, slots):
+        lg = np.asarray(logits.float() if isinstance(logits, torch.Tensor)
+                        else logits, np.float32).reshape(len(slots), -1)
+        for i, s in enumerate(slots):
+            if s is not None:
+                store[(s.rid, s.n_gen)] = lg[i]
+        return inner(logits, slots)
+
+    monkeypatch.setattr(eng, "_sample_rows", wrapped)
+
+
+def greedy_up_to_near_ties(jlog, tlog, jout, tout, tol):
+    """Hold a port engine's greedy run to a JAX engine's on the same
+    requests: along each request, the logits at every token within `tol`
+    of JAX's and the token equal, up to the first token whose JAX top-2
+    margin is within `tol` (a near tie: the two argmaxes may differ there
+    and the continuations after it condition on different tokens).
+    Returns how many tokens were compared."""
+    assert set(tout) == set(jout)
+    compared = 0
+    for rid, want in jout.items():
+        assert len(tout[rid]) == len(want), rid
+        for n, tok in enumerate(want):
+            lj, lt = jlog[(rid, n)], tlog[(rid, n)]
+            np.testing.assert_allclose(lt, lj, atol=tol, rtol=0,
+                                       err_msg=f"rid {rid} token {n}")
+            top2 = np.sort(lj)[-2:]
+            if top2[1] - top2[0] <= tol:
+                break
+            assert tout[rid][n] == tok, (rid, n)
+            compared += 1
+    return compared

@@ -28,6 +28,8 @@ from repro_torch.configs.base import get_config, reduce_config
 from repro_torch.models import convert
 from repro_torch.serve.engine import Request, ServeEngine
 
+from _torch_replay import record_sampled_logits
+
 SERVE_TOL = 1e-2
 KW = dict(layers=2, d_model=64, vocab=128)
 
@@ -47,25 +49,6 @@ def _requests(specs, seed=0):
     rng = np.random.default_rng(seed)
     return [(rid, rng.integers(0, 128, plen).astype(np.int32), n)
             for rid, plen, n in specs]
-
-
-def _record_logits(monkeypatch, eng, store):
-    """Wrap eng._sample_rows to keep each live row's logits by (rid,
-    n_gen), the token index the row is about to sample."""
-    inner = eng._sample_rows
-
-    def wrapped(logits, slots):
-        if isinstance(logits, torch.Tensor):
-            lg = logits.float().numpy()
-        else:
-            lg = np.asarray(logits, np.float32)
-        lg = lg.reshape(len(slots), -1)
-        for i, s in enumerate(slots):
-            if s is not None:
-                store[(s.rid, s.n_gen)] = lg[i]
-        return inner(logits, slots)
-
-    monkeypatch.setattr(eng, "_sample_rows", wrapped)
 
 
 def _stepwise(eng, reqs):
@@ -98,8 +81,8 @@ def test_schedule_stats_and_greedy_tokens_match_jax(small, monkeypatch, flash):
     jeng = JEngine(jcfg, jp, max_batch=2, cache_len=272)
     teng = ServeEngine(tcfg, tp, max_batch=2, cache_len=272, device="cpu")
     jlog, tlog = {}, {}
-    _record_logits(monkeypatch, jeng, jlog)
-    _record_logits(monkeypatch, teng, tlog)
+    record_sampled_logits(monkeypatch, jeng, jlog)
+    record_sampled_logits(monkeypatch, teng, tlog)
     jrep, jstats = _stepwise(jeng, [JRequest(rid=r, prompt=p,
                                              max_new_tokens=n)
                                     for r, p, n in reqs])
@@ -194,11 +177,29 @@ def test_engine_defaults_to_the_card(port_small, monkeypatch):
 
 
 def test_other_families_raise():
-    """Each family the port does not build yet names its ROADMAP item."""
-    for arch, item in (("whisper-small", "8.4"), ("internvl2-26b", "8.4")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1, item {item}"):
-            repro_torch.build_model(get_config(arch))
+    """Every family of FAMILIES builds (at reduce_config, one config each:
+    params, a prefill of 8 tokens with its frames or vis, finite logits),
+    and mesh= still names its ROADMAP item (9, distribution)."""
+    from repro_torch.configs.base import ARCH_IDS, FAMILIES
+    built = set()
+    for arch in ARCH_IDS:
+        cfg = reduce_config(get_config(arch), layers=1, d_model=64, vocab=128)
+        if cfg.family in built:
+            continue
+        built.add(cfg.family)
+        model = repro_torch.build_model(cfg)
+        params = model.init_params(0, device="cpu")
+        batch = {"tokens": torch.arange(8)[None]}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros((1, cfg.enc_seq, 64))
+        if cfg.family == "vlm":
+            batch["vis"] = torch.zeros((1, cfg.n_vis_tokens, 64))
+        logits, _ = model.prefill(params, batch)
+        assert logits.shape == (1, 1, 128), arch
+        assert torch.isfinite(logits).all(), arch
+    assert built == set(FAMILIES)
+    with pytest.raises(ValueError, match="ROADMAP queue 1, item 9"):
+        ServeEngine(cfg, params, device="cpu", mesh=object())
 
 
 @pytest.mark.parametrize("flash", [False, True])

@@ -34,6 +34,8 @@ from repro_torch.models import convert
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import Request, ServeEngine
 
+from _torch_replay import record_sampled_logits
+
 SERVE_TOL = 1e-2
 KW = dict(layers=2, d_model=64, vocab=128)
 # tests/test_kvcache.py:43
@@ -63,20 +65,6 @@ def _port(reqs):
     return [Request(rid=r.rid, prompt=np.asarray(r.prompt),
                     max_new_tokens=r.max_new_tokens,
                     temperature=r.temperature) for r in reqs]
-
-
-def _record_logits(monkeypatch, eng, store):
-    inner = eng._sample_rows
-
-    def wrapped(logits, slots):
-        lg = (logits.float().numpy() if isinstance(logits, torch.Tensor)
-              else np.asarray(logits, np.float32)).reshape(len(slots), -1)
-        for i, s in enumerate(slots):
-            if s is not None:
-                store[(s.rid, s.n_gen)] = lg[i]
-        return inner(logits, slots)
-
-    monkeypatch.setattr(eng, "_sample_rows", wrapped)
 
 
 def _stepwise(eng, reqs):
@@ -110,8 +98,8 @@ def test_paged_engine_matches_jax(small, trace_requests, monkeypatch,
     jeng = JEngine(jcfg, jp, **kw)
     teng = ServeEngine(tcfg, tp, device="cpu", **kw)
     jlog, tlog = {}, {}
-    _record_logits(monkeypatch, jeng, jlog)
-    _record_logits(monkeypatch, teng, tlog)
+    record_sampled_logits(monkeypatch, jeng, jlog)
+    record_sampled_logits(monkeypatch, teng, tlog)
     jrep, jstats = _stepwise(jeng, trace_requests)
     trep, tstats = _stepwise(teng, _port(trace_requests))
     assert trep == jrep
