@@ -318,6 +318,30 @@ Phases (one line each, more where noted):
      memory, one traced step each; then one internvl2 step with every
      flash launch held against its plain version (FLASH_OUT_ULPS,
      BWD_ULPS) and the matmul flags read at each.
+ 17. tensor-parallel serving (exact-TP, ServeEngine(mesh=)): TP_RANKS
+     ranks spawned by torch.multiprocessing, sharing the one card over
+     gloo (NCCL refuses two ranks on one GPU; gloo takes CUDA tensors),
+     one mesh ("model",) of TP_RANKS, a FileStore rendezvous under build/
+     and a timeout on the world and on every collective. In this process the
+     unsharded engine serves 17a's and 17b's requests (tokens, and every
+     model call's logits as a digest), then frees them; 17d: a 1-rank mesh
+     here (no process group) serves 17a's requests bit-equal to no mesh,
+     device_stats of length 1. Each rank then builds the whole params
+     from seed 0 and its sharded engine: 17a qwen2-1.5b at full width and
+     depth, flash on, max_batch 4, phase 8's nine requests (one at
+     SPEC_HOT_T); 17b deepseek-moe-16b at full width cut to TP_MOE_LAYERS
+     layers, phase 14a's nine requests. Gates: every rank's tokens equal
+     the other's and the unsharded engine's, every model call's logits
+     bit-equal, every rank-local flash_fwd launch (qwen2: B=1, H=6, KvH=1,
+     Hd=128) within FLASH_OUT_ULPS of flash_fwd_plain, and their exact
+     count; printed: params a rank against the whole, the sharded leaves,
+     a decode round's gathers and bytes gathered, launches a round a rank
+     (profiled), round ms (2 ranks sharing one card: not a TP speed).
+     17c: flash_decode_sharded at qwen2's decode shape (TP_DECODE, the
+     seq dim over the ranks) against decode_attention on the whole cache
+     within TP_DECODE_ATOL, the ranks' outputs bit-equal. A failure in any
+     rank fails the phase; nothing falls back to the CPU, one rank or a
+     plain version.
 Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
 phase 7d's Hd 32 model check, phase 8's serving run, phase 10's training
 run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
@@ -327,7 +351,8 @@ run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
 (moe_train), phase 15's rwkv serving run (rwkv_serve), training runs
 (hybrid_train, rwkv_train) and pallas step (hybrid-train-pallas), phase
 16's serving runs (vlm_serve, vlm_paged, whisper_serve, whisper_paged)
-and training runs (whisper_train, vlm_train)) runs
+and training runs (whisper_train, vlm_train), phase 17's sharded serving
+runs (tp_serve, tp_moe: every rank's counts, summed)) runs
 with the launch counters
 zeroed just before it and read just after; the kernels line gives each
 path's counts, and the script fails unless every kernel launched on the
@@ -342,7 +367,9 @@ backward kernel 4 times a moe training step, no kernel on phase 15's
 serving and training runs, and ssm_scan in the forward of the hymba
 pallas step, flash_fwd 48 times a flash-sized admission on both vlm
 serving runs, 16 and each backward kernel 8 times a vlm training step,
-no kernel on whisper's runs).
+no kernel on whisper's runs, flash_fwd 28 times an admission on each
+rank of tp_serve and 4 times a flash-sized admission on each rank of
+tp_moe, and no other kernel there).
 
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero without it. Without a card, or outside the repository, the
@@ -583,6 +610,16 @@ VLM_TRAIN_SEQ = 768
 VLM_TRAIN_BATCH = 4
 WHISPER_TRAIN_SEQ = 448
 WHISPER_TRAIN_BATCH = 8
+# tensor-parallel serving (phase 17): TP_RANKS ranks sharing the one card
+# over gloo (NCCL refuses two ranks on one GPU), each holding its shards;
+# 17b's deepseek-moe-16b cut to TP_MOE_LAYERS layers; 17c's sharded
+# flash-decode at qwen2's decode shape, held within the reference's 5e-3
+TP_RANKS = 2
+TP_MOE_LAYERS = 4
+TP_DECODE = dict(b=4, h=12, kvh=2, hd=128, l=8192, clen=8000)
+TP_DECODE_ATOL = 5e-3
+TP_WORLD_TIMEOUT_S = 900
+TP_COLLECTIVE_TIMEOUT_S = 600
 # phase 7c's cases: (tag, B, T, C, N, h0 scale); inputs from seed 10 + index
 SSM_CASES = (("hymba-prefill", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.0),
              ("t4096", 1, 4096, 3200, 16, 0.0),
@@ -819,9 +856,7 @@ def main() -> None:
     # -- 4. the main path: dispatch at Si-214 (v10, tuned on the card) --------
     size = problem.SI214
     inp = problem.make_inputs(size)
-    counters = (gpp_cuda.gpp_fused, gpp_cuda.gpp_banded, flash_cuda.flash_fwd,
-                flash_cuda.flash_bwd_dq, flash_cuda.flash_bwd_dkv,
-                ssm_cuda.ssm_scan) + paged_cuda.ENTRY_POINTS
+    counters = kernel_counters()
 
     def zero_counts():
         for f in counters:
@@ -1059,6 +1094,12 @@ def main() -> None:
           f"{vlm_serve['phase_s']:.1f} s, 16b {whisper_serve['phase_s']:.1f} "
           f"s, 16c {ev_train['phase_s']:.1f} s) [{card}]", flush=True)
 
+    # -- 17. tensor-parallel serving: 2 ranks on the card over gloo -----------
+    tp = tp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
+                  by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     names = ("gpp_fused", "gpp_banded", "flash_fwd", "flash_bwd_dq",
              "flash_bwd_dkv", "ssm_scan", "paged_decode_gather",
              "paged_decode_int8", "paged_decode_verify")
@@ -1165,12 +1206,25 @@ def main() -> None:
           f"{json.dumps(recurrent)} [{card}]", flush=True)
     print(f"[16] encdec and vlm summary: {json.dumps(encdec_vlm)} [{card}]",
           flush=True)
+    print(f"[17] tensor-parallel summary: {json.dumps(tp)} [{card}]",
+          flush=True)
     print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"(build {build_s:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def kernel_counters():
+    """Every kernel wrapper of the port (each counts its launches)."""
+    from repro_torch.kernels.flash import flash_cuda
+    from repro_torch.kernels.gpp import gpp_cuda
+    from repro_torch.kernels.paged import paged_cuda
+    from repro_torch.kernels.ssm import ssm_cuda
+    return (gpp_cuda.gpp_fused, gpp_cuda.gpp_banded, flash_cuda.flash_fwd,
+            flash_cuda.flash_bwd_dq, flash_cuda.flash_bwd_dkv,
+            ssm_cuda.ssm_scan) + paged_cuda.ENTRY_POINTS
 
 
 def matmul_flags(torch) -> dict:
@@ -4100,9 +4154,9 @@ def loss0_terms(torch, model, params, batch):
                          .flatten())
         return xent(logits, labels, **kw)
 
-    def rec_logits(x, table):
+    def rec_logits(x, table, **kw):
         got["ms"].append(x.float().square().mean(-1).flatten())
-        return logits_fn(x, table)
+        return logits_fn(x, table, **kw)
 
     registry.softmax_xent, registry.lm_logits = rec_xent, rec_logits
     try:
@@ -4885,6 +4939,395 @@ def encdec_vlm_train_phase(torch, dev, spec, card, flash_cuda, zero_counts,
     del tr
     res["phase_s"] = time.perf_counter() - t_phase
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 17: tensor-parallel serving, 2 ranks sharing one card over gloo
+# ---------------------------------------------------------------------------
+
+def tp_requests(np, cfg, which):
+    """Phase 8's nine requests (which="dense") or phase 14a's (which="moe"):
+    eight greedy prompts and one at SPEC_HOT_T, 32 new tokens each."""
+    from repro_torch.serve.engine import Request
+    v = cfg.vocab_size
+    if which == "dense":
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, v, n) for n in SERVE_PROMPTS]
+        hot = rng.integers(0, v, 200)
+    else:
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(0, v, n) for n in MOE_PROMPTS]
+        hot = rng.integers(0, v, MOE_HOT_PROMPT)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    reqs.append(Request(rid=len(prompts), prompt=hot, max_new_tokens=32,
+                        temperature=SPEC_HOT_T))
+    return reqs
+
+
+def tp_config(which):
+    """17a: qwen2-1.5b uncut; 17b: deepseek-moe-16b cut to TP_MOE_LAYERS
+    layers; both at full width with flash on."""
+    import dataclasses
+    import repro_torch
+    if which == "dense":
+        return dataclasses.replace(repro_torch.get_config("qwen2-1.5b"),
+                                   use_flash_attention=True)
+    return dataclasses.replace(repro_torch.get_config("deepseek-moe-16b"),
+                               n_layers=TP_MOE_LAYERS,
+                               use_flash_attention=True)
+
+
+def record_logits(eng):
+    """Wrap eng's model calls so every call's logits are recorded in call
+    order (a digest of their bytes), and every admission's logits whole
+    (to print how far they lie apart where digests differ)."""
+    import dataclasses
+    import hashlib
+    rec = {"digests": [], "admit": []}
+
+    def wrap(fn, kind):
+        def call(*a, **kw):
+            lg, cache = fn(*a, **kw)
+            host = lg.float().cpu()
+            rec["digests"].append(hashlib.sha1(
+                host.numpy().tobytes()).hexdigest())
+            if kind == "admit":
+                rec["admit"].append(host)
+            return lg, cache
+        return call
+
+    eng.model = dataclasses.replace(
+        eng.model, decode_step=wrap(eng.model.decode_step, "decode"),
+        prefill_into_slot=wrap(eng.model.prefill_into_slot, "admit"))
+    return rec
+
+
+def tp_reference(torch, np, dev, card, which):
+    """The unsharded engine on `which`'s config and requests, in this
+    process: tokens and the recorded logits, then (17d, dense only) the
+    same requests through a 1-rank mesh. Frees the model before it
+    returns."""
+    import repro_torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = tp_config(which)
+    reqs = tp_requests(np, cfg, which)
+    params = repro_torch.build_model(cfg).init_params(0, device=dev)
+    eng = ServeEngine(cfg, params, max_batch=4, cache_len=1024, device=dev)
+    eng.run([Request(rid=99, prompt=reqs[0].prompt, max_new_tokens=2)])
+    rec = record_logits(eng)
+    stats, decode_ms, _ = drive(eng, reqs)
+    torch.cuda.synchronize()
+    out = {"tokens": {r.rid: list(eng.outputs[r.rid]) for r in reqs},
+           "rec": rec, "decode_ms_p50": decode_ms[len(decode_ms) // 2],
+           "params_bytes": sum(t.numel() * t.element_size()
+                               for t in _leaves(params))}
+    print(f"[17] unsharded {which} reference ({cfg.name}, {cfg.n_layers} "
+          f"layers): {stats['requests']} requests, {stats['prefills']} "
+          f"prefills, {stats['decode_steps']} decode steps, "
+          f"{len(rec['digests'])} model calls recorded; decode round p50 "
+          f"{out['decode_ms_p50']:.2f} ms; params "
+          f"{out['params_bytes'] / 1e9:.3f} GB [{card}]", flush=True)
+    del eng
+    if which == "dense":
+        # 17d: a 1-rank mesh in this process is the mesh-less engine
+        mesh = make_mesh({"model": 1}, device=dev, backend="gloo")
+        one = ServeEngine(cfg, params, max_batch=4, cache_len=1024,
+                          device=dev, mesh=mesh)
+        rec1 = record_logits(one)
+        drive(one, reqs)
+        ds = one.device_stats()
+        same = ({r.rid: list(one.outputs[r.rid]) for r in reqs}
+                == out["tokens"] and rec1["digests"] == rec["digests"])
+        line = (f"[17d] a 1-rank mesh in this process (backend gloo, no "
+                f"collective): tokens and all {len(rec1['digests'])} model "
+                f"calls' logits bit-equal to no mesh: {same}; device_stats "
+                f"{ds} [{card}]")
+        print(line, flush=True)
+        if not same or len(ds) != 1 or one.last_stats["devices"] != 1:
+            fail(line)
+        out["one_rank"] = {"bit_equal": same, "device_stats": ds}
+        del one
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
+             by_path):
+    """Phase 17: tensor-parallel serving over TP_RANKS ranks sharing the
+    card (torch.multiprocessing spawn, gloo, a FileStore under build/), each
+    rank's results held to the unsharded engine run first in this process.
+    """
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    refs = {w: tp_reference(torch, np, dev, card, w) for w in ("dense",
+                                                              "moe")}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="tp_world_",
+                            dir=os.path.join(ROOT, "build"))
+    store, out_dir = os.path.join(work, "store"), os.path.join(work, "out")
+    os.makedirs(out_dir)
+    t1 = time.perf_counter()
+    ctx = mp.start_processes(tp_rank_main, args=(TP_RANKS, store, out_dir),
+                             nprocs=TP_RANKS, join=False,
+                             start_method="spawn")
+    try:
+        while not ctx.join(timeout=5.0):
+            if time.perf_counter() - t1 > TP_WORLD_TIMEOUT_S:
+                fail(f"[17] the {TP_RANKS}-rank world ran past "
+                     f"{TP_WORLD_TIMEOUT_S} s")
+    except mp.ProcessRaisedException as e:
+        fail(f"[17] a rank failed:\n{e}")
+    except mp.ProcessExitedException as e:
+        fail(f"[17] a rank exited: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    world_s = time.perf_counter() - t1
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(TP_RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    res = {"world_s": world_s}
+    for tag, which, path in (("17a", "dense", "tp_serve"),
+                             ("17b", "moe", "tp_moe")):
+        res[which] = tp_gates(torch, card, tag, which, refs[which],
+                              [r[which] for r in ranks])
+        # the ranks' launches summed; every kernel but flash_fwd must be 0
+        counts = {k: sum(r[which]["launches"][k] for r in ranks)
+                  for k in read_counts()}
+        by_path[path] = counts
+        if any(n for k, n in counts.items() if k != "flash_fwd"):
+            fail(f"[{tag}] launches {counts}: only flash_fwd runs here")
+    res["one_rank"] = refs["dense"]["one_rank"]
+    dec = [r["decode"] for r in ranks]
+    line = (f"[17c] flash_decode_sharded (B={TP_DECODE['b']}, "
+            f"H={TP_DECODE['h']}, KvH={TP_DECODE['kvh']}, "
+            f"Hd={TP_DECODE['hd']}, L={TP_DECODE['l']} split over "
+            f"{TP_RANKS} ranks, cache_len {TP_DECODE['clen']}) against "
+            f"decode_attention on the whole cache: max |diff| "
+            f"{[round(d['err'], 6) for d in dec]} (tol {TP_DECODE_ATOL}); "
+            f"the ranks' outputs bit-equal: "
+            f"{all(d['digest'] == dec[0]['digest'] for d in dec)}; a call "
+            f"{[round(d['ms'], 3) for d in dec]} ms with its three gloo "
+            f"all_reduces, the whole-cache plain call "
+            f"{[round(d['plain_ms'], 3) for d in dec]} ms (2 ranks sharing "
+            f"one card: not a TP speed) [{card}]")
+    print(line, flush=True)
+    if (max(d["err"] for d in dec) > TP_DECODE_ATOL
+            or any(d["digest"] != dec[0]["digest"] for d in dec)):
+        fail(line)
+    res["decode"] = dec
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"[17] phase 17 ran {res['phase_s']:.1f} s (the {TP_RANKS}-rank "
+          f"world {world_s:.1f} s) [{card}]", flush=True)
+    return res
+
+
+def tp_gates(torch, card, tag, which, ref, ranks):
+    """17a/17b's gates on every rank's results: tokens equal across ranks
+    and to the unsharded engine's, every model call's logits bit-equal
+    (their digests), every rank-local flash_fwd launch within
+    FLASH_OUT_ULPS of flash_fwd_plain and their exact count; printed with
+    the shard bytes, gathers and launches a decode round and round ms."""
+    first = ranks[0]
+    same_tokens = all(r["tokens"] == ref["tokens"] for r in ranks)
+    same_logits = all(r["rec"]["digests"] == ref["rec"]["digests"]
+                      for r in ranks)
+    diffs = []
+    if not same_logits:
+        for r in ranks:
+            d = [i for i, (a, b) in enumerate(zip(r["rec"]["digests"],
+                                                  ref["rec"]["digests"]))
+                 if a != b]
+            adm = [float((a - b).abs().max()) for a, b in
+                   zip(r["rec"]["admit"], ref["rec"]["admit"])]
+            diffs.append({"calls_differ": len(d), "first_call": d[:1],
+                          "admit_max_abs": max(adm) if adm else None})
+    want = first["want_flash"]
+    ulps = [max(r["flash_ulps"]) if r["flash_ulps"] else float("inf")
+            for r in ranks]
+    n_held = [len(r["flash_ulps"]) for r in ranks]
+    flash = [r["launches"]["flash_fwd"] for r in ranks]
+    line = (f"[{tag}] {first['name']} ({first['layers']} layers) over "
+            f"{len(ranks)} ranks (mesh model={len(ranks)}, gloo, one card): "
+            f"tokens equal across ranks and to the unsharded engine: "
+            f"{same_tokens}; all {len(ref['rec']['digests'])} model calls' "
+            f"logits bit-equal: {same_logits} {diffs}; rank-local flash_fwd "
+            f"launches {flash} (expected {want} each: {first['flash_shape']}),"
+            f" {n_held} held against flash_fwd_plain, worst {ulps} bf16 ulps "
+            f"(tol {FLASH_OUT_ULPS}) [{card}]")
+    print(line, flush=True)
+    if (not same_tokens or not same_logits or any(f != want for f in flash)
+            or any(n != want for n in n_held)
+            or max(ulps) > FLASH_OUT_ULPS):
+        fail(line)
+    pb = [r["params_bytes"] for r in ranks]
+    print(f"[{tag}] params a rank {[round(b / 1e9, 3) for b in pb]} GB "
+          f"against {first['whole_bytes'] / 1e9:.3f} GB whole "
+          f"({pb[0] / first['whole_bytes']:.1%}); {first['sharded_leaves']} "
+          f"sharded leaves {first['sharded']}; cache a rank "
+          f"{first['device_stats'][0]['cache_bytes'] / 1e9:.3f} GB; "
+          f"device_stats {first['device_stats']}; a decode round: "
+          f"{first['gathers_per_round']} gathers, "
+          f"{first['gather_bytes_per_round'] / 1e6:.3f} MB gathered (whole "
+          f"tensors), {[r['launches_per_round'] for r in ranks]} launches a "
+          f"rank (cudaLaunchKernel); decode round p50 "
+          f"{[round(r['decode_ms_p50'], 2) for r in ranks]} ms against the "
+          f"unsharded {ref['decode_ms_p50']:.2f} ms (2 ranks sharing one "
+          f"card: not a TP speed) [{card}]", flush=True)
+    return {k: first[k] for k in (
+        "params_bytes", "whole_bytes", "sharded_leaves",
+        "gathers_per_round", "gather_bytes_per_round")} | {
+        "params_bytes_by_rank": pb, "flash_launches": flash,
+        "flash_ulps_max": max(ulps),
+        "launches_per_round": [r["launches_per_round"] for r in ranks],
+        "decode_ms_p50": [r["decode_ms_p50"] for r in ranks],
+        "unsharded_decode_ms_p50": ref["decode_ms_p50"],
+        "tokens_equal": same_tokens, "logits_bit_equal": same_logits}
+
+
+def tp_rank_main(rank, n, store, out_dir):
+    """One rank of phase 17's world: its mesh over gloo on the one card,
+    17a and 17b's sharded serving and 17c's sharded decode; results to
+    out_dir/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.cuda.set_device(0)
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh({"model": n}, device="cuda:0", backend="gloo",
+                     init_method=f"file://{store}", rank=rank, world_size=n,
+                     timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+    res = {w: tp_serve_rank(torch, mesh, w) for w in ("dense", "moe")}
+    res["decode"] = tp_decode_rank(torch, mesh)
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_serve_rank(torch, mesh, which):
+    """17a/17b on one rank: the whole params from seed 0, the sharded
+    engine, a warm-up, then the requests with every flash_fwd launch held
+    against flash_fwd_plain and every model call's logits recorded; a
+    decode round's gathers; an admission and three decode rounds under
+    the profiler."""
+    import numpy as np
+    import repro_torch
+    from repro_torch.dist import sharding
+    from repro_torch.kernels.flash import flash_cuda
+    from repro_torch.models import layers
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = tp_config(which)
+    reqs = tp_requests(np, cfg, which)
+    dev = mesh.device
+    params = repro_torch.build_model(cfg).init_params(0, device=dev)
+    whole = sum(t.numel() * t.element_size() for t in _leaves(params))
+    eng = ServeEngine(cfg, params, max_batch=4, cache_len=1024, device=dev,
+                      mesh=mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng.run([Request(rid=99, prompt=reqs[0].prompt, max_new_tokens=2)])
+    rec = record_logits(eng)
+    ulps, shapes = [], set()
+
+    def against_plain(args, got):
+        ulps.append(bf16_ulps(got[0], flash_cuda.flash_fwd_plain(*args)[0]))
+        q, k = args[0], args[1]
+        shapes.add(f"B={q.shape[0]}, H={q.shape[2]}, KvH={k.shape[2]}, "
+                   f"Hd={q.shape[3]}")
+
+    counters = kernel_counters()
+    for f in counters:
+        f.launches = 0
+    with hold_launches(flash_cuda, "flash_fwd", against_plain):
+        stats, decode_ms, _ = drive(eng, reqs)
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in counters}
+    tokens = {r.rid: list(eng.outputs[r.rid]) for r in reqs}
+    rec = {k: v[:] for k, v in rec.items()}
+    if which == "dense":
+        want = cfg.n_layers * len(reqs)        # every admission buckets
+    else:
+        want = cfg.n_layers * sum(len(r.prompt) % 256 == 0 for r in reqs)
+    # one decode round's gathers: four admissions, then a decode round
+    eng.reset()
+    for r in reqs[:4]:
+        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=4))
+    eng.step()
+    layers.reset_tp_counts()
+    eng.step()
+    tp = layers.tp_counts()
+    prof = {}
+    profile_rounds(torch, f"17 {which} rank {mesh.rank}", eng, reqs[1:8:2],
+                   prof, f"rank {mesh.rank} of {mesh.size}")
+    torch.cuda.synchronize()
+    split = sorted(p for p, s in _spec_items(eng._specs.params)
+                   if any(e is not None for e in s))
+    ds = eng.device_stats()           # a collective: every rank calls it
+    return {"name": cfg.name, "layers": cfg.n_layers, "tokens": tokens,
+            "rec": rec, "launches": launches, "want_flash": want,
+            "flash_ulps": ulps, "flash_shape": sorted(shapes),
+            "params_bytes": ds[mesh.rank]["params_bytes"],
+            "device_stats": ds, "whole_bytes": whole,
+            "sharded_leaves": len(split),
+            "sharded": sorted({p.split("/")[-1] for p in split}),
+            "gathers_per_round": tp["gathers"],
+            "gather_bytes_per_round": tp["bytes"],
+            "launches_per_round":
+                prof["profile_decode"]["cuda_launch_kernel"] / 3,
+            "decode_ms_p50": decode_ms[len(decode_ms) // 2],
+            "stats": {k: stats[k] for k in ("requests", "prefills",
+                                            "decode_steps", "new_tokens")}}
+
+
+def _spec_items(tree, pre=""):
+    for k, v in tree.items():
+        path = f"{pre}/{k}" if pre else k
+        if isinstance(v, dict):
+            yield from _spec_items(v, path)
+        else:
+            yield path, v
+
+
+def tp_decode_rank(torch, mesh):
+    """17c on one rank: flash_decode_sharded at qwen2's decode shape, the
+    cache's seq dim split over the ranks (this rank's block cut from the
+    whole cache, drawn alike on every rank), against decode_attention on
+    the whole cache; a call's ms each way."""
+    import hashlib
+    from repro_torch.dist.sharding import local_shard
+    from repro_torch.models.attention import (decode_attention,
+                                              flash_decode_sharded)
+    from repro_torch.models.layers import DistCtx
+    c = TP_DECODE
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q = torch.randn(c["b"], 1, c["h"], c["hd"], generator=gen,
+                    device=dev).bfloat16()
+    k, v = (torch.randn(c["b"], c["l"], c["kvh"], c["hd"], generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    spec = (None, "model", None, None)
+    kl, vl = (local_shard(t, spec, mesh).contiguous() for t in (k, v))
+    ctx = DistCtx(mesh=mesh, kv_seq_shard=True)
+
+    def sharded():
+        return flash_decode_sharded(q, kl, vl, c["clen"], ctx=ctx)
+
+    got = sharded()
+    want = decode_attention(q, k, v, c["clen"])
+    torch.cuda.synchronize()
+    return {"err": float((got.float() - want.float()).abs().max()),
+            "digest": hashlib.sha1(got.float().cpu().numpy().tobytes()
+                                   ).hexdigest(),
+            "ms": cuda_ms(sharded, reps=10),
+            "plain_ms": cuda_ms(lambda: decode_attention(q, k, v, c["clen"]),
+                                reps=10)}
 
 
 def _leaves(tree):

@@ -1,2 +1,3 @@
-"""Fault tolerance for the training loop (heartbeat, watchdog,
-resume); the mesh and the router wait for later slices."""
+"""Distribution: the sharding engine (`sharding`: logical axes onto mesh
+axes, a rank's local shards) and fault tolerance for the training loop
+(`fault`: heartbeat, watchdog, resume)."""

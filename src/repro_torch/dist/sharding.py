@@ -1,0 +1,335 @@
+"""Logical-axis -> mesh-axis assignment (the sharding engine) — the port
+of `repro.dist.sharding` (:42-288), plus `local_shard`, which cuts a
+rank's block out of a whole tensor (the port runs one process a rank, so
+there is no GSPMD to place the blocks).
+
+Every param/cache/batch leaf carries *logical axes* (recorded by
+ParamInit / `Model.cache_axes()`, e.g. ("layers", "d_model", "d_ff")).
+`spec_for` maps those names onto mesh axes under a ShardingPlan, with the
+reference's two invariants:
+
+  * divisibility: a mesh axis (or axis group) is only assigned to a dim
+    whose size it divides; a non-divisible candidate REPLICATES instead
+    (e.g. qwen2-1.5b's 2 kv heads on a 4-way model axis);
+  * no reuse: a mesh axis appears at most once per spec.
+
+Assignment order (first claim wins):
+  1. TP: the `model` axis goes to the highest-priority tensor dim — with
+     `kv_seq_shard`, the KV-cache seq dim steals it (distributed
+     flash-decode) ahead of the usual last-to-first scan over
+     d_ff / heads / kv_heads / vocab dims;
+  2. EP: with `ep_data`, MoE expert dims take the dp axes;
+  3. DP: batch dims (activations only) take the longest prefix of the dp
+     axes whose product divides the batch;
+  4. FSDP: params additionally scatter the dp axes onto the LARGEST dim
+     that still divides.
+
+A spec is a tuple with one entry a dim: None, a mesh-axis name, or a
+tuple of names (major first) — `tuple(jax.sharding.PartitionSpec)`. The
+plan reads only `mesh.shape` as a name -> size mapping, so any object
+with that attribute plans (launch.mesh.Mesh, or a stand-in).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+
+LogicalAxes = Tuple[Optional[str], ...]
+Spec = Tuple[Any, ...]
+PyTree = Any
+
+# Tensor dims eligible for the model (TP) axis. The scan runs over dims
+# last-to-first, so the output-feature dim of a projection wins over its
+# input dim.
+_TP_NAMES = ("d_ff", "heads", "kv_heads", "vocab")
+
+
+@dataclasses.dataclass
+class ShardingPlan:
+    """How one (model x mesh x cell-kind) combination maps onto the mesh.
+
+    dp_axes: data-parallel mesh axes in outer-to-inner order.
+    fsdp: scatter params/optimizer over the dp axes.
+    kv_seq_shard: decode-time KV seq dim takes the model axis
+        (distributed flash-decode).
+    ep_data: MoE expert dims shard over the dp axes (EP).
+    tp_out_dims_only: params take the model axis ONLY on their last
+        (output-feature) dim — column-parallel everywhere, no row-parallel
+        weights. Every cross-rank combine is then a concatenation
+        (all-gather), never a sum, so sharded execution is bit-exact by
+        construction (the serving plan's contract; serve_specs and
+        layers.exact_tp_scope).
+    """
+    mesh: Any
+    dp_axes: Tuple[str, ...] = ()
+    fsdp: bool = False
+    kv_seq_shard: bool = False
+    ep_data: bool = False
+    tp_out_dims_only: bool = False
+
+    @property
+    def tp_axis(self) -> Optional[str]:
+        return "model" if "model" in self.mesh.shape else None
+
+    def axis_size(self, name: str) -> int:
+        return int(self.mesh.shape[name])
+
+    def dp_size(self) -> int:
+        n = 1
+        for a in self.dp_axes:
+            n *= self.axis_size(a)
+        return n
+
+
+def spec_for(plan: ShardingPlan, axes: Sequence[Optional[str]],
+             shape: Sequence[int], *, is_param: bool = True) -> Spec:
+    """The spec of one leaf with logical `axes` and concrete `shape`.
+
+    is_param=True leaves are weights (TP + EP + FSDP apply); False leaves
+    are activations / caches (TP + DP apply). Every rule falls back to
+    replication when divisibility fails."""
+    axes = tuple(axes)
+    assert len(axes) == len(shape), (axes, shape)
+    n = len(axes)
+    assigned: list = [[] for _ in range(n)]
+    used: set = set()
+
+    def divisor(i: int) -> int:
+        d = 1
+        for a in assigned[i]:
+            d *= plan.axis_size(a)
+        return d
+
+    def fits(i: int, names: Tuple[str, ...]) -> bool:
+        if any(a in used for a in names):
+            return False
+        d = divisor(i)
+        for a in names:
+            d *= plan.axis_size(a)
+        return shape[i] % d == 0
+
+    def take(i: int, names: Tuple[str, ...]) -> None:
+        assigned[i].extend(names)
+        used.update(names)
+
+    def longest_dp_prefix(i: int) -> Tuple[str, ...]:
+        for k in range(len(plan.dp_axes), 0, -1):
+            names = tuple(plan.dp_axes[:k])
+            if fits(i, names):
+                return names
+        return ()
+
+    # 1. TP: the model axis goes to exactly one tensor dim
+    tp = plan.tp_axis
+    if tp is not None:
+        candidates = []
+        if not is_param and plan.kv_seq_shard:
+            candidates += [i for i in reversed(range(n))
+                           if axes[i] == "kv_seq"]
+        if is_param and plan.tp_out_dims_only:
+            # column-parallel only: a weight may shard its LAST dim (the
+            # output features); contraction dims replicate (exact-TP)
+            if n and axes[n - 1] in _TP_NAMES:
+                candidates.append(n - 1)
+        else:
+            candidates += [i for i in reversed(range(n))
+                           if axes[i] in _TP_NAMES]
+        for i in candidates:
+            if fits(i, (tp,)):
+                take(i, (tp,))
+                break
+
+    # 2. EP: expert dims over the dp axes (params only)
+    if is_param and plan.ep_data:
+        for i in range(n):
+            if axes[i] == "experts":
+                names = longest_dp_prefix(i)
+                if names:
+                    take(i, names)
+                break
+
+    # 3. DP: batch dims over the dp axes (activations only)
+    if not is_param:
+        for i in range(n):
+            if axes[i] == "batch":
+                names = longest_dp_prefix(i)
+                if names:
+                    take(i, names)
+                break
+
+    # 4. FSDP: params scatter the still-unused dp axes onto the largest
+    # dividing dim (EP may have claimed a prefix)
+    if is_param and plan.fsdp and plan.dp_axes:
+        avail = tuple(a for a in plan.dp_axes if a not in used)
+        for k in range(len(avail), 0, -1):
+            names = tuple(avail[:k])
+            eligible = [i for i in range(n) if fits(i, names)]
+            if eligible:
+                take(max(eligible, key=lambda i: shape[i]), names)
+                break
+
+    entries = []
+    for names in assigned:
+        if not names:
+            entries.append(None)
+        elif len(names) == 1:
+            entries.append(names[0])
+        else:
+            entries.append(tuple(names))
+    return tuple(entries)
+
+
+# ---------------------------------------------------------------------------
+# tree builders
+# ---------------------------------------------------------------------------
+
+def params_shardings(plan: ShardingPlan,
+                     param_axes: Dict[str, LogicalAxes],
+                     ab_params: PyTree) -> PyTree:
+    """The spec tree of a params tree (leaves: anything with a `.shape`);
+    `param_axes` maps "a/b/c" nesting paths to logical axes
+    (ParamInit.axes, `Model.param_axes`). Leaves without a recorded path
+    replicate."""
+
+    def walk(node, path=""):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        axes = param_axes.get(path) or (None,) * len(node.shape)
+        return spec_for(plan, axes, tuple(node.shape), is_param=True)
+
+    return walk(ab_params)
+
+
+def cache_shardings(plan: ShardingPlan, cache_axes: PyTree,
+                    abstract_cache: PyTree) -> PyTree:
+    """The spec tree of a decode cache; `cache_axes` mirrors the cache
+    with logical-axes tuples (`Model.cache_axes()`)."""
+
+    def walk(ax_node, ab_node):
+        if isinstance(ab_node, dict):
+            return {k: walk(ax_node[k], v) for k, v in ab_node.items()}
+        axes = tuple(ax_node) if ax_node else (None,) * len(ab_node.shape)
+        return spec_for(plan, axes, tuple(ab_node.shape), is_param=False)
+
+    return walk(cache_axes, abstract_cache)
+
+
+@dataclasses.dataclass
+class ServeShardings:
+    """How a ServeEngine lays its state out on a serving mesh.
+
+    params / cache are spec trees matching the model's param tree and the
+    slot scheduler's batched decode cache (whose "pos" is a (B,) per-slot
+    vector). replicated is the () spec of everything the host-side
+    scheduler owns (tokens, active masks, logits): scheduler state is the
+    same on every rank, so the FIFO slot loop does not depend on the
+    rank count."""
+    plan: ShardingPlan
+    params: PyTree
+    cache: PyTree
+    replicated: Spec
+
+
+def serve_specs(cfg, mesh, *, max_batch: int, cache_len: int,
+                model=None) -> ServeShardings:
+    """Sharding layout for tensor-parallel serving of `cfg` over `mesh`.
+
+    The plan is TP-only (no dp axes) and exact-TP (tp_out_dims_only): the
+    `model` mesh axis shards weights column-parallel on their output dims
+    (heads / d_ff / vocab) and the per-slot K/V cache head-wise via its
+    "kv_heads" logical axis; contraction dims never shard, and the
+    row-parallel matmuls all-gather their activation under
+    `layers.exact_tp_scope` instead of summing partials. Every cross-rank
+    combine is a concatenation of values computed whole on one rank, so
+    sharded serving is bit-exact against the single-device engine, at the
+    cost of computing the down-projections redundantly on every rank.
+    Dims the mesh does not divide (2 kv heads on a 4-way axis) replicate.
+
+    model: optionally the already-built Model for cfg (ServeEngine passes
+    its own)."""
+    if model is None:
+        from repro_torch.models.registry import build_model
+        model = build_model(cfg)
+    plan = ShardingPlan(mesh=mesh, dp_axes=(), tp_out_dims_only=True)
+    params = params_shardings(plan, model.param_axes,
+                              model.abstract_params())
+    cache = cache_shardings(plan, model.cache_axes(),
+                            model.init_cache(max_batch, cache_len,
+                                             abstract=True))
+    # the slot scheduler's per-row write position: host-owned, replicated
+    cache["pos"] = ()
+    return ServeShardings(plan=plan, params=params, cache=cache,
+                          replicated=())
+
+
+def batch_shardings(plan: ShardingPlan, batch: PyTree) -> PyTree:
+    """The spec tree of an input batch: dim 0 is the global batch (split
+    over the dp axes when divisible), the rest replicate."""
+
+    def leaf(x):
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
+        if not tuple(x.shape):                 # scalar leaf: replicated
+            return ()
+        axes = ("batch",) + (None,) * (len(x.shape) - 1)
+        return spec_for(plan, axes, tuple(x.shape), is_param=False)
+
+    return leaf(batch)
+
+
+# ---------------------------------------------------------------------------
+# a rank's blocks
+# ---------------------------------------------------------------------------
+
+def _names(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _block(entry, mesh, coords) -> Tuple[int, int]:
+    """(this rank's block index, block count) along a dim with `entry`:
+    the named axes' coordinates as one mixed-radix number, the first name
+    the most significant."""
+    idx, count = 0, 1
+    for a in _names(entry):
+        idx = idx * int(mesh.shape[a]) + int(coords[a])
+        count *= int(mesh.shape[a])
+    return idx, count
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of a leaf of `shape` under `spec`."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = []
+    for n, entry in zip(shape, spec):
+        count = 1
+        for a in _names(entry):
+            count *= int(mesh.shape[a])
+        out.append(n // count)
+    return tuple(out)
+
+
+def local_shard(t: torch.Tensor, spec: Spec, mesh,
+                coords: Optional[Dict[str, int]] = None) -> torch.Tensor:
+    """This rank's block of the whole tensor `t` under `spec`: a view (the
+    caller copies it to free the whole). Mesh axes are laid out
+    rank-major in the order of `mesh.shape`; `coords` (default
+    `mesh.coords`) picks another rank's block."""
+    coords = mesh.coords if coords is None else coords
+    spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx, count = _block(entry, mesh, coords)
+        if t.shape[d] % count:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
+                             f"{count} ways ({entry})")
+        width = t.shape[d] // count
+        t = t.narrow(d, idx * width, width)
+    return t
+

@@ -1,0 +1,170 @@
+"""Meshes for explicit SPMD: one process a mesh rank — the port of
+`repro.launch.mesh` (:14-27).
+
+The JAX package builds a `jax.sharding.Mesh` over the devices one
+program sees, and GSPMD splits the work. Here every rank is its own
+process (`torch.distributed`), holds only its local shards
+(dist/sharding.local_shard) and talks to the others through the process
+group of each mesh axis. A `Mesh` records:
+
+  * `shape`: an ordered name -> size mapping, the one thing the sharding
+    engine reads (as JAX's `mesh.shape`);
+  * `axis_names`, this rank's `rank` and `coords` (name -> index; ranks
+    are laid out rank-major in the order of `shape`, the last axis the
+    fastest, as `jax.make_mesh` lays out devices);
+  * `group(name)`: that axis's process group (the world for a one-axis
+    mesh; a `DeviceMesh`'s `get_group(name)` for more axes);
+  * `device` (where this rank's tensors live) and `backend`.
+
+The caller chooses the backend ("gloo" or "nccl"); `make_mesh` prints it
+and never picks one. NCCL needs a GPU a rank; two ranks sharing one card
+talk over gloo, which takes CUDA tensors (a collective then passes through
+host memory inside gloo). A mesh of one rank needs no process group: its
+gathers and reductions are the identity.
+
+    # CPU, 2 processes, each running:
+    mesh = make_mesh({"model": 2}, device="cpu", backend="gloo",
+                     init_method=f"file://{path}", rank=rank, world_size=2)
+"""
+
+from __future__ import annotations
+
+import datetime
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+
+
+class Mesh:
+    """A rank's view of a logical device mesh (see the module docstring).
+    Build one with make_mesh."""
+
+    def __init__(self, shape: Mapping[str, int], *, rank: int, device,
+                 backend: str, groups: Optional[Dict[str, object]] = None):
+        self.shape: Dict[str, int] = {k: int(v) for k, v in shape.items()}
+        self.axis_names: Tuple[str, ...] = tuple(self.shape)
+        self.size = 1
+        for n in self.shape.values():
+            self.size *= n
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        self.rank = rank
+        self.device = torch.device(device)
+        self.backend = backend
+        self._groups = dict(groups or {})
+        # rank-major: the last axis the fastest
+        coords, r = {}, rank
+        for name in reversed(self.axis_names):
+            r, coords[name] = divmod(r, self.shape[name])
+        self.coords: Dict[str, int] = {n: coords[n] for n in self.axis_names}
+
+    def group(self, name: str):
+        """The process group of axis `name` (None on an axis of 1, where
+        no collective is needed)."""
+        if self.shape[name] == 1:
+            return None
+        return self._groups[name]
+
+    def __repr__(self) -> str:
+        return (f"Mesh(shape={self.shape}, rank={self.rank}, "
+                f"coords={self.coords}, device={self.device}, "
+                f"backend={self.backend!r})")
+
+
+def make_mesh(shape: Union[Mapping[str, int], Sequence[int]],
+              axes: Optional[Sequence[str]] = None, *, device,
+              backend: str, init_method: Optional[str] = None,
+              rank: Optional[int] = None, world_size: Optional[int] = None,
+              timeout_s: float = 300.0) -> Mesh:
+    """This rank's Mesh of `shape` (a name -> size mapping, or sizes with
+    `axes` naming them), its tensors on `device`, collectives over
+    `backend`.
+
+    A mesh of more than one rank needs torch.distributed: if no process
+    group exists yet, one is initialized here from `init_method`
+    ("file://<path>" for a FileStore: no port to collide over; or
+    "tcp://localhost:<port>"), `rank` and `world_size`, with a timeout of
+    `timeout_s` so a rendezvous or collective that hangs fails instead. An
+    existing group must use `backend` and have the mesh's size. A mesh of
+    one rank needs none. The backend and the layout are printed."""
+    if not isinstance(shape, Mapping):
+        if axes is None or len(axes) != len(shape):
+            raise ValueError(f"sizes {tuple(shape)} need one name each, got "
+                             f"axes {axes}")
+        shape = dict(zip(axes, shape))
+    elif axes is not None and tuple(axes) != tuple(shape):
+        raise ValueError(f"axes {tuple(axes)} differ from the shape's "
+                         f"{tuple(shape)}")
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend {backend!r}: choose 'gloo' or 'nccl'")
+    size = 1
+    for n in shape.values():
+        size *= int(n)
+    import torch.distributed as dist
+    if size == 1 and not dist.is_initialized():
+        mesh = Mesh(shape, rank=0, device=device, backend=backend)
+        print(f"[mesh] {dict(mesh.shape)}: 1 rank, backend {backend} (no "
+              f"collective needed), device {mesh.device}", flush=True)
+        return mesh
+    if not dist.is_initialized():
+        if init_method is None or rank is None or world_size is None:
+            raise ValueError("a mesh of several ranks needs init_method=, "
+                             "rank= and world_size= (or an initialized "
+                             "torch.distributed)")
+        if init_method.startswith("file://"):
+            store = dist.FileStore(init_method[len("file://"):], world_size)
+            dist.init_process_group(
+                backend, store=store, rank=rank, world_size=world_size,
+                timeout=datetime.timedelta(seconds=timeout_s))
+        else:
+            dist.init_process_group(
+                backend, init_method=init_method, rank=rank,
+                world_size=world_size,
+                timeout=datetime.timedelta(seconds=timeout_s))
+    have = dist.get_backend()
+    if have != backend:
+        raise ValueError(f"torch.distributed runs {have!r}, the mesh asks "
+                         f"for {backend!r}")
+    if dist.get_world_size() != size:
+        raise ValueError(f"mesh {dict(shape)} has {size} ranks, the world "
+                         f"{dist.get_world_size()}")
+    names = tuple(shape)
+    if len(names) == 1:
+        groups = {names[0]: dist.group.WORLD}
+    else:
+        from torch.distributed.device_mesh import DeviceMesh
+        # the DeviceMesh only builds the axes' groups; "cpu" keeps it from
+        # binding a CUDA device a rank when ranks share a card over gloo
+        dm = DeviceMesh("cuda" if backend == "nccl" else "cpu",
+                        torch.arange(size).reshape(tuple(shape.values())),
+                        mesh_dim_names=names)
+        groups = {n: dm.get_group(n) for n in names}
+    mesh = Mesh(shape, rank=dist.get_rank(), device=device, backend=backend,
+                groups=groups)
+    print(f"[mesh] {dict(mesh.shape)}: rank {mesh.rank} of {size} at "
+          f"{mesh.coords}, backend {backend}, device {mesh.device}",
+          flush=True)
+    return mesh
+
+
+def make_debug_mesh(model: int = 4, data: int = 2, *, multi_pod: bool = False,
+                    device, backend: str, **init) -> Mesh:
+    """Small mesh for tests: (data, model), or (2, data, model) over
+    ("pod", "data", "model") with multi_pod. `init` as make_mesh's."""
+    if multi_pod:
+        return make_mesh({"pod": 2, "data": data, "model": model},
+                         device=device, backend=backend, **init)
+    return make_mesh({"data": data, "model": model}, device=device,
+                     backend=backend, **init)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device, backend: str,
+                         **init) -> Mesh:
+    """The JAX package's production layouts: one pod (16, 16) over
+    ("data", "model"), 256 ranks; multi-pod (2, 16, 16) over ("pod",
+    "data", "model"), 512 ranks. `init` as make_mesh's."""
+    if multi_pod:
+        return make_mesh({"pod": 2, "data": 16, "model": 16},
+                         device=device, backend=backend, **init)
+    return make_mesh({"data": 16, "model": 16}, device=device,
+                     backend=backend, **init)

@@ -36,7 +36,7 @@ class _Shapes:
     def __init__(self):
         self.shapes: Dict[str, tuple] = {}
 
-    def param(self, path, shape, init="normal"):
+    def param(self, path, shape, axes, init="normal", dtype=None):
         self.shapes[path] = tuple(shape)
         return path
 

@@ -16,8 +16,25 @@ see exactly one rounding as XLA's dot_general with
 preferred_element_type=f32 does. An f32 activation (whisper's encoder
 stream when its frames are f32) meets the bf16-valued weight in an f32
 product on either device, as JAX promotes the pair, and the result is
-rounded once. No mesh exists in this slice, so the row-parallel
-`matmul_rp` is plain `matmul`.
+rounded once.
+
+Exact tensor parallelism (`exact_tp_scope`, `gather_exact_tp`,
+`matmul_rp`, `DistCtx`): one process a mesh rank, each holding its local
+shards (dist/sharding.serve_specs: weights split on their output dims
+only). Inside the scope a row-parallel projection all-gathers its
+activation over the mesh's "model" group in rank order before it
+contracts against the whole (replicated) weight, so every float
+reduction keeps the one-device order and a sharded engine is bit-equal
+to the unsharded one. A column shard of a product must then equal the
+same columns of the whole product: on the CPU, inside the scope, a
+contraction runs in power-of-two K blocks of at most K_BLOCK, added in
+order (`_blocked_product`: MKL's own order for other K depends on N),
+and so does an untied head's (`lm_logits(blocked=True)`: cuBLAS's
+one-row f32 product orders K by N on the card too); the card's bf16
+products keep the property as they are (tools/tp_exactness_probe.py).
+The unsharded engine of a family that serves under a mesh runs in the
+scope with no mesh, so it keeps the same order; everything else (other
+families, training) contracts in one product.
 
 The whisper pieces: `layer_norm` (f32 statistics, population variance),
 `gelu_ffn` (bias adds in bf16, the tanh gelu of `jax.nn.gelu`'s default
@@ -26,36 +43,55 @@ in f32) and `sinusoid_pos` (f32, rounded once to bf16).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 PARAM_DTYPE = torch.bfloat16
 NORM_DTYPE = torch.float32
+# the largest contraction block of _blocked_product
+K_BLOCK = 256
+
+Axes = Tuple[Optional[str], ...]
 
 
 class ParamInit:
     """Creates parameters in the JAX ParamBuilder's order, from one
-    explicit `torch.Generator`: "normal" is N(0, 1) x scale drawn in f32
-    and cast; "ones"/"zeros", "const:<v>" and "a_log" (log(1..N) along
-    the last axis, the mamba A init) are constants that draw nothing. The
-    values differ from jax.random's; tests carry the JAX weights across
-    with models.convert.params_from_numpy instead.
+    explicit `torch.Generator`, and records each one's shape and logical
+    axes (the sharding engine's input, dist/sharding.py): "normal" is
+    N(0, 1) x scale drawn in f32 and cast; "ones"/"zeros", "const:<v>" and
+    "a_log" (log(1..N) along the last axis, the mamba A init) are
+    constants that draw nothing. The values differ from jax.random's;
+    tests carry the JAX weights across with models.convert.params_from_numpy
+    instead. abstract=True allocates nothing: every leaf is an empty tensor
+    on the "meta" device (shapes and dtypes only).
 
         init = ParamInit(seed=0, device="cuda")
-        w = init.param("layers/attn/wq", (L, D, H * Hd))
-    `init.shapes` afterwards maps path -> shape.
+        w = init.param("layers/attn/wq", (L, D, H * Hd),
+                       ("layers", "d_model", "heads"))
+    `init.shapes` and `init.axes` afterwards map path -> shape, axes.
     """
 
-    def __init__(self, seed: int, device, scale: float = 0.02):
-        self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+    def __init__(self, seed: int = 0, device=None, scale: float = 0.02, *,
+                 abstract: bool = False):
+        if device is None and not abstract:
+            raise ValueError("ParamInit needs a device (or abstract=True)")
+        self.abstract = abstract
+        self.device = torch.device("meta" if abstract else device)
+        self.gen = (None if abstract else
+                    torch.Generator(device=self.device).manual_seed(seed))
         self.scale = scale
         self.shapes: Dict[str, Tuple[int, ...]] = {}
+        self.axes: Dict[str, Axes] = {}
 
-    def param(self, path: str, shape: Tuple[int, ...], init: str = "normal",
-              dtype=PARAM_DTYPE) -> torch.Tensor:
+    def param(self, path: str, shape: Tuple[int, ...], axes: Axes,
+              init: str = "normal", dtype=PARAM_DTYPE) -> torch.Tensor:
+        assert len(shape) == len(axes), (path, shape, axes)
         self.shapes[path] = tuple(shape)
+        self.axes[path] = tuple(axes)
+        if self.abstract:
+            return torch.empty(shape, dtype=dtype, device=self.device)
         if init == "zeros":
             return torch.zeros(shape, dtype=dtype, device=self.device)
         if init == "ones":
@@ -80,6 +116,34 @@ class ParamInit:
 # numerics
 # ---------------------------------------------------------------------------
 
+def _k_blocks(k: int):
+    """K split into power-of-two blocks of at most K_BLOCK, largest first:
+    1536 -> 256 x 6, 384 -> 256 + 128, 192 -> 128 + 64."""
+    k0 = 0
+    while k0 < k:
+        kb = min(K_BLOCK, 1 << ((k - k0).bit_length() - 1))
+        yield k0, kb
+        k0 += kb
+
+
+def _blocked_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in f32, contracted in power-of-two K blocks of at most K_BLOCK
+    (`_k_blocks`), added in order. A BLAS's own order of a long K may
+    depend on N: MKL's at a K of 384 or of 1024 and more, cuBLAS's one-row
+    f32 product at deepseek's head (tools/tp_exactness_probe.py); a half-
+    or quarter-width column block of the product then differs from the
+    same columns of the whole product in the last f32 bits. Each short
+    block's product is the same whatever N (tests/test_torch_serve_tp.py
+    on the CPU, the probe on the card), so a column shard is bit-equal to
+    its columns of the whole product (exact-TP)."""
+    out = None
+    for k0, kb in _k_blocks(x.shape[-1]):
+        part = torch.matmul(x[..., k0:k0 + kb].float(),
+                            w.narrow(-2, k0, kb).float())
+        out = part if out is None else out + part
+    return out
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """bf16 x bf16 -> f32 accumulate -> bf16, contracting x's last axis
     with w's first. An f32 x against a bf16 w (whisper's encoder stream on
@@ -91,10 +155,98 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         if x.dtype != torch.float32 or w.dtype != torch.bfloat16:
             raise TypeError(f"matmul of {x.dtype} by {w.dtype}: only an f32 "
                             f"activation may meet a bf16 weight")
+    elif _EXACT_TP_ON:
+        return _blocked_product(x, w).to(PARAM_DTYPE)
     return torch.matmul(x.float(), w.float()).to(PARAM_DTYPE)
 
 
-matmul_rp = matmul
+# --- exact-TP (bit-exact sharded serving) ----------------------------------
+# Set by ServeEngine around every model call of a dense or moe engine:
+# inside the scope the row-parallel projections all-gather their
+# activation over the mesh's "model" group before they contract, instead
+# of summing per-rank partials (a sum in rank order moves the result by
+# ~1 bf16 ulp, enough to flip an argmax). With the serve plan's
+# column-parallel-only weights every float reduction then runs in the
+# one-device order.
+_EXACT_TP_ON = False
+_EXACT_TP_MESH = None
+# the scope's gathers, for the checks: calls and bytes gathered (the whole
+# tensors' bytes); tp_counts() reads them, reset_tp_counts() zeroes them
+_TP_COUNTS = {"gathers": 0, "bytes": 0}
+
+
+class exact_tp_scope:
+    """Context manager marking model calls as exact-TP over `mesh`. With
+    mesh None the calls run on one device in the sharded engine's order
+    (the K-blocked CPU products and untied head): the unsharded engine
+    that a sharded one is held to bit for bit."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        global _EXACT_TP_ON, _EXACT_TP_MESH
+        self._prev = _EXACT_TP_ON, _EXACT_TP_MESH
+        _EXACT_TP_ON, _EXACT_TP_MESH = True, self.mesh
+        return self
+
+    def __exit__(self, *exc):
+        global _EXACT_TP_ON, _EXACT_TP_MESH
+        _EXACT_TP_ON, _EXACT_TP_MESH = self._prev
+        return False
+
+
+def in_exact_tp() -> bool:
+    """Whether a model call runs inside exact_tp_scope (with or without a
+    mesh)."""
+    return _EXACT_TP_ON
+
+
+def exact_tp_size() -> int:
+    """The model axis's size inside exact_tp_scope, 1 outside it."""
+    if _EXACT_TP_MESH is None:
+        return 1
+    return int(_EXACT_TP_MESH.shape.get("model", 1))
+
+
+def tp_counts() -> Dict[str, int]:
+    return dict(_TP_COUNTS)
+
+
+def reset_tp_counts() -> None:
+    _TP_COUNTS.update(gathers=0, bytes=0)
+
+
+def gather_exact_tp(x: torch.Tensor, width: Optional[int] = None
+                    ) -> torch.Tensor:
+    """Inside exact_tp_scope: x's last dim all-gathered over the mesh's
+    "model" group and concatenated in rank order (the exact-TP combine),
+    unless x already has `width` columns (a dim the plan left whole).
+    Outside the scope, or on a model axis of 1: x itself."""
+    tp = exact_tp_size()
+    if tp == 1 or (width is not None and x.shape[-1] == width):
+        return x
+    if width is not None and x.shape[-1] * tp != width:
+        raise ValueError(f"gather_exact_tp: {x.shape[-1]} columns a rank x "
+                         f"{tp} ranks != {width}")
+    import torch.distributed as dist
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(tp)]
+    dist.all_gather(parts, x, group=_EXACT_TP_MESH.group("model"))
+    out = torch.cat(parts, dim=-1)
+    _TP_COUNTS["gathers"] += 1
+    _TP_COUNTS["bytes"] += out.numel() * out.element_size()
+    return out
+
+
+def matmul_rp(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Row-parallel projection: x's last dim is the contraction, whole in
+    w (the serve plan never shards a contraction dim). Inside
+    exact_tp_scope a column-sharded x is gathered first, so the product
+    is computed whole on every rank: bit-equal to one device, no sum
+    across ranks. The JAX package's bf16-result dot is `matmul`'s single
+    rounding here."""
+    return matmul(gather_exact_tp(x, w.shape[-2]), w)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -176,9 +328,15 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
 
-def lm_logits(x: torch.Tensor, table_or_head: torch.Tensor) -> torch.Tensor:
+def lm_logits(x: torch.Tensor, table_or_head: torch.Tensor, *,
+              blocked: bool = False) -> torch.Tensor:
     """Project to the vocabulary in f32: bf16 operands, whose products are
-    exact in f32, multiplied and summed in f32."""
+    exact in f32, multiplied and summed in f32. blocked=True contracts in
+    K blocks (`_blocked_product`), so a vocab shard's logits are
+    bit-equal to the same columns of the whole head's (exact-TP's untied
+    head)."""
+    if blocked:
+        return _blocked_product(x, table_or_head)
     return torch.matmul(x.float(), table_or_head.float())
 
 
@@ -192,3 +350,37 @@ def softmax_xent(logits_f32: torch.Tensor, labels: torch.Tensor, *,
     if z_loss:
         loss = loss + z_loss * torch.square(lse)
     return loss
+
+
+@dataclasses.dataclass
+class DistCtx:
+    """How a model call meets the mesh (None: one device). The port runs
+    one process a rank, so the tensors a call sees are already this rank's
+    shards; the ctx says which mesh, which of its axes is the model axis,
+    and how the decode cache is laid out. kv_seq_shard: the decode cache's
+    seq dim is split over `model_axis` (attention.flash_decode_sharded:
+    partial softmax stats all-reduced)."""
+    mesh: Any = None
+    model_axis: str = "model"
+    kv_seq_shard: bool = False
+
+    @property
+    def model_size(self) -> int:
+        if self.mesh is None:
+            return 1
+        return int(self.mesh.shape[self.model_axis])
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's index on the model axis (0 on one device)."""
+        if self.mesh is None:
+            return 0
+        return int(self.mesh.coords[self.model_axis])
+
+    def tp_shards(self, *dims: int) -> int:
+        """How many ways the model axis splits dims that are all divisible
+        by it (1 when any is not: the spec_for replication fallback)."""
+        tp = self.model_size
+        if tp > 1 and all(d % tp == 0 for d in dims):
+            return tp
+        return 1

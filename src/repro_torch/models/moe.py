@@ -24,9 +24,11 @@ Exactness on the card, where the reference pins it:
     no-op on an accumulator that is never -0.0), so an (E, T) slot map
     from `gather_idx` finds each of them, and k adds sum them.
 
-Nothing here reads a value back to the host. `moe_ffn_ep` (the
-shard_map expert-parallel route) belongs to distribution (ROADMAP queue
-1, item 9).
+Nothing here reads a value back to the host. Under exact-TP serving
+(layers.exact_tp_scope) the expert and shared up-projections give this
+rank's d_ff columns, gathered before the down-projections, which every
+rank computes whole. `moe_ffn_ep` (the expert-parallel route over the
+data axes) belongs to distributed training (ROADMAP queue 1, item 9.2).
 
 `dispatch` is moe_ffn's routing alone, which the checks compare across
 devices; `routing_margins` and `settled` are check helpers (how far a
@@ -40,7 +42,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.models.layers import PARAM_DTYPE, matmul, swiglu
+from repro_torch.models.layers import (PARAM_DTYPE, gather_exact_tp, matmul,
+                                       swiglu)
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -180,6 +183,9 @@ def moe_ffn(x: torch.Tensor, params, *, n_experts: int, k: int,
     h = matmul(x_e, params["wi"])
     g = matmul(x_e, params["wg"])
     h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
+    # exact-TP serving: h's F dim is this rank's column shard; gathered,
+    # so the down-projection contracts whole on every rank (bit-exact)
+    h = gather_exact_tp(h, params["wo"].shape[-2])
     y_e = matmul(h, params["wo"])                                # (E, C, D)
     y_e = y_e.float() * gate[..., None]
 

@@ -57,6 +57,15 @@ grad (a trainer's) record no graph there.
 `prefill_continue` (the paged cache's suffix prefill) and `decode_verify`
 (speculative decoding's multi-position step) are the dense family's only,
 None for every other, as in the JAX package.
+
+The sharding engine's inputs (dist/sharding.py), as the reference's
+`Model`: `param_axes` (every param path's logical axes, recorded by
+ParamInit), `cache_axes()` (`cache_logical_axes` :392) and
+`abstract_params()` / `init_cache(..., abstract=True)` (the trees on the
+"meta" device). `prefill`, `decode_step` and `prefill_into_slot` take a
+`ctx` (layers.DistCtx) that the dense and moe stacks hand to their
+attention blocks; under layers.exact_tp_scope an untied head's
+vocab-split logits are K-blocked and gathered whole (`_logits`).
 """
 
 from __future__ import annotations
@@ -73,10 +82,12 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import (PARAM_DTYPE, ParamInit, embed,
-                                       gelu_ffn, layer_norm, lm_logits,
-                                       matmul, rms_norm, sinusoid_pos,
-                                       softmax_xent, swiglu)
+from repro_torch.models.layers import (PARAM_DTYPE, DistCtx, ParamInit,
+                                       embed, gather_exact_tp, gelu_ffn,
+                                       in_exact_tp,
+                                       layer_norm, lm_logits, matmul,
+                                       rms_norm, sinusoid_pos, softmax_xent,
+                                       swiglu)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -100,6 +111,13 @@ class Model:
     # multi-position decode over draft candidates (speculative decoding —
     # serve/spec.py); dense family only
     decode_verify: Optional[Callable[..., Tuple[torch.Tensor, Cache]]] = None
+    # the sharding engine's inputs (dist/sharding.py): every param path's
+    # logical axes, the cache tree's (cache_logical_axes), and the param
+    # tree on the "meta" device (shapes and dtypes, no memory)
+    param_axes: Dict[str, Tuple[Optional[str], ...]] = dataclasses.field(
+        default_factory=dict)
+    cache_axes: Optional[Callable[[], Dict]] = None
+    abstract_params: Optional[Callable[[], Dict]] = None
 
 
 # ===========================================================================
@@ -196,7 +214,7 @@ def _dense_stack(cfg: ModelConfig, layers, x, positions, *, remat: str):
 
 
 def _dense_prefill_stack(cfg: ModelConfig, layers, x, positions, *,
-                         window: int = 0, kv_valid=None):
+                         window: int = 0, kv_valid=None, ctx=None):
     """Run the decoder layers (dense or moe) over x (B,S,D); also emits the
     per-layer (k, v), stacked to (L, B, S, KvH, Hd). A moe layer gets
     kv_valid, flattened, as its token_valid: pad tokens claim no expert
@@ -207,7 +225,7 @@ def _dense_prefill_stack(cfg: ModelConfig, layers, x, positions, *,
         lp = _layer(layers, i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, (k, v) = T.attn_block(lp["attn"], h, cfg, positions=positions,
-                                 window=window, kv_valid=kv_valid)
+                                 window=window, kv_valid=kv_valid, ctx=ctx)
         x = x + a
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _ffn(cfg, lp, h, tv)[0]
@@ -217,14 +235,14 @@ def _dense_prefill_stack(cfg: ModelConfig, layers, x, positions, *,
 
 
 def _dense_decode_stack(cfg: ModelConfig, layers, x, cache: Cache, *,
-                        window: int = 0):
+                        window: int = 0, ctx=None):
     pos = cache["pos"]
     for i in range(layers["ln1"].shape[0]):
         lp = _layer(layers, i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = T.attn_block_decode(lp["attn"], h, cfg, cache_k=cache["k"][i],
                                    cache_v=cache["v"][i], pos=pos,
-                                   window=window)
+                                   window=window, ctx=ctx)
         x = x + a
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _ffn(cfg, lp, h)[0]
@@ -483,7 +501,8 @@ def _whisper_decode_stack(cfg: ModelConfig, layers, x, cache: Cache):
 # ===========================================================================
 
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device=backend.DEFAULT_DEVICE) -> Cache:
+               device=backend.DEFAULT_DEVICE, *, abstract: bool = False
+               ) -> Cache:
     """Decode-state dict on `device` (the card unless device='cpu'), zeroed,
     with a scalar int32 pos. Dense and vlm: k/v of (L, batch, cache_len,
     KvH, Hd) bf16 (vlm's lines hold the patch embeddings' keys, then the
@@ -496,8 +515,9 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int,
     batch, d_model) bf16. Hybrid: cache_len is the longest context served, but the
     attention keeps only its window: k/v of (L, batch, attn_window, KvH,
     Hd) bf16, conv (L, batch, CONV_K - 1, Ci) bf16 and h (L, batch, Ci, N)
-    f32, Ci = 2 d_model."""
-    dev = backend.resolve_device(device)
+    f32, Ci = 2 d_model. abstract=True: the same leaves on the "meta"
+    device (shapes and dtypes, no memory)."""
+    dev = torch.device("meta") if abstract else backend.resolve_device(device)
     L, d = cfg.n_layers, cfg.d_model
     pos = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.family == "ssm":
@@ -532,6 +552,37 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int,
     return cache
 
 
+def cache_logical_axes(cfg: ModelConfig) -> Dict:
+    """Logical axes of the cache tree (mirrors make_cache's structure; the
+    reference's :392)."""
+    kvax = ("layers", "batch", "kv_seq", "kv_heads", None)
+    if cfg.family in ("dense", "vlm"):
+        return {"k": kvax, "v": kvax, "pos": ()}
+    if cfg.family == "moe":
+        c = {"k": kvax, "v": kvax, "pos": ()}
+        if cfg.first_k_dense:
+            c["dk"] = kvax
+            c["dv"] = kvax
+        return c
+    if cfg.family == "ssm":
+        return {"wkv": ("layers", "batch", "heads", None, None),
+                "tm": ("layers", "batch", "d_model"),
+                "cm": ("layers", "batch", "d_model"),
+                "pos": ()}
+    if cfg.family == "hybrid":
+        return {"k": ("layers", "batch", None, "kv_heads", None),
+                "v": ("layers", "batch", None, "kv_heads", None),
+                "conv": ("layers", "batch", None, "heads"),
+                "h": ("layers", "batch", "heads", None),
+                "pos": ()}
+    if cfg.family == "encdec":
+        return {"k": kvax, "v": kvax,
+                "xk": ("layers", "batch", None, "kv_heads", None),
+                "xv": ("layers", "batch", None, "kv_heads", None),
+                "pos": ()}
+    raise ValueError(cfg.family)
+
+
 # ===========================================================================
 # build_model
 # ===========================================================================
@@ -555,6 +606,11 @@ def build_model(cfg: ModelConfig) -> Model:
             (1, 8), dtype=torch.long, device="cuda")})
     """
     param_fn = T.build_param_fn(cfg)
+    shapes = ParamInit(abstract=True)
+    param_fn(shapes)
+
+    def abstract_params() -> Dict:
+        return param_fn(ParamInit(abstract=True))
 
     def init_params(seed: int = 0, device=backend.DEFAULT_DEVICE) -> Dict:
         """Random params from `seed` (N(0,1) x 0.02 and ones, as the JAX
@@ -567,8 +623,14 @@ def build_model(cfg: ModelConfig) -> Model:
                            cfg.norm_eps)
         else:
             x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        table = params["embed"].T if cfg.tie_embeddings else params["head"]
-        return lm_logits(x, table)
+        if cfg.tie_embeddings:
+            # the tied table is replicated under exact-TP: already whole
+            return lm_logits(x, params["embed"].T)
+        # under exact-TP an untied head gives this rank's vocab columns,
+        # K-blocked so they keep the whole head's bits, gathered whole
+        return gather_exact_tp(lm_logits(x, params["head"],
+                                         blocked=in_exact_tp()),
+                               cfg.vocab_size)
 
     def _prefixed_embed(params, batch):
         """The first layer's input: whisper's decoder embeddings plus its
@@ -646,7 +708,8 @@ def build_model(cfg: ModelConfig) -> Model:
 
     @backend.f32_accumulation()
     @torch.no_grad()
-    def prefill(params, batch, *, last_index=None):
+    def prefill(params, batch, ctx: Optional[DistCtx] = None, *,
+                last_index=None):
         """Full forward; returns (last-token logits (B,1,V) f32, cache).
 
         batch["tokens"]: (B, S) int. batch may carry "pad_lens" — a (B,)
@@ -703,10 +766,11 @@ def build_model(cfg: ModelConfig) -> Model:
             if "dense_layers" in params:       # moe: the first_k_dense
                 x, dk, dv = _dense_prefill_stack(
                     cfg, params["dense_layers"], x, positions,
-                    kv_valid=kv_valid)
+                    kv_valid=kv_valid, ctx=ctx)
                 cache.update(dk=dk, dv=dv)
             x, ks, vs = _dense_prefill_stack(cfg, params["layers"], x,
-                                             positions, kv_valid=kv_valid)
+                                             positions, kv_valid=kv_valid,
+                                             ctx=ctx)
             cache.update(k=ks, v=vs)
         cache["pos"] = torch.tensor(s, dtype=torch.int32, device=dev)
         if last_index is None:
@@ -718,7 +782,8 @@ def build_model(cfg: ModelConfig) -> Model:
 
     @backend.f32_accumulation()
     @torch.no_grad()
-    def decode_step(params, cache: Cache, tokens):
+    def decode_step(params, cache: Cache, tokens,
+                    ctx: Optional[DistCtx] = None):
         """tokens: (B, 1). Returns (logits (B,1,V) f32, cache): k/v (the
         moe family's dk/dv, the hybrid family's conv and h; the ssm
         family's wkv, tm and cm instead) are written in place, "pos" (a
@@ -741,8 +806,10 @@ def build_model(cfg: ModelConfig) -> Model:
             if "dense_layers" in params:
                 x, _ = _dense_decode_stack(
                     cfg, params["dense_layers"], x,
-                    {"k": cache["dk"], "v": cache["dv"], "pos": cache["pos"]})
-            x, cache = _dense_decode_stack(cfg, params["layers"], x, cache)
+                    {"k": cache["dk"], "v": cache["dv"], "pos": cache["pos"]},
+                    ctx=ctx)
+            x, cache = _dense_decode_stack(cfg, params["layers"], x, cache,
+                                           ctx=ctx)
         return _logits(params, x), cache
 
     @backend.f32_accumulation()
@@ -774,7 +841,8 @@ def build_model(cfg: ModelConfig) -> Model:
 
     @backend.f32_accumulation()
     @torch.no_grad()
-    def prefill_into_slot(params, cache: Cache, slot, batch, prompt_len):
+    def prefill_into_slot(params, cache: Cache, slot, batch, prompt_len,
+                          ctx: Optional[DistCtx] = None):
         """Prefill ONE request (batch row of size 1) and overwrite `slot`'s
         cache lines in a batched decode cache whose "pos" is a (B,) per-row
         vector. batch["tokens"] is (1, P); P may exceed the real prompt
@@ -796,7 +864,7 @@ def build_model(cfg: ModelConfig) -> Model:
         ssm family, all enc_seq xk/xv lines of encdec), and
         pos[slot] = prompt_len in a new "pos" tensor."""
         plen = torch.as_tensor(prompt_len, device=cache["pos"].device)
-        logits, row = prefill(params, batch, last_index=plen - 1)
+        logits, row = prefill(params, batch, ctx, last_index=plen - 1)
         for key, full in cache.items():
             if key != "pos":
                 part = row[key][:, 0]
@@ -843,4 +911,7 @@ def build_model(cfg: ModelConfig) -> Model:
                  prefill_continue=(prefill_continue if cfg.family == "dense"
                                    else None),
                  decode_verify=(decode_verify if cfg.family == "dense"
-                                else None))
+                                else None),
+                 param_axes=shapes.axes,
+                 cache_axes=functools.partial(cache_logical_axes, cfg),
+                 abstract_params=abstract_params)

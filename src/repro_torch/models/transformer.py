@@ -15,8 +15,16 @@ through it raises (on the CPU too, where the plain version stands in the
 kernel's place and would otherwise differentiate). Training takes
 "chunked" or "scan".
 
-The sharded-decode branch of `attn_block_decode` waits for the
-distribution slice (ROADMAP queue 1, item 9). The moe FFN itself is
+Every parameter carries the reference's logical axes (ParamInit.param's
+third argument), which dist/sharding.py maps onto a mesh. Under
+exact-TP (layers.exact_tp_scope) a rank holds column shards: `_qkv`
+gives its own heads where the ctx's model axis divides both head counts
+(`local_heads`) and gathers whole heads otherwise; `attn_block` runs the
+flash kernel on those heads (the reference's `flash_attention_spmd` is
+`attention.flash_attention` on a rank's heads here: one process a rank
+needs no shard_map) and
+`attn_block_decode` reads `ctx` for the seq-sharded decode cache
+(`attention.flash_decode_sharded`). The moe FFN itself is
 `models/moe.py`, the WKV forms `models/rwkv6.py`; whisper's encoder and
 decoder stacks are in `models/registry.py`, as in the JAX package.
 """
@@ -32,7 +40,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.layers import (PARAM_DTYPE, ParamInit, apply_rope,
-                                       matmul, matmul_rp)
+                                       gather_exact_tp, matmul, matmul_rp)
 
 # ===========================================================================
 # parameter construction
@@ -41,16 +49,22 @@ from repro_torch.models.layers import (PARAM_DTYPE, ParamInit, apply_rope,
 def _attn_params(b: ParamInit, pre: str, L: int, cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    col_q, col_kv = ("layers", "d_model", "heads"), ("layers", "d_model",
+                                                      "kv_heads")
     p = {
-        "wq": b.param(f"{pre}/wq", (L, d, h * hd)),
-        "wk": b.param(f"{pre}/wk", (L, d, kv * hd)),
-        "wv": b.param(f"{pre}/wv", (L, d, kv * hd)),
-        "wo": b.param(f"{pre}/wo", (L, h * hd, d)),
+        "wq": b.param(f"{pre}/wq", (L, d, h * hd), col_q),
+        "wk": b.param(f"{pre}/wk", (L, d, kv * hd), col_kv),
+        "wv": b.param(f"{pre}/wv", (L, d, kv * hd), col_kv),
+        "wo": b.param(f"{pre}/wo", (L, h * hd, d),
+                      ("layers", "heads", "d_model")),
     }
     if cfg.qkv_bias:
-        p["bq"] = b.param(f"{pre}/bq", (L, h * hd), "zeros")
-        p["bk"] = b.param(f"{pre}/bk", (L, kv * hd), "zeros")
-        p["bv"] = b.param(f"{pre}/bv", (L, kv * hd), "zeros")
+        p["bq"] = b.param(f"{pre}/bq", (L, h * hd), ("layers", "heads"),
+                          "zeros")
+        p["bk"] = b.param(f"{pre}/bk", (L, kv * hd), ("layers", "kv_heads"),
+                          "zeros")
+        p["bv"] = b.param(f"{pre}/bv", (L, kv * hd), ("layers", "kv_heads"),
+                          "zeros")
     return p
 
 
@@ -58,33 +72,41 @@ def _ffn_params(b: ParamInit, pre: str, L: int, d: int, f: int, act: str
                 ) -> Dict:
     """SwiGLU (wi, wg, wo) or, for any other act, whisper's gelu FFN (wi,
     bi, wo, bo; the biases zero)."""
+    up, down = ("layers", "d_model", "d_ff"), ("layers", "d_ff", "d_model")
     if act == "swiglu":
         return {
-            "wi": b.param(f"{pre}/wi", (L, d, f)),
-            "wg": b.param(f"{pre}/wg", (L, d, f)),
-            "wo": b.param(f"{pre}/wo", (L, f, d)),
+            "wi": b.param(f"{pre}/wi", (L, d, f), up),
+            "wg": b.param(f"{pre}/wg", (L, d, f), up),
+            "wo": b.param(f"{pre}/wo", (L, f, d), down),
         }
     return {
-        "wi": b.param(f"{pre}/wi", (L, d, f)),
-        "bi": b.param(f"{pre}/bi", (L, f), "zeros"),
-        "wo": b.param(f"{pre}/wo", (L, f, d)),
-        "bo": b.param(f"{pre}/bo", (L, d), "zeros"),
+        "wi": b.param(f"{pre}/wi", (L, d, f), up),
+        "bi": b.param(f"{pre}/bi", (L, f), ("layers", "d_ff"), "zeros"),
+        "wo": b.param(f"{pre}/wo", (L, f, d), down),
+        "bo": b.param(f"{pre}/bo", (L, d), ("layers", "d_model"), "zeros"),
     }
 
 
 def _moe_params(b: ParamInit, pre: str, L: int, cfg: ModelConfig) -> Dict:
     d, e, f = cfg.d_model, cfg.n_experts, (cfg.moe_d_ff or cfg.d_ff)
     p = {
-        "router": b.param(f"{pre}/router", (L, d, e)),
-        "wi": b.param(f"{pre}/wi", (L, e, d, f)),
-        "wg": b.param(f"{pre}/wg", (L, e, d, f)),
-        "wo": b.param(f"{pre}/wo", (L, e, f, d)),
+        "router": b.param(f"{pre}/router", (L, d, e),
+                          ("layers", "d_model", None)),
+        "wi": b.param(f"{pre}/wi", (L, e, d, f),
+                      ("layers", "experts", "d_model", "d_ff")),
+        "wg": b.param(f"{pre}/wg", (L, e, d, f),
+                      ("layers", "experts", "d_model", "d_ff")),
+        "wo": b.param(f"{pre}/wo", (L, e, f, d),
+                      ("layers", "experts", "d_ff", "d_model")),
     }
     if cfg.n_shared_experts:
         fs = f * cfg.n_shared_experts
-        p["shared_wi"] = b.param(f"{pre}/shared_wi", (L, d, fs))
-        p["shared_wg"] = b.param(f"{pre}/shared_wg", (L, d, fs))
-        p["shared_wo"] = b.param(f"{pre}/shared_wo", (L, fs, d))
+        p["shared_wi"] = b.param(f"{pre}/shared_wi", (L, d, fs),
+                                  ("layers", "d_model", "d_ff"))
+        p["shared_wg"] = b.param(f"{pre}/shared_wg", (L, d, fs),
+                                  ("layers", "d_model", "d_ff"))
+        p["shared_wo"] = b.param(f"{pre}/shared_wo", (L, fs, d),
+                                  ("layers", "d_ff", "d_model"))
     return p
 
 
@@ -94,32 +116,43 @@ def _rwkv_params(b: ParamInit, pre: str, L: int, cfg: ModelConfig) -> Dict:
     h = d // hd
     km, kd = rwkv_lib.LORA_MIX, rwkv_lib.LORA_DECAY
     f = cfg.d_ff
+    vec = ("layers", "d_model")
+    col = ("layers", "d_model", "heads")
     return {
-        "ln1": b.param(f"{pre}/ln1", (L, d), "ones"),
-        "ln2": b.param(f"{pre}/ln2", (L, d), "ones"),
+        "ln1": b.param(f"{pre}/ln1", (L, d), vec, "ones"),
+        "ln2": b.param(f"{pre}/ln2", (L, d), vec, "ones"),
         "tm": {
-            "mu_x": b.param(f"{pre}/tm/mu_x", (L, d)),
+            "mu_x": b.param(f"{pre}/tm/mu_x", (L, d), vec),
             # the r, k, v, w and g streams' mus
-            "mu_5": b.param(f"{pre}/tm/mu_5", (L, 5, d)),
-            "lora_a": b.param(f"{pre}/tm/lora_a", (L, d, 5 * km)),
-            "lora_b": b.param(f"{pre}/tm/lora_b", (L, 5, km, d)),
-            "td_a": b.param(f"{pre}/tm/td_a", (L, d, kd)),
-            "td_b": b.param(f"{pre}/tm/td_b", (L, kd, d)),
-            "w0": b.param(f"{pre}/tm/w0", (L, d)),
-            "u": b.param(f"{pre}/tm/u", (L, h, hd)),
-            "wr": b.param(f"{pre}/tm/wr", (L, d, d)),
-            "wk": b.param(f"{pre}/tm/wk", (L, d, d)),
-            "wv": b.param(f"{pre}/tm/wv", (L, d, d)),
-            "wg": b.param(f"{pre}/tm/wg", (L, d, d)),
-            "wo": b.param(f"{pre}/tm/wo", (L, d, d)),
-            "ln_x": b.param(f"{pre}/tm/ln_x", (L, d), "ones"),
+            "mu_5": b.param(f"{pre}/tm/mu_5", (L, 5, d),
+                            ("layers", None, "d_model")),
+            "lora_a": b.param(f"{pre}/tm/lora_a", (L, d, 5 * km),
+                              ("layers", "d_model", None)),
+            "lora_b": b.param(f"{pre}/tm/lora_b", (L, 5, km, d),
+                              ("layers", None, None, "d_model")),
+            "td_a": b.param(f"{pre}/tm/td_a", (L, d, kd),
+                            ("layers", "d_model", None)),
+            "td_b": b.param(f"{pre}/tm/td_b", (L, kd, d),
+                            ("layers", None, "d_model")),
+            "w0": b.param(f"{pre}/tm/w0", (L, d), vec),
+            "u": b.param(f"{pre}/tm/u", (L, h, hd), ("layers", "heads", None)),
+            "wr": b.param(f"{pre}/tm/wr", (L, d, d), col),
+            "wk": b.param(f"{pre}/tm/wk", (L, d, d), col),
+            "wv": b.param(f"{pre}/tm/wv", (L, d, d), col),
+            "wg": b.param(f"{pre}/tm/wg", (L, d, d), col),
+            "wo": b.param(f"{pre}/tm/wo", (L, d, d),
+                          ("layers", "heads", "d_model")),
+            "ln_x": b.param(f"{pre}/tm/ln_x", (L, d), vec, "ones"),
         },
         "cm": {
-            "mu_k": b.param(f"{pre}/cm/mu_k", (L, d)),
-            "mu_r": b.param(f"{pre}/cm/mu_r", (L, d)),
-            "wk": b.param(f"{pre}/cm/wk", (L, d, f)),
-            "wv": b.param(f"{pre}/cm/wv", (L, f, d)),
-            "wr": b.param(f"{pre}/cm/wr", (L, d, d)),
+            "mu_k": b.param(f"{pre}/cm/mu_k", (L, d), vec),
+            "mu_r": b.param(f"{pre}/cm/mu_r", (L, d), vec),
+            "wk": b.param(f"{pre}/cm/wk", (L, d, f),
+                          ("layers", "d_model", "d_ff")),
+            "wv": b.param(f"{pre}/cm/wv", (L, f, d),
+                          ("layers", "d_ff", "d_model")),
+            "wr": b.param(f"{pre}/cm/wr", (L, d, d),
+                          ("layers", "d_model", "d_model")),
         },
     }
 
@@ -129,18 +162,25 @@ def _mamba_params(b: ParamInit, pre: str, L: int, cfg: ModelConfig) -> Dict:
     ci = 2 * d                      # d_inner
     n = cfg.ssm_state
     dt_rank = max(1, d // 16)
+    vec, ch = ("layers", "d_model"), ("layers", "heads")
     return {
-        "in_proj": b.param(f"{pre}/in_proj", (L, d, 2 * ci)),
-        "conv_w": b.param(f"{pre}/conv_w", (L, mamba_lib.CONV_K, ci)),
-        "x_proj": b.param(f"{pre}/x_proj", (L, ci, dt_rank + 2 * n)),
-        "dt_proj": b.param(f"{pre}/dt_proj", (L, dt_rank, ci)),
+        "in_proj": b.param(f"{pre}/in_proj", (L, d, 2 * ci),
+                           ("layers", "d_model", "heads")),
+        "conv_w": b.param(f"{pre}/conv_w", (L, mamba_lib.CONV_K, ci),
+                          ("layers", None, "heads")),
+        "x_proj": b.param(f"{pre}/x_proj", (L, ci, dt_rank + 2 * n),
+                          ("layers", "heads", None)),
+        "dt_proj": b.param(f"{pre}/dt_proj", (L, dt_rank, ci),
+                           ("layers", None, "heads")),
         # dt ~= softplus(-4.6) ~= 0.01 at init (the usual mamba dt range)
-        "dt_bias": b.param(f"{pre}/dt_bias", (L, ci), "const:-4.6"),
-        "a_log": b.param(f"{pre}/a_log", (L, ci, n), "a_log"),
-        "d": b.param(f"{pre}/d", (L, ci), "ones"),
-        "out_proj": b.param(f"{pre}/out_proj", (L, ci, d)),
-        "norm_attn": b.param(f"{pre}/norm_attn", (L, d), "ones"),
-        "norm_ssm": b.param(f"{pre}/norm_ssm", (L, d), "ones"),
+        "dt_bias": b.param(f"{pre}/dt_bias", (L, ci), ch, "const:-4.6"),
+        "a_log": b.param(f"{pre}/a_log", (L, ci, n), ("layers", "heads", None),
+                         "a_log"),
+        "d": b.param(f"{pre}/d", (L, ci), ch, "ones"),
+        "out_proj": b.param(f"{pre}/out_proj", (L, ci, d),
+                            ("layers", "heads", "d_model")),
+        "norm_attn": b.param(f"{pre}/norm_attn", (L, d), vec, "ones"),
+        "norm_ssm": b.param(f"{pre}/norm_ssm", (L, d), vec, "ones"),
     }
 
 
@@ -157,18 +197,19 @@ def build_param_fn(cfg: ModelConfig) -> Callable[[ParamInit], Dict]:
     learned decoder positions "dec_pos" (32768, d) and the final norm's
     bias "final_normb"."""
     d, v, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
+    vec = ("layers", "d_model")
 
     def stack(b: ParamInit, pre: str, n: int) -> Dict:
-        return {"ln1": b.param(f"{pre}/ln1", (n, d), "ones"),
-                "ln2": b.param(f"{pre}/ln2", (n, d), "ones"),
+        return {"ln1": b.param(f"{pre}/ln1", (n, d), vec, "ones"),
+                "ln2": b.param(f"{pre}/ln2", (n, d), vec, "ones"),
                 "attn": _attn_params(b, f"{pre}/attn", n, cfg)}
 
     def whisper_stack(b: ParamInit, pre: str, n: int, cross: bool) -> Dict:
         norms = ("ln1", "lnx", "ln2") if cross else ("ln1", "ln2")
         p = {}
         for name in norms:
-            p[name] = b.param(f"{pre}/{name}", (n, d), "ones")
-            p[f"{name}b"] = b.param(f"{pre}/{name}b", (n, d), "zeros")
+            p[name] = b.param(f"{pre}/{name}", (n, d), vec, "ones")
+            p[f"{name}b"] = b.param(f"{pre}/{name}b", (n, d), vec, "zeros")
         p["attn"] = _attn_params(b, f"{pre}/attn", n, cfg)
         if cross:
             p["xattn"] = _attn_params(b, f"{pre}/xattn", n, cfg)
@@ -176,7 +217,7 @@ def build_param_fn(cfg: ModelConfig) -> Callable[[ParamInit], Dict]:
         return p
 
     def fn(b: ParamInit) -> Dict:
-        p: Dict = {"embed": b.param("embed", (v, d))}
+        p: Dict = {"embed": b.param("embed", (v, d), ("vocab", "d_model"))}
         if cfg.family == "moe":
             kd = cfg.first_k_dense
             if kd:
@@ -191,9 +232,9 @@ def build_param_fn(cfg: ModelConfig) -> Callable[[ParamInit], Dict]:
             p["enc_layers"] = whisper_stack(b, "enc_layers",
                                             cfg.n_enc_layers, cross=False)
             p["dec_layers"] = whisper_stack(b, "dec_layers", L, cross=True)
-            p["enc_ln"] = b.param("enc_ln", (d,), "ones")
-            p["enc_lnb"] = b.param("enc_lnb", (d,), "zeros")
-            p["dec_pos"] = b.param("dec_pos", (32768, d))
+            p["enc_ln"] = b.param("enc_ln", (d,), ("d_model",), "ones")
+            p["enc_lnb"] = b.param("enc_lnb", (d,), ("d_model",), "zeros")
+            p["dec_pos"] = b.param("dec_pos", (32768, d), (None, "d_model"))
         else:
             p["layers"] = stack(b, "layers", L)
             if cfg.family == "hybrid":
@@ -201,11 +242,12 @@ def build_param_fn(cfg: ModelConfig) -> Callable[[ParamInit], Dict]:
                                                      cfg)
             p["layers"]["ffn"] = _ffn_params(b, "layers/ffn", L, d, cfg.d_ff,
                                              cfg.act)
-        p["final_norm"] = b.param("final_norm", (d,), "ones")
+        p["final_norm"] = b.param("final_norm", (d,), ("d_model",), "ones")
         if cfg.family == "encdec":
-            p["final_normb"] = b.param("final_normb", (d,), "zeros")
+            p["final_normb"] = b.param("final_normb", (d,), ("d_model",),
+                                       "zeros")
         if not cfg.tie_embeddings:
-            p["head"] = b.param("head", (d, v))
+            p["head"] = b.param("head", (d, v), ("d_model", "vocab"))
         return p
 
     return fn
@@ -215,9 +257,33 @@ def build_param_fn(cfg: ModelConfig) -> Callable[[ParamInit], Dict]:
 # blocks (apply)
 # ===========================================================================
 
-def _qkv(lp, x, cfg: ModelConfig):
+def local_heads(cfg: ModelConfig, ctx) -> bool:
+    """Whether attention runs on this rank's heads: under a ctx whose
+    model axis divides both head counts (the reference's `hspec` rule,
+    attention.py:253); then the rank's q heads and its kv heads form whole
+    GQA groups."""
+    return ctx is not None and ctx.tp_shards(cfg.n_heads,
+                                             cfg.n_kv_heads) > 1
+
+
+def _kv_heads(cfg: ModelConfig, ctx):
+    """(first, total) of this rank's kv heads where `local_heads`, for the
+    plain attention routes' `heads=`; None otherwise."""
+    if not local_heads(cfg, ctx):
+        return None
+    return ctx.model_rank * cfg.n_kv_heads // ctx.model_size, cfg.n_kv_heads
+
+
+def _qkv(lp, x, cfg: ModelConfig, ctx=None, *, whole: bool = False):
+    """q (B,S,H',Hd), k and v (B,S,KvH',Hd) of x: H' and KvH' are this
+    rank's heads where `local_heads(cfg, ctx)`, else every head. Under
+    exact-TP the projections give this rank's columns; where the heads are
+    not local those columns are gathered right after the projections (a
+    column shard of wk may hold half a head: qwen2's 2 kv heads at TP 4),
+    and attention then runs whole on every rank. whole=True gathers
+    always (the seq-sharded decode cache needs every head)."""
     b_, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     q = matmul(x, lp["wq"])
     k = matmul(x, lp["wk"])
     v = matmul(x, lp["wv"])
@@ -225,19 +291,29 @@ def _qkv(lp, x, cfg: ModelConfig):
         q = q + lp["bq"].to(q.dtype)
         k = k + lp["bk"].to(k.dtype)
         v = v + lp["bv"].to(v.dtype)
-    return (q.reshape(b_, s, h, hd), k.reshape(b_, s, kv, hd),
-            v.reshape(b_, s, kv, hd))
+    if whole or not local_heads(cfg, ctx):
+        q = gather_exact_tp(q, cfg.n_heads * hd)
+        k = gather_exact_tp(k, cfg.n_kv_heads * hd)
+        v = gather_exact_tp(v, cfg.n_kv_heads * hd)
+    elif q.shape[-1] * ctx.model_size != cfg.n_heads * hd:
+        raise ValueError(f"exact-TP: wq gives {q.shape[-1]} columns, not "
+                         f"this rank's {cfg.n_heads * hd // ctx.model_size}"
+                         f" (pass the engine whole params; it cuts the "
+                         f"shards)")
+    return (q.reshape(b_, s, -1, hd), k.reshape(b_, s, -1, hd),
+            v.reshape(b_, s, -1, hd))
 
 
 def attn_block(lp, x, cfg: ModelConfig, *, positions, window=0,
-               kv_valid=None):
-    """Full-sequence attention (prefill). Returns (out, (k, v)).
+               kv_valid=None, ctx=None):
+    """Full-sequence attention (prefill). Returns (out, (k, v)), k and v
+    this rank's heads under exact-TP (see _qkv).
 
     positions: (S,) shared, or (B,S) per-row (left-padded prefill).
     kv_valid: optional (B,S) bool marking real (non-pad) key/value
-    columns."""
+    columns. ctx: the DistCtx of a sharded call (None on one device)."""
     b_, s, _ = x.shape
-    q, k, v = _qkv(lp, x, cfg)
+    q, k, v = _qkv(lp, x, cfg, ctx)
     if cfg.rope_theta:
         # (B,S) positions broadcast over the head axis of the (B,H,S,Hd)
         # rope input as (B,1,S)
@@ -246,21 +322,23 @@ def attn_block(lp, x, cfg: ModelConfig, *, positions, window=0,
         k = apply_rope(k.transpose(1, 2), pos_r, cfg.rope_theta).transpose(1, 2)
     if (cfg.use_flash_attention and window == 0 and s % 256 == 0
             and kv_valid is None):
-        # the flash kernel (csrc/flash.cu): no (S,S) score tensor ever
-        # reaches device memory; the same three conditions as the JAX
-        # package (transformer.py:260-261)
+        # the flash kernel (csrc/flash.cu) on this rank's heads: no (S,S)
+        # score tensor ever reaches device memory; the same three
+        # conditions as the JAX package (transformer.py:260-261)
         out = attn_lib.flash_attention(q, k, v, causal=True)
     else:
         out = attn_lib.chunked_causal_attention(q, k, v, window=window,
-                                                kv_valid=kv_valid)
+                                                kv_valid=kv_valid,
+                                                heads=_kv_heads(cfg, ctx))
     out = matmul_rp(out.reshape(b_, s, -1), lp["wo"])
     return out, (k, v)
 
 
 def attn_block_decode(lp, x, cfg: ModelConfig, *, cache_k, cache_v, pos,
-                      window=0, rope=True, ring=False):
+                      window=0, rope=True, ring=False, ctx=None):
     """One-token attention against a cache. cache_k/v: (B,L,KvH,Hd),
-    updated IN PLACE (the JAX version returns new arrays).
+    updated IN PLACE (the JAX version returns new arrays); under exact-TP
+    this rank's kv heads (see _qkv).
 
     pos is the write position — a 0-d tensor shared by all rows (lockstep
     decode) or a (B,) tensor when every row is at its own offset (the
@@ -271,12 +349,20 @@ def attn_block_decode(lp, x, cfg: ModelConfig, *, cache_k, cache_v, pos,
     ring: then the cache is a ring buffer of the last L positions (the
     hybrid family's sliding window), the line is pos % L, and every line
     below min(pos + 1, L) is valid (the window is the buffer's size).
-    rope=False leaves q and k unrotated whatever cfg.rope_theta says."""
+    rope=False leaves q and k unrotated whatever cfg.rope_theta says.
+
+    ctx.kv_seq_shard with a shared pos (the reference's branch,
+    transformer.py:311-313): the cache's seq dim is split over the model
+    axis, this rank holding lines [r L, (r + 1) L) of it; the line is
+    written only by the rank that holds it, and flash_decode_sharded
+    combines every rank's partial softmax over whole heads."""
     b_, s, _ = x.shape
     assert s == 1
     pos = torch.as_tensor(pos, device=x.device)
     per_row = pos.dim() == 1
-    q, k, v = _qkv(lp, x, cfg)
+    seq_shard = (ctx is not None and ctx.kv_seq_shard and not per_row
+                 and not ring)
+    q, k, v = _qkv(lp, x, cfg, ctx, whole=seq_shard)
     if rope and cfg.rope_theta:
         # scalar pos -> one shared position; vector pos -> (B,1,1) so the
         # angle table broadcasts over heads per row
@@ -285,7 +371,14 @@ def attn_block_decode(lp, x, cfg: ModelConfig, *, cache_k, cache_v, pos,
         k = apply_rope(k.transpose(1, 2), pvec, cfg.rope_theta).transpose(1, 2)
     lcache = cache_k.shape[1]
     line = pos.long() % lcache if ring else pos.long()
-    if per_row:
+    if seq_shard:
+        line = line - ctx.model_rank * lcache
+        mine = (line >= 0) & (line < lcache)
+        line = line.clamp(0, lcache - 1).reshape(1)
+        for cache, new in ((cache_k, k), (cache_v, v)):
+            cache.index_copy_(1, line, torch.where(
+                mine, new.to(cache.dtype), cache.index_select(1, line)))
+    elif per_row:
         rows = torch.arange(b_, device=x.device)
         cache_k.index_put_((rows, line), k[:, 0])
         cache_v.index_put_((rows, line), v[:, 0])
@@ -294,10 +387,15 @@ def attn_block_decode(lp, x, cfg: ModelConfig, *, cache_k, cache_v, pos,
         cache_v.index_copy_(1, line.reshape(1), v)
     if ring:
         out = attn_lib.decode_attention(q, cache_k, cache_v,
-                                        torch.clamp_max(pos + 1, lcache))
+                                        torch.clamp_max(pos + 1, lcache),
+                                        heads=_kv_heads(cfg, ctx))
+    elif seq_shard:
+        out = attn_lib.flash_decode_sharded(q, cache_k, cache_v, pos + 1,
+                                            ctx=ctx, window=window)
     else:
         out = attn_lib.decode_attention(q, cache_k, cache_v, pos + 1,
-                                        window=window)
+                                        window=window,
+                                        heads=_kv_heads(cfg, ctx))
     out = matmul_rp(out.reshape(b_, 1, -1), lp["wo"])
     return out, (cache_k, cache_v)
 

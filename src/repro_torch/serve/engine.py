@@ -1,6 +1,6 @@
 """Slot-level continuous-batching serving engine — the port of
 `repro.serve.engine` (:71-208 and `ServeEngine` with its paged K/V cache,
-speculative decoding and `evict_inflight`, without the mesh part).
+speculative decoding, `evict_inflight` and tensor-parallel serving).
 
 The engine owns a fixed pool of `max_batch` slots over ONE decode batch.
 Requests wait in a FIFO admission queue; whenever a slot's request
@@ -52,12 +52,34 @@ the verify reads the dense slot cache, not the paged kernels.
 
 The stepwise surface (`reset`, `submit`, `step`, `evict_inflight`,
 `finalize`) is what the multi-replica router (serve/router.py) drives.
-`mesh=` raises ValueError naming its ROADMAP item.
+
+Tensor-parallel serving (`mesh=`, a launch.mesh.Mesh with a "model"
+axis; dense and moe families): explicit SPMD, one engine a rank, every
+rank given the same whole params and the same requests. The engine lays
+its state out by `dist.sharding.serve_specs` (exact-TP: weights split on
+their output dims only, the slot cache head-wise where the mesh divides
+the kv heads, scheduler state replicated), keeps only this rank's shards
+(`local_shard`, copied, so the caller may free the whole tree) and runs
+every model call under `layers.exact_tp_scope` with a
+`DistCtx(mesh, model_axis="model")`. The row-parallel
+products gather their activation first, so every rank computes the same
+whole logits in the one-device order and samples the same tokens: the
+scheduler runs the same on every rank, and the outputs are bit-equal to
+the mesh-less engine's where the column-shard products are bit-equal to
+the whole product's columns (tests/test_torch_serve_tp.py on the CPU).
+A dense or moe engine without a mesh runs its rounds in the same scope
+with no mesh, in the sharded engine's contraction order (layers.py), so
+it is the reference a sharded engine is held to.
+`device_stats()` gathers each rank's shard bytes; `last_stats` gains
+"devices" and "per_device". Paged and spec engines refuse a mesh, as in
+the JAX engine; the hybrid, ssm, encdec and vlm families wait for
+ROADMAP queue 1, item 9.3.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import Any, Dict, Iterable, List, Optional, Tuple
@@ -67,11 +89,17 @@ import torch
 
 from repro_torch import backend
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding
+from repro_torch.models import layers
 from repro_torch.models.convert import tensor_from_numpy
 from repro_torch.models.registry import Model, build_model
 from repro_torch.serve import rng
 from repro_torch.serve import spec as spec_lib
 from repro_torch.serve.kvcache import PagedKVCache
+
+# the families that serve under a mesh (exact-TP); their engines run every
+# round in layers.exact_tp_scope, with or without one
+MESH_FAMILIES = ("dense", "moe")
 
 # right-padding shape buckets for slot prefill (the JAX engine compiles one
 # prefill per bucket; here they keep the flash kernel's S % 256 == 0 rule
@@ -218,14 +246,53 @@ class ServeEngine:
                  draft_cfg: Optional[ModelConfig] = None, draft_params=None,
                  spec_k: int = 0):
         if mesh is not None:
-            raise ValueError("mesh= (tensor-parallel serving) is not ported "
-                             "yet: ROADMAP queue 1, item 9 (distribution)")
+            if kv_page_size:
+                raise ValueError("paged K/V cache (kv_page_size>0) does not "
+                                 "compose with mesh= tensor parallelism")
+            if spec_k:
+                raise ValueError("speculative decoding (spec_k>0) does not "
+                                 "compose with mesh= tensor parallelism")
+            if cfg.family not in MESH_FAMILIES:
+                raise ValueError(
+                    f"mesh= (tensor-parallel serving) of the {cfg.family!r} "
+                    "family is not ported yet: ROADMAP queue 1, item 9.3 "
+                    "(the dense and moe families serve under a mesh)")
+            if "model" not in getattr(mesh, "shape", {}):
+                raise ValueError("mesh= takes a launch.mesh.Mesh with a "
+                                 f"'model' axis, not {mesh!r}")
         self.cfg = cfg
         self.device = backend.resolve_device(device)
         self.model: Model = build_model(cfg)
         self.max_batch = max_batch
         self.cache_len = cache_len
-        self.params = _to_device(params, self.device)
+        self.mesh = mesh
+        self._specs = None
+        self._ctx = None
+        # the model calls' ctx= (only a sharded engine passes one)
+        self._ctx_kw: Dict[str, Any] = {}
+        self._cache_bytes_local = 0
+        if mesh is None:
+            self.params = _to_device(params, self.device)
+        else:
+            self._specs = sharding.serve_specs(cfg, mesh, max_batch=max_batch,
+                                               cache_len=cache_len,
+                                               model=self.model)
+            # this rank's shards, copied off the whole tree; replicated
+            # leaves are the caller's tensors
+            self.params = _local_params(params, self._specs.params,
+                                        self.model.abstract_params(), mesh,
+                                        self.device)
+            # the ctx rides along every model call (decode cache layout,
+            # the flash kernel's local problem)
+            self._ctx = layers.DistCtx(mesh=mesh, model_axis="model")
+            self._ctx_kw = {"ctx": self._ctx}
+            # one rank's cache bytes, from the local shapes (the same on
+            # every rank) and the (B,) int32 pos
+            ab = self.model.init_cache(max_batch, cache_len, abstract=True)
+            self._cache_bytes_local = 4 * max_batch + sum(
+                math.prod(sharding.local_shape(t.shape, self._specs.cache[k],
+                                               mesh)) * t.element_size()
+                for k, t in ab.items() if k != "pos")
         self.kv_page_size = kv_page_size
         self.kv_pages = kv_pages
         self.kv_dtype = kv_dtype
@@ -317,8 +384,17 @@ class ServeEngine:
         return n
 
     def _fresh_cache(self):
-        cache = self.model.init_cache(self.max_batch, self.cache_len,
-                                      device=self.device)
+        if self._specs is None:
+            cache = self.model.init_cache(self.max_batch, self.cache_len,
+                                          device=self.device)
+        else:
+            # this rank's block of every leaf, allocated at its local shape
+            ab = self.model.init_cache(self.max_batch, self.cache_len,
+                                       abstract=True)
+            cache = {k: torch.zeros(
+                sharding.local_shape(t.shape, self._specs.cache[k],
+                                     self.mesh),
+                dtype=t.dtype, device=self.device) for k, t in ab.items()}
         # per-row positions: each slot decodes at its own offset
         cache["pos"] = torch.zeros((self.max_batch,), dtype=torch.int32,
                                    device=self.device)
@@ -377,7 +453,7 @@ class ServeEngine:
                 self.params, cache, slot_idx, batch, start, n)
         else:
             logits, cache = self.model.prefill_into_slot(
-                self.params, cache, slot_idx, batch, plen)
+                self.params, cache, slot_idx, batch, plen, **self._ctx_kw)
         if self._kv is not None and self._kv.prefix_reuse:
             # publish this prompt's full pages for future admissions
             cache = self._kv.insert_prefix(prompt, r.rid, cache, slot_idx)
@@ -503,7 +579,15 @@ class ServeEngine:
         (each free slot index gets at most one admission attempt per
         round), then run one batched decode step over the occupied slots.
         With nothing occupied after admission the decode is skipped
-        (decoded=0)."""
+        (decoded=0). A dense or moe engine runs the round under
+        layers.exact_tp_scope (every rank of a sharded one must step
+        alike, and one without a mesh keeps the sharded order)."""
+        if self.cfg.family not in MESH_FAMILIES:
+            return self._step()
+        with layers.exact_tp_scope(self.mesh):
+            return self._step()
+
+    def _step(self) -> StepReport:
         admitted: List[int] = []
         finished: List[int] = []
         for i in range(self.max_batch):
@@ -533,8 +617,9 @@ class ServeEngine:
             return self._spec_round(admitted, finished)
         active = np.array([s is not None for s in self._slots])
         logits, self._cache = _masked(
-            self.model.decode_step, self.params, self._cache,
-            self._tokens(self._cur), self._active(active))
+            lambda p, c, t: self.model.decode_step(p, c, t, **self._ctx_kw),
+            self.params, self._cache, self._tokens(self._cur),
+            self._active(active))
         self._n_steps += 1
         self._slot_steps_active += int(active.sum())
         toks = self._sample_rows(logits, self._slots)
@@ -725,15 +810,41 @@ class ServeEngine:
         self._n_submitted -= len(evicted)
         return evicted, wasted
 
+    def device_stats(self) -> List[Dict[str, Any]]:
+        """Per-rank shard accounting of a sharded engine ([] without a
+        mesh): for every rank of the mesh, in rank order, the bytes of its
+        local param shards and of its local cache. A collective on a mesh
+        of several ranks: every rank calls it (finalize does)."""
+        if self.mesh is None:
+            return []
+        mine = {"device": self.mesh.rank,
+                "params_bytes": sum(_nbytes(t) for t in _leaves(self.params)),
+                "cache_bytes": self._cache_bytes_local}
+        if self.mesh.size == 1:
+            return [mine]
+        import torch.distributed as dist
+        every: List[Any] = [None] * self.mesh.size
+        dist.all_gather_object(every, mine)
+        return every
+
     def finalize(self) -> Dict[str, Any]:
         """Aggregate this run's counters into the engine-stats dict (also
-        stored on last_stats)."""
+        stored on last_stats); a sharded engine adds "devices" and
+        "per_device" (device_stats() with the run's occupancy and
+        tokens/s)."""
         wall = time.perf_counter() - self._t_start
         engine_stats = aggregate_engine_stats(
             self._per_req, n_requests=self._n_submitted,
             n_steps=self._n_steps, n_prefills=self._n_prefills,
             slot_steps_active=self._slot_steps_active,
             max_batch=self.max_batch, wall_s=wall)
+        if self.mesh is not None:
+            per_dev = self.device_stats()
+            engine_stats["devices"] = len(per_dev)
+            engine_stats["per_device"] = [
+                {**d, "occupancy": engine_stats["occupancy"],
+                 "tok_per_s": engine_stats["tok_per_s"]}
+                for d in per_dev]
         if self._kv is not None:
             # merged here, outside aggregate_engine_stats's schema
             engine_stats["kvcache"] = self._kv.stats()
@@ -793,3 +904,32 @@ def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _local_params(tree, specs, abstract, mesh, device):
+    """This rank's shards of the whole params `tree` on `device`: a split
+    leaf's block copied into a tensor of its own (the whole leaf can then
+    be freed), a replicated leaf moved as it is. Raises ValueError on a
+    leaf whose shape is not the whole tree's."""
+    if isinstance(tree, dict):
+        return {k: _local_params(tree[k], specs[k], abstract[k], mesh,
+                                 device) for k in abstract}
+    if tuple(tree.shape) != tuple(abstract.shape):
+        raise ValueError(f"mesh=: a leaf of shape {tuple(tree.shape)} where "
+                         f"the model has {tuple(abstract.shape)}: pass the "
+                         f"whole params (the engine cuts each rank's shards)")
+    if all(e is None for e in specs):
+        return tree.to(device)
+    block = sharding.local_shard(tree, specs, mesh)
+    return torch.empty(block.shape, dtype=block.dtype,
+                       device=device).copy_(block)

@@ -353,7 +353,9 @@ class Router:
     unless device='cpu'); each replica owns its caches. `rng_seed` is
     shared so any replica draws the identical per-request sample stream —
     the property failover correctness rests on. `mesh=` is passed to the
-    engines, which refuse it (ROADMAP queue 1, item 9).
+    engines, which then serve tensor-parallel over it (`ServeEngine`'s
+    exact-TP: every rank runs the same Router on the same trace, and
+    each replica keeps its own shards of `params`).
 
     Overload knobs (all deterministic): `max_queue` bounds the admission
     queue (None = unbounded), `shed_policy` picks the victim on a full

@@ -10,7 +10,8 @@ params and its state in place (see optim/adamw.py). microbatches > 1
 splits the batch along dim 0 as the JAX step does (microbatch i takes
 rows i, i + n, i + 2n, ...) and accumulates f32 grads over a Python loop;
 grad_compress="bf16" casts the grads to bf16 before the update. The mesh,
-the sharding plan and `StepBundle` wait for the distribution slice.
+the training sharding plan (`make_plan`) and `StepBundle` wait for ROADMAP
+queue 1, item 9.2.
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ Wires together: model + train step (train/step.py), data pipeline
 (straggler detection), heartbeat. The loop is restart-idempotent: kill it
 at any step, rerun the same command, and it resumes from the latest valid
 checkpoint with bit-identical data order (step-keyed batches). The mesh
-path (`mesh=`, FSDP) waits for the distribution slice.
+path (`mesh=`, FSDP) waits for ROADMAP queue 1, item 9.2 (distributed
+training); tensor-parallel serving is `ServeEngine(mesh=)`.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (sharded training) is not ported yet: ROADMAP queue "
-                "1, item 9 (distribution)")
+                "1, item 9.2 (distributed training)")
         self.cfg = cfg
         self.loop = loop
         self.device = backend.resolve_device(device)

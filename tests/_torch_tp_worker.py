@@ -1,0 +1,212 @@
+"""Rank processes for tests/test_torch_serve_tp.py: a gloo world on the
+CPU, one process a rank, each importing torch and repro_torch only (no
+jax, so a rank starts in a few seconds).
+
+`run_world(tmp_path, n, cases)` spawns n ranks that rendezvous through a
+FileStore under tmp_path (no port to collide over between xdist
+workers), runs every (name, payload) of `cases` on each rank in order,
+and returns {rank: {name: result}}. Every rank, and the world, has a
+timeout: a hung rendezvous or collective fails the test instead of
+hanging it, and a rank that raises fails it with the rank's traceback.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+WORLD_TIMEOUT_S = 240.0
+COLLECTIVE_TIMEOUT_S = 120.0
+
+
+def run_world(tmp_path, n: int, cases: List[Tuple[str, Any]],
+              device: str = "cpu") -> Dict[int, Dict[str, Any]]:
+    import torch.multiprocessing as mp
+    store = os.path.join(str(tmp_path), "store")
+    out = os.path.join(str(tmp_path), "out")
+    os.makedirs(out, exist_ok=True)
+    ctx = mp.start_processes(_rank_main,
+                             args=(n, store, out, cases, device),
+                             nprocs=n, join=False, start_method="spawn")
+    deadline = time.monotonic() + WORLD_TIMEOUT_S
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            raise TimeoutError(f"the {n}-rank world ran past "
+                               f"{WORLD_TIMEOUT_S} s")
+    return {r: torch.load(os.path.join(out, f"rank{r}.pt"),
+                          weights_only=False) for r in range(n)}
+
+
+def _rank_main(rank, n, store, out, cases, device):
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    if device.startswith("cuda"):
+        torch.cuda.set_device(0)       # every rank on the one card
+    mesh = make_mesh({"model": n}, device=device, backend="gloo",
+                     init_method=f"file://{store}", rank=rank, world_size=n,
+                     timeout_s=COLLECTIVE_TIMEOUT_S)
+    results = {name: CASES[name.split(":")[0]](mesh, payload)
+               for name, payload in cases}
+    torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# what a rank runs (each also runs in the test process without a mesh)
+# ---------------------------------------------------------------------------
+
+def build(arch: str, reduce: Dict, replace: Dict, seed: int):
+    """The reduced config and its whole params from `seed` on the CPU: the
+    same on every rank and in the test process."""
+    import dataclasses
+    from repro_torch.configs.base import get_config, reduce_config
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(reduce_config(get_config(arch), **reduce),
+                              **replace)
+    return cfg, build_model(cfg).init_params(seed, device="cpu")
+
+
+def requests(vocab: int, lens, seed: int, temps, max_new):
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, vocab, n) for n in lens]
+    return [Request(rid=i, prompt=p, max_new_tokens=max_new[i % len(max_new)],
+                    temperature=temps[i % len(temps)])
+            for i, p in enumerate(prompts)]
+
+
+def serve(mesh, payload):
+    """Serve payload's requests through ServeEngine (over `mesh` when it
+    is not None); record every model call's logits in call order. Returns
+    tokens, logits, device_stats, each param leaf's (local, whole) shape,
+    and the last_stats' devices/per_device."""
+    import dataclasses
+    from repro_torch.serve.engine import ServeEngine
+    cfg, params = build(payload["arch"], payload["reduce"],
+                        payload["replace"], payload["seed"])
+    eng = ServeEngine(cfg, params, max_batch=payload["max_batch"],
+                      cache_len=payload["cache_len"],
+                      device=payload.get("device", "cpu"), mesh=mesh)
+    logits = []
+
+    def record(fn):
+        def call(*a, **kw):
+            lg, cache = fn(*a, **kw)
+            logits.append(lg.float().cpu())
+            return lg, cache
+        return call
+
+    eng.model = dataclasses.replace(
+        eng.model, decode_step=record(eng.model.decode_step),
+        prefill_into_slot=record(eng.model.prefill_into_slot))
+    out, stats = eng.run(requests(cfg.vocab_size, **payload["requests"]),
+                         collect_stats=True)
+    whole = _shapes(params)
+    local = _shapes(eng.params)
+    return {"tokens": out, "logits": logits,
+            "shapes": {k: (local[k], whole[k]) for k in whole},
+            "device_stats": eng.device_stats(),
+            "engine": {k: stats["engine"].get(k) for k in
+                       ("devices", "per_device", "occupancy")}}
+
+
+def router(mesh, payload):
+    """A 2-replica Router over payload's trace (each replica over `mesh`
+    when it is not None); outputs and outcomes."""
+    from repro_torch.serve.router import FaultPlan, Router
+    from repro_torch.serve.trace import TraceConfig, generate_trace
+    cfg, params = build(payload["arch"], payload["reduce"],
+                        payload["replace"], payload["seed"])
+    r = Router(cfg, params, replicas=2, max_batch=2, cache_len=64,
+               device="cpu", mesh=mesh,
+               fault_plan=FaultPlan().flap(1, at_tick=3, down_ticks=4))
+    out, st = r.run(generate_trace(TraceConfig(**payload["trace"])))
+    return {"tokens": out, "completed": st["completed"],
+            "recoveries": st["recoveries"], "outcomes": st["outcomes"]}
+
+
+def flash_decode(mesh, payload):
+    """flash_decode_sharded on this rank's seq block of payload's whole
+    caches (numpy); the combined output, the same on every rank."""
+    from repro_torch.dist.sharding import local_shard
+    from repro_torch.models.attention import flash_decode_sharded
+    from repro_torch.models.convert import tensor_from_numpy
+    from repro_torch.models.layers import DistCtx
+    # f32 arrays of bf16 values: exact in bf16
+    q, k, v = (tensor_from_numpy(payload[x], "cpu").to(torch.bfloat16)
+               for x in "qkv")
+    spec = (None, "model", None, None)
+    ctx = DistCtx(mesh=mesh, kv_seq_shard=True)
+    out = flash_decode_sharded(q, local_shard(k, spec, mesh),
+                               local_shard(v, spec, mesh),
+                               payload["cache_len"], ctx=ctx,
+                               window=payload.get("window", 0))
+    return out.float()
+
+
+def seq_shard_decode(mesh, payload):
+    """Lockstep decode steps of one attention layer whose cache's seq dim
+    is split over the model axis (ctx.kv_seq_shard, whole weights): each
+    step's output, and this rank's cache block at the end."""
+    from repro_torch.dist.sharding import local_shard
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import DistCtx
+    cfg, params = build(payload["arch"], payload["reduce"], {},
+                        payload["seed"])
+    lp = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    b, lc = payload["batch"], payload["cache_len"]
+    kv = torch.zeros(b, lc, cfg.n_kv_heads, cfg.head_dim,
+                     dtype=torch.bfloat16)
+    ctx = None
+    if mesh is not None:
+        kv = local_shard(kv, (None, "model", None, None), mesh)
+        ctx = DistCtx(mesh=mesh, kv_seq_shard=True)
+    ck, cv = kv.clone(), kv.clone()
+    gen = torch.Generator().manual_seed(payload["seed"])
+    outs = []
+    for pos in range(payload["steps"]):
+        x = (torch.randn(b, 1, cfg.d_model, generator=gen) * 0.5).to(
+            torch.bfloat16)
+        with torch.no_grad():
+            o, _ = T.attn_block_decode(lp, x, cfg, cache_k=ck, cache_v=cv,
+                                       pos=torch.tensor(pos), ctx=ctx)
+        outs.append(o.float())
+    return {"outs": outs, "k": ck, "v": cv}
+
+
+def mesh2d(mesh, payload):
+    """A ("data", "model") mesh of 1 x n over the world already running:
+    the DeviceMesh route of make_mesh; this rank's coords, its model
+    group's ranks, and an all_reduce over that group."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    m = make_mesh({"data": 1, "model": mesh.size}, device="cpu",
+                  backend="gloo")
+    group = m.group("model")
+    t = torch.tensor([float(m.rank + 1)])
+    dist.all_reduce(t, group=group)
+    return {"coords": m.coords, "group": m.group("data"),
+            "ranks": dist.get_process_group_ranks(group), "sum": float(t)}
+
+
+def _shapes(tree, pre=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{pre}/{k}" if pre else k
+        if isinstance(v, dict):
+            out.update(_shapes(v, path))
+        else:
+            out[path] = tuple(v.shape)
+    return out
+
+
+CASES = {"serve": serve, "router": router, "flash_decode": flash_decode,
+         "seq_shard_decode": seq_shard_decode, "mesh2d": mesh2d}

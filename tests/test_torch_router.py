@@ -294,7 +294,7 @@ def test_router_argument_refusals(small):
         trouter.Router(None, None, shed_policy="drop-random")
     with pytest.raises(ValueError, match="replica"):
         trouter.Router(tcfg, tp, replicas=0, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="'model' axis"):
         trouter.Router(tcfg, tp, mesh=object(), device="cpu")
 
 

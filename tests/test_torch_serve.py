@@ -162,8 +162,10 @@ def test_request_larger_than_the_cache_raises(port_small):
 
 @pytest.mark.parametrize("kwargs", [{"mesh": object()}])
 def test_unported_options_raise(port_small, kwargs):
+    """mesh= is ported for the dense family (tests/test_torch_serve_tp.py);
+    what it is given must be a mesh with a "model" axis."""
     cfg, params = port_small
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="'model' axis"):
         ServeEngine(cfg, params, device="cpu", **kwargs)
 
 
@@ -179,7 +181,8 @@ def test_engine_defaults_to_the_card(port_small, monkeypatch):
 def test_other_families_raise():
     """Every family of FAMILIES builds (at reduce_config, one config each:
     params, a prefill of 8 tokens with its frames or vis, finite logits),
-    and mesh= still names its ROADMAP item (9, distribution)."""
+    and mesh= on a family that waits for it names its ROADMAP item
+    (9.3)."""
     from repro_torch.configs.base import ARCH_IDS, FAMILIES
     built = set()
     for arch in ARCH_IDS:

@@ -196,7 +196,7 @@ def test_hybrid_falls_through_to_the_unpaged_path():
 
 def test_mesh_with_paging_raises(small):
     _, tcfg, _, tp = small
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 9"):
+    with pytest.raises(ValueError, match="paged K/V cache"):
         ServeEngine(tcfg, tp, max_batch=2, cache_len=64, kv_page_size=8,
                     mesh=object(), device="cpu")
 

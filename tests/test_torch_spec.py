@@ -439,7 +439,7 @@ def test_spec_refusals(qwen_pair):
     with pytest.raises(ValueError, match="decode_verify"):
         ServeEngine(hy, hy_p, draft_cfg=tdc, draft_params=tdp, spec_k=2,
                     device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="speculative decoding"):
         ServeEngine(tcfg, tp, draft_cfg=tdc, draft_params=tdp, spec_k=2,
                     mesh=object(), device="cpu")
     eng = _spec(qwen_pair, 4)
