@@ -342,6 +342,27 @@ Phases (one line each, more where noted):
      within TP_DECODE_ATOL, the ranks' outputs bit-equal. A failure in any
      rank fails the phase; nothing falls back to the CPU, one rank or a
      plain version.
+ 18. data-parallel training: DP_RANKS ranks share the card (spawn, gloo
+     through host memory, a FileStore under build/), each running, in
+     turn and freeing its model between them, Trainer(cfg, loop,
+     mesh={"data": 2}).run(): 18a DP on qwen2-1.5b uncut, flash on,
+     phase 10's loop (512 x 8 global, TRAIN_STEPS steps, seed 0, AdamW):
+     every step's loss within LOSS0_SUM_ATOL of phase 10's, step 0's
+     grad norm within DP_GNORM_RTOL, the replicated leaves' fingerprints
+     equal on the ranks after every step, 56/28/28 flash launches a step
+     a rank, one more step with every launch held to its plain version;
+     18b the same with fsdp=True: params plus optimizer state a rank
+     equal to the specs' prediction, rank 0 writes the final checkpoint
+     (whole leaves), restored here on one device bit-equal to the ranks'
+     gathered params, and one more one-device step from it; 18c
+     deepseek-moe-16b cut as 14c, EP (ep_data): every moe layer on
+     moe_ffn_ep (the routes counted), step 0's loss within MOE_LOSS0_ATOL
+     of its estimate, one moe_ffn_ep call held to moe_ffn_ep_emulated
+     within MOE_OUT_ULPS; 18d allreduce_int8 on one qwen2 leaf's per-rank
+     grads, the card's result bit-equal to the same call on host copies,
+     and pipelined_apply over the ranks within PIPE_ATOL of the dense
+     scan. Printed: step ms, peak memory and the bytes a step hands gloo a
+     rank (2 ranks sharing one card: not a DP speed).
 Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
 phase 7d's Hd 32 model check, phase 8's serving run, phase 10's training
 run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
@@ -352,7 +373,9 @@ run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
 (hybrid_train, rwkv_train) and pallas step (hybrid-train-pallas), phase
 16's serving runs (vlm_serve, vlm_paged, whisper_serve, whisper_paged)
 and training runs (whisper_train, vlm_train), phase 17's sharded serving
-runs (tp_serve, tp_moe: every rank's counts, summed)) runs
+runs (tp_serve, tp_moe: every rank's counts, summed), phase 18's
+data-parallel training runs (dp_train, fsdp_train, ep_train: every rank's
+counts, summed)) runs
 with the launch counters
 zeroed just before it and read just after; the kernels line gives each
 path's counts, and the script fails unless every kernel launched on the
@@ -369,7 +392,9 @@ pallas step, flash_fwd 48 times a flash-sized admission on both vlm
 serving runs, 16 and each backward kernel 8 times a vlm training step,
 no kernel on whisper's runs, flash_fwd 28 times an admission on each
 rank of tp_serve and 4 times a flash-sized admission on each rank of
-tp_moe, and no other kernel there).
+tp_moe, and no other kernel there; flash_fwd 56 and each backward kernel
+28 times a step on each rank of dp_train and fsdp_train, 8 and 4 on
+ep_train).
 
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero without it. Without a card, or outside the repository, the
@@ -620,6 +645,19 @@ TP_DECODE = dict(b=4, h=12, kvh=2, hd=128, l=8192, clen=8000)
 TP_DECODE_ATOL = 5e-3
 TP_WORLD_TIMEOUT_S = 900
 TP_COLLECTIVE_TIMEOUT_S = 600
+# data-parallel training (phase 18): DP_RANKS ranks sharing the one card
+# over gloo; 18a/18b take phase 10's loop, 18c EP_TRAIN_STEPS steps of
+# 14c's; step 0's grad norm within DP_GNORM_RTOL of phase 10's (the GEMMs
+# see 4 x 512 rows a rank, not 8 x 512: cuBLAS may pick other kernels);
+# 18d's pipeline (L layers, M microbatches of B rows, width D, f32) within
+# PIPE_ATOL of the dense scan (the reference test's bound)
+DP_RANKS = 2
+DP_WORLD_TIMEOUT_S = 900
+DP_COLLECTIVE_TIMEOUT_S = 600
+EP_TRAIN_STEPS = 2
+DP_GNORM_RTOL = 1e-2
+PIPE_SHAPE = (8, 8, 16, 1024)
+PIPE_ATOL = 1e-4
 # phase 7c's cases: (tag, B, T, C, N, h0 scale); inputs from seed 10 + index
 SSM_CASES = (("hymba-prefill", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.0),
              ("t4096", 1, 4096, 3200, 16, 0.0),
@@ -1100,6 +1138,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 18. data-parallel training: 2 ranks on the card over gloo -----------
+    dp = dp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
+                  by_path, train, moe_train)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     names = ("gpp_fused", "gpp_banded", "flash_fwd", "flash_bwd_dq",
              "flash_bwd_dkv", "ssm_scan", "paged_decode_gather",
              "paged_decode_int8", "paged_decode_verify")
@@ -1207,6 +1251,8 @@ def main() -> None:
     print(f"[16] encdec and vlm summary: {json.dumps(encdec_vlm)} [{card}]",
           flush=True)
     print(f"[17] tensor-parallel summary: {json.dumps(tp)} [{card}]",
+          flush=True)
+    print(f"[18] data-parallel summary: {json.dumps(dp)} [{card}]",
           flush=True)
     print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"(build {build_s:.1f} s)", flush=True)
@@ -1914,6 +1960,8 @@ def train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
     step_ms, step_counts, save = [], [], {}
     real_step, real_write, real_save = tr.step_fn, tr.ckpt._write, tr.ckpt.save
 
+    grad_norms = []
+
     def timed_step(params, opt_state, batch):
         torch.cuda.synchronize()
         before, t0 = read_counts(), time.perf_counter()
@@ -1922,6 +1970,7 @@ def train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
         step_ms.append((time.perf_counter() - t0) * 1e3)
         after = read_counts()
         step_counts.append({k: after[k] - before[k] for k in after})
+        grad_norms.append(float(out[2]["grad_norm"]))
         return out
 
     def timed_save(step, tree, **kw):
@@ -1973,7 +2022,8 @@ def train_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
     step_dir = os.path.join(ckpt_dir, f"step_{TRAIN_STEPS:08d}")
     ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
                      for f in os.listdir(step_dir))
-    res = {"losses": losses, "step_ms": step_ms, "step_ms_p50": step_p50,
+    res = {"losses": losses, "grad_norms": grad_norms, "step_ms": step_ms,
+           "step_ms_p50": step_p50,
            "tokens_per_step": tokens, "tok_per_s": tokens / step_p50 * 1e3,
            "mfu": mfu, "model_flops_per_step": 6 * n_params * tokens + attn,
            "n_params": n_params, "peak_mem_gb": peak / 1e9, "run_s": run_s,
@@ -5328,6 +5378,538 @@ def tp_decode_rank(torch, mesh):
             "ms": cuda_ms(sharded, reps=10),
             "plain_ms": cuda_ms(lambda: decode_attention(q, k, v, c["clen"]),
                                 reps=10)}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: data-parallel training, 2 ranks sharing one card over gloo
+# ---------------------------------------------------------------------------
+
+def dp_config(which):
+    """18a/18b: qwen2-1.5b uncut, flash on (phase 10's model); 18c:
+    deepseek-moe-16b at full width cut to MOE_TRAIN_LAYERS layers, remat
+    "full", flash on (phase 14c's)."""
+    import dataclasses
+    import repro_torch
+    if which == "ep":
+        return dataclasses.replace(repro_torch.get_config("deepseek-moe-16b"),
+                                   n_layers=MOE_TRAIN_LAYERS, remat="full",
+                                   use_flash_attention=True)
+    return dataclasses.replace(repro_torch.get_config("qwen2-1.5b"),
+                               use_flash_attention=True)
+
+
+def dp_state_bytes(cfg, fsdp):
+    """(params plus optimizer state on one rank, the same whole) in bytes
+    under the training plan over {"data": DP_RANKS}: from the spec trees
+    and the abstract (meta) trees, no tensor made."""
+    from types import SimpleNamespace
+    from repro_torch.dist import sharding
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adafactor import make_optimizer
+    from repro_torch.train import step as step_lib
+    mesh = SimpleNamespace(shape={"data": DP_RANKS}, coords={"data": 0})
+    model = build_model(cfg)
+    plan = step_lib.make_plan(cfg, mesh, kind="train", fsdp=fsdp)
+    ab = model.abstract_params()
+    ps = sharding.params_shardings(plan, model.param_axes, ab)
+    st = make_optimizer(cfg.optimizer, lambda s: s).init(ab)
+    trees = ((ab, ps), (st, sharding.opt_state_specs(ps, st)))
+    local = whole = 0
+    for tree, specs in trees:
+        spec = dict(_spec_items(specs))
+        for path, t in _spec_items(tree):
+            n = 1
+            for d in sharding.local_shape(tuple(t.shape), spec[path], mesh):
+                n *= d
+            local += n * t.element_size()
+            whole += t.numel() * t.element_size()
+    return local, whole
+
+
+def fingerprint(torch, tree):
+    """An exact fingerprint of a tree's bits, on its device: per leaf the
+    int64 sum of its 16-bit words times fixed pseudo-random weights (a
+    change of any word changes it), summed over the leaves in sorted
+    order (0 for an empty tree). One read of the tree; one host sync."""
+    acc = None
+    for _, t in sorted(_spec_items(tree)):
+        words = t.detach().contiguous().reshape(-1).view(torch.int16)
+        for c0 in range(0, words.numel(), 1 << 24):
+            w = words[c0:c0 + (1 << 24)].to(torch.int64)
+            idx = torch.arange(c0, c0 + w.numel(), device=w.device)
+            part = (w * ((idx * 2654435761 + 12345) % 65521 + 1)).sum()
+            acc = part if acc is None else acc + part
+    return 0 if acc is None else int(acc)
+
+
+def dp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
+             by_path, train, moe_train):
+    """Phase 18: data-parallel training over DP_RANKS ranks sharing the
+    card (torch.multiprocessing spawn, gloo, a FileStore under build/):
+    18a DP and 18b FSDP on qwen2-1.5b with phase 10's loop, 18c EP on
+    deepseek-moe-16b cut as 14c, 18d allreduce_int8 and pipelined_apply;
+    every rank's results held here, to phase 10's and to each other, and
+    18b's final checkpoint restored on one device (elastic 2 -> 1)."""
+    import math
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    pred = {w: dp_state_bytes(dp_config(w), w == "fsdp")
+            for w in ("dp", "fsdp", "ep")}
+    print(f"[18] params plus optimizer state a rank (predicted from the "
+          f"specs, {DP_RANKS} data ranks): 18a DP "
+          f"{pred['dp'][0] / 1e9:.3f} GB, 18b FSDP {pred['fsdp'][0] / 1e9:.3f}"
+          f" GB, 18c EP {pred['ep'][0] / 1e9:.3f} GB (whole "
+          f"{pred['ep'][1] / 1e9:.3f} GB) [{card}]", flush=True)
+    for which in ("dp", "fsdp", "ep"):
+        shutil.rmtree(os.path.join(ROOT, "build", f"chip_smoke_{which}_ckpt"),
+                      ignore_errors=True)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="dp_world_",
+                            dir=os.path.join(ROOT, "build"))
+    store, out_dir = os.path.join(work, "store"), os.path.join(work, "out")
+    os.makedirs(out_dir)
+    t1 = time.perf_counter()
+    ctx = mp.start_processes(dp_rank_main, args=(DP_RANKS, store, out_dir),
+                             nprocs=DP_RANKS, join=False,
+                             start_method="spawn")
+    try:
+        while not ctx.join(timeout=5.0):
+            if time.perf_counter() - t1 > DP_WORLD_TIMEOUT_S:
+                fail(f"[18] the {DP_RANKS}-rank world ran past "
+                     f"{DP_WORLD_TIMEOUT_S} s")
+    except mp.ProcessRaisedException as e:
+        fail(f"[18] a rank failed:\n{e}")
+    except mp.ProcessExitedException as e:
+        fail(f"[18] a rank exited: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    world_s = time.perf_counter() - t1
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(DP_RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    res = {"world_s": world_s, "predicted_state_gb": {
+        w: pred[w][0] / 1e9 for w in pred}}
+    for tag, which, path in (("18a", "dp", "dp_train"),
+                             ("18b", "fsdp", "fsdp_train"),
+                             ("18c", "ep", "ep_train")):
+        runs = [r[which] for r in ranks]
+        by_path[path] = {k: sum(r["launches"][k] for r in runs)
+                         for k in read_counts()}
+        res[which] = dp_gates(tag, which, runs, pred[which][0], train,
+                              moe_train, card)
+    # 18b: the world's final checkpoint on one device (elastic 2 -> 1)
+    res["fsdp"]["restore"] = dp_restore_one(
+        torch, dev, card, ranks[0]["fsdp"]["final_fingerprint"])
+    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke_fsdp_ckpt"),
+                  ignore_errors=True)
+    # 18d
+    ops = [r["ops"] for r in ranks]
+    line = (f"[18d] allreduce_int8 of one qwen2 leaf's per-rank grads "
+            f"({ops[0]['int8_leaf']}, {ops[0]['int8_numel']} elements) on "
+            f"the card against the same call on the ranks' CPU copies: "
+            f"bit-equal {[o['int8_bit_equal'] for o in ops]}, its distance "
+            f"from the exact f32 mean {[o['int8_err'] for o in ops]} (scale "
+            f"{ops[0]['int8_scale']:.3e}); pipelined_apply over the "
+            f"{DP_RANKS} ranks ({ops[0]['pipe_shape']}) against the dense "
+            f"scan: max |diff| {[o['pipe_err'] for o in ops]} (tol "
+            f"{PIPE_ATOL}), the ranks' outputs equal "
+            f"{ops[0]['pipe_digest'] == ops[1]['pipe_digest']} [{card}]")
+    print(line, flush=True)
+    if (not all(o["int8_bit_equal"] for o in ops)
+            or max(o["pipe_err"] for o in ops) > PIPE_ATOL
+            or any(o["pipe_digest"] != ops[0]["pipe_digest"] for o in ops)):
+        fail(line)
+    res["ops"] = ops[0]
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"[18] phase 18 ran {res['phase_s']:.1f} s (the {DP_RANKS}-rank "
+          f"world {world_s:.1f} s: 18a {ranks[0]['dp']['sub_s']:.1f} s, "
+          f"18b {ranks[0]['fsdp']['sub_s']:.1f} s, 18c "
+          f"{ranks[0]['ep']['sub_s']:.1f} s) [{card}]", flush=True)
+    return res
+
+
+def dp_gates(tag, which, runs, predicted, train, moe_train, card):
+    """18a/18b/18c's gates on every rank's results."""
+    import math
+    first = runs[0]
+    cfg = dp_config(which)
+    n_layers = cfg.n_layers
+    per_step = {k: 0 for k in first["launches"]}
+    per_step.update(flash_fwd=2 * n_layers, flash_bwd_dq=n_layers,
+                    flash_bwd_dkv=n_layers)
+    losses = [r["losses"] for r in runs]
+    same = all(r["prints"] == first["prints"] for r in runs)
+    counts_ok = all(c == per_step for r in runs for c in r["step_counts"])
+    state = [r["state_bytes"] for r in runs]
+    line = (f"[{tag}] {cfg.name} ({n_layers} layers, {cfg.optimizer}) over "
+            f"{len(runs)} data ranks (gloo, one card, {which}): losses "
+            f"{[[round(x, 5) for x in l] for l in losses]}; grad norms "
+            f"{[round(x, 5) for x in first['grad_norms']]}; the "
+            f"replicated leaves' fingerprints after every step equal on the "
+            f"ranks: {same}; launches a step a rank {first['step_counts'][0]}"
+            f" (expected {per_step}: {counts_ok}); params plus optimizer "
+            f"state a rank {[round(b / 1e9, 3) for b in state]} GB "
+            f"(predicted {predicted / 1e9:.3f}) [{card}]")
+    print(line, flush=True)
+    bad = (not same or not counts_ok or any(b != predicted for b in state)
+           or any(l != losses[0] for l in losses)
+           or not all(math.isfinite(x) for x in losses[0]))
+    if which == "ep":
+        lse0 = math.log(cfg.vocab_size) + INIT_SCALE ** 2 * cfg.d_model / 2
+        loss0 = lse0 + 1e-4 * lse0 ** 2
+        n_moe = n_layers - cfg.first_k_dense
+        routes = [r["routes"] for r in runs]
+        ep = first["ep_check"]
+        line = (f"[18c] step 0's loss {losses[0][0]:.5f} (estimate "
+                f"{loss0:.5f} +- {MOE_LOSS0_ATOL}; 14c's one-device run on "
+                f"the same batches "
+                f"{[round(x, 5) for x in moe_train['losses']]}"
+                f"); routes a rank over the run (forward and remat "
+                f"recompute, {n_moe} moe layers a pass) {routes}; one "
+                f"moe_ffn_ep call (first moe layer, {ep['tokens']} tokens a "
+                f"rank) against moe_ffn_ep_emulated on the card: worst "
+                f"{[r['ep_check']['ulps'] for r in runs]} bf16 ulps at the "
+                f"largest element (tol {MOE_OUT_ULPS}), bit-equal "
+                f"{[r['ep_check']['bit_equal'] for r in runs]}, aux "
+                f"{ep['aux']:.6f} against {ep['emu_aux']:.6f}; a step's "
+                f"all_to_all bytes a rank {ep['a2a_bytes_per_step']} [{card}]")
+        print(line, flush=True)
+        bad = bad or (abs(losses[0][0] - loss0) > MOE_LOSS0_ATOL
+                      or any(r["moe_ffn"] for r in routes)
+                      or any(r["moe_ffn_ep"] < n_moe * len(losses[0])
+                             or r["moe_ffn_ep"] % n_moe for r in routes)
+                      or max(r["ep_check"]["ulps"] for r in runs)
+                      > MOE_OUT_ULPS
+                      or abs(ep["aux"] - ep["emu_aux"]) > 1e-6)
+    else:
+        ref = train["losses"]
+        d = max(abs(a - b) for a, b in zip(losses[0], ref))
+        g0 = abs(first["grad_norms"][0] - train["grad_norms"][0]) / abs(
+            train["grad_norms"][0])
+        line = (f"[{tag}] against phase 10's one-device run "
+                f"{[round(x, 5) for x in ref]}: max |loss diff| {d:.2e} (tol "
+                f"{LOSS0_SUM_ATOL}); step 0's grad norm {g0:.2e} relative "
+                f"(tol {DP_GNORM_RTOL}) [{card}]")
+        print(line, flush=True)
+        bad = bad or d > LOSS0_SUM_ATOL or g0 > DP_GNORM_RTOL
+    if "held" in first:
+        held = [r["held"] for r in runs]
+        line = (f"[{tag}] one checked step a rank: launches held against "
+                f"their plain versions on their own inputs "
+                f"{[h['counts'] for h in held]} (expected "
+                f"{ {k: per_step[k] for k in held[0]['counts']} } each), "
+                f"worst {[h['worst'] for h in held]} (flash_fwd in bf16 "
+                f"ulps, tol {FLASH_OUT_ULPS}; backward in bf16 ulps at the "
+                f"largest element, tol {BWD_ULPS}) [{card}]")
+        print(line, flush=True)
+        bad = bad or any(
+            h["counts"][k] != per_step[k] for h in held for k in h["counts"]
+        ) or any(h["worst"]["flash_fwd"] > FLASH_OUT_ULPS
+                 or max(h["worst"]["flash_bwd_dq"],
+                        h["worst"]["flash_bwd_dkv"]) > BWD_ULPS
+                 for h in held)
+    steady = sorted(first["step_ms"][1:]) or first["step_ms"]
+    ms = [[round(x, 1) for x in r["step_ms"]] for r in runs]
+    print(f"[{tag}] step ms a rank {ms}"
+          f" (p50 after the first {steady[len(steady) // 2]:.1f}; 2 ranks "
+          f"sharing one card over gloo through host memory: not a DP "
+          f"speed); a step's collectives a rank (bytes handed to gloo by "
+          f"kind) {first['wire_per_step']}; peak device memory a rank "
+          f"{[round(r['peak'] / 1e9, 2) for r in runs]} GB; saves "
+          f"{first['saves']} [{card}]", flush=True)
+    if bad:
+        fail(f"[{tag}] failed: see the lines above")
+    out = {k: first[k] for k in ("losses", "grad_norms", "step_ms",
+                                 "wire_per_step", "saves")}
+    out.update(state_gb=[b / 1e9 for b in state],
+               peak_gb=[r["peak"] / 1e9 for r in runs],
+               step_ms_p50=steady[len(steady) // 2], sub_s=first["sub_s"])
+    if "held" in first:
+        out["held_worst"] = first["held"]["worst"]
+    if which == "ep":
+        out["routes"] = first["routes"]
+        out["ep_check"] = first["ep_check"]
+    return out
+
+
+def dp_restore_one(torch, dev, card, want):
+    """18b's final checkpoint (whole leaves, written by rank 0) restored
+    in this process on one device: its params' fingerprint against the
+    ranks' gathered params', then one more one-device step from it."""
+    import math
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.dist.fault import resume_or_init
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import TrainLoopConfig
+    cfg = dp_config("fsdp")
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_fsdp_ckpt")
+    t0 = time.perf_counter()
+    step, state = resume_or_init(CheckpointManager(ckpt_dir), lambda: None,
+                                 device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = fingerprint(torch, state["params"])
+    loop = TrainLoopConfig(total_steps=TRAIN_STEPS)
+    bundle, _ = step_lib.build_train_step(build_model(cfg),
+                                          peak_lr=loop.peak_lr,
+                                          total_steps=loop.total_steps)
+    _, _, m = bundle(state["params"], state["opt"],
+                     step_batch(torch, dev, cfg, loop, TRAIN_STEPS))
+    loss = float(m["loss"])
+    line = (f"[18b] the FSDP world's checkpoint (step {step}) restored on "
+            f"one device in {restore_s:.1f} s: params bit-equal to the "
+            f"ranks' gathered params (fingerprint): {got == want}; one more "
+            f"one-device step from it: loss {loss:.5f} [{card}]")
+    print(line, flush=True)
+    if step != TRAIN_STEPS or got != want or not math.isfinite(loss):
+        fail(line)
+    del state, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step": step, "restore_s": restore_s, "bit_equal": got == want,
+            "next_loss": loss}
+
+
+def dp_rank_main(rank, n, store, out_dir):
+    """One rank of phase 18's world: its {"data": n} mesh over gloo on the
+    one card, 18a, 18b, 18c and 18d in turn (each sub-phase frees its
+    model); results to out_dir/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.cuda.set_device(0)
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh({"data": n}, device="cuda:0", backend="gloo",
+                     init_method=f"file://{store}", rank=rank, world_size=n,
+                     timeout_s=DP_COLLECTIVE_TIMEOUT_S)
+    res, ops = {}, {}
+    for which in ("dp", "fsdp", "ep"):
+        res[which] = dp_train_rank(torch, mesh, which, ops)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["ops"] = dp_ops_rank(torch, mesh, ops)
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dp_train_rank(torch, mesh, which, ops):
+    """18a/18b/18c on one rank: Trainer(cfg, loop, mesh).run() with every
+    step timed, its launches, collectives and the replicated leaves'
+    fingerprint recorded; then (18a) one step with every flash launch held
+    against its plain version and one leaf's per-rank grads for 18d,
+    (18b) the gathered final params' fingerprint, (18c) the routes and
+    one moe_ffn_ep call against its one-process emulation."""
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.dist import sharding
+    from repro_torch.kernels.flash import flash_cuda
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import TrainLoopConfig, Trainer
+    t_sub = time.perf_counter()
+    cfg = dp_config(which)
+    dev = mesh.device
+    steps = EP_TRAIN_STEPS if which == "ep" else TRAIN_STEPS
+    loop = TrainLoopConfig(total_steps=steps, ckpt_every=steps, log_every=1,
+                           ckpt_dir=os.path.join(ROOT, "build",
+                                                 f"chip_smoke_{which}_ckpt"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = Trainer(cfg, loop, mesh, fsdp=which == "fsdp")
+    group, real_step = tr.bundle.group, tr.bundle
+    counters = kernel_counters()
+    for f in counters:
+        f.launches = 0
+
+    def counts():
+        return {f.__name__: f.launches for f in counters}
+
+    routes = {"moe_ffn_ep": 0, "moe_ffn": 0}
+    real_route = {k: getattr(moe, k) for k in routes}
+
+    def counted(name):
+        def call(*a, **kw):
+            routes[name] += 1
+            return real_route[name](*a, **kw)
+        return call
+
+    kinds = tree_leaves(sharding.data_dims(tr.plan, tr._specs()["params"]))
+    rec = {"step_ms": [], "step_counts": [], "prints": [], "grad_norms": [],
+           "wire": [], "saves": []}
+
+    def timed_step(params, opt_state, batch):
+        torch.cuda.synchronize()
+        before, wire0 = counts(), dict(group.counts["bytes"])
+        t0 = time.perf_counter()
+        out = real_step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        after = counts()
+        rec["step_counts"].append({k: after[k] - before[k] for k in after})
+        rec["wire"].append({k: v - wire0.get(k, 0)
+                            for k, v in group.counts["bytes"].items()})
+        rec["grad_norms"].append(float(out[2]["grad_norm"]))
+        whole = [t for t, d in zip(tree_leaves(out[0]), kinds) if d is None]
+        rec["prints"].append(fingerprint(torch, {str(i): t for i, t in
+                                                 enumerate(whole)}))
+        return out
+
+    tr.step_fn = timed_step
+    if which != "fsdp":           # 18b writes the checkpoint; here counted
+        tr.save = lambda step, state: rec["saves"].append(step)
+    for k in routes:
+        setattr(moe, k, counted(k))
+    try:
+        out = tr.run(verbose=mesh.rank == 0)
+    finally:
+        for k in routes:
+            setattr(moe, k, real_route[k])
+    torch.cuda.synchronize()
+    if which == "fsdp":
+        rec["saves"] = [steps]
+    res = {"losses": out["losses"], "launches": counts(),
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "state_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(tr.state)),
+           "routes": dict(routes), "wire_per_step": rec["wire"][-1],
+           **{k: rec[k] for k in ("step_ms", "step_counts", "prints",
+                                  "grad_norms", "saves")}}
+    src = TokenSource(DataConfig(seq_len=loop.seq_len,
+                                 global_batch=loop.global_batch,
+                                 vocab_size=cfg.vocab_size, seed=loop.seed))
+
+    def rows_at(step):
+        b = {k: torch.from_numpy(a) for k, a in src.batch_at(step).items()}
+        return {k: v.to(dev) for k, v in
+                sharding.local_batch(tr.plan, b).items()}
+
+    params = tr.state["params"]
+    if which == "dp":
+        res["held"] = dp_checked_step(torch, flash_cuda, real_step, tr,
+                                      rows_at(steps))
+        # 18d's input: one leaf's per-rank grads (this rank's rows only)
+        leaf = params["layers"]["attn"]["wk"]
+        total, _ = tr.model.loss_fn(params, rows_at(steps + 1),
+                                    step_lib.make_dist_ctx(tr.plan))
+        ops["int8_grad"] = torch.autograd.grad(total, [leaf])[0].float()
+        ops["int8_leaf"] = "layers/attn/wk"
+    if which == "fsdp":
+        whole = sharding.gather_tree(params, sharding.data_dims(
+            tr.plan, tr._specs()["params"]), group)
+        res["final_fingerprint"] = fingerprint(torch, whole)
+        del whole
+    if which == "ep":
+        res["ep_check"] = dp_ep_check(torch, moe, cfg, mesh, group, params,
+                                      loop)
+        res["ep_check"]["a2a_bytes_per_step"] = rec["wire"][-1].get(
+            "all_to_all", 0)
+    del tr, params, real_step
+    res["sub_s"] = time.perf_counter() - t_sub
+    return res
+
+
+def dp_checked_step(torch, flash_cuda, step_fn, tr, batch):
+    """One more step with every flash launch held against its plain
+    version on its own inputs (phase 14c's check, on one rank)."""
+    plain = {"flash_fwd": lambda *a: flash_cuda.flash_fwd_plain(*a)[0],
+             "flash_bwd_dq": flash_cuda.flash_bwd_dq_plain,
+             "flash_bwd_dkv": flash_cuda.flash_bwd_dkv_plain}
+    errs = {name: [] for name in plain}
+
+    def against_plain(name):
+        def check(args, got):
+            want = plain[name](*args)
+            if name == "flash_fwd":
+                errs[name].append(bf16_ulps(got[0], want))
+                return
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            errs[name].append(max(
+                float((g.float() - w.float()).abs().max()) / ulp_at_max(w)
+                for g, w in pairs))
+        return check
+
+    with hold_launches(flash_cuda, "flash_fwd", against_plain("flash_fwd")), \
+            hold_launches(flash_cuda, "flash_bwd_dq",
+                          against_plain("flash_bwd_dq")), \
+            hold_launches(flash_cuda, "flash_bwd_dkv",
+                          against_plain("flash_bwd_dkv")):
+        step_fn(tr.state["params"], tr.state["opt"], batch)
+        torch.cuda.synchronize()
+    return {"counts": {k: len(e) for k, e in errs.items()},
+            "worst": {k: max(e) if e else float("inf")
+                      for k, e in errs.items()}}
+
+
+def dp_ep_check(torch, moe, cfg, mesh, group, params, loop):
+    """One moe_ffn_ep call on the first moe layer (this rank's expert
+    block, this rank's rows of one (global tokens, d_model) input drawn
+    alike on every rank) against moe_ffn_ep_emulated on the whole input
+    and the gathered experts, on the card."""
+    from repro_torch.dist.sharding import local_shard
+    dev = mesh.device
+    lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    tokens = loop.seq_len * loop.global_batch
+    gen = torch.Generator(device=dev).manual_seed(183)
+    x = torch.randn(tokens, cfg.d_model, generator=gen,
+                    device=dev).bfloat16()
+    kw = dict(n_experts=cfg.n_experts, k=cfg.experts_per_token)
+    with torch.no_grad():
+        out_l, aux_l = moe.moe_ffn_ep(
+            local_shard(x, ("data",), mesh).contiguous(), lp, group=group,
+            **kw)
+        out = group.all_gather(out_l, 0)
+        aux = float(group.all_reduce(aux_l))
+        whole = dict(lp)
+        for k in ("wi", "wg", "wo"):
+            whole[k] = group.all_gather(lp[k], 0)
+        emu, emu_aux = moe.moe_ffn_ep_emulated(x, whole, n_shards=group.size,
+                                               **kw)
+    torch.cuda.synchronize()
+    return {"tokens": tokens // group.size, "ulps": bf16_ulps(out, emu),
+            "bit_equal": bool(torch.equal(out, emu)), "aux": aux,
+            "emu_aux": float(emu_aux)}
+
+
+def dp_ops_rank(torch, mesh, ops):
+    """18d on one rank: allreduce_int8 of the per-rank leaf grads 18a left
+    (on the card and on the host copy, over the same ranks), and
+    pipelined_apply over the data axis against the dense scan."""
+    import hashlib
+    from repro_torch.dist.collectives import AxesGroup
+    from repro_torch.dist.pipeline import pipelined_apply
+    from repro_torch.dist.sharding import local_shard
+    from repro_torch.optim.compress import allreduce_int8, init_residual
+    group = AxesGroup(mesh, ("data",))
+    g = {"w": ops.pop("int8_grad")}
+    o_dev, r_dev = allreduce_int8(g, init_residual(g), group)
+    h = {"w": g["w"].cpu()}
+    o_cpu, r_cpu = allreduce_int8(h, init_residual(h), group)
+    exact = group.all_reduce(g["w"]) / group.size
+    scale = float(group.all_reduce(g["w"].abs().max(), op="max")) / 127.0
+    same = (torch.equal(o_dev["w"].cpu(), o_cpu["w"])
+            and torch.equal(r_dev["w"].cpu(), r_cpu["w"]))
+    L, M, B, D = PIPE_SHAPE
+    gen = torch.Generator(device=mesh.device).manual_seed(18)
+    w = torch.randn(L, D, D, generator=gen, device=mesh.device) * D ** -0.5
+    x = torch.randn(M, B, D, generator=gen, device=mesh.device)
+    got = pipelined_apply(lambda p, t: torch.tanh(t @ p),
+                          local_shard(w, ("data",), mesh).contiguous(), x,
+                          mesh=mesh, pp_axis="data")
+    dense = x
+    for i in range(L):
+        dense = torch.tanh(dense @ w[i])
+    return {"int8_leaf": ops["int8_leaf"], "int8_numel": g["w"].numel(),
+            "int8_bit_equal": same, "int8_scale": scale,
+            "int8_err": float((o_dev["w"] - exact).abs().max()),
+            "pipe_shape": f"L={L}, M={M}, B={B}, D={D}, f32",
+            "pipe_err": float((got - dense).abs().max()),
+            "pipe_digest": hashlib.sha1(got.cpu().numpy().tobytes()
+                                        ).hexdigest()}
 
 
 def _leaves(tree):

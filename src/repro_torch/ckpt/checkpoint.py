@@ -19,9 +19,13 @@ Fault-tolerance contract (the trainer relies on it):
   * `save` copies the tree to host memory before it returns, so the
     caller may update its tensors in place at once; the write runs in a
     thread, and `barrier()` waits for it;
-  * `restore(step, device=)` puts every leaf on `device`; the JAX
-    package's `shardings=` (re-sharding onto a mesh) waits for the
-    distribution slice.
+  * `restore(step, device=)` puts every leaf on `device`;
+    `restore(step, device=, shardings=, mesh=)` puts only this rank's
+    block of each leaf there, cut on the host from the whole leaf under
+    its spec (dist/sharding.local_shard): the elastic reshard of the
+    reference (:174-200). A checkpoint holds whole leaves whatever mesh
+    wrote it, so it restores onto any mesh whose blocks divide them, or
+    onto one device.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import backend
+from repro_torch.dist.sharding import local_shard
 
 Tree = Any
 
@@ -199,11 +204,17 @@ class CheckpointManager:
                 and os.path.exists(os.path.join(d, "data.npz")))
 
     def restore(self, step: Optional[int] = None, *,
-                device=backend.DEFAULT_DEVICE) -> Optional[Tuple[int, Tree]]:
+                device=backend.DEFAULT_DEVICE,
+                shardings: Optional[Tree] = None,
+                mesh=None) -> Optional[Tuple[int, Tree]]:
         """(step, tree) of the given (or latest) step with every leaf on
         `device` (the card unless device='cpu'); None when there is no
-        checkpoint."""
+        checkpoint. With `shardings` (a spec tree matching the saved
+        structure, dist/sharding.py) and this rank's `mesh`, each leaf
+        with a spec is this rank's block of it; a leaf without one is
+        whole."""
         device = backend.resolve_device(device)
+        flat_sh = {} if shardings is None else _flatten(shardings)
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -215,6 +226,8 @@ class CheckpointManager:
         with np.load(os.path.join(path, "data.npz")) as z:
             for key in z.files:
                 k = key.replace("\x1f", "/")
-                flat[k] = from_numpy(z[key], manifest["leaves"][k]["dtype"]
-                                     ).to(device)
+                t = from_numpy(z[key], manifest["leaves"][k]["dtype"])
+                if k in flat_sh:
+                    t = local_shard(t, tuple(flat_sh[k]), mesh).contiguous()
+                flat[k] = t.to(device)
         return step, _unflatten(flat)

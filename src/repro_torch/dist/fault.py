@@ -178,11 +178,14 @@ class StepWatchdog:
 
 
 def resume_or_init(ckpt, init_fn: Callable[[], Tree], *,
-                   device=backend.DEFAULT_DEVICE) -> Tuple[int, Tree]:
-    """(start_step, state): the latest checkpoint restored onto `device`,
-    else (0, init_fn()). `ckpt` is a
-    repro_torch.ckpt.checkpoint.CheckpointManager."""
+                   device=backend.DEFAULT_DEVICE,
+                   shardings: Optional[Tree] = None,
+                   mesh=None) -> Tuple[int, Tree]:
+    """(start_step, state): the latest checkpoint restored onto `device`
+    (with `shardings` and `mesh`, this rank's blocks of it: the elastic
+    reshard, repro/dist/fault.py:178-187), else (0, init_fn()). `ckpt` is
+    a repro_torch.ckpt.checkpoint.CheckpointManager."""
     step = ckpt.latest_step()
     if step is None:
         return 0, init_fn()
-    return ckpt.restore(step, device=device)
+    return ckpt.restore(step, device=device, shardings=shardings, mesh=mesh)

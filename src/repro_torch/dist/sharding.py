@@ -333,3 +333,99 @@ def local_shard(t: torch.Tensor, spec: Spec, mesh,
         t = t.narrow(d, idx * width, width)
     return t
 
+
+
+# ---------------------------------------------------------------------------
+# the training trees
+# ---------------------------------------------------------------------------
+
+def opt_state_specs(param_specs: PyTree, opt_state: PyTree) -> PyTree:
+    """The spec tree of an optimizer state (the port of the reference's
+    `_opt_state_shardings`, train/step.py:67-96). AdamW's m and v take
+    their param's spec. Adafactor's factored stats are split only where
+    their param is: vr (the mean over the last dim) keeps the param's
+    spec without its last entry, vc (the mean over the second-last) the
+    spec without that one; a vector's v takes its param's. (The
+    reference recomputes spec_for on the stats' own shapes, which can
+    pick another dim; the values are the same, and checkpoints hold whole
+    leaves.) step replicates."""
+    if "m" in opt_state:
+        return {"m": param_specs, "v": param_specs, "step": ()}
+
+    def build(spec_node, state_node):
+        if "vr" in state_node or "v" in state_node:
+            spec = tuple(spec_node)
+            if "v" in state_node:
+                return {"v": spec}
+            return {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:]}
+        return {k: build(spec_node[k], v) for k, v in state_node.items()}
+
+    return {"f": build(param_specs, opt_state["f"]), "step": ()}
+
+
+def data_dims(plan: ShardingPlan, specs: PyTree) -> PyTree:
+    """The tree of `specs` with, for each leaf, the dim the plan's data
+    axes split (None where the leaf is whole on every data rank). A leaf
+    split over only some of the data axes of more than one rank, or on
+    two dims, is refused."""
+    mesh = plan.mesh
+    big = tuple(a for a in plan.dp_axes if int(mesh.shape[a]) > 1)
+
+    def leaf(spec):
+        if isinstance(spec, dict):
+            return {k: leaf(v) for k, v in spec.items()}
+        dims = [(i, tuple(a for a in _names(e) if a in big))
+                for i, e in enumerate(spec)]
+        dims = [(i, names) for i, names in dims if names]
+        if not dims:
+            return None
+        if len(dims) > 1 or dims[0][1] != big:
+            raise NotImplementedError(
+                f"spec {spec}: a leaf split over the data axes {big} on "
+                f"one dim, all of them in order")
+        return dims[0][0]
+
+    return leaf(specs)
+
+
+def local_batch(plan: ShardingPlan, batch: PyTree) -> PyTree:
+    """This rank's rows of a global batch (dim 0 split over the data axes,
+    rank-major: `batch_shardings`, then `local_shard`). The rows must
+    split evenly: spec_for would replicate them, and every rank would
+    then count the whole batch."""
+    n = plan.dp_size()
+
+    def leaf(x):
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
+        if x.dim() and x.shape[0] % n:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split "
+                             f"over {n} data ranks")
+        return local_shard(x, batch_shardings(plan, x), plan.mesh)
+
+    return leaf(batch)
+
+
+def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    """Each leaf's local block under its spec (a contiguous copy). A leaf
+    without a spec stays whole."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs.get(k, ()) if isinstance(specs, dict)
+                              else (), mesh)
+                for k, v in tree.items()}
+    return local_shard(tree, tuple(specs), mesh).contiguous().clone()
+
+
+def gather_tree(tree: PyTree, dims: PyTree, group, device=None) -> PyTree:
+    """The whole leaves of a tree of local blocks: each leaf all-gathered
+    over `group` (dist.collectives.AxesGroup) along its dim of `dims`
+    (data_dims), in rank order; a leaf whose dim is None is copied. Leaves
+    go to `device` when given (the host, for a checkpoint), one at a time,
+    in sorted-key order on every rank."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(tree[k], dims.get(k) if isinstance(dims, dict)
+                               else None, group, device)
+                for k in sorted(tree)}
+    t = tree.detach()
+    t = t.clone() if dims is None else group.all_gather(t, dims)
+    return t if device is None else t.to(device)

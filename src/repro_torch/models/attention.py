@@ -219,7 +219,8 @@ def flash_decode_sharded(q, k_cache, v_cache, cache_len, *, ctx,
         mask &= pos[None, :] >= (clen[:, None] - window)
     o, lsum, m = _partial_decode(q.reshape(b, n_kv, g, hd), k_cache,
                                  v_cache, mask)
-    group = ctx.mesh.group(ctx.model_axis)
+    # a mesh without a model axis of more than one rank: the whole cache
+    group = ctx.mesh.group(ctx.model_axis) if ctx.model_size > 1 else None
     m_glob = m.clone()
     if group is not None:
         dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=group)

@@ -356,26 +356,55 @@ def softmax_xent(logits_f32: torch.Tensor, labels: torch.Tensor, *,
 class DistCtx:
     """How a model call meets the mesh (None: one device). The port runs
     one process a rank, so the tensors a call sees are already this rank's
-    shards; the ctx says which mesh, which of its axes is the model axis,
-    and how the decode cache is laid out. kv_seq_shard: the decode cache's
-    seq dim is split over `model_axis` (attention.flash_decode_sharded:
-    partial softmax stats all-reduced)."""
+    shards; the ctx says which mesh, which of its axes are the data axes
+    and the model axis, and how the decode cache is laid out.
+    kv_seq_shard: the decode cache's seq dim is split over `model_axis`
+    (attention.flash_decode_sharded: partial softmax stats all-reduced).
+    ep_data: a moe layer's experts are split over the data axes and large
+    token counts take the expert-parallel route (moe.moe_ffn_ep). Over
+    data axes of more than one rank a batch holds this rank's rows, and
+    the training loss and the moe capacity route compute the global
+    batch's function (registry.loss_fn, registry._moe_apply)."""
     mesh: Any = None
+    data_axes: Tuple[str, ...] = ("data",)
     model_axis: str = "model"
     kv_seq_shard: bool = False
+    ep_data: bool = False
+
+    def data_group(self):
+        """The collectives over the data axes (dist.collectives.AxesGroup;
+        one rank without a mesh)."""
+        group = self.__dict__.get("_data_group")
+        if group is None:
+            from repro_torch.dist.collectives import AxesGroup
+            group = AxesGroup(self.mesh, self.data_axes)
+            self.__dict__["_data_group"] = group
+        return group
+
+    @property
+    def data_size(self) -> int:
+        """How many ranks split the batch (1 on one device)."""
+        return self.data_group().size
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's index over the data axes (0 on one device): its
+        rows are block `data_rank` of the global batch."""
+        return self.data_group().index
 
     @property
     def model_size(self) -> int:
+        """The model axis's size (1 on one device or a mesh without it)."""
         if self.mesh is None:
             return 1
-        return int(self.mesh.shape[self.model_axis])
+        return int(self.mesh.shape.get(self.model_axis, 1))
 
     @property
     def model_rank(self) -> int:
         """This rank's index on the model axis (0 on one device)."""
         if self.mesh is None:
             return 0
-        return int(self.mesh.coords[self.model_axis])
+        return int(self.mesh.coords.get(self.model_axis, 0))
 
     def tp_shards(self, *dims: int) -> int:
         """How many ways the model axis splits dims that are all divisible

@@ -27,8 +27,18 @@ Exactness on the card, where the reference pins it:
 Nothing here reads a value back to the host. Under exact-TP serving
 (layers.exact_tp_scope) the expert and shared up-projections give this
 rank's d_ff columns, gathered before the down-projections, which every
-rank computes whole. `moe_ffn_ep` (the expert-parallel route over the
-data axes) belongs to distributed training (ROADMAP queue 1, item 9.2).
+rank computes whole.
+
+`moe_ffn_ep` (:102-201 of the reference) is the expert-parallel route
+over the data axes: each rank routes its own tokens, sends each route to
+the rank that owns its expert (an all_to_all, `AllToAll`, whose backward
+is the inverse exchange), runs a second capacity dispatch over its local
+experts, and sends the results back to be combined where the tokens
+live. Only the reference's TP-free branch is ported (`has_tp` is false
+without a model axis). `moe_ffn_ep_emulated` runs the same three stages
+for every shard in one process, the exchange as tensor indexing: the
+rank world's function on one device, which the tests hold the ranks to
+bit for bit.
 
 `dispatch` is moe_ffn's routing alone, which the checks compare across
 devices; `routing_margins` and `settled` are check helpers (how far a
@@ -44,6 +54,8 @@ import torch
 
 from repro_torch.models.layers import (PARAM_DTYPE, gather_exact_tp, matmul,
                                        swiglu)
+
+Tensor = torch.Tensor
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -209,3 +221,141 @@ def moe_ffn(x: torch.Tensor, params, *, n_experts: int, k: int,
         out = out + swiglu(x, params["shared_wi"], params["shared_wg"],
                            params["shared_wo"]).float()
     return out.to(PARAM_DTYPE), aux
+
+
+# ===========================================================================
+# expert-parallel moe: tokens move to the experts' shards and back
+# ===========================================================================
+
+def _ep_route(x_l: Tensor, router_w: Tensor, *, n_shards: int, e_local: int,
+              k: int, capacity_factor: float):
+    """One shard's routing: (x_send (S, C, D), meta (S, C, 2) f32 (each
+    route's expert index on its shard and its gate, for the receiver),
+    gate (S, C) f32, tok_send (S, C), aux). Each destination shard takes
+    the top C of this shard's routes to it by routing weight (ties to the
+    lower route, filler routes at weight 0)."""
+    t_l = x_l.shape[0]
+    weights, ids, aux = router_topk(x_l, router_w, k)
+    r_ids, r_w = ids.reshape(-1), weights.reshape(-1)            # (T_l k,)
+    r_tok = torch.arange(t_l, device=x_l.device).repeat_interleave(k)
+    r_dst, r_eid = r_ids // e_local, r_ids % e_local
+    c_send = min(int(max(1, (t_l * k * capacity_factor) // n_shards)),
+                 t_l * k)
+    dst = torch.arange(n_shards, device=x_l.device)[:, None]
+    score = torch.where(r_dst[None, :] == dst, r_w[None, :],
+                        torch.zeros((), device=x_l.device))      # (S, R)
+    gate, sel = _top_k(score, c_send)                            # (S, C)
+    tok_send = r_tok[sel]
+    x_send = x_l[tok_send.reshape(-1)].reshape(n_shards, c_send, -1)
+    meta = torch.stack([r_eid[sel].float(), gate.detach()], -1)
+    return x_send, meta, gate, tok_send, aux
+
+
+def _ep_experts(x_recv: Tensor, meta_recv: Tensor, wi: Tensor, wg: Tensor,
+                wo: Tensor, *, capacity_factor: float) -> Tensor:
+    """One shard's local experts over the routes it received (S, C, D):
+    each expert takes up to C2 of its valid routes (the lower route
+    first), the SwiGLU with an f32 down-projection weighted by the pick,
+    and the results back in route order (S, C, D) bf16 (0 where a route
+    was dropped)."""
+    s, c, d = x_recv.shape
+    e_local, r_total = wi.shape[0], s * c
+    xr = x_recv.reshape(r_total, d)
+    er = meta_recv[..., 0].reshape(r_total).long()
+    valid = (meta_recv[..., 1].reshape(r_total) > 0).float()
+    c2 = min(int(max(1, (r_total * capacity_factor) // e_local)), r_total)
+    experts = torch.arange(e_local, device=xr.device)[:, None]
+    onehot = torch.where(er[None, :] == experts, valid[None, :],
+                         torch.zeros((), device=xr.device))      # (E_l, R)
+    pick_w, pick = _top_k(onehot, c2)                            # (E_l, C2)
+    x_e = xr[pick.reshape(-1)].reshape(e_local, c2, d)
+    h = matmul(x_e, wi)
+    g = matmul(x_e, wg)
+    h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
+    # the reference's f32 einsum (preferred_element_type) before the pick
+    y_e = torch.matmul(h.float(), wo.float())
+    y_e = (y_e * pick_w[..., None]).to(PARAM_DTYPE)
+    # a route has one expert: at most one nonzero add a slot (fillers add
+    # an exact 0), in pick order
+    yr = torch.zeros((r_total, d), dtype=PARAM_DTYPE, device=xr.device)
+    yr = yr.index_put((pick.reshape(-1),), y_e.reshape(-1, d),
+                      accumulate=True)
+    return yr.reshape(s, c, d)
+
+
+def _ep_combine(y_back: Tensor, gate: Tensor, tok_send: Tensor, t_l: int
+                ) -> Tensor:
+    """The results back at their source shard (S, C, D), weighted by their
+    gate in f32 and added into their tokens in route order (shard 0's
+    routes first, as XLA's sequential scatter); bf16 (T_l, D)."""
+    d = y_back.shape[-1]
+    contrib = (y_back.float() * gate[..., None]).reshape(-1, d)
+    out = torch.zeros((t_l, d), dtype=torch.float32, device=y_back.device)
+    out = out.index_put((tok_send.reshape(-1),), contrib, accumulate=True)
+    return out.to(PARAM_DTYPE)
+
+
+def _shared(x: Tensor, params, out: Tensor) -> Tensor:
+    if "shared_wi" in params:
+        out = out + swiglu(x, params["shared_wi"], params["shared_wg"],
+                           params["shared_wo"])
+    return out
+
+
+def moe_ffn_ep(x: Tensor, params, *, n_experts: int, k: int, group,
+               capacity_factor: float = 1.25) -> Tuple[Tensor, Tensor]:
+    """x: (T_l, D) this rank's tokens; params: the router and shared
+    experts whole, wi/wg/wo this rank's block of the experts (E / n, ...),
+    n = group.size (a dist.collectives.AxesGroup over the data axes).
+
+    Returns (out (T_l, D) bf16, aux_share 0-d f32): aux_share is this
+    rank's router aux over n, so its sum over the group is the
+    reference's aux (the mean over shards), and the grads of every rank's
+    share sum to the grad of that mean. Two all_to_alls carry the tokens
+    (differentiable) and one the routes' expert ids and gates."""
+    n = group.size
+    e_local = n_experts // n
+    if n_experts % n or params["wi"].shape[0] != e_local:
+        raise ValueError(f"moe_ffn_ep: {n_experts} experts over {n} ranks "
+                         f"need a block of {n_experts // n} a rank, got "
+                         f"{params['wi'].shape[0]}")
+    from repro_torch.dist.collectives import AllToAll
+    x_send, meta, gate, tok_send, aux = _ep_route(
+        x, params["router"], n_shards=n, e_local=e_local, k=k,
+        capacity_factor=capacity_factor)
+    x_recv = AllToAll.apply(x_send, group)
+    meta_recv = group.all_to_all(meta)
+    y = _ep_experts(x_recv, meta_recv, params["wi"], params["wg"],
+                    params["wo"], capacity_factor=capacity_factor)
+    y_back = AllToAll.apply(y, group)
+    out = _ep_combine(y_back, gate, tok_send, x.shape[0])
+    return _shared(x, params, out), aux / n
+
+
+def moe_ffn_ep_emulated(x: Tensor, params, *, n_experts: int, k: int,
+                        n_shards: int, capacity_factor: float = 1.25
+                        ) -> Tuple[Tensor, Tensor]:
+    """moe_ffn_ep's world of `n_shards` ranks in one process: x (T, D) the
+    ranks' tokens rank-major, params whole (every expert). The exchanges
+    are tensor indexing; every stage runs on the same shapes as a rank's.
+    Returns (out (T, D) bf16, aux: the sum of the ranks' aux shares)."""
+    e_local = n_experts // n_shards
+    xs = x.chunk(n_shards)
+    routes = [_ep_route(xl, params["router"], n_shards=n_shards,
+                        e_local=e_local, k=k, capacity_factor=capacity_factor)
+              for xl in xs]
+    ys = []
+    for j in range(n_shards):
+        blk = slice(j * e_local, (j + 1) * e_local)
+        ys.append(_ep_experts(
+            torch.stack([r[0][j] for r in routes]),
+            torch.stack([r[1][j] for r in routes]),
+            params["wi"][blk], params["wg"][blk], params["wo"][blk],
+            capacity_factor=capacity_factor))
+    outs, aux = [], None
+    for i, (_, _, gate, tok_send, a) in enumerate(routes):
+        y_back = torch.stack([ys[j][i] for j in range(n_shards)])
+        out = _ep_combine(y_back, gate, tok_send, xs[i].shape[0])
+        outs.append(_shared(xs[i], params, out))
+        aux = a / n_shards if aux is None else aux + a / n_shards
+    return torch.cat(outs), aux

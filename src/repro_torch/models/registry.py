@@ -64,8 +64,11 @@ ParamInit), `cache_axes()` (`cache_logical_axes` :392) and
 `abstract_params()` / `init_cache(..., abstract=True)` (the trees on the
 "meta" device). `prefill`, `decode_step` and `prefill_into_slot` take a
 `ctx` (layers.DistCtx) that the dense and moe stacks hand to their
-attention blocks; under layers.exact_tp_scope an untied head's
-vocab-split logits are K-blocked and gathered whole (`_logits`).
+attention blocks and moe layers; under layers.exact_tp_scope an untied
+head's vocab-split logits are K-blocked and gathered whole (`_logits`).
+`loss_fn` takes one too: over data axes it computes this rank's share of
+the global batch's loss (data parallelism, train/step.py), and a moe
+layer takes `_moe_apply`'s expert-parallel or global capacity route.
 """
 
 from __future__ import annotations
@@ -176,32 +179,74 @@ def _maybe_remat(fn, remat: str):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
-def _ffn(cfg: ModelConfig, lp, h, token_valid=None):
-    """A layer's FFN over h (B,S,D). Returns (out, aux). A moe layer ("moe"
-    in lp) runs `_moe_apply`'s capacity route: moe_ffn over the B*S tokens
-    flattened, token_valid an optional flattened (B*S,) bool, False at
-    pad tokens; a dense layer the SwiGLU, aux None."""
+def _ffn(cfg: ModelConfig, lp, h, token_valid=None, ctx=None):
+    """A layer's FFN over h (B,S,D). Returns (out, aux): a moe layer ("moe"
+    in lp) runs `_moe_apply`, token_valid an optional flattened (B*S,)
+    bool, False at pad tokens; a dense layer the SwiGLU, aux None."""
     if "moe" in lp:
-        b_, s, d = h.shape
-        f, aux = moe_lib.moe_ffn(h.reshape(-1, d), lp["moe"],
-                                 n_experts=cfg.n_experts,
-                                 k=cfg.experts_per_token,
-                                 token_valid=token_valid)
-        return f.reshape(b_, s, d), aux
+        return _moe_apply(cfg, lp["moe"], h, ctx, token_valid)
     return swiglu(h, lp["ffn"]["wi"], lp["ffn"]["wg"], lp["ffn"]["wo"]), None
 
 
-def _dense_stack(cfg: ModelConfig, layers, x, positions, *, remat: str):
+EP_MIN_TOKENS = 4096
+
+
+def _moe_apply(cfg: ModelConfig, lp_moe, h, ctx=None, token_valid=None):
+    """The reference's `_moe_apply` (registry.py:69-88). Returns (out
+    (B,S,D), aux), where aux is this rank's share of the global batch's
+    router aux (the shares sum to it over the data axes; on one device
+    it is the aux).
+
+      * expert-parallel (ctx.ep_data on a mesh, no token_valid, and the
+        GLOBAL token count, this rank's B*S times the data size, at least
+        EP_MIN_TOKENS: JAX traces global shapes): moe.moe_ffn_ep over the
+        data axes;
+      * the capacity route over data axes of n > 1 ranks: the reference's
+        moe_ffn competes over every token of the global batch, so the
+        tokens (and token_valid) are gathered over the data axes in rank
+        order, moe_ffn runs on them (with the experts gathered too where
+        the plan split them), and this rank keeps its rows; the gathers'
+        backward sends every grad to the rank that owns the tensor. aux
+        is the global one, over n;
+      * else moe_ffn on this batch's tokens."""
+    b_, s, d = h.shape
+    flat = h.reshape(-1, d)
+    n = 1 if ctx is None else ctx.data_size
+    kw = dict(n_experts=cfg.n_experts, k=cfg.experts_per_token)
+    if (ctx is not None and ctx.ep_data and ctx.mesh is not None
+            and b_ * s * n >= EP_MIN_TOKENS and token_valid is None):
+        f, aux = moe_lib.moe_ffn_ep(flat, lp_moe, group=ctx.data_group(),
+                                    **kw)
+        return f.reshape(b_, s, d), aux
+    if n == 1:
+        f, aux = moe_lib.moe_ffn(flat, lp_moe, token_valid=token_valid, **kw)
+        return f.reshape(b_, s, d), aux
+    from repro_torch.dist.collectives import GatherDim
+    group = ctx.data_group()
+    params = dict(lp_moe)
+    if params["wi"].shape[0] != cfg.n_experts:       # experts split (EP)
+        for name in ("wi", "wg", "wo"):
+            params[name] = GatherDim.apply(params[name], 0, group)
+    tv = None if token_valid is None else group.all_gather(token_valid, 0)
+    f, aux = moe_lib.moe_ffn(GatherDim.apply(flat, 0, group), params,
+                             token_valid=tv, **kw)
+    rows = flat.shape[0]
+    f = f[ctx.data_rank * rows:(ctx.data_rank + 1) * rows]
+    return f.reshape(b_, s, d), aux / n
+
+
+def _dense_stack(cfg: ModelConfig, layers, x, positions, *, remat: str,
+                 ctx=None):
     """The decoder layers (dense or moe) over x (B,S,D) for training, each
-    under `_maybe_remat`. Returns (x, the layers' aux losses summed in
-    layer order; 0 for dense layers)."""
+    under `_maybe_remat`. Returns (x, the layers' aux losses (this rank's
+    shares, `_moe_apply`) summed in layer order; 0 for dense layers)."""
 
     def body(x, lp):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = T.attn_block(lp["attn"], h, cfg, positions=positions)
         x = x + a
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        f, aux = _ffn(cfg, lp, h)
+        f, aux = _ffn(cfg, lp, h, ctx=ctx)
         return x + f, aux
 
     body = _maybe_remat(body, remat)
@@ -228,7 +273,7 @@ def _dense_prefill_stack(cfg: ModelConfig, layers, x, positions, *,
                                  window=window, kv_valid=kv_valid, ctx=ctx)
         x = x + a
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _ffn(cfg, lp, h, tv)[0]
+        x = x + _ffn(cfg, lp, h, tv, ctx)[0]
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)
@@ -245,7 +290,7 @@ def _dense_decode_stack(cfg: ModelConfig, layers, x, cache: Cache, *,
                                    window=window, ctx=ctx)
         x = x + a
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _ffn(cfg, lp, h)[0]
+        x = x + _ffn(cfg, lp, h, ctx=ctx)[0]
     return x, {**cache, "pos": pos + 1}
 
 
@@ -644,7 +689,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return x
 
     @backend.f32_accumulation()
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, ctx: Optional[DistCtx] = None):
         """(total, {"loss", "aux", "ntokens"}) of batch["tokens"] (B, S)
         against batch["labels"] (B, S): the mean over labels >= 0 of the
         cross-entropy with z-loss 1e-4, all f32 scalars; total adds
@@ -654,7 +699,15 @@ def build_model(cfg: ModelConfig) -> Model:
         positions only). The xent runs in sequence chunks (512, 256, 128
         or 64, the largest that divides S and is below it), each under its
         own checkpoint, so one (B, chunk, V) f32 logits block is live at a
-        time."""
+        time.
+
+        With a ctx over data axes of n > 1 ranks the batch is this rank's
+        rows of the global batch and the values are this rank's SHARES of
+        the global batch's: loss is its rows' sum over labels >= 0 divided
+        by the global count (all-reduced first; ntokens is that count),
+        aux its share of the global router aux (`_moe_apply`), so every
+        value but ntokens sums over the ranks to the reference's value on
+        the global batch, and so do the grads of total."""
         x = _prefixed_embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -671,9 +724,9 @@ def build_model(cfg: ModelConfig) -> Model:
         else:
             if "dense_layers" in params:
                 x, _ = _dense_stack(cfg, params["dense_layers"], x,
-                                    positions, remat=cfg.remat)
+                                    positions, remat=cfg.remat, ctx=ctx)
             x, aux = _dense_stack(cfg, params["layers"], x, positions,
-                                  remat=cfg.remat)
+                                  remat=cfg.remat, ctx=ctx)
         if cfg.family == "vlm":
             x = x[:, batch["vis"].shape[1]:]
         labels = batch["labels"]
@@ -701,6 +754,8 @@ def build_model(cfg: ModelConfig) -> Model:
                                     labels[:, c0:c0 + chunk],
                                     use_reentrant=False)
                 lsum, msum = lsum + dl, msum + dm
+        if ctx is not None and ctx.data_size > 1:
+            msum = ctx.data_group().all_reduce(msum)    # the global count
         ntok = torch.clamp_min(msum, 1.0)
         loss = lsum / ntok
         total = loss + cfg.router_aux_coef * aux

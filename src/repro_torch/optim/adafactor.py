@@ -7,17 +7,23 @@ update clipping at RMS 1.0; no first moment. State: {"f": tree of
 {"vr", "vc"} or {"v"} f32, "step": int32 0-d}. As the port's AdamW, the
 update writes params and the moments IN PLACE under torch.no_grad() and
 returns the same dicts with a new "step".
+
+Under `Shards` a leaf split on dim d keeps its stats split only where
+the param is (dist.sharding.opt_state_specs): a mean over d (vr's over
+the last dim, vc's over the second-last, rfac's mean of vr) and the
+update's RMS over the whole leaf sum the blocks over the group and
+divide by the whole length; every other mean stays local.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.optim.adamw import (AdamW, clip_by_global_norm, tree_leaves,
-                                    tree_map)
+from repro_torch.optim.adamw import (AdamW, Shards, clip_by_global_norm,
+                                    tree_leaves, tree_map)
 
 Tree = Dict
 
@@ -46,46 +52,65 @@ class Adafactor:
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
     @torch.no_grad()
-    def update(self, params: Tree, grads: Tree, state: Tree
+    def update(self, params: Tree, grads: Tree, state: Tree,
+               shards: Optional[Shards] = None
                ) -> Tuple[Tree, Tree, Dict[str, torch.Tensor]]:
-        grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm)
+        grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm, shards)
         step = state["step"] + 1
         lr = self.lr_fn(step)
         beta2 = 1.0 - step.float() ** (-self.decay)
+        group = None if shards is None else shards.group
 
-        def upd(p, g, s):
+        def mean(t, axis, split, keepdim=False):
+            if not split:
+                return t.mean(axis, keepdim=keepdim)
+            return group.all_reduce(t.sum(axis, keepdim=keepdim)) / (
+                t.shape[axis] * group.size)
+
+        def upd(p, g, s, dim):
+            nd = p.dim()
+            d = None if dim is None else dim % nd
             g = g.float()
             g2 = torch.square(g) + self.eps
             if self._factored(p.shape):
-                s["vr"].copy_(beta2 * s["vr"] + (1 - beta2) * g2.mean(-1))
-                s["vc"].copy_(beta2 * s["vc"] + (1 - beta2) * g2.mean(-2))
+                s["vr"].copy_(beta2 * s["vr"]
+                              + (1 - beta2) * mean(g2, -1, d == nd - 1))
+                s["vc"].copy_(beta2 * s["vc"]
+                              + (1 - beta2) * mean(g2, -2, d == nd - 2))
                 vr, vc = s["vr"], s["vc"]
                 rfac = torch.rsqrt(vr / torch.clamp_min(
-                    vr.mean(-1, keepdim=True), self.eps))
+                    mean(vr, -1, d == nd - 2, keepdim=True), self.eps))
                 cfac = torch.rsqrt(vc)
                 u = g * rfac[..., None] * cfac[..., None, :]
             else:
                 s["v"].copy_(beta2 * s["v"] + (1 - beta2) * g2)
                 u = g * torch.rsqrt(s["v"])
             # update clipping (RMS(u) <= d)
-            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            if d is None:
+                ms = torch.mean(torch.square(u))
+            else:
+                ms = group.all_reduce(torch.sum(torch.square(u))) / (
+                    u.numel() * group.size)
+            rms = torch.sqrt(ms + 1e-30)
             u = u / torch.clamp_min(rms / self.clip_threshold, 1.0)
             pf = p.float()
             p.copy_(pf - lr * (u + self.weight_decay * pf))
 
-        _map_state(upd, params, grads, state["f"])
+        dims = tree_map(lambda _: None, params) if shards is None \
+            else shards.dims
+        _map_state(upd, params, grads, state["f"], dims)
         return params, {"f": state["f"], "step": step}, \
             {"grad_norm": gnorm, "lr": lr}
 
 
-def _map_state(fn, params, grads, states):
-    """fn(param, grad, state dict) over the param leaves; the factored
-    state of a leaf is itself a dict ({"vr", "vc"} or {"v"})."""
+def _map_state(fn, params, grads, states, dims):
+    """fn(param, grad, state dict, split dim) over the param leaves; the
+    factored state of a leaf is itself a dict ({"vr", "vc"} or {"v"})."""
     if isinstance(params, dict):
         for k in params:
-            _map_state(fn, params[k], grads[k], states[k])
+            _map_state(fn, params[k], grads[k], states[k], dims[k])
     else:
-        fn(params, grads, states)
+        fn(params, grads, states, dims)
 
 
 def make_optimizer(name: str, lr_fn):

@@ -10,12 +10,17 @@ params, m and v IN PLACE under `torch.no_grad()` and returns the same
 dicts (with a new "step" tensor): at full width the optimizer state is
 four times the bf16 params, and a second copy of it would not fit beside
 the activations. Callers that need the old values clone them first.
+
+Sharded (FSDP, EP) training hands `update` a `Shards`: the leaves a rank
+holds only a block of, and the group over which to sum. Every value the
+update needs over a whole leaf (the global norm here; Adafactor's means
+and RMS) sums the blocks over the group, and a whole leaf counts once.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterator, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -56,14 +61,35 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """Which param leaves a rank holds only a block of: `dims` mirrors the
+    params with each leaf's dim split over the data group (None: whole
+    on every rank; dist.sharding.data_dims), and `group` sums over that
+    group (dist.collectives.AxesGroup: the same bits on every rank)."""
+    dims: Tree
+    group: Any
+
+
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        shards: Optional[Shards] = None
                         ) -> Tuple[Tree, torch.Tensor]:
     """(grads scaled by min(1, max_norm / max(norm, 1e-12)) in f32 and
     cast back to each leaf's dtype, the f32 global norm: the sqrt of the
     sum over leaves, in flatten order, of each leaf's f32 sum of
-    squares)."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in tree_leaves(grads)))
+    squares). With `shards` a split leaf's sum of squares is its block's
+    summed over the group (one all-reduce for all of them); a whole leaf
+    counts once."""
+    sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
+    if shards is not None:
+        split = [i for i, d in enumerate(tree_leaves(shards.dims))
+                 if d is not None]
+        if split:
+            summed = shards.group.all_reduce(torch.stack([sq[i]
+                                                          for i in split]))
+            for j, i in enumerate(split):
+                sq[i] = summed[j]
+    gnorm = torch.sqrt(sum(sq))
     scale = torch.clamp(max_norm / torch.clamp_min(gnorm, 1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
 
@@ -85,11 +111,13 @@ class AdamW:
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
     @torch.no_grad()
-    def update(self, params: Tree, grads: Tree, state: Tree
+    def update(self, params: Tree, grads: Tree, state: Tree,
+               shards: Optional[Shards] = None
                ) -> Tuple[Tree, Tree, Dict[str, torch.Tensor]]:
         """One step. Returns (params, state, {"grad_norm", "lr"}); params,
-        m and v are the given tensors, updated in place."""
-        grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm)
+        m and v are the given tensors (a rank's blocks under `shards`),
+        updated in place."""
+        grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm, shards)
         step = state["step"] + 1
         lr = self.lr_fn(step)
         b1, b2 = self.b1, self.b2

@@ -1,13 +1,23 @@
-"""Fault-tolerant training loop — the port of `repro.train.trainer` for one
-device.
+"""Fault-tolerant training loop — the port of `repro.train.trainer`
+(:44-130).
 
 Wires together: model + train step (train/step.py), data pipeline
 (prefetch), checkpoint manager (atomic + async + auto-resume), watchdog
 (straggler detection), heartbeat. The loop is restart-idempotent: kill it
 at any step, rerun the same command, and it resumes from the latest valid
-checkpoint with bit-identical data order (step-keyed batches). The mesh
-path (`mesh=`, FSDP) waits for ROADMAP queue 1, item 9.2 (distributed
-training); tensor-parallel serving is `ServeEngine(mesh=)`.
+checkpoint with bit-identical data order (step-keyed batches).
+
+With `mesh=` (launch/mesh.make_mesh, one process a rank) every rank runs
+this loop under the training plan (`step.make_plan`: DP, FSDP with
+`fsdp=True` or above 8e9 params, EP for moe): it draws the whole init
+from the seed and keeps its blocks, builds the global batch (the stub
+frontend inputs included) and keeps its rows. The losses are the global
+batch's, equal on every rank; rank 0 prints and writes checkpoints (whole
+leaves, gathered over the data axes; the others wait at a barrier), each
+rank beats its own heartbeat (HEARTBEAT.rank<r>), and a resume cuts each
+rank's blocks from the whole leaves, whatever mesh wrote them (the
+elastic reshard). A mesh whose model axis is larger than 1 raises:
+tensor-parallel training is ROADMAP queue 1, item 9.4.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import (DataConfig, PrefetchIterator,
                                        TokenSource, make_stub_frontend_batch)
+from repro_torch.dist import sharding
 from repro_torch.dist.fault import HeartbeatFile, StepWatchdog, resume_or_init
 from repro_torch.models.registry import build_model
 from repro_torch.train import step as step_lib
@@ -60,39 +71,81 @@ class Trainer:
     """
 
     def __init__(self, cfg: ModelConfig, loop: TrainLoopConfig, mesh=None,
-                 *, device=backend.DEFAULT_DEVICE):
-        if mesh is not None:
+                 *, fsdp: Optional[bool] = None,
+                 device=backend.DEFAULT_DEVICE):
+        if mesh is not None and int(mesh.shape.get("model", 1)) > 1:
             raise NotImplementedError(
-                "mesh= (sharded training) is not ported yet: ROADMAP queue "
-                "1, item 9.2 (distributed training)")
+                "Trainer(mesh=) with a model axis larger than 1 "
+                "(tensor-parallel training) is not ported yet: ROADMAP "
+                "queue 1, item 9.4")
         self.cfg = cfg
         self.loop = loop
-        self.device = backend.resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None
+                       else backend.resolve_device(device))
+        self.rank = 0 if mesh is None else mesh.rank
         self.model = build_model(cfg)
-        self.step_fn, self.opt = step_lib.build_train_step(
-            self.model, peak_lr=loop.peak_lr, total_steps=loop.total_steps,
-            microbatches=loop.microbatches, grad_compress=loop.grad_compress)
+        self.plan = (None if mesh is None else
+                     step_lib.make_plan(cfg, mesh, kind="train", fsdp=fsdp))
+        self.bundle, self.opt = step_lib.build_train_step(
+            self.model, self.plan, peak_lr=loop.peak_lr,
+            total_steps=loop.total_steps, microbatches=loop.microbatches,
+            grad_compress=loop.grad_compress)
+        self.step_fn = self.bundle          # what run() calls each step
         self.ckpt = CheckpointManager(loop.ckpt_dir)
         self.watchdog = StepWatchdog(
             on_straggler=lambda s, dt, ew: print(
                 f"[watchdog] step {s} took {dt:.2f}s (ewma {ew:.2f}s) — "
                 f"straggler; on a fleet this triggers re-slicing"))
-        self.heartbeat = HeartbeatFile(loop.ckpt_dir)
-        # {"params", "opt"} after run(): the state the last step left
+        self.heartbeat = HeartbeatFile(
+            loop.ckpt_dir, "HEARTBEAT" if mesh is None or mesh.size == 1
+            else f"HEARTBEAT.rank{mesh.rank}")
+        # {"params", "opt"} after run(): the state the last step left (this
+        # rank's blocks under a mesh)
         self.state: Optional[Dict[str, Any]] = None
+
+    # ------------------------------------------------------------ sharding
+
+    def _specs(self):
+        """{"params", "opt"} spec trees (None without a mesh)."""
+        if self.plan is None:
+            return None
+        return {"params": self.bundle.in_specs[0],
+                "opt": self.bundle.in_specs[1]}
+
+    def save(self, step: int, state: Dict[str, Any]) -> None:
+        """Checkpoint `state` as whole leaves. Under a mesh every rank
+        takes part in the gathers (leaf by leaf, to the host), rank 0
+        writes (blocking), and the others wait for it at a barrier."""
+        if self.plan is None:
+            self.ckpt.save(step, state)
+            return
+        group = self.bundle.group
+        dims = sharding.data_dims(self.plan, self._specs())
+        whole = sharding.gather_tree(state, dims, group, device="cpu")
+        if self.rank == 0:
+            self.ckpt.save(step, whole, blocking=True)
+        del whole
+        group.barrier()
 
     # ------------------------------------------------------------------ run
 
     @backend.f32_accumulation()
     def run(self, *, verbose: bool = True) -> Dict[str, Any]:
         loop = self.loop
+        verbose = verbose and self.rank == 0
+        specs = self._specs()
 
         def init_state():
             params = self.model.init_params(loop.seed, device=self.device)
+            if specs is not None:
+                params = sharding.shard_tree(params, specs["params"],
+                                             self.mesh)
             return {"params": params, "opt": self.opt.init(params)}
 
         start_step, state = resume_or_init(self.ckpt, init_state,
-                                           device=self.device)
+                                           device=self.device,
+                                           shardings=specs, mesh=self.mesh)
         if verbose and start_step:
             print(f"[trainer] resumed from step {start_step}")
 
@@ -112,8 +165,10 @@ class Trainer:
                 if data_step != step:
                     raise RuntimeError(f"data step {data_step} != step {step}")
                 batch = make_stub_frontend_batch(self.cfg, batch, loop.seed)
-                batch = {k: torch.from_numpy(v).to(self.device)
-                         for k, v in batch.items()}
+                batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+                if self.plan is not None:
+                    batch = sharding.local_batch(self.plan, batch)
+                batch = {k: v.to(self.device) for k, v in batch.items()}
                 params, opt_state, metrics = self.step_fn(params, opt_state,
                                                           batch)
                 losses.append(float(metrics["loss"]))    # waits for the step
@@ -126,8 +181,7 @@ class Trainer:
                           f"{dt*1e3:.0f} ms")
                 if (step + 1) % loop.ckpt_every == 0 or \
                         step + 1 == loop.total_steps:
-                    self.ckpt.save(step + 1,
-                                   {"params": params, "opt": opt_state})
+                    self.save(step + 1, {"params": params, "opt": opt_state})
         finally:
             it.close()
             self.ckpt.barrier()

@@ -5,7 +5,9 @@ jax, so a rank starts in a few seconds).
 `run_world(tmp_path, n, cases)` spawns n ranks that rendezvous through a
 FileStore under tmp_path (no port to collide over between xdist
 workers), runs every (name, payload) of `cases` on each rank in order,
-and returns {rank: {name: result}}. Every rank, and the world, has a
+and returns {rank: {name: result}}. The mesh is {"model": n} unless
+`shape` names another; `module` names the module whose CASES the ranks
+run (this one by default; tests/_torch_dp_worker.py for training). Every rank, and the world, has a
 timeout: a hung rendezvous or collective fails the test instead of
 hanging it, and a rank that raises fails it with the rank's traceback.
 """
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,13 +26,17 @@ COLLECTIVE_TIMEOUT_S = 120.0
 
 
 def run_world(tmp_path, n: int, cases: List[Tuple[str, Any]],
-              device: str = "cpu") -> Dict[int, Dict[str, Any]]:
+              device: str = "cpu", shape: Optional[Dict[str, int]] = None,
+              module: str = "_torch_tp_worker"
+              ) -> Dict[int, Dict[str, Any]]:
     import torch.multiprocessing as mp
     store = os.path.join(str(tmp_path), "store")
     out = os.path.join(str(tmp_path), "out")
     os.makedirs(out, exist_ok=True)
+    shape = {"model": n} if shape is None else shape
     ctx = mp.start_processes(_rank_main,
-                             args=(n, store, out, cases, device),
+                             args=(n, store, out, cases, device, shape,
+                                   module),
                              nprocs=n, join=False, start_method="spawn")
     deadline = time.monotonic() + WORLD_TIMEOUT_S
     while not ctx.join(timeout=1.0):
@@ -44,15 +50,18 @@ def run_world(tmp_path, n: int, cases: List[Tuple[str, Any]],
                           weights_only=False) for r in range(n)}
 
 
-def _rank_main(rank, n, store, out, cases, device):
+def _rank_main(rank, n, store, out, cases, device, shape, module):
+    import importlib
+
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     if device.startswith("cuda"):
         torch.cuda.set_device(0)       # every rank on the one card
-    mesh = make_mesh({"model": n}, device=device, backend="gloo",
+    mesh = make_mesh(shape, device=device, backend="gloo",
                      init_method=f"file://{store}", rank=rank, world_size=n,
                      timeout_s=COLLECTIVE_TIMEOUT_S)
-    results = {name: CASES[name.split(":")[0]](mesh, payload)
+    table = importlib.import_module(module).CASES
+    results = {name: table[name.split(":")[0]](mesh, payload)
                for name, payload in cases}
     torch.save(results, os.path.join(out, f"rank{rank}.pt"))
     dist.barrier()

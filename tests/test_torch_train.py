@@ -9,8 +9,8 @@ same numpy tokens, qwen2-1.5b reduced to 2 layers, d_model 128, vocab
 Pallas forward and both backward kernels in interpret mode and the port
 the kernels' plain versions. Then the port alone: microbatches and
 bf16 grads, its Trainer on the CPU (the loss check of
-tests/test_system.py and an exact restart), the heartbeat, the mesh
-refusal.
+tests/test_system.py and an exact restart), the heartbeat, the refusal of
+a model axis (tensor-parallel training).
 
 Tolerances: the loss within LOSS_ATOL = 5e-3 absolute and every grad leaf
 within GRAD_RTOL = 3e-2 of that leaf's max |JAX grad|. Both sides round
@@ -24,6 +24,7 @@ import dataclasses
 import functools
 import json
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -285,8 +286,11 @@ def test_trainer_mesh_and_card_default(tmp_path):
     cfg = reduce_config(get_config("qwen2-1.5b"), layers=2, d_model=64,
                         vocab=128)
     loop = TrainLoopConfig(ckpt_dir=str(tmp_path / "ckpt"))
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, loop, mesh=object(), device="cpu")
+    # data-parallel meshes train (tests/test_torch_dist_train.py); a model
+    # axis larger than 1 is tensor-parallel training, ROADMAP item 9.4
+    mesh = types.SimpleNamespace(shape={"data": 1, "model": 2})
+    with pytest.raises(NotImplementedError, match="9.4"):
+        Trainer(cfg, loop, mesh=mesh, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):       # the card is the default
             Trainer(cfg, loop)
