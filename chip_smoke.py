@@ -4,7 +4,9 @@ H100: the quickest proof that the port builds and runs on the card.
 
     python3 chip_smoke.py
 
-Phases (one line each, more where noted):
+Phases (one line each, more where noted; every phase ends on a line
+"[N] phase N ran S s", and the line before the kernels line gives the
+build's and every phase's seconds):
   1. require a CUDA card of capability (9, 0); print its name and power
      limit as nvidia-smi reports them;
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print each
@@ -327,8 +329,9 @@ Phases (one line each, more where noted):
      model call's logits as a digest), then frees them; 17d: a 1-rank mesh
      here (no process group) serves 17a's requests bit-equal to no mesh,
      device_stats of length 1. Each rank then builds the whole params
-     from seed 0 and its sharded engine: 17a qwen2-1.5b at full width and
-     depth, flash on, max_batch 4, phase 8's nine requests (one at
+     from seed 0 and its sharded engine: 17a qwen2-1.5b at full width cut
+     to TP_DENSE_LAYERS layers, flash on, max_batch 4, phase 8's nine
+     requests (one at
      SPEC_HOT_T); 17b deepseek-moe-16b at full width cut to TP_MOE_LAYERS
      layers, phase 14a's nine requests. Gates: every rank's tokens equal
      the other's and the unsharded engine's, every model call's logits
@@ -339,17 +342,36 @@ Phases (one line each, more where noted):
      (profiled), round ms (2 ranks sharing one card: not a TP speed).
      17c: flash_decode_sharded at qwen2's decode shape (TP_DECODE, the
      seq dim over the ranks) against decode_attention on the whole cache
-     within TP_DECODE_ATOL, the ranks' outputs bit-equal. A failure in any
-     rank fails the phase; nothing falls back to the CPU, one rank or a
-     plain version.
+     within TP_DECODE_ATOL, the ranks' outputs bit-equal. 17e-17h: the
+     other four families the same way, each first served unsharded here
+     and freed, max_batch 4, cache_len 1024, five requests of
+     TP_FAMILY_NEW new tokens (the last at SPEC_HOT_T): 17e hymba-1.5b
+     uncut with ssm_impl="pallas" (TP_HYBRID_PROMPTS; every ssm_scan
+     launch, n_layers a prefill a rank on its 1600 of 3200 channels, held
+     against ssm_scan_plain within SSM_RTOL, its states a thread the
+     unsharded scans'); 17f rwkv6-7b uncut on every WKV form
+     (TP_RWKV_PROMPTS; no kernel); 17g whisper-small uncut
+     (TP_WHISPER_PROMPTS, each with its own f32 frames; no kernel); 17h
+     internvl2-26b at full width cut to TP_VLM_LAYERS layers, flash on,
+     256 patch lines before TP_VLM_TEXT (every flash_fwd launch on a
+     rank's 24 / 4 heads held within FLASH_OUT_ULPS, n_layers a
+     flash-sized admission a rank). For every sub-phase the bytes a rank
+     holds are predicted from serve_specs on the abstract params and cache
+     and printed before the world starts, and device_stats must equal
+     them; the ranks' launches summed go to tp_serve, tp_moe, tp_hybrid,
+     tp_ssm, tp_encdec and tp_vlm, where every kernel but the held one
+     counts 0. A failure in any rank fails the phase; nothing falls back
+     to the CPU, one rank or a plain version.
  18. data-parallel training: DP_RANKS ranks share the card (spawn, gloo
      through host memory, a FileStore under build/), each running, in
      turn and freeing its model between them, Trainer(cfg, loop,
-     mesh={"data": 2}).run(): 18a DP on qwen2-1.5b uncut, flash on,
-     phase 10's loop (512 x 8 global, TRAIN_STEPS steps, seed 0, AdamW):
-     every step's loss within LOSS0_SUM_ATOL of phase 10's, step 0's
+     mesh={"data": 2}).run(): 18a DP on qwen2-1.5b at full width cut to
+     DP_QWEN_LAYERS layers, flash on, phase 10's loop (512 x 8 global,
+     DP_TRAIN_STEPS steps, seed 0, AdamW), after the same model's
+     one-device run here: every step's loss within LOSS0_SUM_ATOL of the
+     one-device run's, step 0's
      grad norm within DP_GNORM_RTOL, the replicated leaves' fingerprints
-     equal on the ranks after every step, 56/28/28 flash launches a step
+     equal on the ranks after every step, 16/8/8 flash launches a step
      a rank, one more step with every launch held to its plain version;
      18b the same with fsdp=True: params plus optimizer state a rank
      equal to the specs' prediction, rank 0 writes the final checkpoint
@@ -373,7 +395,8 @@ run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
 (hybrid_train, rwkv_train) and pallas step (hybrid-train-pallas), phase
 16's serving runs (vlm_serve, vlm_paged, whisper_serve, whisper_paged)
 and training runs (whisper_train, vlm_train), phase 17's sharded serving
-runs (tp_serve, tp_moe: every rank's counts, summed), phase 18's
+runs (tp_serve, tp_moe, tp_hybrid, tp_ssm, tp_encdec, tp_vlm: every
+rank's counts, summed), phase 18's
 data-parallel training runs (dp_train, fsdp_train, ep_train: every rank's
 counts, summed)) runs
 with the launch counters
@@ -390,10 +413,13 @@ backward kernel 4 times a moe training step, no kernel on phase 15's
 serving and training runs, and ssm_scan in the forward of the hymba
 pallas step, flash_fwd 48 times a flash-sized admission on both vlm
 serving runs, 16 and each backward kernel 8 times a vlm training step,
-no kernel on whisper's runs, flash_fwd 28 times an admission on each
-rank of tp_serve and 4 times a flash-sized admission on each rank of
-tp_moe, and no other kernel there; flash_fwd 56 and each backward kernel
-28 times a step on each rank of dp_train and fsdp_train, 8 and 4 on
+no kernel on whisper's runs, flash_fwd TP_DENSE_LAYERS times an
+admission on each rank of tp_serve and 4 times a flash-sized admission
+on each rank of tp_moe, ssm_scan 32 times an admission on each rank of
+tp_hybrid and flash_fwd 8 times a flash-sized admission on each rank of
+tp_vlm, and no other kernel there, nor any on tp_ssm and tp_encdec;
+flash_fwd 2 x DP_QWEN_LAYERS and each backward kernel DP_QWEN_LAYERS
+times a step on each rank of dp_train and fsdp_train, 8 and 4 on
 ep_train).
 
 The last line is {"ok": true, "device": {...}}. Any failure exits
@@ -404,6 +430,7 @@ script fails before printing any result.
 import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -533,10 +560,11 @@ MOE_OUT_ULPS = 2
 MOE_TRAIN_LAYERS = 4
 MOE_LOSS0_ATOL = 0.3
 # the rwkv6 family (phase 15a): rwkv6-7b served at full width, prompts on
-# every WKV form: 40 tokens (one chunk), 160, 200, 330 and 480 (64 or more,
-# not a multiple of 64: the sequential scan, T x 32 layer steps), 256, 384
-# and 512 (chunks of 64); RWKV_HOT_PROMPT tokens (the scan) at SPEC_HOT_T
-RWKV_PROMPTS = (40, 160, 200, 256, 330, 384, 480, 512)
+# every WKV form: 40 tokens (one chunk), 160 and 200 (64 or more, not a
+# multiple of 64: the sequential scan, T x 32 layer steps, ~4.5 ms a
+# token), 256, 384 and 512 (chunks of 64); RWKV_HOT_PROMPT tokens (the
+# scan) at SPEC_HOT_T
+RWKV_PROMPTS = (40, 160, 200, 256, 384, 512)
 RWKV_HOT_PROMPT = 100
 # 15a's decode against prefill (200 -> 201, both the sequential scan),
 # max-norm relative, held to a fixed RWKV_DECODE_RTOL: on an H100 80GB
@@ -637,23 +665,55 @@ WHISPER_TRAIN_SEQ = 448
 WHISPER_TRAIN_BATCH = 8
 # tensor-parallel serving (phase 17): TP_RANKS ranks sharing the one card
 # over gloo (NCCL refuses two ranks on one GPU), each holding its shards;
-# 17b's deepseek-moe-16b cut to TP_MOE_LAYERS layers; 17c's sharded
+# 17a's qwen2-1.5b cut to TP_DENSE_LAYERS layers, 17b's deepseek-moe-16b
+# to TP_MOE_LAYERS (a gloo round's gathers scale with depth); 17c's sharded
 # flash-decode at qwen2's decode shape, held within the reference's 5e-3
 TP_RANKS = 2
+TP_DENSE_LAYERS = 8
 TP_MOE_LAYERS = 4
 TP_DECODE = dict(b=4, h=12, kvh=2, hd=128, l=8192, clen=8000)
 TP_DECODE_ATOL = 5e-3
 TP_WORLD_TIMEOUT_S = 900
 TP_COLLECTIVE_TIMEOUT_S = 600
+# 17e-17h: the other four families, max_batch 4, cache_len 1024,
+# TP_FAMILY_NEW new tokens a request, the last request at SPEC_HOT_T.
+# 17e hymba-1.5b uncut with ssm_impl "pallas" on prompts of exact length;
+# 17f rwkv6-7b uncut on each WKV form (40: one chunk; 64, 256, 512: chunks
+# of 64; 100: the sequential scan); 17g whisper-small uncut on short
+# prompts, each with its own f32 frames (16b's hot request's); 17h
+# internvl2-26b at full width cut to TP_VLM_LAYERS layers (its whole params
+# beside two ranks' halves would not fit the card uncut), flash on, 256
+# patch lines before text bucketed to 256, 256 and 512 lines (flash) and
+# to 64 and 128 (chunked)
+TP_FAMILY_NEW = 16
+TP_HYBRID_PROMPTS = (64, 200, 256, 512, 100)
+TP_RWKV_PROMPTS = (40, 64, 256, 512, 100)
+TP_WHISPER_PROMPTS = (8, 13, 20, 27, 32)
+TP_VLM_TEXT = (256, 200, 480, 40, 100)
+TP_VLM_LAYERS = 8
+# phase 17's sub-phases: (tag, the path its launches go to, the kernel each
+# rank's launches are held for)
+TP_RUNS = {"dense": ("17a", "tp_serve", "flash_fwd"),
+           "moe": ("17b", "tp_moe", "flash_fwd"),
+           "hybrid": ("17e", "tp_hybrid", "ssm_scan"),
+           "ssm": ("17f", "tp_ssm", None),
+           "encdec": ("17g", "tp_encdec", None),
+           "vlm": ("17h", "tp_vlm", "flash_fwd")}
 # data-parallel training (phase 18): DP_RANKS ranks sharing the one card
-# over gloo; 18a/18b take phase 10's loop, 18c EP_TRAIN_STEPS steps of
-# 14c's; step 0's grad norm within DP_GNORM_RTOL of phase 10's (the GEMMs
-# see 4 x 512 rows a rank, not 8 x 512: cuBLAS may pick other kernels);
+# over gloo; 18a/18b take phase 10's loop for DP_TRAIN_STEPS steps on
+# qwen2-1.5b cut to DP_QWEN_LAYERS layers (a gloo step's bytes, hence its
+# 8-10 s at 28 layers, scale with depth; the one-device reference runs
+# the same cut model first), 18c EP_TRAIN_STEPS steps of
+# 14c's; step 0's grad norm within DP_GNORM_RTOL of one device's (the
+# GEMMs see 4 x 512 rows a rank, not 8 x 512: cuBLAS may pick other
+# kernels);
 # 18d's pipeline (L layers, M microbatches of B rows, width D, f32) within
 # PIPE_ATOL of the dense scan (the reference test's bound)
 DP_RANKS = 2
 DP_WORLD_TIMEOUT_S = 900
 DP_COLLECTIVE_TIMEOUT_S = 600
+DP_QWEN_LAYERS = 8
+DP_TRAIN_STEPS = 2
 EP_TRAIN_STEPS = 2
 DP_GNORM_RTOL = 1e-2
 PIPE_SHAPE = (8, 8, 16, 1024)
@@ -755,6 +815,18 @@ def main() -> None:
     print(card, flush=True)
     print(f"[1] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; capability {cap}", flush=True)
+    # every phase's seconds, from the end of the one before it
+    phase_s = {}
+    mark = [t_start]
+
+    def lap(tag):
+        now = time.perf_counter()
+        phase_s[tag] = round(now - mark[0], 1)
+        mark[0] = now
+        print(f"[{tag}] phase {tag} ran {phase_s[tag]:.1f} s [{card}]",
+              flush=True)
+
+    lap("1")
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
@@ -836,9 +908,12 @@ def main() -> None:
           f"{paged_cuda.library_smem_bytes(6, 128, 16, 512, 4, 16, 2)}",
           flush=True)
 
+    lap("2")
+
     # -- 2b. GPP's band loop and the scan's step loop counted from the SASS ----
     census = gpp_census(libs["gpp.cu"], spec, card)
     scan_census = ssm_census(libs["ssm_scan.cu"], spec, card)
+    lap("2b")
 
     # -- 3. each kernel against its plain version ----------------------------
     checks = (("gpp_fused", gpp_cuda.gpp_fused, gpp_cuda.gpp_fused_plain,
@@ -890,6 +965,7 @@ def main() -> None:
                 "max_abs_err": float((got - want).abs().max()), "ms": ms,
                 "plain_ms": plain_ms}
         del t
+    lap("3")
 
     # -- 4. the main path: dispatch at Si-214 (v10, tuned on the card) --------
     size = problem.SI214
@@ -921,10 +997,13 @@ def main() -> None:
           f"{tc.ranked} candidates and timed {len(tc.timings)}: {timed}; "
           f"picked ({tc.config.blk_ig},{tc.config.blk_igp},"
           f"{tc.config.blk_band},t{tc.config.threads}) [{card}]", flush=True)
+    lap("4")
 
     # -- 5. the journey --------------------------------------------------------
     zero_counts()
-    rows = run_journey("si214", device=dev, warmup=1, reps=1,
+    # v0-v5 are plain torch (~6 s a call at Si-214): one timed call each,
+    # no warm-up call
+    rows = run_journey("si214", device=dev, warmup=0, reps=1,
                        versions=("v0", "v1", "v2", "v3", "v4", "v5"),
                        verbose=False)
     rows += run_journey("si214", device=dev, warmup=1, reps=5,
@@ -943,6 +1022,7 @@ def main() -> None:
     bad = [r.version for r in rows if not r.rel_err < 1e-4]
     if bad:
         fail(f"journey versions off the oracle at TINY: {bad}")
+    lap("5")
 
     # -- 6. the main path's result against the plain version, times ----------
     t = problem.to_tensors(inp, dev)
@@ -999,30 +1079,35 @@ def main() -> None:
           f"{term['fast_path_issue_bound_ms'] / fused_ms:.1%}); MUFU bound "
           f"{term['mufu_bound_ms']:.3f} ms [{card}]", flush=True)
     banded = compared[("gpp_banded", "v8", "si214")]
+    lap("6")
 
     # -- 7. flash_fwd at op level --------------------------------------------
     zero_counts()
     flash_rows = flash_checks(torch, dev, spec, card, flash_cuda, flash_ref)
     torch.cuda.synchronize()
     by_path["flash-check"] = read_counts()
+    lap("7")
 
     # -- 7b. the backward kernels at op level ----------------------------------
     zero_counts()
     bwd_rows = flash_bwd_checks(torch, dev, spec, card, flash_cuda, flash_ref)
     torch.cuda.synchronize()
     by_path["bwd-check"] = read_counts()
+    lap("7b")
 
     # -- 7c. the selective scan at op level -------------------------------------
     zero_counts()
     ssm_rows = ssm_checks(torch, dev, spec, card, ssm_cuda)
     torch.cuda.synchronize()
     by_path["ssm-check"] = read_counts()
+    lap("7c")
 
     # -- 7d. a reduced qwen2 at Hd 32 with flash on, forward and backward ------
     zero_counts()
     hd32 = hd32_model_check(torch, np, dev, card, flash_cuda)
     torch.cuda.synchronize()
     by_path["hd32-check"] = read_counts()
+    lap("7d")
 
     # -- 8. dense serving: qwen2-1.5b at full width through ServeEngine -------
     print(f"[8] matmul flags before serving (the process's): "
@@ -1030,6 +1115,7 @@ def main() -> None:
     serve = serve_phase(torch, np, dev, card, flash_cuda, zero_counts,
                         read_counts, by_path)
     torch.cuda.empty_cache()
+    lap("8")
 
     # -- 10. training: qwen2-1.5b at full width through Trainer ---------------
     print(f"[10] matmul flags before training (the process's): "
@@ -1038,18 +1124,21 @@ def main() -> None:
                         read_counts, by_path)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("10")
 
     # -- 11. hybrid serving: hymba-1.5b at full width through ServeEngine -----
     hybrid = hybrid_phase(torch, np, dev, card, ssm_cuda, zero_counts,
                           read_counts, by_path)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("11")
 
     # -- 12a. paged serving: qwen2-1.5b through ServeEngine(kv_page_size=16) --
     paged_serve = paged_serve_phase(torch, np, dev, card, flash_cuda,
                                     zero_counts, read_counts, by_path)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("12a")
 
     # -- 12b. the paged decode kernels: dispatch, then op level ---------------
     paged_rows = paged_checks(torch, np, dev, spec, card, zero_counts,
@@ -1057,6 +1146,7 @@ def main() -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
+    lap("12b")
 
     # -- 13. speculative serving, sampling on the card, the Router ------------
     t13 = time.perf_counter()
@@ -1140,7 +1230,7 @@ def main() -> None:
 
     # -- 18. data-parallel training: 2 ranks on the card over gloo -----------
     dp = dp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
-                  by_path, train, moe_train)
+                  by_path, moe_train)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1254,8 +1344,12 @@ def main() -> None:
           flush=True)
     print(f"[18] data-parallel summary: {json.dumps(dp)} [{card}]",
           flush=True)
+    for tag, part in (("13", spec_serve), ("14", moe), ("15", recurrent),
+                      ("16", encdec_vlm), ("17", tp), ("18", dp)):
+        phase_s[tag] = round(part["phase_s"], 1)
     print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
-          f"(build {build_s:.1f} s)", flush=True)
+          f"(build {build_s:.1f} s; every phase's seconds "
+          f"{json.dumps(phase_s)}) [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3966,7 +4060,7 @@ def rwkv_serve_phase(torch, np, dev, card, zero_counts, read_counts,
     # and 512 tokens) and three decode rounds profiled
     res, _ = serve_checked(
         torch, dev, card, "15a", "rwkv", eng, reqs, zero_counts, read_counts,
-        by_path, describe, [reqs[i] for i in (0, 3, 5, 7)],
+        by_path, describe, [reqs[i] for i in (0, 3, 4, 5)],
         watch=lambda: watch_calls(torch, seen, rwkv6, WKV_FORMS, ran))
     check_flags_inside("15a", seen, card)
     res.update(n_params=n_params, init_s=init_s, ttft_ms=ttft,
@@ -4995,37 +5089,93 @@ def encdec_vlm_train_phase(torch, dev, spec, card, flash_cuda, zero_counts,
 # phase 17: tensor-parallel serving, 2 ranks sharing one card over gloo
 # ---------------------------------------------------------------------------
 
-def tp_requests(np, cfg, which):
-    """Phase 8's nine requests (which="dense") or phase 14a's (which="moe"):
-    eight greedy prompts and one at SPEC_HOT_T, 32 new tokens each."""
+def tp_requests(torch, np, cfg, which, dev):
+    """Phase 8's nine requests (which="dense"), phase 14a's ("moe"), or
+    17e-17h's five (TP_*_PROMPTS, TP_FAMILY_NEW new tokens; whisper's with
+    their f32 frames, internvl2's with their bf16 patch embeddings, drawn
+    on `dev` from seed 27); the last at SPEC_HOT_T. The same on every
+    rank and in the parent."""
     from repro_torch.serve.engine import Request
     v = cfg.vocab_size
-    if which == "dense":
-        rng = np.random.default_rng(0)
-        prompts = [rng.integers(0, v, n) for n in SERVE_PROMPTS]
-        hot = rng.integers(0, v, 200)
-    else:
-        rng = np.random.default_rng(2)
-        prompts = [rng.integers(0, v, n) for n in MOE_PROMPTS]
-        hot = rng.integers(0, v, MOE_HOT_PROMPT)
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=32)
-            for i, p in enumerate(prompts)]
-    reqs.append(Request(rid=len(prompts), prompt=hot, max_new_tokens=32,
-                        temperature=SPEC_HOT_T))
-    return reqs
+    if which in ("dense", "moe"):
+        if which == "dense":
+            rng = np.random.default_rng(0)
+            prompts = [rng.integers(0, v, n) for n in SERVE_PROMPTS]
+            hot = rng.integers(0, v, 200)
+        else:
+            rng = np.random.default_rng(2)
+            prompts = [rng.integers(0, v, n) for n in MOE_PROMPTS]
+            hot = rng.integers(0, v, MOE_HOT_PROMPT)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+                for i, p in enumerate(prompts)]
+        reqs.append(Request(rid=len(prompts), prompt=hot, max_new_tokens=32,
+                            temperature=SPEC_HOT_T))
+        return reqs
+    lens = {"hybrid": TP_HYBRID_PROMPTS, "ssm": TP_RWKV_PROMPTS,
+            "encdec": TP_WHISPER_PROMPTS, "vlm": TP_VLM_TEXT}[which]
+    rng = np.random.default_rng(27)
+    gen = torch.Generator(device=dev).manual_seed(27)
+
+    def extra():
+        if which == "encdec":
+            return {"frames": stub_input(torch, dev, gen, (
+                1, cfg.enc_seq, cfg.d_model), torch.float32)}
+        if which == "vlm":
+            return {"vis": stub_input(torch, dev, gen, (
+                1, cfg.n_vis_tokens, cfg.d_model), torch.bfloat16)}
+        return None
+
+    return [Request(rid=i, prompt=rng.integers(0, v, n),
+                    max_new_tokens=TP_FAMILY_NEW, extra=extra(),
+                    temperature=SPEC_HOT_T if i == len(lens) - 1 else 0.0)
+            for i, n in enumerate(lens)]
 
 
 def tp_config(which):
-    """17a: qwen2-1.5b uncut; 17b: deepseek-moe-16b cut to TP_MOE_LAYERS
-    layers; both at full width with flash on."""
+    """17a: qwen2-1.5b cut to TP_DENSE_LAYERS layers; 17b:
+    deepseek-moe-16b cut to TP_MOE_LAYERS layers; both at full width with
+    flash on. 17e hymba-1.5b uncut with
+    the "pallas" scan; 17f rwkv6-7b and 17g whisper-small uncut; 17h
+    internvl2-26b at full width cut to TP_VLM_LAYERS layers, flash on."""
     import dataclasses
     import repro_torch
-    if which == "dense":
-        return dataclasses.replace(repro_torch.get_config("qwen2-1.5b"),
-                                   use_flash_attention=True)
-    return dataclasses.replace(repro_torch.get_config("deepseek-moe-16b"),
-                               n_layers=TP_MOE_LAYERS,
-                               use_flash_attention=True)
+    name, kw = {
+        "dense": ("qwen2-1.5b", dict(n_layers=TP_DENSE_LAYERS,
+                                     use_flash_attention=True)),
+        "moe": ("deepseek-moe-16b", dict(n_layers=TP_MOE_LAYERS,
+                                         use_flash_attention=True)),
+        "hybrid": ("hymba-1.5b", dict(ssm_impl="pallas")),
+        "ssm": ("rwkv6-7b", {}),
+        "encdec": ("whisper-small", {}),
+        "vlm": ("internvl2-26b", dict(n_layers=TP_VLM_LAYERS,
+                                      use_flash_attention=True))}[which]
+    return dataclasses.replace(repro_torch.get_config(name), **kw)
+
+
+def tp_predicted_bytes(cfg):
+    """One rank's param and cache bytes at TP_RANKS, predicted from
+    serve_specs on the abstract params and cache (no tensor allocated):
+    the bytes device_stats must report on every rank."""
+    import math
+    import repro_torch
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import Mesh
+    model = repro_torch.build_model(cfg)
+    mesh = Mesh({"model": TP_RANKS}, rank=0, device="cpu", backend="gloo")
+    specs = sharding.serve_specs(cfg, mesh, max_batch=4, cache_len=1024,
+                                 model=model)
+
+    def local_bytes(t, spec):
+        return (math.prod(sharding.local_shape(t.shape, spec, mesh))
+                * t.element_size())
+
+    spec_of = dict(_spec_items(specs.params))
+    params = sum(local_bytes(t, spec_of[path])
+                 for path, t in _spec_items(model.abstract_params()))
+    ab = model.init_cache(4, 1024, abstract=True)
+    cache = 4 * 4 + sum(local_bytes(t, specs.cache[k])
+                        for k, t in ab.items() if k != "pos")
+    return {"params_bytes": params, "cache_bytes": cache}
 
 
 def record_logits(eng):
@@ -5053,32 +5203,60 @@ def record_logits(eng):
     return rec
 
 
+def warm_up(eng, reqs):
+    """One short request (the first's prompt and extra inputs) through
+    the engine: the kernels' first launches and the tune picks."""
+    from repro_torch.serve.engine import Request
+    eng.run([Request(rid=99, prompt=reqs[0].prompt, max_new_tokens=2,
+                     extra=reqs[0].extra)])
+
+
+@contextlib.contextmanager
+def ssm_picks(into):
+    """While open, every ssm_scan launch records its (C, blk_c, states)."""
+    from repro_torch.kernels.ssm import ssm_cuda
+
+    def note(args, out):
+        into.add((args[0].shape[2], args[7].blk_c, args[7].states))
+
+    with hold_launches(ssm_cuda, "ssm_scan", note):
+        yield
+
+
 def tp_reference(torch, np, dev, card, which):
     """The unsharded engine on `which`'s config and requests, in this
-    process: tokens and the recorded logits, then (17d, dense only) the
+    process: tokens and the recorded logits (and, for hymba, each
+    ssm_scan launch's channels and config), then (17d, dense only) the
     same requests through a 1-rank mesh. Frees the model before it
     returns."""
     import repro_torch
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.engine import ServeEngine
+    t0 = time.perf_counter()
     cfg = tp_config(which)
-    reqs = tp_requests(np, cfg, which)
+    reqs = tp_requests(torch, np, cfg, which, dev)
     params = repro_torch.build_model(cfg).init_params(0, device=dev)
     eng = ServeEngine(cfg, params, max_batch=4, cache_len=1024, device=dev)
-    eng.run([Request(rid=99, prompt=reqs[0].prompt, max_new_tokens=2)])
+    warm_up(eng, reqs)
     rec = record_logits(eng)
-    stats, decode_ms, _ = drive(eng, reqs)
+    picks = set()
+    with ssm_picks(picks) if which == "hybrid" else contextlib.nullcontext():
+        stats, decode_ms, _ = drive(eng, reqs)
     torch.cuda.synchronize()
     out = {"tokens": {r.rid: list(eng.outputs[r.rid]) for r in reqs},
            "rec": rec, "decode_ms_p50": decode_ms[len(decode_ms) // 2],
            "params_bytes": sum(t.numel() * t.element_size()
-                               for t in _leaves(params))}
-    print(f"[17] unsharded {which} reference ({cfg.name}, {cfg.n_layers} "
-          f"layers): {stats['requests']} requests, {stats['prefills']} "
-          f"prefills, {stats['decode_steps']} decode steps, "
-          f"{len(rec['digests'])} model calls recorded; decode round p50 "
-          f"{out['decode_ms_p50']:.2f} ms; params "
-          f"{out['params_bytes'] / 1e9:.3f} GB [{card}]", flush=True)
+                               for t in _leaves(params)),
+           "ssm_picks": sorted(picks)}
+    print(f"[{TP_RUNS[which][0]}] unsharded {which} reference ({cfg.name}, "
+          f"{cfg.n_layers} layers): {stats['requests']} requests, "
+          f"{stats['prefills']} prefills, {stats['decode_steps']} decode "
+          f"steps, {len(rec['digests'])} model calls recorded; decode round "
+          f"p50 {out['decode_ms_p50']:.2f} ms; params "
+          f"{out['params_bytes'] / 1e9:.3f} GB"
+          + (f"; ssm_scan (C, blk_c, states) {out['ssm_picks']}"
+             if picks else "")
+          + f"; {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
     del eng
     if which == "dense":
         # 17d: a 1-rank mesh in this process is the mesh-less engine
@@ -5109,13 +5287,24 @@ def tp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
              by_path):
     """Phase 17: tensor-parallel serving over TP_RANKS ranks sharing the
     card (torch.multiprocessing spawn, gloo, a FileStore under build/), each
-    rank's results held to the unsharded engine run first in this process.
+    rank's results held to the unsharded engine run first in this process,
+    every family of TP_RUNS in turn.
     """
     import tempfile
     import torch.multiprocessing as mp
     t0 = time.perf_counter()
-    refs = {w: tp_reference(torch, np, dev, card, w) for w in ("dense",
-                                                              "moe")}
+    refs = {w: tp_reference(torch, np, dev, card, w) for w in TP_RUNS}
+    ref_s = time.perf_counter() - t0
+    predicted = {}
+    for which, (tag, _, _) in TP_RUNS.items():
+        cfg = tp_config(which)
+        predicted[which] = tp_predicted_bytes(cfg)
+        print(f"[{tag}] predicted from serve_specs on the abstract params "
+              f"({cfg.name}, {cfg.n_layers} layers, {TP_RANKS} ranks, "
+              f"max_batch 4, cache_len 1024): a rank holds "
+              f"{predicted[which]['params_bytes']} B of params and "
+              f"{predicted[which]['cache_bytes']} B of cache [{card}]",
+              flush=True)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="tp_world_",
                             dir=os.path.join(ROOT, "build"))
@@ -5142,17 +5331,16 @@ def tp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
     ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                         weights_only=False) for r in range(TP_RANKS)]
     shutil.rmtree(work, ignore_errors=True)
-    res = {"world_s": world_s}
-    for tag, which, path in (("17a", "dense", "tp_serve"),
-                             ("17b", "moe", "tp_moe")):
+    res = {"world_s": world_s, "reference_s": ref_s}
+    for which, (tag, path, kernel) in TP_RUNS.items():
         res[which] = tp_gates(torch, card, tag, which, refs[which],
-                              [r[which] for r in ranks])
-        # the ranks' launches summed; every kernel but flash_fwd must be 0
+                              [r[which] for r in ranks], predicted[which])
+        # the ranks' launches summed; every kernel but the held one is 0
         counts = {k: sum(r[which]["launches"][k] for r in ranks)
                   for k in read_counts()}
         by_path[path] = counts
-        if any(n for k, n in counts.items() if k != "flash_fwd"):
-            fail(f"[{tag}] launches {counts}: only flash_fwd runs here")
+        if any(n for k, n in counts.items() if k != kernel):
+            fail(f"[{tag}] launches {counts}: only {kernel} runs here")
     res["one_rank"] = refs["dense"]["one_rank"]
     dec = [r["decode"] for r in ranks]
     line = (f"[17c] flash_decode_sharded (B={TP_DECODE['b']}, "
@@ -5173,18 +5361,26 @@ def tp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
         fail(line)
     res["decode"] = dec
     res["phase_s"] = time.perf_counter() - t0
-    print(f"[17] phase 17 ran {res['phase_s']:.1f} s (the {TP_RANKS}-rank "
-          f"world {world_s:.1f} s) [{card}]", flush=True)
+    per = {w: round(ranks[0][w]["seconds"], 1) for w in TP_RUNS}
+    print(f"[17] phase 17 ran {res['phase_s']:.1f} s (the unsharded "
+          f"references {ref_s:.1f} s, the {TP_RANKS}-rank world "
+          f"{world_s:.1f} s; rank 0's seconds a family {per}) [{card}]",
+          flush=True)
     return res
 
 
-def tp_gates(torch, card, tag, which, ref, ranks):
-    """17a/17b's gates on every rank's results: tokens equal across ranks
-    and to the unsharded engine's, every model call's logits bit-equal
-    (their digests), every rank-local flash_fwd launch within
-    FLASH_OUT_ULPS of flash_fwd_plain and their exact count; printed with
-    the shard bytes, gathers and launches a decode round and round ms."""
+def tp_gates(torch, card, tag, which, ref, ranks, predicted):
+    """17a/b/e/f/g/h's gates on every rank's results: tokens equal across
+    ranks and to the unsharded engine's, every model call's logits
+    bit-equal (their digests), every rank-local launch of the family's
+    kernel held against its plain version (flash_fwd within
+    FLASH_OUT_ULPS, ssm_scan within SSM_RTOL) and their exact count, and
+    device_stats' bytes a rank equal to the specs' prediction; hymba's
+    scans on a rank's half of the channels with the unsharded scans'
+    states a thread. Printed with the shard bytes, gathers and launches a
+    decode round and round ms."""
     first = ranks[0]
+    kernel = TP_RUNS[which][2]
     same_tokens = all(r["tokens"] == ref["tokens"] for r in ranks)
     same_logits = all(r["rec"]["digests"] == ref["rec"]["digests"]
                       for r in ranks)
@@ -5198,25 +5394,51 @@ def tp_gates(torch, card, tag, which, ref, ranks):
                    zip(r["rec"]["admit"], ref["rec"]["admit"])]
             diffs.append({"calls_differ": len(d), "first_call": d[:1],
                           "admit_max_abs": max(adm) if adm else None})
-    want = first["want_flash"]
-    ulps = [max(r["flash_ulps"]) if r["flash_ulps"] else float("inf")
+    want = first["want_launches"]
+    errs = [max(r["held"]) if r["held"] else (0.0 if want == 0
+                                               else float("inf"))
             for r in ranks]
-    n_held = [len(r["flash_ulps"]) for r in ranks]
-    flash = [r["launches"]["flash_fwd"] for r in ranks]
+    n_held = [len(r["held"]) for r in ranks]
+    n_launch = [r["launches"][kernel] if kernel else 0 for r in ranks]
+    tol = {"flash_fwd": FLASH_OUT_ULPS, "ssm_scan": SSM_RTOL, None: 0.0}[
+        kernel]
+    unit = {"flash_fwd": "bf16 ulps", "ssm_scan": "of max |y| or |hT|",
+            None: ""}[kernel]
+    byte_ok = all(d["params_bytes"] == predicted["params_bytes"]
+                  and d["cache_bytes"] == predicted["cache_bytes"]
+                  for d in first["device_stats"])
+    picks_ok = True
+    held = "no kernel (every launch count 0)"
+    if kernel:
+        held = (f"rank-local {kernel} launches {n_launch} (expected {want} "
+                f"each: {first['kernel_shape']}), {n_held} held against "
+                f"{kernel}_plain, worst {errs} {unit} (tol {tol})")
+    if which == "hybrid":
+        half = {p for r in ranks for p in r["ssm_picks"]}
+        whole = set(ref["ssm_picks"])
+        picks_ok = (all(c * TP_RANKS == w for c, _, _ in half
+                        for w, _, _ in whole)
+                    and {s for _, _, s in half} == {s for _, _, s in whole})
+        held += (f"; (C, blk_c, states) a rank {sorted(half)} against the "
+                 f"unsharded {sorted(whole)}: states the same "
+                 f"{picks_ok}")
     line = (f"[{tag}] {first['name']} ({first['layers']} layers) over "
             f"{len(ranks)} ranks (mesh model={len(ranks)}, gloo, one card): "
             f"tokens equal across ranks and to the unsharded engine: "
             f"{same_tokens}; all {len(ref['rec']['digests'])} model calls' "
-            f"logits bit-equal: {same_logits} {diffs}; rank-local flash_fwd "
-            f"launches {flash} (expected {want} each: {first['flash_shape']}),"
-            f" {n_held} held against flash_fwd_plain, worst {ulps} bf16 ulps "
-            f"(tol {FLASH_OUT_ULPS}) [{card}]")
+            f"logits bit-equal: {same_logits} {diffs}; {held}; device_stats "
+            f"bytes a rank equal to the prediction: {byte_ok} [{card}]")
     print(line, flush=True)
-    if (not same_tokens or not same_logits or any(f != want for f in flash)
-            or any(n != want for n in n_held)
-            or max(ulps) > FLASH_OUT_ULPS):
+    if (not same_tokens or not same_logits or not byte_ok or not picks_ok
+            or any(n != want for n in n_launch)
+            or any(n != want for n in n_held) or max(errs) > tol):
         fail(line)
     pb = [r["params_bytes"] for r in ranks]
+    lpr = [r["launches_per_round"] for r in ranks]
+    peak = [r["peak_bytes"] for r in ranks]
+    cols = first["column_products"]
+    wide = [f"{m}x{k}->{n} of {w} {dt}" for m, k, n, w, dt, need in cols
+            if need]
     print(f"[{tag}] params a rank {[round(b / 1e9, 3) for b in pb]} GB "
           f"against {first['whole_bytes'] / 1e9:.3f} GB whole "
           f"({pb[0] / first['whole_bytes']:.1%}); {first['sharded_leaves']} "
@@ -5225,26 +5447,32 @@ def tp_gates(torch, card, tag, which, ref, ranks):
           f"device_stats {first['device_stats']}; a decode round: "
           f"{first['gathers_per_round']} gathers, "
           f"{first['gather_bytes_per_round'] / 1e6:.3f} MB gathered (whole "
-          f"tensors), {[r['launches_per_round'] for r in ranks]} launches a "
-          f"rank (cudaLaunchKernel); decode round p50 "
+          f"tensors)"
+          + (f", {lpr} launches a rank (cudaLaunchKernel)" if lpr[0] else "")
+          + f"; peak a rank while serving {[round(b / 1e9, 3) for b in peak]}"
+          f" GB; column-parallel product shapes at the whole width "
+          f"{len(wide)} of {len(cols)} {wide}; decode round p50 "
           f"{[round(r['decode_ms_p50'], 2) for r in ranks]} ms against the "
           f"unsharded {ref['decode_ms_p50']:.2f} ms (2 ranks sharing one "
           f"card: not a TP speed) [{card}]", flush=True)
     return {k: first[k] for k in (
         "params_bytes", "whole_bytes", "sharded_leaves",
         "gathers_per_round", "gather_bytes_per_round")} | {
-        "params_bytes_by_rank": pb, "flash_launches": flash,
-        "flash_ulps_max": max(ulps),
-        "launches_per_round": [r["launches_per_round"] for r in ranks],
+        "params_bytes_by_rank": pb, "predicted": predicted,
+        "kernel": kernel, "kernel_launches": n_launch,
+        "kernel_worst": max(errs),
+        "launches_per_round": lpr, "peak_bytes": peak,
+        "column_products": cols,
         "decode_ms_p50": [r["decode_ms_p50"] for r in ranks],
         "unsharded_decode_ms_p50": ref["decode_ms_p50"],
-        "tokens_equal": same_tokens, "logits_bit_equal": same_logits}
+        "tokens_equal": same_tokens, "logits_bit_equal": same_logits,
+        "seconds_by_rank": [r["seconds"] for r in ranks]}
 
 
 def tp_rank_main(rank, n, store, out_dir):
     """One rank of phase 17's world: its mesh over gloo on the one card,
-    17a and 17b's sharded serving and 17c's sharded decode; results to
-    out_dir/rank<r>.pt."""
+    every family's sharded serving in turn (TP_RUNS) and 17c's sharded
+    decode; results to out_dir/rank<r>.pt."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -5253,7 +5481,11 @@ def tp_rank_main(rank, n, store, out_dir):
     mesh = make_mesh({"model": n}, device="cuda:0", backend="gloo",
                      init_method=f"file://{store}", rank=rank, world_size=n,
                      timeout_s=TP_COLLECTIVE_TIMEOUT_S)
-    res = {w: tp_serve_rank(torch, mesh, w) for w in ("dense", "moe")}
+    res = {}
+    for w in TP_RUNS:
+        res[w] = tp_serve_rank(torch, mesh, w)
+        gc.collect()
+        torch.cuda.empty_cache()
     res["decode"] = tp_decode_rank(torch, mesh)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
@@ -5261,20 +5493,21 @@ def tp_rank_main(rank, n, store, out_dir):
 
 
 def tp_serve_rank(torch, mesh, which):
-    """17a/17b on one rank: the whole params from seed 0, the sharded
-    engine, a warm-up, then the requests with every flash_fwd launch held
-    against flash_fwd_plain and every model call's logits recorded; a
-    decode round's gathers; an admission and three decode rounds under
-    the profiler."""
+    """One family on one rank: the whole params from seed 0, the sharded
+    engine, a warm-up, then the requests with every launch of the
+    family's kernel held against its plain version and every model
+    call's logits recorded; a decode round's gathers; for dense and moe
+    an admission and three decode rounds under the profiler."""
     import numpy as np
     import repro_torch
-    from repro_torch.dist import sharding
     from repro_torch.kernels.flash import flash_cuda
+    from repro_torch.kernels.ssm import ssm_cuda
     from repro_torch.models import layers
     from repro_torch.serve.engine import Request, ServeEngine
+    t0 = time.perf_counter()
     cfg = tp_config(which)
-    reqs = tp_requests(np, cfg, which)
     dev = mesh.device
+    reqs = tp_requests(torch, np, cfg, which, dev)
     params = repro_torch.build_model(cfg).init_params(0, device=dev)
     whole = sum(t.numel() * t.element_size() for t in _leaves(params))
     eng = ServeEngine(cfg, params, max_batch=4, cache_len=1024, device=dev,
@@ -5282,58 +5515,94 @@ def tp_serve_rank(torch, mesh, which):
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    eng.run([Request(rid=99, prompt=reqs[0].prompt, max_new_tokens=2)])
+    torch.cuda.reset_peak_memory_stats(dev)
+    seen = layers.whole_width_picks()
+    warm_up(eng, reqs)
     rec = record_logits(eng)
-    ulps, shapes = [], set()
+    held, shapes, picks = [], set(), set()
+    kernel = TP_RUNS[which][2]
 
-    def against_plain(args, got):
-        ulps.append(bf16_ulps(got[0], flash_cuda.flash_fwd_plain(*args)[0]))
+    def flash_plain(args, got):
+        held.append(bf16_ulps(got[0], flash_cuda.flash_fwd_plain(*args)[0]))
         q, k = args[0], args[1]
         shapes.add(f"B={q.shape[0]}, H={q.shape[2]}, KvH={k.shape[2]}, "
                    f"Hd={q.shape[3]}")
 
+    def ssm_plain(args, got):
+        held.append(max(ssm_errors(got, ssm_cuda.ssm_scan_plain(*args))[:2]))
+        x, cfg_ = args[0], args[7]
+        shapes.add(f"B={x.shape[0]}, C={x.shape[2]}, N={args[4].shape[1]}")
+        picks.add((x.shape[2], cfg_.blk_c, cfg_.states))
+
+    hold = {"flash_fwd": lambda: hold_launches(flash_cuda, "flash_fwd",
+                                               flash_plain),
+            "ssm_scan": lambda: hold_launches(ssm_cuda, "ssm_scan",
+                                              ssm_plain),
+            None: contextlib.nullcontext}[kernel]
     counters = kernel_counters()
     for f in counters:
         f.launches = 0
-    with hold_launches(flash_cuda, "flash_fwd", against_plain):
+    with hold():
         stats, decode_ms, _ = drive(eng, reqs)
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
     launches = {f.__name__: f.launches for f in counters}
+    # the column-parallel product shapes this family met, each with whether
+    # its block runs inside the whole width's product (layers._column_product)
+    cols = sorted((math.prod(k[0][:-1]), k[0][-1], k[1][-1], k[2],
+                   str(k[5]).replace("torch.", ""), need)
+                  for k, need in layers.whole_width_picks().items()
+                  if k not in seen)
     tokens = {r.rid: list(eng.outputs[r.rid]) for r in reqs}
     rec = {k: v[:] for k, v in rec.items()}
-    if which == "dense":
-        want = cfg.n_layers * len(reqs)        # every admission buckets
-    else:
+    if which == "moe":
         want = cfg.n_layers * sum(len(r.prompt) % 256 == 0 for r in reqs)
+    elif which == "vlm":
+        # the flash route: vis lines + the text's bucket a multiple of 256
+        want = cfg.n_layers * sum(
+            (cfg.n_vis_tokens + eng.prefill_batch(r)["tokens"].shape[1])
+            % 256 == 0 for r in reqs)
+    elif kernel:
+        # every admission launches it once a layer (dense: each prompt
+        # buckets to 256 or 512; hybrid: every prefill scans)
+        want = cfg.n_layers * len(reqs)
+    else:
+        want = 0
     # one decode round's gathers: four admissions, then a decode round
     eng.reset()
     for r in reqs[:4]:
-        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=4))
+        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=4,
+                           extra=r.extra))
     eng.step()
     layers.reset_tp_counts()
     eng.step()
     tp = layers.tp_counts()
-    prof = {}
-    profile_rounds(torch, f"17 {which} rank {mesh.rank}", eng, reqs[1:8:2],
-                   prof, f"rank {mesh.rank} of {mesh.size}")
+    lpr = 0
+    if which in ("dense", "moe"):
+        prof = {}
+        profile_rounds(torch, f"17 {which} rank {mesh.rank}", eng,
+                       reqs[1:8:2], prof, f"rank {mesh.rank} of {mesh.size}")
+        lpr = prof["profile_decode"]["cuda_launch_kernel"] / 3
     torch.cuda.synchronize()
     split = sorted(p for p, s in _spec_items(eng._specs.params)
                    if any(e is not None for e in s))
     ds = eng.device_stats()           # a collective: every rank calls it
     return {"name": cfg.name, "layers": cfg.n_layers, "tokens": tokens,
-            "rec": rec, "launches": launches, "want_flash": want,
-            "flash_ulps": ulps, "flash_shape": sorted(shapes),
+            "rec": rec, "launches": launches, "want_launches": want,
+            "held": held, "kernel_shape": sorted(shapes),
+            "ssm_picks": sorted(picks),
             "params_bytes": ds[mesh.rank]["params_bytes"],
             "device_stats": ds, "whole_bytes": whole,
             "sharded_leaves": len(split),
             "sharded": sorted({p.split("/")[-1] for p in split}),
             "gathers_per_round": tp["gathers"],
             "gather_bytes_per_round": tp["bytes"],
-            "launches_per_round":
-                prof["profile_decode"]["cuda_launch_kernel"] / 3,
+            "launches_per_round": lpr, "peak_bytes": peak,
+            "column_products": cols,
             "decode_ms_p50": decode_ms[len(decode_ms) // 2],
             "stats": {k: stats[k] for k in ("requests", "prefills",
-                                            "decode_steps", "new_tokens")}}
+                                            "decode_steps", "new_tokens")},
+            "seconds": time.perf_counter() - t0}
 
 
 def _spec_items(tree, pre=""):
@@ -5385,9 +5654,10 @@ def tp_decode_rank(torch, mesh):
 # ---------------------------------------------------------------------------
 
 def dp_config(which):
-    """18a/18b: qwen2-1.5b uncut, flash on (phase 10's model); 18c:
-    deepseek-moe-16b at full width cut to MOE_TRAIN_LAYERS layers, remat
-    "full", flash on (phase 14c's)."""
+    """18a/18b: qwen2-1.5b at full width cut to DP_QWEN_LAYERS layers,
+    flash on (phase 10's model, cut); 18c: deepseek-moe-16b at full width
+    cut to MOE_TRAIN_LAYERS layers, remat "full", flash on (phase
+    14c's)."""
     import dataclasses
     import repro_torch
     if which == "ep":
@@ -5395,7 +5665,42 @@ def dp_config(which):
                                    n_layers=MOE_TRAIN_LAYERS, remat="full",
                                    use_flash_attention=True)
     return dataclasses.replace(repro_torch.get_config("qwen2-1.5b"),
+                               n_layers=DP_QWEN_LAYERS,
                                use_flash_attention=True)
+
+
+def dp_reference(torch, dev, card):
+    """18a/18b's reference: dp_config("dp") trained on one device by
+    Trainer(...).run() with phase 10's loop for DP_TRAIN_STEPS steps (no
+    checkpoint kept): its losses and grad norms."""
+    from repro_torch.train.trainer import TrainLoopConfig, Trainer
+    t0 = time.perf_counter()
+    cfg = dp_config("dp")
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_dp_ref_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    loop = TrainLoopConfig(total_steps=DP_TRAIN_STEPS,
+                           ckpt_every=DP_TRAIN_STEPS, log_every=1,
+                           ckpt_dir=ckpt_dir)
+    tr = Trainer(cfg, loop, device=dev)
+    grad_norms, real_step = [], tr.step_fn
+
+    def step(params, opt_state, batch):
+        out = real_step(params, opt_state, batch)
+        grad_norms.append(float(out[2]["grad_norm"]))
+        return out
+
+    tr.step_fn = step
+    tr.save = lambda step, state: None
+    losses = [float(x) for x in tr.run()["losses"]]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[18] the one-device reference ({cfg.name}, {cfg.n_layers} "
+          f"layers, {DP_TRAIN_STEPS} steps of phase 10's loop): losses "
+          f"{[round(x, 5) for x in losses]}, grad norms "
+          f"{[round(x, 5) for x in grad_norms]}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return {"losses": losses, "grad_norms": grad_norms}
 
 
 def dp_state_bytes(cfg, fsdp):
@@ -5443,17 +5748,20 @@ def fingerprint(torch, tree):
 
 
 def dp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
-             by_path, train, moe_train):
+             by_path, moe_train):
     """Phase 18: data-parallel training over DP_RANKS ranks sharing the
     card (torch.multiprocessing spawn, gloo, a FileStore under build/):
-    18a DP and 18b FSDP on qwen2-1.5b with phase 10's loop, 18c EP on
-    deepseek-moe-16b cut as 14c, 18d allreduce_int8 and pipelined_apply;
-    every rank's results held here, to phase 10's and to each other, and
-    18b's final checkpoint restored on one device (elastic 2 -> 1)."""
+    18a DP and 18b FSDP on qwen2-1.5b cut to DP_QWEN_LAYERS layers with
+    phase 10's loop, 18c EP on deepseek-moe-16b cut as 14c, 18d
+    allreduce_int8 and pipelined_apply; every rank's results held here,
+    to the same model's one-device run (18a, 18b; run here first) or 14c's
+    (18c) and to each other, and 18b's final checkpoint restored on one
+    device (elastic 2 -> 1)."""
     import math
     import tempfile
     import torch.multiprocessing as mp
     t0 = time.perf_counter()
+    ref = dp_reference(torch, dev, card)
     pred = {w: dp_state_bytes(dp_config(w), w == "fsdp")
             for w in ("dp", "fsdp", "ep")}
     print(f"[18] params plus optimizer state a rank (predicted from the "
@@ -5498,7 +5806,7 @@ def dp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
         runs = [r[which] for r in ranks]
         by_path[path] = {k: sum(r["launches"][k] for r in runs)
                          for k in read_counts()}
-        res[which] = dp_gates(tag, which, runs, pred[which][0], train,
+        res[which] = dp_gates(tag, which, runs, pred[which][0], ref,
                               moe_train, card)
     # 18b: the world's final checkpoint on one device (elastic 2 -> 1)
     res["fsdp"]["restore"] = dp_restore_one(
@@ -5589,7 +5897,7 @@ def dp_gates(tag, which, runs, predicted, train, moe_train, card):
         d = max(abs(a - b) for a, b in zip(losses[0], ref))
         g0 = abs(first["grad_norms"][0] - train["grad_norms"][0]) / abs(
             train["grad_norms"][0])
-        line = (f"[{tag}] against phase 10's one-device run "
+        line = (f"[{tag}] against the one-device run of the same model "
                 f"{[round(x, 5) for x in ref]}: max |loss diff| {d:.2e} (tol "
                 f"{LOSS0_SUM_ATOL}); step 0's grad norm {g0:.2e} relative "
                 f"(tol {DP_GNORM_RTOL}) [{card}]")
@@ -5653,19 +5961,19 @@ def dp_restore_one(torch, dev, card, want):
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
     got = fingerprint(torch, state["params"])
-    loop = TrainLoopConfig(total_steps=TRAIN_STEPS)
+    loop = TrainLoopConfig(total_steps=DP_TRAIN_STEPS)
     bundle, _ = step_lib.build_train_step(build_model(cfg),
                                           peak_lr=loop.peak_lr,
                                           total_steps=loop.total_steps)
     _, _, m = bundle(state["params"], state["opt"],
-                     step_batch(torch, dev, cfg, loop, TRAIN_STEPS))
+                     step_batch(torch, dev, cfg, loop, DP_TRAIN_STEPS))
     loss = float(m["loss"])
     line = (f"[18b] the FSDP world's checkpoint (step {step}) restored on "
             f"one device in {restore_s:.1f} s: params bit-equal to the "
             f"ranks' gathered params (fingerprint): {got == want}; one more "
             f"one-device step from it: loss {loss:.5f} [{card}]")
     print(line, flush=True)
-    if step != TRAIN_STEPS or got != want or not math.isfinite(loss):
+    if step != DP_TRAIN_STEPS or got != want or not math.isfinite(loss):
         fail(line)
     del state, bundle
     gc.collect()
@@ -5714,7 +6022,7 @@ def dp_train_rank(torch, mesh, which, ops):
     t_sub = time.perf_counter()
     cfg = dp_config(which)
     dev = mesh.device
-    steps = EP_TRAIN_STEPS if which == "ep" else TRAIN_STEPS
+    steps = EP_TRAIN_STEPS if which == "ep" else DP_TRAIN_STEPS
     loop = TrainLoopConfig(total_steps=steps, ckpt_every=steps, log_every=1,
                            ckpt_dir=os.path.join(ROOT, "build",
                                                  f"chip_smoke_{which}_ckpt"))

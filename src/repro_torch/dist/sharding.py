@@ -315,24 +315,62 @@ def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
 
 
 def local_shard(t: torch.Tensor, spec: Spec, mesh,
-                coords: Optional[Dict[str, int]] = None) -> torch.Tensor:
+                coords: Optional[Dict[str, int]] = None, *,
+                parts: int = 1) -> torch.Tensor:
     """This rank's block of the whole tensor `t` under `spec`: a view (the
     caller copies it to free the whole). Mesh axes are laid out
     rank-major in the order of `mesh.shape`; `coords` (default
-    `mesh.coords`) picks another rank's block."""
+    `mesh.coords`) picks another rank's block.
+
+    parts > 1: a split dim packs `parts` equal tensors side by side
+    (ParamInit's parts=; mamba's in_proj is xs | z along its last dim), and
+    the rank takes its block of each, concatenated in order (a copy), so
+    a local chunk into `parts` gives the rank's block of every part: the
+    same bytes as the rank-major block, another layout."""
     coords = mesh.coords if coords is None else coords
     spec = tuple(spec) + (None,) * (t.dim() - len(spec))
     for d, entry in enumerate(spec):
         if entry is None:
             continue
         idx, count = _block(entry, mesh, coords)
-        if t.shape[d] % count:
+        if t.shape[d] % (count * parts):
             raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
-                             f"{count} ways ({entry})")
-        width = t.shape[d] // count
-        t = t.narrow(d, idx * width, width)
+                             f"{count} ways ({entry}) in each of {parts} "
+                             f"parts")
+        piece = t.shape[d] // parts
+        width = piece // count
+        blocks = [t.narrow(d, p * piece + idx * width, width)
+                  for p in range(parts)]
+        t = blocks[0] if parts == 1 else torch.cat(blocks, dim=d)
     return t
 
+
+
+def column_blocks(local: PyTree, specs: PyTree, mesh,
+                  parts: Optional[Dict[str, int]] = None, path: str = ""
+                  ) -> Dict[int, Tuple[int, int, int]]:
+    """This rank's column-split weights in `local` (its shards under
+    `specs`, each leaf a tensor of its own): for every leaf whose last dim
+    is split, its storage's address -> (the whole last dim, the packed
+    parts of `parts` (Model.param_parts), this rank's block). The engine
+    hands it to layers.exact_tp_scope(columns=), so a product of such a
+    weight, or of a layer's slice of it, keeps the same columns of the
+    whole product's bits (layers._column_product) with no call site
+    restating the layout."""
+    parts = parts or {}
+    out = {}
+    for k, v in local.items():
+        p = f"{path}/{k}" if path else k
+        if isinstance(v, dict):
+            out.update(column_blocks(v, specs[k], mesh, parts, p))
+            continue
+        spec = tuple(specs[k]) + (None,) * (v.dim() - len(specs[k]))
+        if v.dim() and spec[-1] is not None:
+            idx, count = _block(spec[-1], mesh, mesh.coords)
+            if count > 1:
+                out[v.untyped_storage().data_ptr()] = (
+                    v.shape[-1] * count, parts.get(p, 1), idx)
+    return out
 
 
 # ---------------------------------------------------------------------------

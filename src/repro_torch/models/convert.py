@@ -36,7 +36,8 @@ class _Shapes:
     def __init__(self):
         self.shapes: Dict[str, tuple] = {}
 
-    def param(self, path, shape, axes, init="normal", dtype=None):
+    def param(self, path, shape, axes, init="normal", dtype=None, *,
+              parts=1):
         self.shapes[path] = tuple(shape)
         return path
 

@@ -30,11 +30,17 @@ same columns of the whole product: on the CPU, inside the scope, a
 contraction runs in power-of-two K blocks of at most K_BLOCK, added in
 order (`_blocked_product`: MKL's own order for other K depends on N),
 and so does an untied head's (`lm_logits(blocked=True)`: cuBLAS's
-one-row f32 product orders K by N on the card too); the card's bf16
-products keep the property as they are (tools/tp_exactness_probe.py).
-The unsharded engine of a family that serves under a mesh runs in the
-scope with no mesh, so it keeps the same order; everything else (other
-families, training) contracts in one product.
+one-row f32 product orders K by N on the card too); on the card a
+column-parallel projection whose block's own product is observed to
+differ from the whole's columns (cuBLAS picks a kernel by the shape;
+tools/tp_exactness_probe.py) computes the rank's columns inside the
+whole width's product, zeros at the other ranks' columns
+(`_column_product`; the rank's column-split weights are recorded once
+from the serve specs, dist/sharding.column_blocks, and handed to the
+scope), as mamba's f32 dt projection may on either device
+(`matmul_f32`). The unsharded engine runs in the scope with no
+mesh, so it keeps the same order; everything else (training) contracts
+in one product.
 
 The whisper pieces: `layer_norm` (f32 statistics, population variance),
 `gelu_ffn` (bias adds in bf16, the tanh gelu of `jax.nn.gelu`'s default
@@ -70,7 +76,10 @@ class ParamInit:
         init = ParamInit(seed=0, device="cuda")
         w = init.param("layers/attn/wq", (L, D, H * Hd),
                        ("layers", "d_model", "heads"))
-    `init.shapes` and `init.axes` afterwards map path -> shape, axes.
+    `init.shapes` and `init.axes` afterwards map path -> shape, axes;
+    `init.parts` maps the path of a leaf whose last dim packs several
+    tensors side by side (parts=, e.g. mamba's in_proj: xs | z) to their
+    count, which a rank's shard of it keeps (dist/sharding.local_shard).
     """
 
     def __init__(self, seed: int = 0, device=None, scale: float = 0.02, *,
@@ -84,12 +93,16 @@ class ParamInit:
         self.scale = scale
         self.shapes: Dict[str, Tuple[int, ...]] = {}
         self.axes: Dict[str, Axes] = {}
+        self.parts: Dict[str, int] = {}
 
     def param(self, path: str, shape: Tuple[int, ...], axes: Axes,
-              init: str = "normal", dtype=PARAM_DTYPE) -> torch.Tensor:
+              init: str = "normal", dtype=PARAM_DTYPE, *,
+              parts: int = 1) -> torch.Tensor:
         assert len(shape) == len(axes), (path, shape, axes)
         self.shapes[path] = tuple(shape)
         self.axes[path] = tuple(axes)
+        if parts > 1:
+            self.parts[path] = parts
         if self.abstract:
             return torch.empty(shape, dtype=dtype, device=self.device)
         if init == "zeros":
@@ -144,11 +157,104 @@ def _blocked_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _own_columns(product, w: torch.Tensor, whole: int, parts: int,
+                 block: int) -> torch.Tensor:
+    """product(w) where w is the `block`-th column block of a weight `whole`
+    columns wide (each of `parts` packed tensors split alike): the product
+    runs at the whole width with w's columns at their place and zeros at
+    the other blocks', and w's columns come back out. It is then the
+    one-device call, whose bits a column block keeps whatever the
+    library's choice of kernel for that width (the rule of
+    attention._f32_heads, for columns)."""
+    n = w.shape[-1] // parts
+    span = whole // parts
+    first = block * n
+    wp = torch.nn.functional.pad(w.unflatten(-1, (parts, n)),
+                                 (first, span - first - n)).flatten(-2)
+    out = product(wp)
+    return out.unflatten(-1, (parts, span)).narrow(-1, first, n).flatten(-2)
+
+
+# (x's shape, w's shape, whole, parts, block, dtypes, device type) ->
+# whether a rank's column block must run inside the whole width's product
+_WHOLE_WIDTH: Dict[tuple, bool] = {}
+
+
+def whole_width_picks() -> Dict[tuple, bool]:
+    """The column-parallel product shapes seen in this process inside
+    exact_tp_scope, each with whether it runs at the whole width."""
+    return dict(_WHOLE_WIDTH)
+
+
+def _column_product(product, x: torch.Tensor, w: torch.Tensor, whole: int,
+                    parts: int, block: int) -> torch.Tensor:
+    """product(x, w), w this rank's column block of a weight `whole`
+    columns wide (a column-parallel projection under exact-TP,
+    `exact_tp_scope(columns=)`). The library picks its kernel, at a small
+    M also its split of K, by the shape, so a block's own product may
+    differ from the same columns of the whole width's product
+    (tools/tp_exactness_probe.py --families: on the card rwkv6-7b's wr
+    and internvl2-26b's wq at M = 4 in bf16, hymba's f32 dt product,
+    whisper's f32 encoder products). Whether it does depends on the
+    shapes and dtypes alone: the first call of a shape compares the two
+    on seeded random operands and keeps the answer, and only a shape
+    where they differ runs inside the whole width's product
+    (`_own_columns`)."""
+    key = (tuple(x.shape), tuple(w.shape), whole, parts, block, x.dtype,
+           w.dtype, x.device.type)
+    need = _WHOLE_WIDTH.get(key)
+    if need is None:
+        g = torch.Generator(device=x.device).manual_seed(0)
+        xr = torch.randn(x.shape, generator=g, device=x.device).to(x.dtype)
+        wr = torch.randn(w.shape, generator=g, device=w.device).to(w.dtype)
+        need = _WHOLE_WIDTH[key] = not torch.equal(
+            product(xr, wr), _own_columns(lambda wp: product(xr, wp), wr,
+                                          whole, parts, block))
+    if need:
+        return _own_columns(lambda wp: product(x, wp), w, whole, parts,
+                            block)
+    return product(x, w)
+
+
+def _column_of(w: torch.Tensor) -> Optional[Tuple[int, int, int]]:
+    """(whole, parts, block) where w is (a layer's slice of) this rank's
+    column block of a weight, inside exact_tp_scope(columns=); else None.
+    A layer's slice shares its stacked leaf's storage, whose address keys
+    the record (dist/sharding.column_blocks)."""
+    if not _EXACT_TP_COLUMNS:
+        return None
+    return _EXACT_TP_COLUMNS.get(w.untyped_storage().data_ptr())
+
+
+def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x.float(), w.float())
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in f32 (both operands cast), the result f32: one product; a
+    rank's column block (mamba's dt projection on a rank's channels)
+    through `_column_product` on either device."""
+    cols = _column_of(w)
+    if cols is not None:
+        return _column_product(_f32_product, x, w, *cols)
+    return _f32_product(x, w)
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """bf16 x bf16 -> f32 accumulate -> bf16, contracting x's last axis
     with w's first. An f32 x against a bf16 w (whisper's encoder stream on
     f32 frames) is multiplied in f32 and the result rounded once to
-    PARAM_DTYPE; on the card any other pair of types raises."""
+    PARAM_DTYPE; on the card any other pair of types raises. On the card a
+    rank's column block goes through `_column_product`; on the CPU the
+    K-blocked product keeps a block's bits as it is."""
+    if x.is_cuda:
+        cols = _column_of(w)
+        if cols is not None:
+            return _column_product(_matmul, x, w, *cols)
+    return _matmul(x, w)
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         if x.dtype == w.dtype:
             return torch.matmul(x, w)
@@ -161,7 +267,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 # --- exact-TP (bit-exact sharded serving) ----------------------------------
-# Set by ServeEngine around every model call of a dense or moe engine:
+# Set by ServeEngine around every model call:
 # inside the scope the row-parallel projections all-gather their
 # activation over the mesh's "model" group before they contract, instead
 # of summing per-rank partials (a sum in rank order moves the result by
@@ -170,6 +276,8 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # one-device order.
 _EXACT_TP_ON = False
 _EXACT_TP_MESH = None
+# this rank's column-split weights: storage address -> (whole, parts, block)
+_EXACT_TP_COLUMNS: Dict[int, Tuple[int, int, int]] = {}
 # the scope's gathers, for the checks: calls and bytes gathered (the whole
 # tensors' bytes); tp_counts() reads them, reset_tp_counts() zeroes them
 _TP_COUNTS = {"gathers": 0, "bytes": 0}
@@ -179,20 +287,24 @@ class exact_tp_scope:
     """Context manager marking model calls as exact-TP over `mesh`. With
     mesh None the calls run on one device in the sharded engine's order
     (the K-blocked CPU products and untied head): the unsharded engine
-    that a sharded one is held to bit for bit."""
+    that a sharded one is held to bit for bit. columns: the rank's
+    column-split weights (dist/sharding.column_blocks), whose products
+    keep the whole product's columns (`_column_product`)."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, columns: Optional[Dict] = None):
         self.mesh = mesh
+        self.columns = columns or {}
 
     def __enter__(self):
-        global _EXACT_TP_ON, _EXACT_TP_MESH
-        self._prev = _EXACT_TP_ON, _EXACT_TP_MESH
+        global _EXACT_TP_ON, _EXACT_TP_MESH, _EXACT_TP_COLUMNS
+        self._prev = _EXACT_TP_ON, _EXACT_TP_MESH, _EXACT_TP_COLUMNS
         _EXACT_TP_ON, _EXACT_TP_MESH = True, self.mesh
+        _EXACT_TP_COLUMNS = self.columns
         return self
 
     def __exit__(self, *exc):
-        global _EXACT_TP_ON, _EXACT_TP_MESH
-        _EXACT_TP_ON, _EXACT_TP_MESH = self._prev
+        global _EXACT_TP_ON, _EXACT_TP_MESH, _EXACT_TP_COLUMNS
+        _EXACT_TP_ON, _EXACT_TP_MESH, _EXACT_TP_COLUMNS = self._prev
         return False
 
 

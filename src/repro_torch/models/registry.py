@@ -62,10 +62,14 @@ The sharding engine's inputs (dist/sharding.py), as the reference's
 `Model`: `param_axes` (every param path's logical axes, recorded by
 ParamInit), `cache_axes()` (`cache_logical_axes` :392) and
 `abstract_params()` / `init_cache(..., abstract=True)` (the trees on the
-"meta" device). `prefill`, `decode_step` and `prefill_into_slot` take a
-`ctx` (layers.DistCtx) that the dense and moe stacks hand to their
-attention blocks and moe layers; under layers.exact_tp_scope an untied
-head's vocab-split logits are K-blocked and gathered whole (`_logits`).
+"meta" device), and `param_parts` (the leaves that pack several tensors
+side by side, ParamInit's parts=). `prefill`, `decode_step` and
+`prefill_into_slot` take a `ctx` (layers.DistCtx) that every family's
+serving stacks hand to their blocks: attention, the moe layers, the
+mamba path, the rwkv time mix and whisper's encoder and cross-attention;
+under layers.exact_tp_scope an untied head of an even vocab (one a
+model axis of 2 splits) is K-blocked and its vocab-split logits gathered
+whole (`_logits`); an odd vocab's head is replicated and one product.
 `loss_fn` takes one too: over data axes it computes this rank's share of
 the global batch's loss (data parallelism, train/step.py), and a moe
 layer takes `_moe_apply`'s expert-parallel or global capacity route.
@@ -87,10 +91,9 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import (PARAM_DTYPE, DistCtx, ParamInit,
                                        embed, gather_exact_tp, gelu_ffn,
-                                       in_exact_tp,
-                                       layer_norm, lm_logits, matmul,
-                                       rms_norm, sinusoid_pos, softmax_xent,
-                                       swiglu)
+                                       in_exact_tp, layer_norm, lm_logits,
+                                       matmul, matmul_rp, rms_norm,
+                                       sinusoid_pos, softmax_xent, swiglu)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -119,6 +122,9 @@ class Model:
     # tree on the "meta" device (shapes and dtypes, no memory)
     param_axes: Dict[str, Tuple[Optional[str], ...]] = dataclasses.field(
         default_factory=dict)
+    # the paths of leaves that pack several tensors along their last dim,
+    # and how many (ParamInit's parts=: mamba's in_proj, xs | z)
+    param_parts: Dict[str, int] = dataclasses.field(default_factory=dict)
     cache_axes: Optional[Callable[[], Dict]] = None
     abstract_params: Optional[Callable[[], Dict]] = None
 
@@ -297,25 +303,29 @@ def _dense_decode_stack(cfg: ModelConfig, layers, x, cache: Cache, *,
 # --- rwkv ------------------------------------------------------------------
 
 def _rwkv_layer(cfg: ModelConfig, lp, x, wkv, tm_shift, cm_shift, *,
-                decode: bool = False):
+                decode: bool = False, ctx=None):
     """One rwkv layer: the time mix and the channel mix, each behind its
     norm and residual. Returns (x, new wkv state, the time and channel
     mixes' last inputs)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     a, tm_last, wkv = T.rwkv_time_mix(lp["tm"], h, tm_shift, wkv, cfg,
-                                      decode=decode)
+                                      decode=decode, ctx=ctx)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     c, cm_last = T.rwkv_channel_mix(lp["cm"], h, cm_shift)
     return x + c, wkv, tm_last, cm_last
 
 
-def _rwkv_zero_states(cfg: ModelConfig, x):
-    """The zero wkv state (B, H, Hd, Hd) f32 and shift input (B, D) of a
-    segment that starts from nothing."""
+def _rwkv_zero_states(cfg: ModelConfig, x, ctx=None):
+    """The zero wkv state (B, H', Hd, Hd) f32 (H' this rank's heads under
+    exact-TP where the model axis divides them, else every head) and
+    shift input (B, D) of a segment that starts from nothing."""
     hd = cfg.rwkv_head_dim
     b_, d = x.shape[0], cfg.d_model
-    wkv = torch.zeros((b_, d // hd, hd, hd), dtype=torch.float32,
+    h = d // hd
+    if ctx is not None:
+        h //= ctx.tp_shards(h)
+    wkv = torch.zeros((b_, h, hd, hd), dtype=torch.float32,
                       device=x.device)
     return wkv, torch.zeros((b_, d), dtype=x.dtype, device=x.device)
 
@@ -335,15 +345,15 @@ def _rwkv_train_stack(cfg: ModelConfig, layers, x, *, remat: str):
     return x
 
 
-def _rwkv_prefill_stack(cfg: ModelConfig, layers, x):
+def _rwkv_prefill_stack(cfg: ModelConfig, layers, x, ctx=None):
     """The rwkv layers over x (B,S,D) from zero states. Also emits the
-    cache: each layer's wkv state and last time/channel-mix inputs,
-    stacked to (L, ...)."""
+    cache: each layer's wkv state (this rank's heads under exact-TP) and
+    last time/channel-mix inputs, stacked to (L, ...)."""
     wkvs, tms, cms = [], [], []
     for i in range(layers["ln1"].shape[0]):
-        wkv, shift = _rwkv_zero_states(cfg, x)
+        wkv, shift = _rwkv_zero_states(cfg, x, ctx)
         x, wkv, tm_last, cm_last = _rwkv_layer(cfg, _layer(layers, i), x,
-                                               wkv, shift, shift)
+                                               wkv, shift, shift, ctx=ctx)
         wkvs.append(wkv)
         tms.append(tm_last)
         cms.append(cm_last)
@@ -351,13 +361,14 @@ def _rwkv_prefill_stack(cfg: ModelConfig, layers, x):
                "cm": torch.stack(cms)}
 
 
-def _rwkv_decode_stack(cfg: ModelConfig, layers, x, cache: Cache):
+def _rwkv_decode_stack(cfg: ModelConfig, layers, x, cache: Cache,
+                       ctx=None):
     """One token through the rwkv layers; wkv, tm and cm are written in
     place."""
     for i in range(layers["ln1"].shape[0]):
         x, wkv, tm_last, cm_last = _rwkv_layer(
             cfg, _layer(layers, i), x, cache["wkv"][i], cache["tm"][i],
-            cache["cm"][i], decode=True)
+            cache["cm"][i], decode=True, ctx=ctx)
         cache["wkv"][i].copy_(wkv)
         cache["tm"][i].copy_(tm_last)
         cache["cm"][i].copy_(cm_last)
@@ -394,12 +405,17 @@ def _hymba_stack(cfg: ModelConfig, layers, x, positions, *, remat: str):
     return x
 
 
-def _hymba_prefill_stack(cfg: ModelConfig, layers, x, positions):
+def _hymba_prefill_stack(cfg: ModelConfig, layers, x, positions,
+                         ctx=None):
     """The hybrid layers over x (B,S,D): windowed attention beside the
     mamba path. Also emits the cache: each layer's last min(S, w) k/v in
     the ring layout (line i holds the position p with p % w == i, the JAX
     roll(k[:, -w:], S % w)), stacked to (L, B, min(S, w), KvH, Hd), and
-    the conv tails and h states, stacked to (L, ...)."""
+    the conv tails and h states, stacked to (L, ...). Under exact-TP
+    (ctx) attention takes its heads as `_qkv` gives them (hymba-1.5b's
+    25 / 5 heads do not split over 2 ranks: gathered whole, the k/v cache
+    whole), the mamba path and the FFN a rank's channels (the conv and h
+    states the rank's)."""
     w = cfg.attn_window
     s = x.shape[1]
     ks, vs, convs, hs = [], [], [], []
@@ -407,8 +423,8 @@ def _hymba_prefill_stack(cfg: ModelConfig, layers, x, positions):
         lp = _layer(layers, i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, (k, v) = T.attn_block(lp["attn"], h, cfg, positions=positions,
-                                 window=w)
-        m, conv_st, h_st = T.mamba_path(lp["mamba"], h, cfg)
+                                 window=w, ctx=ctx)
+        m, conv_st, h_st = T.mamba_path(lp["mamba"], h, cfg, ctx=ctx)
         x = x + _hymba_fuse(cfg, lp, a, m)
         hh = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + swiglu(hh, lp["ffn"]["wi"], lp["ffn"]["wg"], lp["ffn"]["wo"])
@@ -420,7 +436,8 @@ def _hymba_prefill_stack(cfg: ModelConfig, layers, x, positions):
                "conv": torch.stack(convs), "h": torch.stack(hs)}
 
 
-def _hymba_decode_stack(cfg: ModelConfig, layers, x, cache: Cache):
+def _hymba_decode_stack(cfg: ModelConfig, layers, x, cache: Cache,
+                        ctx=None):
     """One token through the hybrid layers: ring-buffer attention and the
     mamba decode step; k/v, conv and h are written in place."""
     pos = cache["pos"]
@@ -428,10 +445,12 @@ def _hymba_decode_stack(cfg: ModelConfig, layers, x, cache: Cache):
         lp = _layer(layers, i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = T.attn_block_decode(lp["attn"], h, cfg, cache_k=cache["k"][i],
-                                   cache_v=cache["v"][i], pos=pos, ring=True)
+                                   cache_v=cache["v"][i], pos=pos, ring=True,
+                                   ctx=ctx)
         m, conv_st, h_st = T.mamba_path(lp["mamba"], h, cfg,
                                         conv_state=cache["conv"][i],
-                                        h_state=cache["h"][i], decode=True)
+                                        h_state=cache["h"][i], decode=True,
+                                        ctx=ctx)
         cache["conv"][i].copy_(conv_st)
         cache["h"][i].copy_(h_st)
         x = x + _hymba_fuse(cfg, lp, a, m)
@@ -442,19 +461,24 @@ def _hymba_decode_stack(cfg: ModelConfig, layers, x, cache: Cache):
 
 # --- whisper (encdec) ------------------------------------------------------
 
-def _whisper_encode(cfg: ModelConfig, params, frames, *, remat: str = "none"):
+def _whisper_encode(cfg: ModelConfig, params, frames, *, remat: str = "none",
+                    ctx=None):
     """frames: (B, enc_seq, D) stub embeddings -> the encoder output
     (B, enc_seq, D) after its final LayerNorm, in the type of frames +
     the bf16 positions (f32 for f32 frames). Bidirectional chunked
-    attention; each layer under `_maybe_remat`."""
+    attention; each layer under `_maybe_remat`. Under exact-TP (ctx) the
+    self-attention runs on this rank's heads (`_qkv`, heads=) and the gelu
+    FFN on its d_ff columns, each gathered before its whole down
+    projection (matmul_rp): the output is whole on every rank."""
     x = frames + sinusoid_pos(frames.shape[1], cfg.d_model,
                               device=frames.device)[None]
 
     def body(x, lp):
         h = layer_norm(x, lp["ln1"], lp["ln1b"], cfg.norm_eps)
-        q, k, v = T._qkv(lp["attn"], h, cfg)
-        a = attn_lib.chunked_causal_attention(q, k, v, causal=False)
-        x = x + matmul(a.reshape(*h.shape[:2], -1), lp["attn"]["wo"])
+        q, k, v = T._qkv(lp["attn"], h, cfg, ctx)
+        a = attn_lib.chunked_causal_attention(q, k, v, causal=False,
+                                              heads=T._kv_heads(cfg, ctx))
+        x = x + matmul_rp(a.reshape(*h.shape[:2], -1), lp["attn"]["wo"])
         h = layer_norm(x, lp["ln2"], lp["ln2b"], cfg.norm_eps)
         return x + _gelu(lp, h)
 
@@ -469,25 +493,23 @@ def _gelu(lp, h):
     return gelu_ffn(h, f["wi"], f["bi"], f["wo"], f["bo"])
 
 
-def _whisper_dec_layer(cfg: ModelConfig, lp, x, enc_out):
+def _whisper_dec_layer(cfg: ModelConfig, lp, x, enc_out, ctx=None):
     """One decoder layer over x (B,S,D): causal self-attention, then
     cross-attention over enc_out, then the gelu FFN, each behind its
     LayerNorm and residual. Returns (x, (k, v, xk, xv)): the
-    self-attention's and cross-attention's keys and values."""
+    self-attention's and cross-attention's keys and values (this rank's
+    heads under exact-TP, ctx)."""
     b_, s, _ = x.shape
+    heads = T._kv_heads(cfg, ctx)
     h = layer_norm(x, lp["ln1"], lp["ln1b"], cfg.norm_eps)
-    q, k, v = T._qkv(lp["attn"], h, cfg)
-    a = attn_lib.chunked_causal_attention(q, k, v)
-    x = x + matmul(a.reshape(b_, s, -1), lp["attn"]["wo"])
+    q, k, v = T._qkv(lp["attn"], h, cfg, ctx)
+    a = attn_lib.chunked_causal_attention(q, k, v, heads=heads)
+    x = x + matmul_rp(a.reshape(b_, s, -1), lp["attn"]["wo"])
     h = layer_norm(x, lp["lnx"], lp["lnxb"], cfg.norm_eps)
-    xp = lp["xattn"]
-    hh, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    n_enc = enc_out.shape[1]
-    q = matmul(h, xp["wq"]).reshape(b_, s, hh, hd)
-    xk = matmul(enc_out, xp["wk"]).reshape(b_, n_enc, kv, hd)
-    xv = matmul(enc_out, xp["wv"]).reshape(b_, n_enc, kv, hd)
-    a = attn_lib.chunked_causal_attention(q, xk, xv, causal=False)
-    x = x + matmul(a.reshape(b_, s, -1), xp["wo"])
+    q, xk, xv = T._qkv(lp["xattn"], h, cfg, ctx, kv_x=enc_out)
+    a = attn_lib.chunked_causal_attention(q, xk, xv, causal=False,
+                                          heads=heads)
+    x = x + matmul_rp(a.reshape(b_, s, -1), lp["xattn"]["wo"])
     h = layer_norm(x, lp["ln2"], lp["ln2b"], cfg.norm_eps)
     return x + _gelu(lp, h), (k, v, xk, xv)
 
@@ -506,36 +528,40 @@ def _whisper_train_stack(cfg: ModelConfig, layers, x, enc_out, *,
     return x
 
 
-def _whisper_prefill_stack(cfg: ModelConfig, layers, x, enc_out):
+def _whisper_prefill_stack(cfg: ModelConfig, layers, x, enc_out, ctx=None):
     """The decoder layers over x (B,S,D); also emits the cache: each
     layer's k/v and cross-attention xk/xv, stacked to (L, ...)."""
     outs = {"k": [], "v": [], "xk": [], "xv": []}
     for i in range(layers["ln1"].shape[0]):
-        x, kvs = _whisper_dec_layer(cfg, _layer(layers, i), x, enc_out)
+        x, kvs = _whisper_dec_layer(cfg, _layer(layers, i), x, enc_out, ctx)
         for key, t in zip(("k", "v", "xk", "xv"), kvs):
             outs[key].append(t)
     return x, {key: torch.stack(ts) for key, ts in outs.items()}
 
 
-def _whisper_decode_stack(cfg: ModelConfig, layers, x, cache: Cache):
+def _whisper_decode_stack(cfg: ModelConfig, layers, x, cache: Cache,
+                          ctx=None):
     """One token through the decoder layers: self-attention against k/v
     (written in place, no rope), cross-attention against every line of
-    xk/xv (read only)."""
+    xk/xv (read only); this rank's heads under exact-TP (ctx)."""
     pos = cache["pos"]
     b_ = x.shape[0]
+    heads = T._kv_heads(cfg, ctx)
     for i in range(layers["ln1"].shape[0]):
         lp = _layer(layers, i)
         h = layer_norm(x, lp["ln1"], lp["ln1b"], cfg.norm_eps)
         a, _ = T.attn_block_decode(lp["attn"], h, cfg, cache_k=cache["k"][i],
                                    cache_v=cache["v"][i], pos=pos,
-                                   rope=False)
+                                   rope=False, ctx=ctx)
         x = x + a
         h = layer_norm(x, lp["lnx"], lp["lnxb"], cfg.norm_eps)
         xk, xv = cache["xk"][i], cache["xv"][i]
-        q = matmul(h, lp["xattn"]["wq"]).reshape(b_, 1, cfg.n_heads,
-                                                 cfg.head_dim)
-        a = attn_lib.decode_attention(q, xk, xv, xk.shape[1])
-        x = x + matmul(a.reshape(b_, 1, -1), lp["xattn"]["wo"])
+        q = matmul(h, lp["xattn"]["wq"])
+        if not T.local_heads(cfg, ctx):
+            q = gather_exact_tp(q, cfg.n_heads * cfg.head_dim)
+        q = q.reshape(b_, 1, -1, cfg.head_dim)
+        a = attn_lib.decode_attention(q, xk, xv, xk.shape[1], heads=heads)
+        x = x + matmul_rp(a.reshape(b_, 1, -1), lp["xattn"]["wo"])
         h = layer_norm(x, lp["ln2"], lp["ln2b"], cfg.norm_eps)
         x = x + _gelu(lp, h)
     return x, {**cache, "pos": pos + 1}
@@ -672,9 +698,13 @@ def build_model(cfg: ModelConfig) -> Model:
             # the tied table is replicated under exact-TP: already whole
             return lm_logits(x, params["embed"].T)
         # under exact-TP an untied head gives this rank's vocab columns,
-        # K-blocked so they keep the whole head's bits, gathered whole
+        # K-blocked so they keep the whole head's bits, gathered whole. An
+        # odd vocab (hymba, whisper, internvl2) splits over no even model
+        # axis: serve_specs replicates the head, every rank computes it
+        # whole, and one product keeps the unsharded engine's bits
+        head_split = in_exact_tp() and cfg.vocab_size % 2 == 0
         return gather_exact_tp(lm_logits(x, params["head"],
-                                         blocked=in_exact_tp()),
+                                         blocked=head_split),
                                cfg.vocab_size)
 
     def _prefixed_embed(params, batch):
@@ -808,14 +838,14 @@ def build_model(cfg: ModelConfig) -> Model:
             positions = torch.clamp_min(ar - pad_lens[:, None], 0)
             kv_valid = ar >= pad_lens[:, None]
         if cfg.family == "encdec":
-            enc_out = _whisper_encode(cfg, params, batch["frames"])
+            enc_out = _whisper_encode(cfg, params, batch["frames"], ctx=ctx)
             x, cache = _whisper_prefill_stack(cfg, params["dec_layers"], x,
-                                              enc_out)
+                                              enc_out, ctx)
         elif cfg.family == "hybrid":
             x, cache = _hymba_prefill_stack(cfg, params["layers"], x,
-                                            positions)
+                                            positions, ctx)
         elif cfg.family == "ssm":
-            x, cache = _rwkv_prefill_stack(cfg, params["layers"], x)
+            x, cache = _rwkv_prefill_stack(cfg, params["layers"], x, ctx)
         else:
             cache = {}
             if "dense_layers" in params:       # moe: the first_k_dense
@@ -852,11 +882,13 @@ def build_model(cfg: ModelConfig) -> Model:
             pe = params["dec_pos"][cache["pos"].long()].to(x.dtype)
             x = x + (pe[:, None] if pe.dim() == 2 else pe[None, None])
             x, cache = _whisper_decode_stack(cfg, params["dec_layers"], x,
-                                             cache)
+                                             cache, ctx)
         elif cfg.family == "hybrid":
-            x, cache = _hymba_decode_stack(cfg, params["layers"], x, cache)
+            x, cache = _hymba_decode_stack(cfg, params["layers"], x, cache,
+                                           ctx)
         elif cfg.family == "ssm":
-            x, cache = _rwkv_decode_stack(cfg, params["layers"], x, cache)
+            x, cache = _rwkv_decode_stack(cfg, params["layers"], x, cache,
+                                          ctx)
         else:
             if "dense_layers" in params:
                 x, _ = _dense_decode_stack(
@@ -967,6 +999,6 @@ def build_model(cfg: ModelConfig) -> Model:
                                    else None),
                  decode_verify=(decode_verify if cfg.family == "dense"
                                 else None),
-                 param_axes=shapes.axes,
+                 param_axes=shapes.axes, param_parts=shapes.parts,
                  cache_axes=functools.partial(cache_logical_axes, cfg),
                  abstract_params=abstract_params)

@@ -40,7 +40,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.layers import (PARAM_DTYPE, ParamInit, apply_rope,
-                                       gather_exact_tp, matmul, matmul_rp)
+                                       gather_exact_tp, matmul, matmul_f32,
+                                       matmul_rp)
 
 # ===========================================================================
 # parameter construction
@@ -164,8 +165,9 @@ def _mamba_params(b: ParamInit, pre: str, L: int, cfg: ModelConfig) -> Dict:
     dt_rank = max(1, d // 16)
     vec, ch = ("layers", "d_model"), ("layers", "heads")
     return {
+        # xs | z side by side: a rank's shard keeps its block of each
         "in_proj": b.param(f"{pre}/in_proj", (L, d, 2 * ci),
-                           ("layers", "d_model", "heads")),
+                           ("layers", "d_model", "heads"), parts=2),
         "conv_w": b.param(f"{pre}/conv_w", (L, mamba_lib.CONV_K, ci),
                           ("layers", None, "heads")),
         "x_proj": b.param(f"{pre}/x_proj", (L, ci, dt_rank + 2 * n),
@@ -274,19 +276,23 @@ def _kv_heads(cfg: ModelConfig, ctx):
     return ctx.model_rank * cfg.n_kv_heads // ctx.model_size, cfg.n_kv_heads
 
 
-def _qkv(lp, x, cfg: ModelConfig, ctx=None, *, whole: bool = False):
-    """q (B,S,H',Hd), k and v (B,S,KvH',Hd) of x: H' and KvH' are this
-    rank's heads where `local_heads(cfg, ctx)`, else every head. Under
-    exact-TP the projections give this rank's columns; where the heads are
-    not local those columns are gathered right after the projections (a
-    column shard of wk may hold half a head: qwen2's 2 kv heads at TP 4),
-    and attention then runs whole on every rank. whole=True gathers
-    always (the seq-sharded decode cache needs every head)."""
+def _qkv(lp, x, cfg: ModelConfig, ctx=None, *, whole: bool = False,
+         kv_x=None):
+    """q (B,S,H',Hd) of x, k and v (B,S',KvH',Hd) of kv_x (x itself by
+    default; whisper's cross-attention passes the encoder output): H' and
+    KvH' are this rank's heads where `local_heads(cfg, ctx)`, else every
+    head. Under exact-TP the projections give this rank's columns; where
+    the heads are not local those columns are gathered right after the
+    projections (a column shard of wk may hold half a head: qwen2's 2 kv
+    heads at TP 4), and attention then runs whole on every rank.
+    whole=True gathers always (the seq-sharded decode cache needs every
+    head)."""
     b_, s, _ = x.shape
+    kv_x = x if kv_x is None else kv_x
     hd = cfg.head_dim
     q = matmul(x, lp["wq"])
-    k = matmul(x, lp["wk"])
-    v = matmul(x, lp["wv"])
+    k = matmul(kv_x, lp["wk"])
+    v = matmul(kv_x, lp["wv"])
     if cfg.qkv_bias:
         q = q + lp["bq"].to(q.dtype)
         k = k + lp["bk"].to(k.dtype)
@@ -300,8 +306,9 @@ def _qkv(lp, x, cfg: ModelConfig, ctx=None, *, whole: bool = False):
                          f"this rank's {cfg.n_heads * hd // ctx.model_size}"
                          f" (pass the engine whole params; it cuts the "
                          f"shards)")
-    return (q.reshape(b_, s, -1, hd), k.reshape(b_, s, -1, hd),
-            v.reshape(b_, s, -1, hd))
+    s_kv = kv_x.shape[1]
+    return (q.reshape(b_, s, -1, hd), k.reshape(b_, s_kv, -1, hd),
+            v.reshape(b_, s_kv, -1, hd))
 
 
 def attn_block(lp, x, cfg: ModelConfig, *, positions, window=0,
@@ -469,10 +476,22 @@ def attn_block_continue(lp, x, cfg: ModelConfig, *, cache_k, cache_v, slot,
     return out, (cache_k, cache_v)
 
 
+def _rank_block(local: int, whole: int, ctx, what: str) -> int:
+    """The first index of this rank's block of `local` of `whole` along a
+    dim the model axis splits (0 when the dim is whole)."""
+    if local == whole:
+        return 0
+    if ctx is None or local * ctx.model_size != whole:
+        raise ValueError(f"exact-TP: {local} {what} where the model has "
+                         f"{whole} (pass the engine whole params; it cuts "
+                         f"the shards)")
+    return ctx.model_rank * local
+
+
 def rwkv_time_mix(tm, x, shift_in, wkv_state, cfg: ModelConfig, *,
-                  decode: bool):
+                  decode: bool, ctx=None):
     """RWKV6 time mix. x: (B,T,D) bf16; shift_in: (B,D), the previous
-    segment's last input; wkv_state: (B,H,Hd,Hd) f32. Returns (out (B,T,D)
+    segment's last input; wkv_state: (B,H',Hd,Hd) f32. Returns (out (B,T,D)
     bf16, x's last token (B,D), new wkv state).
 
     The WKV form by the reference's rule: decode runs wkv6_decode; a
@@ -480,7 +499,16 @@ def rwkv_time_mix(tm, x, shift_in, wkv_state, cfg: ModelConfig, *,
     T % 64 == 0, as one chunk of T when 1 < T < 64, and the sequential
     scan otherwise. The token-shift mix runs in bf16, every step rounded
     (the JAX package's code, compiled without excess precision); the LoRA
-    and decay products in f32."""
+    and decay products in f32.
+
+    Under exact-TP (ctx) wr/wk/wv/wg give this rank's columns: where the
+    model axis divides the heads, r, k, v and g are the rank's H' heads,
+    the decay w (from the whole td_a/td_b), u and ln_x are computed or
+    taken whole and sliced to them, the WKV state holds them, the WKV form
+    runs them inside every head's products (zeros at the others), and
+    y * g is gathered before the whole wo (matmul_rp); where it does not,
+    the four are gathered to every head right after their products and
+    the mix runs whole."""
     b_, t, d = x.shape
     hd = cfg.rwkv_head_dim
     h = d // hd
@@ -496,109 +524,147 @@ def rwkv_time_mix(tm, x, shift_in, wkv_state, cfg: ModelConfig, *,
     x_r, x_k, x_v, x_w, x_g = (x + diff * (mus[i] + delta[:, :, i])
                                for i in range(5))
 
-    r = matmul(x_r, tm["wr"]).reshape(b_, t, h, hd).float()
-    k = matmul(x_k, tm["wk"]).reshape(b_, t, h, hd).float()
-    v = matmul(x_v, tm["wv"]).reshape(b_, t, h, hd).float()
-    g = torch.nn.functional.silu(matmul(x_g, tm["wg"]).float())
+    r, k, v, g = (matmul(xi, tm[name]) for xi, name in (
+        (x_r, "wr"), (x_k, "wk"), (x_v, "wv"), (x_g, "wg")))
+    if ctx is None or ctx.tp_shards(h) == 1:
+        r, k, v, g = (gather_exact_tp(a, d) for a in (r, k, v, g))
+    dl = r.shape[-1]                     # this rank's columns, whole heads
+    first = _rank_block(dl, d, ctx, "time-mix columns")
+    hl = dl // hd
+    r, k, v = (a.reshape(b_, t, hl, hd).float() for a in (r, k, v))
+    g = torch.nn.functional.silu(g.float())
 
     wlog = tm["w0"].float() + (torch.tanh(x_w.float() @ tm["td_a"].float())
                                @ tm["td_b"].float())
-    w = torch.exp(-torch.exp(wlog)).reshape(b_, t, h, hd)
-    u = tm["u"].float()
+    w = torch.exp(-torch.exp(wlog)).reshape(b_, t, h, hd).narrow(
+        2, first // hd, hl)
+    u = tm["u"].float().narrow(0, first // hd, hl)
 
+    # a rank's heads run inside every head's batched products, zeros at
+    # the others (attention._f32_heads): cuBLAS picks the batched kernel by
+    # the batch count, and the sequential scan's einsum over 32 of
+    # rwkv6-7b's 64 heads is not those heads of the whole
+    # (tools/tp_exactness_probe.py --families)
+    heads = None if hl == h else (first // hd, h)
+    r, k, v, w = (attn_lib._f32_heads(a, 2, heads) for a in (r, k, v, w))
+    u = attn_lib._f32_heads(u, 0, heads)
+    state = attn_lib._f32_heads(wkv_state, 1, heads)
     if decode:
-        y, wkv_state = rwkv_lib.wkv6_decode(r[:, 0], k[:, 0], v[:, 0],
-                                            w[:, 0], u, wkv_state)
+        y, state = rwkv_lib.wkv6_decode(r[:, 0], k[:, 0], v[:, 0], w[:, 0],
+                                        u, state)
         y = y[:, None]
     else:
         chunk = 64 if t % 64 == 0 else (t if t < 64 else 1)
         if chunk > 1:
-            y, wkv_state = rwkv_lib.wkv6_chunked(r, k, v, w, u, wkv_state,
-                                                 chunk=chunk)
+            y, state = rwkv_lib.wkv6_chunked(r, k, v, w, u, state,
+                                             chunk=chunk)
         else:
-            y, wkv_state = rwkv_lib.wkv6_scan(r, k, v, w, u, wkv_state)
+            y, state = rwkv_lib.wkv6_scan(r, k, v, w, u, state)
+    y = attn_lib._own_heads(y, 2, heads, hl)
+    wkv_state = attn_lib._own_heads(state, 1, heads, hl)
 
     # per-head group norm (the population variance, as jnp.var), then the
     # gate and the output projection
     mu = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)
     y = (y - mu) * torch.rsqrt(var + 64e-5)
-    y = y.reshape(b_, t, d) * tm["ln_x"].float()
-    out = matmul((y * g).to(PARAM_DTYPE), tm["wo"])
+    y = y.reshape(b_, t, dl) * tm["ln_x"].float().narrow(0, first, dl)
+    out = matmul_rp((y * g).to(PARAM_DTYPE), tm["wo"])
     return out, last, wkv_state
 
 
 def rwkv_channel_mix(cm, x, shift_in):
     """RWKV6 channel mix. x: (B,T,D) bf16; shift_in: (B,D). Returns (out
-    (B,T,D) bf16, x's last token)."""
+    (B,T,D) bf16, x's last token). Under exact-TP cm/wk gives this rank's
+    d_ff columns, gathered before the whole cm/wv (matmul_rp); cm/wr is
+    whole."""
     x_prev, last = rwkv_lib.token_shift(x, shift_in)
     xk = x + (x_prev - x) * cm["mu_k"].to(x.dtype)
     xr = x + (x_prev - x) * cm["mu_r"].to(x.dtype)
     k = torch.square(torch.relu(matmul(xk, cm["wk"]).float()))
-    kv = matmul(k.to(PARAM_DTYPE), cm["wv"])
+    kv = matmul_rp(k.to(PARAM_DTYPE), cm["wv"])
     out = torch.sigmoid(matmul(xr, cm["wr"]).float()) * kv
     return out.to(PARAM_DTYPE), last
 
 
 def mamba_path(mp, x, cfg: ModelConfig, *, conv_state=None, h_state=None,
-               decode: bool = False):
+               decode: bool = False, ctx=None):
     """Mamba selective-SSM path of the Hymba block. x: (B,T,D) bf16.
-    Returns (y (B,T,D) bf16, new conv state (B,K-1,Ci) bf16, new h state
-    (B,Ci,N) f32).
+    Returns (y (B,T,D) bf16, new conv state (B,K-1,Ci') bf16, new h state
+    (B,Ci',N) f32), Ci' = Ci = 2 D on one device.
 
     The scan by cfg.ssm_impl, as the JAX package: "pallas" dispatches the
     registry's "ssm" kernel (csrc/ssm_scan.cu on the card) with an SsmKey
-    of this (B, T, Ci, N) and a model-only blk_c, as flash's
+    of this (B, T, Ci', N) and a model-only blk_c, as flash's
     `_dispatch_flash` (no timing pass on the model path); "chunked" runs
     ssm_chunked at chunk 64 when T % 64 == 0 and the sequential scan
     otherwise; "scan" the sequential scan; "stub" (prefill only) skips the
     scan and keeps the projections. Decode runs ssm_decode whatever the
     setting. A gradient through the "pallas" scan raises
-    NotImplementedError (`SsmScanNoGrad`)."""
+    NotImplementedError (`SsmScanNoGrad`).
+
+    Under exact-TP (ctx) a rank holds Ci' = Ci / tp channels. in_proj's
+    shard packs the rank's block of xs beside its block of z (ParamInit
+    parts=2, dist/sharding.local_shard), so the local chunk gives both;
+    conv_w, dt_proj, dt_bias and d are split with the channels and used as
+    they are; a_log is whole and the rank takes its rows; x_proj and
+    out_proj contract over the channels and are whole, so xs and y are
+    gathered first (matmul_rp): proj (hence dt's input, B and C) and the
+    output are computed whole on every rank, in the one-device order. The
+    in_proj and f32 dt products give the rank's columns of the whole
+    width's product (layers.matmul, matmul_f32: `_column_product`). The
+    conv and h states hold the rank's channels. The "pallas" scan keys its
+    config on the local channels, as the reference does; its states a
+    thread set the order of y's sum, and the model picks the same at
+    hymba's Ci and Ci / 2 (tools/tp_exactness_probe.py --families; phase
+    17e and tests/test_torch_serve_tp.py hold the picks equal)."""
     b_, t, d = x.shape
     ci = 2 * d
     n = cfg.ssm_state
     dt_rank = max(1, d // 16)
 
-    xz = matmul(x, mp["in_proj"])                          # (B,T,2Ci)
+    xz = matmul(x, mp["in_proj"])                          # (B,T,2Ci')
     xs, z = torch.chunk(xz, 2, dim=-1)
+    cl = xs.shape[-1]
+    first = _rank_block(cl, ci, ctx, "mamba channels")
     xs, conv_state = mamba_lib.causal_conv1d(xs, mp["conv_w"], conv_state)
     xs = torch.nn.functional.silu(xs.float()).to(PARAM_DTYPE)
 
-    proj = matmul(xs, mp["x_proj"]).float()                # (B,T,dtr+2N)
+    proj = matmul_rp(xs, mp["x_proj"]).float()             # (B,T,dtr+2N)
     dt_in, bmat, cmat = torch.split(proj, [dt_rank, n, n], dim=-1)
-    dt = torch.nn.functional.softplus(dt_in @ mp["dt_proj"].float()
+    dt = torch.nn.functional.softplus(matmul_f32(dt_in, mp["dt_proj"])
                                       + mp["dt_bias"].float())
+    a_log = mp["a_log"].narrow(0, first, cl)
 
     if h_state is None:
-        h_state = torch.zeros((b_, ci, n), dtype=torch.float32,
+        h_state = torch.zeros((b_, cl, n), dtype=torch.float32,
                               device=x.device)
     if cfg.ssm_impl == "stub" and not decode:
         y = xs.float() * mp["d"].float()
         y = y * torch.nn.functional.silu(z.float())
-        return (matmul(y.to(PARAM_DTYPE), mp["out_proj"]), conv_state,
+        return (matmul_rp(y.to(PARAM_DTYPE), mp["out_proj"]), conv_state,
                 h_state)
     if decode:
         y, h_state = mamba_lib.ssm_decode(
-            xs[:, 0].float(), dt[:, 0], bmat[:, 0], cmat[:, 0], mp["a_log"],
+            xs[:, 0].float(), dt[:, 0], bmat[:, 0], cmat[:, 0], a_log,
             mp["d"], h_state)
         y = y[:, None]
     elif cfg.ssm_impl == "pallas":
         y, h_state = SsmScanNoGrad.apply(xs.float(), dt, bmat.contiguous(),
-                                         cmat.contiguous(), mp["a_log"],
+                                         cmat.contiguous(), a_log,
                                          mp["d"], h_state)
     else:
         chunk = 64 if (t % 64 == 0 and cfg.ssm_impl == "chunked") else 1
         if chunk > 1:
             y, h_state = mamba_lib.ssm_chunked(
-                xs.float(), dt, bmat, cmat, mp["a_log"], mp["d"], h_state,
+                xs.float(), dt, bmat, cmat, a_log, mp["d"], h_state,
                 chunk=chunk)
         else:
             y, h_state = mamba_lib.ssm_scan(
-                xs.float(), dt, bmat, cmat, mp["a_log"], mp["d"], h_state)
+                xs.float(), dt, bmat, cmat, a_log, mp["d"], h_state)
 
     y = y * torch.nn.functional.silu(z.float())
-    out = matmul(y.to(PARAM_DTYPE), mp["out_proj"])
+    out = matmul_rp(y.to(PARAM_DTYPE), mp["out_proj"])
     return out, conv_state, h_state
 
 
@@ -623,8 +689,10 @@ class SsmScanNoGrad(torch.autograd.Function):
 
 def _dispatch_ssm(x, dt, bmat, cmat, a_log, d, h0):
     """The registry's "ssm" kernel under a model-only tuned blk_c, keyed on
-    SsmKey(B, T, Ci, N) (one device: the whole channel axis); a shape the
-    tune menu cannot tile resolves to the clamped static config."""
+    SsmKey(B, T, Ci', N) of this call's channels (a rank's under exact-TP,
+    as the reference keys it on the local channel shard,
+    transformer.py:492); a shape the tune menu cannot tile resolves to the
+    clamped static config."""
     from repro_torch.kernels.ssm import ops as ssm_ops
     from repro_torch.kernels.ssm.kernel_def import SsmKey
     from repro_torch.tune import tuner

@@ -54,12 +54,15 @@ The stepwise surface (`reset`, `submit`, `step`, `evict_inflight`,
 `finalize`) is what the multi-replica router (serve/router.py) drives.
 
 Tensor-parallel serving (`mesh=`, a launch.mesh.Mesh with a "model"
-axis; dense and moe families): explicit SPMD, one engine a rank, every
+axis; every family): explicit SPMD, one engine a rank, every
 rank given the same whole params and the same requests. The engine lays
 its state out by `dist.sharding.serve_specs` (exact-TP: weights split on
 their output dims only, the slot cache head-wise where the mesh divides
-the kv heads, scheduler state replicated), keeps only this rank's shards
-(`local_shard`, copied, so the caller may free the whole tree) and runs
+the kv heads, the hybrid conv/h and rwkv wkv states on their channels or
+heads, scheduler state replicated), keeps only this rank's shards
+(`local_shard`, copied, so the caller may free the whole tree; a leaf
+that packs tensors side by side, mamba's in_proj, keeps its block of
+each: `Model.param_parts`) and runs
 every model call under `layers.exact_tp_scope` with a
 `DistCtx(mesh, model_axis="model")`. The row-parallel
 products gather their activation first, so every rank computes the same
@@ -67,13 +70,12 @@ whole logits in the one-device order and samples the same tokens: the
 scheduler runs the same on every rank, and the outputs are bit-equal to
 the mesh-less engine's where the column-shard products are bit-equal to
 the whole product's columns (tests/test_torch_serve_tp.py on the CPU).
-A dense or moe engine without a mesh runs its rounds in the same scope
-with no mesh, in the sharded engine's contraction order (layers.py), so
-it is the reference a sharded engine is held to.
+An engine without a mesh runs its rounds in the same scope with no
+mesh, in the sharded engine's contraction order (layers.py), so it is
+the reference a sharded engine is held to.
 `device_stats()` gathers each rank's shard bytes; `last_stats` gains
 "devices" and "per_device". Paged and spec engines refuse a mesh, as in
-the JAX engine; the hybrid, ssm, encdec and vlm families wait for
-ROADMAP queue 1, item 9.3.
+the JAX engine.
 """
 
 from __future__ import annotations
@@ -96,10 +98,6 @@ from repro_torch.models.registry import Model, build_model
 from repro_torch.serve import rng
 from repro_torch.serve import spec as spec_lib
 from repro_torch.serve.kvcache import PagedKVCache
-
-# the families that serve under a mesh (exact-TP); their engines run every
-# round in layers.exact_tp_scope, with or without one
-MESH_FAMILIES = ("dense", "moe")
 
 # right-padding shape buckets for slot prefill (the JAX engine compiles one
 # prefill per bucket; here they keep the flash kernel's S % 256 == 0 rule
@@ -252,11 +250,6 @@ class ServeEngine:
             if spec_k:
                 raise ValueError("speculative decoding (spec_k>0) does not "
                                  "compose with mesh= tensor parallelism")
-            if cfg.family not in MESH_FAMILIES:
-                raise ValueError(
-                    f"mesh= (tensor-parallel serving) of the {cfg.family!r} "
-                    "family is not ported yet: ROADMAP queue 1, item 9.3 "
-                    "(the dense and moe families serve under a mesh)")
             if "model" not in getattr(mesh, "shape", {}):
                 raise ValueError("mesh= takes a launch.mesh.Mesh with a "
                                  f"'model' axis, not {mesh!r}")
@@ -270,6 +263,8 @@ class ServeEngine:
         self._ctx = None
         # the model calls' ctx= (only a sharded engine passes one)
         self._ctx_kw: Dict[str, Any] = {}
+        # this rank's column-split weights, for exact_tp_scope
+        self._columns: Dict[int, Any] = {}
         self._cache_bytes_local = 0
         if mesh is None:
             self.params = _to_device(params, self.device)
@@ -281,7 +276,10 @@ class ServeEngine:
             # leaves are the caller's tensors
             self.params = _local_params(params, self._specs.params,
                                         self.model.abstract_params(), mesh,
-                                        self.device)
+                                        self.device, self.model.param_parts)
+            self._columns = sharding.column_blocks(
+                self.params, self._specs.params, mesh,
+                self.model.param_parts)
             # the ctx rides along every model call (decode cache layout,
             # the flash kernel's local problem)
             self._ctx = layers.DistCtx(mesh=mesh, model_axis="model")
@@ -579,12 +577,10 @@ class ServeEngine:
         (each free slot index gets at most one admission attempt per
         round), then run one batched decode step over the occupied slots.
         With nothing occupied after admission the decode is skipped
-        (decoded=0). A dense or moe engine runs the round under
-        layers.exact_tp_scope (every rank of a sharded one must step
-        alike, and one without a mesh keeps the sharded order)."""
-        if self.cfg.family not in MESH_FAMILIES:
-            return self._step()
-        with layers.exact_tp_scope(self.mesh):
+        (decoded=0). The round runs under layers.exact_tp_scope (every
+        rank of a sharded engine must step alike, and one without a mesh
+        keeps the sharded order)."""
+        with layers.exact_tp_scope(self.mesh, self._columns):
             return self._step()
 
     def _step(self) -> StepReport:
@@ -916,20 +912,23 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _local_params(tree, specs, abstract, mesh, device):
+def _local_params(tree, specs, abstract, mesh, device, parts, path=""):
     """This rank's shards of the whole params `tree` on `device`: a split
     leaf's block copied into a tensor of its own (the whole leaf can then
-    be freed), a replicated leaf moved as it is. Raises ValueError on a
-    leaf whose shape is not the whole tree's."""
+    be freed), a replicated leaf moved as it is; a leaf whose path is in
+    `parts` (Model.param_parts) keeps its block of each packed tensor.
+    Raises ValueError on a leaf whose shape is not the whole tree's."""
     if isinstance(tree, dict):
         return {k: _local_params(tree[k], specs[k], abstract[k], mesh,
-                                 device) for k in abstract}
+                                 device, parts, f"{path}/{k}" if path else k)
+                for k in abstract}
     if tuple(tree.shape) != tuple(abstract.shape):
         raise ValueError(f"mesh=: a leaf of shape {tuple(tree.shape)} where "
                          f"the model has {tuple(abstract.shape)}: pass the "
                          f"whole params (the engine cuts each rank's shards)")
     if all(e is None for e in specs):
         return tree.to(device)
-    block = sharding.local_shard(tree, specs, mesh)
+    block = sharding.local_shard(tree, specs, mesh,
+                                 parts=parts.get(path, 1))
     return torch.empty(block.shape, dtype=block.dtype,
                        device=device).copy_(block)

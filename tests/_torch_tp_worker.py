@@ -14,6 +14,7 @@ hanging it, and a rank that raises fails it with the rank's traceback.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -83,12 +84,28 @@ def build(arch: str, reduce: Dict, replace: Dict, seed: int):
     return cfg, build_model(cfg).init_params(seed, device="cpu")
 
 
-def requests(vocab: int, lens, seed: int, temps, max_new):
+def requests(cfg, lens, seed: int, temps, max_new):
+    """One request a prompt length, greedy and sampled in turn; an encdec
+    request carries its own frames (bf16 and f32 in turn: f32 frames keep
+    whisper's encoder stream in f32), a vlm request its own patch
+    embeddings, drawn from `seed`."""
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, vocab, n) for n in lens]
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    gen = torch.Generator().manual_seed(seed)
+
+    def extra(i):
+        if cfg.family == "encdec":
+            f = torch.randn(1, cfg.enc_seq, cfg.d_model, generator=gen)
+            return {"frames": (f * 0.5).to(torch.bfloat16 if i % 2 == 0
+                                            else torch.float32)}
+        if cfg.family == "vlm":
+            return {"vis": torch.randn(1, cfg.n_vis_tokens, cfg.d_model,
+                                       generator=gen).to(torch.bfloat16)}
+        return None
+
     return [Request(rid=i, prompt=p, max_new_tokens=max_new[i % len(max_new)],
-                    temperature=temps[i % len(temps)])
+                    temperature=temps[i % len(temps)], extra=extra(i))
             for i, p in enumerate(prompts)]
 
 
@@ -116,15 +133,47 @@ def serve(mesh, payload):
     eng.model = dataclasses.replace(
         eng.model, decode_step=record(eng.model.decode_step),
         prefill_into_slot=record(eng.model.prefill_into_slot))
-    out, stats = eng.run(requests(cfg.vocab_size, **payload["requests"]),
-                         collect_stats=True)
+    with _scan_calls() as scans:
+        out, stats = eng.run(requests(cfg, **payload["requests"]),
+                             collect_stats=True)
     whole = _shapes(params)
     local = _shapes(eng.params)
-    return {"tokens": out, "logits": logits,
+    return {"tokens": out, "logits": logits, "scans": scans,
             "shapes": {k: (local[k], whole[k]) for k in whole},
             "device_stats": eng.device_stats(),
             "engine": {k: stats["engine"].get(k) for k in
                        ("devices", "per_device", "occupancy")}}
+
+
+@contextlib.contextmanager
+def _scan_calls():
+    """While open, every call of the selective-scan wrapper
+    (kernels/ssm/ssm_cuda.ssm_scan: the kernel on the card, its plain
+    version here) records (C, blk_c, states, device type)."""
+    from repro_torch.kernels.ssm import ssm_cuda
+    real = ssm_cuda.ssm_scan
+    calls = []
+
+    class Note:
+        # the wrapper counts through its module-level name: forward it
+        @property
+        def launches(self):
+            return real.launches
+
+        @launches.setter
+        def launches(self, n):
+            real.launches = n
+
+        def __call__(self, *args):
+            calls.append((args[0].shape[2], args[7].blk_c, args[7].states,
+                          args[0].device.type))
+            return real(*args)
+
+    ssm_cuda.ssm_scan = Note()
+    try:
+        yield calls
+    finally:
+        ssm_cuda.ssm_scan = real
 
 
 def router(mesh, payload):
@@ -206,6 +255,53 @@ def mesh2d(mesh, payload):
             "ranks": dist.get_process_group_ranks(group), "sum": float(t)}
 
 
+def mamba_op(mesh, payload):
+    """mamba_path on this rank's channels (hymba's layer 0, whole params
+    from payload's seed): a prefill of payload["t"] tokens and one decode
+    step from its states, under exact_tp_scope over `mesh` (None: one
+    device). in_proj is cut as the engine cuts it (its block of xs beside
+    its block of z) and, as the naive rank-major block (rank 0 all of xs,
+    rank 1 all of z), for the prefill only. Returns the outputs and the
+    conv and h states."""
+    from repro_torch.dist import sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import DistCtx, exact_tp_scope
+    from repro_torch.models.registry import build_model
+    cfg, params = build(payload["arch"], payload["reduce"],
+                        payload["replace"], payload["seed"])
+    whole = {k: v[0] for k, v in params["layers"]["mamba"].items()}
+    gen = torch.Generator().manual_seed(payload["seed"])
+    x = torch.randn(1, payload["t"], cfg.d_model, generator=gen).to(
+        torch.bfloat16)
+    xd = torch.randn(1, 1, cfg.d_model, generator=gen).to(torch.bfloat16)
+    ctx, lp, naive, columns = None, whole, None, {}
+    if mesh is not None:
+        model = build_model(cfg)
+        specs = sharding.serve_specs(cfg, mesh, max_batch=1, cache_len=64,
+                                     model=model).params["layers"]["mamba"]
+
+        def cut(parts):
+            return {k: sharding.local_shard(
+                v, specs[k][1:], mesh,
+                parts=parts.get(f"layers/mamba/{k}", 1)).contiguous()
+                for k, v in whole.items()}
+
+        ctx = DistCtx(mesh=mesh, model_axis="model")
+        lp, naive = cut(model.param_parts), cut({})
+        columns = sharding.column_blocks(
+            lp, {k: specs[k][1:] for k in lp}, mesh,
+            {k: model.param_parts.get(f"layers/mamba/{k}", 1) for k in lp})
+    with torch.no_grad(), exact_tp_scope(mesh, columns):
+        out, conv, h = T.mamba_path(lp, x, cfg, ctx=ctx)
+        res = {"out": out, "conv": conv, "h": h}
+        out, conv, h = T.mamba_path(lp, xd, cfg, conv_state=conv.clone(),
+                                    h_state=h.clone(), decode=True, ctx=ctx)
+        res.update(out_decode=out, conv_decode=conv, h_decode=h)
+        if naive is not None:
+            res["naive"] = T.mamba_path(naive, x, cfg, ctx=ctx)[0]
+    return res
+
+
 def _shapes(tree, pre=""):
     out = {}
     for k, v in tree.items():
@@ -218,4 +314,5 @@ def _shapes(tree, pre=""):
 
 
 CASES = {"serve": serve, "router": router, "flash_decode": flash_decode,
-         "seq_shard_decode": seq_shard_decode, "mesh2d": mesh2d}
+         "seq_shard_decode": seq_shard_decode, "mesh2d": mesh2d,
+         "mamba_op": mamba_op}

@@ -181,8 +181,7 @@ def test_engine_defaults_to_the_card(port_small, monkeypatch):
 def test_other_families_raise():
     """Every family of FAMILIES builds (at reduce_config, one config each:
     params, a prefill of 8 tokens with its frames or vis, finite logits),
-    and mesh= on a family that waits for it names its ROADMAP item
-    (9.3)."""
+    and mesh= takes only a mesh with a "model" axis."""
     from repro_torch.configs.base import ARCH_IDS, FAMILIES
     built = set()
     for arch in ARCH_IDS:
@@ -201,7 +200,7 @@ def test_other_families_raise():
         assert logits.shape == (1, 1, 128), arch
         assert torch.isfinite(logits).all(), arch
     assert built == set(FAMILIES)
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 9"):
+    with pytest.raises(ValueError, match="'model' axis"):
         ServeEngine(cfg, params, device="cpu", mesh=object())
 
 

@@ -8,7 +8,10 @@ every cross-rank combine a concatenation, so tokens and every model
 call's logits are equal, greedy and sampled, on the local-heads route
 (qwen2's 12 q / 2 kv heads, deepseek's 8 / 8 at this size) and on the
 whole-heads gather route (1 kv head over 2 ranks: a wk shard holds half
-a head). Also: the 1-rank mesh, the Router at TP 2, flash_decode_sharded
+a head). The hybrid, ssm, encdec and vlm families likewise (hymba's
+mamba channels, rwkv6's heads, whisper's encoder and cross-attention
+heads, internvl2's vis prefix), and mamba_path's packed in_proj at op
+level. Also: the 1-rank mesh, the Router at TP 2, flash_decode_sharded
 against JAX's decode_attention, the seq-sharded decode cache, the
 refusals, and the CPU's column-block products."""
 
@@ -34,8 +37,38 @@ REQS = dict(lens=(5, 9, 256, 12, 7), seed=3, temps=(0.0, 0.7),
             max_new=(9, 3))
 
 
-def _serve(cfg):
-    return dict(cfg, max_batch=2, cache_len=288, requests=REQS)
+def _serve(cfg, requests=REQS, cache_len=288):
+    return dict(cfg, max_batch=2, cache_len=cache_len, requests=requests)
+
+
+# the other four families at reduce_config's 2 layers, d_model 128, vocab
+# 128: hymba (4 q / 1 kv heads: attention gathered whole, its ring cache
+# whole; the mamba channels and the FFN split) with the "pallas" scan, whose
+# plain version runs here, on a prompt of 64 (a whole number of scan
+# chunks) and one of 70 (past its 64-line window); rwkv6 (4 heads, 2 a
+# rank) on each WKV form: one chunk (5, 12, 7), chunks of 64 (64) and the
+# sequential scan (70); whisper (4 / 4 heads) on bf16 and f32 frames;
+# internvl2 at d_model 384 (12 q / 2 kv heads, 6 / 1 a rank, the route it
+# takes at full width) with 248 patch lines, so a prompt bucketed to 8
+# tokens prefills 256 rows on the flash route (its plain version here) on
+# a rank's heads, and one bucketed to 16 takes the chunked one
+HYBRID = dict(arch="hymba-1.5b", reduce=dict(layers=2, d_model=128,
+                                              vocab=128),
+              replace=dict(ssm_impl="pallas"), seed=5)
+SSM = dict(arch="rwkv6-7b", reduce=dict(layers=2, d_model=128, vocab=128),
+           replace={}, seed=6)
+ENCDEC = dict(arch="whisper-small", reduce=dict(layers=2, d_model=128,
+                                                 vocab=128),
+              replace={}, seed=7)
+VLM = dict(arch="internvl2-26b", reduce=dict(layers=2, d_model=384,
+                                              vocab=128),
+           replace=dict(use_flash_attention=True, n_vis_tokens=248), seed=8)
+FAMILY_SERVE = {
+    "serve:hybrid": _serve(HYBRID, dict(REQS, lens=(5, 70, 64, 12, 7))),
+    "serve:ssm": _serve(SSM, dict(REQS, lens=(5, 70, 64, 12, 7))),
+    "serve:encdec": _serve(ENCDEC, dict(REQS, lens=(5, 9, 30, 12, 7))),
+    "serve:vlm": _serve(VLM, dict(REQS, lens=(5, 9, 7, 12, 6)))}
+MAMBA_OP = dict(HYBRID, t=64)
 
 
 def _flash_inputs(seed, clen):
@@ -66,8 +99,9 @@ WORLD_CASES = ([("serve:dense", _serve(DENSE)),
                 ("serve:moe", _serve(MOE)),
                 ("router", ROUTER),
                 ("seq_shard_decode", SEQ_DECODE),
-                ("mesh2d", None)]
-               + list(FLASH_CASES.items()))
+                ("mesh2d", None),
+                ("mamba_op", MAMBA_OP)]
+               + list(FLASH_CASES.items()) + list(FAMILY_SERVE.items()))
 
 
 @pytest.fixture(scope="module")
@@ -234,16 +268,85 @@ def test_paged_and_spec_refuse_mesh():
                     draft_cfg=cfg, draft_params=params)
 
 
-@pytest.mark.parametrize("arch", ("hymba-1.5b", "rwkv6-7b", "whisper-small",
-                                  "internvl2-26b"))
-def test_other_families_refuse_mesh(arch):
-    from repro_torch.configs.base import get_config, reduce_config
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.serve.engine import ServeEngine
-    cfg = reduce_config(get_config(arch), layers=1, d_model=64, vocab=128)
-    mesh = make_mesh({"model": 1}, device="cpu", backend="gloo")
-    with pytest.raises(ValueError, match="item 9.3"):
-        ServeEngine(cfg, {}, device="cpu", mesh=mesh)
+@pytest.mark.parametrize("name", sorted(FAMILY_SERVE))
+def test_tp2_family_bitexact(world, name):
+    """hymba (the "pallas" scan), rwkv6, whisper and internvl2 at TP 2:
+    tokens and every model call's logits bit-equal to the unsharded
+    engine on both ranks, greedy and at T=0.7; the family's column-
+    parallel leaves really split, its contraction leaves stay whole."""
+    ref = _assert_served_like_one_device(world, name, FAMILY_SERVE[name])
+    shapes = world[0][name]["shapes"]
+    split, whole = {
+        "serve:hybrid": (("layers/mamba/in_proj", "layers/mamba/conv_w",
+                          "layers/mamba/dt_proj", "layers/mamba/d",
+                          "layers/ffn/wi", "layers/attn/wq"),
+                         ("layers/mamba/a_log", "layers/mamba/x_proj",
+                          "layers/mamba/out_proj", "layers/ffn/wo")),
+        "serve:ssm": (("layers/tm/wr", "layers/tm/wg", "layers/cm/wk",
+                       "head"),
+                      ("layers/tm/u", "layers/tm/td_a", "layers/tm/wo",
+                       "layers/cm/wr", "layers/cm/wv")),
+        "serve:encdec": (("enc_layers/attn/wq", "dec_layers/xattn/wk",
+                          "dec_layers/ffn/wi", "dec_layers/ffn/bi"),
+                         ("embed", "dec_pos", "dec_layers/ffn/bo",
+                          "dec_layers/xattn/wo")),
+        "serve:vlm": (("layers/attn/wq", "layers/ffn/wg"),
+                      ("layers/attn/wo", "embed"))}[name]
+    for leaf in split:
+        loc, full = shapes[leaf]
+        assert loc[-1] * 2 == full[-1], leaf
+    for leaf in whole:
+        assert shapes[leaf][0] == shapes[leaf][1], leaf
+    if name == "serve:hybrid":
+        # a scan a layer a prefill (5 admissions, 2 layers) on the rank's
+        # half of the channels, with the unsharded scans' states a thread
+        for rank in (0, 1):
+            got = world[rank][name]["scans"]
+            assert len(got) == len(ref["scans"]) == 10
+            assert {c for c, *_ in got} == {c // 2 for c, *_ in ref["scans"]}
+            assert ({st for _, _, st, _ in got}
+                    == {st for _, _, st, _ in ref["scans"]})
+
+
+def test_mamba_path_packed_in_proj(world):
+    """mamba_path on a rank's channels: with in_proj cut as the engine
+    cuts it (each rank its block of xs beside its block of z), the output
+    is bit-equal to one device's and the conv and h states are the rank's
+    blocks of its states, after a prefill and after a decode step; with
+    the naive rank-major block (rank 0 all of xs, rank 1 all of z) the
+    local chunk computes another function."""
+    ref = W.mamba_op(None, MAMBA_OP)
+    cl = ref["h"].shape[1] // 2
+    for rank in (0, 1):
+        got = world[rank]["mamba_op"]
+        for key in ("out", "out_decode"):
+            assert torch.equal(got[key], ref[key]), (rank, key)
+        for key in ("h", "h_decode"):
+            assert torch.equal(got[key], ref[key][:, rank * cl:(rank + 1)
+                                                  * cl]), (rank, key)
+        for key in ("conv", "conv_decode"):
+            assert torch.equal(got[key], ref[key][..., rank * cl:(rank + 1)
+                                                  * cl]), (rank, key)
+        assert float((got["naive"].float() - ref["out"].float()).abs()
+                     .max()) > 0, rank
+
+
+def test_packed_local_shard():
+    """local_shard(parts=2) gives each rank its block of each packed half,
+    side by side: the same bytes as the rank-major block, another order."""
+    from repro_torch.dist.sharding import local_shard
+    from repro_torch.launch.mesh import Mesh
+    t = torch.arange(2 * 16).reshape(2, 16)
+    for rank in (0, 1):
+        mesh = Mesh({"model": 2}, rank=rank, device="cpu", backend="gloo")
+        got = local_shard(t, (None, "model"), mesh, parts=2)
+        want = torch.cat([t[:, rank * 4:(rank + 1) * 4],
+                          t[:, 8 + rank * 4:8 + (rank + 1) * 4]], -1)
+        assert torch.equal(got, want)
+        naive = local_shard(t, (None, "model"), mesh)
+        assert sorted(naive.flatten().tolist()) != sorted(
+            got.flatten().tolist())
+        assert got.numel() == naive.numel()
 
 
 @pytest.mark.parametrize("m", (1, 2, 4, 64))
@@ -301,13 +404,90 @@ def test_products_outside_the_scope_are_one_product():
     assert not layers.in_exact_tp()
 
 
+@pytest.mark.parametrize("parts", (1, 2))
+@pytest.mark.parametrize("kind", ("same", "differs"))
+def test_column_product_whole_width_only_where_block_differs(kind, parts):
+    """layers._column_product on rank r's column block (of each of `parts`
+    packed tensors): a product whose bits a block keeps runs on the block
+    alone; one whose result depends on the width (as a library's kernel
+    pick may) is observed to differ once and then runs inside the whole
+    width's product, so both give the whole product's columns."""
+    from repro_torch.models import layers
+
+    def product(x, w):
+        out = torch.matmul(x, w)
+        return out + w.shape[-1] if kind == "differs" else out
+
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(3, 4, 8, generator=gen)
+    w = torch.randn(8, 12 * parts, generator=gen)
+    whole = product(x, w).unflatten(-1, (parts, 12))
+    for r in (0, 1):
+        block = w.unflatten(-1, (parts, 12))[..., r * 6:(r + 1) * 6]
+        layers._WHOLE_WIDTH.clear()
+        got = layers._column_product(product, x, block.flatten(-2),
+                                     12 * parts, parts, r)
+        assert torch.equal(got, whole[..., r * 6:(r + 1) * 6].flatten(-2))
+        assert list(layers.whole_width_picks().values()) == [
+            kind == "differs"]
+    layers._WHOLE_WIDTH.clear()
+
+
+@pytest.mark.parametrize("rank", (0, 1))
+def test_column_blocks_record_the_split_leaves(rank):
+    """A sharded engine records each of its column-split weights once
+    (sharding.column_blocks: the whole width, the packed parts, the
+    rank's block), keyed so a layer's slice finds its stacked leaf; the
+    contraction leaves and the replicated ones are not recorded."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import layers
+    from repro_torch.serve.engine import ServeEngine
+    cfg, params = W.build("hymba-1.5b", dict(layers=2, d_model=128,
+                                             vocab=128), {}, 0)
+    mesh = Mesh({"model": 2}, rank=rank, device="cpu", backend="gloo")
+    eng = ServeEngine(cfg, params, max_batch=1, cache_len=32, device="cpu",
+                      mesh=mesh)
+    mp, ffn = eng.params["layers"]["mamba"], eng.params["layers"]["ffn"]
+    with layers.exact_tp_scope(mesh, eng._columns):
+        assert layers._column_of(mp["in_proj"][1]) == (4 * 128, 2, rank)
+        assert layers._column_of(mp["dt_proj"][0]) == (2 * 128, 1, rank)
+        assert layers._column_of(ffn["wi"][1]) == (
+            params["layers"]["ffn"]["wi"].shape[-1], 1, rank)
+        for leaf in (mp["x_proj"][0], mp["out_proj"][0], ffn["wo"][0],
+                     eng.params["embed"]):
+            assert layers._column_of(leaf) is None
+    assert layers._column_of(mp["in_proj"][1]) is None
+
+
+@pytest.mark.parametrize("vocab", (127, 128))
+def test_untied_head_blocked_only_where_vocab_splits(monkeypatch, vocab):
+    """An engine's untied head is K-blocked only where a model axis of 2
+    splits its vocab: an odd vocab's head is replicated under a mesh, and
+    one product keeps the unsharded engine's bits and launches."""
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg, params = W.build("hymba-1.5b", dict(layers=1, d_model=64,
+                                             vocab=vocab), {}, 0)
+    assert not cfg.tie_embeddings
+    seen = []
+    real = registry.lm_logits
+
+    def spy(x, w, *, blocked=False):
+        seen.append(blocked)
+        return real(x, w, blocked=blocked)
+
+    monkeypatch.setattr(registry, "lm_logits", spy)
+    eng = ServeEngine(cfg, params, max_batch=1, cache_len=32, device="cpu")
+    eng.run([Request(rid=0, prompt=np.arange(5), max_new_tokens=3)])
+    assert seen and set(seen) == {vocab % 2 == 0}, seen
+
+
 @pytest.mark.parametrize("arch, scoped", [("qwen2-1.5b", True),
                                           ("deepseek-moe-16b", True),
-                                          ("rwkv6-7b", False)])
+                                          ("rwkv6-7b", True)])
 def test_engine_scope_by_family(arch, scoped):
-    """A dense or moe engine runs its model calls in exact_tp_scope even
-    without a mesh (the order a sharded engine is held to); the families
-    that serve under no mesh do not."""
+    """An engine of any family runs its model calls in exact_tp_scope
+    even without a mesh (the order a sharded engine is held to)."""
     import dataclasses
     from repro_torch.models import layers
     from repro_torch.serve.engine import Request, ServeEngine

@@ -87,3 +87,70 @@ def test_shard_products_keep_their_bits_on_the_card(cuda):
                 assert torch.equal(layers.lm_logits(
                     x, w[:, r * 51200:(r + 1) * 51200].contiguous(),
                     blocked=True), full[..., r * 51200:(r + 1) * 51200])
+
+
+# the hybrid, ssm, encdec and vlm families at the CPU tests' sizes
+# (tests/test_torch_serve_tp.py), on the card: hymba with the "pallas"
+# scan (the kernel on each rank's half of the channels), internvl2 with
+# flash on (the kernel on a rank's 6 / 1 heads at 256 rows)
+FAMILIES = {
+    "hybrid": dict(arch="hymba-1.5b", reduce=dict(layers=2, d_model=128,
+                                                   vocab=128),
+                   replace=dict(ssm_impl="pallas"), seed=5,
+                   requests=dict(lens=(5, 70, 64, 12, 7), seed=3,
+                                 temps=(0.0, 0.7), max_new=(9, 3))),
+    "ssm": dict(arch="rwkv6-7b", reduce=dict(layers=2, d_model=128,
+                                              vocab=128),
+                replace={}, seed=6,
+                requests=dict(lens=(5, 70, 64, 12, 7), seed=3,
+                              temps=(0.0, 0.7), max_new=(9, 3))),
+    "encdec": dict(arch="whisper-small", reduce=dict(layers=2, d_model=128,
+                                                      vocab=128),
+                   replace={}, seed=7,
+                   requests=dict(lens=(5, 9, 30, 12, 7), seed=3,
+                                 temps=(0.0, 0.7), max_new=(9, 3))),
+    "vlm": dict(arch="internvl2-26b", reduce=dict(layers=2, d_model=384,
+                                                   vocab=128),
+                replace=dict(use_flash_attention=True, n_vis_tokens=248),
+                seed=8,
+                requests=dict(lens=(5, 9, 7, 12, 6), seed=3,
+                              temps=(0.0, 0.7), max_new=(9, 3)))}
+
+
+@pytest.fixture(scope="module")
+def family_world(tmp_path_factory):
+    """Every family on both ranks of one 2-rank world on the card, and
+    each unsharded engine's run in this process (first: it builds the
+    kernels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    payloads = {k: dict(p, max_batch=2, cache_len=288, device="cuda")
+                for k, p in FAMILIES.items()}
+    refs = {k: W.serve(None, p) for k, p in payloads.items()}
+    world = W.run_world(tmp_path_factory.mktemp("tp2_cuda"), 2,
+                        [(f"serve:{k}", p) for k, p in payloads.items()],
+                        device="cuda")
+    return refs, world
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_tp2_family_on_the_card_matches_unsharded(family_world, family):
+    """Tokens and every model call's logits bit-equal to the unsharded
+    engine on the card; hymba's scans are kernel launches on a rank's
+    half of the channels with the unsharded scans' states a thread."""
+    refs, world = family_world
+    ref = refs[family]
+    for rank in (0, 1):
+        got = world[rank][f"serve:{family}"]
+        dist = [float((a - b).abs().max()) for a, b in
+                zip(got["logits"], ref["logits"])]
+        print(f"{family} rank {rank}: {len(dist)} model calls, logits max "
+              f"|diff| {max(dist)}, calls that differ "
+              f"{sum(d > 0 for d in dist)}")
+        assert got["tokens"] == ref["tokens"]
+        assert len(dist) == len(ref["logits"]) and max(dist) == 0.0
+        if family == "hybrid":
+            assert len(got["scans"]) == len(ref["scans"]) == 10
+            assert {(c * 2, s, d) for c, _, s, d in got["scans"]} == \
+                {(c, s, d) for c, _, s, d in ref["scans"]} == \
+                {(c, s, "cuda") for c, _, s, _ in ref["scans"]}
