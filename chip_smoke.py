@@ -229,8 +229,8 @@ build's and every phase's seconds):
      4096, 64 heads of 64, ~7.58e9 parameters), seed 0, max_batch 4,
      cache_len 1024: greedy prompts on every WKV form (RWKV_PROMPTS: one
      chunk, the sequential scan, 64-step chunks) and one of
-     RWKV_HOT_PROMPT tokens at SPEC_HOT_T, 32 new tokens each, all at
-     once; no kernel launches (WKV is plain torch); TTFT by the WKV form
+     RWKV_HOT_PROMPT tokens at SPEC_HOT_T, RWKV_NEW new tokens each, all
+     at once; no kernel launches (WKV is plain torch); TTFT by the WKV form
      each admission ran (recorded at the call), decode round ms,
      tokens/s, peak memory; the same requests again, every output
      bit-equal; one admission round and three decode rounds under
@@ -253,8 +253,9 @@ build's and every phase's seconds):
      15c. Trainer(...).run() on hymba-1.5b at full width and depth
      (ssm_impl "chunked", HYBRID_TRAIN_SEQ x HYBRID_TRAIN_BATCH) and on
      rwkv6-7b at full width cut to RWKV_TRAIN_LAYERS layers
-     (RWKV_TRAIN_SEQ x RWKV_TRAIN_BATCH), remat "full", AdamW, TRAIN_STEPS
-     steps, no checkpoint: losses finite, step 0 within LOSS0_ATOL of
+     (RWKV_TRAIN_SEQ x RWKV_TRAIN_BATCH), remat "full", AdamW,
+     SSM_TRAIN_STEPS steps, no checkpoint: losses finite, step 0 within
+     LOSS0_ATOL of
      lse0 + 1e-4 lse0^2 and taken apart on its own params and batch
      (mean lse within LOSS0_ATOL of ln V + s2 / 2, mean target logit
      within LOSS0_SE standard errors of 0, the terms' sum within
@@ -331,9 +332,9 @@ build's and every phase's seconds):
      device_stats of length 1. Each rank then builds the whole params
      from seed 0 and its sharded engine: 17a qwen2-1.5b at full width cut
      to TP_DENSE_LAYERS layers, flash on, max_batch 4, phase 8's nine
-     requests (one at
-     SPEC_HOT_T); 17b deepseek-moe-16b at full width cut to TP_MOE_LAYERS
-     layers, phase 14a's nine requests. Gates: every rank's tokens equal
+     prompts (one at SPEC_HOT_T), TP_SERVE_NEW new tokens each; 17b
+     deepseek-moe-16b at full width cut to TP_MOE_LAYERS layers, phase
+     14a's nine prompts, as many new tokens. Gates: every rank's tokens equal
      the other's and the unsharded engine's, every model call's logits
      bit-equal, every rank-local flash_fwd launch (qwen2: B=1, H=6, KvH=1,
      Hd=128) within FLASH_OUT_ULPS of flash_fwd_plain, and their exact
@@ -383,8 +384,28 @@ build's and every phase's seconds):
      within MOE_OUT_ULPS; 18d allreduce_int8 on one qwen2 leaf's per-rank
      grads, the card's result bit-equal to the same call on host copies,
      and pipelined_apply over the ranks within PIPE_ATOL of the dense
-     scan. Printed: step ms, peak memory and the bytes a step hands gloo a
-     rank (2 ranks sharing one card: not a DP speed).
+     scan, its gradient (a rank's stage, the stream) within PIPE_ATOL of
+     autograd through the dense loop. Printed: step ms, peak memory and
+     the bytes a step hands gloo a rank (2 ranks sharing one card: not a
+     DP speed).
+ 19. tensor-parallel training: phase 18's world's ranks over a second
+     mesh {"model": 2}, Trainer(cfg, loop, mesh).run() under the
+     reference's training plan (row-parallel attention and FFNs, a
+     vocab-parallel embedding and loss) for TP_TRAIN_STEPS steps: 19a
+     qwen2-1.5b cut to TP_DENSE_LAYERS layers on phase 10's loop (18a's
+     model and batches; a rank's attention at H 6, KvH 1), 19b
+     deepseek-moe-16b cut to TP_MOE_LAYERS layers on 14c's loop (every
+     moe layer on moe_ffn_ep's has_tp branch, the routes counted). Before
+     the world starts, params plus optimizer state a rank, flash launches
+     and model-axis collectives (calls and bytes) a step a rank are
+     predicted from the specs and shapes (tp_collectives); each must
+     come true on every rank. Every step's loss within LOSS0_SUM_ATOL of
+     the one-device run of the same model and batches (18a's reference,
+     14c's run), step 0's grad norm within DP_GNORM_RTOL, the replicated
+     leaves' fingerprints equal on the ranks after every step; 19a's one
+     more step holds every flash launch of a rank to its plain version
+     within TP_TRAIN_ULPS. Printed: step ms against one device's, peak
+     memory a rank (2 ranks sharing one card: not a TP speed).
 Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
 phase 7d's Hd 32 model check, phase 8's serving run, phase 10's training
 run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
@@ -398,7 +419,8 @@ and training runs (whisper_train, vlm_train), phase 17's sharded serving
 runs (tp_serve, tp_moe, tp_hybrid, tp_ssm, tp_encdec, tp_vlm: every
 rank's counts, summed), phase 18's
 data-parallel training runs (dp_train, fsdp_train, ep_train: every rank's
-counts, summed)) runs
+counts, summed), phase 19's tensor-parallel training runs
+(tp_dense_train, tp_moe_train: every rank's counts, summed)) runs
 with the launch counters
 zeroed just before it and read just after; the kernels line gives each
 path's counts, and the script fails unless every kernel launched on the
@@ -420,7 +442,9 @@ tp_hybrid and flash_fwd 8 times a flash-sized admission on each rank of
 tp_vlm, and no other kernel there, nor any on tp_ssm and tp_encdec;
 flash_fwd 2 x DP_QWEN_LAYERS and each backward kernel DP_QWEN_LAYERS
 times a step on each rank of dp_train and fsdp_train, 8 and 4 on
-ep_train).
+ep_train, flash_fwd 2 x TP_DENSE_LAYERS and each backward kernel
+TP_DENSE_LAYERS times a step on each rank of tp_dense_train, 8 and 4 on
+tp_moe_train).
 
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero without it. Without a card, or outside the repository, the
@@ -504,6 +528,8 @@ LOSS0_SE = 4.0
 LOSS0_SUM_ATOL = 2e-3
 INIT_SCALE = 0.02
 TRAIN_STEPS = 4
+# phase 15c's hymba and rwkv runs (a hymba step takes ~4.5 s)
+SSM_TRAIN_STEPS = 2
 # ssm_scan against ssm_scan_plain, both f32: max |difference| of y within
 # 1e-5 of the largest |y| (and of hT within 1e-5 of the largest |hT|):
 # both run the recurrence in the same order along T; the kernel's expf,
@@ -563,8 +589,9 @@ MOE_LOSS0_ATOL = 0.3
 # every WKV form: 40 tokens (one chunk), 160 and 200 (64 or more, not a
 # multiple of 64: the sequential scan, T x 32 layer steps, ~4.5 ms a
 # token), 256, 384 and 512 (chunks of 64); RWKV_HOT_PROMPT tokens (the
-# scan) at SPEC_HOT_T
+# scan) at SPEC_HOT_T; RWKV_NEW new tokens each
 RWKV_PROMPTS = (40, 160, 200, 256, 384, 512)
+RWKV_NEW = 16
 RWKV_HOT_PROMPT = 100
 # 15a's decode against prefill (200 -> 201, both the sequential scan),
 # max-norm relative, held to a fixed RWKV_DECODE_RTOL: on an H100 80GB
@@ -685,7 +712,9 @@ TP_COLLECTIVE_TIMEOUT_S = 600
 # beside two ranks' halves would not fit the card uncut), flash on, 256
 # patch lines before text bucketed to 256, 256 and 512 lines (flash) and
 # to 64 and 128 (chunked)
-TP_FAMILY_NEW = 16
+TP_FAMILY_NEW = 8
+# 17a/17b's new tokens a request (phase 8's and 14a's prompts)
+TP_SERVE_NEW = 16
 TP_HYBRID_PROMPTS = (64, 200, 256, 512, 100)
 TP_RWKV_PROMPTS = (40, 64, 256, 512, 100)
 TP_WHISPER_PROMPTS = (8, 13, 20, 27, 32)
@@ -718,6 +747,14 @@ EP_TRAIN_STEPS = 2
 DP_GNORM_RTOL = 1e-2
 PIPE_SHAPE = (8, 8, 16, 1024)
 PIPE_ATOL = 1e-4
+# tensor-parallel training (phase 19): phase 18's world's ranks over a
+# second mesh {"model": DP_RANKS}; 19a qwen2-1.5b cut to TP_DENSE_LAYERS
+# layers on phase 10's loop (18a's model and batches), 19b deepseek-moe-16b
+# cut to TP_MOE_LAYERS layers on 14c's loop (512 x 8 = 4096 tokens: every
+# moe layer on moe_ffn_ep's has_tp branch); TP_TRAIN_STEPS steps each; a
+# rank's flash launches of one checked step within TP_TRAIN_ULPS bf16 ulps
+TP_TRAIN_STEPS = 2
+TP_TRAIN_ULPS = 1.0
 # phase 7c's cases: (tag, B, T, C, N, h0 scale); inputs from seed 10 + index
 SSM_CASES = (("hymba-prefill", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.0),
              ("t4096", 1, 4096, 3200, 16, 0.0),
@@ -1228,9 +1265,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 18. data-parallel training: 2 ranks on the card over gloo -----------
-    dp = dp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
-                  by_path, moe_train)
+    # -- 18. data-parallel training, 19. tensor-parallel training: 2 ranks --
+    # on the card over gloo, one world
+    dp, tp_train = dp_phase(torch, np, dev, card, flash_cuda, zero_counts,
+                            read_counts, by_path, moe_train)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1344,8 +1382,11 @@ def main() -> None:
           flush=True)
     print(f"[18] data-parallel summary: {json.dumps(dp)} [{card}]",
           flush=True)
+    print(f"[19] tensor-parallel training summary: {json.dumps(tp_train)} "
+          f"[{card}]", flush=True)
     for tag, part in (("13", spec_serve), ("14", moe), ("15", recurrent),
-                      ("16", encdec_vlm), ("17", tp), ("18", dp)):
+                      ("16", encdec_vlm), ("17", tp), ("18", dp),
+                      ("19", tp_train)):
         phase_s[tag] = round(part["phase_s"], 1)
     print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"(build {build_s:.1f} s; every phase's seconds "
@@ -4024,11 +4065,11 @@ def rwkv_serve_phase(torch, np, dev, card, zero_counts, read_counts,
     eng = ServeEngine(cfg, params, max_batch=4, cache_len=1024, device=dev)
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, v, n) for n in RWKV_PROMPTS]
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=RWKV_NEW)
             for i, p in enumerate(prompts)]
     reqs.append(Request(rid=len(prompts),
                         prompt=rng.integers(0, v, RWKV_HOT_PROMPT),
-                        max_new_tokens=32, temperature=SPEC_HOT_T))
+                        max_new_tokens=RWKV_NEW, temperature=SPEC_HOT_T))
     # warm-up: one short request on each WKV form, the matmul flags read at
     # every WKV call inside the engine's work
     seen = []
@@ -4354,20 +4395,20 @@ def loss0_check(label, cfg, t, loss0_run, card):
 
 def _train_run(torch, dev, spec, card, zero_counts, read_counts, by_path,
                tag, cfg, seq_len, global_batch, watch, label="15c",
-               per_step=None):
-    """One Trainer(...).run() of TRAIN_STEPS steps (cfg.optimizer,
+               per_step=None, steps=TRAIN_STEPS):
+    """One Trainer(...).run() of `steps` steps (cfg.optimizer,
     cfg.remat, no checkpoint written: the save is counted), every step's
     kernel counts equal to per_step (every kernel 0 when None), the
     step-0 loss within LOSS0_ATOL of lse0 + 1e-4 lse0^2 and taken apart
     (loss0_terms, loss0_check). watch: (module, names) whose calls read
     the matmul flags. Returns (metrics, trainer).
     One more step runs with the device traced, on the batch (stub frames
-    or patches attached) of step TRAIN_STEPS."""
+    or patches attached) of step `steps`."""
     import math
     from repro_torch.train.trainer import TrainLoopConfig, Trainer
     ckpt_dir = os.path.join(ROOT, "build", f"chip_smoke_{tag}_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    loop = TrainLoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+    loop = TrainLoopConfig(total_steps=steps, ckpt_every=steps,
                            log_every=1, ckpt_dir=ckpt_dir, seq_len=seq_len,
                            global_batch=global_batch)
     tr = Trainer(cfg, loop, device=dev)
@@ -4392,7 +4433,7 @@ def _train_run(torch, dev, spec, card, zero_counts, read_counts, by_path,
     print(f"[{label}] train {cfg.name} at full width, {cfg.n_layers} layers, "
           f"{impl}remat {cfg.remat!r}, "
           f"{cfg.optimizer}: seq_len {seq_len}, global_batch "
-          f"{global_batch}, {TRAIN_STEPS} steps", flush=True)
+          f"{global_batch}, {steps} steps", flush=True)
     seen = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4414,10 +4455,10 @@ def _train_run(torch, dev, spec, card, zero_counts, read_counts, by_path,
             f"(step 0 expected {loss0:.4f} +- {LOSS0_ATOL}); launches a step "
             f"{step_counts[0]} (expected {want}); saves {saves} [{card}]")
     print(line, flush=True)
-    if (len(losses) != TRAIN_STEPS
+    if (len(losses) != steps
             or not all(math.isfinite(x) for x in losses)
             or abs(losses[0] - loss0) > LOSS0_ATOL
-            or any(c != want for c in step_counts) or saves != [TRAIN_STEPS]):
+            or any(c != want for c in step_counts) or saves != [steps]):
         fail(line)
     loss0_check(label, cfg, terms, losses[0], card)
     steady = sorted(step_ms[1:])
@@ -4431,7 +4472,7 @@ def _train_run(torch, dev, spec, card, zero_counts, read_counts, by_path,
     shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     # where a step's time goes: one more step with the device traced
-    batch = step_batch(torch, dev, cfg, loop, TRAIN_STEPS)
+    batch = step_batch(torch, dev, cfg, loop, steps)
     wall, busy, kernels, _, _, _, n_kernels = profile_window(
         torch, lambda: real_step(tr.state["params"], tr.state["opt"], batch),
         host=False)
@@ -4463,7 +4504,8 @@ def ssm_train_phase(torch, dev, spec, card, zero_counts, read_counts,
                               remat="full", ssm_impl="chunked")
     hy, tr = _train_run(torch, dev, spec, card, zero_counts, read_counts,
                         by_path, "hybrid", cfg, HYBRID_TRAIN_SEQ,
-                        HYBRID_TRAIN_BATCH, (mamba, ("ssm_chunked",)))
+                        HYBRID_TRAIN_BATCH, (mamba, ("ssm_chunked",)),
+                        steps=SSM_TRAIN_STEPS)
     s, w = HYBRID_TRAIN_SEQ, cfg.attn_window
     # attention FLOPs: key t sees min(t + 1, window) keys; x3 for the backward
     keys = sum(min(t + 1, w) for t in range(s))
@@ -4530,7 +4572,8 @@ def ssm_train_phase(torch, dev, spec, card, zero_counts, read_counts,
                               n_layers=RWKV_TRAIN_LAYERS, remat="full")
     rw, tr = _train_run(torch, dev, spec, card, zero_counts, read_counts,
                         by_path, "rwkv", cfg, RWKV_TRAIN_SEQ,
-                        RWKV_TRAIN_BATCH, (rwkv6, WKV_FORMS))
+                        RWKV_TRAIN_BATCH, (rwkv6, WKV_FORMS),
+                        steps=SSM_TRAIN_STEPS)
     rw["mfu"] = (6 * rw["n_params"] * rw["tokens_per_step"]
                  / (rw["step_ms_p50"] / 1e3) / spec.bf16_tc_flops)
     print(f"[15c] rwkv6-7b ({RWKV_TRAIN_LAYERS} layers): step ms "
@@ -5090,7 +5133,8 @@ def encdec_vlm_train_phase(torch, dev, spec, card, flash_cuda, zero_counts,
 # ---------------------------------------------------------------------------
 
 def tp_requests(torch, np, cfg, which, dev):
-    """Phase 8's nine requests (which="dense"), phase 14a's ("moe"), or
+    """Phase 8's nine prompts (which="dense") or phase 14a's ("moe"), each
+    with TP_SERVE_NEW new tokens, or
     17e-17h's five (TP_*_PROMPTS, TP_FAMILY_NEW new tokens; whisper's with
     their f32 frames, internvl2's with their bf16 patch embeddings, drawn
     on `dev` from seed 27); the last at SPEC_HOT_T. The same on every
@@ -5106,9 +5150,10 @@ def tp_requests(torch, np, cfg, which, dev):
             rng = np.random.default_rng(2)
             prompts = [rng.integers(0, v, n) for n in MOE_PROMPTS]
             hot = rng.integers(0, v, MOE_HOT_PROMPT)
-        reqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=TP_SERVE_NEW)
                 for i, p in enumerate(prompts)]
-        reqs.append(Request(rid=len(prompts), prompt=hot, max_new_tokens=32,
+        reqs.append(Request(rid=len(prompts), prompt=hot,
+                            max_new_tokens=TP_SERVE_NEW,
                             temperature=SPEC_HOT_T))
         return reqs
     lens = {"hybrid": TP_HYBRID_PROMPTS, "ssm": TP_RWKV_PROMPTS,
@@ -5682,11 +5727,14 @@ def dp_reference(torch, dev, card):
                            ckpt_every=DP_TRAIN_STEPS, log_every=1,
                            ckpt_dir=ckpt_dir)
     tr = Trainer(cfg, loop, device=dev)
-    grad_norms, real_step = [], tr.step_fn
+    grad_norms, step_ms, real_step = [], [], tr.step_fn
 
     def step(params, opt_state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         out = real_step(params, opt_state, batch)
         grad_norms.append(float(out[2]["grad_norm"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
     tr.step_fn = step
@@ -5700,19 +5748,20 @@ def dp_reference(torch, dev, card):
           f"{[round(x, 5) for x in losses]}, grad norms "
           f"{[round(x, 5) for x in grad_norms]}; "
           f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
-    return {"losses": losses, "grad_norms": grad_norms}
+    return {"losses": losses, "grad_norms": grad_norms, "step_ms": step_ms}
 
 
-def dp_state_bytes(cfg, fsdp):
+def dp_state_bytes(cfg, fsdp, shape=None):
     """(params plus optimizer state on one rank, the same whole) in bytes
-    under the training plan over {"data": DP_RANKS}: from the spec trees
-    and the abstract (meta) trees, no tensor made."""
+    under the training plan over `shape` ({"data": DP_RANKS} by default):
+    from the spec trees and the abstract (meta) trees, no tensor made."""
     from types import SimpleNamespace
     from repro_torch.dist import sharding
     from repro_torch.models.registry import build_model
     from repro_torch.optim.adafactor import make_optimizer
     from repro_torch.train import step as step_lib
-    mesh = SimpleNamespace(shape={"data": DP_RANKS}, coords={"data": 0})
+    shape = shape or {"data": DP_RANKS}
+    mesh = SimpleNamespace(shape=shape, coords={a: 0 for a in shape})
     model = build_model(cfg)
     plan = step_lib.make_plan(cfg, mesh, kind="train", fsdp=fsdp)
     ab = model.abstract_params()
@@ -5749,14 +5798,20 @@ def fingerprint(torch, tree):
 
 def dp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
              by_path, moe_train):
-    """Phase 18: data-parallel training over DP_RANKS ranks sharing the
-    card (torch.multiprocessing spawn, gloo, a FileStore under build/):
-    18a DP and 18b FSDP on qwen2-1.5b cut to DP_QWEN_LAYERS layers with
-    phase 10's loop, 18c EP on deepseek-moe-16b cut as 14c, 18d
-    allreduce_int8 and pipelined_apply; every rank's results held here,
-    to the same model's one-device run (18a, 18b; run here first) or 14c's
-    (18c) and to each other, and 18b's final checkpoint restored on one
-    device (elastic 2 -> 1)."""
+    """Phases 18 and 19 in one world of DP_RANKS ranks sharing the card
+    (torch.multiprocessing spawn, gloo, a FileStore under build/). 18,
+    data-parallel training over {"data": DP_RANKS}: 18a DP and 18b FSDP
+    on qwen2-1.5b cut to DP_QWEN_LAYERS layers with phase 10's loop, 18c
+    EP on deepseek-moe-16b cut as 14c, 18d allreduce_int8 and
+    pipelined_apply (forward and gradient); every rank's results held
+    here, to the same model's one-device run (18a, 18b; run here first) or
+    14c's (18c) and to each other, and 18b's final checkpoint restored on
+    one device (elastic 2 -> 1). 19, tensor-parallel training over a
+    second mesh {"model": DP_RANKS} of the same ranks: 19a qwen2-1.5b
+    (18a's model and batches, held to 18a's one-device run), 19b
+    deepseek-moe-16b (14c's, held to 14c's run), each rank's state bytes,
+    flash launches and model-axis collectives a step predicted here
+    before the world starts. Returns (phase 18's results, phase 19's)."""
     import math
     import tempfile
     import torch.multiprocessing as mp
@@ -5769,6 +5824,28 @@ def dp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
           f"{pred['dp'][0] / 1e9:.3f} GB, 18b FSDP {pred['fsdp'][0] / 1e9:.3f}"
           f" GB, 18c EP {pred['ep'][0] / 1e9:.3f} GB (whole "
           f"{pred['ep'][1] / 1e9:.3f} GB) [{card}]", flush=True)
+    t19 = time.perf_counter()
+    from repro_torch.train.trainer import TrainLoopConfig
+    loop = TrainLoopConfig()
+    tp_pred = {}
+    for tag, which in (("19a", "tp_dense"), ("19b", "tp_moe")):
+        cfg = tp_train_config(which)
+        tp_pred[which] = {
+            "state": dp_state_bytes(cfg, False, {"model": DP_RANKS})[0],
+            "collectives": tp_collectives(cfg, loop.seq_len,
+                                          loop.global_batch, DP_RANKS),
+            "flash": {"flash_fwd": 2 * cfg.n_layers,
+                      "flash_bwd_dq": cfg.n_layers,
+                      "flash_bwd_dkv": cfg.n_layers}}
+        p = tp_pred[which]
+        print(f"[{tag}] predicted for {cfg.name} ({cfg.n_layers} layers) "
+              f"over {{'model': {DP_RANKS}}}, from the specs and shapes: "
+              f"params plus optimizer state a rank {p['state'] / 1e9:.3f} GB;"
+              f" flash launches a step a rank {p['flash']}; model-axis "
+              f"collectives a step a rank (remat's recompute included) "
+              f"{p['collectives'][0]} calls, {p['collectives'][1]} bytes "
+              f"[{card}]", flush=True)
+    pred19_s = time.perf_counter() - t19
     for which in ("dp", "fsdp", "ep"):
         shutil.rmtree(os.path.join(ROOT, "build", f"chip_smoke_{which}_ckpt"),
                       ignore_errors=True)
@@ -5824,19 +5901,42 @@ def dp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
             f"{DP_RANKS} ranks ({ops[0]['pipe_shape']}) against the dense "
             f"scan: max |diff| {[o['pipe_err'] for o in ops]} (tol "
             f"{PIPE_ATOL}), the ranks' outputs equal "
-            f"{ops[0]['pipe_digest'] == ops[1]['pipe_digest']} [{card}]")
+            f"{ops[0]['pipe_digest'] == ops[1]['pipe_digest']}; its gradient "
+            f"of sum(out * cot) (the rank's stage, the stream) against "
+            f"autograd through the dense loop: max |diff| "
+            f"{[o['pipe_grad_err'] for o in ops]} (tol {PIPE_ATOL}) [{card}]")
     print(line, flush=True)
     if (not all(o["int8_bit_equal"] for o in ops)
             or max(o["pipe_err"] for o in ops) > PIPE_ATOL
+            or max(o["pipe_grad_err"] for o in ops) > PIPE_ATOL
             or any(o["pipe_digest"] != ops[0]["pipe_digest"] for o in ops)):
         fail(line)
     res["ops"] = ops[0]
-    res["phase_s"] = time.perf_counter() - t0
+    # 19
+    t19 = time.perf_counter()
+    tp = {"predicted": tp_pred}
+    for tag, which, path, one in (("19a", "tp_dense", "tp_dense_train", ref),
+                                  ("19b", "tp_moe", "tp_moe_train", {
+                                      "losses": moe_train["losses"],
+                                      "grad_norms": moe_train["grad_norm"],
+                                      "step_ms": moe_train["step_ms"]})):
+        runs = [r[which] for r in ranks]
+        by_path[path] = {k: sum(r["launches"][k] for r in runs)
+                         for k in read_counts()}
+        tp[which] = tp_train_gates(tag, which, runs, tp_pred[which], one,
+                                   card)
+    in_world = ranks[0]["tp_dense"]["sub_s"] + ranks[0]["tp_moe"]["sub_s"]
+    tp["phase_s"] = pred19_s + in_world + time.perf_counter() - t19
+    res["phase_s"] = time.perf_counter() - t0 - tp["phase_s"]
     print(f"[18] phase 18 ran {res['phase_s']:.1f} s (the {DP_RANKS}-rank "
-          f"world {world_s:.1f} s: 18a {ranks[0]['dp']['sub_s']:.1f} s, "
-          f"18b {ranks[0]['fsdp']['sub_s']:.1f} s, 18c "
+          f"world {world_s - in_world:.1f} s of its {world_s:.1f} s: 18a "
+          f"{ranks[0]['dp']['sub_s']:.1f} s, 18b "
+          f"{ranks[0]['fsdp']['sub_s']:.1f} s, 18c "
           f"{ranks[0]['ep']['sub_s']:.1f} s) [{card}]", flush=True)
-    return res
+    print(f"[19] phase 19 ran {tp['phase_s']:.1f} s (in the world: 19a "
+          f"{ranks[0]['tp_dense']['sub_s']:.1f} s, 19b "
+          f"{ranks[0]['tp_moe']['sub_s']:.1f} s) [{card}]", flush=True)
+    return res, tp
 
 
 def dp_gates(tag, which, runs, predicted, train, moe_train, card):
@@ -5985,7 +6085,8 @@ def dp_restore_one(torch, dev, card, want):
 def dp_rank_main(rank, n, store, out_dir):
     """One rank of phase 18's world: its {"data": n} mesh over gloo on the
     one card, 18a, 18b, 18c and 18d in turn (each sub-phase frees its
-    model); results to out_dir/rank<r>.pt."""
+    model), then phase 19's 19a and 19b over a {"model": n} mesh of the
+    same ranks; results to out_dir/rank<r>.pt."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -6000,6 +6101,12 @@ def dp_rank_main(rank, n, store, out_dir):
         gc.collect()
         torch.cuda.empty_cache()
     res["ops"] = dp_ops_rank(torch, mesh, ops)
+    # phase 19: the same ranks over {"model": n}
+    tp_mesh = make_mesh({"model": n}, device="cuda:0", backend="gloo")
+    for which in ("tp_dense", "tp_moe"):
+        res[which] = tp_train_rank(torch, tp_mesh, which)
+        gc.collect()
+        torch.cuda.empty_cache()
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -6128,11 +6235,14 @@ def dp_checked_step(torch, flash_cuda, step_fn, tr, batch):
              "flash_bwd_dq": flash_cuda.flash_bwd_dq_plain,
              "flash_bwd_dkv": flash_cuda.flash_bwd_dkv_plain}
     errs = {name: [] for name in plain}
+    shapes = set()
 
     def against_plain(name):
         def check(args, got):
             want = plain[name](*args)
             if name == "flash_fwd":
+                shapes.add((args[0].shape[2], args[1].shape[2],
+                            args[0].shape[3]))
                 errs[name].append(bf16_ulps(got[0], want))
                 return
             pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
@@ -6150,7 +6260,8 @@ def dp_checked_step(torch, flash_cuda, step_fn, tr, batch):
         torch.cuda.synchronize()
     return {"counts": {k: len(e) for k, e in errs.items()},
             "worst": {k: max(e) if e else float("inf")
-                      for k, e in errs.items()}}
+                      for k, e in errs.items()},
+            "shapes": sorted(shapes)}
 
 
 def dp_ep_check(torch, moe, cfg, mesh, group, params, loop):
@@ -6186,7 +6297,8 @@ def dp_ep_check(torch, moe, cfg, mesh, group, params, loop):
 def dp_ops_rank(torch, mesh, ops):
     """18d on one rank: allreduce_int8 of the per-rank leaf grads 18a left
     (on the card and on the host copy, over the same ranks), and
-    pipelined_apply over the data axis against the dense scan."""
+    pipelined_apply over the data axis against the dense scan, its output
+    and its gradient."""
     import hashlib
     from repro_torch.dist.collectives import AxesGroup
     from repro_torch.dist.pipeline import pipelined_apply
@@ -6205,19 +6317,310 @@ def dp_ops_rank(torch, mesh, ops):
     gen = torch.Generator(device=mesh.device).manual_seed(18)
     w = torch.randn(L, D, D, generator=gen, device=mesh.device) * D ** -0.5
     x = torch.randn(M, B, D, generator=gen, device=mesh.device)
-    got = pipelined_apply(lambda p, t: torch.tanh(t @ p),
-                          local_shard(w, ("data",), mesh).contiguous(), x,
+    cot = torch.randn(M, B, D, generator=gen, device=mesh.device)
+    stage = local_shard(w, ("data",), mesh).contiguous().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    got = pipelined_apply(lambda p, t: torch.tanh(t @ p), stage, xg,
                           mesh=mesh, pp_axis="data")
-    dense = x
+    g_stage, g_x = torch.autograd.grad((got * cot).sum(), [stage, xg])
+    # the gradient of the same loss through the dense layer loop
+    wd, xd = w.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    dense = xd
     for i in range(L):
-        dense = torch.tanh(dense @ w[i])
+        dense = torch.tanh(dense @ wd[i])
+    gw, gx = torch.autograd.grad((dense * cot).sum(), [wd, xd])
+    mine = local_shard(gw, ("data",), mesh)
+    got = got.detach()
     return {"int8_leaf": ops["int8_leaf"], "int8_numel": g["w"].numel(),
             "int8_bit_equal": same, "int8_scale": scale,
             "int8_err": float((o_dev["w"] - exact).abs().max()),
             "pipe_shape": f"L={L}, M={M}, B={B}, D={D}, f32",
-            "pipe_err": float((got - dense).abs().max()),
+            "pipe_err": float((got - dense.detach()).abs().max()),
+            "pipe_grad_err": max(float((g_stage - mine).abs().max()),
+                                 float((g_x - gx).abs().max())),
             "pipe_digest": hashlib.sha1(got.cpu().numpy().tobytes()
                                         ).hexdigest()}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: tensor-parallel training, phase 18's 2 ranks over {"model": 2}
+# ---------------------------------------------------------------------------
+
+def tp_train_config(which):
+    """19a: qwen2-1.5b at full width cut to TP_DENSE_LAYERS layers, flash
+    on (18a's model); 19b: deepseek-moe-16b at full width cut to
+    TP_MOE_LAYERS layers, remat "full", flash on (14c's)."""
+    import dataclasses
+    if which == "tp_moe":
+        return dataclasses.replace(dp_config("ep"), n_layers=TP_MOE_LAYERS)
+    return dataclasses.replace(dp_config("dp"), n_layers=TP_DENSE_LAYERS)
+
+
+def tp_collectives(cfg, seq, batch, ranks):
+    """(calls, bytes) one rank hands its model group in one train step of
+    cfg over {"model": ranks} (no data axis; remat "full"), from the
+    shapes: the vocab-parallel embedding's sum (an f32 (B, S, D)); a
+    layer's row-parallel sums (attention's, the FFN's; a moe layer's
+    experts' (E, C, D) and shared experts'), each once in the forward and
+    once as the input's grad sum in the backward (CopyToGroup), and again
+    in the remat recompute but for the layer's last, whose output only
+    enters the residual add (torch.utils.checkpoint's recompute stops once
+    the tensors the backward saved are back); a loss chunk's max, sum of
+    exponentials and target logit ((B, chunk) f32, forward and recompute)
+    and its input's grad sum ((B, chunk, D)); the global norm's sum of the
+    split leaves' squares. Every sum runs in f32."""
+    from types import SimpleNamespace
+    from repro_torch.dist import sharding
+    from repro_torch.models import moe
+    from repro_torch.models.registry import EP_MIN_TOKENS, build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as step_lib
+    if cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r}: the count assumes 'full'")
+    d, t = cfg.d_model, batch * seq
+    act = t * d * 4
+    calls = nbytes = 0
+
+    def add(n, size):
+        nonlocal calls, nbytes
+        calls += n
+        nbytes += n * size
+
+    add(1, act)                                   # the embedding
+    n_moe = cfg.n_layers - cfg.first_k_dense if cfg.family == "moe" else 0
+    for layer in range(cfg.n_layers):
+        sums = [act]                              # attention
+        if cfg.n_kv_heads % ranks:                # whole k, v cut a rank
+            add(2, t * cfg.n_kv_heads * cfg.head_dim * 4)
+        if layer < cfg.n_layers - n_moe:
+            sums.append(act)                      # the dense FFN
+            last_saved = False
+        else:
+            e, k = cfg.n_experts, cfg.experts_per_token
+            if t >= EP_MIN_TOKENS:                # moe_ffn_ep, one data rank
+                c_send = min(int(max(1, t * k * 1.25)), t * k)
+                c = min(int(max(1, (c_send * 1.25) // e)), c_send)
+            else:
+                c = moe.capacity(t, k, e)
+            sums.append(e * c * d * 4)            # the experts' sum
+            # the experts' sum is weighted (saved) unless the shared
+            # experts' follows it
+            last_saved = not cfg.n_shared_experts
+            if cfg.n_shared_experts:
+                sums.append(act)                  # the shared experts
+        for size in sums:
+            add(2, size)                          # forward, backward
+        for size in sums[:len(sums) - 1 + last_saved]:
+            add(1, size)                          # the remat recompute
+    chunk = next((c for c in (512, 256, 128, 64) if seq % c == 0
+                  and seq > c), seq)
+    for _ in range(seq // chunk):
+        add(6, batch * chunk * 4)
+        add(1, batch * chunk * d * 4)
+    mesh = SimpleNamespace(shape={"model": ranks}, coords={"model": 0})
+    model = build_model(cfg)
+    plan = step_lib.make_plan(cfg, mesh, kind="train")
+    specs = sharding.params_shardings(plan, model.param_axes,
+                                      model.abstract_params())
+    split = sum(d is not None for d in tree_leaves(
+        sharding.model_dims(plan, specs)))
+    add(1, split * 4)                             # the global norm
+    return calls, nbytes
+
+
+def tp_train_rank(torch, mesh, which):
+    """19a/19b on one rank of the {"model": n} mesh: Trainer(cfg, loop,
+    mesh).run() for TP_TRAIN_STEPS steps with every step timed, its
+    launches, its model-axis collectives (calls and bytes) and the
+    replicated leaves' fingerprint recorded, the routes a moe layer took
+    (with has_tp or not), a few leaves' local shapes; then (19a) one step
+    with every flash launch held against its plain version."""
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.dist import sharding
+    from repro_torch.kernels.flash import flash_cuda
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.trainer import TrainLoopConfig, Trainer
+    t_sub = time.perf_counter()
+    cfg = tp_train_config(which)
+    dev = mesh.device
+    loop = TrainLoopConfig(total_steps=TP_TRAIN_STEPS,
+                           ckpt_every=TP_TRAIN_STEPS, log_every=1,
+                           ckpt_dir=os.path.join(ROOT, "build",
+                                                 f"chip_smoke_{which}_ckpt"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = Trainer(cfg, loop, mesh)
+    mgroup, real_step = tr.bundle.model_group, tr.bundle
+    counters = kernel_counters()
+    for f in counters:
+        f.launches = 0
+
+    def counts():
+        return {f.__name__: f.launches for f in counters}
+
+    routes = {"moe_ffn_ep": 0, "moe_ffn_ep_tp": 0, "moe_ffn": 0}
+    real_route = {k: getattr(moe, k) for k in ("moe_ffn_ep", "moe_ffn")}
+
+    def counted(name):
+        def call(*a, **kw):
+            routes[name] += 1
+            if name == "moe_ffn_ep" and kw.get("tp") is not None:
+                routes["moe_ffn_ep_tp"] += 1
+            return real_route[name](*a, **kw)
+        return call
+
+    whole = [d is None for d in tree_leaves(sharding.model_dims(
+        tr.plan, tr._specs()["params"]))]
+    rec = {"step_ms": [], "step_counts": [], "prints": [], "grad_norms": [],
+           "wire": [], "saves": []}
+
+    def timed_step(params, opt_state, batch):
+        torch.cuda.synchronize()
+        before = counts()
+        calls0 = sum(mgroup.counts["calls"].values())
+        bytes0 = sum(mgroup.counts["bytes"].values())
+        t0 = time.perf_counter()
+        out = real_step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        after = counts()
+        rec["step_counts"].append({k: after[k] - before[k] for k in after})
+        rec["wire"].append((sum(mgroup.counts["calls"].values()) - calls0,
+                            sum(mgroup.counts["bytes"].values()) - bytes0))
+        rec["grad_norms"].append(float(out[2]["grad_norm"]))
+        rep = [t for t, w in zip(tree_leaves(out[0]), whole) if w]
+        rec["prints"].append(fingerprint(torch, {str(i): t for i, t in
+                                                 enumerate(rep)}))
+        return out
+
+    tr.step_fn = timed_step
+    tr.save = lambda step, state: rec["saves"].append(step)
+    for k in real_route:
+        setattr(moe, k, counted(k))
+    try:
+        out = tr.run(verbose=mesh.rank == 0)
+    finally:
+        for k, f in real_route.items():
+            setattr(moe, k, f)
+    torch.cuda.synchronize()
+    params = tr.state["params"]
+    layers = params["layers"]
+    shapes = {"embed": tuple(params["embed"].shape),
+              "layers/attn/wq": tuple(layers["attn"]["wq"].shape),
+              "layers/attn/wo": tuple(layers["attn"]["wo"].shape)}
+    if "moe" in layers:
+        shapes["layers/moe/wi"] = tuple(layers["moe"]["wi"].shape)
+    res = {"losses": out["losses"], "launches": counts(),
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "state_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(tr.state)),
+           "routes": dict(routes), "shapes": shapes,
+           **{k: rec[k] for k in ("step_ms", "step_counts", "prints",
+                                  "grad_norms", "wire", "saves")}}
+    if which == "tp_dense":
+        src = TokenSource(DataConfig(seq_len=loop.seq_len,
+                                     global_batch=loop.global_batch,
+                                     vocab_size=cfg.vocab_size,
+                                     seed=loop.seed))
+        batch = {k: v.to(dev) for k, v in sharding.local_batch(tr.plan, {
+            k: torch.from_numpy(a) for k, a in
+            src.batch_at(TP_TRAIN_STEPS).items()}).items()}
+        res["held"] = dp_checked_step(torch, flash_cuda, real_step, tr, batch)
+    del tr, params, layers, real_step
+    res["sub_s"] = time.perf_counter() - t_sub
+    return res
+
+
+def tp_train_gates(tag, which, runs, pred, ref, card):
+    """19a/19b's gates on every rank's results: held to the one-device
+    run of the same model and batches (`ref`: 18a's reference, 14c's run),
+    the ranks to each other, the predictions made before the world."""
+    import math
+    first = runs[0]
+    cfg = tp_train_config(which)
+    n_layers = cfg.n_layers
+    per_step = {k: 0 for k in first["launches"]}
+    per_step.update(flash_fwd=2 * n_layers, flash_bwd_dq=n_layers,
+                    flash_bwd_dkv=n_layers)
+    losses = [r["losses"] for r in runs]
+    same = all(r["prints"] == first["prints"] for r in runs)
+    counts_ok = all(c == per_step for r in runs for c in r["step_counts"])
+    state = [r["state_bytes"] for r in runs]
+    wire_ok = all(w == tuple(pred["collectives"]) for r in runs
+                  for w in r["wire"])
+    d = max(abs(a - b) for a, b in zip(losses[0], ref["losses"]))
+    g0 = abs(first["grad_norms"][0] - ref["grad_norms"][0]) / abs(
+        ref["grad_norms"][0])
+    line = (f"[{tag}] {cfg.name} ({n_layers} layers, {cfg.optimizer}) over "
+            f"{len(runs)} model ranks (gloo, one card): losses "
+            f"{[[round(x, 5) for x in l] for l in losses]} against the "
+            f"one-device run of the same model and batches "
+            f"{[round(x, 5) for x in ref['losses'][:TP_TRAIN_STEPS]]}: max "
+            f"|loss diff| {d:.2e} (tol {LOSS0_SUM_ATOL}); grad norms "
+            f"{[round(x, 5) for x in first['grad_norms']]}, step 0's "
+            f"{g0:.2e} relative (tol {DP_GNORM_RTOL}); the replicated "
+            f"leaves' fingerprints after every step equal on the ranks: "
+            f"{same}; launches a step a rank {first['step_counts'][0]} "
+            f"(predicted {per_step}: {counts_ok}); model-axis collectives a "
+            f"step a rank (calls, bytes) {first['wire']} (predicted "
+            f"{tuple(pred['collectives'])}: {wire_ok}); params plus "
+            f"optimizer state a rank {[round(b / 1e9, 3) for b in state]} "
+            f"GB (predicted {pred['state'] / 1e9:.3f}); local shapes "
+            f"{first['shapes']} [{card}]")
+    print(line, flush=True)
+    bad = (not same or not counts_ok or not wire_ok
+           or any(b != pred["state"] for b in state)
+           or any(l != losses[0] for l in losses)
+           or not all(math.isfinite(x) for x in losses[0])
+           or d > LOSS0_SUM_ATOL or g0 > DP_GNORM_RTOL)
+    if which == "tp_moe":
+        n_moe = n_layers - cfg.first_k_dense
+        routes = [r["routes"] for r in runs]
+        # forward and remat recompute: two calls a moe layer a step
+        want = 2 * n_moe * TP_TRAIN_STEPS
+        line = (f"[{tag}] routes a rank over the run (forward and remat "
+                f"recompute, {n_moe} moe layers a pass) {routes}: every "
+                f"one moe_ffn_ep with has_tp (expected {want}) [{card}]")
+        print(line, flush=True)
+        bad = bad or any(r["moe_ffn"] or r["moe_ffn_ep"] != want
+                         or r["moe_ffn_ep_tp"] != want for r in routes)
+    if "held" in first:
+        held = [r["held"] for r in runs]
+        line = (f"[{tag}] one checked step a rank: launches held against "
+                f"their plain versions on their own inputs "
+                f"{[h['counts'] for h in held]} (expected "
+                f"{ {k: per_step[k] for k in held[0]['counts']} } each) at "
+                f"(H, KvH, Hd) {[h['shapes'] for h in held]}, worst "
+                f"{[h['worst'] for h in held]} (bf16 ulps; flash_fwd at "
+                f"each element, the backward at the largest element; tol "
+                f"{TP_TRAIN_ULPS}) [{card}]")
+        print(line, flush=True)
+        bad = bad or any(
+            h["counts"][k] != per_step[k] for h in held for k in h["counts"]
+        ) or any(v > TP_TRAIN_ULPS for h in held for v in h["worst"].values())
+    steady = sorted(first["step_ms"][1:]) or first["step_ms"]
+    one = sorted(ref["step_ms"][1:TP_TRAIN_STEPS]) or ref["step_ms"]
+    ms = [[round(x, 1) for x in r["step_ms"]] for r in runs]
+    print(f"[{tag}] step ms a rank {ms} (p50 after the first "
+          f"{steady[len(steady) // 2]:.1f}) against one device's "
+          f"{one[len(one) // 2]:.1f} (2 ranks sharing one card over gloo "
+          f"through host memory: not a TP speed); peak device memory a "
+          f"rank {[round(r['peak'] / 1e9, 2) for r in runs]} GB; saves "
+          f"{first['saves']} [{card}]", flush=True)
+    if bad:
+        fail(f"[{tag}] failed: see the lines above")
+    out = {k: first[k] for k in ("losses", "grad_norms", "step_ms", "wire",
+                                 "routes", "shapes")}
+    out.update(state_gb=[b / 1e9 for b in state],
+               peak_gb=[r["peak"] / 1e9 for r in runs],
+               step_ms_p50=steady[len(steady) // 2],
+               one_device_step_ms=one[len(one) // 2],
+               predicted_collectives=list(pred["collectives"]),
+               sub_s=first["sub_s"])
+    if "held" in first:
+        out["held_worst"] = first["held"]["worst"]
+    return out
 
 
 def _leaves(tree):

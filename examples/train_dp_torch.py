@@ -1,10 +1,15 @@
 """Data-parallel training with the PyTorch port: N ranks, one process each,
 every rank running Trainer(cfg, loop, mesh) over a {"data": N} mesh and
-printing the same losses (the global batch's).
+printing the same losses (the global batch's); with --model M the mesh
+is {"data": N / M, "model": M}: tensor-parallel training over M ranks,
+data-parallel over the rest.
 
     # on the CPU (gloo), a reduced qwen2, 2 ranks, DP then FSDP (~20 s):
     PYTHONPATH=src python examples/train_dp_torch.py --ranks 2 --device cpu
     PYTHONPATH=src python examples/train_dp_torch.py --ranks 2 --device cpu --fsdp
+    # TP over 2 ranks, and DP x TP over 4
+    PYTHONPATH=src python examples/train_dp_torch.py --ranks 2 --model 2
+    PYTHONPATH=src python examples/train_dp_torch.py --ranks 4 --model 2
     # on a card: 2 ranks sharing it over gloo (NCCL needs a GPU a rank)
     PYTHONPATH=src python examples/train_dp_torch.py --ranks 2 --device cuda
 
@@ -31,7 +36,10 @@ def rank_main(rank, args, store):
     from repro_torch.train.trainer import TrainLoopConfig, Trainer
     if args.device == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
-    mesh = make_mesh({"data": args.ranks}, device=args.device,
+    shape = {"data": args.ranks // args.model}
+    if args.model > 1:
+        shape["model"] = args.model
+    mesh = make_mesh(shape, device=args.device,
                      backend=args.backend, init_method=f"file://{store}",
                      rank=rank, world_size=args.ranks, timeout_s=300)
     cfg = get_config("qwen2-1.5b")
@@ -39,7 +47,7 @@ def rank_main(rank, args, store):
         cfg = reduce_config(cfg, layers=2, d_model=64, vocab=128)
     loop = TrainLoopConfig(total_steps=args.steps, ckpt_every=args.steps,
                            log_every=1, ckpt_dir=args.ckpt_dir, seq_len=32,
-                           global_batch=4 * args.ranks)
+                           global_batch=4 * shape["data"])
     out = Trainer(cfg, loop, mesh, fsdp=args.fsdp).run(verbose=rank == 0)
     print(f"rank {rank}: losses {out['losses']}", flush=True)
     torch.distributed.destroy_process_group()
@@ -52,11 +60,16 @@ def main():
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
     ap.add_argument("--fsdp", action="store_true",
                     help="split params and optimizer state over the ranks")
+    ap.add_argument("--model", type=int, default=1,
+                    help="ranks on the model axis (tensor parallelism); "
+                         "must divide --ranks")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--full", dest="reduced", action="store_false",
                     help="qwen2-1.5b at full width (default: reduced)")
     args = ap.parse_args()
+    if args.ranks % args.model:
+        ap.error(f"--model {args.model} does not divide --ranks {args.ranks}")
     work = tempfile.mkdtemp(prefix="train_dp_")
     args.ckpt_dir = args.ckpt_dir or os.path.join(work, "ckpt")
     torch.multiprocessing.spawn(rank_main,

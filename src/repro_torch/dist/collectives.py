@@ -27,10 +27,22 @@ trying:
 A group of one rank needs no process group: every collective is the
 identity (a copy). The functions return new tensors and leave their
 inputs alone; `GatherDim` and `AllToAll` are the differentiable forms
-(their backward is the inverse collective). Each group counts its
+(their backward is the inverse collective). The tensor-parallel
+(Megatron) pair, the explicit form of the partial sums GSPMD inserts for
+the reference's row-parallel weights: `CopyToGroup` (identity forward,
+all-reduce backward) at the input of a block whose weights a rank holds
+only part of, so the input's grad sums every rank's part, and
+`ReduceFromGroup` (all-reduce forward, identity backward) at the output
+of a row-parallel product, so a rank's partial becomes the whole value;
+`copy_to` and `reduce_from` apply them (the identity without a group).
+Both sum in f32 and round once to the tensor's dtype: over 2 ranks the
+f32 sum of two bf16 values is exact, the reference's bf16 psum
+(moe.py:166). `RingShift` is `ring_shift` with the backward shift the
+other way (the pipeline's ppermute). torch.distributed.nn.functional is
+not used: its backward semantics are not these. Each group counts its
 collectives and the bytes this rank put on the wire (`counts`: calls and
 bytes by kind; chip_smoke.py's phase 18 reads a train step's from
-`StepBundle.group`).
+`StepBundle.group`, phase 19 from `StepBundle.model_group`).
 """
 
 from __future__ import annotations
@@ -180,16 +192,16 @@ class AxesGroup:
         dist.all_to_all_single(out, x, group=self.group)
         return out.to(t.device)
 
-    def ring_shift(self, t: torch.Tensor) -> torch.Tensor:
-        """ppermute over the ring i -> i + 1: t goes to the next rank, and
-        the previous rank's t comes back (same shape and dtype)."""
+    def ring_shift(self, t: torch.Tensor, step: int = 1) -> torch.Tensor:
+        """ppermute over the ring i -> i + step: t goes to that rank, and
+        rank i - step's t comes back (same shape and dtype)."""
         if self.size == 1:
             return t.detach().clone()
         import torch.distributed as dist
         x = self._wire(t, "ring_shift")
         out = self._out(t, x, x.shape)
-        nxt = dist.get_global_rank(self.group, (self.index + 1) % self.size)
-        prv = dist.get_global_rank(self.group, (self.index - 1) % self.size)
+        nxt = dist.get_global_rank(self.group, (self.index + step) % self.size)
+        prv = dist.get_global_rank(self.group, (self.index - step) % self.size)
         reqs = [dist.isend(x, nxt, group=self.group),
                 dist.irecv(out, prv, group=self.group)]
         for r in reqs:
@@ -230,3 +242,67 @@ class AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.group.all_to_all(g), None
+
+
+def _sum_f32(group: AxesGroup, t: torch.Tensor) -> torch.Tensor:
+    """The sum of t over the group in f32, rounded once to t's dtype."""
+    return group.all_reduce(t.float()).to(t.dtype)
+
+
+class CopyToGroup(torch.autograd.Function):
+    """y = x (x the same on every rank of the group); the backward sums the
+    ranks' grads of y, so x receives the grad of every rank's part of the
+    block that uses it (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, group: AxesGroup):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(ctx.group, g), None
+
+
+class ReduceFromGroup(torch.autograd.Function):
+    """y = the sum of every rank's x (a row-parallel product's partials);
+    the backward hands y's grad to each rank's x as it is (Megatron's g):
+    y is the same on every rank, and each computes the same loss of it."""
+
+    @staticmethod
+    def forward(ctx, x, group: AxesGroup):
+        return _sum_f32(group, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class RingShift(torch.autograd.Function):
+    """group.ring_shift(x): x to the next rank; the backward sends the grad
+    back to the rank x came from."""
+
+    @staticmethod
+    def forward(ctx, x, group: AxesGroup):
+        ctx.group = group
+        return group.ring_shift(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.ring_shift(g.contiguous(), step=-1), None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """CopyToGroup over `group`; x itself where group is None or of one
+    rank."""
+    if group is None or group.size == 1:
+        return x
+    return CopyToGroup.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """ReduceFromGroup over `group`; x itself where group is None or of one
+    rank."""
+    if group is None or group.size == 1:
+        return x
+    return ReduceFromGroup.apply(x, group)

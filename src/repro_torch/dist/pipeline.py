@@ -12,9 +12,14 @@ on values the schedule masks off), the (M, B, ...) stream is replicated
 on every stage, and a final all-reduce copies the last stage's outputs
 to every rank. `bubble_fraction` is the schedule's idle share.
 
-Forward only: nothing in the reference trains through it, and the
-exchanges here carry no gradient (ROADMAP queue 1: the pipeline's
-gradient is still to port).
+The schedule carries a gradient, that of the dense layer loop: the ring
+shift is `RingShift` (its backward sends each grad back to the stage it
+came from), the final all-reduce `ReduceFromGroup` (every rank computes
+the same loss of the outputs, and the last stage's outputs take its
+grad once), and the input stream enters through `CopyToGroup` (only
+stage 0 reads it; every rank gets its whole grad). Every stage uses
+every shift's result, the ones it ignores through a select, so each
+rank runs every backward exchange in the same order.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.dist.collectives import AxesGroup
+from repro_torch.dist.collectives import (AxesGroup, RingShift, copy_to,
+                                          reduce_from)
 
 Tree = Any
 
@@ -47,7 +53,6 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-@torch.no_grad()
 def pipelined_apply(fn: Callable, stage_params: Tree, x: torch.Tensor, *,
                     mesh, pp_axis: str) -> torch.Tensor:
     """x (M, B, ...), M microbatches, through this rank's stage of a layer
@@ -59,28 +64,38 @@ def pipelined_apply(fn: Callable, stage_params: Tree, x: torch.Tensor, *,
     x: the whole (M, B, ...) stream, the same on every rank.
 
     Returns (M, B, ...) on every rank: each microbatch through all L
-    layers in order (tests/test_torch_dist_train.py holds it to the
-    dense scan and to the JAX package's pipelined_apply)."""
+    layers in order, and its gradient: with every rank taking the same
+    loss of the result, a stage's params get their grads of it and x
+    its whole grad on every rank (tests/test_torch_dist_train.py holds
+    both to the dense scan, the outputs to the JAX package's
+    pipelined_apply too)."""
     group = AxesGroup(mesh, (pp_axis,))
     s_count, stage = group.size, group.index
     m_count = int(x.shape[0])
     n_local = _leading(stage_params)
+    ticks = m_count + s_count - 1
+    x = copy_to(x, group)
 
     def run_stage(h):
         for i in range(n_local):
             h = fn(_layer(stage_params, i), h)
         return h
 
+    def on(cond: bool) -> torch.Tensor:
+        return torch.tensor(cond, device=x.device)
+
     buf = torch.zeros_like(x[0])
-    outs = torch.zeros_like(x)
-    for t in range(m_count + s_count - 1):
-        if stage == 0:                   # stage 0 ingests microbatch t
-            buf = x[min(t, m_count - 1)]
-        y = run_stage(buf)
-        m = t - (s_count - 1)            # the last stage finishes m
-        if stage == s_count - 1 and m >= 0:
-            outs[m] = y
-        buf = group.ring_shift(y)        # to the next stage
-    if stage != s_count - 1:
-        outs.zero_()
-    return group.all_reduce(outs)
+    ys = []
+    for t in range(ticks):
+        # stage 0 ingests microbatch t; a select, so the shifted buf it
+        # ignores still takes part in the backward's exchanges
+        buf = torch.where(on(stage == 0), x[min(t, m_count - 1)], buf)
+        ys.append(run_stage(buf))
+        if t < ticks - 1:
+            buf = RingShift.apply(ys[-1], group) if s_count > 1 else ys[-1]
+    # the last stage finishes microbatch t - S + 1 at tick t; the other
+    # stages' values enter as zeros (and their grads as zeros), so every
+    # rank's backward reaches its last tick
+    out = torch.where(on(stage == s_count - 1),
+                      torch.stack(ys[s_count - 1:]), 0.0)
+    return reduce_from(out, group)

@@ -426,6 +426,33 @@ def data_dims(plan: ShardingPlan, specs: PyTree) -> PyTree:
     return leaf(specs)
 
 
+def model_dims(plan: ShardingPlan, specs: PyTree) -> PyTree:
+    """The tree of `specs` with, for each leaf, the dim the plan's model
+    axis splits (None where spec_for left the leaf whole on every model
+    rank: no TP name, or a dim the axis does not divide); data_dims'
+    counterpart. A dim split over the model axis and data axes together
+    is refused."""
+    tp = plan.tp_axis
+    big = tp is not None and plan.axis_size(tp) > 1
+
+    def leaf(spec):
+        if isinstance(spec, dict):
+            return {k: leaf(v) for k, v in spec.items()}
+        if not big:
+            return None
+        for i, e in enumerate(spec):
+            names = _names(e)
+            if tp in names:
+                if len(names) > 1:
+                    raise NotImplementedError(
+                        f"spec {spec}: dim {i} split over {names}; a dim "
+                        f"split over the model axis alone")
+                return i
+        return None
+
+    return leaf(specs)
+
+
 def local_batch(plan: ShardingPlan, batch: PyTree) -> PyTree:
     """This rank's rows of a global batch (dim 0 split over the data axes,
     rank-major: `batch_shardings`, then `local_shard`). The rows must
@@ -454,16 +481,25 @@ def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
     return local_shard(tree, tuple(specs), mesh).contiguous().clone()
 
 
-def gather_tree(tree: PyTree, dims: PyTree, group, device=None) -> PyTree:
+def gather_tree(tree: PyTree, dims: PyTree, group, device=None, *,
+                model_dims: PyTree = None, model_group=None) -> PyTree:
     """The whole leaves of a tree of local blocks: each leaf all-gathered
     over `group` (dist.collectives.AxesGroup) along its dim of `dims`
-    (data_dims), in rank order; a leaf whose dim is None is copied. Leaves
-    go to `device` when given (the host, for a checkpoint), one at a time,
-    in sorted-key order on every rank."""
+    (data_dims), in rank order, and over `model_group` along its dim of
+    `model_dims` (model_dims) where given; a leaf whose dims are None is
+    copied. Leaves go to `device` when given (the host, for a
+    checkpoint), one at a time, in sorted-key order on every rank."""
+
+    def sub(d, k):
+        return d.get(k) if isinstance(d, dict) else None
+
     if isinstance(tree, dict):
-        return {k: gather_tree(tree[k], dims.get(k) if isinstance(dims, dict)
-                               else None, group, device)
+        return {k: gather_tree(tree[k], sub(dims, k), group, device,
+                               model_dims=sub(model_dims, k),
+                               model_group=model_group)
                 for k in sorted(tree)}
     t = tree.detach()
+    if model_dims is not None:
+        t = model_group.all_gather(t, model_dims)
     t = t.clone() if dims is None else group.all_gather(t, dims)
     return t if device is None else t.to(device)

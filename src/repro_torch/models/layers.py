@@ -42,6 +42,14 @@ scope), as mamba's f32 dt projection may on either device
 mesh, so it keeps the same order; everything else (training) contracts
 in one product.
 
+Tensor-parallel training (the reference's training plan over a model
+axis: wo's rows, d_ff and the vocab split, so products sum partials):
+`swiglu(tp=)`, `embed(tp=)` (vocab-parallel) and `softmax_xent(tp=)`
+(vocab-parallel, z-loss on the whole vocab's logsumexp) take the model
+group (`DistCtx.row_parallel`, `DistCtx.model_group`) and sum over it
+with dist.collectives.CopyToGroup / ReduceFromGroup; exact_tp_scope stays
+off in training.
+
 The whisper pieces: `layer_norm` (f32 statistics, population variance),
 `gelu_ffn` (bias adds in bf16, the tanh gelu of `jax.nn.gelu`'s default
 in f32) and `sinusoid_pos` (f32, rounded once to bf16).
@@ -379,11 +387,19 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale.to(NORM_DTYPE) + bias.to(NORM_DTYPE)).to(x.dtype)
 
 
-def swiglu(x, wi, wg, wo):
-    """SwiGLU FFN: silu(x@wg) * (x@wi) @ wo."""
+def swiglu(x, wi, wg, wo, tp=None):
+    """SwiGLU FFN: silu(x@wg) * (x@wi) @ wo. tp: the model group where the
+    plan splits d_ff over it (tensor-parallel training: wi/wg this rank's
+    columns, wo its rows): x enters through CopyToGroup and the partial
+    product leaves through ReduceFromGroup."""
+    if tp is not None:
+        from repro_torch.dist.collectives import copy_to, reduce_from
+        x = copy_to(x, tp)
     h = matmul(x, wi)
     g = matmul(x, wg)
     h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
+    if tp is not None:
+        return reduce_from(matmul(h, wo), tp)
     return matmul_rp(h, wo)
 
 
@@ -436,8 +452,22 @@ def sinusoid_pos(seq: int, d: int, offset: int = 0, device=None
 # embedding / head
 # ---------------------------------------------------------------------------
 
-def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+def embed(tokens: torch.Tensor, table: torch.Tensor, tp=None
+          ) -> torch.Tensor:
+    """table[tokens]. tp: the model group where the plan splits the vocab
+    over it (a vocab-parallel embedding: this rank holds rows [r V/tp,
+    (r + 1) V/tp)): a rank looks up the tokens its rows hold, zeros for the
+    others, and the ranks' lookups are summed (ReduceFromGroup: one value
+    and zeros, exact)."""
+    if tp is None:
+        return table[tokens]
+    from repro_torch.dist.collectives import reduce_from
+    rows = table.shape[0]
+    local = tokens.long() - tp.index * rows
+    mine = (local >= 0) & (local < rows)
+    e = table[local.clamp(0, rows - 1)]
+    return reduce_from(torch.where(mine[..., None], e, torch.zeros(
+        (), dtype=e.dtype, device=e.device)), tp)
 
 
 def lm_logits(x: torch.Tensor, table_or_head: torch.Tensor, *,
@@ -453,11 +483,31 @@ def lm_logits(x: torch.Tensor, table_or_head: torch.Tensor, *,
 
 
 def softmax_xent(logits_f32: torch.Tensor, labels: torch.Tensor, *,
-                 z_loss: float = 1e-4) -> torch.Tensor:
+                 z_loss: float = 1e-4, tp=None) -> torch.Tensor:
     """Cross-entropy with the PaLM-style z-loss: lse - ll + z_loss * lse^2
-    per token. logits: (..., V) f32; labels: (...) int (each in [0, V))."""
-    lse = torch.logsumexp(logits_f32, dim=-1)
-    ll = torch.gather(logits_f32, -1, labels.long()[..., None])[..., 0]
+    per token. logits: (..., V) f32; labels: (...) int (each in [0, V)).
+
+    tp: the model group where the logits are this rank's vocab columns
+    [r V/tp, (r + 1) V/tp) (a vocab-parallel head): the max (no gradient),
+    the sum of exponentials and the target logit (one rank's value and
+    zeros) are summed over the group (ReduceFromGroup), so lse, the loss
+    and its z term are the whole vocab's on every rank, and the logits'
+    grad is this rank's columns of softmax minus one-hot."""
+    if tp is None:
+        lse = torch.logsumexp(logits_f32, dim=-1)
+        ll = torch.gather(logits_f32, -1, labels.long()[..., None])[..., 0]
+    else:
+        from repro_torch.dist.collectives import reduce_from
+        cols = logits_f32.shape[-1]
+        m = tp.all_reduce(logits_f32.detach().amax(-1), op="max")
+        se = torch.exp(logits_f32 - m[..., None]).sum(-1)
+        lse = m + torch.log(reduce_from(se, tp))
+        local = labels.long() - tp.index * cols
+        mine = (local >= 0) & (local < cols)
+        ll = torch.gather(logits_f32, -1,
+                          local.clamp(0, cols - 1)[..., None])[..., 0]
+        ll = reduce_from(torch.where(mine, ll, torch.zeros(
+            (), dtype=ll.dtype, device=ll.device)), tp)
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * torch.square(lse)
@@ -476,7 +526,10 @@ class DistCtx:
     token counts take the expert-parallel route (moe.moe_ffn_ep). Over
     data axes of more than one rank a batch holds this rank's rows, and
     the training loss and the moe capacity route compute the global
-    batch's function (registry.loss_fn, registry._moe_apply)."""
+    batch's function (registry.loss_fn, registry._moe_apply). Over a
+    model axis of more than one rank under the training plan, the weights
+    whose contraction dim is split (`row_parallel`) sum their partials
+    over `model_group()`."""
     mesh: Any = None
     data_axes: Tuple[str, ...] = ("data",)
     model_axis: str = "model"
@@ -517,6 +570,31 @@ class DistCtx:
         if self.mesh is None:
             return 0
         return int(self.mesh.coords.get(self.model_axis, 0))
+
+    def model_group(self):
+        """The collectives over the model axis (dist.collectives.AxesGroup;
+        one rank without a mesh or on an axis of 1)."""
+        group = self.__dict__.get("_model_group")
+        if group is None:
+            from repro_torch.dist.collectives import AxesGroup
+            group = AxesGroup(self.mesh, (self.model_axis,))
+            self.__dict__["_model_group"] = group
+        return group
+
+    def row_parallel(self, local: int, whole: int):
+        """The model group where a contraction dim of `whole` (a wo's rows,
+        the vocab of an embedding) is split over the model axis, this
+        rank holding `local` of it: the reference training plan's
+        row-parallel weights, whose products sum partials over the group.
+        None where the dim is whole (one device, the serve plan, a dim the
+        axis does not divide)."""
+        if local == whole or self.model_size == 1:
+            return None
+        group = self.model_group()
+        if local * group.size != whole:
+            raise ValueError(f"{local} of {whole} a rank over a model axis "
+                             f"of {group.size}")
+        return group
 
     def tp_shards(self, *dims: int) -> int:
         """How many ways the model axis splits dims that are all divisible

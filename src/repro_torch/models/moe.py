@@ -34,11 +34,16 @@ over the data axes: each rank routes its own tokens, sends each route to
 the rank that owns its expert (an all_to_all, `AllToAll`, whose backward
 is the inverse exchange), runs a second capacity dispatch over its local
 experts, and sends the results back to be combined where the tokens
-live. Only the reference's TP-free branch is ported (`has_tp` is false
-without a model axis). `moe_ffn_ep_emulated` runs the same three stages
-for every shard in one process, the exchange as tensor indexing: the
-rank world's function on one device, which the tests hold the ranks to
-bit for bit.
+live. Both of the reference's branches are ported: with `tp` (its
+`has_tp`, the training plan over a model axis) the experts' d_ff is
+split over the model group too, and their partial products are summed
+over it in bf16 before the pick weight and the return exchange, where
+the reference puts its psum. `moe_ffn_ep_emulated` runs the same three
+stages for every shard in one process, the exchange as tensor indexing
+(and `tp_shards` the model ranks' d_ff blocks): the rank world's
+function on one device, which the tests hold the ranks to bit for bit.
+`moe_ffn` under a split d_ff (the capacity route in tensor-parallel
+training) sums its experts' partials over the model group the same way.
 
 `dispatch` is moe_ffn's routing alone, which the checks compare across
 devices; `routing_margins` and `settled` are check helpers (how far a
@@ -52,6 +57,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.dist.collectives import copy_to, reduce_from
 from repro_torch.models.layers import (PARAM_DTYPE, gather_exact_tp, matmul,
                                        swiglu)
 
@@ -180,11 +186,18 @@ def dispatch(x: torch.Tensor, w_router: torch.Tensor, *, n_experts: int,
 
 
 def moe_ffn(x: torch.Tensor, params, *, n_experts: int, k: int,
-            capacity_factor: float = 1.25, token_valid=None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            capacity_factor: float = 1.25, token_valid=None, tp=None,
+            shared_tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, D) bf16. params: {router (D, E), wi/wg (E, D, F), wo (E, F,
     D), shared_wi/wg (D, Fs) and shared_wo (Fs, D) optional}. Returns
-    (out (T, D) bf16, aux 0-d f32). token_valid as in `dispatch`."""
+    (out (T, D) bf16, aux 0-d f32). token_valid as in `dispatch`.
+
+    tp / shared_tp: the model group where the training plan splits the
+    experts' / the shared experts' d_ff over it (wi/wg this rank's
+    columns, wo its rows): the gathered tokens enter through CopyToGroup
+    and the experts' partial products are summed over the group
+    (ReduceFromGroup) before the gate; the shared experts are a dense
+    row-parallel SwiGLU."""
     t, d = x.shape
     dev = x.device
     gate, gather_idx, ids, aux = dispatch(
@@ -192,13 +205,15 @@ def moe_ffn(x: torch.Tensor, params, *, n_experts: int, k: int,
         capacity_factor=capacity_factor, token_valid=token_valid)
     c = gate.shape[1]
     x_e = x[gather_idx.reshape(-1)].reshape(n_experts, c, d)     # (E, C, D)
+    x_e = copy_to(x_e, tp)
     h = matmul(x_e, params["wi"])
     g = matmul(x_e, params["wg"])
     h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
-    # exact-TP serving: h's F dim is this rank's column shard; gathered,
-    # so the down-projection contracts whole on every rank (bit-exact)
-    h = gather_exact_tp(h, params["wo"].shape[-2])
-    y_e = matmul(h, params["wo"])                                # (E, C, D)
+    if tp is None:
+        # exact-TP serving: h's F dim is this rank's column shard;
+        # gathered, so the down-projection contracts whole on every rank
+        h = gather_exact_tp(h, params["wo"].shape[-2])
+    y_e = reduce_from(matmul(h, params["wo"]), tp)               # (E, C, D)
     y_e = y_e.float() * gate[..., None]
 
     # combine: slot[e, t] is the slot of token t in expert e's picks (c,
@@ -219,7 +234,7 @@ def moe_ffn(x: torch.Tensor, params, *, n_experts: int, k: int,
 
     if "shared_wi" in params:
         out = out + swiglu(x, params["shared_wi"], params["shared_wg"],
-                           params["shared_wo"]).float()
+                           params["shared_wo"], shared_tp).float()
     return out.to(PARAM_DTYPE), aux
 
 
@@ -252,12 +267,21 @@ def _ep_route(x_l: Tensor, router_w: Tensor, *, n_shards: int, e_local: int,
 
 
 def _ep_experts(x_recv: Tensor, meta_recv: Tensor, wi: Tensor, wg: Tensor,
-                wo: Tensor, *, capacity_factor: float) -> Tensor:
+                wo: Tensor, *, capacity_factor: float, tp=None,
+                tp_shards: int = 1) -> Tensor:
     """One shard's local experts over the routes it received (S, C, D):
     each expert takes up to C2 of its valid routes (the lower route
     first), the SwiGLU with an f32 down-projection weighted by the pick,
     and the results back in route order (S, C, D) bf16 (0 where a route
-    was dropped)."""
+    was dropped).
+
+    The reference's `has_tp` branch: tp is the model group over which
+    wi/wg hold this rank's d_ff columns and wo its rows; the picked
+    tokens enter through CopyToGroup, and the f32 partial product is
+    rounded to bf16 and summed over the group (ReduceFromGroup: the
+    reference's bf16 psum) before the pick weight. tp_shards > 1 runs the
+    same with whole experts in one process: the d_ff blocks' partials
+    summed in block order (moe_ffn_ep_emulated)."""
     s, c, d = x_recv.shape
     e_local, r_total = wi.shape[0], s * c
     xr = x_recv.reshape(r_total, d)
@@ -268,12 +292,30 @@ def _ep_experts(x_recv: Tensor, meta_recv: Tensor, wi: Tensor, wg: Tensor,
     onehot = torch.where(er[None, :] == experts, valid[None, :],
                          torch.zeros((), device=xr.device))      # (E_l, R)
     pick_w, pick = _top_k(onehot, c2)                            # (E_l, C2)
-    x_e = xr[pick.reshape(-1)].reshape(e_local, c2, d)
-    h = matmul(x_e, wi)
-    g = matmul(x_e, wg)
-    h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
-    # the reference's f32 einsum (preferred_element_type) before the pick
-    y_e = torch.matmul(h.float(), wo.float())
+    x_e = copy_to(xr[pick.reshape(-1)].reshape(e_local, c2, d), tp)
+
+    def partial(x_e, wi, wg, wo):
+        h = matmul(x_e, wi)
+        g = matmul(x_e, wg)
+        h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
+        # the reference's f32 einsum (preferred_element_type) before the
+        # pick
+        return torch.matmul(h.float(), wo.float())
+
+    if tp is not None:
+        y_e = reduce_from(partial(x_e, wi, wg, wo).to(PARAM_DTYPE),
+                          tp).float()
+    elif tp_shards > 1:
+        y_e = None
+        blocks = zip(_Replicas.apply(x_e, tp_shards),
+                     wi.chunk(tp_shards, -1), wg.chunk(tp_shards, -1),
+                     wo.chunk(tp_shards, -2))
+        for block in blocks:
+            p = partial(*block).to(PARAM_DTYPE).float()
+            y_e = p if y_e is None else y_e + p
+        y_e = y_e.to(PARAM_DTYPE).float()
+    else:
+        y_e = partial(x_e, wi, wg, wo)
     y_e = (y_e * pick_w[..., None]).to(PARAM_DTYPE)
     # a route has one expert: at most one nonzero add a slot (fillers add
     # an exact 0), in pick order
@@ -281,6 +323,23 @@ def _ep_experts(x_recv: Tensor, meta_recv: Tensor, wi: Tensor, wg: Tensor,
     yr = yr.index_put((pick.reshape(-1),), y_e.reshape(-1, d),
                       accumulate=True)
     return yr.reshape(s, c, d)
+
+
+class _Replicas(torch.autograd.Function):
+    """n views of x whose grads are summed in f32 in order and rounded
+    once to x's dtype: the model ranks' CopyToGroup of `_ep_experts`, in
+    one process."""
+
+    @staticmethod
+    def forward(ctx, x, n: int):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = grads[0].float()
+        for g in grads[1:]:
+            total = total + g.float()
+        return total.to(grads[0].dtype), None
 
 
 def _ep_combine(y_back: Tensor, gate: Tensor, tok_send: Tensor, t_l: int
@@ -295,15 +354,16 @@ def _ep_combine(y_back: Tensor, gate: Tensor, tok_send: Tensor, t_l: int
     return out.to(PARAM_DTYPE)
 
 
-def _shared(x: Tensor, params, out: Tensor) -> Tensor:
+def _shared(x: Tensor, params, out: Tensor, tp=None) -> Tensor:
     if "shared_wi" in params:
         out = out + swiglu(x, params["shared_wi"], params["shared_wg"],
-                           params["shared_wo"])
+                           params["shared_wo"], tp)
     return out
 
 
 def moe_ffn_ep(x: Tensor, params, *, n_experts: int, k: int, group,
-               capacity_factor: float = 1.25) -> Tuple[Tensor, Tensor]:
+               capacity_factor: float = 1.25, tp=None, shared_tp=None
+               ) -> Tuple[Tensor, Tensor]:
     """x: (T_l, D) this rank's tokens; params: the router and shared
     experts whole, wi/wg/wo this rank's block of the experts (E / n, ...),
     n = group.size (a dist.collectives.AxesGroup over the data axes).
@@ -312,7 +372,13 @@ def moe_ffn_ep(x: Tensor, params, *, n_experts: int, k: int, group,
     rank's router aux over n, so its sum over the group is the
     reference's aux (the mean over shards), and the grads of every rank's
     share sum to the grad of that mean. Two all_to_alls carry the tokens
-    (differentiable) and one the routes' expert ids and gates."""
+    (differentiable) and one the routes' expert ids and gates.
+
+    tp: the model group where the experts' d_ff is split over it as well
+    (the reference's `has_tp`: wi/wg (E / n, D, F / tp), wo (E / n, F /
+    tp, D)); x, the routing and the exchanges are the same on every rank
+    of it, and `_ep_experts` sums the partials over it. shared_tp: the
+    same for the shared experts' d_ff (a dense row-parallel SwiGLU)."""
     n = group.size
     e_local = n_experts // n
     if n_experts % n or params["wi"].shape[0] != e_local:
@@ -326,19 +392,22 @@ def moe_ffn_ep(x: Tensor, params, *, n_experts: int, k: int, group,
     x_recv = AllToAll.apply(x_send, group)
     meta_recv = group.all_to_all(meta)
     y = _ep_experts(x_recv, meta_recv, params["wi"], params["wg"],
-                    params["wo"], capacity_factor=capacity_factor)
+                    params["wo"], capacity_factor=capacity_factor, tp=tp)
     y_back = AllToAll.apply(y, group)
     out = _ep_combine(y_back, gate, tok_send, x.shape[0])
-    return _shared(x, params, out), aux / n
+    return _shared(x, params, out, shared_tp), aux / n
 
 
 def moe_ffn_ep_emulated(x: Tensor, params, *, n_experts: int, k: int,
-                        n_shards: int, capacity_factor: float = 1.25
-                        ) -> Tuple[Tensor, Tensor]:
+                        n_shards: int, capacity_factor: float = 1.25,
+                        tp_shards: int = 1) -> Tuple[Tensor, Tensor]:
     """moe_ffn_ep's world of `n_shards` ranks in one process: x (T, D) the
     ranks' tokens rank-major, params whole (every expert). The exchanges
     are tensor indexing; every stage runs on the same shapes as a rank's.
-    Returns (out (T, D) bf16, aux: the sum of the ranks' aux shares)."""
+    tp_shards > 1 emulates the `has_tp` branch over that many model ranks:
+    the experts' d_ff in as many blocks, their bf16 partials summed in
+    block order (the shared experts stay whole). Returns (out (T, D)
+    bf16, aux: the sum of the ranks' aux shares)."""
     e_local = n_experts // n_shards
     xs = x.chunk(n_shards)
     routes = [_ep_route(xl, params["router"], n_shards=n_shards,
@@ -351,7 +420,7 @@ def moe_ffn_ep_emulated(x: Tensor, params, *, n_experts: int, k: int,
             torch.stack([r[0][j] for r in routes]),
             torch.stack([r[1][j] for r in routes]),
             params["wi"][blk], params["wg"][blk], params["wo"][blk],
-            capacity_factor=capacity_factor))
+            capacity_factor=capacity_factor, tp_shards=tp_shards))
     outs, aux = [], None
     for i, (_, _, gate, tok_send, a) in enumerate(routes):
         y_back = torch.stack([ys[j][i] for j in range(n_shards)])

@@ -72,7 +72,11 @@ model axis of 2 splits) is K-blocked and its vocab-split logits gathered
 whole (`_logits`); an odd vocab's head is replicated and one product.
 `loss_fn` takes one too: over data axes it computes this rank's share of
 the global batch's loss (data parallelism, train/step.py), and a moe
-layer takes `_moe_apply`'s expert-parallel or global capacity route.
+layer takes `_moe_apply`'s expert-parallel or global capacity route;
+over a model axis (dense and moe, `TP_TRAIN_FAMILIES`; the others raise,
+ROADMAP item 9.5) the embedding and the loss are vocab-parallel and every
+layer row-parallel under the reference's training plan (tensor-parallel
+training).
 """
 
 from __future__ import annotations
@@ -85,6 +89,7 @@ import torch
 
 from repro_torch import backend
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.collectives import copy_to
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
@@ -185,16 +190,41 @@ def _maybe_remat(fn, remat: str):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
+def _row_parallel(ctx, w: torch.Tensor, whole: int):
+    """The model group where the training plan splits w's rows (dim -2,
+    the contraction of a wo) of `whole` over it; None otherwise (one
+    device, the serve plan's whole wo)."""
+    return None if ctx is None else ctx.row_parallel(w.shape[-2], whole)
+
+
 def _ffn(cfg: ModelConfig, lp, h, token_valid=None, ctx=None):
     """A layer's FFN over h (B,S,D). Returns (out, aux): a moe layer ("moe"
     in lp) runs `_moe_apply`, token_valid an optional flattened (B*S,)
-    bool, False at pad tokens; a dense layer the SwiGLU, aux None."""
+    bool, False at pad tokens; a dense layer the SwiGLU, aux None, which
+    is row-parallel where the training plan splits d_ff over the model
+    axis (`layers.swiglu`'s tp)."""
     if "moe" in lp:
         return _moe_apply(cfg, lp["moe"], h, ctx, token_valid)
-    return swiglu(h, lp["ffn"]["wi"], lp["ffn"]["wg"], lp["ffn"]["wo"]), None
+    f = lp["ffn"]
+    return swiglu(h, f["wi"], f["wg"], f["wo"],
+                  _row_parallel(ctx, f["wo"], cfg.d_ff)), None
 
 
 EP_MIN_TOKENS = 4096
+# the families that train over a model axis larger than 1 (tensor-parallel
+# training under the reference's row-parallel plan)
+TP_TRAIN_FAMILIES = ("dense", "moe")
+
+
+def refuse_tp_training(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a family whose tensor-parallel
+    training is not ported (ROADMAP queue 1, item 9.5)."""
+    if cfg.family not in TP_TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"training {cfg.name} ({cfg.family} family) over a model axis "
+            f"larger than 1 (tensor-parallel training) is ported for the "
+            f"{' and '.join(TP_TRAIN_FAMILIES)} families only; the "
+            f"{cfg.family} family's is ROADMAP queue 1, item 9.5")
 
 
 def _moe_apply(cfg: ModelConfig, lp_moe, h, ctx=None, token_valid=None):
@@ -214,11 +244,20 @@ def _moe_apply(cfg: ModelConfig, lp_moe, h, ctx=None, token_valid=None):
         the plan split them), and this rank keeps its rows; the gathers'
         backward sends every grad to the rank that owns the tensor. aux
         is the global one, over n;
-      * else moe_ffn on this batch's tokens."""
+      * else moe_ffn on this batch's tokens.
+
+    Where the training plan splits the experts' (or the shared experts')
+    d_ff over the model axis, each route sums their row-parallel partials
+    over the model group (`moe_ffn_ep`'s has_tp branch, `moe_ffn`'s tp)."""
     b_, s, d = h.shape
     flat = h.reshape(-1, d)
     n = 1 if ctx is None else ctx.data_size
-    kw = dict(n_experts=cfg.n_experts, k=cfg.experts_per_token)
+    f_e = cfg.moe_d_ff or cfg.d_ff
+    kw = dict(n_experts=cfg.n_experts, k=cfg.experts_per_token,
+              tp=_row_parallel(ctx, lp_moe["wo"], f_e))
+    if "shared_wo" in lp_moe:
+        kw["shared_tp"] = _row_parallel(ctx, lp_moe["shared_wo"],
+                                        f_e * cfg.n_shared_experts)
     if (ctx is not None and ctx.ep_data and ctx.mesh is not None
             and b_ * s * n >= EP_MIN_TOKENS and token_valid is None):
         f, aux = moe_lib.moe_ffn_ep(flat, lp_moe, group=ctx.data_group(),
@@ -245,11 +284,19 @@ def _dense_stack(cfg: ModelConfig, layers, x, positions, *, remat: str,
                  ctx=None):
     """The decoder layers (dense or moe) over x (B,S,D) for training, each
     under `_maybe_remat`. Returns (x, the layers' aux losses (this rank's
-    shares, `_moe_apply`) summed in layer order; 0 for dense layers)."""
+    shares, `_moe_apply`) summed in layer order; 0 for dense layers).
+    Under the training plan over a model axis (ctx) attention and the
+    FFNs run on this rank's heads and d_ff and sum their row-parallel
+    partials over the model group; x, the norms and the residual stream
+    are whole and the same on every rank of it, and a remat recompute
+    issues the forward's collectives again, in the same order on every
+    rank."""
 
     def body(x, lp):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, _ = T.attn_block(lp["attn"], h, cfg, positions=positions)
+        at = lp["attn"]
+        a, _ = T.attn_block(at, h, cfg, positions=positions, tp=_row_parallel(
+            ctx, at["wo"], cfg.n_heads * cfg.head_dim))
         x = x + a
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         f, aux = _ffn(cfg, lp, h, ctx=ctx)
@@ -707,11 +754,12 @@ def build_model(cfg: ModelConfig) -> Model:
                                          blocked=head_split),
                                cfg.vocab_size)
 
-    def _prefixed_embed(params, batch):
+    def _prefixed_embed(params, batch, tp=None):
         """The first layer's input: whisper's decoder embeddings plus its
         learned positions (added in bf16); internvl2's patch embeddings,
-        cast to bf16, before the text's; the token embeddings else."""
-        x = embed(batch["tokens"], params["embed"])
+        cast to bf16, before the text's; the token embeddings else (tp:
+        the model group of a vocab-parallel table, `layers.embed`)."""
+        x = embed(batch["tokens"], params["embed"], tp)
         if cfg.family == "encdec":
             return x + params["dec_pos"][:x.shape[1]][None].to(x.dtype)
         if cfg.family == "vlm":
@@ -737,8 +785,24 @@ def build_model(cfg: ModelConfig) -> Model:
         by the global count (all-reduced first; ntokens is that count),
         aux its share of the global router aux (`_moe_apply`), so every
         value but ntokens sums over the ranks to the reference's value on
-        the global batch, and so do the grads of total."""
-        x = _prefixed_embed(params, batch)
+        the global batch, and so do the grads of total.
+
+        With a ctx whose model axis the training plan splits the vocab,
+        the heads and d_ff over (dense and moe): the embedding is
+        vocab-parallel, every layer row-parallel (`_dense_stack`), and
+        each chunk's head gives this rank's vocab columns of the logits
+        (the tied table's rows are the same shard), whose cross-entropy is
+        vocab-parallel (`layers.softmax_xent`'s tp). The chunks' remat
+        recomputes their collectives in the backward. Every rank of the
+        model group computes the same values; ntokens counts over the
+        data axes only."""
+        vocab_tp = None
+        if ctx is not None:
+            if ctx.model_size > 1:
+                refuse_tp_training(cfg)
+            vocab_tp = ctx.row_parallel(params["embed"].shape[0],
+                                        cfg.vocab_size)
+        x = _prefixed_embed(params, batch, vocab_tp)
         positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "encdec":
@@ -767,10 +831,22 @@ def build_model(cfg: ModelConfig) -> Model:
                 chunk = c
                 break
 
+        head = params["embed"].T if cfg.tie_embeddings else params.get(
+            "head")
+        head_tp = None if ctx is None or head is None else ctx.row_parallel(
+            head.shape[-1], cfg.vocab_size)
+
         def xent_chunk(x_c, labels_c):
-            logits = _logits(params, x_c)
+            if head_tp is None:
+                logits = _logits(params, x_c)
+            else:
+                # this rank's vocab columns of the head (a column-parallel
+                # product of the whole stream: CopyToGroup)
+                h = rms_norm(x_c, params["final_norm"], cfg.norm_eps)
+                logits = lm_logits(copy_to(h, head_tp), head)
             mask = (labels_c >= 0).float()
-            per_tok = softmax_xent(logits, torch.clamp_min(labels_c, 0))
+            per_tok = softmax_xent(logits, torch.clamp_min(labels_c, 0),
+                                   tp=head_tp)
             return (per_tok * mask).sum(), mask.sum()
 
         if chunk == s:

@@ -24,7 +24,10 @@ flash kernel on those heads (the reference's `flash_attention_spmd` is
 `attention.flash_attention` on a rank's heads here: one process a rank
 needs no shard_map) and
 `attn_block_decode` reads `ctx` for the seq-sharded decode cache
-(`attention.flash_decode_sharded`). The moe FFN itself is
+(`attention.flash_decode_sharded`). Training under the reference plan
+over a model axis (`attn_block(tp=)`) holds row-parallel shards instead:
+a rank's q/k/v columns and wo rows, the partial output summed over the
+model group (`_qkv_row_parallel`). The moe FFN itself is
 `models/moe.py`, the WKV forms `models/rwkv6.py`; whisper's encoder and
 decoder stacks are in `models/registry.py`, as in the JAX package.
 """
@@ -36,6 +39,7 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.collectives import copy_to, reduce_from
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import rwkv6 as rwkv_lib
@@ -311,16 +315,83 @@ def _qkv(lp, x, cfg: ModelConfig, ctx=None, *, whole: bool = False,
             v.reshape(b_, s_kv, -1, hd))
 
 
+def _qkv_row_parallel(lp, x, cfg: ModelConfig, tp):
+    """q, k and v under the reference training plan over the model group
+    `tp` (spec_for splits wq/wk/wv's columns and wo's rows wherever the
+    axis divides the dim, head-aligned or not), and the columns of the
+    attention output this rank's wo rows take (None: its own heads').
+
+    A projection whose weight is split gives this rank's columns of x
+    through CopyToGroup; one whose weight is whole is computed whole from
+    x itself. Where wq holds whole heads, attention runs on this rank's q
+    heads: k and v are its kv heads where wk holds whole heads of the
+    same GQA groups (Megatron's layout: nothing more), else they are made
+    whole (a split projection's columns all-gathered, GatherDim; a whole
+    one through CopyToGroup: each rank uses part of them) and cut to the
+    kv heads of its q heads (a block of whole groups, the one kv head its
+    q heads share, or one a q head). Where wq holds part of a head, q, k
+    and v are all made whole, attention runs whole on every rank, and
+    wo's rows take this rank's columns of its output."""
+    from repro_torch.dist.collectives import GatherDim
+    b_, s, _ = x.shape
+    hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    xc = copy_to(x, tp)
+
+    def project(w, bias):
+        split = lp[w].shape[-1] != (h if w == "wq" else kvh) * hd
+        y = matmul(xc if split else x, lp[w])
+        if cfg.qkv_bias:
+            y = y + lp[bias].to(y.dtype)
+        return y, split
+
+    def whole(y, split):
+        return GatherDim.apply(y, y.dim() - 1, tp) if split else copy_to(
+            y, tp)
+
+    (q, _), (k, k_split), (v, _) = (project(w, b) for w, b in (
+        ("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+    if q.shape[-1] % hd:                       # part of a head a rank
+        first = tp.index * q.shape[-1]
+        cols = (first, q.shape[-1])
+        q = GatherDim.apply(q, q.dim() - 1, tp)
+        k, v = whole(k, k_split), whole(v, k_split)
+        return (q.reshape(b_, s, h, hd), k.reshape(b_, s, kvh, hd),
+                v.reshape(b_, s, kvh, hd), cols)
+    hl, g = q.shape[-1] // hd, h // kvh
+    q = q.reshape(b_, s, hl, hd)
+    if k_split and k.shape[-1] % hd == 0 and hl % g == 0 \
+            and k.shape[-1] // hd == hl // g:
+        return q, k.reshape(b_, s, -1, hd), v.reshape(b_, s, -1, hd), None
+    k = whole(k, k_split).reshape(b_, s, kvh, hd)
+    v = whole(v, k_split).reshape(b_, s, kvh, hd)
+    q0 = tp.index * hl
+    if hl % g == 0 or g % hl == 0:
+        n = max(1, hl // g)
+        return q, k.narrow(2, q0 // g, n), v.narrow(2, q0 // g, n), None
+    idx = torch.div(q0 + torch.arange(hl, device=x.device), g,
+                    rounding_mode="floor")
+    return q, k.index_select(2, idx), v.index_select(2, idx), None
+
+
 def attn_block(lp, x, cfg: ModelConfig, *, positions, window=0,
-               kv_valid=None, ctx=None):
-    """Full-sequence attention (prefill). Returns (out, (k, v)), k and v
-    this rank's heads under exact-TP (see _qkv).
+               kv_valid=None, ctx=None, tp=None):
+    """Full-sequence attention (prefill, training). Returns (out, (k, v)),
+    k and v this rank's heads under exact-TP (see _qkv).
 
     positions: (S,) shared, or (B,S) per-row (left-padded prefill).
     kv_valid: optional (B,S) bool marking real (non-pad) key/value
-    columns. ctx: the DistCtx of a sharded call (None on one device)."""
+    columns. ctx: the DistCtx of a sharded call (None on one device).
+    tp: the model group where the reference training plan splits wo's
+    rows over it (`DistCtx.row_parallel`): attention runs on this rank's
+    heads, or whole where a rank holds part of a head
+    (`_qkv_row_parallel`), wo's rows give this rank's partial of the
+    output, and ReduceFromGroup sums the partials."""
     b_, s, _ = x.shape
-    q, k, v = _qkv(lp, x, cfg, ctx)
+    cols = None
+    if tp is not None:
+        q, k, v, cols = _qkv_row_parallel(lp, x, cfg, tp)
+    else:
+        q, k, v = _qkv(lp, x, cfg, ctx)
     if cfg.rope_theta:
         # (B,S) positions broadcast over the head axis of the (B,H,S,Hd)
         # rope input as (B,1,S)
@@ -334,9 +405,14 @@ def attn_block(lp, x, cfg: ModelConfig, *, positions, window=0,
         # conditions as the JAX package (transformer.py:260-261)
         out = attn_lib.flash_attention(q, k, v, causal=True)
     else:
-        out = attn_lib.chunked_causal_attention(q, k, v, window=window,
-                                                kv_valid=kv_valid,
-                                                heads=_kv_heads(cfg, ctx))
+        out = attn_lib.chunked_causal_attention(
+            q, k, v, window=window, kv_valid=kv_valid,
+            heads=None if tp is not None else _kv_heads(cfg, ctx))
+    if tp is not None:
+        out = out.reshape(b_, s, -1)
+        if cols is not None:
+            out = out.narrow(-1, *cols)
+        return reduce_from(matmul(out, lp["wo"]), tp), (k, v)
     out = matmul_rp(out.reshape(b_, s, -1), lp["wo"])
     return out, (k, v)
 

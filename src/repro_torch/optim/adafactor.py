@@ -10,9 +10,11 @@ returns the same dicts with a new "step".
 
 Under `Shards` a leaf split on dim d keeps its stats split only where
 the param is (dist.sharding.opt_state_specs): a mean over d (vr's over
-the last dim, vc's over the second-last, rfac's mean of vr) and the
-update's RMS over the whole leaf sum the blocks over the group and
-divide by the whole length; every other mean stays local.
+the last dim, vc's over the second-last, rfac's mean of vr) sums the
+blocks over the group that splits d (the data group's or the model
+group's) and divides by the whole length, the update's RMS over the
+whole leaf sums over every group that splits the leaf; every other mean
+stays local.
 """
 
 from __future__ import annotations
@@ -59,56 +61,62 @@ class Adafactor:
         step = state["step"] + 1
         lr = self.lr_fn(step)
         beta2 = 1.0 - step.float() ** (-self.decay)
-        group = None if shards is None else shards.group
+        splits = [] if shards is None else shards.splits()
 
-        def mean(t, axis, split, keepdim=False):
-            if not split:
+        def mean(t, axis, group, keepdim=False):
+            if group is None:
                 return t.mean(axis, keepdim=keepdim)
             return group.all_reduce(t.sum(axis, keepdim=keepdim)) / (
                 t.shape[axis] * group.size)
 
-        def upd(p, g, s, dim):
+        def upd(p, g, s, dims):
             nd = p.dim()
-            d = None if dim is None else dim % nd
+            # the group that splits each of p's dims (None: whole)
+            by_dim = {d % nd: group for d, (_, group) in zip(dims, splits)
+                      if d is not None}
             g = g.float()
             g2 = torch.square(g) + self.eps
             if self._factored(p.shape):
                 s["vr"].copy_(beta2 * s["vr"]
-                              + (1 - beta2) * mean(g2, -1, d == nd - 1))
+                              + (1 - beta2) * mean(g2, -1, by_dim.get(nd - 1)))
                 s["vc"].copy_(beta2 * s["vc"]
-                              + (1 - beta2) * mean(g2, -2, d == nd - 2))
+                              + (1 - beta2) * mean(g2, -2, by_dim.get(nd - 2)))
                 vr, vc = s["vr"], s["vc"]
                 rfac = torch.rsqrt(vr / torch.clamp_min(
-                    mean(vr, -1, d == nd - 2, keepdim=True), self.eps))
+                    mean(vr, -1, by_dim.get(nd - 2), keepdim=True),
+                    self.eps))
                 cfac = torch.rsqrt(vc)
                 u = g * rfac[..., None] * cfac[..., None, :]
             else:
                 s["v"].copy_(beta2 * s["v"] + (1 - beta2) * g2)
                 u = g * torch.rsqrt(s["v"])
             # update clipping (RMS(u) <= d)
-            if d is None:
+            if not by_dim:
                 ms = torch.mean(torch.square(u))
             else:
-                ms = group.all_reduce(torch.sum(torch.square(u))) / (
-                    u.numel() * group.size)
+                tot, n = torch.sum(torch.square(u)), u.numel()
+                for group in by_dim.values():
+                    tot, n = group.all_reduce(tot), n * group.size
+                ms = tot / n
             rms = torch.sqrt(ms + 1e-30)
             u = u / torch.clamp_min(rms / self.clip_threshold, 1.0)
             pf = p.float()
             p.copy_(pf - lr * (u + self.weight_decay * pf))
 
-        dims = tree_map(lambda _: None, params) if shards is None \
-            else shards.dims
-        _map_state(upd, params, grads, state["f"], dims)
+        _map_state(upd, params, grads, state["f"],
+                   [dims for dims, _ in splits])
         return params, {"f": state["f"], "step": step}, \
             {"grad_norm": gnorm, "lr": lr}
 
 
 def _map_state(fn, params, grads, states, dims):
-    """fn(param, grad, state dict, split dim) over the param leaves; the
-    factored state of a leaf is itself a dict ({"vr", "vc"} or {"v"})."""
+    """fn(param, grad, state dict, its split dim in each tree of `dims`)
+    over the param leaves; the factored state of a leaf is itself a dict
+    ({"vr", "vc"} or {"v"})."""
     if isinstance(params, dict):
         for k in params:
-            _map_state(fn, params[k], grads[k], states[k], dims[k])
+            _map_state(fn, params[k], grads[k], states[k],
+                       [d[k] for d in dims])
     else:
         fn(params, grads, states, dims)
 

@@ -11,10 +11,15 @@ dicts (with a new "step" tensor): at full width the optimizer state is
 four times the bf16 params, and a second copy of it would not fit beside
 the activations. Callers that need the old values clone them first.
 
-Sharded (FSDP, EP) training hands `update` a `Shards`: the leaves a rank
-holds only a block of, and the group over which to sum. Every value the
-update needs over a whole leaf (the global norm here; Adafactor's means
-and RMS) sums the blocks over the group, and a whole leaf counts once.
+Sharded (FSDP, EP, TP) training hands `update` a `Shards`: the leaves a
+rank holds only a block of, and the groups over which to sum (the data
+axes' and the model axis's; an EP expert leaf is split over both, its
+experts over data and its d_ff over model). Every value the update needs
+over a whole leaf (the global norm here; Adafactor's means and RMS) sums
+the blocks over each group that splits it, and a leaf whole on every
+rank of a group counts once: its grad is already the whole grad there
+(a replicated leaf's grad is never summed over the model group, which
+would double it).
 """
 
 from __future__ import annotations
@@ -66,9 +71,21 @@ class Shards:
     """Which param leaves a rank holds only a block of: `dims` mirrors the
     params with each leaf's dim split over the data group (None: whole
     on every rank; dist.sharding.data_dims), and `group` sums over that
-    group (dist.collectives.AxesGroup: the same bits on every rank)."""
+    group (dist.collectives.AxesGroup: the same bits on every rank);
+    `model_dims` and `model_group` the same for the model axis
+    (dist.sharding.model_dims; None without one)."""
     dims: Tree
     group: Any
+    model_dims: Optional[Tree] = None
+    model_group: Any = None
+
+    def splits(self) -> List[Tuple[Tree, Any]]:
+        """(dims tree, group) for each group that may split a leaf, the
+        data group first."""
+        out = [(self.dims, self.group)]
+        if self.model_dims is not None:
+            out.append((self.model_dims, self.model_group))
+        return out
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float,
@@ -78,17 +95,19 @@ def clip_by_global_norm(grads: Tree, max_norm: float,
     cast back to each leaf's dtype, the f32 global norm: the sqrt of the
     sum over leaves, in flatten order, of each leaf's f32 sum of
     squares). With `shards` a split leaf's sum of squares is its block's
-    summed over the group (one all-reduce for all of them); a whole leaf
+    summed over each group that splits it (one all-reduce a group for all
+    of them, the data group first); a leaf whole on a group's ranks
     counts once."""
     sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
     if shards is not None:
-        split = [i for i, d in enumerate(tree_leaves(shards.dims))
-                 if d is not None]
-        if split:
-            summed = shards.group.all_reduce(torch.stack([sq[i]
-                                                          for i in split]))
-            for j, i in enumerate(split):
-                sq[i] = summed[j]
+        for dims, group in shards.splits():
+            split = [i for i, d in enumerate(tree_leaves(dims))
+                     if d is not None]
+            if split and group.size > 1:
+                summed = group.all_reduce(torch.stack([sq[i]
+                                                       for i in split]))
+                for j, i in enumerate(split):
+                    sq[i] = summed[j]
     gnorm = torch.sqrt(sum(sq))
     scale = torch.clamp(max_norm / torch.clamp_min(gnorm, 1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm

@@ -13,10 +13,13 @@ rows i, i + n, i + 2n, ...) and accumulates f32 grads over a Python loop;
 grad_compress="bf16" casts the grads to bf16 before the update.
 
 With a plan (`make_plan`) the step runs on one rank of explicit SPMD
-over the plan's data axes (the model axis is 1 or absent): params and
-optimizer state are this rank's blocks under the bundle's spec trees,
-the batch is this rank's rows (`sharding.local_batch`), and the step
-computes the reference's function of the GLOBAL batch:
+over the plan's data axes and its model axis: params and optimizer state
+are this rank's blocks under the bundle's spec trees (the reference
+plan's: under a model axis larger than 1, row-parallel wo and a
+vocab-split embedding, never the serve plan's column-only specs), the
+batch is this rank's rows (`sharding.local_batch`; the ranks of a model
+group hold the same rows), and the step computes the reference's
+function of the GLOBAL batch:
 
   * `loss_fn(params, batch, ctx)` gives this rank's share: its rows' sum
     over labels >= 0 divided by the global count (all-reduced first);
@@ -29,8 +32,17 @@ computes the reference's function of the GLOBAL batch:
     step gives (the param's; f32 accumulators with microbatches);
     grad_compress="bf16" casts before the reduction, which is its point
     (half the bytes on the wire);
-  * the metrics are all-reduced, and the optimizer sums what it needs of
-    a split leaf over the group (optim.adamw.Shards).
+  * the metrics are all-reduced over the data axes, and the optimizer
+    sums what it needs of a split leaf over each group that splits it
+    (optim.adamw.Shards);
+  * tensor parallelism (dense and moe; the other families are ROADMAP
+    queue 1, item 9.5): the forward's row-parallel partial sums and the
+    backward's input-grad sums run inside the model (layers.DistCtx,
+    dist.collectives.CopyToGroup / ReduceFromGroup), so a model-split
+    leaf's grad is this rank's block of the whole grad and a replicated
+    leaf's is the whole grad on every rank of the model group: neither
+    is reduced over the model axis here. The model ranks compute the
+    same loss and metrics.
 
 Every rank applies the same reduced grads in the same order, so the
 replicas stay bit-equal. There is no `lower`: XLA lowering has no
@@ -49,7 +61,7 @@ from repro_torch import backend
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding as shd
 from repro_torch.models.layers import DistCtx
-from repro_torch.models.registry import Model
+from repro_torch.models.registry import Model, refuse_tp_training
 from repro_torch.optim.adafactor import make_optimizer
 from repro_torch.optim.adamw import (Shards, tree_leaves, tree_map,
                                     tree_unflatten)
@@ -66,7 +78,8 @@ class StepBundle:
     device, whole shapes) and `donate_argnums` (the arguments the step
     updates in place). Calling the bundle calls `fn`. A train step over a
     plan also carries its data group (`group`, whose `counts` are the
-    step's collectives)."""
+    step's collectives over the data axes) and its model group
+    (`model_group`, the same over the model axis)."""
     fn: Callable
     in_specs: Tuple
     out_specs: Any
@@ -74,6 +87,7 @@ class StepBundle:
     donate_argnums: Tuple[int, ...] = ()
     plan: Optional[shd.ShardingPlan] = None
     group: Any = None
+    model_group: Any = None
 
     def __call__(self, *args):
         return self.fn(*args)
@@ -152,21 +166,22 @@ def build_train_step(model: Model, plan: Optional[shd.ShardingPlan] = None,
                           warmup=warmup, total=total_steps))
     ab_params, ps = _param_specs(model, plan)
     ab_opt = opt.init(ab_params)
-    ctx = group = kinds = shards = None
+    ctx = group = mgroup = kinds = shards = None
     os_ = None
     if plan is not None:
         if (plan.tp_axis is not None
                 and plan.axis_size(plan.tp_axis) > 1):
-            raise NotImplementedError(
-                "training over a model axis larger than 1 (tensor-parallel "
-                "training) is not ported yet: ROADMAP queue 1, item 9.4")
+            refuse_tp_training(model.cfg)
         ctx = make_dist_ctx(plan)
-        group = ctx.data_group()
+        group, mgroup = ctx.data_group(), ctx.model_group()
         os_ = shd.opt_state_specs(ps, ab_opt)
         dims = shd.data_dims(plan, ps)
         kinds = _leaf_kinds(model, plan, ps, dims)
-        if group.size > 1:
-            shards = Shards(dims=dims, group=group)
+        if group.size > 1 or mgroup.size > 1:
+            shards = Shards(dims=dims, group=group,
+                            model_dims=shd.model_dims(plan, ps)
+                            if mgroup.size > 1 else None,
+                            model_group=mgroup)
     # the one-device step calls update(params, grads, state) as before
     update_kw = {} if shards is None else {"shards": shards}
 
@@ -230,7 +245,7 @@ def build_train_step(model: Model, plan: Optional[shd.ShardingPlan] = None,
         del compute
         if grad_compress == "bf16":
             grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
-        if shards is not None:
+        if group is not None and group.size > 1:
             grads = reduce_grads(grads)
             names = ("loss", "aux")
             summed = group.all_reduce(torch.stack(
@@ -245,7 +260,8 @@ def build_train_step(model: Model, plan: Optional[shd.ShardingPlan] = None,
     bundle = StepBundle(fn=train_step, in_specs=(ps, os_, None),
                         out_specs=(ps, os_, None),
                         abstract_args=(ab_params, ab_opt, None),
-                        donate_argnums=(0, 1), plan=plan, group=group)
+                        donate_argnums=(0, 1), plan=plan, group=group,
+                        model_group=mgroup)
     return bundle, opt
 
 

@@ -9,15 +9,21 @@ checkpoint with bit-identical data order (step-keyed batches).
 
 With `mesh=` (launch/mesh.make_mesh, one process a rank) every rank runs
 this loop under the training plan (`step.make_plan`: DP, FSDP with
-`fsdp=True` or above 8e9 params, EP for moe): it draws the whole init
-from the seed and keeps its blocks, builds the global batch (the stub
-frontend inputs included) and keeps its rows. The losses are the global
-batch's, equal on every rank; rank 0 prints and writes checkpoints (whole
-leaves, gathered over the data axes; the others wait at a barrier), each
-rank beats its own heartbeat (HEARTBEAT.rank<r>), and a resume cuts each
+`fsdp=True` or above 8e9 params, EP for moe, and TP over a model axis
+larger than 1 for the dense and moe families: row-parallel attention
+and FFNs, the experts' d_ff split by `moe_ffn_ep`'s has_tp branch, a
+vocab-parallel embedding and loss): it draws the whole init from the
+seed and keeps its blocks, builds the global batch (the stub frontend
+inputs included) and keeps its rows (the ranks of a model group the
+same rows). The losses are the global batch's, equal on every rank;
+rank 0 prints and writes checkpoints (whole leaves, gathered over the
+model axis and the data axes; the others wait at a barrier), each rank
+beats its own heartbeat (HEARTBEAT.rank<r>), and a resume cuts each
 rank's blocks from the whole leaves, whatever mesh wrote them (the
-elastic reshard). A mesh whose model axis is larger than 1 raises:
-tensor-parallel training is ROADMAP queue 1, item 9.4.
+elastic reshard: a TP checkpoint restores into TP, DP x TP or one
+device). The hybrid, ssm, encdec and vlm families refuse a model axis
+larger than 1: their tensor-parallel training is ROADMAP queue 1, item
+9.5.
 """
 
 from __future__ import annotations
@@ -34,8 +40,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import (DataConfig, PrefetchIterator,
                                        TokenSource, make_stub_frontend_batch)
 from repro_torch.dist import sharding
+from repro_torch.dist.collectives import AxesGroup
 from repro_torch.dist.fault import HeartbeatFile, StepWatchdog, resume_or_init
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, refuse_tp_training
 from repro_torch.train import step as step_lib
 
 
@@ -74,10 +81,7 @@ class Trainer:
                  *, fsdp: Optional[bool] = None,
                  device=backend.DEFAULT_DEVICE):
         if mesh is not None and int(mesh.shape.get("model", 1)) > 1:
-            raise NotImplementedError(
-                "Trainer(mesh=) with a model axis larger than 1 "
-                "(tensor-parallel training) is not ported yet: ROADMAP "
-                "queue 1, item 9.4")
+            refuse_tp_training(cfg)
         self.cfg = cfg
         self.loop = loop
         self.mesh = mesh
@@ -115,18 +119,21 @@ class Trainer:
 
     def save(self, step: int, state: Dict[str, Any]) -> None:
         """Checkpoint `state` as whole leaves. Under a mesh every rank
-        takes part in the gathers (leaf by leaf, to the host), rank 0
-        writes (blocking), and the others wait for it at a barrier."""
+        takes part in the gathers (leaf by leaf, over the model axis then
+        the data axes, to the host), rank 0 writes (blocking), and the
+        others wait for it at a barrier of every rank."""
         if self.plan is None:
             self.ckpt.save(step, state)
             return
-        group = self.bundle.group
-        dims = sharding.data_dims(self.plan, self._specs())
-        whole = sharding.gather_tree(state, dims, group, device="cpu")
+        specs = self._specs()
+        whole = sharding.gather_tree(
+            state, sharding.data_dims(self.plan, specs), self.bundle.group,
+            device="cpu", model_dims=sharding.model_dims(self.plan, specs),
+            model_group=self.bundle.model_group)
         if self.rank == 0:
             self.ckpt.save(step, whole, blocking=True)
         del whole
-        group.barrier()
+        AxesGroup(self.mesh, self.mesh.axis_names).barrier()
 
     # ------------------------------------------------------------------ run
 

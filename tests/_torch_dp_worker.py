@@ -219,15 +219,19 @@ def int8(mesh, payload):
 
 def pipeline(mesh, payload):
     """dist.pipeline.pipelined_apply of tanh(h @ w) layers over the data
-    axis, this rank's stage cut from the whole stack."""
+    axis, this rank's stage cut from the whole stack: the outputs, and the
+    grads of sum(out * cot) with respect to the stage and the stream."""
     from repro_torch.dist.pipeline import pipelined_apply
     from repro_torch.dist.sharding import local_shard
     w = torch.from_numpy(payload["w"]).to(mesh.device)
-    stage = local_shard(w, ("data",), mesh).clone()
-    out = pipelined_apply(lambda p, h: torch.tanh(h @ p), stage,
-                          torch.from_numpy(payload["x"]).to(mesh.device),
+    stage = local_shard(w, ("data",), mesh).clone().requires_grad_(True)
+    x = torch.from_numpy(payload["x"]).to(mesh.device).requires_grad_(True)
+    out = pipelined_apply(lambda p, h: torch.tanh(h @ p), stage, x,
                           mesh=mesh, pp_axis="data")
-    return out.cpu().numpy()
+    cot = torch.from_numpy(payload["cot"]).to(mesh.device)
+    gw, gx = torch.autograd.grad((out * cot).sum(), [stage, x])
+    return {"out": out.detach().cpu().numpy(), "gw": gw.cpu().numpy(),
+            "gx": gx.cpu().numpy()}
 
 
 def elastic_in(mesh, payload):

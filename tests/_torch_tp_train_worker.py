@@ -1,0 +1,223 @@
+"""Rank cases for tests/test_torch_tp_train.py: tensor-parallel training in
+the port on one rank of a gloo world over a {"data": 2, "model": 2} mesh
+(`_torch_tp_worker.run_world(..., shape={"data": 2, "model": 2},
+module="_torch_tp_train_worker")`). The one-device references run in the
+test process (`_torch_dp_worker.dp_step` without a mesh, and
+`emulated_ep` for the expert-parallel route). torch and repro_torch
+only: no jax here."""
+
+from __future__ import annotations
+
+import contextlib
+import hashlib
+
+import numpy as np
+import torch
+
+import _torch_dp_worker as D
+
+
+def _leaf_digests(tree):
+    """{path: sha1 of the leaf's bytes}."""
+    out = {}
+    for k, t in D._flat(tree).items():
+        out[k] = hashlib.sha1(t.detach().contiguous().reshape(-1)
+                              .view(torch.uint8).cpu().numpy()
+                              .tobytes()).hexdigest()
+    return out
+
+
+def _bits(t):
+    t = t.detach()
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _whole_of(plan, specs, bundle):
+    """A function of a tree of this rank's blocks (params-shaped) that
+    gathers it whole over the model axis and the data axes."""
+    from repro_torch.dist import sharding
+    dims = sharding.data_dims(plan, specs)
+    mdims = sharding.model_dims(plan, specs)
+
+    def whole_of(tree):
+        return sharding.gather_tree(tree, dims, bundle.group,
+                                    model_dims=mdims,
+                                    model_group=bundle.model_group)
+    return whole_of
+
+
+def tp_step(mesh, payload):
+    """payload["batches"] (global numpy batches) through build_train_step
+    under make_plan over `mesh` (the reference plan: row-parallel over
+    "model", rows over "data"): each step's metrics, the whole grads the
+    optimizer got (gathered over both axes), each local leaf's digest
+    after the step, plus the whole params at the end, every leaf's local
+    shape and its data / model dims, and the moe routes taken."""
+    from repro_torch.dist import sharding
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train import step as step_lib
+    cfg = D._cfg(payload)
+    model = build_model(cfg)
+    plan = step_lib.make_plan(cfg, mesh, kind="train")
+    bundle, opt = step_lib.build_train_step(
+        model, plan, optimizer_name=payload.get("optimizer"),
+        microbatches=payload.get("microbatches", 1),
+        grad_compress=payload.get("grad_compress", "none"), **D.STEP_KW)
+    ps = bundle.in_specs[0]
+    dev = D._device(mesh, payload)
+    params = tree_map(lambda t: t.to(dev), sharding.shard_tree(
+        D._whole_params(cfg, payload), ps, mesh))
+    whole_of = _whole_of(plan, ps, bundle)
+    opt_state = opt.init(params)
+    seen = []
+    real = opt.update
+
+    def update(p, g, s, shards=None):
+        seen.append(D._to_numpy(whole_of(g)))
+        return real(p, g, s, shards)
+
+    object.__setattr__(opt, "update", update)
+    routes = {"moe_ffn_ep": 0, "moe_ffn_ep_tp": 0, "moe_ffn": 0,
+              "moe_ffn_tp": 0}
+    real_route = {k: getattr(moe, k) for k in ("moe_ffn_ep", "moe_ffn")}
+
+    def counted(name):
+        def call(*a, **kw):
+            routes[name] += 1
+            if kw.get("tp") is not None:
+                routes[name + "_tp"] += 1
+            return real_route[name](*a, **kw)
+        return call
+
+    steps = []
+    for k in real_route:
+        setattr(moe, k, counted(k))
+    try:
+        for b in payload["batches"]:
+            batch = {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
+            batch = {k: v.to(dev) for k, v in
+                     sharding.local_batch(plan, batch).items()}
+            params, opt_state, m = bundle(params, opt_state, batch)
+            steps.append({"metrics": {k: float(v) for k, v in m.items()},
+                          "grads": seen[-1],
+                          "leaves": _leaf_digests(params)})
+    finally:
+        for k, f in real_route.items():
+            setattr(moe, k, f)
+    return {"steps": steps, "params": D._to_numpy(whole_of(params)),
+            "local_shapes": {k: tuple(v.shape) for k, v in
+                             D._flat(params).items()},
+            "data_dims": D._flat(sharding.data_dims(plan, ps)),
+            "model_dims": D._flat(sharding.model_dims(plan, ps)),
+            "routes": routes}
+
+
+@contextlib.contextmanager
+def emulated_ep(n_shards: int, tp_shards: int):
+    """While open, a one-device loss_fn's moe layers at EP_MIN_TOKENS
+    tokens or more run moe_ffn_ep_emulated over `n_shards` data ranks and
+    `tp_shards` model ranks (the rank world's expert-parallel route in one
+    process; its aux, the sum of the ranks' shares, is the global one)."""
+    from repro_torch.models import moe, registry
+    real = registry._moe_apply
+
+    def apply(cfg, lp, h, ctx=None, token_valid=None):
+        b, s, d = h.shape
+        if b * s < registry.EP_MIN_TOKENS or token_valid is not None:
+            return real(cfg, lp, h, ctx, token_valid)
+        f, aux = moe.moe_ffn_ep_emulated(
+            h.reshape(-1, d), lp, n_experts=cfg.n_experts,
+            k=cfg.experts_per_token, n_shards=n_shards, tp_shards=tp_shards)
+        return f.reshape(b, s, d), aux
+
+    registry._moe_apply = apply
+    try:
+        yield
+    finally:
+        registry._moe_apply = real
+
+
+def moe_ep_tp(mesh, payload):
+    """moe.moe_ffn_ep's has_tp branch on this rank's rows (over "data"),
+    its experts (over "data") and their d_ff (over "model"; the shared
+    experts whole, as the reference's moe_ffn_ep test lays them out): the
+    output rows, the aux (summed over "data"), the grads of x (this
+    rank's rows) and of every weight (this rank's blocks; the router's
+    and the shared experts' summed over "data")."""
+    from repro_torch.dist.collectives import AxesGroup
+    from repro_torch.dist.sharding import local_shard
+    from repro_torch.models import moe
+    x, cot, params = D._moe_inputs(payload, mesh, split_experts=True)
+    specs = {"wi": (None, None, "model"), "wg": (None, None, "model"),
+             "wo": (None, "model", None)}
+    for k, spec in specs.items():
+        params[k] = local_shard(params[k], spec, mesh).clone()
+    x.requires_grad_(True)
+    for p in params.values():
+        p.requires_grad_(True)
+    data, model = AxesGroup(mesh, ("data",)), AxesGroup(mesh, ("model",))
+    out, aux = moe.moe_ffn_ep(x, params, n_experts=payload["n_experts"],
+                              k=payload["k"], group=data, tp=model)
+    names = sorted(params)
+    loss = (out.float() * cot).sum() + payload["coef"] * aux
+    grads = torch.autograd.grad(loss, [x] + [params[k] for k in names])
+    gp = dict(zip(names, grads[1:]))
+    # the replicated weights' grads: this data rank's tokens' part,
+    # summed over "data"
+    for k in ("router", "shared_wi", "shared_wg", "shared_wo"):
+        gp[k] = data.all_reduce(gp[k])
+    return {"out": out.detach().float().numpy(),
+            "aux": float(data.all_reduce(aux.detach())),
+            "gx": grads[0].float().numpy(),
+            "gp": {k: g.float().numpy() for k, g in gp.items()}}
+
+
+def tp_trainer(mesh, payload):
+    """Trainer(mesh=) for payload["steps"] steps with a checkpoint at the
+    end (whole leaves, rank 0), then the checkpoint restored onto this
+    rank under the same plan: its blocks against the live state, bit for
+    bit, and the live state gathered whole."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.dist import sharding
+    from repro_torch.dist.fault import resume_or_init
+    from repro_torch.train.trainer import TrainLoopConfig, Trainer
+    cfg = D._cfg(payload)
+    steps = payload["steps"]
+    loop = TrainLoopConfig(total_steps=steps, ckpt_every=steps,
+                           log_every=100, ckpt_dir=payload["dir"],
+                           seq_len=32, global_batch=4, peak_lr=1e-3)
+    tr = Trainer(cfg, loop, mesh)
+    out = tr.run(verbose=mesh.rank == 0)
+    specs = tr._specs()
+    step, state = resume_or_init(CheckpointManager(payload["dir"]),
+                                 lambda: None, device="cpu",
+                                 shardings=specs, mesh=mesh)
+    live, back = D._flat(tr.state), D._flat(state)
+    same = sorted(live) == sorted(back) and all(
+        torch.equal(_bits(live[k]), _bits(back[k])) for k in live)
+    whole = sharding.gather_tree(
+        tr.state, sharding.data_dims(tr.plan, specs), tr.bundle.group,
+        model_dims=sharding.model_dims(tr.plan, specs),
+        model_group=tr.bundle.model_group)
+    return {"losses": out["losses"], "step": step, "restored_equal": same,
+            "whole": D._to_numpy_exact(whole),
+            "local": D._to_numpy_exact(tr.state), "specs": D._flat(specs)}
+
+
+# intra-op threads a rank: the world's 4 processes at torch's default (every
+# core each) oversubscribe the cores and ran the 4096-token moe case ~10x
+# slower; set in the rank processes only (the test process keeps its own)
+RANK_THREADS = 2
+
+
+def _in_rank(case):
+    def run(mesh, payload):
+        torch.set_num_threads(RANK_THREADS)
+        return case(mesh, payload)
+    return run
+
+
+CASES = {name: _in_rank(case) for name, case in (
+    ("tp_step", tp_step), ("moe_ep_tp", moe_ep_tp), ("tp_trainer", tp_trainer))}

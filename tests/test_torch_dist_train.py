@@ -32,7 +32,9 @@ with 2 forced host devices (as tests/test_dist.py's sharded tests).
       EP below the EP threshold) against the one-device moe_ffn on the
       global batch: output and aux bit-equal, grads within GRAD_RTOL;
   (h) pipelined_apply over the 2 ranks against JAX's and the dense scan
-      (1e-4, the reference test's bound); bubble_fraction equal;
+      (1e-4, the reference test's bound), its gradient (a stage's params,
+      the stream) against autograd through the dense loop and JAX's
+      jax.grad through its own; bubble_fraction equal;
   (i) the elastic checkpoint: 1 -> 2 (a one-device checkpoint restored
       into FSDP blocks) and 2 -> 1 (an FSDP world's checkpoint restored
       on one device), bit-equal;
@@ -115,7 +117,8 @@ def _moe_inputs():
 def _pipe_inputs():
     rng = np.random.default_rng(7)
     return {"w": (rng.standard_normal((8, 16, 16)) * 0.1).astype(np.float32),
-            "x": rng.standard_normal((4, 2, 16)).astype(np.float32)}
+            "x": rng.standard_normal((4, 2, 16)).astype(np.float32),
+            "cot": rng.standard_normal((4, 2, 16)).astype(np.float32)}
 
 
 def _int8_inputs():
@@ -192,13 +195,19 @@ out["moe"] = {"out": np.array(o.astype(jnp.float32)), "aux": float(aux),
               "gx": np.array(gx.astype(jnp.float32)),
               "gp": {k: np.array(v.astype(jnp.float32)) for k, v in gp.items()}}
 
-# (h) the GPipe schedule over the 2 devices
+# (h) the GPipe schedule over the 2 devices, and jax.grad through it of
+# sum(out * cot) with respect to the stack and the stream
 pi = inp["pipe"]
+def pipe(w, x):
+    return pipelined_apply(lambda q, h: jnp.tanh(h @ q), w, x, mesh=mesh,
+                           pp_axis="data")
 with jax.set_mesh(mesh):
-    o = jax.jit(lambda w, x: pipelined_apply(
-        lambda q, h: jnp.tanh(h @ q), w, x, mesh=mesh, pp_axis="data"))(
-            jnp.asarray(pi["w"]), jnp.asarray(pi["x"]))
+    w, x = jnp.asarray(pi["w"]), jnp.asarray(pi["x"])
+    o = jax.jit(pipe)(w, x)
+    gw, gx = jax.jit(jax.grad(lambda w, x: (pipe(w, x) * pi["cot"]).sum(),
+                              argnums=(0, 1)))(w, x)
 out["pipe"] = np.array(o)
+out["pipe_grads"] = {"w": np.array(gw), "x": np.array(gx)}
 pickle.dump(out, open(sys.argv[2], "wb"))
 '''
 
@@ -534,16 +543,34 @@ def test_prefill_and_decode_steps_over_data_ranks(world, which):
 # ------------------------------------------------------------------- (h)
 
 def test_pipelined_apply_matches_jax_and_dense(world, jax_ref):
+    """The outputs against the dense scan and JAX's, and the gradient of
+    sum(out * cot): each rank's stage grads against the dense loop's for
+    its layers, the stream's (whole on both ranks) against the dense
+    loop's; jax.grad through the reference's pipelined_apply gives the
+    dense gradient too (ROADMAP queue 3)."""
     pi = _pipe_inputs()
-    w, x = torch.from_numpy(pi["w"]), torch.from_numpy(pi["x"])
+    w = torch.from_numpy(pi["w"]).requires_grad_(True)
+    x = torch.from_numpy(pi["x"]).requires_grad_(True)
     dense = x
     for i in range(w.shape[0]):
         dense = torch.tanh(dense @ w[i])
+    gw, gx = torch.autograd.grad((dense * torch.from_numpy(pi["cot"])).sum(),
+                                 [w, x])
+    dense = dense.detach().numpy()
+    half = w.shape[0] // 2
     for r in (0, 1):
         got = world[r]["pipeline"]
-        assert np.abs(got - dense.numpy()).max() < PIPE_ATOL
-        assert np.abs(got - jax_ref["pipe"]).max() < PIPE_ATOL
-    np.testing.assert_array_equal(world[0]["pipeline"], world[1]["pipeline"])
+        assert np.abs(got["out"] - dense).max() < PIPE_ATOL
+        assert np.abs(got["out"] - jax_ref["pipe"]).max() < PIPE_ATOL
+        stage = gw[r * half:(r + 1) * half].numpy()
+        assert np.abs(got["gw"] - stage).max() < PIPE_ATOL
+        assert np.abs(got["gx"] - gx.numpy()).max() < PIPE_ATOL
+    for k in ("out", "gx"):
+        np.testing.assert_array_equal(world[0]["pipeline"][k],
+                                      world[1]["pipeline"][k])
+    jg = jax_ref["pipe_grads"]
+    assert np.abs(jg["w"] - gw.numpy()).max() < PIPE_ATOL
+    assert np.abs(jg["x"] - gx.numpy()).max() < PIPE_ATOL
     from repro.dist.pipeline import bubble_fraction as jbubble
     for s, m in ((4, 4), (2, 8), (1, 3), (8, 1)):
         assert pipeline.bubble_fraction(s, m) == jbubble(s, m)
@@ -610,10 +637,13 @@ def test_trainer_resume_matches_straight_run(world):
 
 
 def test_trainer_refuses_a_model_axis(tmp_path):
-    cfg = reduce_config(get_config(DENSE["arch"]), **DENSE["reduce"])
+    """Since tensor-parallel training of the dense and moe families
+    (tests/test_torch_tp_train.py), the families left refuse a model axis
+    (item 9.5); hymba here, every one of them there."""
+    cfg = reduce_config(get_config("hymba-1.5b"), **DENSE["reduce"])
     loop = TrainLoopConfig(ckpt_dir=str(tmp_path / "ckpt"))
     mesh = types.SimpleNamespace(shape={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="9.4"):
+    with pytest.raises(NotImplementedError, match="item 9.5"):
         Trainer(cfg, loop, mesh, device="cpu")
 
 

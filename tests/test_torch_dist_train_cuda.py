@@ -6,7 +6,8 @@ calls on one device of the card, with test_torch_dist_train.py's
 tolerances: a reduced qwen2 with flash on (S = 256, so the kernels run on
 every rank) trained by DP and by FSDP, moe_ffn_ep against its
 one-process emulation, allreduce_int8 against the arithmetic on the
-host, pipelined_apply against the dense scan. Every test here needs a
+host, pipelined_apply and its gradient against the dense loop. Every
+test here needs a
 CUDA card and skips without one; the file imports nothing of jax."""
 
 import numpy as np
@@ -120,7 +121,8 @@ def test_int8_and_pipeline_on_the_card(cuda, tmp_path):
     rng = np.random.default_rng(9)
     g = rng.standard_normal((2, 64, 256)).astype(np.float32)
     pipe = {"w": (rng.standard_normal((8, 256, 256)) / 16).astype(np.float32),
-            "x": rng.standard_normal((4, 8, 256)).astype(np.float32)}
+            "x": rng.standard_normal((4, 8, 256)).astype(np.float32),
+            "cot": rng.standard_normal((4, 8, 256)).astype(np.float32)}
     world = W.run_world(tmp_path, 2, [("int8", {"g": g}),
                                       ("pipeline", pipe)],
                         device="cuda", shape={"data": 2},
@@ -134,8 +136,18 @@ def test_int8_and_pipeline_on_the_card(cuda, tmp_path):
         np.testing.assert_array_equal(world[r]["int8"]["out"], mean.numpy())
         res = (gt[r] - q[r].float() * scale).numpy()
         np.testing.assert_array_equal(world[r]["int8"]["res"], res)
-    dense = torch.from_numpy(pipe["x"])
+    # the outputs and the gradient of sum(out * cot) (a rank's stage, the
+    # stream) against the dense loop on the host
+    w = torch.from_numpy(pipe["w"]).requires_grad_(True)
+    x = torch.from_numpy(pipe["x"]).requires_grad_(True)
+    dense = x
     for i in range(8):
-        dense = torch.tanh(dense @ torch.from_numpy(pipe["w"][i]))
+        dense = torch.tanh(dense @ w[i])
+    gw, gx = torch.autograd.grad((dense * torch.from_numpy(pipe["cot"]))
+                                 .sum(), [w, x])
     for r in (0, 1):
-        assert np.abs(world[r]["pipeline"] - dense.numpy()).max() < PIPE_ATOL
+        got = world[r]["pipeline"]
+        assert np.abs(got["out"] - dense.detach().numpy()).max() < PIPE_ATOL
+        assert np.abs(got["gw"] - gw[4 * r:4 * r + 4].numpy()).max() \
+            < PIPE_ATOL
+        assert np.abs(got["gx"] - gx.numpy()).max() < PIPE_ATOL

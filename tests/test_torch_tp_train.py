@@ -1,0 +1,639 @@
+"""Tensor-parallel training in the port (ROADMAP item 9.4) against the
+port's one-device step and the JAX package's unsharded step: every rank
+case runs in one 4-rank gloo world on the CPU over a {"data": 2,
+"model": 2} mesh (tests/_torch_tp_worker.run_world, the cases in
+tests/_torch_tp_train_worker.py), the one-device references in this
+process, and the JAX references in one subprocess with 4 forced host
+devices.
+
+Sizes: reduced qwen2 (2 layers, d_model 64, vocab 128, 12 heads and 2 kv
+heads of 16: a rank holds 6 and 1, qwen2-1.5b's TP 2 layout) and reduced
+deepseek-moe (2 layers, 8 experts, 2 heads and 2 kv heads). Every dim the
+plan splits over "model" is even, so each split happens ((e) asserts
+it). Tolerances are tests/test_torch_dist_train.py's: LOSS_ATOL
+on the losses, GRAD_RTOL of each leaf's max |grad| on every grad leaf of
+every step (of step 0 in the moe cases: MOE_GRAD_STEPS). The row-parallel partials are bf16 summed over the ranks, as
+the reference's bf16 psum (matmul_rp, moe.py:166), so the TP step is one
+bf16 rounding from the unsharded one.
+
+  (a) AdamW, 2 steps, on the JAX package's init weights: against the
+      port's one-device step, and against the JAX package's unsharded
+      step (value_and_grad of loss_fn + the optimizer) in losses, grad
+      norms and step 0's grads; and against the reference's own TP step
+      on a ("model", 2) mesh of host devices, which runs on this jax, in
+      losses and grad norms;
+  (b) the same with Adafactor; (c) with microbatches 2 and bf16 grads;
+      and two head layouts split off the head boundaries (half a kv head,
+      a head and a half a rank) against the one-device step;
+  (d) reduced deepseek-moe on the expert-parallel route (4096 global
+      tokens, every token to every expert: every moe layer takes
+      moe_ffn_ep with has_tp) against the one-device step whose moe
+      layers run moe_ffn_ep_emulated over 2 x 2 ranks, and on the
+      capacity route (128 tokens, k = 2) against the plain one-device
+      step, each step's grads leaf by leaf at step 0 (see
+      MOE_GRAD_STEPS); moe_ffn_ep's has_tp branch alone against JAX's
+      moe_ffn_ep on a 2 x 2 mesh where that runs, and bit for bit against
+      moe_ffn_ep_emulated(tp_shards=2);
+  (e) the local shapes (half of wq's columns, wo's rows, the embedding's
+      vocab rows, the experts' d_ff), replicated leaves bit-equal across
+      the model ranks after every step and replicas across the data ranks;
+  (f) a Trainer checkpoint of the 2 x 2 world (whole leaves) restored bit
+      for bit onto its ranks, on one device (then one more step), and
+      into TP 2's blocks;
+  (g) Trainer(mesh=) and build_train_step over a model axis refuse the
+      hybrid, ssm, encdec and vlm families, citing item 9.5.
+"""
+
+import dataclasses
+import os
+import pickle
+import subprocess
+import sys
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import _torch_dp_worker as D
+import _torch_tp_train_worker as TW
+import _torch_tp_worker as W
+from repro_torch.ckpt.checkpoint import CheckpointManager
+from repro_torch.configs.base import get_config, reduce_config
+from repro_torch.dist import sharding
+from repro_torch.models import moe, registry
+from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
+from repro_torch.models.registry import build_model
+from repro_torch.train import step as step_lib
+from repro_torch.train.trainer import TrainLoopConfig, Trainer
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LOSS_ATOL = 5e-3
+GRAD_RTOL = 3e-2
+OUT_ULPS = 2 * 2.0 ** -8
+AUX_RTOL = 1e-5
+SHAPE = {"data": 2, "model": 2}
+REDUCE = dict(layers=2, d_model=64, vocab=128)
+QWEN_HEADS = dict(n_heads=12, n_kv_heads=2, head_dim=16)
+DENSE = dict(arch="qwen2-1.5b", reduce=REDUCE, replace=QWEN_HEADS, seed=0)
+MOE_CFG = dict(arch="deepseek-moe-16b", reduce=REDUCE, seed=1)
+OPTS = {"adamw": dict(optimizer="adamw", microbatches=1,
+                      grad_compress="none"),
+        "adafactor": dict(optimizer="adafactor", microbatches=1,
+                          grad_compress="none"),
+        "mb": dict(optimizer="adamw", microbatches=2, grad_compress="bf16")}
+MOE = dict(n_experts=8, k=2, d=64, f=32, t=128, coef=0.1)
+
+
+def _batch(seed, b=4, s=32, vocab=128):
+    """tokens/labels (B, S) int32; a few labels -1 (out of the loss)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (b, s + 1)).astype(np.int32)
+    labels = toks[:, 1:].copy()
+    labels[0, :7] = -1
+    labels[b - 1, 10:15] = -1
+    return {"tokens": toks[:, :-1], "labels": labels}
+
+
+BATCHES = [_batch(0), _batch(1)]
+# global token counts: 4096 takes the expert-parallel route, 128 the
+# capacity route (registry.EP_MIN_TOKENS)
+EP_BATCHES = [_batch(2, b=16, s=256), _batch(3, b=16, s=256)]
+assert 16 * 256 >= registry.EP_MIN_TOKENS > 4 * 32
+
+
+def _bf16(a):
+    return tensor_from_numpy(np.asarray(a, np.float32), "cpu").bfloat16(
+    ).float().numpy()
+
+
+def _moe_inputs():
+    rng = np.random.default_rng(5)
+    e, d, f, t = MOE["n_experts"], MOE["d"], MOE["f"], MOE["t"]
+    p = {"router": _bf16(0.2 * rng.standard_normal((d, e))),
+         "wi": _bf16(0.2 * rng.standard_normal((e, d, f))),
+         "wg": _bf16(0.2 * rng.standard_normal((e, d, f))),
+         "wo": _bf16(0.2 * rng.standard_normal((e, f, d))),
+         "shared_wi": _bf16(0.2 * rng.standard_normal((d, 2 * f))),
+         "shared_wg": _bf16(0.2 * rng.standard_normal((d, 2 * f))),
+         "shared_wo": _bf16(0.2 * rng.standard_normal((2 * f, d)))}
+    return {"x": _bf16(rng.standard_normal((t, d))),
+            "cot": rng.standard_normal((t, d)).astype(np.float32),
+            "params": p, "n_experts": e, "k": MOE["k"], "coef": MOE["coef"],
+            "as_bf16": True}
+
+
+JAX_SCRIPT = r'''
+import dataclasses, functools, pickle, sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.configs.base import get_config, reduce_config
+from repro.models import moe
+from repro.models.registry import build_model
+from repro.optim.adafactor import make_optimizer
+from repro.optim.schedule import linear_warmup_cosine
+from repro.train import step as step_lib
+
+inp = pickle.load(open(sys.argv[1], "rb"))
+out = {}
+kw = inp["step_kw"]
+cfg = dataclasses.replace(reduce_config(get_config("qwen2-1.5b"),
+                                        **inp["reduce"]), **inp["replace"])
+model = build_model(cfg)
+params0 = jax.tree.map(jnp.asarray, inp["params"])
+batches = [{k: jnp.asarray(v) for k, v in b.items()} for b in inp["batches"]]
+
+
+def lr_fn():
+    return functools.partial(linear_warmup_cosine, peak_lr=kw["peak_lr"],
+                             warmup=kw["warmup"], total=kw["total_steps"])
+
+
+# (a)-(c): the unsharded step, value_and_grad of loss_fn + the optimizer
+grad_fn = jax.jit(jax.value_and_grad(model.loss_fn, has_aux=True))
+for name, o in inp["opts"].items():
+    opt = make_optimizer(o["optimizer"], lr_fn())
+    update = jax.jit(opt.update)
+    p, st, mets, grads0 = params0, opt.init(params0), [], None
+    n = o["microbatches"]
+    for b in batches:
+        g, ms = None, []
+        for i in range(n):
+            (_, m), gi = grad_fn(p, {k: v[i::n] for k, v in b.items()})
+            if n > 1:
+                gi = jax.tree.map(lambda x: x.astype(jnp.float32) / n, gi)
+            g = gi if g is None else jax.tree.map(jnp.add, g, gi)
+            ms.append(m)
+        if o["grad_compress"] == "bf16":
+            g = jax.tree.map(lambda x: x.astype(jnp.bfloat16), g)
+        if grads0 is None:
+            grads0 = jax.tree.map(lambda x: np.array(x.astype(jnp.float32)),
+                                  g)
+        p, st, om = update(p, g, st)
+        mets.append({"loss": float(np.mean([float(m["loss"]) for m in ms])),
+                     "grad_norm": float(om["grad_norm"])})
+    out[name] = {"metrics": mets, "grads0": grads0}
+
+
+def attempt(fn):
+    try:
+        return {"ok": fn()}
+    except Exception as e:
+        return {"error": type(e).__name__,
+                "message": (str(e).strip().splitlines() or [""])[0][:300]}
+
+
+# (a): the reference's own TP step over ("model", 2)
+def tp_step():
+    mesh = Mesh(np.array(jax.devices()[:2]), ("model",))
+    plan = step_lib.make_plan(cfg, mesh, kind="train")
+    bundle, opt = step_lib.build_train_step(
+        model, plan, peak_lr=kw["peak_lr"], warmup=kw["warmup"],
+        total_steps=kw["total_steps"])
+    with jax.set_mesh(mesh):
+        params = jax.device_put(params0, bundle.in_shardings[0])
+        state = jax.jit(opt.init, out_shardings=bundle.in_shardings[1])(
+            params)
+        step = jax.jit(bundle.fn,
+                       in_shardings=bundle.in_shardings[:2] + (None,),
+                       out_shardings=bundle.out_shardings)
+        mets = []
+        for b in batches:
+            params, state, m = step(params, state, b)
+            mets.append({k: float(v) for k, v in m.items()})
+    return mets
+
+
+out["tp_step"] = attempt(tp_step)
+
+
+# (d): moe_ffn_ep's has_tp branch on a ("data", 2) x ("model", 2) mesh
+def moe_tp():
+    mi = inp["moe"]
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    specs = {"wi": P("data", None, "model"), "wg": P("data", None, "model"),
+             "wo": P("data", "model", None)}
+    x = jnp.asarray(mi["x"], jnp.bfloat16)
+    p = {k: jnp.asarray(v, jnp.bfloat16) for k, v in mi["params"].items()}
+    cot = jnp.asarray(mi["cot"])
+
+    def f(x, p):
+        o, aux = moe.moe_ffn_ep(x, p, n_experts=mi["n_experts"], k=mi["k"],
+                                mesh=mesh, dp_axes=("data",))
+        return (o.astype(jnp.float32) * cot).sum() + mi["coef"] * aux, (o,
+                                                                       aux)
+
+    with jax.set_mesh(mesh):
+        xd = jax.device_put(x, NamedSharding(mesh, P("data")))
+        pd = {k: jax.device_put(v, NamedSharding(mesh, specs.get(k, P())))
+              for k, v in p.items()}
+        (_, (o, aux)), (gx, gp) = jax.jit(jax.value_and_grad(
+            f, argnums=(0, 1), has_aux=True))(xd, pd)
+    return {"out": np.array(o.astype(jnp.float32)), "aux": float(aux),
+            "gx": np.array(gx.astype(jnp.float32)),
+            "gp": {k: np.array(v.astype(jnp.float32)) for k, v in gp.items()}}
+
+
+out["moe_tp"] = attempt(moe_tp)
+pickle.dump(out, open(sys.argv[2], "wb"))
+'''
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    """The JAX package's init of the reduced qwen2 (numpy leaves), the
+    weights both packages train."""
+    from repro.configs.base import get_config as jget
+    from repro.configs.base import reduce_config as jreduce
+    from repro.models.registry import build_model as jbuild
+    jcfg = dataclasses.replace(jreduce(jget(DENSE["arch"]), **REDUCE),
+                               **QWEN_HEADS)
+    return jax.tree.map(np.array,
+                        jbuild(jcfg).init_params(jax.random.PRNGKey(0)))
+
+
+@pytest.fixture(scope="module")
+def jax_proc(jax_params, tmp_path_factory):
+    """The JAX references' subprocess (4 forced host devices), started
+    here so it runs while the rank world does: (a)-(c)'s unsharded steps,
+    the reference TP step's outcome and (d)'s moe_ffn_ep on 2 x 2."""
+    d = tmp_path_factory.mktemp("jax_tp")
+    inp, outp = str(d / "in.pkl"), str(d / "out.pkl")
+    with open(inp, "wb") as fh:
+        pickle.dump({"batches": BATCHES, "reduce": REDUCE,
+                     "replace": QWEN_HEADS, "opts": OPTS,
+                     "params": jax_params, "step_kw": D.STEP_KW,
+                     "moe": _moe_inputs()}, fh)
+    src = os.path.join(REPO_ROOT, "src")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4 "
+                         "--xla_allow_excess_precision=false",
+               PYTHONPATH=(src + os.pathsep + os.environ["PYTHONPATH"]
+                           if os.environ.get("PYTHONPATH") else src))
+    proc = subprocess.Popen([sys.executable, "-c", JAX_SCRIPT, inp, outp],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=REPO_ROOT, env=env)
+    yield proc, outp
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def jax_ref(jax_proc):
+    proc, outp = jax_proc
+    stdout, stderr = proc.communicate(timeout=300)
+    assert proc.returncode == 0, f"stdout:\n{stdout}\nstderr:\n{stderr}"
+    with open(outp, "rb") as fh:
+        return pickle.load(fh)
+
+
+def _dense(params=None, batches=BATCHES, **kw):
+    return dict(DENSE, params=params, batches=batches, **kw)
+
+
+def _moe(batches, **kw):
+    return dict(MOE_CFG, batches=batches, **kw)
+
+
+@pytest.fixture(scope="module")
+def world(jax_proc, jax_params, tmp_path_factory):
+    """Every rank case on the 4 ranks of one 2 x 2 world (one spawn)."""
+    d = tmp_path_factory.mktemp("tp4")
+    cases = [(f"tp_step:{name}", _dense(jax_params, **OPTS[name]))
+             for name in OPTS]
+    cases += [(f"tp_step:{name}", dict(DENSE, replace=heads, params=None,
+                                       batches=BATCHES))
+              for name, heads in LAYOUTS.items()]
+    cases += [("tp_step:moe_ep", _moe(EP_BATCHES, replace=EP_ALL_EXPERTS)),
+              ("tp_step:moe_cap", _moe(BATCHES)),
+              ("moe_ep_tp", _moe_inputs()),
+              ("tp_trainer", dict(DENSE, dir=str(d / "ckpt"), steps=2))]
+    res = W.run_world(d, 4, cases, shape=SHAPE,
+                      module="_torch_tp_train_worker")
+    res["dir"] = str(d / "ckpt")
+    return res
+
+
+def _grads_close(got, want, rtol=GRAD_RTOL):
+    want, got = D._flat(want), D._flat(got)
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        w = np.asarray(w, np.float32)
+        err = float(np.max(np.abs(np.asarray(got[path], np.float32) - w)))
+        assert err <= rtol * float(np.max(np.abs(w))), (path, err)
+
+
+def _losses(res):
+    return [s["metrics"]["loss"] for s in res["steps"]]
+
+
+def _same_on_all_ranks(world, name):
+    """Every rank computed the same metrics and whole grads."""
+    r0 = world[0][name]
+    for r in (1, 2, 3):
+        assert [s["metrics"] for s in world[r][name]["steps"]] == \
+            [s["metrics"] for s in r0["steps"]]
+
+
+def _held_to_one_device(got, ref, grad_steps=None):
+    """Losses and grad norms of every step; every grad leaf of the first
+    `grad_steps` steps (all by default)."""
+    np.testing.assert_allclose(_losses(got), _losses(ref), atol=LOSS_ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(
+        [s["metrics"]["grad_norm"] for s in got["steps"]],
+        [s["metrics"]["grad_norm"] for s in ref["steps"]], rtol=GRAD_RTOL)
+    for g, r in list(zip(got["steps"], ref["steps"]))[:grad_steps]:
+        _grads_close(g["grads"], r["grads"])
+
+
+# -------------------------------------------------------------- (a)-(c)
+
+@pytest.mark.parametrize("name", list(OPTS))
+def test_tp_step_matches_one_device_and_jax(world, jax_ref, jax_params,
+                                            name):
+    got = world[0][f"tp_step:{name}"]
+    ref = D.dp_step(None, _dense(jax_params, **OPTS[name]))
+    _held_to_one_device(got, ref)
+    want = jax_ref[name]
+    np.testing.assert_allclose(_losses(got),
+                               [m["loss"] for m in want["metrics"]],
+                               atol=LOSS_ATOL, rtol=0)
+    np.testing.assert_allclose(
+        [s["metrics"]["grad_norm"] for s in got["steps"]],
+        [m["grad_norm"] for m in want["metrics"]], rtol=GRAD_RTOL)
+    cfg = D._cfg(DENSE)
+    jg = D._to_numpy(params_from_numpy(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), want["grads0"]),
+        cfg, device="cpu"))
+    _grads_close(got["steps"][0]["grads"], jg)
+    _same_on_all_ranks(world, f"tp_step:{name}")
+
+
+# head layouts a model axis of 2 splits off the head boundaries (spec_for
+# splits a dim wherever the axis divides its size): wk's 32 columns into
+# half a kv head a rank (reduced qwen2 as reduce_config makes it: 2 heads,
+# 1 kv head of 32; qwen2-1.5b's layout at TP 4), and wq's 48 into a head
+# and a half (3 heads of 16)
+LAYOUTS = {"kv_part": dict(n_heads=2, n_kv_heads=1, head_dim=32),
+           "q_part": dict(n_heads=3, n_kv_heads=1, head_dim=16)}
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_tp_step_off_head_boundaries(world, name):
+    """A rank's wk (and in q_part its wq) holds part of a head: k and v (q
+    too) are gathered whole over the model group, and the step holds to
+    the one-device step as the head-aligned one does."""
+    got = world[0][f"tp_step:{name}"]
+    heads = LAYOUTS[name]
+    local = got["local_shapes"]
+    assert local["layers/attn/wk"][-1] * 2 == heads["n_kv_heads"] * \
+        heads["head_dim"]
+    assert local["layers/attn/wk"][-1] % heads["head_dim"]
+    assert (local["layers/attn/wq"][-1] % heads["head_dim"] != 0) == \
+        (name == "q_part")
+    _held_to_one_device(got, D.dp_step(None, dict(DENSE, replace=heads,
+                                                  params=None,
+                                                  batches=BATCHES)))
+    _same_on_all_ranks(world, f"tp_step:{name}")
+
+
+def test_reference_tp_step_matches_the_port(world, jax_ref):
+    """The reference's own TP step (make_plan + build_train_step over a
+    ("model", 2) mesh of host devices; it runs on this jax, ROADMAP queue
+    3) against the port's TP step and the unsharded step: losses within
+    LOSS_ATOL, grad norms within GRAD_RTOL. Where it raises, the error
+    class is what it gives."""
+    out = jax_ref["tp_step"]
+    assert "ok" in out, out
+    got = world[0]["tp_step:adamw"]["steps"]
+    for want in (out["ok"], jax_ref["adamw"]["metrics"]):
+        np.testing.assert_allclose([s["metrics"]["loss"] for s in got],
+                                   [m["loss"] for m in want],
+                                   atol=LOSS_ATOL, rtol=0)
+        np.testing.assert_allclose([s["metrics"]["grad_norm"] for s in got],
+                                   [m["grad_norm"] for m in want],
+                                   rtol=GRAD_RTOL)
+
+
+# ------------------------------------------------------------------- (d)
+
+# The moe steps' grads are held leaf by leaf at step 0, where the TP and
+# one-device runs start from the same params. AdamW's first update is
+# +-lr for every element whatever its grad's size, so an element whose
+# grad is near 0 and of the other sign in one run moves 2 lr apart, and
+# the router's top-k and capacity cuts then pick other tokens at step 1:
+# a leaf's grad is then up to 32% of its max apart (reduced deepseek,
+# k = 2). Step 1 is held in its loss and grad norm.
+MOE_GRAD_STEPS = 1
+# The expert-parallel route at model level routes every token to every
+# expert (k = E: at 4096 tokens no capacity drops either), so the two runs
+# route alike: at k = 2 a top-2 of 8 near-uniform router probabilities
+# flips wherever the TP step's one-ulp activations cross a near tie, and
+# at 4096 tokens enough tokens flip to move the experts' grads 13-17% of
+# their max at step 0. The routing itself (k = 2, capacity drops) is held
+# bit for bit at layer level (test_moe_ffn_ep_has_tp_matches_jax_and_
+# emulation), and the capacity route here keeps k = 2.
+EP_ALL_EXPERTS = dict(experts_per_token=8)
+
+def test_moe_ep_route_matches_emulated_one_device(world):
+    got = world[0]["tp_step:moe_ep"]
+    n_moe = 1                        # reduce_config keeps one moe layer
+    # every moe layer of every step on moe_ffn_ep with has_tp
+    for r in range(4):
+        routes = world[r]["tp_step:moe_ep"]["routes"]
+        assert routes["moe_ffn"] == 0
+        assert routes["moe_ffn_ep"] == routes["moe_ffn_ep_tp"] == \
+            n_moe * len(EP_BATCHES)
+    with TW.emulated_ep(n_shards=2, tp_shards=2):
+        ref = D.dp_step(None, _moe(EP_BATCHES, replace=EP_ALL_EXPERTS))
+    _held_to_one_device(got, ref, grad_steps=MOE_GRAD_STEPS)
+    _same_on_all_ranks(world, "tp_step:moe_ep")
+
+
+def test_moe_capacity_route_matches_one_device(world):
+    got = world[0]["tp_step:moe_cap"]
+    routes = got["routes"]
+    assert routes["moe_ffn_ep"] == 0
+    assert routes["moe_ffn"] == routes["moe_ffn_tp"] == len(BATCHES)
+    _held_to_one_device(got, D.dp_step(None, _moe(BATCHES)),
+                        grad_steps=MOE_GRAD_STEPS)
+    _same_on_all_ranks(world, "tp_step:moe_cap")
+
+
+def _assemble(world, key, dims):
+    """A moe_ep_tp leaf put together from the 4 ranks: rank (d, m)'s block
+    at data block d along dims[0] and model block m along dims[1] (None:
+    the same on those ranks, checked)."""
+    dd, md = dims
+    rows = []
+    for d in (0, 1):
+        blocks = [world[2 * d + m]["moe_ep_tp"] for m in (0, 1)]
+        parts = [b["gp"][key] if key in b["gp"] else b[key] for b in blocks]
+        if md is None:
+            np.testing.assert_array_equal(parts[0], parts[1])
+            rows.append(parts[0])
+        else:
+            rows.append(np.concatenate(parts, md))
+    if dd is None:
+        np.testing.assert_array_equal(rows[0], rows[1])
+        return rows[0]
+    return np.concatenate(rows, dd)
+
+
+MOE_DIMS = {"out": (0, None), "gx": (0, None), "wi": (0, 2), "wg": (0, 2),
+            "wo": (0, 1), "router": (None, None),
+            "shared_wi": (None, None), "shared_wg": (None, None),
+            "shared_wo": (None, None)}
+
+
+def _emulated(payload, tp_shards):
+    x = tensor_from_numpy(payload["x"], "cpu").bfloat16().requires_grad_(
+        True)
+    p = {k: tensor_from_numpy(v, "cpu").bfloat16().requires_grad_(True)
+         for k, v in payload["params"].items()}
+    out, aux = moe.moe_ffn_ep_emulated(x, p, n_experts=payload["n_experts"],
+                                       k=payload["k"], n_shards=2,
+                                       tp_shards=tp_shards)
+    names = sorted(p)
+    loss = (out.float() * torch.from_numpy(payload["cot"])).sum() \
+        + payload["coef"] * aux
+    g = torch.autograd.grad(loss, [x] + [p[k] for k in names])
+    return {"out": out.detach().float().numpy(), "aux": float(aux.detach()),
+            "gx": g[0].float().numpy(),
+            "gp": {k: t.float().numpy() for k, t in zip(names, g[1:])}}
+
+
+def test_moe_ffn_ep_has_tp_matches_jax_and_emulation(world, jax_ref):
+    got = {k: _assemble(world, k, MOE_DIMS[k]) for k in ("out", "gx")}
+    got["gp"] = {k: _assemble(world, k, v) for k, v in MOE_DIMS.items()
+                 if k not in ("out", "gx")}
+    aux = {world[r]["moe_ep_tp"]["aux"] for r in range(4)}
+    assert len(aux) == 1
+    got["aux"] = aux.pop()
+    emu = _emulated(_moe_inputs(), tp_shards=2)
+    # the world's function in one process, bit for bit: the d_ff blocks'
+    # bf16 partials summed in f32 and rounded, as the 2 model ranks do
+    np.testing.assert_array_equal(got["out"], emu["out"])
+    assert got["aux"] == emu["aux"]
+    np.testing.assert_array_equal(got["gx"], emu["gx"])
+    for k in ("wi", "wg", "wo"):
+        np.testing.assert_array_equal(got["gp"][k], emu["gp"][k])
+    _grads_close(got["gp"], emu["gp"])
+    # and the has_tp branch is not the TP-free one
+    assert not np.array_equal(got["out"],
+                              _emulated(_moe_inputs(), 1)["out"])
+    ref = jax_ref["moe_tp"]
+    if "error" in ref:
+        pytest.skip(f"the reference's moe_ffn_ep on a 2 x 2 mesh raises "
+                    f"{ref['error']} on this jax: held to the emulation "
+                    f"only")
+    want = ref["ok"]
+    scale = np.abs(want["out"]).max()
+    assert np.abs(got["out"] - want["out"]).max() <= OUT_ULPS * scale
+    assert abs(got["aux"] - want["aux"]) <= AUX_RTOL * abs(want["aux"])
+    _grads_close({"gx": got["gx"], **got["gp"]},
+                 {"gx": want["gx"], **want["gp"]})
+
+
+# ------------------------------------------------------------------- (e)
+
+@pytest.mark.parametrize("name", ["tp_step:adamw", "tp_step:moe_ep"])
+def test_splits_happen_and_replicas_stay_equal(world, name):
+    res = world[0][name]
+    cfg = D._cfg(dict(DENSE) if "moe" not in name else dict(MOE_CFG))
+    whole = {k: v.shape for k, v in D._flat(res["params"]).items()}
+    local = res["local_shapes"]
+    half = {"layers/attn/wq": 2, "layers/attn/wo": 1, "embed": 0}
+    if cfg.family == "moe":
+        half.update({"layers/moe/wi": 3, "layers/moe/wo": 2,
+                     "layers/moe/shared_wi": 2, "dense_layers/ffn/wo": 1})
+    else:
+        half.update({"layers/ffn/wi": 2, "layers/ffn/wo": 1,
+                     "layers/attn/wk": 2})
+    for path, dim in half.items():
+        want = list(whole[path])
+        want[dim] //= 2
+        if path == "layers/moe/wi" or path == "layers/moe/wo":
+            want[1] //= 2            # the experts over "data" (EP)
+        assert list(local[path]) == want, (path, local[path], whole[path])
+        assert res["model_dims"][path] == dim
+    # replicated leaves bit-equal across the model ranks, and every leaf
+    # not split over "data" bit-equal across the data ranks, every step
+    for i in range(len(res["steps"])):
+        leaves = [world[r][name]["steps"][i]["leaves"] for r in range(4)]
+        for path in leaves[0]:
+            if res["model_dims"][path] is None:
+                assert leaves[0][path] == leaves[1][path], path
+                assert leaves[2][path] == leaves[3][path], path
+            if res["data_dims"][path] is None:
+                assert leaves[0][path] == leaves[2][path], path
+                assert leaves[1][path] == leaves[3][path], path
+    assert any(d is None for d in res["model_dims"].values())
+
+
+# ------------------------------------------------------------------- (f)
+
+def _bits(t):
+    t = t.detach()
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def test_tp_checkpoint_restores_bit_equal(world):
+    runs = [world[r]["tp_trainer"] for r in range(4)]
+    assert all(r["restored_equal"] and r["step"] == 2 for r in runs)
+    assert all(r["losses"] == runs[0]["losses"] for r in runs)
+    step, state = CheckpointManager(world["dir"]).restore(device="cpu")
+    assert step == 2
+    whole = D._flat(state)
+    for k, t in whole.items():
+        np.testing.assert_array_equal(_bits(t).numpy(), runs[0]["whole"][k])
+    # into TP 2's blocks: a {"model": 2} plan's block of each whole leaf is
+    # the model rank's block of the 2 x 2 world (no leaf of the dense
+    # model splits over "data")
+    cfg = D._cfg(DENSE)
+    specs = D._flat(_tp2_specs(cfg))
+    split = 0
+    for m in (0, 1):
+        mesh = types.SimpleNamespace(shape={"model": 2}, coords={"model": m})
+        for k, t in whole.items():
+            want = sharding.local_shard(t, tuple(specs.get(k, ())), mesh)
+            split += want.shape != t.shape
+            np.testing.assert_array_equal(_bits(want).numpy(),
+                                          runs[m]["local"][k])
+    assert split > 0
+    # one more step on one device from the restored state
+    step_fn, _ = step_lib.build_train_step(build_model(cfg), **D.STEP_KW)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(4).items()}
+    _, _, m = step_fn(state["params"], state["opt"], batch)
+    assert np.isfinite(float(m["loss"]))
+
+
+def _tp2_specs(cfg):
+    """The spec trees ({"params", "opt"}) of cfg's training plan over
+    {"model": 2}, built on the abstract trees (no mesh needed)."""
+    from repro_torch.optim.adafactor import make_optimizer
+    model = build_model(cfg)
+    plan = step_lib.make_plan(cfg, types.SimpleNamespace(
+        shape={"model": 2}), kind="train")
+    ab = model.abstract_params()
+    ps = sharding.params_shardings(plan, model.param_axes, ab)
+    st = make_optimizer(cfg.optimizer, lambda s: s).init(ab)
+    return {"params": ps, "opt": sharding.opt_state_specs(ps, st)}
+
+
+# ------------------------------------------------------------------- (g)
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b", "whisper-small",
+                                  "internvl2-26b"])
+def test_other_families_refuse_a_model_axis(arch, tmp_path):
+    cfg = reduce_config(get_config(arch), **REDUCE)
+    loop = TrainLoopConfig(ckpt_dir=str(tmp_path / "ckpt"))
+    mesh = types.SimpleNamespace(shape={"data": 1, "model": 2})
+    with pytest.raises(NotImplementedError, match="item 9.5"):
+        Trainer(cfg, loop, mesh, device="cpu")
+    plan = step_lib.make_plan(cfg, mesh, kind="train")
+    with pytest.raises(NotImplementedError, match="item 9.5"):
+        step_lib.build_train_step(build_model(cfg), plan)

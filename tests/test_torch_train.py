@@ -286,11 +286,15 @@ def test_trainer_mesh_and_card_default(tmp_path):
     cfg = reduce_config(get_config("qwen2-1.5b"), layers=2, d_model=64,
                         vocab=128)
     loop = TrainLoopConfig(ckpt_dir=str(tmp_path / "ckpt"))
-    # data-parallel meshes train (tests/test_torch_dist_train.py); a model
-    # axis larger than 1 is tensor-parallel training, ROADMAP item 9.4
+    # data-parallel meshes train (tests/test_torch_dist_train.py), and
+    # model axes too for the dense and moe families
+    # (tests/test_torch_tp_train.py); the hybrid family's tensor-parallel
+    # training is ROADMAP item 9.5
+    hybrid = reduce_config(get_config("hymba-1.5b"), layers=2, d_model=64,
+                           vocab=128)
     mesh = types.SimpleNamespace(shape={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="9.4"):
-        Trainer(cfg, loop, mesh=mesh, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9.5"):
+        Trainer(hybrid, loop, mesh=mesh, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):       # the card is the default
             Trainer(cfg, loop)
