@@ -7,9 +7,11 @@ data-parallel over the rest.
     # on the CPU (gloo), a reduced qwen2, 2 ranks, DP then FSDP (~20 s):
     PYTHONPATH=src python examples/train_dp_torch.py --ranks 2 --device cpu
     PYTHONPATH=src python examples/train_dp_torch.py --ranks 2 --device cpu --fsdp
-    # TP over 2 ranks, and DP x TP over 4
+    # TP over 2 ranks, and DP x TP over 4; any family (--arch)
     PYTHONPATH=src python examples/train_dp_torch.py --ranks 2 --model 2
     PYTHONPATH=src python examples/train_dp_torch.py --ranks 4 --model 2
+    PYTHONPATH=src python examples/train_dp_torch.py --ranks 2 --model 2 \
+        --arch hymba-1.5b
     # on a card: 2 ranks sharing it over gloo (NCCL needs a GPU a rank)
     PYTHONPATH=src python examples/train_dp_torch.py --ranks 2 --device cuda
 
@@ -42,7 +44,7 @@ def rank_main(rank, args, store):
     mesh = make_mesh(shape, device=args.device,
                      backend=args.backend, init_method=f"file://{store}",
                      rank=rank, world_size=args.ranks, timeout_s=300)
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg, layers=2, d_model=64, vocab=128)
     loop = TrainLoopConfig(total_steps=args.steps, ckpt_every=args.steps,
@@ -65,8 +67,11 @@ def main():
                          "must divide --ranks")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--arch", default="qwen2-1.5b",
+                    help="the model (any family: qwen2-1.5b, hymba-1.5b, "
+                         "rwkv6-7b, whisper-small, internvl2-26b, ...)")
     ap.add_argument("--full", dest="reduced", action="store_false",
-                    help="qwen2-1.5b at full width (default: reduced)")
+                    help="the model at full width (default: reduced)")
     args = ap.parse_args()
     if args.ranks % args.model:
         ap.error(f"--model {args.model} does not divide --ranks {args.ranks}")

@@ -228,6 +228,6 @@ class CheckpointManager:
                 k = key.replace("\x1f", "/")
                 t = from_numpy(z[key], manifest["leaves"][k]["dtype"])
                 if k in flat_sh:
-                    t = local_shard(t, tuple(flat_sh[k]), mesh).contiguous()
+                    t = local_shard(t, flat_sh[k], mesh).contiguous()
                 flat[k] = t.to(device)
         return step, _unflatten(flat)

@@ -28,6 +28,14 @@ A spec is a tuple with one entry a dim: None, a mesh-axis name, or a
 tuple of names (major first) — `tuple(jax.sharding.PartitionSpec)`. The
 plan reads only `mesh.shape` as a name -> size mapping, so any object
 with that attribute plans (launch.mesh.Mesh, or a stand-in).
+
+A leaf whose last dim packs several tensors side by side (ParamInit's
+parts=, `Model.param_parts`: mamba's in_proj, xs | z) takes a
+`PackedSpec` in the serve and training plans' trees
+(`params_shardings(parts=)`): a rank's block of it is its block of each
+part (`local_shard`), `column_blocks` records its parts, and
+`gather_tree` puts the parts back whole, so the optimizer state and the
+checkpoint follow the param's layout.
 """
 
 from __future__ import annotations
@@ -82,6 +90,33 @@ class ShardingPlan:
         for a in self.dp_axes:
             n *= self.axis_size(a)
         return n
+
+
+class PackedSpec(tuple):
+    """A spec (equal to the plain tuple) whose leaf packs `parts` equal
+    tensors side by side along its last dim, which the model axis alone
+    splits: a rank's block is its block of each part, concatenated."""
+
+    def __new__(cls, spec, parts: int):
+        self = super().__new__(cls, spec)
+        self.parts = parts
+        return self
+
+    def __getnewargs__(self):
+        return tuple(self), self.parts
+
+
+def spec_parts(spec) -> int:
+    """The parts a spec's leaf packs along its last dim (1 for a plain
+    spec)."""
+    return getattr(spec, "parts", 1)
+
+
+def packed_parts(specs: PyTree) -> PyTree:
+    """The tree of `specs` with each leaf's `spec_parts`."""
+    if isinstance(specs, dict):
+        return {k: packed_parts(v) for k, v in specs.items()}
+    return spec_parts(specs)
 
 
 def spec_for(plan: ShardingPlan, axes: Sequence[Optional[str]],
@@ -188,18 +223,25 @@ def spec_for(plan: ShardingPlan, axes: Sequence[Optional[str]],
 
 def params_shardings(plan: ShardingPlan,
                      param_axes: Dict[str, LogicalAxes],
-                     ab_params: PyTree) -> PyTree:
+                     ab_params: PyTree,
+                     parts: Optional[Dict[str, int]] = None) -> PyTree:
     """The spec tree of a params tree (leaves: anything with a `.shape`);
     `param_axes` maps "a/b/c" nesting paths to logical axes
     (ParamInit.axes, `Model.param_axes`). Leaves without a recorded path
-    replicate."""
+    replicate. parts: the packed leaves (`Model.param_parts`); one whose
+    last dim the model axis alone splits takes a PackedSpec."""
+    parts = parts or {}
 
     def walk(node, path=""):
         if isinstance(node, dict):
             return {k: walk(v, f"{path}/{k}" if path else k)
                     for k, v in node.items()}
         axes = param_axes.get(path) or (None,) * len(node.shape)
-        return spec_for(plan, axes, tuple(node.shape), is_param=True)
+        spec = spec_for(plan, axes, tuple(node.shape), is_param=True)
+        if (parts.get(path, 1) > 1 and plan.tp_axis is not None
+                and spec[-1] == plan.tp_axis):
+            return PackedSpec(spec, parts[path])
+        return spec
 
     return walk(ab_params)
 
@@ -256,7 +298,7 @@ def serve_specs(cfg, mesh, *, max_batch: int, cache_len: int,
         model = build_model(cfg)
     plan = ShardingPlan(mesh=mesh, dp_axes=(), tp_out_dims_only=True)
     params = params_shardings(plan, model.param_axes,
-                              model.abstract_params())
+                              model.abstract_params(), model.param_parts)
     cache = cache_shardings(plan, model.cache_axes(),
                             model.init_cache(max_batch, cache_len,
                                              abstract=True))
@@ -316,60 +358,73 @@ def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
 
 def local_shard(t: torch.Tensor, spec: Spec, mesh,
                 coords: Optional[Dict[str, int]] = None, *,
-                parts: int = 1) -> torch.Tensor:
+                parts: Optional[int] = None) -> torch.Tensor:
     """This rank's block of the whole tensor `t` under `spec`: a view (the
     caller copies it to free the whole). Mesh axes are laid out
     rank-major in the order of `mesh.shape`; `coords` (default
     `mesh.coords`) picks another rank's block.
 
-    parts > 1: a split dim packs `parts` equal tensors side by side
-    (ParamInit's parts=; mamba's in_proj is xs | z along its last dim), and
-    the rank takes its block of each, concatenated in order (a copy), so
-    a local chunk into `parts` gives the rank's block of every part: the
-    same bytes as the rank-major block, another layout."""
+    parts > 1 (default: the spec's own, `spec_parts`): the last dim packs
+    `parts` equal tensors side by side (ParamInit's parts=; mamba's
+    in_proj is xs | z), and where it is split the rank takes its block of
+    each, concatenated in order (a copy), so a local chunk into `parts`
+    gives the rank's block of every part: the same bytes as the
+    rank-major block, another layout."""
     coords = mesh.coords if coords is None else coords
+    parts = spec_parts(spec) if parts is None else parts
     spec = tuple(spec) + (None,) * (t.dim() - len(spec))
     for d, entry in enumerate(spec):
         if entry is None:
             continue
         idx, count = _block(entry, mesh, coords)
-        if t.shape[d] % (count * parts):
+        n = parts if d == t.dim() - 1 else 1
+        if t.shape[d] % (count * n):
             raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
-                             f"{count} ways ({entry}) in each of {parts} "
+                             f"{count} ways ({entry}) in each of {n} "
                              f"parts")
-        piece = t.shape[d] // parts
+        piece = t.shape[d] // n
         width = piece // count
         blocks = [t.narrow(d, p * piece + idx * width, width)
-                  for p in range(parts)]
-        t = blocks[0] if parts == 1 else torch.cat(blocks, dim=d)
+                  for p in range(n)]
+        t = blocks[0] if n == 1 else torch.cat(blocks, dim=d)
     return t
 
 
+def unpack_parts(t: torch.Tensor, ranks: int, parts: int) -> torch.Tensor:
+    """The whole tensor from `ranks` blocks gathered in rank order along
+    the last dim, each rank's block holding its block of each of `parts`
+    packed tensors (`local_shard`'s layout): every part's blocks put back
+    together, part after part."""
+    if parts == 1:
+        return t
+    shape = t.shape[:-1]
+    n = t.shape[-1] // (ranks * parts)
+    return t.reshape(*shape, ranks, parts, n).transpose(-3, -2).reshape(
+        *shape, ranks * parts * n)
 
-def column_blocks(local: PyTree, specs: PyTree, mesh,
-                  parts: Optional[Dict[str, int]] = None, path: str = ""
+
+
+def column_blocks(local: PyTree, specs: PyTree, mesh
                   ) -> Dict[int, Tuple[int, int, int]]:
     """This rank's column-split weights in `local` (its shards under
     `specs`, each leaf a tensor of its own): for every leaf whose last dim
     is split, its storage's address -> (the whole last dim, the packed
-    parts of `parts` (Model.param_parts), this rank's block). The engine
-    hands it to layers.exact_tp_scope(columns=), so a product of such a
-    weight, or of a layer's slice of it, keeps the same columns of the
-    whole product's bits (layers._column_product) with no call site
-    restating the layout."""
-    parts = parts or {}
+    parts (`spec_parts`), this rank's block). The engine hands it to
+    layers.exact_tp_scope(columns=), so a product of such a weight, or of
+    a layer's slice of it, keeps the same columns of the whole product's
+    bits (layers._column_product) with no call site restating the
+    layout."""
     out = {}
     for k, v in local.items():
-        p = f"{path}/{k}" if path else k
         if isinstance(v, dict):
-            out.update(column_blocks(v, specs[k], mesh, parts, p))
+            out.update(column_blocks(v, specs[k], mesh))
             continue
         spec = tuple(specs[k]) + (None,) * (v.dim() - len(specs[k]))
         if v.dim() and spec[-1] is not None:
             idx, count = _block(spec[-1], mesh, mesh.coords)
             if count > 1:
                 out[v.untyped_storage().data_ptr()] = (
-                    v.shape[-1] * count, parts.get(p, 1), idx)
+                    v.shape[-1] * count, spec_parts(specs[k]), idx)
     return out
 
 
@@ -383,19 +438,22 @@ def opt_state_specs(param_specs: PyTree, opt_state: PyTree) -> PyTree:
     their param's spec. Adafactor's factored stats are split only where
     their param is: vr (the mean over the last dim) keeps the param's
     spec without its last entry, vc (the mean over the second-last) the
-    spec without that one; a vector's v takes its param's. (The
-    reference recomputes spec_for on the stats' own shapes, which can
-    pick another dim; the values are the same, and checkpoints hold whole
-    leaves.) step replicates."""
+    spec without that one (a packed param's vc keeps its PackedSpec); a
+    vector's v takes its param's. (The reference recomputes spec_for on
+    the stats' own shapes, which can pick another dim; the values are the
+    same, and checkpoints hold whole leaves.) step replicates."""
     if "m" in opt_state:
         return {"m": param_specs, "v": param_specs, "step": ()}
 
     def build(spec_node, state_node):
         if "vr" in state_node or "v" in state_node:
-            spec = tuple(spec_node)
             if "v" in state_node:
-                return {"v": spec}
-            return {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:]}
+                return {"v": spec_node}
+            spec = tuple(spec_node)
+            vc = spec[:-2] + spec[-1:]
+            if spec_parts(spec_node) > 1:         # vc keeps the packed dim
+                vc = PackedSpec(vc, spec_parts(spec_node))
+            return {"vr": spec[:-1], "vc": vc}
         return {k: build(spec_node[k], v) for k, v in state_node.items()}
 
     return {"f": build(param_specs, opt_state["f"]), "step": ()}
@@ -472,23 +530,27 @@ def local_batch(plan: ShardingPlan, batch: PyTree) -> PyTree:
 
 
 def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
-    """Each leaf's local block under its spec (a contiguous copy). A leaf
-    without a spec stays whole."""
+    """Each leaf's local block under its spec (a contiguous copy; a
+    PackedSpec's leaf in its packed layout). A leaf without a spec stays
+    whole."""
     if isinstance(tree, dict):
         return {k: shard_tree(v, specs.get(k, ()) if isinstance(specs, dict)
                               else (), mesh)
                 for k, v in tree.items()}
-    return local_shard(tree, tuple(specs), mesh).contiguous().clone()
+    return local_shard(tree, specs, mesh).contiguous().clone()
 
 
 def gather_tree(tree: PyTree, dims: PyTree, group, device=None, *,
-                model_dims: PyTree = None, model_group=None) -> PyTree:
+                model_dims: PyTree = None, model_group=None,
+                parts: PyTree = None) -> PyTree:
     """The whole leaves of a tree of local blocks: each leaf all-gathered
     over `group` (dist.collectives.AxesGroup) along its dim of `dims`
     (data_dims), in rank order, and over `model_group` along its dim of
-    `model_dims` (model_dims) where given; a leaf whose dims are None is
-    copied. Leaves go to `device` when given (the host, for a
-    checkpoint), one at a time, in sorted-key order on every rank."""
+    `model_dims` (model_dims) where given, a packed leaf's parts put back
+    whole (`parts`: packed_parts of the specs; `unpack_parts`); a leaf
+    whose dims are None is copied. Leaves go to `device` when given (the
+    host, for a checkpoint), one at a time, in sorted-key order on every
+    rank."""
 
     def sub(d, k):
         return d.get(k) if isinstance(d, dict) else None
@@ -496,10 +558,11 @@ def gather_tree(tree: PyTree, dims: PyTree, group, device=None, *,
     if isinstance(tree, dict):
         return {k: gather_tree(tree[k], sub(dims, k), group, device,
                                model_dims=sub(model_dims, k),
-                               model_group=model_group)
+                               model_group=model_group, parts=sub(parts, k))
                 for k in sorted(tree)}
     t = tree.detach()
     if model_dims is not None:
-        t = model_group.all_gather(t, model_dims)
+        t = unpack_parts(model_group.all_gather(t, model_dims),
+                         model_group.size, parts or 1)
     t = t.clone() if dims is None else group.all_gather(t, dims)
     return t if device is None else t.to(device)

@@ -44,11 +44,12 @@ in one product.
 
 Tensor-parallel training (the reference's training plan over a model
 axis: wo's rows, d_ff and the vocab split, so products sum partials):
-`swiglu(tp=)`, `embed(tp=)` (vocab-parallel) and `softmax_xent(tp=)`
-(vocab-parallel, z-loss on the whole vocab's logsumexp) take the model
-group (`DistCtx.row_parallel`, `DistCtx.model_group`) and sum over it
-with dist.collectives.CopyToGroup / ReduceFromGroup; exact_tp_scope stays
-off in training.
+`matmul_rp(tp=)` (a row-parallel product's partials summed),
+`swiglu(tp=)`, `gelu_ffn(tp=)`, `embed(tp=)` (vocab-parallel) and
+`softmax_xent(tp=)` (vocab-parallel, z-loss on the whole vocab's
+logsumexp) take the model group (`DistCtx.row_parallel`,
+`DistCtx.model_group`) and sum over it with dist.collectives.CopyToGroup
+/ ReduceFromGroup; exact_tp_scope stays off in training.
 
 The whisper pieces: `layer_norm` (f32 statistics, population variance),
 `gelu_ffn` (bias adds in bf16, the tanh gelu of `jax.nn.gelu`'s default
@@ -61,6 +62,8 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.dist.collectives import copy_to, reduce_from
 
 PARAM_DTYPE = torch.bfloat16
 NORM_DTYPE = torch.float32
@@ -359,13 +362,17 @@ def gather_exact_tp(x: torch.Tensor, width: Optional[int] = None
     return out
 
 
-def matmul_rp(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul_rp(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
     """Row-parallel projection: x's last dim is the contraction, whole in
     w (the serve plan never shards a contraction dim). Inside
     exact_tp_scope a column-sharded x is gathered first, so the product
     is computed whole on every rank: bit-equal to one device, no sum
     across ranks. The JAX package's bf16-result dot is `matmul`'s single
-    rounding here."""
+    rounding here. tp: the model group where the training plan splits
+    w's rows over it (x this rank's block of the contraction): the
+    partial product is summed over the group (ReduceFromGroup)."""
+    if tp is not None:
+        return reduce_from(matmul(x, w), tp)
     return matmul(gather_exact_tp(x, w.shape[-2]), w)
 
 
@@ -391,25 +398,24 @@ def swiglu(x, wi, wg, wo, tp=None):
     """SwiGLU FFN: silu(x@wg) * (x@wi) @ wo. tp: the model group where the
     plan splits d_ff over it (tensor-parallel training: wi/wg this rank's
     columns, wo its rows): x enters through CopyToGroup and the partial
-    product leaves through ReduceFromGroup."""
-    if tp is not None:
-        from repro_torch.dist.collectives import copy_to, reduce_from
-        x = copy_to(x, tp)
+    product leaves through ReduceFromGroup (`matmul_rp`'s tp)."""
+    x = copy_to(x, tp)
     h = matmul(x, wi)
     g = matmul(x, wg)
     h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
-    if tp is not None:
-        return reduce_from(matmul(h, wo), tp)
-    return matmul_rp(h, wo)
+    return matmul_rp(h, wo, tp)
 
 
-def gelu_ffn(x, wi, bi, wo, bo):
+def gelu_ffn(x, wi, bi, wo, bo, tp=None):
     """Whisper's FFN: gelu(x@wi + bi) @ wo + bo, the bias adds rounded in
-    bf16 and the gelu the tanh form (jax.nn.gelu's default) in f32."""
+    bf16 and the gelu the tanh form (jax.nn.gelu's default) in f32. tp:
+    as swiglu's (bi this rank's d_ff columns); bo is added once, to the
+    sum."""
+    x = copy_to(x, tp)
     h = matmul(x, wi) + bi.to(PARAM_DTYPE)
     h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(
         PARAM_DTYPE)
-    return matmul_rp(h, wo) + bo.to(PARAM_DTYPE)
+    return matmul_rp(h, wo, tp) + bo.to(PARAM_DTYPE)
 
 
 # ---------------------------------------------------------------------------
@@ -461,7 +467,6 @@ def embed(tokens: torch.Tensor, table: torch.Tensor, tp=None
     and zeros, exact)."""
     if tp is None:
         return table[tokens]
-    from repro_torch.dist.collectives import reduce_from
     rows = table.shape[0]
     local = tokens.long() - tp.index * rows
     mine = (local >= 0) & (local < rows)
@@ -497,7 +502,6 @@ def softmax_xent(logits_f32: torch.Tensor, labels: torch.Tensor, *,
         lse = torch.logsumexp(logits_f32, dim=-1)
         ll = torch.gather(logits_f32, -1, labels.long()[..., None])[..., 0]
     else:
-        from repro_torch.dist.collectives import reduce_from
         cols = logits_f32.shape[-1]
         m = tp.all_reduce(logits_f32.detach().amax(-1), op="max")
         se = torch.exp(logits_f32 - m[..., None]).sum(-1)

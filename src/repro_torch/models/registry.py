@@ -73,10 +73,13 @@ whole (`_logits`); an odd vocab's head is replicated and one product.
 `loss_fn` takes one too: over data axes it computes this rank's share of
 the global batch's loss (data parallelism, train/step.py), and a moe
 layer takes `_moe_apply`'s expert-parallel or global capacity route;
-over a model axis (dense and moe, `TP_TRAIN_FAMILIES`; the others raise,
-ROADMAP item 9.5) the embedding and the loss are vocab-parallel and every
-layer row-parallel under the reference's training plan (tensor-parallel
-training).
+over a model axis (every family) every layer is row-parallel under the
+reference's training plan (tensor-parallel training: attention, the
+FFNs, mamba's path, rwkv6's mixes, whisper's encoder and
+cross-attention on a rank's heads, channels or d_ff, the partials summed
+over the model group), and the embedding and the loss are vocab-parallel
+where the plan splits the vocab (an odd vocab's table and head stay
+whole on every rank).
 """
 
 from __future__ import annotations
@@ -211,20 +214,6 @@ def _ffn(cfg: ModelConfig, lp, h, token_valid=None, ctx=None):
 
 
 EP_MIN_TOKENS = 4096
-# the families that train over a model axis larger than 1 (tensor-parallel
-# training under the reference's row-parallel plan)
-TP_TRAIN_FAMILIES = ("dense", "moe")
-
-
-def refuse_tp_training(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a family whose tensor-parallel
-    training is not ported (ROADMAP queue 1, item 9.5)."""
-    if cfg.family not in TP_TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family} family) over a model axis "
-            f"larger than 1 (tensor-parallel training) is ported for the "
-            f"{' and '.join(TP_TRAIN_FAMILIES)} families only; the "
-            f"{cfg.family} family's is ROADMAP queue 1, item 9.5")
 
 
 def _moe_apply(cfg: ModelConfig, lp_moe, h, ctx=None, token_valid=None):
@@ -353,20 +342,24 @@ def _rwkv_layer(cfg: ModelConfig, lp, x, wkv, tm_shift, cm_shift, *,
                 decode: bool = False, ctx=None):
     """One rwkv layer: the time mix and the channel mix, each behind its
     norm and residual. Returns (x, new wkv state, the time and channel
-    mixes' last inputs)."""
+    mixes' last inputs). Under the training plan over a model axis (ctx)
+    both mixes are row-parallel (tm/wo's rows, cm/wv's d_ff)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a, tm_last, wkv = T.rwkv_time_mix(lp["tm"], h, tm_shift, wkv, cfg,
-                                      decode=decode, ctx=ctx)
+    a, tm_last, wkv = T.rwkv_time_mix(
+        lp["tm"], h, tm_shift, wkv, cfg, decode=decode, ctx=ctx,
+        tp=_row_parallel(ctx, lp["tm"]["wo"], cfg.d_model))
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    c, cm_last = T.rwkv_channel_mix(lp["cm"], h, cm_shift)
+    c, cm_last = T.rwkv_channel_mix(lp["cm"], h, cm_shift, _row_parallel(
+        ctx, lp["cm"]["wv"], cfg.d_ff))
     return x + c, wkv, tm_last, cm_last
 
 
 def _rwkv_zero_states(cfg: ModelConfig, x, ctx=None):
     """The zero wkv state (B, H', Hd, Hd) f32 (H' this rank's heads under
-    exact-TP where the model axis divides them, else every head) and
-    shift input (B, D) of a segment that starts from nothing."""
+    exact-TP, or the training plan, where the model axis divides them,
+    else every head) and shift input (B, D) of a segment that starts from
+    nothing."""
     hd = cfg.rwkv_head_dim
     b_, d = x.shape[0], cfg.d_model
     h = d // hd
@@ -377,14 +370,16 @@ def _rwkv_zero_states(cfg: ModelConfig, x, ctx=None):
     return wkv, torch.zeros((b_, d), dtype=x.dtype, device=x.device)
 
 
-def _rwkv_train_stack(cfg: ModelConfig, layers, x, *, remat: str):
+def _rwkv_train_stack(cfg: ModelConfig, layers, x, *, remat: str,
+                      ctx=None):
     """The rwkv layers over x (B,S,D) for training, each under
-    `_maybe_remat`, from zero states; the states they end with are
+    `_maybe_remat`, from zero states (a rank's heads under the training
+    plan over a model axis, ctx); the states they end with are
     discarded."""
 
     def body(x, lp):
-        wkv, shift = _rwkv_zero_states(cfg, x)
-        return _rwkv_layer(cfg, lp, x, wkv, shift, shift)[0]
+        wkv, shift = _rwkv_zero_states(cfg, x, ctx)
+        return _rwkv_layer(cfg, lp, x, wkv, shift, shift, ctx=ctx)[0]
 
     body = _maybe_remat(body, remat)
     for lp in _unstack(layers):
@@ -431,20 +426,27 @@ def _hymba_fuse(cfg: ModelConfig, lp, attn_out, ssm_out):
     return 0.5 * (a + s)
 
 
-def _hymba_stack(cfg: ModelConfig, layers, x, positions, *, remat: str):
+def _hymba_stack(cfg: ModelConfig, layers, x, positions, *, remat: str,
+                 ctx=None):
     """The hybrid layers over x (B,S,D) for training, each under
     `_maybe_remat`: windowed chunked attention beside `mamba_path` by
     cfg.ssm_impl (no flash: the window rules it out, as in the JAX
-    package), no aux and no cache."""
+    package), no aux and no cache. Under the training plan over a model
+    axis (ctx) attention (whole on every rank where a rank holds part of
+    a head: hymba-1.5b's 25 heads at TP 2), the mamba path and the FFN
+    are row-parallel, and the fuse's norms act on their sums."""
 
     def body(x, lp):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, _ = T.attn_block(lp["attn"], h, cfg, positions=positions,
-                            window=cfg.attn_window)
-        m, _, _ = T.mamba_path(lp["mamba"], h, cfg)
+        at, mp = lp["attn"], lp["mamba"]
+        a, _ = T.attn_block(at, h, cfg, positions=positions,
+                            window=cfg.attn_window, tp=_row_parallel(
+                                ctx, at["wo"], cfg.n_heads * cfg.head_dim))
+        m, _, _ = T.mamba_path(mp, h, cfg, tp=_row_parallel(
+            ctx, mp["out_proj"], 2 * cfg.d_model))
         x = x + _hymba_fuse(cfg, lp, a, m)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + swiglu(h, lp["ffn"]["wi"], lp["ffn"]["wg"], lp["ffn"]["wo"])
+        return x + _ffn(cfg, lp, h, ctx=ctx)[0]
 
     body = _maybe_remat(body, remat)
     for lp in _unstack(layers):
@@ -508,26 +510,46 @@ def _hymba_decode_stack(cfg: ModelConfig, layers, x, cache: Cache,
 
 # --- whisper (encdec) ------------------------------------------------------
 
+def _whisper_attn(cfg: ModelConfig, at, h, ctx, *, causal: bool = True,
+                  kv_x=None):
+    """Whisper's attention over h (its self-attention, or with kv_x the
+    cross-attention over the encoder output), chunked and without rope,
+    never flash, as in the JAX package. Returns (out, (k, v)). Under
+    exact-TP (ctx) it runs on this rank's heads (`_qkv`, heads=), gathered
+    before the whole wo (matmul_rp); under the training plan over a model
+    axis (wo's rows split) on the rank's heads of `_qkv_row_parallel`
+    (kv_x through CopyToGroup), wo's partials summed over the group."""
+    b_, s, _ = h.shape
+    tp = _row_parallel(ctx, at["wo"], cfg.n_heads * cfg.head_dim)
+    if tp is not None:
+        q, k, v, cols = T._qkv_row_parallel(at, h, cfg, tp, kv_x=kv_x)
+        a = attn_lib.chunked_causal_attention(q, k, v, causal=causal)
+        return T.attn_out_row_parallel(at, a, cols, tp), (k, v)
+    q, k, v = T._qkv(at, h, cfg, ctx, kv_x=kv_x)
+    a = attn_lib.chunked_causal_attention(q, k, v, causal=causal,
+                                          heads=T._kv_heads(cfg, ctx))
+    return matmul_rp(a.reshape(b_, s, -1), at["wo"]), (k, v)
+
+
 def _whisper_encode(cfg: ModelConfig, params, frames, *, remat: str = "none",
                     ctx=None):
     """frames: (B, enc_seq, D) stub embeddings -> the encoder output
     (B, enc_seq, D) after its final LayerNorm, in the type of frames +
     the bf16 positions (f32 for f32 frames). Bidirectional chunked
     attention; each layer under `_maybe_remat`. Under exact-TP (ctx) the
-    self-attention runs on this rank's heads (`_qkv`, heads=) and the gelu
-    FFN on its d_ff columns, each gathered before its whole down
-    projection (matmul_rp): the output is whole on every rank."""
+    self-attention runs on this rank's heads and the gelu FFN on its d_ff
+    columns, each gathered before its whole down projection (matmul_rp):
+    the output is whole on every rank. Under the training plan over a
+    model axis (ctx) both are row-parallel, their partials summed (in
+    f32, rounded once) into the stream, whole on every rank."""
     x = frames + sinusoid_pos(frames.shape[1], cfg.d_model,
                               device=frames.device)[None]
 
     def body(x, lp):
         h = layer_norm(x, lp["ln1"], lp["ln1b"], cfg.norm_eps)
-        q, k, v = T._qkv(lp["attn"], h, cfg, ctx)
-        a = attn_lib.chunked_causal_attention(q, k, v, causal=False,
-                                              heads=T._kv_heads(cfg, ctx))
-        x = x + matmul_rp(a.reshape(*h.shape[:2], -1), lp["attn"]["wo"])
+        x = x + _whisper_attn(cfg, lp["attn"], h, ctx, causal=False)[0]
         h = layer_norm(x, lp["ln2"], lp["ln2b"], cfg.norm_eps)
-        return x + _gelu(lp, h)
+        return x + _gelu(cfg, lp, h, ctx)
 
     body = _maybe_remat(body, remat)
     for lp in _unstack(params["enc_layers"]):
@@ -535,9 +557,12 @@ def _whisper_encode(cfg: ModelConfig, params, frames, *, remat: str = "none",
     return layer_norm(x, params["enc_ln"], params["enc_lnb"], cfg.norm_eps)
 
 
-def _gelu(lp, h):
+def _gelu(cfg: ModelConfig, lp, h, ctx=None):
+    """A whisper layer's gelu FFN, row-parallel where the training plan
+    splits its d_ff over the model axis (`layers.gelu_ffn`'s tp)."""
     f = lp["ffn"]
-    return gelu_ffn(h, f["wi"], f["bi"], f["wo"], f["bo"])
+    return gelu_ffn(h, f["wi"], f["bi"], f["wo"], f["bo"],
+                    _row_parallel(ctx, f["wo"], cfg.d_ff))
 
 
 def _whisper_dec_layer(cfg: ModelConfig, lp, x, enc_out, ctx=None):
@@ -545,29 +570,25 @@ def _whisper_dec_layer(cfg: ModelConfig, lp, x, enc_out, ctx=None):
     cross-attention over enc_out, then the gelu FFN, each behind its
     LayerNorm and residual. Returns (x, (k, v, xk, xv)): the
     self-attention's and cross-attention's keys and values (this rank's
-    heads under exact-TP, ctx)."""
-    b_, s, _ = x.shape
-    heads = T._kv_heads(cfg, ctx)
+    heads under exact-TP or the training plan, ctx)."""
     h = layer_norm(x, lp["ln1"], lp["ln1b"], cfg.norm_eps)
-    q, k, v = T._qkv(lp["attn"], h, cfg, ctx)
-    a = attn_lib.chunked_causal_attention(q, k, v, heads=heads)
-    x = x + matmul_rp(a.reshape(b_, s, -1), lp["attn"]["wo"])
+    a, (k, v) = _whisper_attn(cfg, lp["attn"], h, ctx)
+    x = x + a
     h = layer_norm(x, lp["lnx"], lp["lnxb"], cfg.norm_eps)
-    q, xk, xv = T._qkv(lp["xattn"], h, cfg, ctx, kv_x=enc_out)
-    a = attn_lib.chunked_causal_attention(q, xk, xv, causal=False,
-                                          heads=heads)
-    x = x + matmul_rp(a.reshape(b_, s, -1), lp["xattn"]["wo"])
+    a, (xk, xv) = _whisper_attn(cfg, lp["xattn"], h, ctx, causal=False,
+                                kv_x=enc_out)
+    x = x + a
     h = layer_norm(x, lp["ln2"], lp["ln2b"], cfg.norm_eps)
-    return x + _gelu(lp, h), (k, v, xk, xv)
+    return x + _gelu(cfg, lp, h, ctx), (k, v, xk, xv)
 
 
 def _whisper_train_stack(cfg: ModelConfig, layers, x, enc_out, *,
-                         remat: str):
+                         remat: str, ctx=None):
     """The decoder layers over x (B,S,D) for training, each under
-    `_maybe_remat`; no cache."""
+    `_maybe_remat`; no cache. ctx: as `_whisper_dec_layer`'s."""
 
     def body(x, lp, enc_out):
-        return _whisper_dec_layer(cfg, lp, x, enc_out)[0]
+        return _whisper_dec_layer(cfg, lp, x, enc_out, ctx)[0]
 
     body = _maybe_remat(body, remat)
     for lp in _unstack(layers):
@@ -610,7 +631,7 @@ def _whisper_decode_stack(cfg: ModelConfig, layers, x, cache: Cache,
         a = attn_lib.decode_attention(q, xk, xv, xk.shape[1], heads=heads)
         x = x + matmul_rp(a.reshape(b_, 1, -1), lp["xattn"]["wo"])
         h = layer_norm(x, lp["ln2"], lp["ln2b"], cfg.norm_eps)
-        x = x + _gelu(lp, h)
+        x = x + _gelu(cfg, lp, h, ctx)
     return x, {**cache, "pos": pos + 1}
 
 
@@ -735,12 +756,14 @@ def build_model(cfg: ModelConfig) -> Model:
         ParamBuilder; other values than jax.random's) on `device`."""
         return param_fn(ParamInit(seed, backend.resolve_device(device)))
 
-    def _logits(params, x):
+    def _final_norm(params, x):
         if cfg.family == "encdec":
-            x = layer_norm(x, params["final_norm"], params["final_normb"],
-                           cfg.norm_eps)
-        else:
-            x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            return layer_norm(x, params["final_norm"], params["final_normb"],
+                              cfg.norm_eps)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    def _logits(params, x):
+        x = _final_norm(params, x)
         if cfg.tie_embeddings:
             # the tied table is replicated under exact-TP: already whole
             return lm_logits(x, params["embed"].T)
@@ -787,34 +810,34 @@ def build_model(cfg: ModelConfig) -> Model:
         value but ntokens sums over the ranks to the reference's value on
         the global batch, and so do the grads of total.
 
-        With a ctx whose model axis the training plan splits the vocab,
-        the heads and d_ff over (dense and moe): the embedding is
-        vocab-parallel, every layer row-parallel (`_dense_stack`), and
-        each chunk's head gives this rank's vocab columns of the logits
-        (the tied table's rows are the same shard), whose cross-entropy is
-        vocab-parallel (`layers.softmax_xent`'s tp). The chunks' remat
-        recomputes their collectives in the backward. Every rank of the
-        model group computes the same values; ntokens counts over the
-        data axes only."""
-        vocab_tp = None
-        if ctx is not None:
-            if ctx.model_size > 1:
-                refuse_tp_training(cfg)
-            vocab_tp = ctx.row_parallel(params["embed"].shape[0],
-                                        cfg.vocab_size)
+        With a ctx whose model axis the training plan splits the heads,
+        the channels and d_ff over (every family): every layer is
+        row-parallel (`_dense_stack`, `_hymba_stack`, `_rwkv_train_stack`,
+        whisper's encoder and decoder), and where the plan splits the
+        vocab too the embedding is vocab-parallel and each chunk's head
+        gives this rank's vocab columns of the logits (the tied table's
+        rows are the same shard), whose cross-entropy is vocab-parallel
+        (`layers.softmax_xent`'s tp); an odd vocab's table and head are
+        whole on every rank. The vlm prefix enters whole on every rank.
+        The chunks' remat recomputes their collectives in the backward.
+        Every rank of the model group computes the same values; ntokens
+        counts over the data axes only."""
+        vocab_tp = None if ctx is None else ctx.row_parallel(
+            params["embed"].shape[0], cfg.vocab_size)
         x = _prefixed_embed(params, batch, vocab_tp)
         positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "encdec":
             enc_out = _whisper_encode(cfg, params, batch["frames"],
-                                      remat=cfg.remat)
+                                      remat=cfg.remat, ctx=ctx)
             x = _whisper_train_stack(cfg, params["dec_layers"], x, enc_out,
-                                     remat=cfg.remat)
+                                     remat=cfg.remat, ctx=ctx)
         elif cfg.family == "ssm":
-            x = _rwkv_train_stack(cfg, params["layers"], x, remat=cfg.remat)
+            x = _rwkv_train_stack(cfg, params["layers"], x, remat=cfg.remat,
+                                  ctx=ctx)
         elif cfg.family == "hybrid":
             x = _hymba_stack(cfg, params["layers"], x, positions,
-                             remat=cfg.remat)
+                             remat=cfg.remat, ctx=ctx)
         else:
             if "dense_layers" in params:
                 x, _ = _dense_stack(cfg, params["dense_layers"], x,
@@ -842,8 +865,8 @@ def build_model(cfg: ModelConfig) -> Model:
             else:
                 # this rank's vocab columns of the head (a column-parallel
                 # product of the whole stream: CopyToGroup)
-                h = rms_norm(x_c, params["final_norm"], cfg.norm_eps)
-                logits = lm_logits(copy_to(h, head_tp), head)
+                logits = lm_logits(copy_to(_final_norm(params, x_c),
+                                           head_tp), head)
             mask = (labels_c >= 0).float()
             per_tok = softmax_xent(logits, torch.clamp_min(labels_c, 0),
                                    tp=head_tp)

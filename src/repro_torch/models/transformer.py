@@ -39,7 +39,7 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.collectives import copy_to, reduce_from
+from repro_torch.dist.collectives import copy_to
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import rwkv6 as rwkv_lib
@@ -315,31 +315,38 @@ def _qkv(lp, x, cfg: ModelConfig, ctx=None, *, whole: bool = False,
             v.reshape(b_, s_kv, -1, hd))
 
 
-def _qkv_row_parallel(lp, x, cfg: ModelConfig, tp):
-    """q, k and v under the reference training plan over the model group
-    `tp` (spec_for splits wq/wk/wv's columns and wo's rows wherever the
-    axis divides the dim, head-aligned or not), and the columns of the
-    attention output this rank's wo rows take (None: its own heads').
+def _qkv_row_parallel(lp, x, cfg: ModelConfig, tp, kv_x=None):
+    """q of x, k and v of kv_x (x itself by default; whisper's
+    cross-attention passes the encoder output) under the reference
+    training plan over the model group `tp` (spec_for splits wq/wk/wv's
+    columns and wo's rows wherever the axis divides the dim, head-aligned
+    or not), and the columns of the attention output this rank's wo rows
+    take (None: its own heads').
 
-    A projection whose weight is split gives this rank's columns of x
-    through CopyToGroup; one whose weight is whole is computed whole from
-    x itself. Where wq holds whole heads, attention runs on this rank's q
-    heads: k and v are its kv heads where wk holds whole heads of the
-    same GQA groups (Megatron's layout: nothing more), else they are made
-    whole (a split projection's columns all-gathered, GatherDim; a whole
-    one through CopyToGroup: each rank uses part of them) and cut to the
-    kv heads of its q heads (a block of whole groups, the one kv head its
-    q heads share, or one a q head). Where wq holds part of a head, q, k
-    and v are all made whole, attention runs whole on every rank, and
-    wo's rows take this rank's columns of its output."""
+    A projection whose weight is split gives this rank's columns of its
+    input through CopyToGroup; one whose weight is whole is computed
+    whole from the input itself. Where wq holds whole heads, attention
+    runs on this rank's q heads: k and v are its kv heads where wk holds
+    whole heads of the same GQA groups (Megatron's layout: nothing more),
+    else they are made whole (a split projection's columns all-gathered,
+    GatherDim; a whole one through CopyToGroup: each rank uses part of
+    them) and cut to the kv heads of its q heads (a block of whole
+    groups, the one kv head its q heads share, or one a q head). Where wq
+    holds part of a head, q, k and v are all made whole, attention runs
+    whole on every rank, and wo's rows take this rank's columns of its
+    output."""
     from repro_torch.dist.collectives import GatherDim
     b_, s, _ = x.shape
+    kv_x = x if kv_x is None else kv_x
+    s_kv = kv_x.shape[1]
     hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     xc = copy_to(x, tp)
+    kvc = xc if kv_x is x else copy_to(kv_x, tp)
 
     def project(w, bias):
+        src, src_c = (x, xc) if w == "wq" else (kv_x, kvc)
         split = lp[w].shape[-1] != (h if w == "wq" else kvh) * hd
-        y = matmul(xc if split else x, lp[w])
+        y = matmul(src_c if split else src, lp[w])
         if cfg.qkv_bias:
             y = y + lp[bias].to(y.dtype)
         return y, split
@@ -355,15 +362,16 @@ def _qkv_row_parallel(lp, x, cfg: ModelConfig, tp):
         cols = (first, q.shape[-1])
         q = GatherDim.apply(q, q.dim() - 1, tp)
         k, v = whole(k, k_split), whole(v, k_split)
-        return (q.reshape(b_, s, h, hd), k.reshape(b_, s, kvh, hd),
-                v.reshape(b_, s, kvh, hd), cols)
+        return (q.reshape(b_, s, h, hd), k.reshape(b_, s_kv, kvh, hd),
+                v.reshape(b_, s_kv, kvh, hd), cols)
     hl, g = q.shape[-1] // hd, h // kvh
     q = q.reshape(b_, s, hl, hd)
     if k_split and k.shape[-1] % hd == 0 and hl % g == 0 \
             and k.shape[-1] // hd == hl // g:
-        return q, k.reshape(b_, s, -1, hd), v.reshape(b_, s, -1, hd), None
-    k = whole(k, k_split).reshape(b_, s, kvh, hd)
-    v = whole(v, k_split).reshape(b_, s, kvh, hd)
+        return (q, k.reshape(b_, s_kv, -1, hd), v.reshape(b_, s_kv, -1, hd),
+                None)
+    k = whole(k, k_split).reshape(b_, s_kv, kvh, hd)
+    v = whole(v, k_split).reshape(b_, s_kv, kvh, hd)
     q0 = tp.index * hl
     if hl % g == 0 or g % hl == 0:
         n = max(1, hl // g)
@@ -371,6 +379,16 @@ def _qkv_row_parallel(lp, x, cfg: ModelConfig, tp):
     idx = torch.div(q0 + torch.arange(hl, device=x.device), g,
                     rounding_mode="floor")
     return q, k.index_select(2, idx), v.index_select(2, idx), None
+
+
+def attn_out_row_parallel(lp, out, cols, tp):
+    """The output projection of attention run under `_qkv_row_parallel`:
+    out (B,S,H',Hd) narrowed to `cols` where a rank holds part of a head,
+    against this rank's wo rows, the partials summed over `tp`."""
+    out = out.reshape(*out.shape[:2], -1)
+    if cols is not None:
+        out = out.narrow(-1, *cols)
+    return matmul_rp(out, lp["wo"], tp)
 
 
 def attn_block(lp, x, cfg: ModelConfig, *, positions, window=0,
@@ -409,10 +427,7 @@ def attn_block(lp, x, cfg: ModelConfig, *, positions, window=0,
             q, k, v, window=window, kv_valid=kv_valid,
             heads=None if tp is not None else _kv_heads(cfg, ctx))
     if tp is not None:
-        out = out.reshape(b_, s, -1)
-        if cols is not None:
-            out = out.narrow(-1, *cols)
-        return reduce_from(matmul(out, lp["wo"]), tp), (k, v)
+        return attn_out_row_parallel(lp, out, cols, tp), (k, v)
     out = matmul_rp(out.reshape(b_, s, -1), lp["wo"])
     return out, (k, v)
 
@@ -565,7 +580,7 @@ def _rank_block(local: int, whole: int, ctx, what: str) -> int:
 
 
 def rwkv_time_mix(tm, x, shift_in, wkv_state, cfg: ModelConfig, *,
-                  decode: bool, ctx=None):
+                  decode: bool, ctx=None, tp=None):
     """RWKV6 time mix. x: (B,T,D) bf16; shift_in: (B,D), the previous
     segment's last input; wkv_state: (B,H',Hd,Hd) f32. Returns (out (B,T,D)
     bf16, x's last token (B,D), new wkv state).
@@ -584,7 +599,16 @@ def rwkv_time_mix(tm, x, shift_in, wkv_state, cfg: ModelConfig, *,
     runs them inside every head's products (zeros at the others), and
     y * g is gathered before the whole wo (matmul_rp); where it does not,
     the four are gathered to every head right after their products and
-    the mix runs whole."""
+    the mix runs whole.
+
+    tp: the model group where the training plan splits tm/wo's rows over
+    it (tensor-parallel training, whole heads a rank): r, k, v and g are
+    the rank's heads from CopyToGroup of x_r/x_k/x_v/x_g, the decay is
+    computed whole and narrowed to them (through CopyToGroup, so the whole
+    td_a/td_b get every rank's part of the grad), u is the rank's block,
+    ln_x is whole and sliced (CopyToGroup too), the WKV form runs the
+    rank's heads alone (training is held in tolerance, not in bits), and
+    tm/wo's partials are summed over the group."""
     b_, t, d = x.shape
     hd = cfg.rwkv_head_dim
     h = d // hd
@@ -600,28 +624,37 @@ def rwkv_time_mix(tm, x, shift_in, wkv_state, cfg: ModelConfig, *,
     x_r, x_k, x_v, x_w, x_g = (x + diff * (mus[i] + delta[:, :, i])
                                for i in range(5))
 
-    r, k, v, g = (matmul(xi, tm[name]) for xi, name in (
+    r, k, v, g = (matmul(copy_to(xi, tp), tm[name]) for xi, name in (
         (x_r, "wr"), (x_k, "wk"), (x_v, "wv"), (x_g, "wg")))
-    if ctx is None or ctx.tp_shards(h) == 1:
-        r, k, v, g = (gather_exact_tp(a, d) for a in (r, k, v, g))
     dl = r.shape[-1]                     # this rank's columns, whole heads
-    first = _rank_block(dl, d, ctx, "time-mix columns")
+    if tp is not None:
+        first = tp.index * dl
+    else:
+        if ctx is None or ctx.tp_shards(h) == 1:
+            r, k, v, g = (gather_exact_tp(a, d) for a in (r, k, v, g))
+            dl = r.shape[-1]
+        first = _rank_block(dl, d, ctx, "time-mix columns")
+    if dl % hd:
+        raise ValueError(f"{dl} time-mix columns a rank: not whole heads "
+                         f"of {hd}")
     hl = dl // hd
     r, k, v = (a.reshape(b_, t, hl, hd).float() for a in (r, k, v))
     g = torch.nn.functional.silu(g.float())
 
     wlog = tm["w0"].float() + (torch.tanh(x_w.float() @ tm["td_a"].float())
                                @ tm["td_b"].float())
-    w = torch.exp(-torch.exp(wlog)).reshape(b_, t, h, hd).narrow(
-        2, first // hd, hl)
-    u = tm["u"].float().narrow(0, first // hd, hl)
+    w = copy_to(torch.exp(-torch.exp(wlog)), tp).reshape(b_, t, h, hd)
+    w = w.narrow(2, first // hd, hl)
+    u = tm["u"].float()
+    if u.shape[0] != hl:                 # whole under exact-TP
+        u = u.narrow(0, first // hd, hl)
 
-    # a rank's heads run inside every head's batched products, zeros at
-    # the others (attention._f32_heads): cuBLAS picks the batched kernel by
-    # the batch count, and the sequential scan's einsum over 32 of
-    # rwkv6-7b's 64 heads is not those heads of the whole
-    # (tools/tp_exactness_probe.py --families)
-    heads = None if hl == h else (first // hd, h)
+    # under exact-TP a rank's heads run inside every head's batched
+    # products, zeros at the others (attention._f32_heads): cuBLAS picks
+    # the batched kernel by the batch count, and the sequential scan's
+    # einsum over 32 of rwkv6-7b's 64 heads is not those heads of the
+    # whole (tools/tp_exactness_probe.py --families)
+    heads = None if hl == h or tp is not None else (first // hd, h)
     r, k, v, w = (attn_lib._f32_heads(a, 2, heads) for a in (r, k, v, w))
     u = attn_lib._f32_heads(u, 0, heads)
     state = attn_lib._f32_heads(wkv_state, 1, heads)
@@ -644,27 +677,30 @@ def rwkv_time_mix(tm, x, shift_in, wkv_state, cfg: ModelConfig, *,
     mu = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)
     y = (y - mu) * torch.rsqrt(var + 64e-5)
-    y = y.reshape(b_, t, dl) * tm["ln_x"].float().narrow(0, first, dl)
-    out = matmul_rp((y * g).to(PARAM_DTYPE), tm["wo"])
+    ln_x = copy_to(tm["ln_x"], tp).float().narrow(0, first, dl)
+    y = y.reshape(b_, t, dl) * ln_x
+    out = matmul_rp((y * g).to(PARAM_DTYPE), tm["wo"], tp)
     return out, last, wkv_state
 
 
-def rwkv_channel_mix(cm, x, shift_in):
+def rwkv_channel_mix(cm, x, shift_in, tp=None):
     """RWKV6 channel mix. x: (B,T,D) bf16; shift_in: (B,D). Returns (out
     (B,T,D) bf16, x's last token). Under exact-TP cm/wk gives this rank's
     d_ff columns, gathered before the whole cm/wv (matmul_rp); cm/wr is
-    whole."""
+    whole. tp: the model group where the training plan splits d_ff over
+    it: cm/wk's columns behind CopyToGroup, cm/wv's partials summed over
+    the group, the whole cm/wr's sigmoid gate on the sum."""
     x_prev, last = rwkv_lib.token_shift(x, shift_in)
     xk = x + (x_prev - x) * cm["mu_k"].to(x.dtype)
     xr = x + (x_prev - x) * cm["mu_r"].to(x.dtype)
-    k = torch.square(torch.relu(matmul(xk, cm["wk"]).float()))
-    kv = matmul_rp(k.to(PARAM_DTYPE), cm["wv"])
+    k = torch.square(torch.relu(matmul(copy_to(xk, tp), cm["wk"]).float()))
+    kv = matmul_rp(k.to(PARAM_DTYPE), cm["wv"], tp)
     out = torch.sigmoid(matmul(xr, cm["wr"]).float()) * kv
     return out.to(PARAM_DTYPE), last
 
 
 def mamba_path(mp, x, cfg: ModelConfig, *, conv_state=None, h_state=None,
-               decode: bool = False, ctx=None):
+               decode: bool = False, ctx=None, tp=None):
     """Mamba selective-SSM path of the Hymba block. x: (B,T,D) bf16.
     Returns (y (B,T,D) bf16, new conv state (B,K-1,Ci') bf16, new h state
     (B,Ci',N) f32), Ci' = Ci = 2 D on one device.
@@ -693,24 +729,33 @@ def mamba_path(mp, x, cfg: ModelConfig, *, conv_state=None, h_state=None,
     config on the local channels, as the reference does; its states a
     thread set the order of y's sum, and the model picks the same at
     hymba's Ci and Ci / 2 (tools/tp_exactness_probe.py --families; phase
-    17e and tests/test_torch_serve_tp.py hold the picks equal)."""
+    17e and tests/test_torch_serve_tp.py hold the picks equal).
+
+    tp: the model group where the training plan splits out_proj's rows
+    (the channels) over it (tensor-parallel training): the same packed
+    in_proj block behind CopyToGroup, conv_w, dt_proj, dt_bias, d and
+    a_log the rank's channels; x_proj is row-parallel, its partials
+    summed over the group (proj, whole, then enters the rank's channels
+    through CopyToGroup: dt's input, B and C), and so is out_proj."""
     b_, t, d = x.shape
     ci = 2 * d
     n = cfg.ssm_state
     dt_rank = max(1, d // 16)
 
-    xz = matmul(x, mp["in_proj"])                          # (B,T,2Ci')
+    xz = matmul(copy_to(x, tp), mp["in_proj"])            # (B,T,2Ci')
     xs, z = torch.chunk(xz, 2, dim=-1)
     cl = xs.shape[-1]
-    first = _rank_block(cl, ci, ctx, "mamba channels")
     xs, conv_state = mamba_lib.causal_conv1d(xs, mp["conv_w"], conv_state)
     xs = torch.nn.functional.silu(xs.float()).to(PARAM_DTYPE)
 
-    proj = matmul_rp(xs, mp["x_proj"]).float()             # (B,T,dtr+2N)
+    proj = copy_to(matmul_rp(xs, mp["x_proj"], tp), tp).float()
     dt_in, bmat, cmat = torch.split(proj, [dt_rank, n, n], dim=-1)
     dt = torch.nn.functional.softplus(matmul_f32(dt_in, mp["dt_proj"])
                                       + mp["dt_bias"].float())
-    a_log = mp["a_log"].narrow(0, first, cl)
+    a_log = mp["a_log"]
+    if a_log.shape[0] != cl:                     # whole under exact-TP
+        a_log = a_log.narrow(0, _rank_block(cl, ci, ctx, "mamba channels"),
+                             cl)
 
     if h_state is None:
         h_state = torch.zeros((b_, cl, n), dtype=torch.float32,
@@ -718,8 +763,8 @@ def mamba_path(mp, x, cfg: ModelConfig, *, conv_state=None, h_state=None,
     if cfg.ssm_impl == "stub" and not decode:
         y = xs.float() * mp["d"].float()
         y = y * torch.nn.functional.silu(z.float())
-        return (matmul_rp(y.to(PARAM_DTYPE), mp["out_proj"]), conv_state,
-                h_state)
+        return (matmul_rp(y.to(PARAM_DTYPE), mp["out_proj"], tp),
+                conv_state, h_state)
     if decode:
         y, h_state = mamba_lib.ssm_decode(
             xs[:, 0].float(), dt[:, 0], bmat[:, 0], cmat[:, 0], a_log,
@@ -740,7 +785,7 @@ def mamba_path(mp, x, cfg: ModelConfig, *, conv_state=None, h_state=None,
                 xs.float(), dt, bmat, cmat, a_log, mp["d"], h_state)
 
     y = y * torch.nn.functional.silu(z.float())
-    out = matmul_rp(y.to(PARAM_DTYPE), mp["out_proj"])
+    out = matmul_rp(y.to(PARAM_DTYPE), mp["out_proj"], tp)
     return out, conv_state, h_state
 
 

@@ -62,7 +62,7 @@ the kv heads, the hybrid conv/h and rwkv wkv states on their channels or
 heads, scheduler state replicated), keeps only this rank's shards
 (`local_shard`, copied, so the caller may free the whole tree; a leaf
 that packs tensors side by side, mamba's in_proj, keeps its block of
-each: `Model.param_parts`) and runs
+each: `sharding.PackedSpec`) and runs
 every model call under `layers.exact_tp_scope` with a
 `DistCtx(mesh, model_axis="model")`. The row-parallel
 products gather their activation first, so every rank computes the same
@@ -276,10 +276,9 @@ class ServeEngine:
             # leaves are the caller's tensors
             self.params = _local_params(params, self._specs.params,
                                         self.model.abstract_params(), mesh,
-                                        self.device, self.model.param_parts)
+                                        self.device)
             self._columns = sharding.column_blocks(
-                self.params, self._specs.params, mesh,
-                self.model.param_parts)
+                self.params, self._specs.params, mesh)
             # the ctx rides along every model call (decode cache layout,
             # the flash kernel's local problem)
             self._ctx = layers.DistCtx(mesh=mesh, model_axis="model")
@@ -912,15 +911,15 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _local_params(tree, specs, abstract, mesh, device, parts, path=""):
+def _local_params(tree, specs, abstract, mesh, device):
     """This rank's shards of the whole params `tree` on `device`: a split
     leaf's block copied into a tensor of its own (the whole leaf can then
-    be freed), a replicated leaf moved as it is; a leaf whose path is in
-    `parts` (Model.param_parts) keeps its block of each packed tensor.
-    Raises ValueError on a leaf whose shape is not the whole tree's."""
+    be freed), a replicated leaf moved as it is; a packed leaf
+    (sharding.PackedSpec) keeps its block of each packed tensor. Raises
+    ValueError on a leaf whose shape is not the whole tree's."""
     if isinstance(tree, dict):
         return {k: _local_params(tree[k], specs[k], abstract[k], mesh,
-                                 device, parts, f"{path}/{k}" if path else k)
+                                 device)
                 for k in abstract}
     if tuple(tree.shape) != tuple(abstract.shape):
         raise ValueError(f"mesh=: a leaf of shape {tuple(tree.shape)} where "
@@ -928,7 +927,6 @@ def _local_params(tree, specs, abstract, mesh, device, parts, path=""):
                          f"whole params (the engine cuts each rank's shards)")
     if all(e is None for e in specs):
         return tree.to(device)
-    block = sharding.local_shard(tree, specs, mesh,
-                                 parts=parts.get(path, 1))
+    block = sharding.local_shard(tree, specs, mesh)
     return torch.empty(block.shape, dtype=block.dtype,
                        device=device).copy_(block)

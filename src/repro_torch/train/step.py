@@ -35,14 +35,14 @@ function of the GLOBAL batch:
   * the metrics are all-reduced over the data axes, and the optimizer
     sums what it needs of a split leaf over each group that splits it
     (optim.adamw.Shards);
-  * tensor parallelism (dense and moe; the other families are ROADMAP
-    queue 1, item 9.5): the forward's row-parallel partial sums and the
-    backward's input-grad sums run inside the model (layers.DistCtx,
-    dist.collectives.CopyToGroup / ReduceFromGroup), so a model-split
-    leaf's grad is this rank's block of the whole grad and a replicated
-    leaf's is the whole grad on every rank of the model group: neither
-    is reduced over the model axis here. The model ranks compute the
-    same loss and metrics.
+  * tensor parallelism (every family): the forward's row-parallel
+    partial sums and the backward's input-grad sums run inside the model
+    (layers.DistCtx, dist.collectives.CopyToGroup / ReduceFromGroup), so
+    a model-split leaf's grad is this rank's block of the whole grad (a
+    packed leaf's in its packed layout, sharding.PackedSpec) and a
+    replicated leaf's is the whole grad on every rank of the model group:
+    neither is reduced over the model axis here. The model ranks compute
+    the same loss and metrics.
 
 Every rank applies the same reduced grads in the same order, so the
 replicas stay bit-equal. There is no `lower`: XLA lowering has no
@@ -61,7 +61,7 @@ from repro_torch import backend
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding as shd
 from repro_torch.models.layers import DistCtx
-from repro_torch.models.registry import Model, refuse_tp_training
+from repro_torch.models.registry import Model
 from repro_torch.optim.adafactor import make_optimizer
 from repro_torch.optim.adamw import (Shards, tree_leaves, tree_map,
                                     tree_unflatten)
@@ -124,7 +124,8 @@ def _param_specs(model: Model, plan: Optional[shd.ShardingPlan]):
     ab = model.abstract_params()
     if plan is None:
         return ab, None
-    return ab, shd.params_shardings(plan, model.param_axes, ab)
+    return ab, shd.params_shardings(plan, model.param_axes, ab,
+                                    model.param_parts)
 
 
 def _leaf_kinds(model: Model, plan, specs, dims):
@@ -169,18 +170,16 @@ def build_train_step(model: Model, plan: Optional[shd.ShardingPlan] = None,
     ctx = group = mgroup = kinds = shards = None
     os_ = None
     if plan is not None:
-        if (plan.tp_axis is not None
-                and plan.axis_size(plan.tp_axis) > 1):
-            refuse_tp_training(model.cfg)
+        # the plan's splits first (a dim split over the model axis and the
+        # data axes together is refused here, before any group is made)
+        os_ = shd.opt_state_specs(ps, ab_opt)
+        dims, mdims = shd.data_dims(plan, ps), shd.model_dims(plan, ps)
+        kinds = _leaf_kinds(model, plan, ps, dims)
         ctx = make_dist_ctx(plan)
         group, mgroup = ctx.data_group(), ctx.model_group()
-        os_ = shd.opt_state_specs(ps, ab_opt)
-        dims = shd.data_dims(plan, ps)
-        kinds = _leaf_kinds(model, plan, ps, dims)
         if group.size > 1 or mgroup.size > 1:
             shards = Shards(dims=dims, group=group,
-                            model_dims=shd.model_dims(plan, ps)
-                            if mgroup.size > 1 else None,
+                            model_dims=mdims if mgroup.size > 1 else None,
                             model_group=mgroup)
     # the one-device step calls update(params, grads, state) as before
     update_kw = {} if shards is None else {"shards": shards}

@@ -10,20 +10,19 @@ checkpoint with bit-identical data order (step-keyed batches).
 With `mesh=` (launch/mesh.make_mesh, one process a rank) every rank runs
 this loop under the training plan (`step.make_plan`: DP, FSDP with
 `fsdp=True` or above 8e9 params, EP for moe, and TP over a model axis
-larger than 1 for the dense and moe families: row-parallel attention
-and FFNs, the experts' d_ff split by `moe_ffn_ep`'s has_tp branch, a
-vocab-parallel embedding and loss): it draws the whole init from the
-seed and keeps its blocks, builds the global batch (the stub frontend
-inputs included) and keeps its rows (the ranks of a model group the
-same rows). The losses are the global batch's, equal on every rank;
-rank 0 prints and writes checkpoints (whole leaves, gathered over the
-model axis and the data axes; the others wait at a barrier), each rank
-beats its own heartbeat (HEARTBEAT.rank<r>), and a resume cuts each
-rank's blocks from the whole leaves, whatever mesh wrote them (the
+larger than 1 for every family: row-parallel attention, FFNs, mamba and
+rwkv mixes, the experts' d_ff split by `moe_ffn_ep`'s has_tp branch, a
+vocab-parallel embedding and loss where the vocab splits): it draws the
+whole init from the seed and keeps its blocks, builds the global batch
+(the stub frontend inputs included) and keeps its rows (the ranks of a
+model group the same rows). The losses are the global batch's, equal on
+every rank; rank 0 prints and writes checkpoints (whole leaves, gathered
+over the model axis and the data axes; the others wait at a barrier),
+each rank beats its own heartbeat (HEARTBEAT.rank<r>), and a resume cuts
+each rank's blocks from the whole leaves, whatever mesh wrote them (the
 elastic reshard: a TP checkpoint restores into TP, DP x TP or one
-device). The hybrid, ssm, encdec and vlm families refuse a model axis
-larger than 1: their tensor-parallel training is ROADMAP queue 1, item
-9.5.
+device; a packed leaf, mamba's in_proj, is whole in the checkpoint and
+cut into its packed layout again on restore).
 """
 
 from __future__ import annotations
@@ -42,7 +41,7 @@ from repro_torch.data.pipeline import (DataConfig, PrefetchIterator,
 from repro_torch.dist import sharding
 from repro_torch.dist.collectives import AxesGroup
 from repro_torch.dist.fault import HeartbeatFile, StepWatchdog, resume_or_init
-from repro_torch.models.registry import build_model, refuse_tp_training
+from repro_torch.models.registry import build_model
 from repro_torch.train import step as step_lib
 
 
@@ -80,8 +79,6 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, loop: TrainLoopConfig, mesh=None,
                  *, fsdp: Optional[bool] = None,
                  device=backend.DEFAULT_DEVICE):
-        if mesh is not None and int(mesh.shape.get("model", 1)) > 1:
-            refuse_tp_training(cfg)
         self.cfg = cfg
         self.loop = loop
         self.mesh = mesh
@@ -129,7 +126,8 @@ class Trainer:
         whole = sharding.gather_tree(
             state, sharding.data_dims(self.plan, specs), self.bundle.group,
             device="cpu", model_dims=sharding.model_dims(self.plan, specs),
-            model_group=self.bundle.model_group)
+            model_group=self.bundle.model_group,
+            parts=sharding.packed_parts(specs))
         if self.rank == 0:
             self.ckpt.save(step, whole, blocking=True)
         del whole

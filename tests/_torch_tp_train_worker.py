@@ -34,7 +34,8 @@ def _bits(t):
 
 def _whole_of(plan, specs, bundle):
     """A function of a tree of this rank's blocks (params-shaped) that
-    gathers it whole over the model axis and the data axes."""
+    gathers it whole over the model axis and the data axes (a packed
+    leaf's parts put back whole)."""
     from repro_torch.dist import sharding
     dims = sharding.data_dims(plan, specs)
     mdims = sharding.model_dims(plan, specs)
@@ -42,7 +43,8 @@ def _whole_of(plan, specs, bundle):
     def whole_of(tree):
         return sharding.gather_tree(tree, dims, bundle.group,
                                     model_dims=mdims,
-                                    model_group=bundle.model_group)
+                                    model_group=bundle.model_group,
+                                    parts=sharding.packed_parts(specs))
     return whole_of
 
 
@@ -174,6 +176,34 @@ def moe_ep_tp(mesh, payload):
             "gp": {k: g.float().numpy() for k, g in gp.items()}}
 
 
+def tp_pallas(mesh, payload):
+    """One TP step of payload's hybrid model with ssm_impl "pallas" under
+    make_plan over `mesh`: the error its backward raises (class and
+    message; None if it ran), and the forward loss alone (no grad)."""
+    import dataclasses
+    from repro_torch.dist import sharding
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import step as step_lib
+    cfg = dataclasses.replace(D._cfg(payload), ssm_impl="pallas")
+    model = build_model(cfg)
+    plan = step_lib.make_plan(cfg, mesh, kind="train")
+    bundle, opt = step_lib.build_train_step(model, plan, **D.STEP_KW)
+    params = sharding.shard_tree(D._whole_params(cfg, payload),
+                                 bundle.in_specs[0], mesh)
+    batch = sharding.local_batch(plan, {
+        k: torch.from_numpy(np.asarray(v))
+        for k, v in payload["batches"][0].items()})
+    with torch.no_grad():
+        loss = float(model.loss_fn(params, batch,
+                                   step_lib.make_dist_ctx(plan))[1]["loss"])
+    try:
+        bundle(params, opt.init(params), batch)
+        raised = None
+    except NotImplementedError as e:
+        raised = (type(e).__name__, str(e))
+    return {"raised": raised, "loss": loss}
+
+
 def tp_trainer(mesh, payload):
     """Trainer(mesh=) for payload["steps"] steps with a checkpoint at the
     end (whole leaves, rank 0), then the checkpoint restored onto this
@@ -200,7 +230,8 @@ def tp_trainer(mesh, payload):
     whole = sharding.gather_tree(
         tr.state, sharding.data_dims(tr.plan, specs), tr.bundle.group,
         model_dims=sharding.model_dims(tr.plan, specs),
-        model_group=tr.bundle.model_group)
+        model_group=tr.bundle.model_group,
+        parts=sharding.packed_parts(specs))
     return {"losses": out["losses"], "step": step, "restored_equal": same,
             "whole": D._to_numpy_exact(whole),
             "local": D._to_numpy_exact(tr.state), "specs": D._flat(specs)}
@@ -220,4 +251,5 @@ def _in_rank(case):
 
 
 CASES = {name: _in_rank(case) for name, case in (
-    ("tp_step", tp_step), ("moe_ep_tp", moe_ep_tp), ("tp_trainer", tp_trainer))}
+    ("tp_step", tp_step), ("moe_ep_tp", moe_ep_tp), ("tp_trainer", tp_trainer),
+    ("tp_pallas", tp_pallas))}

@@ -289,8 +289,8 @@ def mamba_op(mesh, payload):
         ctx = DistCtx(mesh=mesh, model_axis="model")
         lp, naive = cut(model.param_parts), cut({})
         columns = sharding.column_blocks(
-            lp, {k: specs[k][1:] for k in lp}, mesh,
-            {k: model.param_parts.get(f"layers/mamba/{k}", 1) for k in lp})
+            lp, {k: sharding.PackedSpec(specs[k][1:], sharding.spec_parts(
+                specs[k])) for k in lp}, mesh)
     with torch.no_grad(), exact_tp_scope(mesh, columns):
         out, conv, h = T.mamba_path(lp, x, cfg, ctx=ctx)
         res = {"out": out, "conv": conv, "h": h}

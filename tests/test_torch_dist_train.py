@@ -637,14 +637,17 @@ def test_trainer_resume_matches_straight_run(world):
 
 
 def test_trainer_refuses_a_model_axis(tmp_path):
-    """Since tensor-parallel training of the dense and moe families
-    (tests/test_torch_tp_train.py), the families left refuse a model axis
-    (item 9.5); hymba here, every one of them there."""
+    """Every family trains over a model axis (tests/test_torch_tp_train.py),
+    but not beside FSDP: FSDP scatters the data axes onto a dim the model
+    axis already splits (hymba's in_proj, the largest), and the Trainer
+    refuses that plan before it makes a process group."""
     cfg = reduce_config(get_config("hymba-1.5b"), **DENSE["reduce"])
     loop = TrainLoopConfig(ckpt_dir=str(tmp_path / "ckpt"))
-    mesh = types.SimpleNamespace(shape={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="item 9.5"):
-        Trainer(cfg, loop, mesh, device="cpu")
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 2}, rank=0,
+                                 device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError,
+                       match="split over the model axis alone"):
+        Trainer(cfg, loop, mesh, fsdp=True)
 
 
 def test_dp_needs_rows_that_split():

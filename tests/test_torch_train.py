@@ -287,14 +287,15 @@ def test_trainer_mesh_and_card_default(tmp_path):
                         vocab=128)
     loop = TrainLoopConfig(ckpt_dir=str(tmp_path / "ckpt"))
     # data-parallel meshes train (tests/test_torch_dist_train.py), and
-    # model axes too for the dense and moe families
-    # (tests/test_torch_tp_train.py); the hybrid family's tensor-parallel
-    # training is ROADMAP item 9.5
+    # model axes too for every family (tests/test_torch_tp_train.py), but
+    # not FSDP beside a model axis: it would split a dim over both
     hybrid = reduce_config(get_config("hymba-1.5b"), layers=2, d_model=64,
                            vocab=128)
-    mesh = types.SimpleNamespace(shape={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="item 9.5"):
-        Trainer(hybrid, loop, mesh=mesh, device="cpu")
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 2}, rank=0,
+                                 device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError,
+                       match="split over the model axis alone"):
+        Trainer(hybrid, loop, mesh=mesh, fsdp=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):       # the card is the default
             Trainer(cfg, loop)
