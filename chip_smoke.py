@@ -416,6 +416,22 @@ build's and every phase's seconds):
      rank to its plain version within TP_TRAIN_ULPS. Printed: step ms
      against one device's, peak memory a rank (2 ranks sharing one card:
      not a TP speed).
+ 20. the static kernel auditor (repro_torch.analyze): the registry's
+     censuses (every kernel, version and canonical key: the plain
+     versions counted on fake tensors, nothing on the card) on the card's
+     spec, run by a worker process started after the build, beside phases
+     3-19; then CACHE001 over the tune cache phases 3-19 wrote; any error
+     finding fails. At every canonical key of every version that launches
+     a kernel (gpp v6-v10, flash cuda, ssm cuda, paged gather, int8 and
+     verify) the library's own shared memory a block and grid
+     (library_launch_shape) must equal the descriptor's model
+     (config_smem_bytes, launch_grid), and one launch is held to its plain
+     version on the same inputs (TOL_PLAIN["bench"], FLASH_OUT_ULPS,
+     SSM_RTOL, PAGED_OUT_ULPS); every config the tune cache holds is held
+     to the library the same way at its own key, without a launch.
+     Printed: the census count, the findings by rule, the audit's
+     seconds, and gpp v10's census FMA fraction (the plain version's
+     arithmetic) beside phase 2b's SASS FMA ratio and the paper's 58%.
 Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
 phase 7d's Hd 32 model check, phase 8's serving run, phase 10's training
 run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
@@ -829,6 +845,10 @@ SSM_CASES = (("hymba-prefill", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.0),
              ("hymba-prefill-h0", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.1))
 
 
+# phase 20's audit worker: how long phase 20 waits for it past phase 19
+AUDIT_WAIT_S = 300
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -956,6 +976,8 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
+    # phase 20's censuses: CPU work only, in a worker beside phases 3-19
+    audit = start_audit(spec)
     attrs = {c.name: gpp_cuda.kernel_attrs(c) for c in gpp_cuda.CONFIGS.values()}
     model = {c.name: c.regs_estimate() for c in gpp_cuda.CONFIGS.values()}
     # every compiled EPT: the most registers of its four instances (fused
@@ -1339,6 +1361,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 20. the static kernel auditor ----------------------------------------
+    audited = audit_phase(torch, dev, spec, card, tune_dir, audit,
+                          tuned.ept_instance(), term)
+
     names = ("gpp_fused", "gpp_banded", "flash_fwd", "flash_bwd_dq",
              "flash_bwd_dkv", "ssm_scan", "paged_decode_gather",
              "paged_decode_int8", "paged_decode_verify")
@@ -1451,9 +1477,11 @@ def main() -> None:
           flush=True)
     print(f"[19] tensor-parallel training summary: {json.dumps(tp_train)} "
           f"[{card}]", flush=True)
+    print(f"[20] static audit summary: {json.dumps(audited)} [{card}]",
+          flush=True)
     for tag, part in (("13", spec_serve), ("14", moe), ("15", recurrent),
                       ("16", encdec_vlm), ("17", tp), ("18", dp),
-                      ("19", tp_train)):
+                      ("19", tp_train), ("20", audited)):
         phase_s[tag] = round(part["phase_s"], 1)
     print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"(build {build_s:.1f} s; every phase's seconds "
@@ -1462,6 +1490,180 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def audit_worker(spec_name, out_path):
+    """Phase 20's censuses in a worker process: audit_registry over every
+    registered kernel at its canonical keys on the named spec, the tune
+    cache left to phase 20. The plain versions run on fake tensors on the
+    CPU; nothing here touches the card. The report goes to out_path as
+    JSON with the audit's seconds."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.analyze import audit_registry
+    from repro_torch.core import hw
+    t0 = time.perf_counter()
+    report = audit_registry(spec=hw.SPECS[spec_name], skip_cache=True,
+                            device="cpu")
+    payload = report.to_json()
+    payload["audit_s"] = time.perf_counter() - t0
+    tmp = f"{out_path}.tmp"
+    with open(tmp, "w") as fh:
+        json.dump(payload, fh)
+    os.replace(tmp, out_path)
+
+
+def start_audit(spec):
+    """Start audit_worker (spawn, daemonic: it dies with this process)."""
+    import multiprocessing
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out_path = os.path.join(ROOT, "build", "chip_smoke_audit.json")
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=audit_worker, args=(spec.name, out_path), daemon=True)
+    proc.start()
+    return proc, out_path
+
+
+def audit_launch(torch, dev, k, version, key, cfg):
+    """Launch `version` of kernel family `k` once at `key` under `cfg` on
+    make_example's inputs on the card, and hold it to its plain version on
+    the same inputs. Returns (error, tolerance, unit)."""
+    from repro_torch.kernels.flash import flash_cuda
+    from repro_torch.kernels.gpp import gpp_cuda
+    from repro_torch.kernels.paged import paged, paged_cuda
+    from repro_torch.kernels.ssm import ssm_cuda
+    args, kwargs = k.make_example(key, device=dev)
+    if k.name == "gpp":
+        # the partials behind run()'s sums, as phase 3
+        kern, plain = ((gpp_cuda.gpp_fused, gpp_cuda.gpp_fused_plain)
+                       if cfg.fused_acc else
+                       (gpp_cuda.gpp_banded, gpp_cuda.gpp_banded_plain))
+        got, want = kern(args[0], cfg), plain(args[0], cfg)
+        return rel(got.cpu(), want.cpu()), TOL_PLAIN["bench"], "rel"
+    got = k.run(*args, version=version, config=cfg, device=dev, **kwargs)
+    if k.name == "flash":
+        want, _ = flash_cuda.flash_fwd_plain(*args, cfg, kwargs["causal"])
+        return bf16_ulps(got, want), FLASH_OUT_ULPS, "bf16 ulps"
+    if k.name == "ssm":
+        want = ssm_cuda.ssm_scan_plain(*args, cfg)
+        err = max(float((g - w).abs().max() / w.abs().max())
+                  for g, w in zip(got, want))
+        return err, SSM_RTOL, "of the largest"
+    q, kp, vp, table, clen = args
+    ppb = cfg.pages_per_block
+    splits = paged_cuda.splits_for(q, kp, table)
+    ks = vs = None
+    if version == "int8":
+        (kp, ks), (vp, vs) = paged.quantize_pool(kp), paged.quantize_pool(vp)
+    if q.dim() == 4 or version == "verify":
+        want = paged.paged_decode_verify(q, kp, vp, table, clen,
+                                         pages_per_block=ppb, kscale=ks,
+                                         vscale=vs, splits=splits)
+    elif version == "int8":
+        want = paged.paged_decode_int8(q, kp, vp, table, clen, ks, vs,
+                                       pages_per_block=ppb, splits=splits)
+    else:
+        want = paged.paged_decode_gather(q, kp, vp, table, clen,
+                                         pages_per_block=ppb, splits=splits)
+    return bf16_ulps(got, want), PAGED_OUT_ULPS, "bf16 ulps"
+
+
+def audit_phase(torch, dev, spec, card, tune_dir, audit, sass_ept,
+                sass_term):
+    """Phase 20: the worker's censuses and CACHE001 over this run's tune
+    cache (any error finding fails); at every canonical launch the
+    library's shared memory and grid held equal to the descriptor's model
+    and one launch held to its plain version; every tuned config held to
+    the library at its own key. Returns phase 20's results."""
+    from repro_torch.analyze import rules
+    from repro_torch.kernels import api
+    from repro_torch.tune import tuner
+    t20 = time.perf_counter()
+    proc, out_path = audit
+    proc.join(timeout=AUDIT_WAIT_S)
+    if proc.is_alive():
+        proc.kill()
+        fail(f"[20] the audit worker ran {AUDIT_WAIT_S} s past phase 19")
+    if proc.exitcode != 0 or not os.path.exists(out_path):
+        fail(f"[20] the audit worker exited with {proc.exitcode}")
+    wait_s = time.perf_counter() - t20
+    with open(out_path) as fh:
+        report = json.load(fh)
+    t1 = time.perf_counter()
+    cache = [f.row() for f in rules.audit_tune_cache(tune_dir)]
+    cache_s = time.perf_counter() - t1
+    entries = tuner._load_cache(tune_dir)
+    findings = report["findings"] + cache
+    by_rule = {}
+    for f in findings:
+        by_rule[f["rule"]] = by_rule.get(f["rule"], 0) + 1
+    errors = [f for f in findings if f["severity"] == "error"]
+    print(f"[20] static audit on {report['spec']} ({spec.part}): "
+          f"{len(report['censuses'])} censuses in {report['audit_s']:.1f} s "
+          f"(the worker, beside phases 3-19; waited {wait_s:.1f} s for "
+          f"it), CACHE001 over the {len(entries)} entries of "
+          f"{tuner._cache_path(tune_dir)} in {cache_s:.2f} s; findings by "
+          f"rule {by_rule}, {len(errors)} errors [{card}]", flush=True)
+    if errors:
+        fail(f"[20] error findings: {json.dumps(errors)}")
+
+    launches = []
+    for c in report["censuses"]:
+        if c["smem_config_bytes"] is None:
+            continue                   # a plain-only version
+        k = api.get_kernel(c["kernel"])
+        key = k.key_from_dims(c["key_dims"])
+        cfg = k.clamp(k.config_from_json(c["config"]), key)
+        lib = k.library_launch_shape(cfg, key, c["version"])
+        model = (c["smem_config_bytes"], c["grid_blocks"])
+        err, tol, unit = audit_launch(torch, dev, k, c["version"], key, cfg)
+        torch.cuda.synchronize()
+        line = (f"[20] {c['kernel']} {c['version']} at {c['key_dims']}: "
+                f"shared memory a block library {lib[0]} B, model "
+                f"{model[0]} B; blocks library {lib[1]}, model {model[1]}; "
+                f"one launch against the plain version {err:.3g} {unit} "
+                f"(tol {tol})")
+        print(f"{line} [{card}]", flush=True)
+        if lib != model or err > tol:
+            fail(line)
+        launches.append({"kernel": c["kernel"], "version": c["version"],
+                         "key": c["key_dims"], "smem_library": lib[0],
+                         "smem_model": model[0], "grid": lib[1],
+                         "err": err})
+    tuned = 0
+    for ckey, entry in sorted(entries.items()):
+        kname, dims, _tag, version = ckey.split("|")
+        k = api.get_kernel(kname)
+        key = k.key_from_dims(dims)
+        cfg = k.clamp(k.config_from_json(entry["config"]), key)
+        model = (k.config_smem_bytes(cfg, key, version=version, spec=spec),
+                 k.launch_grid(cfg, key, version=version, spec=spec))
+        lib = k.library_launch_shape(cfg, key, version)
+        if lib != model:
+            fail(f"[20] tuned {ckey} {cfg}: library (shared memory, blocks) "
+                 f"{lib}, model {model}")
+        tuned += 1
+    print(f"[20] every tuned config of the cache ({tuned}) at its own key: "
+          f"the library's shared memory a block and blocks equal the "
+          f"model's [{card}]", flush=True)
+    fma = {c["key_dims"]: round(c["fma_fraction"], 4)
+           for c in report["censuses"]
+           if c["kernel"] == "gpp" and c["version"] == "v10"}
+    print(f"[20] gpp v10 FMA: the census of its plain version (2 min(mul, "
+          f"add) / FLOPs, by key) {fma}; phase 2b's SASS FMA ratio of the "
+          f"tuned config's band loop (EPT {sass_ept}) "
+          f"{sass_term['fma_ratio']:.3f}; the paper's 58% on the V100 (no "
+          f"gate) [{card}]", flush=True)
+    res = {"phase_s": time.perf_counter() - t20,
+           "audit_s": report["audit_s"], "wait_s": wait_s,
+           "cache_s": cache_s, "censuses": len(report["censuses"]),
+           "findings_by_rule": by_rule, "cache_entries": len(entries),
+           "tuned_checked": tuned, "launches": launches,
+           "v10_census_fma": fma,
+           "sass_fma_ratio": sass_term["fma_ratio"]}
+    print(f"[20] phase 20 ran {res['phase_s']:.1f} s [{card}]", flush=True)
+    return res
 
 
 def kernel_counters():

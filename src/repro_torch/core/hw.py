@@ -71,7 +71,11 @@ def spec_for_name(device_name: str) -> GpuSpec:
 
 
 def spec_for_device(device) -> GpuSpec:
-    """The spec of `device`'s card; the default target for the CPU."""
+    """The spec of `device`'s card; the default target for the CPU. A
+    GpuSpec given as the device is its own spec (the auditor ranks and
+    models for a spec it was handed)."""
+    if isinstance(device, GpuSpec):
+        return device
     dev = torch.device(device)
     if dev.type != "cuda":
         return DEFAULT_SPEC

@@ -299,6 +299,11 @@ Instance pick(int hd, int blk_q, int blk_kv) {
   return {nullptr, 0, cudaSuccess};
 }
 
+// The grid of a launch: one CTA per (batch x head, blk_q query rows).
+dim3 grid_of(int B, int H, int Sq, int blk_q) {
+  return dim3(B * H, Sq / blk_q);
+}
+
 }  // namespace
 
 extern "C" {
@@ -338,9 +343,27 @@ int flash_fwd_launch(int hd, int blk_q, int blk_kv, int causal,
   p.causal = causal;
   p.scale = scale;
   if (in.smem_set != cudaSuccess) return (int)in.smem_set;
-  dim3 grid(B * H, Sq / blk_q);
-  in.fn<<<grid, 2 * blk_q + 32, in.smem, (cudaStream_t)stream>>>(p);
+  in.fn<<<grid_of(B, H, Sq, blk_q), 2 * blk_q + 32, in.smem,
+          (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The shape flash_fwd_launch gives a launch: the instance's dynamic shared
+// memory, its static shared memory (cudaFuncGetAttributes) and the grid's
+// blocks. Launches nothing.
+int flash_launch_shape(int hd, int blk_q, int blk_kv, int B, int H, int Sq,
+                       long long* dynamic_bytes, long long* static_bytes,
+                       long long* blocks) {
+  Instance in = pick(hd, blk_q, blk_kv);
+  if (in.fn == nullptr || Sq % blk_q != 0) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, in.fn);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid = grid_of(B, H, Sq, blk_q);
+  *dynamic_bytes = in.smem;
+  *static_bytes = (long long)attr.sharedSizeBytes;
+  *blocks = (long long)grid.x * grid.y * grid.z;
+  return 0;
 }
 
 // Registers a thread at launch and local (spilled) bytes of one instance,

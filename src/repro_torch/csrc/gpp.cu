@@ -327,6 +327,18 @@ KernelFn pick(int fused, int transposed, int ept, int nw) {
   }
 }
 
+// The launch's dynamic shared memory (the staged aqsn^T, aqsm and wx chunk)
+// and grid, one helper for gpp_launch and gpp_launch_shape.
+size_t dynamic_smem(int nw, int blk_ig, int blk_igp, int blk_band) {
+  return sizeof(float) * (size_t)blk_band * (2 * blk_ig + 2 * blk_igp + nw);
+}
+
+dim3 grid_of(int fused, int ncouls, int ngpown, int nbands, int blk_ig,
+             int blk_igp, int blk_band) {
+  return dim3(ngpown / blk_igp, ncouls / blk_ig,
+              fused ? 1 : nbands / blk_band);
+}
+
 }  // namespace
 
 extern "C" {
@@ -343,8 +355,7 @@ int gpp_launch(int fused, int transposed, int ept, int nw, int threads,
   KernelFn fn = pick(fused, transposed, ept, nw);
   if (fn == nullptr || threads % 32 != 0 || threads > 32 * kMaxWarps)
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * (size_t)blk_band * (2 * blk_ig + 2 * blk_igp + nw);
+  const size_t smem = dynamic_smem(nw, blk_ig, blk_igp, blk_band);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -352,9 +363,30 @@ int gpp_launch(int fused, int transposed, int ept, int nw, int threads,
   }
   Args a{wt_re, wt_im, eps_re, eps_im, aqsn_re, aqsn_im, aqsm_re, aqsm_im,
          wx, vcoul, out, ncouls, ngpown, nbands, blk_ig, blk_igp, blk_band};
-  dim3 grid(ngpown / blk_igp, ncouls / blk_ig, fused ? 1 : nbands / blk_band);
+  dim3 grid = grid_of(fused, ncouls, ngpown, nbands, blk_ig, blk_igp,
+                      blk_band);
   fn<<<grid, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The shape gpp_launch gives a launch: its dynamic shared memory, the
+// instance's static shared memory (the block reduction's scratch, from
+// cudaFuncGetAttributes) and the grid's blocks. Launches nothing.
+int gpp_launch_shape(int fused, int transposed, int ept, int nw, int ncouls,
+                     int ngpown, int nbands, int blk_ig, int blk_igp,
+                     int blk_band, long long* dynamic_bytes,
+                     long long* static_bytes, long long* blocks) {
+  KernelFn fn = pick(fused, transposed, ept, nw);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid = grid_of(fused, ncouls, ngpown, nbands, blk_ig, blk_igp,
+                            blk_band);
+  *dynamic_bytes = (long long)dynamic_smem(nw, blk_ig, blk_igp, blk_band);
+  *static_bytes = (long long)attr.sharedSizeBytes;
+  *blocks = (long long)grid.x * grid.y * grid.z;
+  return 0;
 }
 
 // Registers a thread and local (spilled) bytes of one instantiation, as

@@ -689,6 +689,11 @@ KernelFn pick(int kv_bytes, int hd, int mt, cudaError_t* err) {
   return nullptr;
 }
 
+// The split kernel's grid: (splits, kv heads, batch rows x row groups).
+dim3 grid_of(const Plan& pl, int splits, int KvH, int B) {
+  return dim3(splits, KvH, B * pl.rg);
+}
+
 int launch(int kv_bytes, const void* q, const void* kpool, const void* vpool,
            const void* kscale, const void* vscale, const void* table,
            const void* cache_len, void* out, void* part, int B, int Q, int H,
@@ -722,7 +727,7 @@ int launch(int kv_bytes, const void* q, const void* kpool, const void* vpool,
            (unsigned)pl.meta_off, (unsigned)pl.cvt_off, (unsigned)pl.ring_off,
            (unsigned)pl.stage_bytes, scale};
   const cudaStream_t s = (cudaStream_t)stream;
-  fn<<<dim3(splits, KvH, B * pl.rg), THREADS, pl.smem, s>>>(p);
+  fn<<<grid_of(pl, splits, KvH, B), THREADS, pl.smem, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long warps = (long long)B * KvH * R;
@@ -796,6 +801,28 @@ long long paged_smem_bytes(int R, int Hd, int page, int npt, int ppb,
   const Plan pl = plan(R, Hd, page, npt, ppb, splits, kv_bytes);
   *stages = pl.nst;
   return (long long)pl.smem;
+}
+
+// The shape a launch of the split kernel takes: its dynamic shared memory
+// (plan()'s), the instance's static shared memory (cudaFuncGetAttributes)
+// and the grid's blocks. Launches nothing; cudaErrorInvalidValue where
+// not even one stage fits.
+int paged_launch_shape(int kv_int8, int R, int Hd, int page, int npt, int ppb,
+                       int splits, int KvH, int B, long long* dynamic_bytes,
+                       long long* static_bytes, long long* blocks) {
+  const Plan pl = plan(R, Hd, page, npt, ppb, splits, kv_int8 ? 1 : 2);
+  if (pl.nst == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  const KernelFn fn = pick(kv_int8 ? 1 : 2, Hd, pl.mt, &err);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid = grid_of(pl, splits, KvH, B);
+  *dynamic_bytes = (long long)pl.smem;
+  *static_bytes = (long long)attr.sharedSizeBytes;
+  *blocks = (long long)grid.x * grid.y * grid.z;
+  return 0;
 }
 
 // Registers a thread and local (spilled) bytes of the instance for an

@@ -337,6 +337,16 @@ KernelFn pick(int n, int s, int bf16_params) {
   return nullptr;
 }
 
+// A launch's dynamic shared memory: STAGES tiles of x and dt (TT x blk_c)
+// and of b and c (TT x N), f32, and one mbarrier a stage.
+size_t dynamic_smem(int n, int blk_c) {
+  return (size_t)STAGES *
+         ((size_t)TT * (2 * blk_c + 2 * n) * sizeof(float) + sizeof(uint64_t));
+}
+
+// The grid of a launch: one CTA per (blk_c channels, batch row).
+dim3 grid_of(int B, int C, int blk_c) { return dim3(C / blk_c, B); }
+
 }  // namespace
 
 extern "C" {
@@ -361,8 +371,7 @@ int ssm_scan_run(int n, int states, int bf16_params, int blk_c,
   if (threads > MAX_THREADS) return (int)cudaErrorInvalidValue;
   const int vec = C % 4 == 0 && blk_c % 4 == 0 && (uintptr_t)x % 16 == 0 &&
                   (uintptr_t)dt % 16 == 0;
-  const size_t smem = (size_t)STAGES *
-      ((size_t)TT * (2 * blk_c + 2 * n) * sizeof(float) + sizeof(uint64_t));
+  const size_t smem = dynamic_smem(n, blk_c);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -372,9 +381,27 @@ int ssm_scan_run(int n, int states, int bf16_params, int blk_c,
            static_cast<const float*>(bm), static_cast<const float*>(cm),
            a_log, d, static_cast<const float*>(h0), static_cast<float*>(y),
            static_cast<float*>(hT), T, C, blk_c, vec};
-  dim3 grid(C / blk_c, B);
-  fn<<<grid, threads, smem, (cudaStream_t)stream>>>(p);
+  fn<<<grid_of(B, C, blk_c), threads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The shape ssm_scan_run gives a launch: its dynamic shared memory, the
+// instance's static shared memory (cudaFuncGetAttributes) and the grid's
+// blocks. Launches nothing.
+int ssm_launch_shape(int n, int states, int bf16_params, int blk_c, int B,
+                     int C, long long* dynamic_bytes, long long* static_bytes,
+                     long long* blocks) {
+  KernelFn fn = pick(n, states, bf16_params);
+  if (fn == nullptr || blk_c <= 0 || C % blk_c != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid = grid_of(B, C, blk_c);
+  *dynamic_bytes = (long long)dynamic_smem(n, blk_c);
+  *static_bytes = (long long)attr.sharedSizeBytes;
+  *blocks = (long long)grid.x * grid.y * grid.z;
+  return 0;
 }
 
 // Registers a thread and local (spilled) bytes of one instance, as the

@@ -3,8 +3,10 @@ port of `repro.kernels.api`.
 
   * `Kernel` — descriptor for one kernel family: named, versioned
     implementations (plain torch → hand-written CUDA), a `ProblemKey` for
-    cache keying, a tunable config space with clamping rules, and an
-    analytic model hook (the tuner's ranking function).
+    cache keying, a tunable config space with clamping rules, an analytic
+    model hook (the tuner's ranking function), and the static-analysis
+    hooks `repro_torch.analyze` reads (canonical keys, the launch's shared
+    memory and grid, the library's own count of both).
   * `ProblemKey` — anything with a `.name` and `.key_dims()`.
   * a process-wide registry: `register(kernel)`, `get_kernel(name)`,
     `list_kernels()`, and `dispatch(name, *args, version=, config=,
@@ -62,6 +64,11 @@ class Kernel:
         nothing to tune."""
         return []
 
+    def clamp(self, config: Any, key: ProblemKey) -> Any:
+        """The config a launch at `key` runs under (`run` shrinks a
+        config to fit a smaller problem)."""
+        return config
+
     def static_config(self, key: ProblemKey, version: str) -> Optional[Any]:
         """The frozen per-version config, clamped to `key`; None when the
         version takes no config or must be tuned."""
@@ -95,6 +102,67 @@ class Kernel:
 
     def config_from_json(self, d: Dict) -> Any:
         raise NotImplementedError
+
+    # -- static-analysis hooks (repro_torch.analyze) -----------------------
+    # The launch hooks take the config as `clamp` leaves it. `version`
+    # (None: the default one) and `spec` (None: hw.DEFAULT_SPEC) matter
+    # where a launch's shape depends on them (paged_decode: the pool's
+    # line bytes, and the split count the card's SM count sets).
+    def canonical_keys(self) -> List[ProblemKey]:
+        """Representative shapes the `repro_torch.analyze` auditor
+        censuses this family at (small enough for the CPU). Empty = the
+        auditor skips the family."""
+        return []
+
+    def key_from_dims(self, dims: str) -> ProblemKey:
+        """Inverse of `ProblemKey.key_dims()`, so the tune-cache validator
+        can re-derive a cached entry's config space. A family without it
+        gets existence-only validation."""
+        raise NotImplementedError(f"{self.name} cannot parse key dims")
+
+    def config_smem_bytes(self, config: Any, key: ProblemKey, *,
+                          version: Optional[str] = None, spec=None
+                          ) -> Optional[int]:
+        """Shared memory a block takes under `config` at `key`: the
+        dynamic shared memory the launch asks for plus the kernel's static
+        `__shared__` arrays. The auditor's SMEM001 holds it to
+        `GpuSpec.smem_per_block`. None = no shared-memory model."""
+        return None
+
+    def launch_grid(self, config: Any, key: ProblemKey, *,
+                    version: Optional[str] = None, spec=None
+                    ) -> Optional[int]:
+        """Blocks the launch of `config` at `key` runs (the kernel whose
+        shared memory `config_smem_bytes` models). None = no launch."""
+        return None
+
+    def gather_buffer_bytes(self, config: Any, key: ProblemKey, *,
+                            version: Optional[str] = None, spec=None
+                            ) -> Optional[int]:
+        """For a kernel that gathers operands through an index (paged
+        decode's block-table K/V fetch): the staging ring's bytes, which
+        `config_smem_bytes` must cover (the auditor's KV001). None = the
+        family gathers nothing."""
+        return None
+
+    def config_divides(self, config: Any, key: ProblemKey) -> List[str]:
+        """Divisibility violations of the clamped `config` at `key`, one
+        string per axis its blocks cannot tile (BLK001 for each)."""
+        return []
+
+    def allowed_float_dtypes(self, version: str) -> frozenset:
+        """Float/complex dtype names ('float32', 'bfloat16', ...) the
+        version's plain version may touch; any other is a DTYPE001 leak.
+        Empty = unchecked."""
+        return frozenset()
+
+    def library_launch_shape(self, config: Any, key: ProblemKey,
+                             version: str) -> Optional[Tuple[int, int]]:
+        """The library's own (shared memory a block: dynamic + static,
+        blocks) of the launch, from the C entry points the launcher's
+        arithmetic shares (card only: builds the library). None = the
+        version launches nothing."""
+        return None
 
     # -- execution ---------------------------------------------------------
     def run(self, *args, version: str, config: Any, device, **kwargs) -> Any:

@@ -267,6 +267,8 @@ def _lib() -> ctypes.CDLL:
     lib.flash_func_attrs.argtypes = [_I, _I, _I, ctypes.POINTER(_I),
                                      ctypes.POINTER(_I)]
     lib.flash_func_attrs.restype = _I
+    lib.flash_launch_shape.argtypes = [_I] * 6 + [ctypes.POINTER(_L)] * 3
+    lib.flash_launch_shape.restype = _I
     return lib
 
 
@@ -348,6 +350,21 @@ def kernel_attrs(hd: int, blk_q: int, blk_kv: int) -> Tuple[int, int]:
     if rc != 0:
         raise RuntimeError(f"flash_func_attrs failed with CUDA error {rc}")
     return regs.value, local.value
+
+
+def launch_shape(b: int, h: int, sq: int, hd: int, cfg: FlashBlockConfig
+                 ) -> Tuple[int, int, int]:
+    """The library's own (dynamic shared memory, static shared memory,
+    blocks) of a forward launch of `cfg` over b x h heads of sq query rows
+    at head dim hd (run at `run_head_dim(hd)`); launches nothing (card
+    only: builds the library)."""
+    out = [_L() for _ in range(3)]
+    rc = _lib().flash_launch_shape(run_head_dim(hd), cfg.blk_q, cfg.blk_kv,
+                                   b, h, sq, *(ctypes.byref(x) for x in out))
+    if rc != 0:
+        raise RuntimeError(f"flash_launch_shape failed with CUDA error {rc} "
+                           f"for {cfg} at hd {hd}, sq {sq}")
+    return tuple(x.value for x in out)
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,9 @@ re-chosen for Hopper: 64 x 64 (one consumer warpgroup and a producer
 warp, two CTAs an SM; the TPU's 256 x 256 tiles would need registers the
 card does not have), clamped to the problem as the JAX one is. The
 ranking model is `core.gpu_model.flash_step_s`. The static-analysis hooks
-wait, as they did for GPP.
+(`repro_torch.analyze`) model the forward's launch: its dynamic shared
+memory at the compiled head dim (Hd 32 runs on the Hd 64 instance) and
+its (B x H, Sq / blk_q) grid.
 """
 
 from __future__ import annotations
@@ -89,8 +91,14 @@ class FlashKernel(api.Kernel):
                     out.append(cfg)
         return out
 
+    def clamp(self, config: FlashBlockConfig, key: FlashKey
+              ) -> FlashBlockConfig:
+        return config.clamped(key)
+
     def static_config(self, key: FlashKey, version: str
                       ) -> Optional[FlashBlockConfig]:
+        if version == "ref":
+            return None     # the plain oracle takes no config
         return FlashBlockConfig().clamped(key)
 
     def tie_break(self, config: FlashBlockConfig) -> Tuple:
@@ -120,6 +128,47 @@ class FlashKernel(api.Kernel):
 
     def config_from_json(self, d: Dict) -> FlashBlockConfig:
         return FlashBlockConfig(**d)
+
+    def canonical_keys(self) -> List[FlashKey]:
+        # Hd 32 launches the zero-padded Hd 64 instance
+        return [FlashKey(b=2, h=2, kvh=2, sq=128, skv=128, hd=32,
+                         causal=True)]
+
+    def key_from_dims(self, dims: str) -> FlashKey:
+        causal = dims.endswith("c")
+        b, h, kvh, sq, skv, hd = (int(d) for d in dims[:-1].split("x"))
+        return FlashKey(b=b, h=h, kvh=kvh, sq=sq, skv=skv, hd=hd,
+                        causal=causal)
+
+    def config_smem_bytes(self, config: FlashBlockConfig, key: FlashKey, *,
+                          version=None, spec=None) -> int:
+        # the forward declares no static __shared__ array
+        return config.smem_bytes(flash_cuda.run_head_dim(key.hd))
+
+    def launch_grid(self, config: FlashBlockConfig, key: FlashKey, *,
+                    version=None, spec=None) -> int:
+        return key.b * key.h * (key.sq // config.blk_q)
+
+    def config_divides(self, config: FlashBlockConfig, key: FlashKey
+                       ) -> List[str]:
+        out = []
+        for axis, n, blk in (("sq", key.sq, config.blk_q),
+                             ("skv", key.skv, config.blk_kv)):
+            if blk <= 0 or n % blk:
+                out.append(f"{axis}={n} not tiled by block {blk}")
+        return out
+
+    def allowed_float_dtypes(self, version: str) -> frozenset:
+        # bf16 operands, f32 stats/accumulator
+        return frozenset({"bfloat16", "float32"})
+
+    def library_launch_shape(self, config: FlashBlockConfig, key: FlashKey,
+                             version: str) -> Optional[Tuple[int, int]]:
+        if version == "ref":
+            return None
+        dynamic, static, blocks = flash_cuda.launch_shape(
+            key.b, key.h, key.sq, key.hd, config)
+        return dynamic + static, blocks
 
     def run(self, q, k, v, *, version: str,
             config: Optional[FlashBlockConfig], device, causal: bool = True):

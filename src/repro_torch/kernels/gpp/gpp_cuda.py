@@ -253,6 +253,7 @@ def gpp_banded_plain(t: Dict[str, torch.Tensor], cfg: BlockConfig) -> torch.Tens
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LP = ctypes.POINTER(ctypes.c_longlong)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -261,6 +262,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gpp_launch.restype = _I
     lib.gpp_func_attrs.argtypes = [_I] * 4 + [ctypes.POINTER(_I)] * 2
     lib.gpp_func_attrs.restype = _I
+    lib.gpp_launch_shape.argtypes = [_I] * 10 + [_LP] * 3
+    lib.gpp_launch_shape.restype = _I
     return lib
 
 
@@ -366,6 +369,22 @@ def kernel_attrs(cfg: BlockConfig, nw: int = 2) -> Tuple[int, int]:
     if rc != 0:
         raise RuntimeError(f"gpp_func_attrs failed with CUDA error {rc}")
     return regs.value, local.value
+
+
+def launch_shape(size: GppSize, cfg: BlockConfig) -> Tuple[int, int, int]:
+    """The library's own (dynamic shared memory, static shared memory,
+    blocks) of a launch of `cfg` at `size`, from the helpers gpp_launch
+    itself takes them from; launches nothing (card only: builds the
+    library)."""
+    out = [ctypes.c_longlong() for _ in range(3)]
+    rc = _lib().gpp_launch_shape(
+        int(cfg.fused_acc), int(cfg.aqsm_transposed), cfg.ept_instance(),
+        size.nw, size.ncouls, size.ngpown, size.nbands, cfg.blk_ig,
+        cfg.blk_igp, cfg.blk_band, *(ctypes.byref(x) for x in out))
+    if rc != 0:
+        raise RuntimeError(f"gpp_launch_shape failed with CUDA error {rc} "
+                           f"for {cfg} at {size}")
+    return tuple(x.value for x in out)
 
 
 def gpp_cuda(t: Dict[str, torch.Tensor], cfg: BlockConfig

@@ -62,6 +62,50 @@ class GppKernel(api.Kernel):
     def config_from_json(self, d: Dict) -> gpp_cuda.BlockConfig:
         return gpp_cuda.BlockConfig(**d)
 
+    def canonical_keys(self) -> List[problem.GppSize]:
+        return [problem.TINY, problem.BENCH]
+
+    def key_from_dims(self, dims: str) -> problem.GppSize:
+        ncouls, ngpown, nbands, nw = (int(d) for d in dims.split("x"))
+        for s in problem.SIZES.values():
+            if (s.ncouls, s.ngpown, s.nbands, s.nw) == (ncouls, ngpown,
+                                                        nbands, nw):
+                return s
+        return problem.GppSize("custom", nbands=nbands, ngpown=ngpown,
+                               ncouls=ncouls, nw=nw)
+
+    def config_smem_bytes(self, config: gpp_cuda.BlockConfig,
+                          key: problem.GppSize, *, version=None,
+                          spec=None) -> int:
+        # the staged band chunk (dynamic) and the reduction scratch (static)
+        return config.smem_bytes(key.nw)
+
+    def launch_grid(self, config: gpp_cuda.BlockConfig, key: problem.GppSize,
+                    *, version=None, spec=None) -> int:
+        return gpp_cuda.grid_blocks(key, config)
+
+    def config_divides(self, config: gpp_cuda.BlockConfig,
+                       key: problem.GppSize) -> List[str]:
+        out = []
+        for axis, n, blk in (("ncouls", key.ncouls, config.blk_ig),
+                             ("ngpown", key.ngpown, config.blk_igp),
+                             ("nbands", key.nbands, config.blk_band)):
+            if blk <= 0 or n % blk:
+                out.append(f"{axis}={n} not tiled by block {blk}")
+        return out
+
+    def allowed_float_dtypes(self, version: str) -> frozenset:
+        # planar f32 arithmetic; outputs assemble to complex64
+        return frozenset({"float32", "complex64"})
+
+    def library_launch_shape(self, config: gpp_cuda.BlockConfig,
+                             key: problem.GppSize, version: str
+                             ) -> Optional[Tuple[int, int]]:
+        if version in variants.VARIANTS:
+            return None
+        dynamic, static, blocks = gpp_cuda.launch_shape(key, config)
+        return dynamic + static, blocks
+
     def run(self, inputs: Dict, *, version: str,
             config: Optional[gpp_cuda.BlockConfig], device) -> Tuple[Any, Any]:
         t = problem.to_tensors(inputs, device)

@@ -26,7 +26,10 @@ fits one CTA (`GpuSpec.smem_per_block`), not the TPU's VMEM. The split
 count is not a config: the wrapper sets it from the shape and the SM
 count of the card it launches on.
 The ranking model is `core.gpu_model.paged_step_s`. The static-analysis
-hooks wait, as they did for GPP, flash and ssm.
+hooks (`repro_torch.analyze`) model the split kernel's launch at the
+split count the card's SMs set: `plan`'s shared memory, of which the
+cp.async K/V ring is the gather buffer KV001 checks, and its (splits,
+KvH, B x row groups) grid.
 """
 
 from __future__ import annotations
@@ -126,8 +129,14 @@ class PagedDecodeKernel(api.Kernel):
                 out.append(cfg)
         return out
 
+    def clamp(self, config: PagedBlockConfig, key: PagedKey
+              ) -> PagedBlockConfig:
+        return config.clamped(key)
+
     def static_config(self, key: PagedKey, version: str
                       ) -> Optional[PagedBlockConfig]:
+        if version == "ref":
+            return None     # the full-gather oracle takes no config
         return PagedBlockConfig().clamped(key)
 
     def tie_break(self, config: PagedBlockConfig) -> Tuple:
@@ -172,6 +181,69 @@ class PagedDecodeKernel(api.Kernel):
 
     def config_from_json(self, d: Dict) -> PagedBlockConfig:
         return PagedBlockConfig(**d)
+
+    def canonical_keys(self) -> List[PagedKey]:
+        return [PagedKey(b=2, h=2, kvh=2, page=16, npt=4, hd=32),
+                PagedKey(b=2, h=2, kvh=2, page=16, npt=4, hd=32, qlen=4)]
+
+    def key_from_dims(self, dims: str) -> PagedKey:
+        parts = [int(d) for d in dims.split("x")]
+        b, h, kvh, page, npt, hd = parts[:6]
+        qlen = parts[6] if len(parts) > 6 else 1
+        return PagedKey(b=b, h=h, kvh=kvh, page=page, npt=npt, hd=hd,
+                        qlen=qlen)
+
+    def _launch(self, config: PagedBlockConfig, key: PagedKey, version,
+                spec) -> Tuple[int, int, dict]:
+        """(query rows a kv head, splits, plan) of the split kernel's
+        launch: the split count the wrapper takes on `spec`'s SMs."""
+        spec = spec or hw.DEFAULT_SPEC
+        rows = key.h // key.kvh * key.qlen
+        splits = paged_cuda.split_count(key.b, key.kvh, rows, key.npt,
+                                        spec.sms)
+        shape = paged_cuda.plan(rows, key.hd, key.page, key.npt,
+                                config.pages_per_block, splits,
+                                kv_itemsize(version or self.default_version))
+        return rows, splits, shape
+
+    def config_smem_bytes(self, config: PagedBlockConfig, key: PagedKey, *,
+                          version=None, spec=None) -> int:
+        # the kernel declares no static __shared__ array
+        return self._launch(config, key, version, spec)[2]["smem"]
+
+    def launch_grid(self, config: PagedBlockConfig, key: PagedKey, *,
+                    version=None, spec=None) -> int:
+        rows, splits, _ = self._launch(config, key, version, spec)
+        return paged_cuda.grid_blocks(key.b, key.kvh, rows, splits)
+
+    def gather_buffer_bytes(self, config: PagedBlockConfig, key: PagedKey, *,
+                            version=None, spec=None) -> int:
+        # the cp.async K/V ring the block-table gather stages pages into
+        return self._launch(config, key, version, spec)[2]["ring_bytes"]
+
+    def config_divides(self, config: PagedBlockConfig, key: PagedKey
+                       ) -> List[str]:
+        ppb = config.pages_per_block
+        if ppb <= 0 or key.npt % ppb:
+            return [f"npt={key.npt} not tiled by pages_per_block {ppb}"]
+        return []
+
+    def allowed_float_dtypes(self, version: str) -> frozenset:
+        # bf16 operands, f32 scores/stats/accumulator (the int8 pool is
+        # integer, outside the float-leak check)
+        return frozenset({"bfloat16", "float32"})
+
+    def library_launch_shape(self, config: PagedBlockConfig, key: PagedKey,
+                             version: str) -> Optional[Tuple[int, int]]:
+        if version == "ref":
+            return None
+        rows = key.h // key.kvh * key.qlen
+        splits = paged_cuda.split_count(key.b, key.kvh, rows, key.npt,
+                                        paged_cuda.card_sms())
+        dynamic, static, blocks = paged_cuda.launch_shape(
+            version == "int8", key.b, key.kvh, rows, key.hd, key.page,
+            key.npt, config.pages_per_block, splits)
+        return dynamic + static, blocks
 
     def run(self, q, kpool, vpool, block_table, cache_len, *, version: str,
             config: Optional[PagedBlockConfig], device, kscale=None,

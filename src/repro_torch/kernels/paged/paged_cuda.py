@@ -88,8 +88,8 @@ def split_count(b: int, kvh: int, rows: int, npt: int, sms: int) -> int:
 def plan(rows: int, hd: int, page: int, npt: int, ppb: int, splits: int,
          kv_bytes: int) -> dict:
     """A launch's shape, as csrc/paged_decode.cu's plan(): pages a stage
-    (sp), lines a stage slot, ring stages (0: one stage does not fit) and
-    the dynamic shared memory in bytes."""
+    (sp), lines a stage slot, ring stages (0: one stage does not fit), the
+    cp.async K/V ring's bytes and the dynamic shared memory in bytes."""
     mt, _ = row_tiles(rows)
     maxp = -(-npt // splits)
     sp = min(ppb, maxp)
@@ -104,7 +104,13 @@ def plan(rows: int, hd: int, page: int, npt: int, ppb: int, splits: int,
     stages = next((n for n in range(min(MAX_STAGES, need), 0, -1)
                    if fixed + max(n * stage, merge) <= SMEM_PER_BLOCK), 0)
     return {"pages_a_stage": sp, "lines": lines, "stages": stages,
+            "ring_bytes": stages * stage,
             "smem": fixed + max(max(stages, 1) * stage, merge)}
+
+
+def grid_blocks(b: int, kvh: int, rows: int, splits: int) -> int:
+    """Blocks of the split kernel's grid (splits, KvH, B x row groups)."""
+    return splits * kvh * b * row_tiles(rows)[1]
 
 
 def smem_bytes(rows: int, hd: int, page: int, npt: int, ppb: int,
@@ -134,6 +140,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.paged_func_attrs.restype = _I
     lib.paged_occupancy.argtypes = [_I] * 7 + [_IP]
     lib.paged_occupancy.restype = _I
+    lib.paged_launch_shape.argtypes = ([_I] * 9
+                                       + [ctypes.POINTER(ctypes.c_longlong)] * 3)
+    lib.paged_launch_shape.restype = _I
     return lib
 
 
@@ -165,6 +174,11 @@ def _shape(q, kpool, vpool, table, cache_len) -> Tuple[int, ...]:
             f"{tuple(kpool.shape)}, vpool {tuple(vpool.shape)}, table "
             f"{tuple(table.shape)}, cache_len {tuple(cache_len.shape)}")
     return b, qn, h, kvh, hd, n_pages, page, table.shape[1]
+
+
+def card_sms() -> int:
+    """SMs of the current card (card only)."""
+    return _sms(torch.cuda.current_device())
 
 
 def splits_for(q, kpool, table) -> int:
@@ -354,6 +368,22 @@ def library_smem_bytes(rows: int, hd: int, page: int, npt: int, ppb: int,
     smem = _lib().paged_smem_bytes(rows, hd, page, npt, ppb, splits,
                                    kv_bytes, ctypes.byref(stages))
     return int(smem), stages.value
+
+
+def launch_shape(int8: bool, b: int, kvh: int, rows: int, hd: int, page: int,
+                 npt: int, ppb: int, splits: int) -> Tuple[int, int, int]:
+    """The library's own (dynamic shared memory, static shared memory,
+    blocks) of the split kernel's launch; launches nothing (card only:
+    builds the library)."""
+    out = [ctypes.c_longlong() for _ in range(3)]
+    rc = _lib().paged_launch_shape(int(int8), rows, hd, page, npt, ppb,
+                                   splits, kvh, b,
+                                   *(ctypes.byref(x) for x in out))
+    if rc != 0:
+        raise RuntimeError(f"paged_launch_shape failed with CUDA error {rc} "
+                           f"at rows {rows}, hd {hd}, ppb {ppb}, splits "
+                           f"{splits}")
+    return tuple(x.value for x in out)
 
 
 def occupancy(int8: bool, rows: int, hd: int, page: int, npt: int, ppb: int,

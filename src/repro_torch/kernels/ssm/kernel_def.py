@@ -19,8 +19,9 @@ the kernel's 256, and the staged ring within the shared memory a block can
 use (`GpuSpec.smem_per_block`), not the TPU's VMEM. The static config is
 8 channels x 2 states (two warps at N = 16, the model's pick at
 hymba-1.5b's prefill), clamped to C. The ranking
-model is `core.gpu_model.ssm_step_s`. The static-analysis hooks wait, as
-they did for GPP and flash.
+model is `core.gpu_model.ssm_step_s`. The static-analysis hooks
+(`repro_torch.analyze`) model the kernel's launch: its staged ring and its
+(C / blk_c, B) grid.
 """
 
 from __future__ import annotations
@@ -78,8 +79,13 @@ class SsmKernel(api.Kernel):
                     out.append(cfg)
         return out
 
+    def clamp(self, config: SsmScanConfig, key: SsmKey) -> SsmScanConfig:
+        return config.clamped(key)
+
     def static_config(self, key: SsmKey, version: str
                       ) -> Optional[SsmScanConfig]:
+        if version != "cuda":
+            return None     # the plain forms take no config
         return SsmScanConfig().clamped(key)
 
     def tie_break(self, config: SsmScanConfig) -> Tuple:
@@ -114,6 +120,44 @@ class SsmKernel(api.Kernel):
 
     def config_from_json(self, d: Dict) -> SsmScanConfig:
         return SsmScanConfig(**d)
+
+    def canonical_keys(self) -> List[SsmKey]:
+        return [SsmKey(b=2, t=32, c=64, n=8)]
+
+    def key_from_dims(self, dims: str) -> SsmKey:
+        b, t, c, n = (int(d) for d in dims.split("x"))
+        return SsmKey(b=b, t=t, c=c, n=n)
+
+    def config_smem_bytes(self, config: SsmScanConfig, key: SsmKey, *,
+                          version=None, spec=None) -> int:
+        # the staged ring; the kernel declares no static __shared__ array
+        return config.smem_bytes(key.n)
+
+    def launch_grid(self, config: SsmScanConfig, key: SsmKey, *,
+                    version=None, spec=None) -> int:
+        return (key.c // config.blk_c) * key.b
+
+    def config_divides(self, config: SsmScanConfig, key: SsmKey
+                       ) -> List[str]:
+        out = []
+        if config.blk_c <= 0 or key.c % config.blk_c:
+            out.append(f"c={key.c} not tiled by block {config.blk_c}")
+        if config.states <= 0 or key.n % config.states:
+            out.append(f"n={key.n} not tiled by {config.states} states")
+        return out
+
+    def allowed_float_dtypes(self, version: str) -> frozenset:
+        return frozenset({"float32"})
+
+    def library_launch_shape(self, config: SsmScanConfig, key: SsmKey,
+                             version: str) -> Optional[Tuple[int, int]]:
+        if version != "cuda":
+            return None
+        # the f32 params of make_example (the model's bf16 ones take the
+        # other instance: the same shared memory and grid)
+        dynamic, static, blocks = ssm_cuda.launch_shape(key.b, key.c, key.n,
+                                                        config)
+        return dynamic + static, blocks
 
     def run(self, x, dt, bmat, cmat, a_log, d, h0, *, version: str,
             config: Optional[SsmScanConfig], device):

@@ -149,6 +149,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ssm_func_attrs.argtypes = [_I, _I, _I, ctypes.POINTER(_I),
                                    ctypes.POINTER(_I)]
     lib.ssm_func_attrs.restype = _I
+    lib.ssm_launch_shape.argtypes = ([_I] * 6
+                                     + [ctypes.POINTER(ctypes.c_longlong)] * 3)
+    lib.ssm_launch_shape.restype = _I
     return lib
 
 
@@ -231,6 +234,20 @@ def kernel_attrs(n: int, states: int, bf16_params: bool) -> Tuple[int, int]:
     if rc != 0:
         raise RuntimeError(f"ssm_func_attrs failed with CUDA error {rc}")
     return regs.value, local.value
+
+
+def launch_shape(b: int, c: int, n: int, cfg: SsmScanConfig,
+                 bf16_params: bool = False) -> Tuple[int, int, int]:
+    """The library's own (dynamic shared memory, static shared memory,
+    blocks) of a launch of `cfg` over b rows of c channels at state size
+    n; launches nothing (card only: builds the library)."""
+    out = [ctypes.c_longlong() for _ in range(3)]
+    rc = _lib().ssm_launch_shape(n, cfg.states, int(bf16_params), cfg.blk_c,
+                                 b, c, *(ctypes.byref(x) for x in out))
+    if rc != 0:
+        raise RuntimeError(f"ssm_launch_shape failed with CUDA error {rc} "
+                           f"for {cfg} at C={c}, N={n}")
+    return tuple(x.value for x in out)
 
 
 def instances():
