@@ -110,15 +110,16 @@ build's and every phase's seconds):
      its own inputs (BWD_ULPS), the matmul flags read at each of those
      launches (both off: the port's guard; the script sets none).
   11. hybrid serving, the fourth slice's path: ServeEngine on hymba-1.5b
-     at full width and depth with ssm_impl="pallas", weights from seed 0,
+     at full width cut to HYBRID_SERVE_LAYERS layers (uncut: 32) with
+     ssm_impl="pallas", weights from seed 0,
      max_batch=4, cache_len=2048: 8 greedy requests (SERVE_PROMPTS) and
      one of 1152 tokens (longer than the 1024 window: the prefill's ring
-     roll and ring decode), 32 new tokens each, all submitted at once.
-     ssm_scan must launch 32 times a prefill; TTFT, decode ms a round,
-     tokens/s and peak device memory are printed; one admission round and
-     three decode rounds run under torch.profiler. Then the long prompt
-     is prefilled again with every ssm_scan launch held against
-     ssm_scan_plain on its inputs (SSM_RTOL), and every prompt's
+     roll and ring decode), FAMILY_SERVE_NEW new tokens each, all
+     submitted at once. ssm_scan must launch once a layer a prefill;
+     TTFT, decode ms a round, tokens/s and peak device memory are printed;
+     one admission round and three decode rounds run under torch.profiler.
+     Then the long prompt is prefilled again with every ssm_scan launch
+     held against ssm_scan_plain on its inputs (SSM_RTOL), and every prompt's
      first-token logits against the engine with ssm_impl="chunked"
      (SERVE_LOGIT_RTOL).
   12a. paged serving, the fifth slice's path: ServeEngine on qwen2-1.5b
@@ -155,12 +156,14 @@ build's and every phase's seconds):
      together (the same function).
   13. speculative serving, sampling on the card and the Router, the sixth
      slice's path (its own seconds printed):
-     13a. qwen2-1.5b at full width and depth, flash on, seed 0, served by
+     13a. qwen2-1.5b at full width cut to SPEC_LAYERS layers (uncut:
+     28), flash on, seed 0, served by
      ServeEngine(spec_k=SPEC_K, max_batch 4, cache_len 1024) with the
      target's own first layer as the draft (the stacked layer leaves
      sliced [:1], views of the same params), and by the plain engine, on
      phase 8's nine requests (the ninth at SPEC_HOT_T). flash_fwd must
-     launch 29 times an admission (28 target + 1 draft) and nowhere else;
+     launch SPEC_LAYERS + 1 times an admission (the target's layers + 1
+     draft) and nowhere else;
      acceptance rate, accepted tokens a verify step and accepted +
      rejected + bonus == tokens emitted; spec round ms p50 beside the
      plain decode round's, tokens/s, TTFT p50 and peak memory of both; one
@@ -183,17 +186,20 @@ build's and every phase's seconds):
      13d. Router with 2 replicas of qwen2-1.5b sharing one params tree on
      the card over generate_trace(ROUTER_TRACE), replica 1 flapped
      (ROUTER_FLAP): every request one outcome, all completed, one
-     recovery; flash_fwd 28 times an admission of a 129-256 token prompt;
+     recovery; flash_fwd SPEC_LAYERS times an admission of a 129-256
+     token prompt;
      TTFT/TPOT ticks p50/p99, wall time; completed greedy outputs against
      one undisturbed engine's under 13a's near-tie rule.
   14. the moe family, the seventh slice's path (its own seconds printed):
-     14a. ServeEngine on deepseek-moe-16b at full width and depth (28
-     layers: 1 dense + 27 moe of 64 experts top-6 + 2 shared; ~16.4e9
-     parameters), flash on, seed 0, max_batch 4, cache_len 1024: 8 greedy
-     requests (MOE_PROMPTS: 256, 512 and 512 tokens launch flash_fwd 28
-     times an admission, the others take the chunked route) and one of
+     14a. ServeEngine on deepseek-moe-16b at full width cut to
+     MOE_SERVE_LAYERS layers (1 dense + the rest moe, 64 experts top-6 +
+     2 shared; uncut: 28 layers, ~16.4e9 parameters),
+     flash on, seed 0, max_batch 4, cache_len 1024: 8 greedy requests
+     (MOE_PROMPTS: 256, 512 and 512 tokens launch flash_fwd once a layer
+     an admission, the others take the chunked route) and one of
      MOE_HOT_PROMPT tokens at SPEC_HOT_T, FAMILY_SERVE_NEW new tokens
-     each, all at once. flash_fwd launches exactly 28 x 3 times and no other kernel;
+     each, all at once. flash_fwd launches exactly MOE_SERVE_LAYERS x 3
+     times and no other kernel;
      every token in the vocabulary; parameter count, init time, TTFT,
      decode round ms, tokens/s and peak memory; the same requests again
      with every output bit-equal to the first run's; one admission round
@@ -225,8 +231,9 @@ build's and every phase's seconds):
      inputs (FLASH_OUT_ULPS forward, BWD_ULPS backward).
   15. the rwkv6 family and the recurrent families' training, the eighth
      slice's path (its own seconds printed):
-     15a. ServeEngine on rwkv6-7b at full width and depth (32 layers, d
-     4096, 64 heads of 64, ~7.58e9 parameters), seed 0, max_batch 4,
+     15a. ServeEngine on rwkv6-7b at full width cut to RWKV_SERVE_LAYERS
+     layers (d 4096, 64 heads of 64; uncut: 32 layers, ~7.58e9
+     parameters), seed 0, max_batch 4,
      cache_len 1024: greedy prompts on every WKV form (RWKV_PROMPTS: one
      chunk, the sequential scan, 64-step chunks) and one of
      RWKV_HOT_PROMPT tokens at SPEC_HOT_T, RWKV_NEW new tokens each, all
@@ -271,14 +278,15 @@ build's and every phase's seconds):
      the backward must raise NotImplementedError.
   16. the encdec and vlm families, the ninth slice's path (its own
      seconds printed):
-     16a. ServeEngine on internvl2-26b at full width and depth (48
-     layers, d 6144, 48 heads over 8; ~19.86e9 parameters, ~39.7 GB),
+     16a. ServeEngine on internvl2-26b at full width cut to
+     VLM_SERVE_LAYERS layers (d 6144, 48 heads over 8; uncut: 48 layers,
+     ~19.86e9 parameters, ~39.7 GB),
      flash on, seed 0, max_batch 4, cache_len VLM_CACHE_LEN: 8 greedy
      requests (VLM_PROMPTS) and one of VLM_HOT_PROMPT tokens at
      SPEC_HOT_T, each with 256 bf16 patch embeddings in Request.extra,
      FAMILY_SERVE_NEW new tokens each, all at once; the text's bucket leaves room for
      the vis lines, so six admissions prefill 512 or 768 rows (flash_fwd
-     48 times each) and three 384, 856 or 956 (chunked); the matmul flags
+     once a layer each) and three 384, 856 or 956 (chunked); the matmul flags
      read at every flash call of a warm-up request; TTFT, decode round
      ms, tokens/s, peak memory at init (each leaf drawn in f32) and while
      serving; the same requests again, every output bit-equal; one
@@ -287,9 +295,9 @@ build's and every phase's seconds):
      flash-sized request prefilled again through the admission path with
      every flash_fwd launch (group 6: H=48, KvH=8, Hd 128) held against
      flash_fwd_plain (FLASH_OUT_ULPS), its first-token logits against the
-     plain version in the kernel's place and against flash off (at 48
-     layers within the sanity bound VLM_LOGIT_RTOL: this depth's bf16
-     floor lies above SERVE_LOGIT_RTOL); the witness at full width cut to
+     plain version in the kernel's place and against flash off (within
+     the sanity bound VLM_LOGIT_RTOL: at 48 layers the bf16 floor lay
+     above SERVE_LOGIT_RTOL); the witness at full width cut to
      VLM_WITNESS_LAYERS layers: the same three routes for every
      flash-sized request, each launch held to its plain version, the
      kernel path against the other two within SERVE_LOGIT_RTOL, and the
@@ -432,47 +440,75 @@ build's and every phase's seconds):
      Printed: the census count, the findings by rule, the audit's
      seconds, and gpp v10's census FMA fraction (the plain version's
      arithmetic) beside phase 2b's SASS FMA ratio and the paper's 58%.
-Each path (phase 4's dispatch, phase 5's journey, phase 7's flash checks,
-phase 7d's Hd 32 model check, phase 8's serving run, phase 10's training
-run, phase 11's hybrid serving run, phase 12a's paged serving run, phase
-12b's dispatch, phase 13's spec serving run (spec_serve), paged spec run
-(spec_paged) and Router run (router), phase 14's moe serving run
-(moe_serve), paged moe run (moe_paged) and moe training run
+ 21. FSDP beside a model axis: FSDP_TP_RANKS (4) ranks spawned on the
+     card over gloo (a FileStore under build/, a timeout on the world and
+     on every collective) on a {"data": 2, "model": 2} mesh,
+     Trainer(cfg, loop, mesh, fsdp=True).run() on qwen2.5-32b at full
+     width cut to FSDP_TP_LAYERS layers (flash on, Adafactor, remat
+     "full") with phase 10's loop for FSDP_TP_STEPS steps: every leaf's
+     spec asserted equal to the uncut config's default (FSDP; embed, wo,
+     the biases, wi, wg, the FFN's wo and the head split over ('model',
+     'data') on one dim), the same model on the same batches first run
+     on one device here. Before the world starts, params plus optimizer
+     state a rank, flash launches a step a rank and the data-group (FSDP's
+     gathers and reduce-scatters, the sums; fsdp_data_collectives) and
+     model-group (tp_collectives) calls and bytes a step a rank are
+     predicted from the specs and shapes; each must come true on every
+     rank. Every step's loss within LOSS0_SUM_ATOL of the one-device run,
+     step 0's grad norm within DP_GNORM_RTOL, the fingerprints of the
+     state's leaves each data group and each model group replicates equal
+     across it after every step; rank 0's final checkpoint restored here
+     on one device bit-equal to the ranks' gathered params; one more step
+     holds every flash launch of a rank (H 20, KvH 4) to its plain version
+     within TP_TRAIN_ULPS, counted exactly. Printed: step ms, peak memory
+     a rank, the bytes a step hands gloo (4 ranks sharing one card: not
+     an FSDP or TP speed). The 8-rank multi-pod mesh runs on the CPU only
+     (tests/test_torch_fsdp_tp_pods.py).
+Each path (phase 4's dispatch, phase 5's journey, phase 7's flash
+checks, phase 7d's Hd 32 model check, phase 8's serving run, phase 10's
+training run, phase 11's hybrid serving run, phase 12a's paged serving
+run, phase 12b's dispatch, phase 13's spec serving run (spec_serve),
+paged spec run (spec_paged) and Router run (router), phase 14's moe
+serving run (moe_serve), paged moe run (moe_paged) and moe training run
 (moe_train), phase 15's rwkv serving run (rwkv_serve), training runs
 (hybrid_train, rwkv_train) and pallas step (hybrid-train-pallas), phase
 16's serving runs (vlm_serve, vlm_paged, whisper_serve, whisper_paged)
 and training runs (whisper_train, vlm_train), phase 17's sharded serving
 runs (tp_serve, tp_moe, tp_hybrid, tp_ssm, tp_encdec, tp_vlm: every
-rank's counts, summed), phase 18's
-data-parallel training runs (dp_train, fsdp_train, ep_train: every rank's
-counts, summed), phase 19's tensor-parallel training runs
-(tp_dense_train, tp_moe_train, tp_hybrid_train, tp_ssm_train,
-tp_encdec_train, tp_vlm_train: every rank's counts, summed)) runs
-with the launch counters
-zeroed just before it and read just after; the kernels line gives each
-path's counts, and the script fails unless every kernel launched on the
-paths that run it (gpp_fused on dispatch and journey, gpp_banded on the
-journey, flash_fwd 28 times a prefill on the serving run and a cold
-paged admission, 29 an admission on the spec runs and 28 a flash-sized
-admission on the Router run, flash_fwd 56 and each backward kernel 28
-times a training step, ssm_scan 32 times a prefill on the hybrid serving
-run, each paged_decode entry point on phase 12b's dispatch, flash_fwd 28
-times a flash-sized admission on both moe serving runs, 8 and each
-backward kernel 4 times a moe training step, no kernel on phase 15's
-serving and training runs, and ssm_scan in the forward of the hymba
-pallas step, flash_fwd 48 times a flash-sized admission on both vlm
-serving runs, 16 and each backward kernel 8 times a vlm training step,
-no kernel on whisper's runs, flash_fwd TP_DENSE_LAYERS times an
-admission on each rank of tp_serve and 4 times a flash-sized admission
-on each rank of tp_moe, ssm_scan 32 times an admission on each rank of
-tp_hybrid and flash_fwd 8 times a flash-sized admission on each rank of
-tp_vlm, and no other kernel there, nor any on tp_ssm and tp_encdec;
-flash_fwd 2 x DP_QWEN_LAYERS and each backward kernel DP_QWEN_LAYERS
-times a step on each rank of dp_train and fsdp_train, 8 and 4 on
-ep_train, flash_fwd 2 x TP_DENSE_LAYERS and each backward kernel
-TP_DENSE_LAYERS times a step on each rank of tp_dense_train, 8 and 4 on
-tp_moe_train, 16 and 8 on tp_vlm_train, and no kernel on tp_hybrid_train,
-tp_ssm_train and tp_encdec_train).
+rank's counts, summed), phase 18's data-parallel training runs
+(dp_train, fsdp_train, ep_train: every rank's counts, summed), phase
+19's tensor-parallel training runs (tp_dense_train, tp_moe_train,
+tp_hybrid_train, tp_ssm_train, tp_encdec_train, tp_vlm_train: every
+rank's counts, summed), phase 21's FSDP x TP training run
+(fsdp_tp_train: every rank's counts, summed)) runs with the launch
+counters zeroed just before it and read just after; the kernels line
+gives each path's counts, and the script fails unless every kernel
+launched on the paths that run it (gpp_fused on dispatch and journey,
+gpp_banded on the journey, flash_fwd 28 times a prefill on the serving
+run and a cold paged admission, SPEC_LAYERS + 1 an admission on the spec
+runs and SPEC_LAYERS a flash-sized admission on the Router run,
+flash_fwd 56 and each backward kernel 28 times a training step, ssm_scan
+HYBRID_SERVE_LAYERS times a prefill on the hybrid serving run, each
+paged_decode entry point on phase 12b's dispatch, flash_fwd
+MOE_SERVE_LAYERS times a flash-sized admission on both moe serving runs,
+8 and each backward kernel 4 times a moe training step, no kernel on
+phase 15's serving and training runs, and ssm_scan in the forward of the
+hymba pallas step, flash_fwd VLM_SERVE_LAYERS times a flash-sized
+admission on both vlm serving runs, 16 and each backward kernel 8 times
+a vlm training step, no kernel on whisper's runs, flash_fwd
+TP_DENSE_LAYERS times an admission on each rank of tp_serve and 4 times
+a flash-sized admission on each rank of tp_moe, ssm_scan
+TP_HYBRID_SERVE_LAYERS times an admission on each rank of tp_hybrid and
+flash_fwd 8 times a flash-sized admission on each rank of tp_vlm, and no
+other kernel there, nor any on tp_ssm and tp_encdec; flash_fwd 2 x
+DP_QWEN_LAYERS and each backward kernel DP_QWEN_LAYERS times a step on
+each rank of dp_train and fsdp_train, 8 and 4 on ep_train, flash_fwd 2 x
+TP_DENSE_LAYERS and each backward kernel TP_DENSE_LAYERS times a step on
+each rank of tp_dense_train, 8 and 4 on tp_moe_train, 16 and 8 on
+tp_vlm_train, and no kernel on tp_hybrid_train, tp_ssm_train and
+tp_encdec_train; flash_fwd 2 x FSDP_TP_LAYERS and each backward kernel
+FSDP_TP_LAYERS times a step on each rank of fsdp_tp_train, and no other
+kernel there).
 
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero without it. Without a card, or outside the repository, the
@@ -556,9 +592,9 @@ LOSS0_SE = 4.0
 LOSS0_SUM_ATOL = 2e-3
 INIT_SCALE = 0.02
 TRAIN_STEPS = 4
-# 11's, 13a-b's, 14a's, 16a's and 16b's new tokens a request (PR 29
-# halved them from 32 to find phase 19c-19f's time)
-FAMILY_SERVE_NEW = 16
+# 11's, 13a-b's, 14a's, 16a's and 16b's new tokens a request (32 at
+# first; halved twice, to make room for phases 19c-19f and 21)
+FAMILY_SERVE_NEW = 8
 # 16c's steps (PR 29: 2 of TRAIN_STEPS, to the same end; 19e and 19f read
 # its first TP_TRAIN_STEPS)
 ENCDEC_VLM_TRAIN_STEPS = 2
@@ -570,8 +606,11 @@ SSM_TRAIN_STEPS = 2
 # its FMA for the state update and its butterfly sum over N round
 # differently from the plain version's exp, mul/add and einsum
 SSM_RTOL = 1e-5
-# hybrid serving: the long prompt is longer than hymba's 1024-token window
-# and a multiple of 64 (the chunked comparison then really chunks)
+# hybrid serving (phase 11) at HYBRID_SERVE_LAYERS layers (uncut: 32; cut
+# to make room for phase 21): the long prompt is longer
+# than hymba's 1024-token window and a multiple of 64 (the chunked
+# comparison then really chunks)
+HYBRID_SERVE_LAYERS = 16
 HYBRID_LONG_PROMPT = 1152
 HYBRID_CACHE_LEN = 2048
 # paged serving (phase 12a): one shared system prompt, page 16; the cold
@@ -590,6 +629,9 @@ PAGED_REF_ATOL = 8e-3
 # speculative serving (phase 13): the draft proposes SPEC_K tokens a round;
 # phase 8's ninth request samples at SPEC_HOT_T
 SPEC_K = 3
+# phase 13's qwen2-1.5b depth, the target of 13a-13c and 13d's replicas
+# (uncut: 28; cut to make room for phase 21)
+SPEC_LAYERS = 14
 SPEC_HOT_T = 0.8
 # the Router (phase 13d): 2 replicas over this trace, replica 1 flapped
 ROUTER_TRACE = dict(n_requests=16, prompt_median=128, prompt_max=256,
@@ -600,6 +642,8 @@ ROUTER_FLAP = dict(at_tick=6, down_ticks=4, times=1)
 # launches an admission, moe admits at exact length), the others take the
 # chunked route; MOE_HOT_PROMPT tokens at SPEC_HOT_T
 MOE_PROMPTS = (256, 512, 512, 160, 224, 320, 400, 480)
+# 14a's depth (uncut: 28; cut to make room for phase 21)
+MOE_SERVE_LAYERS = 14
 MOE_HOT_PROMPT = 200
 # 14b: the moe layer on the card against the port's CPU run of it. Routing
 # is discrete: where a token's k-th and (k+1)-th router probabilities, or
@@ -621,11 +665,14 @@ MOE_TRAIN_LAYERS = 4
 MOE_LOSS0_ATOL = 0.3
 # the rwkv6 family (phase 15a): rwkv6-7b served at full width, prompts on
 # every WKV form: 40 tokens (one chunk), 200 (64 or more, not a multiple
-# of 64: the sequential scan, T x 32 layer steps, ~4.5 ms a token), 256
+# of 64: the sequential scan, T x 32 layer steps uncut, ~4.5 ms a token), 256
 # and 512 (chunks of 64); RWKV_HOT_PROMPT tokens (the scan) at
 # SPEC_HOT_T; RWKV_NEW new tokens each (PR 29 dropped the 160- and
 # 384-token prompts, a second prompt of the scan and of the chunks, and
-# halved RWKV_NEW from 16, to find phase 19c-19f's time)
+# halved RWKV_NEW from 16, to find phase 19c-19f's time); 15a's depth
+# RWKV_SERVE_LAYERS (uncut: 32; cut to make room for phase 21; the decode
+# gates below were read at 32)
+RWKV_SERVE_LAYERS = 16
 RWKV_PROMPTS = (40, 200, 256, 512)
 RWKV_NEW = 8
 RWKV_HOT_PROMPT = 100
@@ -674,9 +721,9 @@ WKV_F64_CASES = (("test decay", 16), ("test decay", 32), ("test decay", 64),
 # does not fit one card), 512 x 8
 HYBRID_TRAIN_SEQ = 2048
 HYBRID_TRAIN_BATCH = 2
-# 15c's hymba-1.5b depth (uncut, 32, before PR 29 cut it to find phase
-# 19c-19f's time)
-HYBRID_TRAIN_LAYERS = 16
+# 15c's hymba-1.5b depth (uncut: 32; cut to 16 and then 8, to make room
+# for phases 19c-19f and 21)
+HYBRID_TRAIN_LAYERS = 8
 RWKV_TRAIN_LAYERS = 8
 RWKV_TRAIN_SEQ = 512
 RWKV_TRAIN_BATCH = 8
@@ -707,6 +754,9 @@ VLM_OP_S = 768
 # between the routes is rounding
 VLM_LOGIT_RTOL = 0.2
 VLM_WITNESS_LAYERS = 8
+# 16a's depth (uncut: 48; cut to make room for phase 21; the floors above
+# were read at 48)
+VLM_SERVE_LAYERS = 24
 VLM_F32_RTOL = 1e-3
 # the encdec family (phase 16b): whisper-small served at full width; 512
 # lines are past real whisper's 448-token decoder cap (dec_pos has 32768
@@ -762,11 +812,11 @@ TP_RWKV_PROMPTS = (40, 64, 256, 512, 100)
 TP_WHISPER_PROMPTS = (8, 13, 20, 27, 32)
 TP_VLM_TEXT = (256, 200, 480, 40, 100)
 TP_VLM_LAYERS = 8
-# 17e's hymba-1.5b depth (uncut, 32, before PR 29 cut it to find phase
-# 19c-19f's time)
-TP_HYBRID_SERVE_LAYERS = 16
-# 17f's rwkv6-7b depth (uncut, 32, before PR 29)
-TP_RWKV_SERVE_LAYERS = 16
+# 17e's hymba-1.5b depth (uncut: 32; cut to 16 and then 8, to make room
+# for phases 19c-19f and 21)
+TP_HYBRID_SERVE_LAYERS = 8
+# 17f's rwkv6-7b depth (uncut: 32; cut to 16 and then 8, the same way)
+TP_RWKV_SERVE_LAYERS = 8
 # phase 17's sub-phases: (tag, the path its launches go to, the kernel each
 # rank's launches are held for)
 TP_RUNS = {"dense": ("17a", "tp_serve", "flash_fwd"),
@@ -791,7 +841,11 @@ DP_WORLD_TIMEOUT_S = 900
 DP_COLLECTIVE_TIMEOUT_S = 600
 DP_QWEN_LAYERS = 4
 DP_TRAIN_STEPS = 2
-EP_TRAIN_STEPS = 2
+# 18c's steps (2 until cut to make room for phase 21; 18a/18b keep 2:
+# 18d's input is the grads of the batch after 18a's last step, and at
+# DP_TRAIN_STEPS 1 allreduce_int8 on the card and on host copies of those
+# grads were not bit-equal on an H100, an open finding)
+EP_TRAIN_STEPS = 1
 DP_GNORM_RTOL = 1e-2
 PIPE_SHAPE = (8, 8, 16, 1024)
 PIPE_ATOL = 1e-4
@@ -803,12 +857,13 @@ PIPE_ATOL = 1e-4
 # TP_HYBRID_LAYERS layers on 15c's loop (2048 x 2; its own one-device run
 # first: uncut over gloo a step would take ~25 s), 19d rwkv6-7b on 15c's
 # run (8 layers, 512 x 8), 19e whisper-small uncut and 19f internvl2-26b at
-# 8 layers (Adafactor, flash) on 16c's runs; TP_TRAIN_STEPS steps each; a
-# rank's flash launches of one checked step (19a, 19f) within
-# TP_TRAIN_ULPS bf16 ulps
-TP_TRAIN_STEPS = 2
+# 8 layers (Adafactor, flash) on 16c's runs; TP_TRAIN_STEPS steps each (2
+# until cut to make room for phase 21); a rank's flash launches of one
+# checked step (19a, 19f) within TP_TRAIN_ULPS bf16 ulps; 19c's depth
+# TP_HYBRID_LAYERS (8 until the same cut)
+TP_TRAIN_STEPS = 1
 TP_TRAIN_ULPS = 1.0
-TP_HYBRID_LAYERS = 8
+TP_HYBRID_LAYERS = 4
 # 19d: rwkv6-7b's step-0 grad norm is set by rounding at the model's
 # initial decay (the chunked WKV's -60 clamp): one device on the same
 # batch with every product in another order (the batch in two halves,
@@ -837,6 +892,20 @@ TP_SHAPE_LEAVES = {
                   "dec_layers/xattn/wk", "dec_layers/xattn/wo"),
     "tp_vlm": ("embed", "head", "layers/attn/wq", "layers/attn/wk",
                "layers/attn/wo")}
+# FSDP beside a model axis (phase 21): FSDP_TP_RANKS ranks sharing the card
+# over gloo on FSDP_TP_SHAPE; qwen2.5-32b at full width cut to
+# FSDP_TP_LAYERS layers (2.53e9 params, 5.1 GB in bf16 whole; the rank's
+# whole init is drawn on the card, 4 at once), flash on, its Adafactor,
+# phase 10's loop (512 x 8) for FSDP_TP_STEPS steps, fsdp=True (the cut
+# model is under 8e9 params, so its default plan would not take FSDP;
+# every leaf's spec is asserted equal to the uncut config's default);
+# losses within LOSS0_SUM_ATOL and step 0's grad norm within DP_GNORM_RTOL
+# of the same model on one device; the final checkpoint under build/
+FSDP_TP_RANKS = 4
+FSDP_TP_SHAPE = {"data": 2, "model": 2}
+FSDP_TP_LAYERS = 2
+FSDP_TP_STEPS = 2
+FSDP_TP_CKPT = os.path.join(ROOT, "build", "chip_smoke_fsdp_tp_ckpt")
 # phase 7c's cases: (tag, B, T, C, N, h0 scale); inputs from seed 10 + index
 SSM_CASES = (("hymba-prefill", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.0),
              ("t4096", 1, 4096, 3200, 16, 0.0),
@@ -1365,6 +1434,12 @@ def main() -> None:
     audited = audit_phase(torch, dev, spec, card, tune_dir, audit,
                           tuned.ept_instance(), term)
 
+    # -- 21. FSDP beside a model axis: 4 ranks on the card over gloo ---------
+    fsdp_tp = fsdp_tp_phase(torch, np, dev, card, flash_cuda, zero_counts,
+                            read_counts, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     names = ("gpp_fused", "gpp_banded", "flash_fwd", "flash_bwd_dq",
              "flash_bwd_dkv", "ssm_scan", "paged_decode_gather",
              "paged_decode_int8", "paged_decode_verify")
@@ -1479,9 +1554,11 @@ def main() -> None:
           f"[{card}]", flush=True)
     print(f"[20] static audit summary: {json.dumps(audited)} [{card}]",
           flush=True)
+    print(f"[21] FSDP beside a model axis summary: {json.dumps(fsdp_tp)} "
+          f"[{card}]", flush=True)
     for tag, part in (("13", spec_serve), ("14", moe), ("15", recurrent),
                       ("16", encdec_vlm), ("17", tp), ("18", dp),
-                      ("19", tp_train), ("20", audited)):
+                      ("19", tp_train), ("20", audited), ("21", fsdp_tp)):
         phase_s[tag] = round(part["phase_s"], 1)
     print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"(build {build_s:.1f} s; every phase's seconds "
@@ -2229,7 +2306,8 @@ def hybrid_phase(torch, np, dev, card, ssm_cuda, zero_counts, read_counts,
     import dataclasses
     import repro_torch
     from repro_torch.serve.engine import Request, ServeEngine
-    base = repro_torch.get_config("hymba-1.5b")
+    base = dataclasses.replace(repro_torch.get_config("hymba-1.5b"),
+                               n_layers=HYBRID_SERVE_LAYERS)
     cfg = dataclasses.replace(base, ssm_impl="pallas")
     t0 = time.perf_counter()
     params = repro_torch.build_model(cfg).init_params(0, device=dev)
@@ -3582,7 +3660,7 @@ def spec_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
     from repro_torch.serve import spec as spec_lib
     from repro_torch.serve.engine import Request, ServeEngine
     cfg = dataclasses.replace(repro_torch.get_config("qwen2-1.5b"),
-                              use_flash_attention=True)
+                              n_layers=SPEC_LAYERS, use_flash_attention=True)
     params = repro_torch.build_model(cfg).init_params(0, device=dev)
     # the JAX package's zero-train draft (benchmarks/run.py:587-614): the
     # target's first layer over the shared embedding and final norm
@@ -3837,7 +3915,7 @@ def router_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
     from repro_torch.serve.router import FaultPlan, Router
     from repro_torch.serve.trace import TraceConfig, generate_trace
     cfg = dataclasses.replace(repro_torch.get_config("qwen2-1.5b"),
-                              use_flash_attention=True)
+                              n_layers=SPEC_LAYERS, use_flash_attention=True)
     params = repro_torch.build_model(cfg).init_params(0, device=dev)
     trace = generate_trace(TraceConfig(vocab=cfg.vocab_size, **ROUTER_TRACE))
     single = ServeEngine(cfg, params, max_batch=4, cache_len=512, device=dev)
@@ -3909,15 +3987,17 @@ def router_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
 
 def moe_serve_phase(torch, np, dev, card, flash_cuda, zero_counts,
                     read_counts, by_path):
-    """Phase 14a: ServeEngine on deepseek-moe-16b at full width and depth,
-    flash on; the same requests again (bit-equal outputs), through the
-    paged cache (equal outputs), and the flash-sized admissions once more
-    with every flash_fwd launch held against its plain version. Returns
+    """Phase 14a: ServeEngine on deepseek-moe-16b at full width cut to
+    MOE_SERVE_LAYERS layers, flash on; the same requests again (bit-equal
+    outputs), through the paged cache (equal outputs), and the flash-sized
+    admissions once more with every flash_fwd launch held against its plain
+    version. Returns
     (metrics, the first moe layer's params, cloned, for 14b)."""
     import dataclasses
     import repro_torch
     from repro_torch.serve.engine import Request, ServeEngine
     cfg = dataclasses.replace(repro_torch.get_config("deepseek-moe-16b"),
+                              n_layers=MOE_SERVE_LAYERS,
                               use_flash_attention=True)
     v = cfg.vocab_size
     torch.cuda.synchronize()
@@ -4315,16 +4395,19 @@ def decode_vs_prefill(model, params, toks, n):
 
 def rwkv_serve_phase(torch, np, dev, card, zero_counts, read_counts,
                      by_path):
-    """Phase 15a: ServeEngine on rwkv6-7b at full width and depth; the same
-    requests again (bit-equal outputs); decode against prefill on the
-    sequential scan (gated) and across the -60 clamp (printed). Returns
-    (metrics, layer 0's params, cloned, for 15b)."""
+    """Phase 15a: ServeEngine on rwkv6-7b at full width cut to
+    RWKV_SERVE_LAYERS layers; the same requests again (bit-equal outputs);
+    decode against prefill on the sequential scan (gated) and across the
+    -60 clamp (printed). Returns (metrics, layer 0's params, cloned, for
+    15b)."""
+    import dataclasses
     import repro_torch
     from repro_torch.models import rwkv6
     from repro_torch.optim.adamw import tree_map
     from repro_torch.serve.engine import Request, ServeEngine
     t_phase = time.perf_counter()
-    cfg = repro_torch.get_config("rwkv6-7b")
+    cfg = dataclasses.replace(repro_torch.get_config("rwkv6-7b"),
+                              n_layers=RWKV_SERVE_LAYERS)
     v = cfg.vocab_size
     model = repro_torch.build_model(cfg)
     torch.cuda.synchronize()
@@ -4893,7 +4976,8 @@ def vlm_serve_phase(torch, np, dev, spec, card, flash_cuda, zero_counts,
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.tune import tuner
     t_phase = time.perf_counter()
-    base = repro_torch.get_config("internvl2-26b")
+    base = dataclasses.replace(repro_torch.get_config("internvl2-26b"),
+                               n_layers=VLM_SERVE_LAYERS)
     cfg = dataclasses.replace(base, use_flash_attention=True)
     v, n_vis = cfg.vocab_size, cfg.n_vis_tokens
     torch.cuda.synchronize()
@@ -6699,11 +6783,14 @@ def tp_flash_per_step(cfg):
             "flash_bwd_dkv": cfg.n_layers}
 
 
-def tp_collectives(cfg, seq, batch, ranks):
+def tp_collectives(cfg, seq, batch, ranks, shape=None, fsdp=False):
     """(calls, bytes) one rank hands its model group in one train step of
     cfg over {"model": ranks} (no data axis; remat "full"), from the
-    shapes. Every sum runs in f32 (4 bytes an element); a gather hands
-    over its input, a reduce-scatter the whole grad.
+    shapes; over the mesh `shape` with a data axis beside the model axis
+    (phase 21) `batch` is the rows a rank holds and the optimizer's sums
+    follow the plan's blocks there (FSDP with `fsdp`). Every sum runs in
+    f32 (4 bytes an element); a gather hands over its input, a
+    reduce-scatter the whole grad.
 
     A layer's forward sums (a row-parallel product's ReduceFromGroup, a
     GatherDim's all-gather) run once in the forward and again in remat's
@@ -6824,9 +6911,10 @@ def tp_collectives(cfg, seq, batch, ranks):
         for _ in range(text // chunk):
             add(6, batch * chunk * 4)
             add(1, batch * chunk * d * 4)
-    mesh = SimpleNamespace(shape={"model": ranks}, coords={"model": 0})
+    shape = shape or {"model": ranks}
+    mesh = SimpleNamespace(shape=shape, coords={a: 0 for a in shape})
     model = build_model(cfg)
-    plan = step_lib.make_plan(cfg, mesh, kind="train")
+    plan = step_lib.make_plan(cfg, mesh, kind="train", fsdp=fsdp)
     ab = model.abstract_params()
     specs = sharding.params_shardings(plan, model.param_axes, ab)
     mdims = tree_leaves(sharding.model_dims(plan, specs))
@@ -7035,6 +7123,417 @@ def tp_train_gates(tag, which, runs, pred, ref, card):
     if "held" in first:
         out["held_worst"] = first["held"]["worst"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21: FSDP beside a model axis, 4 ranks on the card over {"data": 2,
+# "model": 2}
+# ---------------------------------------------------------------------------
+
+def fsdp_tp_config(layers=None):
+    """qwen2.5-32b at full width cut to FSDP_TP_LAYERS layers (uncut with
+    layers=64), flash on, remat "full", its config's Adafactor."""
+    import dataclasses
+    import repro_torch
+    cfg = repro_torch.get_config("qwen2.5-32b")
+    return dataclasses.replace(cfg, n_layers=layers or FSDP_TP_LAYERS,
+                               remat="full", use_flash_attention=True)
+
+
+def fsdp_tp_specs(cfg, fsdp):
+    """(plan, the param spec tree) of cfg's training plan over
+    FSDP_TP_SHAPE, from the abstract params (no mesh needed)."""
+    from types import SimpleNamespace
+    from repro_torch.dist import sharding
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import step as step_lib
+    mesh = SimpleNamespace(shape=FSDP_TP_SHAPE,
+                           coords={a: 0 for a in FSDP_TP_SHAPE})
+    model = build_model(cfg)
+    plan = step_lib.make_plan(cfg, mesh, kind="train", fsdp=fsdp)
+    return plan, sharding.params_shardings(
+        plan, model.param_axes, model.abstract_params(), model.param_parts)
+
+
+def fsdp_data_collectives(cfg, shape):
+    """(calls, bytes) one rank hands its data group in one train step of
+    cfg under the FSDP plan over `shape`, from the specs: each split
+    leaf's all_gather before the forward (its block, in the param's
+    dtype) and reduce-scatter after (the gathered grad in f32), each
+    whole leaf's grad all-reduced in f32; the loss's token count and the
+    metrics' three sums; the global norm's sum of the split leaves'
+    squares; Adafactor's row means (a leaf split on its last dim), column
+    means and row factor's mean (split on the second-last) and each split
+    leaf's update RMS. (Every leaf of the cut qwen2.5-32b is split over
+    "data".)"""
+    from types import SimpleNamespace
+    from repro_torch.dist import sharding
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as step_lib
+    mesh = SimpleNamespace(shape=shape, coords={a: 0 for a in shape})
+    model = build_model(cfg)
+    plan = step_lib.make_plan(cfg, mesh, kind="train", fsdp=True)
+    ab = model.abstract_params()
+    specs = sharding.params_shardings(plan, model.param_axes, ab,
+                                      model.param_parts)
+    dims = tree_leaves(sharding.data_dims(plan, specs))
+    calls = nbytes = 0
+
+    def add(n, size):
+        nonlocal calls, nbytes
+        calls += n
+        nbytes += n * size
+
+    for leaf, spec, d in zip(tree_leaves(ab), tree_leaves(specs), dims):
+        local = sharding.local_shape(tuple(leaf.shape), spec, mesh)
+        n = math.prod(local)
+        if d is None:
+            add(1, n * 4)                         # the grad's all_reduce
+            continue
+        add(1, n * leaf.element_size())           # the forward's gather
+        add(1, n * plan.dp_size() * 4)            # the grad's reduce-scatter
+        if cfg.optimizer == "adafactor":
+            nd = len(local)
+            if nd >= 2 and d == nd - 1:           # vr's row means
+                add(1, math.prod(local[:-1]) * 4)
+            elif nd >= 2 and d == nd - 2:         # vc's means, rfac's
+                add(1, math.prod(local[:-2] + local[-1:]) * 4)
+                add(1, math.prod(local[:-2]) * 4)
+            add(1, 4)                             # the update's RMS
+    add(1, 4)                                     # the loss's token count
+    add(1, 3 * 4)                                 # loss, aux, total
+    split = sum(d is not None for d in dims)
+    if split:
+        add(1, split * 4)                         # the global norm
+    return calls, nbytes
+
+
+def fsdp_tp_phase(torch, np, dev, card, flash_cuda, zero_counts,
+                  read_counts, by_path):
+    """Phase 21: FSDP beside a model axis. FSDP_TP_RANKS ranks share the
+    card over gloo (spawn, a FileStore under build/) on a
+    FSDP_TP_SHAPE mesh; each runs Trainer(fsdp_tp_config(), phase 10's
+    loop, mesh, fsdp=True) for FSDP_TP_STEPS steps (every leaf's spec the
+    uncut config's default, asserted here first), writes the final
+    checkpoint (rank 0) and takes one more step with every flash launch
+    held against its plain version. Here, before the world: the same
+    model on the same batches on one device, and the predictions from the
+    specs (params plus optimizer state a rank; calls and bytes a step a
+    rank over the data group and over the model group; flash launches a
+    step a rank). After it: every gate, and the checkpoint restored on one
+    device against the ranks' gathered params."""
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    cfg = fsdp_tp_config()
+    plan, specs = fsdp_tp_specs(cfg, True)
+    uncut_plan, uncut = fsdp_tp_specs(fsdp_tp_config(64), None)
+    mine, whole = dict(_spec_items(specs)), dict(_spec_items(uncut))
+    same_specs = (mine == whole and uncut_plan.fsdp
+                  and all(tuple(mine[k]) == tuple(whole[k]) for k in mine))
+    co = sorted(k for k, v in mine.items()
+                if any(isinstance(e, tuple) and e[0] == "model" for e in v))
+    line = (f"[21] {cfg.name} at {cfg.n_layers} layers "
+            f"({cfg.param_count():.4e} params) over {FSDP_TP_SHAPE} with "
+            f"fsdp=True: every leaf's spec the uncut "
+            f"{fsdp_tp_config(64).n_layers}-layer config's default "
+            f"(FSDP: {uncut_plan.fsdp}): {same_specs}; {len(co)} of "
+            f"{len(mine)} leaves split over the model axis and the data axis "
+            f"together: {co} [{card}]")
+    print(line, flush=True)
+    if not same_specs or not co:
+        fail(line)
+    seq, batch = 512, 8                          # phase 10's loop
+    ref = one_device_run(torch, dev, card, "21", cfg, FSDP_TP_STEPS,
+                         "phase 10's loop")
+    data_size = plan.dp_size()
+    state, whole_state = dp_state_bytes(cfg, True, FSDP_TP_SHAPE)
+    pred = {"state": state,
+            "data": fsdp_data_collectives(cfg, FSDP_TP_SHAPE),
+            "model": tp_collectives(cfg, seq, batch // data_size,
+                                    FSDP_TP_SHAPE["model"], FSDP_TP_SHAPE,
+                                    fsdp=True),
+            "flash": tp_flash_per_step(cfg)}
+    print(f"[21] predicted from the specs and shapes, a rank: params plus "
+          f"optimizer state {pred['state'] / 1e9:.3f} GB (whole "
+          f"{whole_state / 1e9:.3f}); a "
+          f"step's data-group collectives (FSDP's gathers and "
+          f"reduce-scatters, the sums) {pred['data'][0]} calls, "
+          f"{pred['data'][1]} bytes; model-group collectives (remat's "
+          f"recompute included) {pred['model'][0]} calls, "
+          f"{pred['model'][1]} bytes; flash launches a step {pred['flash']} "
+          f"[{card}]", flush=True)
+    shutil.rmtree(FSDP_TP_CKPT, ignore_errors=True)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fsdp_tp_world_",
+                            dir=os.path.join(ROOT, "build"))
+    store, out_dir = os.path.join(work, "store"), os.path.join(work, "out")
+    os.makedirs(out_dir)
+    t1 = time.perf_counter()
+    ctx = mp.start_processes(fsdp_tp_rank_main,
+                             args=(FSDP_TP_RANKS, store, out_dir),
+                             nprocs=FSDP_TP_RANKS, join=False,
+                             start_method="spawn")
+    try:
+        while not ctx.join(timeout=5.0):
+            if time.perf_counter() - t1 > DP_WORLD_TIMEOUT_S:
+                fail(f"[21] the {FSDP_TP_RANKS}-rank world ran past "
+                     f"{DP_WORLD_TIMEOUT_S} s")
+    except mp.ProcessRaisedException as e:
+        fail(f"[21] a rank failed:\n{e}")
+    except mp.ProcessExitedException as e:
+        fail(f"[21] a rank exited: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    world_s = time.perf_counter() - t1
+    runs = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(FSDP_TP_RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    by_path["fsdp_tp_train"] = {k: sum(r["launches"][k] for r in runs)
+                                for k in read_counts()}
+    res = fsdp_tp_gates(runs, pred, ref, card)
+    res["restore"] = fsdp_tp_restore_one(torch, dev, card, cfg,
+                                         runs[0]["final_fingerprint"])
+    shutil.rmtree(FSDP_TP_CKPT, ignore_errors=True)
+    res.update(world_s=world_s, co_split=co,
+               predicted={"state_gb": pred["state"] / 1e9,
+                          "data": list(pred["data"]),
+                          "model": list(pred["model"])},
+               phase_s=time.perf_counter() - t0)
+    print(f"[21] phase 21 ran {res['phase_s']:.1f} s (the one-device "
+          f"reference {sum(ref['step_ms']) / 1e3:.1f} s of steps; the "
+          f"{FSDP_TP_RANKS}-rank world {world_s:.1f} s: rank 0's run "
+          f"{runs[0]['sub_s']:.1f} s) [{card}]", flush=True)
+    return res
+
+
+def fsdp_tp_rank_main(rank, n, store, out_dir):
+    """One rank of phase 21's world: its FSDP_TP_SHAPE mesh over gloo on
+    the one card, fsdp_tp_rank; results to out_dir/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.cuda.set_device(0)
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(FSDP_TP_SHAPE, device="cuda:0", backend="gloo",
+                     init_method=f"file://{store}", rank=rank, world_size=n,
+                     timeout_s=DP_COLLECTIVE_TIMEOUT_S)
+    res = fsdp_tp_rank(torch, mesh)
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def fsdp_tp_rank(torch, mesh):
+    """Phase 21 on one rank: Trainer(cfg, loop, mesh, fsdp=True).run()
+    for FSDP_TP_STEPS steps with every step timed, its launches, its
+    data-group and model-group collectives (calls and bytes), its grad
+    norm and the fingerprints of the state's leaves each group replicates
+    recorded, the final checkpoint written (rank 0); then the params
+    gathered whole (their fingerprint) and one more step with every flash
+    launch held against its plain version."""
+    from repro_torch.dist import sharding
+    from repro_torch.kernels.flash import flash_cuda
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.trainer import TrainLoopConfig, Trainer
+    t_sub = time.perf_counter()
+    cfg = fsdp_tp_config()
+    dev = mesh.device
+    loop = TrainLoopConfig(total_steps=FSDP_TP_STEPS,
+                           ckpt_every=FSDP_TP_STEPS, log_every=1,
+                           ckpt_dir=FSDP_TP_CKPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = Trainer(cfg, loop, mesh, fsdp=True)
+    group, mgroup, real_step = (tr.bundle.group, tr.bundle.model_group,
+                                tr.bundle)
+    counters = kernel_counters()
+    for f in counters:
+        f.launches = 0
+
+    def counts():
+        return {f.__name__: f.launches for f in counters}
+
+    def wire(g):
+        return (sum(g.counts["calls"].values()),
+                sum(g.counts["bytes"].values()))
+
+    specs = tr._specs()
+    whole_over = {
+        "data": [d is None for d in tree_leaves(sharding.data_dims(
+            tr.plan, specs))],
+        "model": [d is None for d in tree_leaves(sharding.model_dims(
+            tr.plan, specs))]}
+    rec = {"step_ms": [], "step_counts": [], "data_wire": [],
+           "model_wire": [], "grad_norms": [], "prints": []}
+
+    def timed_step(params, opt_state, batch):
+        torch.cuda.synchronize()
+        before, d0, m0 = counts(), wire(group), wire(mgroup)
+        t0 = time.perf_counter()
+        out = real_step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        after, d1, m1 = counts(), wire(group), wire(mgroup)
+        rec["step_counts"].append({k: after[k] - before[k] for k in after})
+        rec["data_wire"].append((d1[0] - d0[0], d1[1] - d0[1]))
+        rec["model_wire"].append((m1[0] - m0[0], m1[1] - m0[1]))
+        rec["grad_norms"].append(float(out[2]["grad_norm"]))
+        leaves = tree_leaves({"params": out[0], "opt": out[1]})
+        rec["prints"].append({
+            axis: fingerprint(torch, {str(i): t for i, (t, w) in enumerate(
+                zip(leaves, mask)) if w})
+            for axis, mask in whole_over.items()})
+        return out
+
+    tr.step_fn = timed_step
+    out = tr.run(verbose=mesh.rank == 0)
+    torch.cuda.synchronize()
+    launches = counts()
+    params = tr.state["params"]
+    local = dict(_spec_items(params))
+    res = {"losses": out["losses"], "launches": launches,
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "state_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(tr.state)),
+           "shapes": {k: tuple(local[k].shape) for k in (
+               "embed", "head", "layers/attn/wq", "layers/attn/wo",
+               "layers/ffn/wi")},
+           "coords": dict(mesh.coords), **rec}
+    pspecs = specs["params"]
+    whole = sharding.gather_tree(
+        params, sharding.data_dims(tr.plan, pspecs), group,
+        model_dims=sharding.model_dims(tr.plan, pspecs), model_group=mgroup,
+        parts=sharding.packed_parts(pspecs))
+    res["final_fingerprint"] = fingerprint(torch, whole)
+    del whole
+    torch.cuda.empty_cache()
+    batch = sharding.local_batch(tr.plan, step_batch(
+        torch, dev, cfg, loop, FSDP_TP_STEPS))
+    res["held"] = dp_checked_step(torch, flash_cuda, real_step, tr, batch)
+    del tr, params, local, real_step
+    res["sub_s"] = time.perf_counter() - t_sub
+    return res
+
+
+def fsdp_tp_gates(runs, pred, ref, card):
+    """Phase 21's gates on every rank's results: the predictions, the
+    one-device run of the same model and batches, the replicas, the flash
+    launches."""
+    cfg = fsdp_tp_config()
+    first = runs[0]
+    per_step = {k: 0 for k in first["launches"]}
+    per_step.update(pred["flash"])
+    losses = [r["losses"] for r in runs]
+    counts_ok = all(c == per_step for r in runs for c in r["step_counts"])
+    launches_ok = all(r["launches"] == {k: n * FSDP_TP_STEPS for k, n in
+                                        per_step.items()} for r in runs)
+    state = [r["state_bytes"] for r in runs]
+    data_ok = all(w == tuple(pred["data"]) for r in runs
+                  for w in r["data_wire"])
+    model_ok = all(w == tuple(pred["model"]) for r in runs
+                   for w in r["model_wire"])
+    # the data group of rank (d, m) is {(0, m), (1, m)}, the model group
+    # {(d, 0), (d, 1)}; their replicated leaves' fingerprints every step
+    groups = {"data": {}, "model": {}}
+    for r in runs:
+        c = r["coords"]
+        groups["data"].setdefault(c["model"], []).append(
+            [p["data"] for p in r["prints"]])
+        groups["model"].setdefault(c["data"], []).append(
+            [p["model"] for p in r["prints"]])
+    same = all(all(p == ps[0] for p in ps) for g in groups.values()
+               for ps in g.values())
+    d = max(abs(a - b) for a, b in zip(losses[0], ref["losses"]))
+    g0 = abs(first["grad_norms"][0] - ref["grad_norms"][0]) / abs(
+        ref["grad_norms"][0])
+    line = (f"[21] {cfg.name} ({cfg.n_layers} layers, {cfg.optimizer}) over "
+            f"{FSDP_TP_SHAPE} (FSDP beside TP; gloo, one card): losses "
+            f"{[[round(x, 5) for x in l] for l in losses]} against the "
+            f"one-device run of the same model and batches "
+            f"{[round(x, 5) for x in ref['losses']]}: max |loss diff| "
+            f"{d:.2e} (tol {LOSS0_SUM_ATOL}); grad norms "
+            f"{[round(x, 5) for x in first['grad_norms']]}, step 0's "
+            f"{g0:.2e} relative to one device's {ref['grad_norms'][0]:.5f} "
+            f"(tol {DP_GNORM_RTOL}); the fingerprints of the leaves each "
+            f"data group and each model group replicates equal across it "
+            f"after every step: {same}; launches a step a rank "
+            f"{first['step_counts'][0]} (predicted {per_step}: {counts_ok}); "
+            f"data-group collectives a step a rank (calls, bytes) "
+            f"{first['data_wire']} (predicted {tuple(pred['data'])}: "
+            f"{data_ok}); model-group {first['model_wire']} (predicted "
+            f"{tuple(pred['model'])}: {model_ok}); params plus optimizer "
+            f"state a rank {[round(b / 1e9, 3) for b in state]} GB "
+            f"(predicted {pred['state'] / 1e9:.3f}); local shapes "
+            f"{first['shapes']} [{card}]")
+    print(line, flush=True)
+    bad = (not same or not counts_ok or not launches_ok or not data_ok
+           or not model_ok or any(b != pred["state"] for b in state)
+           or any(l != losses[0] for l in losses)
+           or not all(math.isfinite(x) for x in losses[0])
+           or d > LOSS0_SUM_ATOL or g0 > DP_GNORM_RTOL)
+    held = [r["held"] for r in runs]
+    line = (f"[21] one checked step a rank: launches held against their "
+            f"plain versions on their own inputs "
+            f"{[h['counts'] for h in held]} (expected "
+            f"{ {k: per_step[k] for k in held[0]['counts']} } each) at (H, "
+            f"KvH, Hd) {[h['shapes'] for h in held]}, worst "
+            f"{[h['worst'] for h in held]} (bf16 ulps; flash_fwd at each "
+            f"element, the backward at the largest element; tol "
+            f"{TP_TRAIN_ULPS}) [{card}]")
+    print(line, flush=True)
+    bad = bad or any(
+        h["counts"][k] != per_step[k] for h in held for k in h["counts"]
+    ) or any(v > TP_TRAIN_ULPS for h in held for v in h["worst"].values())
+    steady = sorted(first["step_ms"][1:]) or first["step_ms"]
+    one = sorted(ref["step_ms"][1:]) or ref["step_ms"]
+    wire_bytes = [w[1] + m[1] for w, m in zip(first["data_wire"],
+                                              first["model_wire"])]
+    ms = [[round(x, 1) for x in r["step_ms"]] for r in runs]
+    print(f"[21] step ms a rank {ms} (p50 after the first "
+          f"{steady[len(steady) // 2]:.1f}) against one device's "
+          f"{one[len(one) // 2]:.1f} ({FSDP_TP_RANKS} ranks "
+          f"sharing one card over gloo through host memory: not an FSDP or "
+          f"TP speed); bytes a step rank 0 hands gloo {wire_bytes}; peak "
+          f"device memory a rank {[round(r['peak'] / 1e9, 2) for r in runs]}"
+          f" GB [{card}]", flush=True)
+    if bad:
+        fail("[21] failed: see the lines above")
+    return {"losses": first["losses"], "grad_norms": first["grad_norms"],
+            "step_ms": first["step_ms"], "data_wire": first["data_wire"],
+            "model_wire": first["model_wire"], "shapes": first["shapes"],
+            "state_gb": [b / 1e9 for b in state],
+            "peak_gb": [r["peak"] / 1e9 for r in runs],
+            "step_ms_p50": steady[len(steady) // 2],
+            "one_device_step_ms": one[len(one) // 2],
+            "held_worst": first["held"]["worst"],
+            "held_shapes": first["held"]["shapes"], "sub_s": first["sub_s"]}
+
+
+def fsdp_tp_restore_one(torch, dev, card, cfg, want):
+    """Rank 0's final checkpoint (whole leaves) restored here on one
+    device: its params' fingerprint against the ranks' gathered params'."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.dist.fault import resume_or_init
+    t0 = time.perf_counter()
+    step, state = resume_or_init(CheckpointManager(FSDP_TP_CKPT),
+                                 lambda: None, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = fingerprint(torch, state["params"])
+    line = (f"[21] the FSDP x TP world's checkpoint (step {step}) restored "
+            f"on one device in {restore_s:.1f} s: params bit-equal to the "
+            f"ranks' gathered params (fingerprint): {got == want} [{card}]")
+    print(line, flush=True)
+    if step != FSDP_TP_STEPS or got != want:
+        fail(line)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step": step, "restore_s": restore_s, "bit_equal": got == want}
 
 
 def _leaves(tree):

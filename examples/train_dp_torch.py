@@ -2,7 +2,11 @@
 every rank running Trainer(cfg, loop, mesh) over a {"data": N} mesh and
 printing the same losses (the global batch's); with --model M the mesh
 is {"data": N / M, "model": M}: tensor-parallel training over M ranks,
-data-parallel over the rest.
+data-parallel over the rest; with --pods P as well, {"pod": P, "data": N
+/ (P M), "model": M}, the data group then over ("pod", "data"). --fsdp
+forces FSDP (beside a model axis too: a dim may then be split over the
+model axis and the data axes together); without it the plan is the
+reference's default (FSDP above 8e9 params, EP instead for moe).
 
     # on the CPU (gloo), a reduced qwen2, 2 ranks, DP then FSDP (~20 s):
     PYTHONPATH=src python examples/train_dp_torch.py --ranks 2 --device cpu
@@ -12,6 +16,12 @@ data-parallel over the rest.
     PYTHONPATH=src python examples/train_dp_torch.py --ranks 4 --model 2
     PYTHONPATH=src python examples/train_dp_torch.py --ranks 2 --model 2 \
         --arch hymba-1.5b
+    # FSDP beside TP over {"data": 2, "model": 2}, and over {"pod": 2,
+    # "data": 2, "model": 2} (8 ranks)
+    PYTHONPATH=src python examples/train_dp_torch.py --ranks 4 --model 2 \
+        --fsdp --arch qwen2.5-32b
+    PYTHONPATH=src python examples/train_dp_torch.py --ranks 8 --model 2 \
+        --pods 2 --fsdp --arch qwen2.5-32b
     # on a card: 2 ranks sharing it over gloo (NCCL needs a GPU a rank)
     PYTHONPATH=src python examples/train_dp_torch.py --ranks 2 --device cuda
 
@@ -38,7 +48,9 @@ def rank_main(rank, args, store):
     from repro_torch.train.trainer import TrainLoopConfig, Trainer
     if args.device == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
-    shape = {"data": args.ranks // args.model}
+    shape = {"data": args.ranks // (args.model * args.pods)}
+    if args.pods > 1:
+        shape = {"pod": args.pods, **shape}
     if args.model > 1:
         shape["model"] = args.model
     mesh = make_mesh(shape, device=args.device,
@@ -49,8 +61,9 @@ def rank_main(rank, args, store):
         cfg = reduce_config(cfg, layers=2, d_model=64, vocab=128)
     loop = TrainLoopConfig(total_steps=args.steps, ckpt_every=args.steps,
                            log_every=1, ckpt_dir=args.ckpt_dir, seq_len=32,
-                           global_batch=4 * shape["data"])
-    out = Trainer(cfg, loop, mesh, fsdp=args.fsdp).run(verbose=rank == 0)
+                           global_batch=4 * shape["data"] * args.pods)
+    out = Trainer(cfg, loop, mesh, fsdp=args.fsdp or None).run(
+        verbose=rank == 0)
     print(f"rank {rank}: losses {out['losses']}", flush=True)
     torch.distributed.destroy_process_group()
 
@@ -61,10 +74,13 @@ def main():
     ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
     ap.add_argument("--fsdp", action="store_true",
-                    help="split params and optimizer state over the ranks")
+                    help="split params and optimizer state over the data "
+                         "ranks (default: the reference's plan)")
     ap.add_argument("--model", type=int, default=1,
                     help="ranks on the model axis (tensor parallelism); "
                          "must divide --ranks")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="a pod axis of this size before the data axis")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--arch", default="qwen2-1.5b",
@@ -73,8 +89,9 @@ def main():
     ap.add_argument("--full", dest="reduced", action="store_false",
                     help="the model at full width (default: reduced)")
     args = ap.parse_args()
-    if args.ranks % args.model:
-        ap.error(f"--model {args.model} does not divide --ranks {args.ranks}")
+    if args.ranks % (args.model * args.pods):
+        ap.error(f"--model {args.model} x --pods {args.pods} does not "
+                 f"divide --ranks {args.ranks}")
     work = tempfile.mkdtemp(prefix="train_dp_")
     args.ckpt_dir = args.ckpt_dir or os.path.join(work, "ckpt")
     torch.multiprocessing.spawn(rank_main,

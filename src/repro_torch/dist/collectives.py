@@ -7,7 +7,10 @@ GSPMD insert.
 those of `axes` (the data axes of a training mesh, a pipeline axis): its
 `size`, this rank's `index` among them (the axes' coordinates as one
 mixed-radix number, the first axis the most significant, which is the
-order `sharding.local_shard` cuts blocks in) and the process group.
+order `sharding.local_shard` cuts blocks in) and the process group:
+`mesh.group(axes)`, one axis's group, the world, or over ("pod", "data")
+beside a model axis the subgroup of this rank's model coordinate, which
+`launch.mesh.make_mesh` builds on every rank (`axes_groups`).
 
 One route per (backend, tensor device), chosen from the mesh, never by
 trying:
@@ -56,8 +59,10 @@ import torch
 class AxesGroup:
     """The ranks of `mesh` that differ only in their `axes` coordinates
     (axes the mesh lacks are left out, so a mesh without them gives a
-    group of one). A group spans one axis, or every rank of the mesh;
-    a group over some but not all of several axes is not built here."""
+    group of one), over `mesh.group(axes)`: one axis's group, the world
+    where the axes cover every rank, else the subgroup the mesh built for
+    them (the data axes ("pod", "data") beside a model axis). The axes
+    must be in the mesh's order, so the group rank is `index`."""
 
     def __init__(self, mesh, axes: Sequence[str]):
         self.mesh = mesh
@@ -75,15 +80,7 @@ class AxesGroup:
         if self.size == 1:
             return
         import torch.distributed as dist
-        big = [a for a in self.axes if int(mesh.shape[a]) > 1]
-        if len(big) == 1:
-            self.group = mesh.group(big[0])
-        elif self.size == mesh.size:
-            self.group = dist.group.WORLD
-        else:
-            raise NotImplementedError(
-                f"a group over axes {self.axes} of mesh {dict(mesh.shape)}: "
-                f"one axis, or all of the mesh's ranks")
+        self.group = mesh.group(self.axes)
         if dist.get_rank(self.group) != self.index:
             raise ValueError(f"axes {self.axes} must be in the mesh's order "
                              f"{tuple(mesh.shape)}: group rank "

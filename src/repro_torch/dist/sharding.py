@@ -36,6 +36,16 @@ parts=, `Model.param_parts`: mamba's in_proj, xs | z) takes a
 part (`local_shard`), `column_blocks` records its parts, and
 `gather_tree` puts the parts back whole, so the optimizer state and the
 checkpoint follow the param's layout.
+
+Under FSDP beside a model axis, `spec_for` may split one dim over the
+model axis and the data axes together, model first (`('model', 'data')`,
+`('model', 'pod', 'data')`): the dim's blocks are model-major, so a
+rank's block is its model rank's block cut again, contiguously, over the
+data axes, and a gather over the data group gives back the model rank's
+block (what the tensor-parallel forward reads), a gather over the model
+group after it the whole leaf (`local_shard`, `gather_tree`). A packed
+leaf keeps its packing there: the model rank's block is its block of
+each part, and the data axes cut that block.
 """
 
 from __future__ import annotations
@@ -94,8 +104,10 @@ class ShardingPlan:
 
 class PackedSpec(tuple):
     """A spec (equal to the plain tuple) whose leaf packs `parts` equal
-    tensors side by side along its last dim, which the model axis alone
-    splits: a rank's block is its block of each part, concatenated."""
+    tensors side by side along its last dim, which the model axis splits
+    (alone, or first beside data axes): a model rank's block is its block
+    of each part, concatenated, and data axes after it cut that block
+    contiguously (`local_shard`)."""
 
     def __new__(cls, spec, parts: int):
         self = super().__new__(cls, spec)
@@ -229,7 +241,8 @@ def params_shardings(plan: ShardingPlan,
     `param_axes` maps "a/b/c" nesting paths to logical axes
     (ParamInit.axes, `Model.param_axes`). Leaves without a recorded path
     replicate. parts: the packed leaves (`Model.param_parts`); one whose
-    last dim the model axis alone splits takes a PackedSpec."""
+    last dim the model axis splits (alone, or first beside data axes)
+    takes a PackedSpec."""
     parts = parts or {}
 
     def walk(node, path=""):
@@ -239,7 +252,7 @@ def params_shardings(plan: ShardingPlan,
         axes = param_axes.get(path) or (None,) * len(node.shape)
         spec = spec_for(plan, axes, tuple(node.shape), is_param=True)
         if (parts.get(path, 1) > 1 and plan.tp_axis is not None
-                and spec[-1] == plan.tp_axis):
+                and _names(spec[-1])[:1] == (plan.tp_axis,)):
             return PackedSpec(spec, parts[path])
         return spec
 
@@ -367,9 +380,11 @@ def local_shard(t: torch.Tensor, spec: Spec, mesh,
     parts > 1 (default: the spec's own, `spec_parts`): the last dim packs
     `parts` equal tensors side by side (ParamInit's parts=; mamba's
     in_proj is xs | z), and where it is split the rank takes its block of
-    each, concatenated in order (a copy), so a local chunk into `parts`
-    gives the rank's block of every part: the same bytes as the
-    rank-major block, another layout."""
+    each over the dim's first axis (the model axis), concatenated in order
+    (a copy), so a local chunk into `parts` gives the rank's block of
+    every part: the same bytes as the rank-major block, another layout.
+    The dim's further axes (the data axes of a co-split dim) then cut
+    that block contiguously: a gather over them gives it back whole."""
     coords = mesh.coords if coords is None else coords
     parts = spec_parts(spec) if parts is None else parts
     spec = tuple(spec) + (None,) * (t.dim() - len(spec))
@@ -382,11 +397,19 @@ def local_shard(t: torch.Tensor, spec: Spec, mesh,
             raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
                              f"{count} ways ({entry}) in each of {n} "
                              f"parts")
+        if n == 1:
+            width = t.shape[d] // count
+            t = t.narrow(d, idx * width, width)
+            continue
+        names = _names(entry)
+        idx, count = _block(names[:1], mesh, coords)
         piece = t.shape[d] // n
         width = piece // count
-        blocks = [t.narrow(d, p * piece + idx * width, width)
-                  for p in range(n)]
-        t = blocks[0] if n == 1 else torch.cat(blocks, dim=d)
+        t = torch.cat([t.narrow(d, p * piece + idx * width, width)
+                       for p in range(n)], dim=d)
+        idx, count = _block(names[1:], mesh, coords)
+        width = t.shape[d] // count
+        t = t.narrow(d, idx * width, width)
     return t
 
 
@@ -439,9 +462,11 @@ def opt_state_specs(param_specs: PyTree, opt_state: PyTree) -> PyTree:
     their param is: vr (the mean over the last dim) keeps the param's
     spec without its last entry, vc (the mean over the second-last) the
     spec without that one (a packed param's vc keeps its PackedSpec); a
-    vector's v takes its param's. (The reference recomputes spec_for on
-    the stats' own shapes, which can pick another dim; the values are the
-    same, and checkpoints hold whole leaves.) step replicates."""
+    vector's v takes its param's. A dim split over the model axis and the
+    data axes together keeps that entry in every stat that has the dim.
+    (The reference recomputes spec_for on the stats' own shapes, which can
+    pick another dim; the values are the same, and checkpoints hold whole
+    leaves.) step replicates."""
     if "m" in opt_state:
         return {"m": param_specs, "v": param_specs, "step": ()}
 
@@ -461,9 +486,11 @@ def opt_state_specs(param_specs: PyTree, opt_state: PyTree) -> PyTree:
 
 def data_dims(plan: ShardingPlan, specs: PyTree) -> PyTree:
     """The tree of `specs` with, for each leaf, the dim the plan's data
-    axes split (None where the leaf is whole on every data rank). A leaf
-    split over only some of the data axes of more than one rank, or on
-    two dims, is refused."""
+    axes split (None where the leaf is whole on every data rank): FSDP's
+    or EP's dim, whether the model axis splits it too (a co-split dim,
+    `('model', 'data')`: the data axes cut the model rank's block) or
+    not. A leaf split over only some of the data axes of more than one
+    rank, or on two dims, is refused."""
     mesh = plan.mesh
     big = tuple(a for a in plan.dp_axes if int(mesh.shape[a]) > 1)
 
@@ -488,8 +515,10 @@ def model_dims(plan: ShardingPlan, specs: PyTree) -> PyTree:
     """The tree of `specs` with, for each leaf, the dim the plan's model
     axis splits (None where spec_for left the leaf whole on every model
     rank: no TP name, or a dim the axis does not divide); data_dims'
-    counterpart. A dim split over the model axis and data axes together
-    is refused."""
+    counterpart. The dim may be split over the model axis alone, or over
+    the model axis first and then data axes (FSDP beside TP, the order
+    spec_for makes); any other mix (data axes before the model axis,
+    another axis beside it, the model axis on two dims) is refused."""
     tp = plan.tp_axis
     big = tp is not None and plan.axis_size(tp) > 1
 
@@ -498,15 +527,19 @@ def model_dims(plan: ShardingPlan, specs: PyTree) -> PyTree:
             return {k: leaf(v) for k, v in spec.items()}
         if not big:
             return None
-        for i, e in enumerate(spec):
-            names = _names(e)
-            if tp in names:
-                if len(names) > 1:
-                    raise NotImplementedError(
-                        f"spec {spec}: dim {i} split over {names}; a dim "
-                        f"split over the model axis alone")
-                return i
-        return None
+        dims = [i for i, e in enumerate(spec) if tp in _names(e)]
+        if len(dims) > 1:
+            raise NotImplementedError(
+                f"spec {spec}: the model axis on dims {dims}; one dim, the "
+                f"model axis first, then only data axes {plan.dp_axes}")
+        if not dims:
+            return None
+        names = _names(spec[dims[0]])
+        if names[0] != tp or not set(names[1:]) <= set(plan.dp_axes):
+            raise NotImplementedError(
+                f"spec {spec}: dim {dims[0]} split over {names}; the model "
+                f"axis first, then only data axes {plan.dp_axes}")
+        return dims[0]
 
     return leaf(specs)
 
@@ -545,12 +578,14 @@ def gather_tree(tree: PyTree, dims: PyTree, group, device=None, *,
                 parts: PyTree = None) -> PyTree:
     """The whole leaves of a tree of local blocks: each leaf all-gathered
     over `group` (dist.collectives.AxesGroup) along its dim of `dims`
-    (data_dims), in rank order, and over `model_group` along its dim of
-    `model_dims` (model_dims) where given, a packed leaf's parts put back
-    whole (`parts`: packed_parts of the specs; `unpack_parts`); a leaf
-    whose dims are None is copied. Leaves go to `device` when given (the
-    host, for a checkpoint), one at a time, in sorted-key order on every
-    rank."""
+    (data_dims), in rank order, and then over `model_group` along its dim
+    of `model_dims` (model_dims) where given, a packed leaf's parts put
+    back whole (`parts`: packed_parts of the specs; `unpack_parts`); a
+    leaf whose dims are None is copied. The data gather comes first: on a
+    dim split over both (model-major blocks) it gives back the model
+    rank's block, which the model gather then joins. Leaves go to
+    `device` when given (the host, for a checkpoint), one at a time, in
+    sorted-key order on every rank."""
 
     def sub(d, k):
         return d.get(k) if isinstance(d, dict) else None
@@ -561,8 +596,11 @@ def gather_tree(tree: PyTree, dims: PyTree, group, device=None, *,
                                model_group=model_group, parts=sub(parts, k))
                 for k in sorted(tree)}
     t = tree.detach()
+    if dims is None and model_dims is None:
+        t = t.clone()
+    if dims is not None:
+        t = group.all_gather(t, dims)
     if model_dims is not None:
         t = unpack_parts(model_group.all_gather(t, model_dims),
                          model_group.size, parts or 1)
-    t = t.clone() if dims is None else group.all_gather(t, dims)
     return t if device is None else t.to(device)

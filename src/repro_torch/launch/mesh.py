@@ -12,8 +12,13 @@ group of each mesh axis. A `Mesh` records:
   * `axis_names`, this rank's `rank` and `coords` (name -> index; ranks
     are laid out rank-major in the order of `shape`, the last axis the
     fastest, as `jax.make_mesh` lays out devices);
-  * `group(name)`: that axis's process group (the world for a one-axis
-    mesh; a `DeviceMesh`'s `get_group(name)` for more axes);
+  * `group(axes)`: the process group of one axis (a name) or of several
+    (a tuple of names): the world for a one-axis mesh or for axes that
+    cover every rank; a `DeviceMesh`'s `get_group(name)` for one axis of
+    more; for the data axes ("pod", "data") beside a third axis larger
+    than 1, the subgroup `make_mesh` built for this rank's other
+    coordinates (`axes_groups`: one a model coordinate, members in
+    rank order);
   * `device` (where this rank's tensors live) and `backend`.
 
 The caller chooses the backend ("gloo" or "nccl"); `make_mesh` prints it
@@ -30,9 +35,58 @@ gathers and reductions are the identity.
 from __future__ import annotations
 
 import datetime
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+import math
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+
+# the data axes of a training mesh, outer first (train/step.make_plan's
+# plans split the batch and FSDP's leaves over those the mesh has)
+DATA_AXES = ("pod", "data")
+
+
+def axes_groups(shape: Mapping[str, int], axes: Sequence[str]
+                ) -> List[Tuple[int, ...]]:
+    """Every group of ranks of a mesh of `shape` (name -> size, ranks
+    rank-major, the last axis the fastest, as `jax.make_mesh` lays out
+    devices) that differ only in their `axes` coordinates: one group for
+    each coordinate of the other axes, in rank order, each group's
+    members in rank order (for `axes` in the mesh's order, a member's
+    place is its `axes` coordinates as one mixed-radix number, the first
+    axis the most significant). A pure function of the layout, the same
+    on every rank: torch.distributed needs every rank to build every
+    subgroup, in the same order."""
+    names = tuple(shape)
+    missing = [a for a in axes if a not in shape]
+    if missing:
+        raise ValueError(f"axes {missing} not in the mesh {dict(shape)}")
+    ids = torch.arange(math.prod(int(n) for n in shape.values())).reshape(
+        tuple(int(n) for n in shape.values()))
+    inner = [names.index(a) for a in axes]
+    outer = [i for i in range(len(names)) if i not in inner]
+    size = math.prod(int(shape[a]) for a in axes)
+    rows = ids.permute(outer + inner).reshape(-1, size)
+    return [tuple(int(r) for r in row) for row in rows]
+
+
+def axes_members(shape: Mapping[str, int], axes: Sequence[str],
+                 rank: int) -> Tuple[int, ...]:
+    """The group of `axes_groups(shape, axes)` that holds `rank`."""
+    for members in axes_groups(shape, axes):
+        if rank in members:
+            return members
+    raise ValueError(f"rank {rank} outside a mesh of {dict(shape)}")
+
+
+def subgroup_axes(shape: Mapping[str, int]) -> List[Tuple[str, ...]]:
+    """The groups over more than one axis that `make_mesh` builds for a
+    mesh of `shape`: the data axes ("pod", "data") where both are larger
+    than 1 and another axis is too (where they cover every rank, their
+    group is the world)."""
+    data = tuple(a for a in shape if a in DATA_AXES)
+    big = [a for a in data if int(shape[a]) > 1]
+    rest = math.prod(int(n) for a, n in shape.items() if a not in data)
+    return [data] if len(big) > 1 and rest > 1 else []
 
 
 class Mesh:
@@ -58,12 +112,26 @@ class Mesh:
             r, coords[name] = divmod(r, self.shape[name])
         self.coords: Dict[str, int] = {n: coords[n] for n in self.axis_names}
 
-    def group(self, name: str):
-        """The process group of axis `name` (None on an axis of 1, where
-        no collective is needed)."""
-        if self.shape[name] == 1:
+    def group(self, axes: Union[str, Sequence[str]]):
+        """The process group over `axes` (a name or a tuple of names; None
+        where they hold one rank, and no collective is needed): one axis's
+        group, the world where they cover every rank, else the subgroup
+        make_mesh built for them (`subgroup_axes`)."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        big = tuple(a for a in self.axis_names
+                    if a in names and self.shape[a] > 1)
+        if not big:
             return None
-        return self._groups[name]
+        if len(big) == 1:
+            return self._groups[big[0]]
+        if math.prod(self.shape[a] for a in big) == self.size:
+            import torch.distributed as dist
+            return dist.group.WORLD
+        if big not in self._groups:
+            raise ValueError(f"no process group over {big} of mesh "
+                             f"{self.shape}: make_mesh builds "
+                             f"{subgroup_axes(self.shape)}")
+        return self._groups[big]
 
     def __repr__(self) -> str:
         return (f"Mesh(shape={self.shape}, rank={self.rank}, "
@@ -86,7 +154,9 @@ def make_mesh(shape: Union[Mapping[str, int], Sequence[int]],
     "tcp://localhost:<port>"), `rank` and `world_size`, with a timeout of
     `timeout_s` so a rendezvous or collective that hangs fails instead. An
     existing group must use `backend` and have the mesh's size. A mesh of
-    one rank needs none. The backend and the layout are printed."""
+    one rank needs none. Every rank builds each axis's group and the
+    subgroups of `subgroup_axes` (all of them, in one order; a rank keeps
+    its own). The backend and the layout are printed."""
     if not isinstance(shape, Mapping):
         if axes is None or len(axes) != len(shape):
             raise ValueError(f"sizes {tuple(shape)} need one name each, got "
@@ -139,6 +209,13 @@ def make_mesh(shape: Union[Mapping[str, int], Sequence[int]],
                         torch.arange(size).reshape(tuple(shape.values())),
                         mesh_dim_names=names)
         groups = {n: dm.get_group(n) for n in names}
+        rank = dist.get_rank()
+        for axes in subgroup_axes(shape):
+            for members in axes_groups(shape, axes):
+                g = dist.new_group(list(members), timeout=datetime.timedelta(
+                    seconds=timeout_s))
+                if rank in members:
+                    groups[axes] = g
     mesh = Mesh(shape, rank=dist.get_rank(), device=device, backend=backend,
                 groups=groups)
     print(f"[mesh] {dict(mesh.shape)}: rank {mesh.rank} of {size} at "

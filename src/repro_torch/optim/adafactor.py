@@ -11,10 +11,11 @@ returns the same dicts with a new "step".
 Under `Shards` a leaf split on dim d keeps its stats split only where
 the param is (dist.sharding.opt_state_specs): a mean over d (vr's over
 the last dim, vc's over the second-last, rfac's mean of vr) sums the
-blocks over the group that splits d (the data group's or the model
-group's) and divides by the whole length, the update's RMS over the
-whole leaf sums over every group that splits the leaf; every other mean
-stays local.
+blocks over each group that splits d (the data group's, the model
+group's, or both in that order where FSDP and TP split one dim) and
+divides by the whole length, the update's RMS over the whole leaf sums
+over every group that splits the leaf, once each; every other mean stays
+local.
 """
 
 from __future__ import annotations
@@ -63,17 +64,22 @@ class Adafactor:
         beta2 = 1.0 - step.float() ** (-self.decay)
         splits = [] if shards is None else shards.splits()
 
-        def mean(t, axis, group, keepdim=False):
-            if group is None:
+        def mean(t, axis, groups, keepdim=False):
+            if not groups:
                 return t.mean(axis, keepdim=keepdim)
-            return group.all_reduce(t.sum(axis, keepdim=keepdim)) / (
-                t.shape[axis] * group.size)
+            tot, n = t.sum(axis, keepdim=keepdim), t.shape[axis]
+            for group in groups:
+                tot, n = group.all_reduce(tot), n * group.size
+            return tot / n
 
         def upd(p, g, s, dims):
             nd = p.dim()
-            # the group that splits each of p's dims (None: whole)
-            by_dim = {d % nd: group for d, (_, group) in zip(dims, splits)
-                      if d is not None}
+            # the groups that split each of p's dims, the data group first
+            # (none: whole)
+            by_dim = {}
+            for d, (_, group) in zip(dims, splits):
+                if d is not None:
+                    by_dim.setdefault(d % nd, []).append(group)
             g = g.float()
             g2 = torch.square(g) + self.eps
             if self._factored(p.shape):
@@ -95,8 +101,9 @@ class Adafactor:
                 ms = torch.mean(torch.square(u))
             else:
                 tot, n = torch.sum(torch.square(u)), u.numel()
-                for group in by_dim.values():
-                    tot, n = group.all_reduce(tot), n * group.size
+                for groups in by_dim.values():
+                    for group in groups:
+                        tot, n = group.all_reduce(tot), n * group.size
                 ms = tot / n
             rms = torch.sqrt(ms + 1e-30)
             u = u / torch.clamp_min(rms / self.clip_threshold, 1.0)

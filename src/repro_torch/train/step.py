@@ -24,10 +24,16 @@ function of the GLOBAL batch:
   * `loss_fn(params, batch, ctx)` gives this rank's share: its rows' sum
     over labels >= 0 divided by the global count (all-reduced first);
   * FSDP leaves (split over the data axes on any dim but an expert dim)
-    are gathered whole before the forward, and their grads
-    reduce-scattered back along the same dim; whole leaves' grads are
-    all-reduced; EP leaves (experts split by `ep_data`) get their whole
-    grads locally, through the moe route's exchanges;
+    are gathered over the data group before the forward, and their grads
+    reduce-scattered back over it along the same dim; whole leaves' grads
+    are all-reduced; EP leaves (experts split by `ep_data`) get their
+    whole grads locally, through the moe route's exchanges. Beside a
+    model axis the data gather gives the model rank's block (whole over
+    the data axes), also where one dim is split over the model axis and
+    the data axes together (`('model', 'data')`, model-major: the data
+    axes cut the model rank's block), so the forward runs the TP step as
+    it is, and a model-split leaf's grad is reduce-scattered over the
+    data group only;
   * the sums run in f32 and the result takes the dtype the one-device
     step gives (the param's; f32 accumulators with microbatches);
     grad_compress="bf16" casts before the reduction, which is its point
@@ -60,6 +66,7 @@ import torch
 from repro_torch import backend
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding as shd
+from repro_torch.launch.mesh import DATA_AXES
 from repro_torch.models.layers import DistCtx
 from repro_torch.models.registry import Model
 from repro_torch.optim.adafactor import make_optimizer
@@ -101,7 +108,7 @@ def make_plan(cfg: ModelConfig, mesh, *, kind: str,
     (overridable): moe experts split over the data axes (EP) instead of
     FSDP; dense models above 8e9 params take FSDP in training; decode on
     attention families splits the cache's seq dim over the model axis."""
-    dp_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    dp_axes = tuple(a for a in DATA_AXES if a in mesh.shape)
     if ep_data is None:
         ep_data = cfg.family == "moe"
     if fsdp is None:
@@ -170,8 +177,7 @@ def build_train_step(model: Model, plan: Optional[shd.ShardingPlan] = None,
     ctx = group = mgroup = kinds = shards = None
     os_ = None
     if plan is not None:
-        # the plan's splits first (a dim split over the model axis and the
-        # data axes together is refused here, before any group is made)
+        # the plan's splits first, before any group is made
         os_ = shd.opt_state_specs(ps, ab_opt)
         dims, mdims = shd.data_dims(plan, ps), shd.model_dims(plan, ps)
         kinds = _leaf_kinds(model, plan, ps, dims)
@@ -197,8 +203,9 @@ def build_train_step(model: Model, plan: Optional[shd.ShardingPlan] = None,
                 tree_unflatten(params, grads))
 
     def gather_fsdp(params):
-        """The params the forward sees: FSDP leaves whole (gathered in
-        sorted-key order), the rest as they are."""
+        """The params the forward sees: FSDP leaves gathered over the data
+        group in sorted-key order (whole, or beside a model axis the model
+        rank's block), the rest as they are."""
         if shards is None or "fsdp" not in tree_leaves(kinds):
             return params
         return tree_map(lambda p, k, d: group.all_gather(p, d)

@@ -9,20 +9,24 @@ checkpoint with bit-identical data order (step-keyed batches).
 
 With `mesh=` (launch/mesh.make_mesh, one process a rank) every rank runs
 this loop under the training plan (`step.make_plan`: DP, FSDP with
-`fsdp=True` or above 8e9 params, EP for moe, and TP over a model axis
-larger than 1 for every family: row-parallel attention, FFNs, mamba and
-rwkv mixes, the experts' d_ff split by `moe_ffn_ep`'s has_tp branch, a
-vocab-parallel embedding and loss where the vocab splits): it draws the
-whole init from the seed and keeps its blocks, builds the global batch
-(the stub frontend inputs included) and keeps its rows (the ranks of a
-model group the same rows). The losses are the global batch's, equal on
-every rank; rank 0 prints and writes checkpoints (whole leaves, gathered
-over the model axis and the data axes; the others wait at a barrier),
-each rank beats its own heartbeat (HEARTBEAT.rank<r>), and a resume cuts
-each rank's blocks from the whole leaves, whatever mesh wrote them (the
-elastic reshard: a TP checkpoint restores into TP, DP x TP or one
-device; a packed leaf, mamba's in_proj, is whole in the checkpoint and
-cut into its packed layout again on restore).
+`fsdp=True` or above 8e9 params (moe takes EP instead), EP for moe, and
+TP over a model axis larger than 1 for every family: row-parallel
+attention, FFNs, mamba and rwkv mixes, the experts' d_ff split by
+`moe_ffn_ep`'s has_tp branch, a vocab-parallel embedding and loss where
+the vocab splits; FSDP beside TP, where one dim may be split over the
+model axis and the data axes together, on 2-D and ("pod", "data",
+"model") meshes, the data group then a subgroup a model coordinate): it
+draws the whole init from the seed and keeps its blocks, builds the
+global batch (the stub frontend inputs included) and keeps its rows (the
+ranks of a model group the same rows). The losses are the global
+batch's, equal on every rank; rank 0 prints and writes checkpoints
+(whole leaves, gathered over the data axes and then the model axis; the
+others wait at a barrier), each rank beats its own heartbeat
+(HEARTBEAT.rank<r>), and a resume cuts each rank's blocks from the whole
+leaves, whatever mesh wrote them (the elastic reshard: a checkpoint of
+FSDP x TP, TP, DP x TP or one device restores into any of them; a packed
+leaf, mamba's in_proj, is whole in the checkpoint and cut into its packed
+layout again on restore).
 """
 
 from __future__ import annotations
@@ -116,9 +120,10 @@ class Trainer:
 
     def save(self, step: int, state: Dict[str, Any]) -> None:
         """Checkpoint `state` as whole leaves. Under a mesh every rank
-        takes part in the gathers (leaf by leaf, over the model axis then
-        the data axes, to the host), rank 0 writes (blocking), and the
-        others wait for it at a barrier of every rank."""
+        takes part in the gathers (leaf by leaf, over the data axes then
+        the model axis, to the host: sharding.gather_tree), rank 0 writes
+        (blocking), and the others wait for it at a barrier of every
+        rank."""
         if self.plan is None:
             self.ckpt.save(step, state)
             return

@@ -1,7 +1,8 @@
 """Rank cases for tests/test_torch_tp_train.py: tensor-parallel training in
 the port on one rank of a gloo world over a {"data": 2, "model": 2} mesh
 (`_torch_tp_worker.run_world(..., shape={"data": 2, "model": 2},
-module="_torch_tp_train_worker")`). The one-device references run in the
+module="_torch_tp_train_worker")`), and for tests/test_torch_fsdp_tp_pods.py
+over {"pod": 2, "data": 2, "model": 2}. The one-device references run in the
 test process (`_torch_dp_worker.dp_step` without a mesh, and
 `emulated_ep` for the expert-parallel route). torch and repro_torch
 only: no jax here."""
@@ -51,10 +52,12 @@ def _whole_of(plan, specs, bundle):
 def tp_step(mesh, payload):
     """payload["batches"] (global numpy batches) through build_train_step
     under make_plan over `mesh` (the reference plan: row-parallel over
-    "model", rows over "data"): each step's metrics, the whole grads the
-    optimizer got (gathered over both axes), each local leaf's digest
-    after the step, plus the whole params at the end, every leaf's local
-    shape and its data / model dims, and the moe routes taken."""
+    "model", rows over "data"; with payload["fsdp"] FSDP beside it): each
+    step's metrics, the whole grads the optimizer got and its state after
+    the step (gathered over both axes), each local leaf's digest after the
+    step, plus the whole params
+    at the end, every leaf's local shape, spec and data / model dims, and
+    the moe routes taken."""
     from repro_torch.dist import sharding
     from repro_torch.models import moe
     from repro_torch.models.registry import build_model
@@ -62,7 +65,8 @@ def tp_step(mesh, payload):
     from repro_torch.train import step as step_lib
     cfg = D._cfg(payload)
     model = build_model(cfg)
-    plan = step_lib.make_plan(cfg, mesh, kind="train")
+    plan = step_lib.make_plan(cfg, mesh, kind="train",
+                              fsdp=payload.get("fsdp"))
     bundle, opt = step_lib.build_train_step(
         model, plan, optimizer_name=payload.get("optimizer"),
         microbatches=payload.get("microbatches", 1),
@@ -93,6 +97,8 @@ def tp_step(mesh, payload):
             return real_route[name](*a, **kw)
         return call
 
+    os_ = bundle.in_specs[1]
+    opt_whole = _whole_of(plan, os_, bundle)
     steps = []
     for k in real_route:
         setattr(moe, k, counted(k))
@@ -104,6 +110,7 @@ def tp_step(mesh, payload):
             params, opt_state, m = bundle(params, opt_state, batch)
             steps.append({"metrics": {k: float(v) for k, v in m.items()},
                           "grads": seen[-1],
+                          "opt": D._to_numpy(opt_whole(opt_state)),
                           "leaves": _leaf_digests(params)})
     finally:
         for k, f in real_route.items():
@@ -113,7 +120,7 @@ def tp_step(mesh, payload):
                              D._flat(params).items()},
             "data_dims": D._flat(sharding.data_dims(plan, ps)),
             "model_dims": D._flat(sharding.model_dims(plan, ps)),
-            "routes": routes}
+            "specs": D._flat(ps), "routes": routes}
 
 
 @contextlib.contextmanager
@@ -205,10 +212,12 @@ def tp_pallas(mesh, payload):
 
 
 def tp_trainer(mesh, payload):
-    """Trainer(mesh=) for payload["steps"] steps with a checkpoint at the
-    end (whole leaves, rank 0), then the checkpoint restored onto this
-    rank under the same plan: its blocks against the live state, bit for
-    bit, and the live state gathered whole."""
+    """Trainer(mesh=) for payload["steps"] steps (FSDP beside TP with
+    payload["fsdp"]) with a checkpoint at the end (whole leaves, rank 0),
+    then the checkpoint restored onto this rank under the same plan: its
+    blocks against the live state, bit for bit, and the live state
+    gathered whole and over the data axes alone (the model rank's block,
+    TP's layout)."""
     from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.dist import sharding
     from repro_torch.dist.fault import resume_or_init
@@ -218,7 +227,7 @@ def tp_trainer(mesh, payload):
     loop = TrainLoopConfig(total_steps=steps, ckpt_every=steps,
                            log_every=100, ckpt_dir=payload["dir"],
                            seq_len=32, global_batch=4, peak_lr=1e-3)
-    tr = Trainer(cfg, loop, mesh)
+    tr = Trainer(cfg, loop, mesh, fsdp=payload.get("fsdp"))
     out = tr.run(verbose=mesh.rank == 0)
     specs = tr._specs()
     step, state = resume_or_init(CheckpointManager(payload["dir"]),
@@ -227,14 +236,70 @@ def tp_trainer(mesh, payload):
     live, back = D._flat(tr.state), D._flat(state)
     same = sorted(live) == sorted(back) and all(
         torch.equal(_bits(live[k]), _bits(back[k])) for k in live)
+    dims = sharding.data_dims(tr.plan, specs)
     whole = sharding.gather_tree(
-        tr.state, sharding.data_dims(tr.plan, specs), tr.bundle.group,
+        tr.state, dims, tr.bundle.group,
         model_dims=sharding.model_dims(tr.plan, specs),
         model_group=tr.bundle.model_group,
         parts=sharding.packed_parts(specs))
+    tp_block = sharding.gather_tree(tr.state, dims, tr.bundle.group)
     return {"losses": out["losses"], "step": step, "restored_equal": same,
             "whole": D._to_numpy_exact(whole),
-            "local": D._to_numpy_exact(tr.state), "specs": D._flat(specs)}
+            "local": D._to_numpy_exact(tr.state),
+            "tp_block": D._to_numpy_exact(tp_block), "specs": D._flat(specs)}
+
+
+def restore_step(mesh, payload):
+    """The checkpoint in payload["dir"] (whatever mesh wrote it) restored
+    onto this rank under make_plan(fsdp=payload["fsdp"]), then one step of
+    payload["batches"][0] from it: the restored blocks and the step's
+    metrics."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.dist import sharding
+    from repro_torch.dist.fault import resume_or_init
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import step as step_lib
+    cfg = D._cfg(payload)
+    plan = step_lib.make_plan(cfg, mesh, kind="train",
+                              fsdp=payload.get("fsdp"))
+    bundle, _ = step_lib.build_train_step(build_model(cfg), plan,
+                                          **D.STEP_KW)
+    specs = {"params": bundle.in_specs[0], "opt": bundle.in_specs[1]}
+    step, state = resume_or_init(CheckpointManager(payload["dir"]),
+                                 lambda: None, device="cpu",
+                                 shardings=specs, mesh=mesh)
+    # copies: the step updates the state in place
+    local = {k: v.copy() for k, v in D._to_numpy_exact(state).items()}
+    batch = sharding.local_batch(plan, {
+        k: torch.from_numpy(np.asarray(v))
+        for k, v in payload["batches"][0].items()})
+    _, _, m = bundle(state["params"], state["opt"], batch)
+    return {"step": step, "local": local, "specs": D._flat(specs),
+            "metrics": {k: float(v) for k, v in m.items()}}
+
+
+def pod_groups(mesh, payload):
+    """AxesGroup over ("pod", "data") beside the model axis (the subgroup
+    of this rank's model coordinate): its size, index and members, and
+    all_reduce, all_gather and reduce_scatter of this rank's tensor
+    (integer-valued f32 from the rank, so every sum is exact)."""
+    import torch.distributed as dist
+    from repro_torch.dist.collectives import AxesGroup
+    group = AxesGroup(mesh, ("pod", "data"))
+    t = rank_tensor(mesh.rank, payload["shape"])
+    members = [dist.get_global_rank(group.group, i)
+               for i in range(group.size)]
+    return {"size": group.size, "index": group.index, "members": members,
+            "all_reduce": group.all_reduce(t).numpy(),
+            "all_gather": group.all_gather(t, 1).numpy(),
+            "reduce_scatter": group.reduce_scatter(t, 0).numpy(),
+            "counts": group.counts}
+
+
+def rank_tensor(rank, shape):
+    """pod_groups' input on `rank`: integer-valued f32."""
+    g = torch.Generator().manual_seed(100 + rank)
+    return torch.randint(-50, 50, tuple(shape), generator=g).float()
 
 
 # intra-op threads a rank: the world's 4 processes at torch's default (every
@@ -245,11 +310,12 @@ RANK_THREADS = 2
 
 def _in_rank(case):
     def run(mesh, payload):
-        torch.set_num_threads(RANK_THREADS)
+        torch.set_num_threads(payload.get("threads", RANK_THREADS))
         return case(mesh, payload)
     return run
 
 
 CASES = {name: _in_rank(case) for name, case in (
     ("tp_step", tp_step), ("moe_ep_tp", moe_ep_tp), ("tp_trainer", tp_trainer),
-    ("tp_pallas", tp_pallas))}
+    ("tp_pallas", tp_pallas), ("restore_step", restore_step),
+    ("pod_groups", pod_groups))}

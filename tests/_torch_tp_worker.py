@@ -7,7 +7,8 @@ FileStore under tmp_path (no port to collide over between xdist
 workers), runs every (name, payload) of `cases` on each rank in order,
 and returns {rank: {name: result}}. The mesh is {"model": n} unless
 `shape` names another; `module` names the module whose CASES the ranks
-run (this one by default; tests/_torch_dp_worker.py for training). Every rank, and the world, has a
+run (this one by default; tests/_torch_dp_worker.py for training). Every
+rank, and the world (`timeout_s`, WORLD_TIMEOUT_S by default), has a
 timeout: a hung rendezvous or collective fails the test instead of
 hanging it, and a rank that raises fails it with the rank's traceback.
 """
@@ -28,7 +29,8 @@ COLLECTIVE_TIMEOUT_S = 120.0
 
 def run_world(tmp_path, n: int, cases: List[Tuple[str, Any]],
               device: str = "cpu", shape: Optional[Dict[str, int]] = None,
-              module: str = "_torch_tp_worker"
+              module: str = "_torch_tp_worker",
+              timeout_s: float = WORLD_TIMEOUT_S
               ) -> Dict[int, Dict[str, Any]]:
     import torch.multiprocessing as mp
     store = os.path.join(str(tmp_path), "store")
@@ -39,14 +41,14 @@ def run_world(tmp_path, n: int, cases: List[Tuple[str, Any]],
                              args=(n, store, out, cases, device, shape,
                                    module),
                              nprocs=n, join=False, start_method="spawn")
-    deadline = time.monotonic() + WORLD_TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     while not ctx.join(timeout=1.0):
         if time.monotonic() > deadline:
             for p in ctx.processes:
                 if p.is_alive():
                     p.kill()
             raise TimeoutError(f"the {n}-rank world ran past "
-                               f"{WORLD_TIMEOUT_S} s")
+                               f"{timeout_s} s")
     return {r: torch.load(os.path.join(out, f"rank{r}.pt"),
                           weights_only=False) for r in range(n)}
 

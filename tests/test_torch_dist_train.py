@@ -636,18 +636,46 @@ def test_trainer_resume_matches_straight_run(world):
         np.testing.assert_array_equal(a[k], b[k])
 
 
-def test_trainer_refuses_a_model_axis(tmp_path):
+def test_trainer_refuses_a_model_axis(tmp_path, monkeypatch):
     """Every family trains over a model axis (tests/test_torch_tp_train.py),
-    but not beside FSDP: FSDP scatters the data axes onto a dim the model
-    axis already splits (hymba's in_proj, the largest), and the Trainer
-    refuses that plan before it makes a process group."""
+    and beside FSDP since the port executes a dim split over the model
+    axis and the data axes together: hymba with fsdp=True on {"data": 2,
+    "model": 2} builds (its packed in_proj co-split, the groups over
+    "data" and "model"). What the Trainer still refuses, before it makes a
+    process group, is a spec spec_for never makes: here the data axis
+    before the model axis on in_proj's last dim."""
+    from repro_torch.dist import collectives
     cfg = reduce_config(get_config("hymba-1.5b"), **DENSE["reduce"])
     loop = TrainLoopConfig(ckpt_dir=str(tmp_path / "ckpt"))
     mesh = types.SimpleNamespace(shape={"data": 2, "model": 2}, rank=0,
+                                 size=4, coords={"data": 0, "model": 0},
                                  device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError,
-                       match="split over the model axis alone"):
+    made = []
+
+    class Group:                      # no process group on this side
+        def __init__(self, mesh, axes):
+            self.axes, self.size, self.index = tuple(axes), 2, 0
+            made.append(self.axes)
+
+    monkeypatch.setattr(collectives, "AxesGroup", Group)
+    tr = Trainer(cfg, loop, mesh, fsdp=True)
+    spec = tr._specs()["params"]["layers"]["mamba"]["in_proj"]
+    assert tr.plan.fsdp and sharding.spec_parts(spec) == 2
+    assert tuple(spec) == (None, None, ("model", "data"))
+    assert sorted(made) == [("data",), ("model",)]
+    real = sharding.params_shardings
+
+    def data_first(*a, **kw):
+        specs = real(*a, **kw)
+        specs["layers"]["mamba"]["in_proj"] = sharding.PackedSpec(
+            (None, None, ("data", "model")), 2)
+        return specs
+
+    monkeypatch.setattr(sharding, "params_shardings", data_first)
+    made.clear()
+    with pytest.raises(NotImplementedError, match="the model axis first"):
         Trainer(cfg, loop, mesh, fsdp=True)
+    assert made == []
 
 
 def test_dp_needs_rows_that_split():

@@ -7,6 +7,8 @@ model axes 1-16 under every plan kind; the logical axes the port records
 the tree builders; local_shard's rank-major blocks. Pure host logic: the
 meshes are stand-ins with a `shape` mapping, as the reference's fakes."""
 
+import math
+import os
 import types
 
 import pytest
@@ -239,3 +241,219 @@ def test_local_shard_rank_major_blocks():
     m = Mesh({"model": 4}, rank=1, device="cpu", backend="gloo")
     with pytest.raises(ValueError):
         tsh.local_shard(torch.zeros(3, 6), ("model", None), m)
+
+
+# ---------------------------------------------------------------------------
+# FSDP beside a model axis: co-split leaves, the data subgroups
+# ---------------------------------------------------------------------------
+
+CO_MESH = {"data": 2, "model": 2}
+
+
+class _Concat:
+    """A stand-in AxesGroup over `members` (ranks, in index order): its
+    all_gather concatenates what `value(rank)` gives for each member."""
+
+    def __init__(self, members, value):
+        self.members, self.value, self.size = members, value, len(members)
+
+    def all_gather(self, t, dim):
+        return torch.cat([self.value(r) for r in self.members], dim)
+
+
+def _co_mesh(rank, shape=CO_MESH):
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(shape, rank=rank, device="cpu", backend="gloo")
+
+
+def _round_trip(whole, spec, shape=CO_MESH, order=("data", "model")):
+    """Every rank's local_shard of `whole` under `spec`, gathered back by
+    gather_tree over stand-in groups (data axes, then the model axis; or
+    in `order`), with each rank's data-group gather."""
+    from repro_torch.launch.mesh import axes_members
+    data = tuple(a for a in shape if a != "model")
+    n = math.prod(shape.values())
+    local = {r: tsh.local_shard(whole, spec, _co_mesh(r, shape)).clone()
+             for r in range(n)}
+    d = next(i for i, e in enumerate(spec) if e is not None)
+
+    def data_group(r):
+        return _Concat(axes_members(shape, data, r), lambda q: local[q])
+
+    def by_data(r):
+        return data_group(r).all_gather(local[r], d)
+
+    out = {}
+    for r in range(n):
+        model = _Concat(axes_members(shape, ("model",), r),
+                        by_data if order[0] == "data" else
+                        (lambda q: local[q]))
+        if order[0] == "data":
+            got = tsh.gather_tree({"w": local[r]}, {"w": d}, data_group(r),
+                                  model_dims={"w": d}, model_group=model,
+                                  parts={"w": tsh.spec_parts(spec)})["w"]
+        else:           # model first: each member's local block, then data
+            t = tsh.unpack_parts(model.all_gather(local[r], d), model.size,
+                                 tsh.spec_parts(spec))
+            got = _Concat(axes_members(shape, data, r),
+                          lambda q: t).all_gather(t, d)
+        out[r] = (got, by_data(r))
+    return out
+
+
+@pytest.mark.parametrize("shape", [CO_MESH, {"pod": 2, "data": 2,
+                                             "model": 2}])
+def test_co_split_leaf_round_trips_through_gather_tree(shape):
+    """A leaf split over the model axis and the data axes together (model
+    first, as spec_for makes it): each rank's block gathered over its
+    data group is its model rank's block, and the gather over the model
+    group after it (sharding.gather_tree's order) is the whole leaf, on
+    every rank. The gather in the other order (the model group first)
+    puts the blocks in (data, model) order: not the leaf."""
+    entry = ("model",) + tuple(a for a in shape if a != "model")
+    spec = (None, entry)
+    whole = torch.arange(6 * 32, dtype=torch.float32).reshape(6, 32)
+    for r, (got, tp_block) in _round_trip(whole, spec, shape).items():
+        assert torch.equal(got, whole), r
+        m = _co_mesh(r, shape).coords["model"]
+        assert torch.equal(tp_block, whole[:, 16 * m:16 * (m + 1)])
+    wrong = _round_trip(whole, spec, shape, order=("model", "data"))
+    assert not any(torch.equal(got, whole) for got, _ in wrong.values())
+
+
+def test_packed_co_split_leaf_keeps_its_parts():
+    """hymba's in_proj (xs | z) under fsdp=True on {"data": 2, "model":
+    2}: params_shardings gives it a PackedSpec whose last entry is
+    ('model', 'data'); a rank's block gathered over its data group is the
+    packed TP block (its model rank's block of xs beside its block of z,
+    as TP alone lays it out), and gather_tree gives back xs | z whole.
+    The rank-major block of the plain spec is another layout at ranks 1
+    and 2 (z's first half and xs's second; ranks 0 and 3 hold xs's first
+    quarter and z's last either way)."""
+    from repro_torch.train import step as step_lib
+    cfg = reduce_config(get_config("hymba-1.5b"), layers=2, d_model=64,
+                        vocab=128)
+    model = build_model(cfg)
+    mesh = _fake_mesh(**CO_MESH)
+    plan = step_lib.make_plan(cfg, mesh, kind="train", fsdp=True)
+    specs = tsh.params_shardings(plan, model.param_axes,
+                                 model.abstract_params(), model.param_parts)
+    spec = specs["layers"]["mamba"]["in_proj"]
+    assert tsh.spec_parts(spec) == 2
+    assert tuple(spec) == (None, None, ("model", "data"))
+    assert tsh.model_dims(plan, specs)["layers"]["mamba"]["in_proj"] == 2
+    assert tsh.data_dims(plan, specs)["layers"]["mamba"]["in_proj"] == 2
+    shape = model.abstract_params()["layers"]["mamba"]["in_proj"].shape
+    whole = torch.randn(tuple(shape), generator=torch.Generator()
+                        .manual_seed(0))
+    tp_spec = tsh.PackedSpec((None, None, "model"), 2)
+    for r, (got, tp_block) in _round_trip(whole, spec).items():
+        assert torch.equal(got, whole), r
+        m = _co_mesh(r).coords["model"]
+        want = tsh.local_shard(whole, tp_spec, _fake_mesh_at(model=m))
+        assert torch.equal(tp_block, want), r
+        plain = tsh.local_shard(whole, tuple(spec), _co_mesh(r))
+        mine = tsh.local_shard(whole, spec, _co_mesh(r))
+        assert torch.equal(plain, mine) == (r in (0, 3)), r
+
+
+def _fake_mesh_at(**coords):
+    return types.SimpleNamespace(shape={a: 2 for a in coords}, coords=coords)
+
+
+def test_model_dims_accepts_model_first_and_refuses_other_mixes():
+    plan = tsh.ShardingPlan(mesh=_fake_mesh(pod=2, data=2, model=2),
+                            dp_axes=("pod", "data"), fsdp=True)
+    got = tsh.model_dims(plan, {"a": (None, ("model", "data")),
+                                "b": (("model", "pod", "data"), None),
+                                "c": (("pod", "data"), "model"),
+                                "d": (None, None)})
+    assert got == {"a": 1, "b": 0, "c": 1, "d": None}
+    for bad, why in (((("data", "model"), None), "model axis first"),
+                     ((("pod", "model"), None), "model axis first"),
+                     (("model", ("model", "data")), "on dims"),
+                     ((("model", "expert"), None), "only data axes")):
+        with pytest.raises(NotImplementedError, match=why):
+            tsh.model_dims(plan, {"w": bad})
+
+
+ALL_ARCHS = FAMILIES + ("qwen2.5-32b", "codeqwen1.5-7b", "phi4-mini-3.8b",
+                        "llama4-maverick-400b-a17b")
+PLAN_MESHES = ({"data": 2, "model": 2}, {"data": 16, "model": 16},
+               {"pod": 2, "data": 16, "model": 16})
+# leaves whose one dim the model axis and the data axes split together,
+# on PLAN_MESHES (the default training plan for the three archs above 8e9
+# params, fsdp=True for the rest)
+CO_SPLIT = {"qwen2.5-32b": (9, 9, 9), "codeqwen1.5-7b": (9, 6, 4),
+            "internvl2-26b": (4, 4, 4), "hymba-1.5b": (12, 1, 0),
+            "rwkv6-7b": (6, 5, 5), "whisper-small": (9, 9, 6),
+            "deepseek-moe-16b": (10, 7, 4)}
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_training_plan_splits_without_refusal(arch):
+    """The training plan of every config at full width on the 2-D and
+    multi-pod meshes, by default and with fsdp=True: model_dims accepts
+    every spec spec_for makes; data_dims refuses only a leaf split over a
+    strict prefix of the data axes (FSDP on ("pod",) where ("pod",
+    "data") does not divide). The co-split leaves counted as the port's
+    planner counts them."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as step_lib
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    ab = model.abstract_params()
+    counts = []
+    for shape in PLAN_MESHES:
+        big_data = tuple(a for a in ("pod", "data") if a in shape)
+        for fsdp in (True, None):
+            plan = step_lib.make_plan(cfg, _fake_mesh(**shape), kind="train",
+                                      fsdp=fsdp)
+            specs = tsh.params_shardings(plan, model.param_axes, ab,
+                                         model.param_parts)
+            tsh.model_dims(plan, specs)
+            try:
+                tsh.data_dims(plan, specs)
+            except NotImplementedError:
+                prefixes = [tuple(a for a in tsh._names(e) if a != "model")
+                            for s in tree_leaves(specs) for e in s]
+                assert any(p and p != big_data and big_data[:len(p)] == p
+                           for p in prefixes)
+            co = sum(any(isinstance(e, tuple) and "model" in e for e in s)
+                     for s in tree_leaves(specs))
+            if fsdp:
+                counts.append(co)
+            else:          # the default plan: FSDP above 8e9 params
+                assert co == (counts[-1] if plan.fsdp else 0)
+    if arch in CO_SPLIT:
+        assert tuple(counts) == CO_SPLIT[arch]
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2), (2, 16, 16)])
+def test_subgroup_membership_matches_jax_make_mesh(shape):
+    """launch.mesh.axes_members for ("pod", "data"), ("data",) and
+    ("model",) on every rank against jax.make_mesh's device layout of the
+    same shape (one process with 512 host devices): rank r is device r,
+    and the group of r is the devices that share r's other coordinates,
+    in the layout's order."""
+    import json
+    import subprocess
+    import sys
+    from repro_torch.launch.mesh import axes_members
+    names = ("pod", "data", "model")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=512")
+    ids = json.loads(subprocess.run(
+        [sys.executable, "-c", "import jax, json, sys; print(json.dumps("
+         "jax.make_mesh(tuple(json.loads(sys.argv[1])), ('pod', 'data', "
+         "'model')).device_ids.tolist()))", json.dumps(shape)],
+        capture_output=True, text=True, env=env, check=True,
+        timeout=120).stdout)
+    ids = torch.tensor(ids)
+    mesh = dict(zip(names, shape))
+    for r in range(math.prod(shape)):
+        p, d, m = [int(x[0]) for x in torch.nonzero(ids == r).T]
+        assert axes_members(mesh, ("pod", "data"), r) == tuple(
+            ids[:, :, m].reshape(-1).tolist())
+        assert axes_members(mesh, ("data",), r) == tuple(ids[p, :, m].tolist())
+        assert axes_members(mesh, ("model",), r) == tuple(ids[p, d].tolist())

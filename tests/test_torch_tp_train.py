@@ -497,6 +497,35 @@ def family_ref(family_proc):
     return _result(family_proc)
 
 
+# (h): FSDP beside the model axis. Reduced qwen2.5-32b keeps its GQA
+# ratio (10 heads and 2 kv heads of 16: 5 and 1 a rank, qwen2.5-32b's
+# group of 5) and Adafactor; the reduced model is under 8e9 params, so its
+# default plan is DP x TP ("tp_step:qwen25") and fsdp=True forces FSDP
+QWEN25 = dict(arch="qwen2.5-32b", reduce=REDUCE, seed=3,
+              replace=dict(n_heads=10, n_kv_heads=2, head_dim=16))
+# each FSDP x TP case (fsdp=True) and the DP x TP case of the same model,
+# weights and batches on the same mesh
+FSDP_CASES = {"dense": "tp_step:adamw", "moe": "tp_step:moe_cap",
+              "hybrid": "tp_step:hybrid", "ssm": "tp_step:ssm",
+              "encdec": "tp_step:encdec", "vlm": "tp_step:vlm",
+              "qwen25": "tp_step:qwen25"}
+# the world's 4 ranks run every case in turn (~2 min on 8 cores with the
+# JAX subprocesses beside them): the FSDP cases double the TP ones
+WORLD_TIMEOUT_S = 480.0
+
+
+def _fsdp_payload(name, jax_params, family_params):
+    """FSDP_CASES[name]'s payload with fsdp=True: the DP x TP case's
+    model, weights and batches."""
+    if name == "dense":
+        return _dense(jax_params, fsdp=True, **OPTS["adamw"])
+    if name == "moe":
+        return _moe(BATCHES, fsdp=True)
+    if name == "qwen25":
+        return dict(QWEN25, batches=BATCHES, fsdp=True)
+    return dict(_family(name, family_params[name]), fsdp=True)
+
+
 def _dense(params=None, batches=BATCHES, **kw):
     return dict(DENSE, params=params, batches=batches, **kw)
 
@@ -524,14 +553,41 @@ def world(jax_proc, family_proc, jax_params, family_params,
     hy = _family("hybrid", family_params["hybrid"])
     cases += [("tp_trainer:hybrid", dict(hy, params=None,
                                          dir=str(d / "ckpt_hybrid"),
-                                         steps=2)),
+                                         steps=2))]
+    # (h): FSDP beside the model axis
+    cases += [(f"tp_step:fsdp_{name}",
+               _fsdp_payload(name, jax_params, family_params))
+              for name in FSDP_CASES]
+    cases += [("tp_step:qwen25", dict(QWEN25, batches=BATCHES))]
+    cases += [(f"tp_trainer:fsdp_{name}",
+               dict(payload, params=None, fsdp=True,
+                    dir=str(d / f"ckpt_fsdp_{name}"), steps=2))
+              for name, payload in (("qwen25", QWEN25), ("hybrid", hy))]
+    cases += [("restore_step:tp_into_fsdp",
+               dict(DENSE, dir=str(d / "ckpt"), fsdp=True,
+                    batches=[_batch(4)])),
               # last: its backward raises on every rank
               ("tp_pallas", hy)]
     res = W.run_world(d, 4, cases, shape=SHAPE,
-                      module="_torch_tp_train_worker")
+                      module="_torch_tp_train_worker",
+                      timeout_s=WORLD_TIMEOUT_S)
     res["dir"] = str(d / "ckpt")
     res["dir_hybrid"] = str(d / "ckpt_hybrid")
+    res["dir_fsdp"] = {name: str(d / f"ckpt_fsdp_{name}")
+                       for name in ("qwen25", "hybrid")}
     return res
+
+
+# the one-device runs, by model: a DP x TP case and its FSDP x TP case
+# share one (dp_step without a mesh ignores payload["fsdp"])
+_ONE_DEVICE = {}
+
+
+def _one_device(key, payload):
+    """D.dp_step(None, payload), run once a module for each key."""
+    if key not in _ONE_DEVICE:
+        _ONE_DEVICE[key] = D.dp_step(None, payload)
+    return _ONE_DEVICE[key]
 
 
 def _grads_close(got, want, rtol=GRAD_RTOL):
@@ -573,7 +629,7 @@ def _held_to_one_device(got, ref, grad_steps=None):
 def test_tp_step_matches_one_device_and_jax(world, jax_ref, jax_params,
                                             name):
     got = world[0][f"tp_step:{name}"]
-    ref = D.dp_step(None, _dense(jax_params, **OPTS[name]))
+    ref = _one_device(f"dense:{name}", _dense(jax_params, **OPTS[name]))
     _held_to_one_device(got, ref)
     want = jax_ref[name]
     np.testing.assert_allclose(_losses(got),
@@ -676,7 +732,7 @@ def test_moe_capacity_route_matches_one_device(world):
     routes = got["routes"]
     assert routes["moe_ffn_ep"] == 0
     assert routes["moe_ffn"] == routes["moe_ffn_tp"] == len(BATCHES)
-    _held_to_one_device(got, D.dp_step(None, _moe(BATCHES)),
+    _held_to_one_device(got, _one_device("moe", _moe(BATCHES)),
                         grad_steps=MOE_GRAD_STEPS)
     _same_on_all_ranks(world, "tp_step:moe_cap")
 
@@ -888,7 +944,7 @@ def test_family_tp_step_matches_one_device_and_jax(world, family_ref,
     leaf (FAMILY_GRAD_STEPS); every rank computed the same."""
     got = world[0][f"tp_step:{name}"]
     payload = _family(name, family_params[name])
-    _held_to_one_device(got, D.dp_step(None, payload),
+    _held_to_one_device(got, _one_device(name, payload),
                         grad_steps=FAMILY_GRAD_STEPS)
     want = family_ref[name]
     np.testing.assert_allclose(_losses(got),
@@ -975,3 +1031,137 @@ def test_hybrid_pallas_scan_raises_under_tp(world):
     for m in (0, 1):
         shares = [world[2 * d + m]["tp_pallas"]["loss"] for d in (0, 1)]
         assert abs(sum(shares) - chunked) <= LOSS_ATOL
+
+
+# ------------------------------------------------------------------- (h)
+
+def _co_split(specs):
+    """The leaves whose one dim the model axis and the data axes split
+    together, model first."""
+    return sorted(k for k, spec in specs.items()
+                  if any(isinstance(e, tuple) and e[0] == "model"
+                         and "data" in e for e in spec))
+
+
+# step 0's metrics an FSDP x TP step gives bit-equal to the DP x TP step's
+# (the same gathered bits in the forward; the one f32 addition of a
+# 2-rank reduce-scatter commutes); the global grad norm is not among them:
+# FSDP sums each split leaf's squares over its quarter blocks and then
+# the data group, DP x TP over its half blocks, so the f32 sums round
+# apart, by at most FSDP_GNORM_RTOL (measured below 2e-7)
+BIT_EQUAL_METRICS = ("loss", "aux", "ntokens", "lr", "total_loss")
+FSDP_GNORM_RTOL = 1e-6
+OPT_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("name", list(FSDP_CASES))
+def test_fsdp_tp_step_matches_dp_tp_and_one_device(world, jax_ref,
+                                                   family_ref, jax_params,
+                                                   family_params, name):
+    """FSDP beside the model axis (fsdp=True over {"data": 2, "model": 2})
+    against the DP x TP step of the same model on the same mesh: its plan
+    co-splits at least one leaf (hymba's packed in_proj among them); step
+    0's loss, metrics and every reduced grad leaf bit for bit, the grad
+    norm within FSDP_GNORM_RTOL; every rank the same; the losses of both
+    steps within LOSS_ATOL of the port's one-device step, and where the
+    JAX subprocesses ran it, of the reference's own TP step."""
+    got = world[0][f"tp_step:fsdp_{name}"]
+    base = world[0][FSDP_CASES[name]]
+    co = _co_split(got["specs"])
+    assert co, got["specs"]
+    assert not _co_split(base["specs"])
+    if name == "hybrid":
+        spec = got["specs"]["layers/mamba/in_proj"]
+        assert "layers/mamba/in_proj" in co
+        assert sharding.spec_parts(spec) == 2
+    s0, b0 = got["steps"][0], base["steps"][0]
+    for k in BIT_EQUAL_METRICS:
+        assert s0["metrics"][k] == b0["metrics"][k], k
+    g, b = s0["metrics"]["grad_norm"], b0["metrics"]["grad_norm"]
+    assert abs(g - b) <= FSDP_GNORM_RTOL * b, (g, b)
+    gf, bf = D._flat(s0["grads"]), D._flat(b0["grads"])
+    assert sorted(gf) == sorted(bf)
+    for k in gf:
+        np.testing.assert_array_equal(gf[k], bf[k], err_msg=k)
+    # the optimizer state after step 0, from the same grads: a split
+    # leaf's sums (AdamW's clip; Adafactor's row and column means, each
+    # over every group that splits the dim) counted once per group, so
+    # within the f32 sums' order of DP x TP's, never a group twice
+    of, ob = D._flat(s0["opt"]), D._flat(b0["opt"])
+    assert sorted(of) == sorted(ob)
+    for k in of:
+        np.testing.assert_allclose(of[k], ob[k], rtol=OPT_RTOL, atol=0,
+                                   err_msg=k)
+    _same_on_all_ranks(world, f"tp_step:fsdp_{name}")
+    ref = _one_device({"dense": "dense:adamw"}.get(name, name),
+                      _fsdp_payload(name, jax_params, family_params))
+    np.testing.assert_allclose(_losses(got), _losses(ref), atol=LOSS_ATOL,
+                               rtol=0)
+    jax_tp = (jax_ref["tp_step"] if name == "dense" else
+              family_ref[name]["tp_step"] if name in FAMILIES else None)
+    if jax_tp is not None:
+        assert "ok" in jax_tp, jax_tp
+        np.testing.assert_allclose(_losses(got),
+                                   [m["loss"] for m in jax_tp["ok"]],
+                                   atol=LOSS_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["qwen25", "hybrid"])
+def test_fsdp_tp_checkpoint_restores_everywhere(world, name):
+    """A Trainer checkpoint of the FSDP x TP world (whole leaves, gathered
+    over the data axes and then the model axis) restored bit for bit onto
+    its ranks, onto one device (then one more step) and into TP 2's
+    blocks, which are the world's blocks gathered over the data axes
+    alone (hymba's in_proj in its packed layout)."""
+    runs = [world[r][f"tp_trainer:fsdp_{name}"] for r in range(4)]
+    assert all(r["restored_equal"] and r["step"] == 2 for r in runs)
+    assert all(r["losses"] == runs[0]["losses"] for r in runs)
+    assert _co_split(runs[0]["specs"])
+    step, state = CheckpointManager(world["dir_fsdp"][name]).restore(
+        device="cpu")
+    assert step == 2
+    whole = D._flat(state)
+    for k, t in whole.items():
+        np.testing.assert_array_equal(_bits(t).numpy(), runs[0]["whole"][k])
+    cfg = D._cfg(QWEN25 if name == "qwen25" else FAMILIES["hybrid"])
+    specs = D._flat(_tp2_specs(cfg))
+    for m in (0, 1):
+        mesh = types.SimpleNamespace(shape={"model": 2}, coords={"model": m})
+        for k, t in whole.items():
+            want = sharding.local_shard(t, specs.get(k, ()), mesh)
+            for r in (m, 2 + m):          # the model rank's two data ranks
+                np.testing.assert_array_equal(_bits(want).numpy(),
+                                              runs[r]["tp_block"][k],
+                                              err_msg=k)
+    step_fn, _ = step_lib.build_train_step(build_model(cfg), **D.STEP_KW)
+    vocab = cfg.vocab_size
+    batch = {k: torch.from_numpy(v) for k, v in
+             _batch(4, vocab=vocab).items()}
+    _, _, m = step_fn(state["params"], state["opt"], batch)
+    assert np.isfinite(float(m["loss"]))
+
+
+def test_tp_checkpoint_restores_into_fsdp_tp(world):
+    """The dense TP world's checkpoint ((f)'s: the model axis alone)
+    restored into FSDP x TP's blocks on the 4 ranks: each rank's block of
+    every whole leaf (co-split leaves among them), and one step from it
+    within LOSS_ATOL of the one-device step from the same checkpoint."""
+    step, state = CheckpointManager(world["dir"]).restore(device="cpu")
+    whole = D._flat(state)
+    res = [world[r]["restore_step:tp_into_fsdp"] for r in range(4)]
+    assert _co_split({k[len("params/"):]: v for k, v in
+                      res[0]["specs"].items() if k.startswith("params/")})
+    for r, out in enumerate(res):
+        assert out["step"] == step == 2
+        mesh = types.SimpleNamespace(shape=SHAPE, coords={
+            "data": r // 2, "model": r % 2})
+        for k, t in whole.items():
+            want = sharding.local_shard(t, out["specs"].get(k, ()), mesh)
+            np.testing.assert_array_equal(_bits(want).numpy(),
+                                          out["local"][k], err_msg=k)
+    assert len({o["metrics"]["loss"] for o in res}) == 1
+    step_fn, _ = step_lib.build_train_step(build_model(D._cfg(DENSE)),
+                                           **D.STEP_KW)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(4).items()}
+    _, _, m = step_fn(state["params"], state["opt"], batch)
+    assert abs(res[0]["metrics"]["loss"] - float(m["loss"])) <= LOSS_ATOL

@@ -286,16 +286,27 @@ def test_trainer_mesh_and_card_default(tmp_path):
     cfg = reduce_config(get_config("qwen2-1.5b"), layers=2, d_model=64,
                         vocab=128)
     loop = TrainLoopConfig(ckpt_dir=str(tmp_path / "ckpt"))
-    # data-parallel meshes train (tests/test_torch_dist_train.py), and
-    # model axes too for every family (tests/test_torch_tp_train.py), but
-    # not FSDP beside a model axis: it would split a dim over both
+    # data-parallel meshes train (tests/test_torch_dist_train.py), model
+    # axes too for every family (tests/test_torch_tp_train.py), and FSDP
+    # beside a model axis: the plan splits a dim over both, hymba's packed
+    # in_proj among them, and the Trainer's step reads it as the model
+    # axis's dim and the data axes' (no process group needed to plan)
+    from repro_torch.dist import sharding
+    from repro_torch.train import step as step_lib
     hybrid = reduce_config(get_config("hymba-1.5b"), layers=2, d_model=64,
                            vocab=128)
-    mesh = types.SimpleNamespace(shape={"data": 2, "model": 2}, rank=0,
-                                 device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError,
-                       match="split over the model axis alone"):
-        Trainer(hybrid, loop, mesh=mesh, fsdp=True)
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 2})
+    model = build_model(hybrid)
+    plan = step_lib.make_plan(hybrid, mesh, kind="train", fsdp=True)
+    specs = sharding.params_shardings(plan, model.param_axes,
+                                      model.abstract_params(),
+                                      model.param_parts)
+    in_proj = specs["layers"]["mamba"]["in_proj"]
+    assert tuple(in_proj) == (None, None, ("model", "data"))
+    assert sharding.spec_parts(in_proj) == 2
+    assert sharding.model_dims(plan, specs)["layers"]["mamba"][
+        "in_proj"] == sharding.data_dims(plan, specs)["layers"]["mamba"][
+        "in_proj"] == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):       # the card is the default
             Trainer(cfg, loop)
