@@ -16,10 +16,14 @@ build's and every phase's seconds):
      against torch.matmul (SM90_RTOL) and TMA boxes against slices;
   2b. GPP's band loop counted from the SASS: the built gpp.cu library
      disassembled (cuobjdump -sass) and the innermost reciprocal loop of
-     gpp_fused_kernel<2, EPT, true> counted by opcode class for every
+     gpp_fused_kernel<2, EPT, true> and of gpp_banded_kernel<2, EPT,
+     TRANSPOSED> in both aqsm layouts counted by opcode class for every
      compiled EPT (repro_torch.core.sass): instructions a term (with and
-     without the reciprocals' slow-path call stubs), the FMA ratio, and
-     the issue and MUFU bounds at Si-214; phase 6 sets the tuned config's
+     without the reciprocals' slow-path call stubs), the FMA ratio, the
+     bytes its LDS read a term, and the issue and MUFU bounds at Si-214,
+     and fails unless gpu_model.BAND_LOOP equals that census at every
+     compiled instance (the journey's modeled column reads the table);
+     phase 6 sets the tuned config's
      issue bound beside the kernel's time; and the selective scan's step
      loop: the built ssm_scan.cu library's ssm_scan_kernel<16, S, bf16>
      (hymba-1.5b's instances, S states a thread) counted per (t, c, n)
@@ -34,7 +38,18 @@ build's and every phase's seconds):
   4. the main path: repro_torch.dispatch("gpp", make_inputs(SI214)) — v10,
      tuned on the card (the candidates ranked and each timed config's ms
      are printed);
-  5. the journey: v0–v5 and v6–v10 at Si-214 through the registry;
+  5. the journey: v0–v5 and v6–v10 at Si-214 through the registry, each
+     measured beside its modeled Hopper roofline (journey._model_report:
+     v0–v5 from the census of the plain version, v6–v10 from phase 2b's
+     SASS table and the traffic model) and format_journey's Table I; every
+     version's modeled ms at most MODEL_OVER_MEASURED times its measured
+     ms (v6–v10's terms are bounds; v0–v5's memory term charges every
+     op's bytes to HBM, which the L2 can undercut); tuner.best_config(SI214),
+     read back from the on-disk tune cache with the in-process memo
+     cleared, equal to the config phase 4's dispatch resolved, and
+     measure.time_config of it
+     within the spread of its calls (or TIME_CONFIG_RTOL) of phase 4's
+     tuner time;
   6. the main path's result held against the plain version (f32) within
      TOL_PLAIN and against a float64 run of it (on the same float32 inputs)
      within TOL_F64; times (CUDA events, median after warm-up);
@@ -393,8 +408,10 @@ build's and every phase's seconds):
      moe_ffn_ep (the routes counted), step 0's loss within MOE_LOSS0_ATOL
      of its estimate, one moe_ffn_ep call held to moe_ffn_ep_emulated
      within MOE_OUT_ULPS; 18d allreduce_int8 on one qwen2 leaf's per-rank
-     grads, the card's result bit-equal to the same call on host copies,
-     and pipelined_apply over the ranks within PIPE_ATOL of the dense
+     grads after 18a's one step, the card's result bit-equal to the same
+     call on host copies, the quantizer taken apart op by op (max, scale,
+     quotient, round) under the parent's m / 127.0 and under the true
+     division, every op bit-equal under the second, and pipelined_apply over the ranks within PIPE_ATOL of the dense
      scan, its gradient (a rank's stage, the stream) within PIPE_ATOL of
      autograd through the dense loop. Printed: step ms, peak memory and
      the bytes a step hands gloo a rank (2 ranks sharing one card: not a
@@ -521,6 +538,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -537,6 +555,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL_PLAIN = {"bench": 1e-4, "si214": 5e-3}
 # planar f32 against complex128 at BENCH (tests/test_gpp_kernel.py:162)
 TOL_REF = 1e-4
+# phase 5: every journey version's modeled ms at most this times its
+# measured ms (v6–v10's terms are bounds: counted instructions and
+# compulsory bytes, so past 5% the count is at fault; v0–v5's memory term
+# charges every op's inputs and outputs to HBM, not a strict bound where
+# the 50 MB L2 serves an op's inputs, so past 5% there it overstates the
+# traffic); measure.time_config of the tuned config within the spread of its
+# calls of phase 4's tuner time, or within this share of it where the calls
+# spread less (the dispatch has read 53.097 and 53.512 ms in two phases of
+# one run on an H100: 0.8%)
+MODEL_OVER_MEASURED = 1.05
+TIME_CONFIG_RTOL = 0.03
 # the main path's totals against a float64 run of the plain version on the
 # same float32 inputs at Si-214 (the arithmetic's error alone)
 TOL_F64 = 1e-3
@@ -840,11 +869,13 @@ DP_RANKS = 2
 DP_WORLD_TIMEOUT_S = 900
 DP_COLLECTIVE_TIMEOUT_S = 600
 DP_QWEN_LAYERS = 4
-DP_TRAIN_STEPS = 2
-# 18c's steps (2 until cut to make room for phase 21; 18a/18b keep 2:
-# 18d's input is the grads of the batch after 18a's last step, and at
-# DP_TRAIN_STEPS 1 allreduce_int8 on the card and on host copies of those
-# grads were not bit-equal on an H100, an open finding)
+# 18a/18b's steps (18d's input is the grads of the batch after 18a's last
+# step; at one step allreduce_int8 on the card and on host copies of those
+# grads were not bit-equal on an H100 while the scale was m / 127.0, which
+# CUDA computes as m * fl(1/127), so 18a/18b ran 2 steps until the scale
+# became a true division; 18d takes that input apart op by op); 18c's (2
+# until cut to make room for phase 21)
+DP_TRAIN_STEPS = 1
 EP_TRAIN_STEPS = 1
 DP_GNORM_RTOL = 1e-2
 PIPE_SHAPE = (8, 8, 16, 1024)
@@ -1025,7 +1056,8 @@ def main() -> None:
 
     import repro_torch
     from repro_torch.core import hw
-    from repro_torch.core.journey import format_row, run_journey
+    from repro_torch.core.journey import (format_journey, format_row,
+                                          run_journey)
     from repro_torch.kernels import _build, api
     from repro_torch.kernels.flash import flash_cuda
     from repro_torch.kernels.flash import ref as flash_ref
@@ -1207,6 +1239,8 @@ def main() -> None:
     by_path["journey"] = read_counts()
     for r in rows:
         print(f"[5] {format_row(r)} [{card}]", flush=True)
+    print(f"[5] Table I [{card}]:\n{format_journey(rows, 'si214')}",
+          flush=True)
     print(f"[5] journey launches {by_path['journey']} [{card}]", flush=True)
     for path, names in (("dispatch", ("gpp_fused",)),
                         ("journey", ("gpp_fused", "gpp_banded"))):
@@ -1216,10 +1250,34 @@ def main() -> None:
     bad = [r.version for r in rows if not r.rel_err < 1e-4]
     if bad:
         fail(f"journey versions off the oracle at TINY: {bad}")
+    ratios = {r.version: round(r.modeled_ms / r.ms, 4) for r in rows}
+    line = (f"[5] modeled over measured ms, each at most "
+            f"{MODEL_OVER_MEASURED}: {ratios}; counts from "
+            f"{ {r.version: r.report.extra['source'] for r in rows[5:7]} }")
+    print(f"{line} [{card}]", flush=True)
+    if max(ratios.values()) > MODEL_OVER_MEASURED:
+        fail(line)
+    # the tuner's GPP shorthands against phase 4's pick and time: with the
+    # memo cleared, best_config reads the pick back from the tune cache
+    tuner.clear_memo()
+    best = tuner.best_config(size)
+    t = problem.to_tensors(inp, dev)
+    measure.time_config(t, best, device=dev, warmup=1, reps=1)
+    calls = [measure.time_config(t, best, device=dev, warmup=0, reps=1)
+             for _ in range(5)]
+    cfg_s = statistics.median(calls)
+    room = max(max(calls) - min(calls), TIME_CONFIG_RTOL * tc.measured_s)
+    line = (f"[5] tuner.best_config(si214) {best}; phase 4's dispatch "
+            f"resolved {tc.config}; measure.time_config of it "
+            f"{cfg_s * 1e3:.3f} ms (calls {[round(c * 1e3, 3) for c in calls]}) "
+            f"against phase 4's {tc.measured_s * 1e3:.3f} ms, within "
+            f"{room * 1e3:.3f} ms")
+    print(f"{line} [{card}]", flush=True)
+    if best != tc.config or abs(cfg_s - tc.measured_s) > room:
+        fail(line)
     lap("5")
 
     # -- 6. the main path's result against the plain version, times ----------
-    t = problem.to_tensors(inp, dev)
     tuned = api.resolve_config("gpp", t)
     t1 = time.perf_counter()
     want = gpp_cuda.gpp_fused_plain(t, tuned)
@@ -1257,7 +1315,7 @@ def main() -> None:
     bytes_ms = size.min_hbm_bytes() / spec.hbm_bw * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-    term = census[tuned.ept_instance()]
+    term = census[(True, True, tuned.ept_instance())]
     print(f"[6] dispatch('gpp') si214: {disp_ms:.3f} ms "
           f"{size.total_flops() / disp_ms / 1e9:.3f} TFLOP/s "
           f"({size.total_flops() / disp_ms / 1e9 / spec.fp32_flops * 1e12:.1%} "
@@ -1467,7 +1525,10 @@ def main() -> None:
          "launches_by_path": launches["gpp_banded"],
          "max_abs_err": banded["max_abs_err"], "ms": banded["ms"],
          "plain_ms": banded["plain_ms"], "bound_ms": bound_ms,
-         "bound_by": bound_by, "library_ms": None},
+         "bound_by": bound_by, "library_ms": None,
+         "sass_census": {k: census[(False, True, 1)][k] for k in (
+             "instructions_per_term", "fast_path_per_term", "fma_ratio",
+             "lds_bytes_per_term", "issue_bound_ms")}},
         {"name": "flash_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash.cu",
          "replaces": "src/repro/kernels/flash/flash.py:37",
@@ -1778,35 +1839,61 @@ def check_flags_inside(tag, seen, card):
 
 def gpp_census(lib_path, spec, card) -> dict:
     """Phase 2b: gpp.cu's built library disassembled (cuobjdump -sass); the
-    band loop of gpp_fused_kernel<2, EPT, true> counted by opcode class
-    for every compiled EPT (repro_torch.core.sass): instructions a term,
-    the FMA ratio, and the issue and MUFU bounds at Si-214. Returns
-    {ept: census}."""
-    from repro_torch.core import sass
+    band loop of gpp_fused_kernel<2, EPT, true> and of gpp_banded_kernel<2,
+    EPT, TRANSPOSED> in both aqsm layouts (v6's strided, v7/v8's swapped)
+    counted by opcode class for every compiled EPT (repro_torch.core.sass):
+    instructions a term, the FMA ratio, the bytes its LDS read a term, and
+    the issue and MUFU bounds at Si-214; then the fast-path counts of the
+    journey's instances beside gpu_model's table. Returns {(fused,
+    transposed, ept): census}."""
+    from repro_torch.core import gpu_model, sass
     from repro_torch.kernels.gpp import gpp_cuda, problem
     text, tool = sass.disassemble(str(lib_path))
     terms = problem.SI214.inner_iters
     out = {}
-    for ept in gpp_cuda.EPT_INSTANCES:
-        c = sass.term_census(text, rf"gpp_fused_kernelILi2ELi{ept}ELb1E",
-                             gpp_cuda.RECIPROCALS_PER_TERM)
-        c["issue_bound_ms"] = sass.issue_bound_s(
-            terms, c["instructions_per_term"], spec) * 1e3
-        c["fast_path_issue_bound_ms"] = sass.issue_bound_s(
-            terms, c["fast_path_per_term"], spec) * 1e3
-        c["mufu_bound_ms"] = sass.mufu_bound_s(
-            terms, c["mufu_per_term"], spec) * 1e3
-        out[ept] = c
-        per = {k: round(v, 2) for k, v in c["per_term"].items()}
-        print(f"[2b] gpp_fused EPT {ept} band loop ({tool}): "
-              f"{c['loop_instructions']} instructions for "
-              f"{c['terms_per_iteration']} terms = "
-              f"{c['instructions_per_term']:.2f} a term {json.dumps(per)}, "
-              f"{c['fast_path_per_term']:.2f} without the reciprocals' "
-              f"slow-path call stubs; FMA ratio {c['fma_ratio']:.3f}; Si-214 "
-              f"issue bound {c['issue_bound_ms']:.3f} ms "
-              f"({c['fast_path_issue_bound_ms']:.3f} ms on the fast path), "
-              f"MUFU bound {c['mufu_bound_ms']:.3f} ms [{card}]", flush=True)
+    for name, fused, transposed in (("gpp_fused", True, True),
+                                    ("gpp_banded", False, False),
+                                    ("gpp_banded", False, True)):
+        for ept in gpp_cuda.EPT_INSTANCES:
+            c = sass.term_census(
+                text, rf"{name}_kernelILi2ELi{ept}ELb{int(transposed)}E",
+                gpp_cuda.RECIPROCALS_PER_TERM)
+            c["issue_bound_ms"] = sass.issue_bound_s(
+                terms, c["instructions_per_term"], spec) * 1e3
+            c["fast_path_issue_bound_ms"] = sass.issue_bound_s(
+                terms, c["fast_path_per_term"], spec) * 1e3
+            c["mufu_bound_ms"] = sass.mufu_bound_s(
+                terms, c["mufu_per_term"], spec) * 1e3
+            out[(fused, transposed, ept)] = c
+            per = {k: round(v, 2) for k, v in c["per_term"].items()}
+            layout = "(band, igp)" if transposed else "(igp, band)"
+            print(f"[2b] {name} aqsm {layout} EPT {ept} band loop ({tool}): "
+                  f"{c['loop_instructions']} instructions for "
+                  f"{c['terms_per_iteration']} terms = "
+                  f"{c['instructions_per_term']:.2f} a term "
+                  f"{json.dumps(per)}, {c['fast_path_per_term']:.2f} without "
+                  f"the reciprocals' slow-path call stubs; FMA ratio "
+                  f"{c['fma_ratio']:.3f}; LDS {c['lds_bytes_per_term']:.2f} B "
+                  f"a term; Si-214 issue bound {c['issue_bound_ms']:.3f} ms "
+                  f"({c['fast_path_issue_bound_ms']:.3f} ms on the fast "
+                  f"path), MUFU bound {c['mufu_bound_ms']:.3f} ms [{card}]",
+                  flush=True)
+    journey = {v: (c.fused_acc, c.aqsm_transposed, c.ept_instance())
+               for v, c in gpp_cuda.CONFIGS.items()}
+    table = {v: gpu_model.BAND_LOOP[k] for v, k in journey.items()}
+    same = all(gpu_model.BAND_LOOP[k] == (c["fast_path_per_term"],
+                                          c["lds_bytes_per_term"])
+               for k, c in out.items())
+    counted = {v: (out[k]["fast_path_per_term"], out[k]["lds_bytes_per_term"])
+               for v, k in journey.items()}
+    line = (f"[2b] the journey's instances (fused, transposed, EPT) "
+            f"{journey}: fast-path instructions and LDS bytes a term "
+            f"{counted}; gpu_model.BAND_LOOP {table}; the table equals this "
+            f"census at every compiled instance: {same}")
+    print(f"{line} [{card}]", flush=True)
+    if not same:
+        fail(f"{line}: gpu_model.BAND_LOOP is stale against the built "
+             f"gpp.cu; re-record it from the counts above")
     return out
 
 
@@ -6281,7 +6368,9 @@ def dp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
             f"the card against the same call on the ranks' CPU copies: "
             f"bit-equal {[o['int8_bit_equal'] for o in ops]}, its distance "
             f"from the exact f32 mean {[o['int8_err'] for o in ops]} (scale "
-            f"{ops[0]['int8_scale']:.3e}); pipelined_apply over the "
+            f"{ops[0]['int8_scale']:.3e}); values apart card vs host, op by "
+            f"op, under the parent's m / 127.0 and the true division: "
+            f"{[o['int8_ops_apart'] for o in ops]}; pipelined_apply over the "
             f"{DP_RANKS} ranks ({ops[0]['pipe_shape']}) against the dense "
             f"scan: max |diff| {[o['pipe_err'] for o in ops]} (tol "
             f"{PIPE_ATOL}), the ranks' outputs equal "
@@ -6291,6 +6380,8 @@ def dp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
             f"{[o['pipe_grad_err'] for o in ops]} (tol {PIPE_ATOL}) [{card}]")
     print(line, flush=True)
     if (not all(o["int8_bit_equal"] for o in ops)
+            or any(any(o["int8_ops_apart"]["true_division"].values())
+                   for o in ops)
             or max(o["pipe_err"] for o in ops) > PIPE_ATOL
             or max(o["pipe_grad_err"] for o in ops) > PIPE_ATOL
             or any(o["pipe_digest"] != ops[0]["pipe_digest"] for o in ops)):
@@ -6690,12 +6781,30 @@ def dp_ops_rank(torch, mesh, ops):
     from repro_torch.dist.collectives import AxesGroup
     from repro_torch.dist.pipeline import pipelined_apply
     from repro_torch.dist.sharding import local_shard
+    from repro_torch.optim import compress
     from repro_torch.optim.compress import allreduce_int8, init_residual
     group = AxesGroup(mesh, ("data",))
     g = {"w": ops.pop("int8_grad")}
     o_dev, r_dev = allreduce_int8(g, init_residual(g), group)
     h = {"w": g["w"].cpu()}
     o_cpu, r_cpu = allreduce_int8(h, init_residual(h), group)
+    # the quantizer op by op on the card and on the host (the residual is
+    # 0): how many values differ at the max, at the scale divided the
+    # parent's way (m / 127.0: a multiply by fl(1/127) on the card) and the
+    # port's (compress._div), at the quotient and at its rounding
+    apart = {}
+    for how, div in (("python_divisor", lambda m: m / 127.0),
+                     ("true_division", lambda m: compress._div(m, 127.0))):
+        sides = []
+        for x in (g["w"], h["w"]):
+            m = group.all_reduce(torch.clamp_min(x.abs().max(), 1e-12),
+                                 op="max")
+            scale = div(m)
+            quot = x / scale
+            sides.append({"max": m, "scale": scale, "quotient": quot,
+                          "round": torch.round(quot)})
+        apart[how] = {op: int((sides[0][op].cpu() != sides[1][op]).sum())
+                      for op in ("max", "scale", "quotient", "round")}
     exact = group.all_reduce(g["w"]) / group.size
     scale = float(group.all_reduce(g["w"].abs().max(), op="max")) / 127.0
     same = (torch.equal(o_dev["w"].cpu(), o_cpu["w"])
@@ -6720,6 +6829,7 @@ def dp_ops_rank(torch, mesh, ops):
     got = got.detach()
     return {"int8_leaf": ops["int8_leaf"], "int8_numel": g["w"].numel(),
             "int8_bit_equal": same, "int8_scale": scale,
+            "int8_ops_apart": apart,
             "int8_err": float((o_dev["w"] - exact).abs().max()),
             "pipe_shape": f"L={L}, M={M}, B={B}, D={D}, f32",
             "pipe_err": float((got - dense.detach()).abs().max()),

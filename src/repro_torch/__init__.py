@@ -11,8 +11,9 @@ JAX package `repro`, which stays the reference.
         The Kernel descriptor registry.
     tune_kernel(kernel, key, device=)
         Model-then-measure tuner; winners persist to kernel_tune_torch.json.
-    run_journey(size, device=)
-        The paper's Table I, v0-v10, measured on the card.
+    run_journey(size, device=, measure=)
+        The paper's Table I, v0-v10, measured on the card beside each
+        version's modeled Hopper roofline (measure=False: modeled only).
     get_config(arch) / build_model(cfg)
         Model configs (a copy of the JAX package's) and the models of
         every family: dense, moe, ssm (rwkv6), hybrid (hymba), encdec

@@ -15,6 +15,13 @@ counts each aten op it dispatches:
     movement (views, copies, casts, indexing) is free;
   * `fma_fraction` — `2·min(mul, add/sub) / flops`, the paper's FMA lens;
   * `hbm_bytes` — compulsory bytes: the inputs plus the outputs;
+  * `op_bytes` / `launches` — every aten op dispatched that is not a view
+    (nor a `prim` metadata query) is a kernel eager PyTorch launches, and
+    each reads its inputs from HBM and writes its outputs there:
+    `launches` counts those ops, `op_bytes` sums their inputs' and
+    outputs' bytes (an in-place op's tensor once read, once written).
+    Where the plain version is the program (gpp v0–v5), `op_bytes` is
+    the traffic it moves, `hbm_bytes` the least any program could;
   * `bound_s` — `max(flops / customized_ceiling, hbm_bytes / hbm_bw)` on
     the spec given (core.roofline), which MODEL001 holds `model_step_s`
     against;
@@ -137,6 +144,8 @@ class _Counter(TorchDispatchMode):
         self.flops = self.dot_flops = self.tc_flops = 0.0
         self.mul_flops = self.addsub_flops = 0.0
         self.float_dtypes = set()
+        self.launches = 0
+        self.op_bytes = 0.0
         self.duplicate_eqns = 0
         self.duplicate_flops = 0.0
         self._seen = set()
@@ -147,6 +156,9 @@ class _Counter(TorchDispatchMode):
         out = func(*args, **kwargs)
         ins = _tensors(args) + _tensors(kwargs.values())
         outs = _tensors((out,))
+        if not func.is_view and func.namespace == "aten":
+            self.launches += 1
+            self.op_bytes += float(sum(_nbytes(t) for t in ins + outs))
         floats = [t for t in ins + outs if _float(t.dtype)]
         for t in floats:
             self.float_dtypes.add(str(t.dtype).replace("torch.", ""))
@@ -206,6 +218,8 @@ class KernelCensus:
     fma_flops: float
     fma_fraction: float
     hbm_bytes: float                    # compulsory: inputs + outputs
+    op_bytes: float                     # every launched op's ins + outs
+    launches: int                       # aten ops dispatched, not views
     smem_launch_bytes: Optional[int]    # the library's count (card only)
     smem_config_bytes: Optional[int]    # the descriptor's model
     arithmetic_intensity: float         # flops / hbm_bytes
@@ -308,6 +322,8 @@ def census_kernel(kernel, version: str, key, *, config: Any = None,
         fma_fraction=(counter.fma_flops / counter.flops
                       if counter.flops > 0 else 0.0),
         hbm_bytes=hbm,
+        op_bytes=counter.op_bytes,
+        launches=counter.launches,
         smem_launch_bytes=smem_lib,
         smem_config_bytes=smem_cfg,
         arithmetic_intensity=counter.flops / hbm if hbm > 0 else 0.0,

@@ -7,9 +7,9 @@ GPP (`step_s`):
     step_s = max(issue_s x wave_quantisation, bytes / HBM bandwidth)
 
   issue_s     the terms' instructions over the card's issue rate (SMs x
-              4 schedulers x 32 lanes x clock): INSTR_PER_TERM, the
-              count of csrc/gpp.cu's band loop in its SASS
-              (core/sass.py; chip_smoke.py phase 2b prints it).
+              4 schedulers x 32 lanes x clock): the count of
+              csrc/gpp.cu's band loop in its SASS (core/sass.py;
+              chip_smoke.py phase 2b prints it), `instr_per_term`.
   wave_quantisation
               blocks ÷ (SMs x resident blocks), rounded up to whole waves,
               over the same ratio unrounded: a last partial wave leaves
@@ -31,6 +31,7 @@ their docstrings say what they count.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 from repro_torch.core.hw import DEFAULT_SPEC, GpuSpec
 from repro_torch.kernels.flash import flash_cuda
@@ -47,10 +48,40 @@ from repro_torch.kernels.ssm import ssm_cuda
 # measurement
 FLASH_LONE_WG_SHARE = 0.5
 # instructions one (ig, igp, band, iw) term issues: the SASS census of
-# gpp_fused's band loop at one element a thread (nvcc 12.8, sm_90a; PERF.md,
-# PR 16), every class counted (FP32, MUFU, selects, LDS, integer, control),
-# on the fast path (the IEEE reciprocals' slow-path call stubs skipped)
+# gpp_fused's band loop at one element a thread (nvcc 12.8, sm_90a; PERF.md
+# §6), every class counted (FP32, MUFU, selects, LDS, integer, control),
+# on the fast path (the IEEE reciprocals' slow-path call stubs skipped).
+# The tuner ranks gpp_fused's configs at this count for every EPT.
 INSTR_PER_TERM = 89.5
+
+
+class BandLoop(NamedTuple):
+    instr: float        # fast-path instructions a term
+    lds_bytes: float    # bytes its shared-memory loads read a term
+
+
+# the census of every compiled band loop (chip_smoke.py phase 2b: the
+# loop of gpp_fused_kernel<2, EPT, true> and of gpp_banded_kernel<2, EPT,
+# TRANSPOSED> in v6's strided and v7/v8's swapped aqsm layout; nvcc 12.9,
+# sm_90a, on an NVIDIA H100 80GB HBM3; PERF.md §6), keyed (fused, aqsm
+# transposed, elements a thread). A thread's EPT elements share one
+# (band, iw)'s wx and their an/am loads, so LDS bytes fall with EPT
+BAND_LOOP = {
+    (True, True, 1): BandLoop(INSTR_PER_TERM, 12.0),
+    (True, True, 2): BandLoop(88.0, 10.0),
+    (True, True, 4): BandLoop(91.25, 9.0),
+    (True, True, 8): BandLoop(92.625, 8.5),
+    (False, False, 1): BandLoop(89.0, 12.0),
+    (False, False, 2): BandLoop(88.0, 10.0),
+    (False, False, 4): BandLoop(91.125, 9.0),
+    (False, False, 8): BandLoop(92.875, 8.5),
+    (False, True, 1): BandLoop(89.0, 12.0),
+    (False, True, 2): BandLoop(88.0, 10.0),
+    (False, True, 4): BandLoop(91.125, 9.0),
+    (False, True, 8): BandLoop(92.625, 8.5),
+}
+# every one of them: FFMA 24 of its 52 FP32 arithmetic instructions a term
+SASS_FMA_RATIO = 24 / 52
 REG_ALLOC_UNIT = 8                     # registers are allocated in 8s
 
 
@@ -64,6 +95,14 @@ def resident_blocks(cfg: BlockConfig, spec: GpuSpec = DEFAULT_SPEC,
     return max(0, min(by_threads, by_regs, by_smem, spec.max_blocks_per_sm))
 
 
+def waves(size: GppSize, cfg: BlockConfig, spec: GpuSpec = DEFAULT_SPEC
+          ) -> int:
+    """Whole waves of `cfg`'s blocks over the card's resident slots (0 =
+    a block does not fit)."""
+    slots = spec.sms * resident_blocks(cfg, spec, size.nw)
+    return math.ceil(gpp_cuda.grid_blocks(size, cfg) / slots) if slots else 0
+
+
 def wave_quantisation(size: GppSize, cfg: BlockConfig,
                       spec: GpuSpec = DEFAULT_SPEC) -> float:
     blocks = gpp_cuda.grid_blocks(size, cfg)
@@ -73,10 +112,30 @@ def wave_quantisation(size: GppSize, cfg: BlockConfig,
     return math.ceil(blocks / slots) * slots / blocks
 
 
+def band_loop(cfg: BlockConfig) -> BandLoop:
+    """The SASS census of the band loop `cfg` runs (BAND_LOOP)."""
+    return BAND_LOOP[(cfg.fused_acc, cfg.aqsm_transposed, cfg.ept_instance())]
+
+
+def instr_per_term(cfg: BlockConfig) -> float:
+    """Instructions a term `step_terms` charges `cfg` for ranking:
+    gpp_banded's own loop's count; gpp_fused's INSTR_PER_TERM at every
+    EPT, the count its configs have always been ranked at (the journey's
+    report charges each config its own loop's count, `band_loop`)."""
+    return INSTR_PER_TERM if cfg.fused_acc else band_loop(cfg).instr
+
+
+def issue_s(size: GppSize, cfg: BlockConfig, instr: float,
+            spec: GpuSpec = DEFAULT_SPEC) -> float:
+    """Seconds `size`'s terms take to issue at `instr` instructions a term
+    over the card's issue rate, times `cfg`'s wave quantisation."""
+    return (size.inner_iters * instr / spec.fp32_lane_ops_per_s
+            * wave_quantisation(size, cfg, spec))
+
+
 def step_terms(size: GppSize, cfg: BlockConfig, spec: GpuSpec = DEFAULT_SPEC):
     """(compute_s incl. wave quantisation, memory_s)."""
-    compute = (size.inner_iters * INSTR_PER_TERM / spec.fp32_lane_ops_per_s
-               * wave_quantisation(size, cfg, spec))
+    compute = issue_s(size, cfg, instr_per_term(cfg), spec)
     memory = gpp_cuda.hbm_traffic_model(size, cfg) / spec.hbm_bw
     return compute, memory
 

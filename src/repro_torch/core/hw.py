@@ -7,7 +7,10 @@ disagree: the H100 SXM5 data sheet gives 67 TFLOP/s FP32, 3.35 TB/s and
 TFLOP/s FP32, 2.0 TB/s and 756 TFLOP/s dense bf16 (350 W; the H100 data
 sheet lists 1,513 TFLOP/s bf16 with sparsity, which is twice the dense
 rate). The FP32 rate is
-SMs x 128 FP32 lanes x 2 (FMA) x boost clock. `spec_for_name` picks the
+SMs x 128 FP32 lanes x 2 (FMA) x boost clock. NVLink, the collective
+term's rate: 900 GB/s on the SXM5 part, 600 GB/s on the PCIe card
+through its NVLink bridge (the data sheets' figures: every link, both
+directions summed). `spec_for_name` picks the
 spec from `torch.cuda.get_device_name()`. The rates assume the card's full
 power limit; a card set below it runs slower under load, so every
 measurement is reported beside the card's name and power limit.
@@ -29,6 +32,7 @@ class GpuSpec:
     fp32_flops: float            # FMA counted as 2 FLOP
     hbm_bw: float                # bytes/s
     bf16_tc_flops: float         # dense bf16 tensor-core peak (no sparsity)
+    link_bw: float               # NVLink, bytes/s (the data sheet's total)
     smem_per_block: int = 232_448    # opt-in dynamic shared memory a block can use
     smem_per_sm: int = 233_472       # 228 KiB of the SM's 256 KiB (rest is L1)
     regs_per_sm: int = 65_536
@@ -44,16 +48,29 @@ class GpuSpec:
         not all FMA."""
         return self.sms * self.fp32_lanes_per_sm * self.boost_hz
 
+    @property
+    def machine_balance(self) -> float:
+        """FLOP/byte at which HBM bandwidth and the bf16 tensor-core peak
+        intersect: 989e12 / 3.35e12 ~= 295 on the SXM5 part (the paper
+        quotes 7.4 FLOP/B for the V100 in FP64)."""
+        return self.bf16_tc_flops / self.hbm_bw
+
+    @property
+    def fp32_machine_balance(self) -> float:
+        """The same ridge for FP32 work outside the tensor cores (GPP's):
+        67e12 / 3.35e12 = 20 FLOP/B on the SXM5 part."""
+        return self.fp32_flops / self.hbm_bw
+
 
 H100_SXM5 = GpuSpec(
     name="h100-sxm5", part="NVIDIA H100 SXM5 80GB (700 W)",
     sms=132, boost_hz=1.98e9, fp32_flops=67e12, hbm_bw=3.35e12,
-    bf16_tc_flops=989e12)
+    bf16_tc_flops=989e12, link_bw=900e9)
 
 H100_PCIE = GpuSpec(
     name="h100-pcie", part="NVIDIA H100 PCIe 80GB (350 W)",
     sms=114, boost_hz=1.755e9, fp32_flops=51e12, hbm_bw=2.0e12,
-    bf16_tc_flops=756e12)
+    bf16_tc_flops=756e12, link_bw=600e9)
 
 SPECS = {s.name: s for s in (H100_SXM5, H100_PCIE)}
 

@@ -21,6 +21,11 @@ BRA back over the fast path), which the fast path branches around; the
 census also gives the count without those stubs (`fast_path_per_term`),
 what a term issues when no operand needs the slow path.
 
+The census also sums the bytes the loop's shared-memory loads read, each
+LDS by the width its opcode names (LDS.64: 8 bytes, LDS.128: 16, LDS.U8
+and LDS.S8: 1, LDS.U16 and LDS.S16: 2, a plain LDS: 4) — the
+shared-memory level of the paper's hierarchical roofline.
+
 Classes: FFMA, FMUL, FADD, MUFU, SELECT (FSETP, FSEL, SEL, FMNMX, ISETP,
 PLOP3, P2R/R2P), LDS, INT (IMAD, IADD3, LEA, LOP3, SHF, MOV, ...) and
 CONTROL (BRA, BSSY, BSYNC, CALL, NOP, ...). The FMA ratio is the paper's:
@@ -157,6 +162,16 @@ def count_classes(body: List[Tuple[int, str]]) -> Dict[str, int]:
     return {c: counts.get(c, 0) for c in CLASSES}
 
 
+def lds_width(op: str) -> int:
+    """Bytes one thread's LDS of opcode `op` reads ('LDS.U.64': 8)."""
+    widths = {"128": 16, "64": 8, "32": 4, "U16": 2, "S16": 2, "U8": 1,
+              "S8": 1}
+    for mod in op.split(".")[1:]:
+        if mod in widths:
+            return widths[mod]
+    return 4
+
+
 def slow_path_stubs(body: List[Tuple[int, str]]) -> int:
     """Instructions of the slow-path call stubs in `body`: each CALL with
     the MOV before it and the BRA after it."""
@@ -178,7 +193,7 @@ def loop_census(text: str, kernel: str, marker: str,
     `marker_per_element` of them: elements an iteration, total and
     per-class instructions an element, the shuffles (SHFL, classed OTHER)
     and MUFU an element, the FMA ratio and the raw counts. Also returns
-    the loop body (`body`)."""
+    the loop body (`body`) and the bytes its LDS read an element."""
     funcs = {n: ins for n, ins in functions(text).items()
              if re.search(kernel, n)}
     if len(funcs) != 1:
@@ -193,6 +208,8 @@ def loop_census(text: str, kernel: str, marker: str,
                          f"{marker_per_element} an element")
     elements = marks // marker_per_element
     shfl = sum(opcode(ins).split(".")[0] == "SHFL" for _, ins in body)
+    lds_bytes = sum(lds_width(opcode(ins)) for _, ins in body
+                    if op_class(opcode(ins)) == "LDS")
     fp32 = counts["FFMA"] + counts["FMUL"] + counts["FADD"]
     return {"kernel": name, "loop_instructions": len(body),
             "elements_per_iteration": elements,
@@ -200,6 +217,7 @@ def loop_census(text: str, kernel: str, marker: str,
             "per_element": {c: n / elements for c, n in counts.items()},
             "shfl_per_element": shfl / elements,
             "mufu_per_element": counts["MUFU"] / elements,
+            "lds_bytes_per_element": lds_bytes / elements,
             "fma_ratio": counts["FFMA"] / fp32 if fp32 else 0.0,
             "counts": counts, "shfl": shfl, "body": body}
 
@@ -208,7 +226,8 @@ def term_census(text: str, kernel: str, rcp_per_term: int) -> Dict:
     """The census of the innermost reciprocal loop of the one kernel whose
     mangled name matches the regex `kernel`: total and per-class
     instructions a term, the same without the slow-path call stubs, MUFU
-    a term, the FMA ratio and the raw counts."""
+    a term, the bytes its shared-memory loads read a term, the FMA ratio
+    and the raw counts."""
     c = loop_census(text, kernel, "MUFU.RCP", rcp_per_term)
     terms = c["elements_per_iteration"]
     body = c["body"]
@@ -218,6 +237,7 @@ def term_census(text: str, kernel: str, rcp_per_term: int) -> Dict:
             "fast_path_per_term": (len(body) - slow_path_stubs(body)) / terms,
             "per_term": c["per_element"],
             "mufu_per_term": c["mufu_per_element"],
+            "lds_bytes_per_term": c["lds_bytes_per_element"],
             "fma_ratio": c["fma_ratio"], "counts": c["counts"]}
 
 

@@ -12,6 +12,13 @@ before quantizing, so every payload dequantizes against the same
 quantum), sum the int8 payloads as int32, and divide the dequantized sum
 by the group size. As in the JAX package, the train step has no int8
 mode; these are the building blocks.
+
+Every division by a constant (the scale's 127, the group size) divides
+by a 0-d tensor on the operand's device (`_div`): on a CUDA tensor a
+Python-number divisor becomes a multiply by its rounded reciprocal,
+x * fl(1/127), which is not x / 127 for ~5% of f32 x, so the card's
+scale sat one ulp from the CPU's and JAX's, and every quotient near a
+half rounded to another int8.
 """
 
 from __future__ import annotations
@@ -23,6 +30,13 @@ import torch
 from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
 
 Tree = dict
+
+
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d correctly rounded in x's dtype on either device: d as a 0-d
+    tensor on x's device (the true-divide kernel on both), never a
+    Python number (which CUDA's kernel turns into x * fl(1/d))."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def _quantize(gf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -37,7 +51,7 @@ def ef_int8_compress(grads: Tree, residual: Tree
     tree, scales tree (0-d f32), new residual tree)."""
     def leaf(g, r):
         gf = g.float() + r
-        scale = torch.clamp_min(torch.max(torch.abs(gf)), 1e-12) / 127.0
+        scale = _div(torch.clamp_min(torch.max(torch.abs(gf)), 1e-12), 127.0)
         q = _quantize(gf, scale)
         return q, scale, gf - q.float() * scale
 
@@ -68,12 +82,12 @@ def allreduce_int8(grads: Tree, residual: Tree, group) -> Tuple[Tree, Tree]:
 
     def leaf(g, r):
         gf = g.float() + r
-        scale = group.all_reduce(torch.clamp_min(torch.max(torch.abs(gf)),
-                                                 1e-12), op="max") / 127.0
+        scale = _div(group.all_reduce(torch.clamp_min(
+            torch.max(torch.abs(gf)), 1e-12), op="max"), 127.0)
         q = _quantize(gf, scale)
         new_r = gf - q.float() * scale
         summed = group.all_reduce(q.to(torch.int32))
-        return summed.float() * scale / n, new_r
+        return _div(summed.float() * scale, n), new_r
 
     out = [leaf(g, r) for g, r in zip(tree_leaves(grads),
                                       tree_leaves(residual))]

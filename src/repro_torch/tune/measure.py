@@ -5,13 +5,14 @@ Warm-up calls first, then `reps` timed calls, median reported. On the
 card each call is fenced by a pair of CUDA events on the current stream
 and one `torch.cuda.synchronize()` at the end (the events time the device,
 not the enqueue); on the CPU each call is timed with `perf_counter`.
+`time_config` is the GPP entry: `gpp_cuda` under one BlockConfig.
 """
 
 from __future__ import annotations
 
 import statistics
 import time
-from typing import Callable
+from typing import Callable, Dict
 
 import torch
 
@@ -43,3 +44,16 @@ def time_callable(fn: Callable[[], object], *, device="cpu", warmup: int = 1,
             fn()
             times.append(time.perf_counter() - t0)
     return statistics.median(times)
+
+
+def time_config(inputs: Dict, cfg, *, device, warmup: int = 1,
+                reps: int = 3) -> float:
+    """Median seconds per call of `gpp_cuda` under the BlockConfig `cfg`
+    on `inputs` (planar numpy arrays or tensors, moved to `device` once,
+    outside the timed calls): the kernel on the card, its plain version on
+    the CPU. `device` has no default: the caller says where the work runs.
+    warmup=0 makes no warm-up call; a negative one is clamped."""
+    from repro_torch.kernels.gpp import gpp_cuda, problem
+    t = problem.to_tensors(inputs, device)
+    return time_callable(lambda: gpp_cuda.gpp_cuda(t, cfg), device=device,
+                         warmup=warmup, reps=reps)

@@ -15,6 +15,10 @@ of `repro.tune.tuner`.
      the port's own: the JAX package's kernel_tune.json is neither read
      nor written. Cache dir: $REPRO_TUNE_CACHE, else ./runs/tune.
 
+`cache_key`, `rank`, `tune` and `best_config` are the GPP shorthands
+over the generic flow (a size, `DEFAULT_VERSION` v10), as in the JAX
+package; a device tag takes the place of its backend name.
+
 An in-process memo sits in front of the JSON file; `clear_memo()` resets it.
 """
 
@@ -31,6 +35,7 @@ from repro_torch.tune import measure
 
 CACHE_ENV = "REPRO_TUNE_CACHE"
 CACHE_FILE = "kernel_tune_torch.json"
+DEFAULT_VERSION = "v10"
 
 _MEMO: Dict[Tuple[str, str], "TunedConfig"] = {}
 
@@ -68,6 +73,12 @@ class TunedConfig:
 def cache_key_for(kernel: str, key, tag: str, version: str) -> str:
     """The cache key: (kernel, ProblemKey dims, device tag, version)."""
     return f"{kernel}|{key.key_dims()}|{tag}|{version}"
+
+
+def cache_key(size, tag: str, version: str) -> str:
+    """The GPP form of cache_key_for: `size` a GppSize, `tag` a device tag
+    (backend.device_tag)."""
+    return cache_key_for("gpp", size, tag, version)
 
 
 def _cache_path(cache_dir: Optional[str]) -> str:
@@ -108,6 +119,21 @@ def rank_kernel(kernel: str, key, *, version: Optional[str] = None,
               for cfg in k.config_space(key, version)]
     scored.sort(key=lambda ct: (ct[1],) + tuple(k.tie_break(ct[0])))
     return scored
+
+
+def rank(size, *, version: str = DEFAULT_VERSION, device="cpu"
+         ) -> List[Tuple[Any, float]]:
+    """The GPP form of rank_kernel: feasible BlockConfigs for `size`
+    sorted by gpu_model.step_s on `device`'s card (the default spec on the
+    CPU).
+
+    Example::
+
+        from repro_torch.kernels.gpp import problem
+        from repro_torch.tune import tuner
+        cfg, modeled_s = tuner.rank(problem.SI214)[0]
+    """
+    return rank_kernel("gpp", size, version=version, device=device)
 
 
 def tune_kernel(kernel: str, key, *, version: Optional[str] = None,
@@ -188,3 +214,21 @@ def tune_kernel(kernel: str, key, *, version: Optional[str] = None,
     disk[ckey] = tc.to_json()
     _store_cache(cache_dir, disk)
     return tc
+
+
+def tune(size, *, version: str = DEFAULT_VERSION, **kwargs) -> TunedConfig:
+    """The GPP form of tune_kernel (the same keywords)."""
+    return tune_kernel("gpp", size, version=version, **kwargs)
+
+
+def best_config(size, **kwargs):
+    """The tuned BlockConfig for `size` (`tune`'s config): on the card the
+    measured pick, on the CPU the model's.
+
+    Example::
+
+        from repro_torch.kernels.gpp import problem
+        from repro_torch.tune import tuner
+        tuner.best_config(problem.BENCH, device="cpu").blk_band
+    """
+    return tune(size, **kwargs).config

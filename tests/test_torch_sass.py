@@ -105,10 +105,18 @@ def test_term_census_and_fma_ratio():
                            "OTHER": 0}
     assert c["fma_ratio"] == 4 / 7
     assert c["mufu_per_term"] == 1.0
+    assert c["lds_bytes_per_term"] == 8 / 2       # one LDS.64, two terms
     with pytest.raises(ValueError):          # 2 reciprocals, 3 a term
         sass.term_census(FIXTURE, r"gpp_fused_kernel", rcp_per_term=3)
     with pytest.raises(ValueError):          # two kernels match
         sass.term_census(FIXTURE, r"gpp_", rcp_per_term=1)
+
+
+@pytest.mark.parametrize("op,width", [
+    ("LDS", 4), ("LDS.64", 8), ("LDS.128", 16), ("LDS.U.128", 16),
+    ("LDS.U8", 1), ("LDS.S16", 2), ("LDS.32", 4)])
+def test_lds_width_from_the_opcode(op, width):
+    assert sass.lds_width(op) == width
 
 
 def test_slow_path_call_stubs_are_counted_apart():
