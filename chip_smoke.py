@@ -432,9 +432,10 @@ build's and every phase's seconds):
      (16c's; Adafactor; a rank's attention at H 24, KvH 4). Before the
      world starts, params plus optimizer state a rank, flash launches and
      model-axis collectives (calls and bytes) a step a rank are predicted
-     from the specs and shapes (tp_collectives); each must come true on
-     every rank. Every step's loss within LOSS0_SUM_ATOL of the one-device
-     run of the same model and batches (18a's reference, 14c's run, 19c's
+     from the specs and shapes (launch/predict.py's tp_collectives); each
+     must come true on every rank. Every step's loss within
+     LOSS0_SUM_ATOL of the one-device run of the same model and batches
+     (18a's reference, 14c's run, 19c's
      own, 15c's and 16c's runs), step 0's grad norm within DP_GNORM_RTOL,
      the replicated leaves' fingerprints equal on the ranks after every
      step; 19a's and 19f's one more step holds every flash launch of a
@@ -468,8 +469,9 @@ build's and every phase's seconds):
      'data') on one dim), the same model on the same batches first run
      on one device here. Before the world starts, params plus optimizer
      state a rank, flash launches a step a rank and the data-group (FSDP's
-     gathers and reduce-scatters, the sums; fsdp_data_collectives) and
-     model-group (tp_collectives) calls and bytes a step a rank are
+     gathers and reduce-scatters, the sums; launch/predict.py's
+     fsdp_data_collectives) and model-group (tp_collectives) calls and
+     bytes a step a rank are
      predicted from the specs and shapes; each must come true on every
      rank. Every step's loss within LOSS0_SUM_ATOL of the one-device run,
      step 0's grad norm within DP_GNORM_RTOL, the fingerprints of the
@@ -481,6 +483,24 @@ build's and every phase's seconds):
      a rank, the bytes a step hands gloo (4 ranks sharing one card: not
      an FSDP or TP speed). The 8-rank multi-pod mesh runs on the CPU only
      (tests/test_torch_fsdp_tp_pods.py).
+ 22. the dry-run and the examples. A worker process started after the
+     build (beside phases 3-21, CPU only) censuses steps on fake tensors
+     (analyze.census.census_step): each 19a-19f cell as rank 0 of an
+     abstract {"model": TP_RANKS} mesh, phase 21's as rank 0 of an
+     abstract FSDP_TP_SHAPE mesh, and one-device train steps of
+     MODELED_RUNS (16c's whisper-small, 15c's rwkv6-7b: no flash kernel,
+     so the census counts the ops the card runs). 22a: the model-group
+     (and 21's data-group) calls and bytes a step and the params plus
+     optimizer state a rank of every census equal what phases 19 and 21
+     measured on every rank, to the call and byte. 22b: each modeled
+     step (core.roofline.analyze_step on the card's spec) and live-byte
+     high-water mark printed beside the measured step ms (p50), device
+     busy ms and torch.cuda.max_memory_allocated, with the ratios. 22c:
+     the four examples on the card (subprocesses, each its own tune
+     cache): registry_smoke_torch.py (rc 0, every family's hand kernel
+     launched, each against its ref version), train_lm_torch.py --preset
+     smoke --steps 20 --ckpt-every 10 twice (the second prints "nothing
+     to do"), quickstart_torch.py and serve_batched_torch.py.
 Each path (phase 4's dispatch, phase 5's journey, phase 7's flash
 checks, phase 7d's Hd 32 model check, phase 8's serving run, phase 10's
 training run, phase 11's hybrid serving run, phase 12a's paged serving
@@ -783,9 +803,9 @@ VLM_OP_S = 768
 # between the routes is rounding
 VLM_LOGIT_RTOL = 0.2
 VLM_WITNESS_LAYERS = 8
-# 16a's depth (uncut: 48; cut to make room for phase 21; the floors above
-# were read at 48)
-VLM_SERVE_LAYERS = 24
+# 16a's depth (uncut: 48; cut to make room for phases 21 and 22; the
+# floors above were read at 48)
+VLM_SERVE_LAYERS = 16
 VLM_F32_RTOL = 1e-3
 # the encdec family (phase 16b): whisper-small served at full width; 512
 # lines are past real whisper's 448-token decoder cap (dec_pos has 32768
@@ -947,6 +967,11 @@ SSM_CASES = (("hymba-prefill", 1, HYBRID_LONG_PROMPT, 3200, 16, 0.0),
 
 # phase 20's audit worker: how long phase 20 waits for it past phase 19
 AUDIT_WAIT_S = 300
+# phase 22: the census worker may run this long past phase 21; the
+# one-device train runs whose steps 22b models (15c's and 16c's tags)
+CENSUS_WAIT_S = 300
+MODELED_RUNS = ("whisper", "rwkv")
+EXAMPLE_TIMEOUT_S = 300
 
 
 def fail(msg: str) -> None:
@@ -1079,6 +1104,8 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     # phase 20's censuses: CPU work only, in a worker beside phases 3-19
     audit = start_audit(spec)
+    # phase 22's step censuses: CPU work only, in a worker beside 3-21
+    census_job = start_census(spec)
     attrs = {c.name: gpp_cuda.kernel_attrs(c) for c in gpp_cuda.CONFIGS.values()}
     model = {c.name: c.regs_estimate() for c in gpp_cuda.CONFIGS.values()}
     # every compiled EPT: the most registers of its four instances (fused
@@ -1498,6 +1525,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 22. the dry-run's census against 19, 21, 15c and 16c; the examples -
+    dry = dryrun_phase(torch, card, census_job, tp_train, fsdp_tp,
+                       {"whisper": ev_train["whisper"],
+                        "rwkv": ssm_train["rwkv"]})
+
     names = ("gpp_fused", "gpp_banded", "flash_fwd", "flash_bwd_dq",
              "flash_bwd_dkv", "ssm_scan", "paged_decode_gather",
              "paged_decode_int8", "paged_decode_verify")
@@ -1617,9 +1649,12 @@ def main() -> None:
           flush=True)
     print(f"[21] FSDP beside a model axis summary: {json.dumps(fsdp_tp)} "
           f"[{card}]", flush=True)
+    print(f"[22] dry-run and examples summary: {json.dumps(dry)} [{card}]",
+          flush=True)
     for tag, part in (("13", spec_serve), ("14", moe), ("15", recurrent),
                       ("16", encdec_vlm), ("17", tp), ("18", dp),
-                      ("19", tp_train), ("20", audited), ("21", fsdp_tp)):
+                      ("19", tp_train), ("20", audited), ("21", fsdp_tp),
+                      ("22", dry)):
         phase_s[tag] = round(part["phase_s"], 1)
     print(f"[9] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"(build {build_s:.1f} s; every phase's seconds "
@@ -6287,6 +6322,7 @@ def dp_phase(torch, np, dev, card, flash_cuda, zero_counts, read_counts,
     import math
     import tempfile
     import torch.multiprocessing as mp
+    from repro_torch.launch.predict import tp_collectives
     t0 = time.perf_counter()
     ref = dp_reference(torch, dev, card)
     t19 = time.perf_counter()
@@ -6893,158 +6929,6 @@ def tp_flash_per_step(cfg):
             "flash_bwd_dkv": cfg.n_layers}
 
 
-def tp_collectives(cfg, seq, batch, ranks, shape=None, fsdp=False):
-    """(calls, bytes) one rank hands its model group in one train step of
-    cfg over {"model": ranks} (no data axis; remat "full"), from the
-    shapes; over the mesh `shape` with a data axis beside the model axis
-    (phase 21) `batch` is the rows a rank holds and the optimizer's sums
-    follow the plan's blocks there (FSDP with `fsdp`). Every sum runs in
-    f32 (4 bytes an element); a gather hands over its input, a
-    reduce-scatter the whole grad.
-
-    A layer's forward sums (a row-parallel product's ReduceFromGroup, a
-    GatherDim's all-gather) run once in the forward and again in remat's
-    recompute, but for the layer's last where nothing after it saves a
-    tensor for the backward (torch.utils.checkpoint's recompute stops once
-    the tensors the backward saved are back): a last sum that only enters
-    the residual add (attention's or the FFN's wo, whisper's bo added
-    after it) is not recomputed; rwkv6's channel mix, whose sum the gate
-    multiplies, is. Its backward sums run once: a CopyToGroup's input
-    grad, a GatherDim's reduce-scatter. Per family:
-
-      * dense and moe: attention (its k and v gathered whole, cut a rank,
-        where the kv heads do not split) and the FFN; a moe layer's
-        experts' (E, C, D) and shared experts' sums;
-      * hybrid: attention whole on every rank where a rank holds part of a
-        head (q, k and v gathered, reduce-scattered back), the mamba
-        path's input, x_proj's partial (B, S, dt_rank + 2N) and its
-        CopyToGroup, out_proj, the FFN;
-      * ssm: the time mix's r, k, v, g inputs, the decay (B, S, D) f32 and
-        ln_x (D) through CopyToGroup, tm/wo; the channel mix's k input
-        and cm/wv;
-      * encdec: the encoder's attention and FFN over B x enc_seq frames;
-        the decoder's self- and cross-attention (and the encoder output's
-        CopyToGroup a layer) and FFN;
-      * vlm: the dense stack over vis + text.
-
-    Where the vocab splits (even vocabs): the embedding's sum (B, S, D),
-    and a loss chunk's max, sum of exponentials and target logit ((B,
-    chunk) f32, forward and recompute) and its input's grad sum ((B,
-    chunk, D)). The optimizer: the global norm's sum of the split leaves'
-    squares; Adafactor also sums, for a leaf split on its last dim, its
-    row means (the leaf's shape but the last dim) and for one split on
-    the second-last its column means and its row factor's mean, and each
-    split leaf's update RMS (a scalar)."""
-    from types import SimpleNamespace
-    from repro_torch.dist import sharding
-    from repro_torch.models import moe
-    from repro_torch.models.registry import EP_MIN_TOKENS, build_model
-    from repro_torch.optim.adamw import tree_leaves
-    from repro_torch.train import step as step_lib
-    if cfg.remat != "full":
-        raise ValueError(f"remat {cfg.remat!r}: the count assumes 'full'")
-    d, t = cfg.d_model, batch * seq
-    act = t * d * 4
-    calls = nbytes = 0
-
-    def add(n, size):
-        nonlocal calls, nbytes
-        calls += n
-        nbytes += n * size
-
-    def layer(fwd, bwd, last_saved=False):
-        """A layer's forward sums (in order) and backward sums."""
-        for size in fwd:
-            add(1, size)
-        for size in fwd[:len(fwd) - 1 + last_saved]:
-            add(1, size)                          # the remat recompute
-        for size in bwd:
-            add(1, size)
-
-    hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    fam = cfg.family
-    if fam in ("dense", "moe", "vlm"):
-        n_moe = cfg.n_layers - cfg.first_k_dense if fam == "moe" else 0
-        for i in range(cfg.n_layers):
-            fwd, bwd = [act], [act]               # attention
-            if kvh % ranks:                       # whole k, v cut a rank
-                bwd += [t * kvh * hd * 4] * 2
-            last_saved = False
-            if i < cfg.n_layers - n_moe:
-                fwd.append(act)                   # the dense FFN
-                bwd.append(act)
-            else:
-                e, k = cfg.n_experts, cfg.experts_per_token
-                if t >= EP_MIN_TOKENS:            # moe_ffn_ep, one data rank
-                    c_send = min(int(max(1, t * k * 1.25)), t * k)
-                    c = min(int(max(1, (c_send * 1.25) // e)), c_send)
-                else:
-                    c = moe.capacity(t, k, e)
-                fwd.append(e * c * d * 4)         # the experts' sum
-                bwd.append(e * c * d * 4)
-                # the experts' sum is weighted (saved) unless the shared
-                # experts' follows it
-                last_saved = not cfg.n_shared_experts
-                if cfg.n_shared_experts:
-                    fwd.append(act)               # the shared experts
-                    bwd.append(act)
-            layer(fwd, bwd, last_saved)
-    elif fam == "hybrid":
-        proj = t * (max(1, d // 16) + 2 * cfg.ssm_state) * 4
-        for _ in range(cfg.n_layers):
-            fwd, bwd = [], [act, act, proj, act]  # attention, mamba, FFN in
-            q_cols, kv_cols = h * hd // ranks, kvh * hd // ranks
-            if q_cols % hd:                       # part of a head a rank
-                fwd += [t * q_cols * 2, t * kv_cols * 2, t * kv_cols * 2]
-                bwd += [t * h * hd * 2, t * kvh * hd * 2, t * kvh * hd * 2]
-            fwd += [act, proj, act, act]          # attention, x_proj,
-            layer(fwd, bwd)                       # out_proj, the FFN
-    elif fam == "ssm":
-        for _ in range(cfg.n_layers):
-            # r, k, v, g inputs, the decay, ln_x; the channel mix's k input
-            layer([act, act], [act] * 5 + [d * 4, act], last_saved=True)
-    elif fam == "encdec":
-        frames = batch * cfg.enc_seq * d * 4
-        for _ in range(cfg.n_enc_layers):
-            layer([frames, frames], [frames, frames])
-        for _ in range(cfg.n_layers):
-            # self-attention, cross-attention (and the encoder output's
-            # input grad), the FFN
-            layer([act, act, act], [act, act, frames, act])
-    else:
-        raise ValueError(f"family {fam!r}")
-    if cfg.vocab_size % ranks == 0:
-        text = seq - (cfg.n_vis_tokens if fam == "vlm" else 0)
-        add(1, act)                               # the embedding
-        chunk = next((c for c in (512, 256, 128, 64) if text % c == 0
-                      and text > c), text)
-        for _ in range(text // chunk):
-            add(6, batch * chunk * 4)
-            add(1, batch * chunk * d * 4)
-    shape = shape or {"model": ranks}
-    mesh = SimpleNamespace(shape=shape, coords={a: 0 for a in shape})
-    model = build_model(cfg)
-    plan = step_lib.make_plan(cfg, mesh, kind="train", fsdp=fsdp)
-    ab = model.abstract_params()
-    specs = sharding.params_shardings(plan, model.param_axes, ab)
-    mdims = tree_leaves(sharding.model_dims(plan, specs))
-    split = sum(m is not None for m in mdims)
-    add(1, split * 4)                             # the global norm
-    if cfg.optimizer == "adafactor":
-        for leaf, spec, m in zip(tree_leaves(ab), tree_leaves(specs), mdims):
-            if m is None:
-                continue
-            shape = sharding.local_shape(tuple(leaf.shape), spec, mesh)
-            nd = len(shape)
-            if nd >= 2 and m == nd - 1:           # vr's row means
-                add(1, math.prod(shape[:-1]) * 4)
-            elif nd >= 2 and m == nd - 2:         # vc's means, rfac's
-                add(1, math.prod(shape[:-2] + shape[-1:]) * 4)
-                add(1, math.prod(shape[:-2]) * 4)
-            add(1, 4)                             # the update's RMS
-    return calls, nbytes
-
-
 def tp_train_rank(torch, mesh, which):
     """19a-19f on one rank of the {"model": n} mesh: Trainer(cfg, loop,
     mesh).run() for TP_TRAIN_STEPS steps with every step timed, its
@@ -7224,7 +7108,7 @@ def tp_train_gates(tag, which, runs, pred, ref, card):
         fail(f"[{tag}] failed: see the lines above")
     out = {k: first[k] for k in ("losses", "grad_norms", "step_ms", "wire",
                                  "routes", "shapes")}
-    out.update(state_gb=[b / 1e9 for b in state],
+    out.update(state_gb=[b / 1e9 for b in state], state_bytes=state,
                peak_gb=[r["peak"] / 1e9 for r in runs],
                step_ms_p50=steady[len(steady) // 2],
                one_device_step_ms=one[len(one) // 2],
@@ -7265,60 +7149,6 @@ def fsdp_tp_specs(cfg, fsdp):
         plan, model.param_axes, model.abstract_params(), model.param_parts)
 
 
-def fsdp_data_collectives(cfg, shape):
-    """(calls, bytes) one rank hands its data group in one train step of
-    cfg under the FSDP plan over `shape`, from the specs: each split
-    leaf's all_gather before the forward (its block, in the param's
-    dtype) and reduce-scatter after (the gathered grad in f32), each
-    whole leaf's grad all-reduced in f32; the loss's token count and the
-    metrics' three sums; the global norm's sum of the split leaves'
-    squares; Adafactor's row means (a leaf split on its last dim), column
-    means and row factor's mean (split on the second-last) and each split
-    leaf's update RMS. (Every leaf of the cut qwen2.5-32b is split over
-    "data".)"""
-    from types import SimpleNamespace
-    from repro_torch.dist import sharding
-    from repro_torch.models.registry import build_model
-    from repro_torch.optim.adamw import tree_leaves
-    from repro_torch.train import step as step_lib
-    mesh = SimpleNamespace(shape=shape, coords={a: 0 for a in shape})
-    model = build_model(cfg)
-    plan = step_lib.make_plan(cfg, mesh, kind="train", fsdp=True)
-    ab = model.abstract_params()
-    specs = sharding.params_shardings(plan, model.param_axes, ab,
-                                      model.param_parts)
-    dims = tree_leaves(sharding.data_dims(plan, specs))
-    calls = nbytes = 0
-
-    def add(n, size):
-        nonlocal calls, nbytes
-        calls += n
-        nbytes += n * size
-
-    for leaf, spec, d in zip(tree_leaves(ab), tree_leaves(specs), dims):
-        local = sharding.local_shape(tuple(leaf.shape), spec, mesh)
-        n = math.prod(local)
-        if d is None:
-            add(1, n * 4)                         # the grad's all_reduce
-            continue
-        add(1, n * leaf.element_size())           # the forward's gather
-        add(1, n * plan.dp_size() * 4)            # the grad's reduce-scatter
-        if cfg.optimizer == "adafactor":
-            nd = len(local)
-            if nd >= 2 and d == nd - 1:           # vr's row means
-                add(1, math.prod(local[:-1]) * 4)
-            elif nd >= 2 and d == nd - 2:         # vc's means, rfac's
-                add(1, math.prod(local[:-2] + local[-1:]) * 4)
-                add(1, math.prod(local[:-2]) * 4)
-            add(1, 4)                             # the update's RMS
-    add(1, 4)                                     # the loss's token count
-    add(1, 3 * 4)                                 # loss, aux, total
-    split = sum(d is not None for d in dims)
-    if split:
-        add(1, split * 4)                         # the global norm
-    return calls, nbytes
-
-
 def fsdp_tp_phase(torch, np, dev, card, flash_cuda, zero_counts,
                   read_counts, by_path):
     """Phase 21: FSDP beside a model axis. FSDP_TP_RANKS ranks share the
@@ -7335,6 +7165,8 @@ def fsdp_tp_phase(torch, np, dev, card, flash_cuda, zero_counts,
     device against the ranks' gathered params."""
     import tempfile
     import torch.multiprocessing as mp
+    from repro_torch.launch.predict import (fsdp_data_collectives,
+                                            tp_collectives)
     t0 = time.perf_counter()
     cfg = fsdp_tp_config()
     plan, specs = fsdp_tp_specs(cfg, True)
@@ -7615,7 +7447,7 @@ def fsdp_tp_gates(runs, pred, ref, card):
     return {"losses": first["losses"], "grad_norms": first["grad_norms"],
             "step_ms": first["step_ms"], "data_wire": first["data_wire"],
             "model_wire": first["model_wire"], "shapes": first["shapes"],
-            "state_gb": [b / 1e9 for b in state],
+            "state_gb": [b / 1e9 for b in state], "state_bytes": state,
             "peak_gb": [r["peak"] / 1e9 for r in runs],
             "step_ms_p50": steady[len(steady) // 2],
             "one_device_step_ms": one[len(one) // 2],
@@ -7644,6 +7476,274 @@ def fsdp_tp_restore_one(torch, dev, card, cfg, want):
     gc.collect()
     torch.cuda.empty_cache()
     return {"step": step, "restore_s": restore_s, "bit_equal": got == want}
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the dry-run's census against the measured steps; the examples
+# ---------------------------------------------------------------------------
+
+def census_batch(torch, cfg, seq, batch):
+    """The abstract ("meta") global batch a Trainer feeds cfg at (seq,
+    batch): launch.specs.train_batch_specs with the f32 stub frames or
+    patches of data.pipeline.make_stub_frontend_batch."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import train_batch_specs
+    return train_batch_specs(cfg, ShapeConfig("census", seq, batch, "train"),
+                             frontend_dtype=torch.float32)
+
+
+def modeled_config(tag):
+    """The config of a MODELED_RUNS tag: 16c's whisper-small, 15c's
+    rwkv6-7b."""
+    import dataclasses
+    import repro_torch
+    if tag == "whisper":
+        return (dataclasses.replace(repro_torch.get_config("whisper-small"),
+                                    remat="full"),
+                WHISPER_TRAIN_SEQ, WHISPER_TRAIN_BATCH)
+    return (dataclasses.replace(repro_torch.get_config("rwkv6-7b"),
+                                n_layers=RWKV_TRAIN_LAYERS, remat="full"),
+            RWKV_TRAIN_SEQ, RWKV_TRAIN_BATCH)
+
+
+def census_worker(spec_name, out_path):
+    """Phase 22's step censuses in a worker process (fake tensors on the
+    CPU; nothing here touches the card): every 19a-19f cell and phase
+    21's as rank 0 of an abstract mesh (the model- and data-group calls
+    and bytes, the state bytes), and the MODELED_RUNS one-device steps
+    priced on the named spec (core.roofline.analyze_step). The results
+    go to out_path as JSON with the worker's seconds."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    from repro_torch.analyze.census import census_step
+    from repro_torch.core import hw, roofline
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import step as step_lib
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+
+    def count(cfg, shape, seq, batch, fsdp=None):
+        plan = None
+        if shape is not None:
+            plan = step_lib.make_plan(cfg, abstract_mesh(shape), kind="train",
+                                      fsdp=fsdp)
+        bundle, _ = step_lib.build_train_step(build_model(cfg), plan)
+        t1 = time.perf_counter()
+        c = census_step(bundle, census_batch(torch, cfg, seq, batch))
+        return c, time.perf_counter() - t1
+
+    def wire(c):
+        return {g: [c.group_calls(g), c.group_bytes(g)]
+                for g in c.collectives}
+
+    out = {"19": {}, "modeled": {}}
+    for which in TP_TRAIN_RUNS:
+        seq, batch = tp_train_loop(which)
+        c, sec = count(tp_train_config(which), {"model": TP_RANKS}, seq,
+                       batch)
+        out["19"][which] = {"wire": wire(c), "state": c.state_bytes,
+                            "census_s": sec}
+    c, sec = count(fsdp_tp_config(), FSDP_TP_SHAPE, 512, 8, fsdp=True)
+    out["21"] = {"wire": wire(c), "state": c.state_bytes, "census_s": sec}
+    spec = hw.SPECS[spec_name]
+    for tag in MODELED_RUNS:
+        cfg, seq, batch = modeled_config(tag)
+        c, sec = count(cfg, None, seq, batch)
+        rep = roofline.analyze_step(cfg.name, c, spec=spec)
+        out["modeled"][tag] = {
+            "name": cfg.name, "layers": cfg.n_layers, "seq": seq,
+            "batch": batch, "step_s": rep.modeled_step_s,
+            "compute_s": rep.compute_s, "memory_s": rep.memory_s,
+            "dominant": rep.dominant, "flops": c.flops,
+            "tc_flops": c.tc_flops, "op_bytes": c.op_bytes,
+            "launches": c.launches, "peak_live_bytes": c.peak_live_bytes,
+            "state_bytes": c.state_bytes, "census_s": sec}
+    out["worker_s"] = time.perf_counter() - t0
+    tmp = f"{out_path}.tmp"
+    with open(tmp, "w") as fh:
+        json.dump(out, fh)
+    os.replace(tmp, out_path)
+
+
+def start_census(spec):
+    """Start census_worker (spawn, daemonic: it dies with this process)."""
+    import multiprocessing
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out_path = os.path.join(ROOT, "build", "chip_smoke_census.json")
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=census_worker, args=(spec.name, out_path), daemon=True)
+    proc.start()
+    return proc, out_path
+
+
+def start_example(name, args, tag):
+    """examples/<name> with args on the card, in its own process with its
+    own tune cache under build/ (stdout and stderr to a log there)."""
+    work = os.path.join(ROOT, "build", f"chip_smoke_{tag}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               REPRO_TUNE_CACHE=os.path.join(work, "tune"))
+    log = open(os.path.join(work, "log.txt"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", name), *args],
+        cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT, text=True)
+    return proc, log
+
+
+def finish_example(proc, log):
+    """(rc, output) of a start_example process (killed past
+    EXAMPLE_TIMEOUT_S)."""
+    try:
+        rc = proc.wait(timeout=EXAMPLE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    log.close()
+    with open(log.name) as fh:
+        return rc, fh.read()
+
+
+def examples_phase(card):
+    """22c: the four examples on the card. registry_smoke_torch.py,
+    quickstart_torch.py, serve_batched_torch.py and the first
+    train_lm_torch.py run side by side; then train_lm_torch.py again on
+    the same checkpoint directory. Returns each run's rc, seconds and key
+    lines."""
+    t0 = time.perf_counter()
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_train_lm_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    train = ("--preset", "smoke", "--steps", "20", "--ckpt-every", "10",
+             "--ckpt-dir", ckpt)
+    runs = {"registry_smoke": ("registry_smoke_torch.py", ()),
+            "quickstart": ("quickstart_torch.py", ()),
+            "serve_batched": ("serve_batched_torch.py", ()),
+            "train_lm": ("train_lm_torch.py", train)}
+    started = {tag: start_example(name, args, f"example_{tag}")
+               for tag, (name, args) in runs.items()}
+    out = {tag: finish_example(*p) for tag, p in started.items()}
+    out["train_lm_again"] = finish_example(*start_example(
+        "train_lm_torch.py", train, "example_train_lm_again"))
+    res = {}
+    for tag, (rc, text) in out.items():
+        keys = [ln for ln in text.splitlines() if ln.startswith((
+            "registry smoke", "kernel launches", "  gpp", "  flash",
+            "  ssm", "  paged", "done.", "nothing to do", "[trainer]",
+            "final loss", "restored step", "request ", "served ",
+            "  decode_steps"))]
+        res[tag] = {"rc": rc, "lines": keys}
+        print(f"[22c] examples/{runs.get(tag, runs['train_lm'])[0]}"
+              f"{' (again)' if tag == 'train_lm_again' else ''}: rc {rc}; "
+              f"{keys} [{card}]", flush=True)
+        if rc != 0:
+            print(text[-4000:], flush=True)
+    reg = "\n".join(res["registry_smoke"]["lines"])
+    launched = next((ln for ln in res["registry_smoke"]["lines"]
+                     if ln.startswith("kernel launches")), "")
+    hand = ("gpp_fused", "flash_fwd", "ssm_scan", "paged_decode_gather")
+    bad = (any(r["rc"] != 0 for r in res.values())
+           or "all kernels dispatch and match their references" not in reg
+           or any(f"'{k}': " not in launched for k in hand)
+           or not any(ln.startswith("done.")
+                      for ln in res["train_lm"]["lines"])
+           or not any(ln.startswith("nothing to do: checkpoint already at "
+                                    "step 20")
+                      for ln in res["train_lm_again"]["lines"])
+           or "restored step 20" not in res["quickstart"]["lines"]
+           or sum(ln.startswith("request ")
+                  for ln in res["quickstart"]["lines"]) != 3
+           or not any(ln.startswith("served 8 requests")
+                      for ln in res["serve_batched"]["lines"]))
+    if bad:
+        fail("[22c] an example failed: see the lines above")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
+def dryrun_phase(torch, card, census_job, tp_train, fsdp_tp, measured):
+    """Phase 22 (see the module docstring): the census worker's counts
+    held to phases 19 and 21 (22a), its modeled steps beside the
+    measured ones (22b), the examples (22c)."""
+    t0 = time.perf_counter()
+    res = {"examples": examples_phase(card)}
+    proc, out_path = census_job
+    proc.join(timeout=CENSUS_WAIT_S)
+    if proc.is_alive():
+        proc.kill()
+        fail(f"[22] the census worker ran {CENSUS_WAIT_S} s past phase 21")
+    if proc.exitcode != 0 or not os.path.exists(out_path):
+        fail(f"[22] the census worker failed (exit code {proc.exitcode})")
+    with open(out_path) as fh:
+        census = json.load(fh)
+
+    rows, bad = {}, False
+    cells = [(TP_TRAIN_RUNS[w][0], census["19"][w], tp_train[w],
+              {"model": "wire"}) for w in TP_TRAIN_RUNS]
+    cells.append(("21", census["21"], fsdp_tp,
+                  {"data": "data_wire", "model": "model_wire"}))
+    for tag, cen, got, groups in cells:
+        wire = {g: [list(w) for w in got[key]] for g, key in groups.items()}
+        ok = (all(w == cen["wire"][g] for g in groups for w in wire[g])
+              and all(b == cen["state"] for b in got["state_bytes"]))
+        rows[tag] = {"census": cen, "measured": {"wire": wire,
+                                                 "state": got["state_bytes"]},
+                     "equal": ok}
+        line = (f"[22a] {tag}: census of rank 0 on the abstract mesh "
+                f"({cen['census_s']:.1f} s on the host) against the ranks' "
+                f"measured step: calls and bytes a step "
+                f"{ {g: cen['wire'][g] for g in groups} } against "
+                f"{wire}; params plus optimizer state a rank "
+                f"{cen['state']} B against {got['state_bytes']}: equal "
+                f"{ok} [{card}]")
+        print(line, flush=True)
+        bad = bad or not ok
+    res["census_vs_measured"] = rows
+    if bad:
+        fail("[22a] a census differs from the measured step: see above")
+
+    ratios = {}
+    for tag, mod in census["modeled"].items():
+        run = measured[tag]
+        step_ms = run["step_ms_p50"]
+        busy_ms = run["profile"]["device_busy_ms"]
+        peak = run["peak_mem_gb"] * 1e9
+        ratios[tag] = {
+            "modeled_step_ms": mod["step_s"] * 1e3,
+            "measured_step_ms": step_ms, "device_busy_ms": busy_ms,
+            "step_over_modeled": step_ms / (mod["step_s"] * 1e3),
+            "busy_over_modeled": busy_ms / (mod["step_s"] * 1e3),
+            "live_peak_bytes": mod["peak_live_bytes"],
+            "max_memory_allocated": peak,
+            "allocated_over_live_peak": peak / mod["peak_live_bytes"],
+            **{k: mod[k] for k in ("name", "layers", "seq", "batch",
+                                   "dominant", "compute_s", "memory_s",
+                                   "flops", "tc_flops", "op_bytes",
+                                   "launches", "census_s")}}
+        r = ratios[tag]
+        print(f"[22b] {mod['name']} ({mod['layers']} layers, {mod['seq']} x "
+              f"{mod['batch']}, one device): census_step modeled on the "
+              f"card's spec {r['modeled_step_ms']:.2f} ms ({mod['dominant']}"
+              f"-bound: compute {mod['compute_s'] * 1e3:.2f} ms, memory "
+              f"{mod['memory_s'] * 1e3:.2f} ms over every op's bytes; "
+              f"{mod['launches']} launches) against the measured step "
+              f"{step_ms:.2f} ms (p50; ratio {r['step_over_modeled']:.3f}) "
+              f"and device busy {busy_ms:.2f} ms (ratio "
+              f"{r['busy_over_modeled']:.3f}); live-byte high-water mark "
+              f"{mod['peak_live_bytes'] / 1e9:.3f} GB against "
+              f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB (ratio "
+              f"{r['allocated_over_live_peak']:.3f}) [{card}]", flush=True)
+    res["modeled_vs_measured"] = ratios
+    res["census_worker_s"] = census["worker_s"]
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"[22] phase 22 ran {res['phase_s']:.1f} s (22c "
+          f"{res['examples']['phase_s']:.1f} s; the census worker's "
+          f"{census['worker_s']:.1f} s beside phases 3-21) [{card}]",
+          flush=True)
+    return res
 
 
 def _leaves(tree):

@@ -25,9 +25,10 @@ reference's default (FSDP above 8e9 params, EP instead for moe).
     # on a card: 2 ranks sharing it over gloo (NCCL needs a GPU a rank)
     PYTHONPATH=src python examples/train_dp_torch.py --ranks 2 --device cuda
 
-The ranks rendezvous through a FileStore in a temporary directory (the
-checkpoints land there too); the mesh is built by
-repro_torch.launch.mesh.make_mesh with the backend named by --backend.
+The ranks rendezvous through a FileStore in a temporary directory
+(repro_torch.launch.ranks; the checkpoints land in another); the mesh is
+built by repro_torch.launch.mesh.make_mesh with the backend named by
+--backend.
 Rerun with --ckpt-dir pointing at an earlier run's directory and more
 --steps to resume from its last checkpoint, with as many ranks as you
 like: checkpoints hold whole leaves.
@@ -42,20 +43,13 @@ import tempfile
 import torch
 
 
-def rank_main(rank, args, store):
+def rank_main(rank, store, args):
     from repro_torch.configs.base import get_config, reduce_config
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch import ranks
     from repro_torch.train.trainer import TrainLoopConfig, Trainer
-    if args.device == "cuda":
-        torch.cuda.set_device(rank % torch.cuda.device_count())
-    shape = {"data": args.ranks // (args.model * args.pods)}
-    if args.pods > 1:
-        shape = {"pod": args.pods, **shape}
-    if args.model > 1:
-        shape["model"] = args.model
-    mesh = make_mesh(shape, device=args.device,
-                     backend=args.backend, init_method=f"file://{store}",
-                     rank=rank, world_size=args.ranks, timeout_s=300)
+    shape = ranks.mesh_shape(args.ranks, model=args.model, pods=args.pods)
+    mesh = ranks.rank_mesh(rank, store, shape, device=args.device,
+                           backend=args.backend)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg, layers=2, d_model=64, vocab=128)
@@ -69,6 +63,7 @@ def rank_main(rank, args, store):
 
 
 def main():
+    from repro_torch.launch import ranks
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ranks", type=int, default=2)
     ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
@@ -92,11 +87,9 @@ def main():
     if args.ranks % (args.model * args.pods):
         ap.error(f"--model {args.model} x --pods {args.pods} does not "
                  f"divide --ranks {args.ranks}")
-    work = tempfile.mkdtemp(prefix="train_dp_")
-    args.ckpt_dir = args.ckpt_dir or os.path.join(work, "ckpt")
-    torch.multiprocessing.spawn(rank_main,
-                                args=(args, os.path.join(work, "store")),
-                                nprocs=args.ranks)
+    args.ckpt_dir = args.ckpt_dir or os.path.join(
+        tempfile.mkdtemp(prefix="train_dp_"), "ckpt")
+    ranks.spawn(rank_main, args.ranks, args, prefix="train_dp_")
 
 
 if __name__ == "__main__":

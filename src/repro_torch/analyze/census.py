@@ -33,6 +33,12 @@ launch a kernel: `smem_config_bytes` (`config_smem_bytes`), `grid_blocks`
 (`launch_grid`) and, on the card only, `smem_launch_bytes` (the library's
 own count, `library_launch_shape`). They are None for plain-only versions.
 
+`census_step` counts a whole train, prefill or decode step the same
+way, as one rank of a mesh no process runs (`launch.mesh.abstract_mesh`):
+its arguments cut to the rank's blocks and made fake, its collectives
+counted by the step's `AxesGroup`s, and the bytes alive at once tracked
+op by op (`StepCensus`; launch/dryrun.py prices it on the roofline).
+
 For gpp v6–v10 the census counts the plain version's arithmetic (the
 kernels' block decomposition in torch), not the compiled band loop: the
 kernel's own instruction mix is the SASS census (`core.sass`,
@@ -43,7 +49,9 @@ have 0 `tc_flops`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -139,6 +147,9 @@ class _Counter(TorchDispatchMode):
     """Counts every aten op dispatched while it is on (under a
     FakeTensorMode: shapes and dtypes only)."""
 
+    # fingerprint ops for DUP001 (keeps their operands alive)
+    duplicates = True
+
     def __init__(self):
         super().__init__()
         self.flops = self.dot_flops = self.tc_flops = 0.0
@@ -184,7 +195,7 @@ class _Counter(TorchDispatchMode):
             self.addsub_flops += f
         elif klass == "softmax":
             self.addsub_flops += 0.4 * f     # its sub and its sum
-        if f >= DUP_MIN_FLOPS:
+        if self.duplicates and f >= DUP_MIN_FLOPS:
             ops = tuple(("t", id(a)) if isinstance(a, torch.Tensor)
                         else ("l", repr(a)) for a in args)
             fp = (func, ops, tuple(outs[0].shape) if outs else ())
@@ -337,3 +348,224 @@ def census_kernel(kernel, version: str, key, *, config: Any = None,
         config=k.config_to_json(cfg) if cfg is not None else None,
     )
 
+
+# ---------------------------------------------------------------------------
+# a whole step on one rank of an abstract mesh
+# ---------------------------------------------------------------------------
+
+class _LiveCounter(_Counter):
+    """_Counter that also tracks the bytes alive at once: every storage
+    from the op that makes it until the last tensor on it is freed (a
+    `weakref.finalize` on the storage, whose Python object PyTorch keeps
+    as long as the storage lives; autograd's saved tensors included). A
+    view or an in-place op makes no storage, so an argument updated in
+    place (a donated one) counts once. `peak` is the high-water mark. No
+    duplicate fingerprints: they would keep every operand alive."""
+
+    duplicates = False
+
+    def __init__(self):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._storages = {}
+
+    def track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._storages:
+            return
+        n = st.nbytes()
+        self._storages[key] = n
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, key)
+
+    def _free(self, key) -> None:
+        self.live -= self._storages.pop(key, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        for t in _tensors((out,)):
+            self.track(t)
+        return out
+
+
+@dataclasses.dataclass
+class StepCensus:
+    """One rank's census of a step (`census_step`): the op counts of
+    `_Counter` (`flops`, `tc_flops`, `op_bytes`, `launches`: every aten
+    op the step dispatches on the CPU, so the plain versions in the
+    kernels' places), the collectives by group ("data", "model") as
+    {"calls": {kind: n}, "bytes": {kind: bytes}} from the step's
+    AxesGroups, the bytes of each argument tree a rank holds (`params`,
+    `opt_state`, `cache`, `batch`; `grads`: the reduced grads the
+    optimizer takes, the params' blocks in their dtype, f32 with
+    microbatches), `state_bytes` (what the step updates in place: params
+    and optimizer state in training, the cache in decode, 0 in prefill)
+    and `peak_live_bytes`, the high-water mark of bytes alive at once,
+    arguments included."""
+    kind: str
+    mesh_shape: Dict[str, int]
+    rank: int
+    flops: float
+    dot_flops: float
+    tc_flops: float
+    op_bytes: float
+    launches: int
+    collectives: Dict[str, Dict[str, Dict[str, int]]]
+    tree_bytes: Dict[str, int]
+    state_bytes: int
+    peak_live_bytes: int
+
+    def group_calls(self, group: str) -> int:
+        return sum(self.collectives[group]["calls"].values())
+
+    def group_bytes(self, group: str) -> int:
+        return sum(self.collectives[group]["bytes"].values())
+
+    @property
+    def collective_bytes(self) -> int:
+        """Every byte this rank hands a collective in the step."""
+        return sum(self.group_bytes(g) for g in self.collectives)
+
+    def row(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(_nbytes(t) for t in _tensors((tree,)))
+
+
+def _fake_empty(tree):
+    """An empty CPU tensor (fake, under the caller's FakeTensorMode) of
+    every leaf's shape and dtype."""
+    if isinstance(tree, dict):
+        return {k: _fake_empty(v) for k, v in tree.items()}
+    return torch.empty(tuple(tree.shape), dtype=tree.dtype, device="cpu")
+
+
+_ARG_NAMES = {"train": ("params", "opt_state", "batch"),
+              "prefill": ("params", "batch"),
+              "decode": ("params", "cache", "batch")}
+
+
+def step_arguments(bundle, batch) -> List:
+    """The arguments a rank of the bundle's plan calls its step with, as
+    abstract ("meta") trees: the bundle's abstract params, optimizer
+    state or cache cut to the rank's blocks under its specs, and the
+    batch's rows (`batch`: the whole batch's abstract tree; a decode
+    step's "tokens") split over the data axes where they divide, else
+    whole on every rank (the reference's batch_shardings)."""
+    from repro_torch.dist import sharding
+    if bundle.kind == "decode" and isinstance(batch, dict):
+        batch = batch["tokens"]
+    plan = bundle.plan
+    if plan is None:
+        return list(bundle.abstract_args[:-1]) + [batch]
+    args = [sharding.shard_tree(a, s, plan.mesh)
+            for a, s in zip(bundle.abstract_args[:-1], bundle.in_specs)]
+    return args + [sharding.shard_tree(
+        batch, sharding.batch_shardings(plan, batch), plan.mesh)]
+
+
+def argument_bytes(bundle, args, microbatches: int = 1
+                   ) -> Tuple[Dict[str, int], int]:
+    """({tree name: bytes a rank holds}, the state bytes) of
+    `step_arguments`' trees: "params", "opt_state" or "cache", "batch",
+    and in training "grads" (the params' blocks in their dtype, f32 with
+    microbatches); the state is what the step updates in place (params
+    and optimizer state in training, the cache in decode, 0 in
+    prefill)."""
+    from repro_torch.optim.adamw import tree_leaves
+    tree_bytes = {n: _tree_bytes(t)
+                  for n, t in zip(_ARG_NAMES[bundle.kind], args)}
+    if bundle.kind == "train":
+        tree_bytes["grads"] = sum(
+            p.numel() * (4 if microbatches > 1 else p.element_size())
+            for p in tree_leaves(args[0]))
+    state = {"train": tree_bytes.get("params", 0)
+             + tree_bytes.get("opt_state", 0),
+             "decode": tree_bytes.get("cache", 0),
+             "prefill": 0}[bundle.kind]
+    return tree_bytes, state
+
+
+def census_step(bundle, batch, *, microbatches: int = 1) -> StepCensus:
+    """Count one call of a step (train/step.py's StepBundle, built by
+    build_train_step, build_prefill_step or build_decode_step over a
+    plan) as the rank of its plan's mesh (`launch.mesh.abstract_mesh`,
+    whose collectives are counted and send nothing) would run it:
+    nothing is computed and no process is started.
+
+    `batch` is the whole batch's abstract tree (launch/specs.py: "meta"
+    leaves of global shapes): for a decode step its "tokens". Every
+    argument (the bundle's abstract params, optimizer state or cache, and
+    the batch) is cut to the rank's block (sharding.local_shard under the
+    bundle's specs, sharding.local_batch), made a fake CPU tensor, and the
+    step called once under a counting dispatch mode. The CPU runs the
+    plain versions in the kernels' places, so `flops`/`op_bytes` are the
+    plain versions'; launch/dryrun.py adds the kernels' byte models.
+
+    The live bytes are tracked storage by storage, and a tensor updated
+    in place is one storage, so the reference's `hbm_adjusted` (CPU XLA
+    has no donation: the donated buffers counted twice or three times in
+    temp) has no counterpart here: `peak_live_bytes` counts each donated
+    argument once. `microbatches` only sizes the grads' row (f32
+    accumulators).
+
+    Example::
+
+        from repro_torch.analyze.census import census_step
+        from repro_torch.configs.base import get_config, reduce_config
+        from repro_torch.launch import specs
+        from repro_torch.launch.mesh import abstract_mesh
+        from repro_torch.models.registry import build_model
+        from repro_torch.train import step as step_lib
+        cfg = reduce_config(get_config("qwen2-1.5b"), layers=2)
+        plan = step_lib.make_plan(cfg, abstract_mesh({"model": 2}),
+                                  kind="train")
+        bundle, _ = step_lib.build_train_step(build_model(cfg), plan)
+        c = census_step(bundle, specs.input_specs(cfg, "train_4k")["batch"])
+        c.group_calls("model") > 0         # True
+    """
+    from repro_torch.models import layers
+    plan = bundle.plan
+    mesh = plan.mesh if plan is not None else None
+    kind = bundle.kind
+    ab = step_arguments(bundle, batch)
+    tree_bytes, state = argument_bytes(bundle, ab, microbatches)
+    groups = {"data": bundle.group, "model": bundle.model_group}
+    before = {g: (dict(grp.counts["calls"]), dict(grp.counts["bytes"]))
+              for g, grp in groups.items() if grp is not None}
+    with FakeTensorMode():
+        args = [_fake_empty(a) for a in ab]
+        del ab
+        counter = _LiveCounter()
+        for t in _tensors(args):
+            counter.track(t)
+        grad = contextlib.nullcontext() if kind == "train" else \
+            torch.no_grad()
+        with counter, grad, layers.card_products():
+            out = bundle(*args)
+        del out
+        peak = counter.peak
+    collectives = {}
+    for g, grp in groups.items():
+        calls, nbytes = {}, {}
+        if grp is not None:
+            c0, b0 = before[g]
+            calls = {k: v - c0.get(k, 0)
+                     for k, v in grp.counts["calls"].items()
+                     if v - c0.get(k, 0)}
+            nbytes = {k: v - b0.get(k, 0)
+                      for k, v in grp.counts["bytes"].items() if calls.get(k)}
+        collectives[g] = {"calls": calls, "bytes": nbytes}
+    return StepCensus(
+        kind=kind,
+        mesh_shape=dict(mesh.shape) if mesh is not None else {},
+        rank=mesh.rank if mesh is not None else 0,
+        flops=counter.flops, dot_flops=counter.dot_flops,
+        tc_flops=counter.tc_flops, op_bytes=counter.op_bytes,
+        launches=counter.launches, collectives=collectives,
+        tree_bytes=tree_bytes, state_bytes=state, peak_live_bytes=peak)

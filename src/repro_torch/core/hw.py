@@ -10,7 +10,10 @@ rate). The FP32 rate is
 SMs x 128 FP32 lanes x 2 (FMA) x boost clock. NVLink, the collective
 term's rate: 900 GB/s on the SXM5 part, 600 GB/s on the PCIe card
 through its NVLink bridge (the data sheets' figures: every link, both
-directions summed). `spec_for_name` picks the
+directions summed). `memory_bytes`, the device memory the dry-run holds
+a rank's live bytes to: 85,017,493,504 B on the SXM5 part, as an "NVIDIA
+H100 80GB HBM3" reports its total_memory; the PCIe card's data sheet's
+80 GB. `spec_for_name` picks the
 spec from `torch.cuda.get_device_name()`. The rates assume the card's full
 power limit; a card set below it runs slower under load, so every
 measurement is reported beside the card's name and power limit.
@@ -33,6 +36,7 @@ class GpuSpec:
     hbm_bw: float                # bytes/s
     bf16_tc_flops: float         # dense bf16 tensor-core peak (no sparsity)
     link_bw: float               # NVLink, bytes/s (the data sheet's total)
+    memory_bytes: int            # device memory (total_memory)
     smem_per_block: int = 232_448    # opt-in dynamic shared memory a block can use
     smem_per_sm: int = 233_472       # 228 KiB of the SM's 256 KiB (rest is L1)
     regs_per_sm: int = 65_536
@@ -65,12 +69,17 @@ class GpuSpec:
 H100_SXM5 = GpuSpec(
     name="h100-sxm5", part="NVIDIA H100 SXM5 80GB (700 W)",
     sms=132, boost_hz=1.98e9, fp32_flops=67e12, hbm_bw=3.35e12,
-    bf16_tc_flops=989e12, link_bw=900e9)
+    bf16_tc_flops=989e12, link_bw=900e9,
+    # torch.cuda.get_device_properties(0).total_memory as read on an
+    # "NVIDIA H100 80GB HBM3" at a 700.00 W power limit (torch 2.11, CUDA
+    # 12.8)
+    memory_bytes=85_017_493_504)
 
 H100_PCIE = GpuSpec(
     name="h100-pcie", part="NVIDIA H100 PCIe 80GB (350 W)",
     sms=114, boost_hz=1.755e9, fp32_flops=51e12, hbm_bw=2.0e12,
-    bf16_tc_flops=756e12, link_bw=600e9)
+    bf16_tc_flops=756e12, link_bw=600e9,
+    memory_bytes=80 * 10 ** 9)        # the data sheet's 80 GB (not read)
 
 SPECS = {s.name: s for s in (H100_SXM5, H100_PCIE)}
 

@@ -28,11 +28,12 @@ peak (5.3 of 6.7 TFLOP/s on the V100).
 Where the reference says MXU or VPU the port says tensor cores or FP32:
 `tc_flops_per_chip`, `tc_fraction`, the row's `tc_frac`.
 
-`analyze_compiled` (the reference reads FLOPs, bytes and collectives from
-a compiled XLA module) is not ported here: the port compiles no HLO, and
-ROADMAP item 10d's whole-step census (the plain versions counted on fake
-tensors, with predicted collectives) is what will feed `analyze_counts`
-for a train or serve step.
+`analyze_step` is the counterpart of the reference's `analyze_compiled`
+(which reads FLOPs, bytes, collectives and memory from a compiled XLA
+module; the port compiles no HLO): it prices one rank's census of a
+whole train, prefill or decode step (analyze.census.census_step, the
+plain versions counted on fake tensors, the collectives counted by the
+step's groups on an abstract mesh) on the same three terms.
 """
 
 from __future__ import annotations
@@ -238,6 +239,47 @@ def analyze_counts(
         model_flops_total=model_flops_total,
         extra=extra,
     )
+
+
+def analyze_step(name: str, census, *, spec: GpuSpec = DEFAULT_SPEC,
+                 model_flops_total: Optional[float] = None
+                 ) -> RooflineReport:
+    """Roofline of one rank's step census (analyze.census.StepCensus):
+    compute at `customized_ceiling` of its `flops` and `tc_flops`, memory
+    as its `op_bytes` (every dispatched op's inputs and outputs) over
+    `spec.hbm_bw`, collectives as the bytes the rank hands its groups
+    over `spec.link_bw`, `device_memory_bytes` its high-water mark of
+    live bytes, `model_flops_total` as given (every rank's). `extra`
+    holds the collectives by kind (bytes and counts, every group
+    together, as the reference's), by group, the launches and the state
+    bytes. The seconds are modeled on `spec`'s rates, not measured.
+
+    Example::
+
+        from repro_torch.core.roofline import analyze_step
+        rep = analyze_step("qwen2-1.5b/decode_32k", census)
+        rep.dominant, rep.modeled_step_s
+    """
+    by_kind: Dict[str, int] = {}
+    count_by_kind: Dict[str, int] = {}
+    for group in census.collectives.values():
+        for kind, n in group["bytes"].items():
+            by_kind[kind] = by_kind.get(kind, 0) + n
+        for kind, n in group["calls"].items():
+            count_by_kind[kind] = count_by_kind.get(kind, 0) + n
+    mesh_shape = tuple(census.mesh_shape.values()) or (1,)
+    rep = analyze_counts(name, flops=census.flops,
+                         hbm_bytes=census.op_bytes,
+                         collective_bytes=float(sum(by_kind.values())),
+                         tc_flops=census.tc_flops, mesh_shape=mesh_shape,
+                         spec=spec, model_flops_total=model_flops_total)
+    rep.device_memory_bytes = int(census.peak_live_bytes)
+    rep.extra.update(collective_bytes_by_kind=by_kind,
+                     collective_count_by_kind=count_by_kind,
+                     collectives_by_group=census.collectives,
+                     launches=census.launches,
+                     state_bytes=census.state_bytes, spec=spec.name)
+    return rep
 
 
 def format_table(reports) -> str:

@@ -46,6 +46,12 @@ not used: its backward semantics are not these. Each group counts its
 collectives and the bytes this rank put on the wire (`counts`: calls and
 bytes by kind; chip_smoke.py's phase 18 reads a train step's from
 `StepBundle.group`, phase 19 from `StepBundle.model_group`).
+
+Over an abstract mesh (`launch.mesh.abstract_mesh`: no process, no
+group) every collective is counted the same way and returns an empty
+tensor of its result's shape (`new_empty`; a fake tensor under
+FakeTensorMode), so analyze.census.census_step reads a rank's
+collectives from the counts of a step it never ran.
 """
 
 from __future__ import annotations
@@ -54,6 +60,8 @@ import math
 from typing import Sequence
 
 import torch
+
+from repro_torch.launch.mesh import ABSTRACT
 
 
 class AxesGroup:
@@ -81,11 +89,18 @@ class AxesGroup:
             return
         import torch.distributed as dist
         self.group = mesh.group(self.axes)
+        if self.abstract:
+            return
         if dist.get_rank(self.group) != self.index:
             raise ValueError(f"axes {self.axes} must be in the mesh's order "
                              f"{tuple(mesh.shape)}: group rank "
                              f"{dist.get_rank(self.group)} != index "
                              f"{self.index}")
+
+    @property
+    def abstract(self) -> bool:
+        """Over an abstract mesh: collectives counted, nothing sent."""
+        return self.backend == ABSTRACT
 
     def __repr__(self) -> str:
         return (f"AxesGroup(axes={self.axes}, size={self.size}, "
@@ -107,13 +122,24 @@ class AxesGroup:
             self._buffers[slot] = buf
         return buf[:n].view(dtype).view(shape)
 
-    def _wire(self, t: torch.Tensor, kind: str) -> torch.Tensor:
-        """A contiguous copy of t where the collective `kind` runs on it
-        (counted: t's bytes, what this rank hands the collective)."""
-        t = t.detach()
+    def _count(self, t: torch.Tensor, kind: str) -> None:
+        """Count the collective `kind` on t: one call, t's bytes (what
+        this rank hands the collective)."""
         calls, nbytes = self.counts["calls"], self.counts["bytes"]
         calls[kind] = calls.get(kind, 0) + 1
         nbytes[kind] = nbytes.get(kind, 0) + t.numel() * t.element_size()
+
+    def _abstract(self, t: torch.Tensor, kind: str, shape) -> torch.Tensor:
+        """An abstract mesh's collective: counted, an empty result of
+        `shape` in t's dtype on t's device."""
+        self._count(t, kind)
+        return t.detach().new_empty(tuple(shape))
+
+    def _wire(self, t: torch.Tensor, kind: str) -> torch.Tensor:
+        """A contiguous copy of t where the collective `kind` runs on it
+        (counted, `_count`)."""
+        t = t.detach()
+        self._count(t, kind)
         if self._staged(t):
             return self._host("in", tuple(t.shape), t.dtype).copy_(t)
         return t.contiguous().clone()
@@ -131,6 +157,8 @@ class AxesGroup:
         group; the same bits on every rank."""
         if self.size == 1:
             return t.detach().clone()
+        if self.abstract:
+            return self._abstract(t, "all_reduce", t.shape)
         import torch.distributed as dist
         x = self._wire(t, "all_reduce")
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
@@ -141,6 +169,10 @@ class AxesGroup:
         """Every rank's t concatenated along `dim` in index order."""
         if self.size == 1:
             return t.detach().clone()
+        if self.abstract:
+            shape = list(t.shape)
+            shape[dim] *= self.size
+            return self._abstract(t, "all_gather", shape)
         import torch.distributed as dist
         x = self._wire(t.movedim(dim, 0), "all_gather")
         out = self._out(t, x, (self.size * x.shape[0],) + tuple(x.shape[1:]))
@@ -158,6 +190,10 @@ class AxesGroup:
                              f"{self.size} ways")
         if self.size == 1:
             return t.detach().clone()
+        if self.abstract:
+            shape = list(t.shape)
+            shape[dim] //= self.size
+            return self._abstract(t, "reduce_scatter", shape)
         import torch.distributed as dist
         x = self._wire(t.movedim(dim, 0), "reduce_scatter")
         if self.backend == "gloo":
@@ -183,6 +219,8 @@ class AxesGroup:
                              f"be the group size {self.size}")
         if self.size == 1:
             return t.detach().clone()
+        if self.abstract:
+            return self._abstract(t, "all_to_all", t.shape)
         import torch.distributed as dist
         x = self._wire(t, "all_to_all")
         out = self._out(t, x, x.shape)
@@ -194,6 +232,8 @@ class AxesGroup:
         rank i - step's t comes back (same shape and dtype)."""
         if self.size == 1:
             return t.detach().clone()
+        if self.abstract:
+            return self._abstract(t, "ring_shift", t.shape)
         import torch.distributed as dist
         x = self._wire(t, "ring_shift")
         out = self._out(t, x, x.shape)
@@ -206,7 +246,7 @@ class AxesGroup:
         return out.to(t.device)
 
     def barrier(self) -> None:
-        if self.size > 1:
+        if self.size > 1 and not self.abstract:
             import torch.distributed as dist
             dist.barrier(group=self.group)
 

@@ -27,6 +27,13 @@ talk over gloo, which takes CUDA tensors (a collective then passes through
 host memory inside gloo). A mesh of one rank needs no process group: its
 gathers and reductions are the identity.
 
+`abstract_mesh(shape, rank)` is a rank's view of a mesh that no process
+runs: backend "abstract", no process group, `group()` the axes' names.
+Its AxesGroups count every collective and return an empty tensor of the
+result's shape (dist/collectives.py), so a step can be called on fake
+tensors as one rank of a production mesh (analyze.census.census_step,
+launch/dryrun.py) without a world.
+
     # CPU, 2 processes, each running:
     mesh = make_mesh({"model": 2}, device="cpu", backend="gloo",
                      init_method=f"file://{path}", rank=rank, world_size=2)
@@ -43,6 +50,8 @@ import torch
 # the data axes of a training mesh, outer first (train/step.make_plan's
 # plans split the batch and FSDP's leaves over those the mesh has)
 DATA_AXES = ("pod", "data")
+# the backend of a mesh that no process runs (abstract_mesh)
+ABSTRACT = "abstract"
 
 
 def axes_groups(shape: Mapping[str, int], axes: Sequence[str]
@@ -122,6 +131,8 @@ class Mesh:
                     if a in names and self.shape[a] > 1)
         if not big:
             return None
+        if self.backend == ABSTRACT:
+            return big                    # no process group: the names
         if len(big) == 1:
             return self._groups[big[0]]
         if math.prod(self.shape[a] for a in big) == self.size:
@@ -224,6 +235,22 @@ def make_mesh(shape: Union[Mapping[str, int], Sequence[int]],
     return mesh
 
 
+def abstract_mesh(shape: Mapping[str, int], rank: int = 0) -> Mesh:
+    """Rank `rank`'s view of a mesh of `shape` that no process runs: the
+    backend ABSTRACT, tensors on the CPU, no process group (`group()`
+    gives the axes' names). Collectives over it are counted and return
+    empty tensors of their results' shapes (dist.collectives.AxesGroup),
+    so a step runs on fake tensors as that rank would run it.
+
+    Example::
+
+        from repro_torch.launch.mesh import abstract_mesh
+        m = abstract_mesh({"data": 16, "model": 16}, rank=17)
+        m.coords, m.group("model")    # {'data': 1, 'model': 1} ('model',)
+    """
+    return Mesh(shape, rank=rank, device="cpu", backend=ABSTRACT)
+
+
 def make_debug_mesh(model: int = 4, data: int = 2, *, multi_pod: bool = False,
                     device, backend: str, **init) -> Mesh:
     """Small mesh for tests: (data, model), or (2, data, model) over
@@ -235,13 +262,19 @@ def make_debug_mesh(model: int = 4, data: int = 2, *, multi_pod: bool = False,
                      backend=backend, **init)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device, backend: str,
-                         **init) -> Mesh:
+def production_shape(multi_pod: bool = False) -> Dict[str, int]:
     """The JAX package's production layouts: one pod (16, 16) over
     ("data", "model"), 256 ranks; multi-pod (2, 16, 16) over ("pod",
-    "data", "model"), 512 ranks. `init` as make_mesh's."""
+    "data", "model"), 512 ranks."""
     if multi_pod:
-        return make_mesh({"pod": 2, "data": 16, "model": 16},
-                         device=device, backend=backend, **init)
-    return make_mesh({"data": 16, "model": 16}, device=device,
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device, backend: str,
+                         **init) -> Mesh:
+    """This rank's Mesh of `production_shape(multi_pod)`. `init` as
+    make_mesh's (launch/dryrun.py counts one rank of it on an
+    abstract_mesh instead)."""
+    return make_mesh(production_shape(multi_pod), device=device,
                      backend=backend, **init)

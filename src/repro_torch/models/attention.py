@@ -205,9 +205,10 @@ def flash_decode_sharded(q, k_cache, v_cache, cache_len, *, ctx,
     (B,) vector). Each rank computes the partial (o, l, m) over its block;
     the global softmax comes back from an all_reduce MAX of m, then
     all_reduce SUMs of l and o rescaled by exp(m - m_max), as the
-    reference's pmax and two psums. A rank whose block holds no valid
-    position contributes exp(-1e30 - m_max) = 0."""
-    import torch.distributed as dist
+    reference's pmax and two psums, over the model axis's AxesGroup
+    (`ctx.model_group()`: counted in its `counts`, and run on an abstract
+    mesh). A rank whose block holds no valid position contributes
+    exp(-1e30 - m_max) = 0."""
     b, _, h, hd = q.shape
     _, ls, n_kv, _ = k_cache.shape
     g = h // n_kv
@@ -219,17 +220,13 @@ def flash_decode_sharded(q, k_cache, v_cache, cache_len, *, ctx,
         mask &= pos[None, :] >= (clen[:, None] - window)
     o, lsum, m = _partial_decode(q.reshape(b, n_kv, g, hd), k_cache,
                                  v_cache, mask)
-    # a mesh without a model axis of more than one rank: the whole cache
-    group = ctx.mesh.group(ctx.model_axis) if ctx.model_size > 1 else None
-    m_glob = m.clone()
-    if group is not None:
-        dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=group)
+    # a group of one rank (no model axis larger than 1): the whole cache,
+    # and each all_reduce a copy
+    group = ctx.model_group()
+    m_glob = group.all_reduce(m, op="max")
     corr = torch.exp(m - m_glob)
-    l_glob = lsum * corr
-    o_glob = o * corr[..., None]
-    if group is not None:
-        dist.all_reduce(l_glob, group=group)
-        dist.all_reduce(o_glob, group=group)
+    l_glob = group.all_reduce(lsum * corr)
+    o_glob = group.all_reduce(o * corr[..., None])
     out = o_glob / torch.clamp_min(l_glob[..., None], 1e-30)
     return out.reshape(b, 1, h, hd).to(PARAM_DTYPE)
 

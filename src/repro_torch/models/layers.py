@@ -58,6 +58,7 @@ in f32) and `sinusoid_pos` (f32, rounded once to bf16).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
@@ -265,8 +266,28 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _matmul(x, w)
 
 
+# while set (card_products), CPU tensors take the card's route through
+# _matmul: analyze.census.census_step counts the bf16 products a card
+# runs, on fake CPU tensors
+_CARD_PRODUCTS = False
+
+
+@contextlib.contextmanager
+def card_products():
+    """While open, `matmul` multiplies CPU tensors as it does on the card
+    (a bf16 pair in bf16, no f32 widening): the census of a step on fake
+    CPU tensors (analyze.census.census_step) counts the card's products,
+    their tensor-core FLOPs and bytes. Nothing it computes is read."""
+    global _CARD_PRODUCTS
+    saved, _CARD_PRODUCTS = _CARD_PRODUCTS, True
+    try:
+        yield
+    finally:
+        _CARD_PRODUCTS = saved
+
+
 def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if x.is_cuda:
+    if x.is_cuda or _CARD_PRODUCTS:
         if x.dtype == w.dtype:
             return torch.matmul(x, w)
         if x.dtype != torch.float32 or w.dtype != torch.bfloat16:

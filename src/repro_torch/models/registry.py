@@ -200,6 +200,20 @@ def _row_parallel(ctx, w: torch.Tensor, whole: int):
     return None if ctx is None else ctx.row_parallel(w.shape[-2], whole)
 
 
+def _attn_tp(cfg: ModelConfig, ctx, at):
+    """The model group where the training plan splits attention's wo rows
+    (training, and the serving steps of train/step.py, over a model
+    axis); None on one device or under the engine's serve plan, which
+    keeps wo whole."""
+    return _row_parallel(ctx, at["wo"], cfg.n_heads * cfg.head_dim)
+
+
+def _mamba_tp(cfg: ModelConfig, ctx, mp):
+    """The model group where the training plan splits the mamba channels
+    (out_proj's rows); None under exact-TP or one device."""
+    return _row_parallel(ctx, mp["out_proj"], 2 * cfg.d_model)
+
+
 def _ffn(cfg: ModelConfig, lp, h, token_valid=None, ctx=None):
     """A layer's FFN over h (B,S,D). Returns (out, aux): a moe layer ("moe"
     in lp) runs `_moe_apply`, token_valid an optional flattened (B*S,)
@@ -284,8 +298,8 @@ def _dense_stack(cfg: ModelConfig, layers, x, positions, *, remat: str,
     def body(x, lp):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         at = lp["attn"]
-        a, _ = T.attn_block(at, h, cfg, positions=positions, tp=_row_parallel(
-            ctx, at["wo"], cfg.n_heads * cfg.head_dim))
+        a, _ = T.attn_block(at, h, cfg, positions=positions,
+                            tp=_attn_tp(cfg, ctx, at))
         x = x + a
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         f, aux = _ffn(cfg, lp, h, ctx=ctx)
@@ -305,14 +319,17 @@ def _dense_prefill_stack(cfg: ModelConfig, layers, x, positions, *,
     """Run the decoder layers (dense or moe) over x (B,S,D); also emits the
     per-layer (k, v), stacked to (L, B, S, KvH, Hd). A moe layer gets
     kv_valid, flattened, as its token_valid: pad tokens claim no expert
-    capacity."""
+    capacity. Under the training plan over a model axis (the prefill step
+    of train/step.py) attention and the FFN are row-parallel, as in
+    training, and k/v are the heads `T._qkv_row_parallel` gives."""
     ks, vs = [], []
     tv = None if kv_valid is None else kv_valid.reshape(-1)
     for i in range(layers["ln1"].shape[0]):
         lp = _layer(layers, i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, (k, v) = T.attn_block(lp["attn"], h, cfg, positions=positions,
-                                 window=window, kv_valid=kv_valid, ctx=ctx)
+                                 window=window, kv_valid=kv_valid, ctx=ctx,
+                                 tp=_attn_tp(cfg, ctx, lp["attn"]))
         x = x + a
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _ffn(cfg, lp, h, tv, ctx)[0]
@@ -329,7 +346,8 @@ def _dense_decode_stack(cfg: ModelConfig, layers, x, cache: Cache, *,
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = T.attn_block_decode(lp["attn"], h, cfg, cache_k=cache["k"][i],
                                    cache_v=cache["v"][i], pos=pos,
-                                   window=window, ctx=ctx)
+                                   window=window, ctx=ctx,
+                                   tp=_attn_tp(cfg, ctx, lp["attn"]))
         x = x + a
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _ffn(cfg, lp, h, ctx=ctx)[0]
@@ -440,10 +458,8 @@ def _hymba_stack(cfg: ModelConfig, layers, x, positions, *, remat: str,
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         at, mp = lp["attn"], lp["mamba"]
         a, _ = T.attn_block(at, h, cfg, positions=positions,
-                            window=cfg.attn_window, tp=_row_parallel(
-                                ctx, at["wo"], cfg.n_heads * cfg.head_dim))
-        m, _, _ = T.mamba_path(mp, h, cfg, tp=_row_parallel(
-            ctx, mp["out_proj"], 2 * cfg.d_model))
+                            window=cfg.attn_window, tp=_attn_tp(cfg, ctx, at))
+        m, _, _ = T.mamba_path(mp, h, cfg, tp=_mamba_tp(cfg, ctx, mp))
         x = x + _hymba_fuse(cfg, lp, a, m)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         return x + _ffn(cfg, lp, h, ctx=ctx)[0]
@@ -472,11 +488,13 @@ def _hymba_prefill_stack(cfg: ModelConfig, layers, x, positions,
         lp = _layer(layers, i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, (k, v) = T.attn_block(lp["attn"], h, cfg, positions=positions,
-                                 window=w, ctx=ctx)
-        m, conv_st, h_st = T.mamba_path(lp["mamba"], h, cfg, ctx=ctx)
+                                 window=w, ctx=ctx,
+                                 tp=_attn_tp(cfg, ctx, lp["attn"]))
+        m, conv_st, h_st = T.mamba_path(lp["mamba"], h, cfg, ctx=ctx,
+                                        tp=_mamba_tp(cfg, ctx, lp["mamba"]))
         x = x + _hymba_fuse(cfg, lp, a, m)
         hh = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + swiglu(hh, lp["ffn"]["wi"], lp["ffn"]["wg"], lp["ffn"]["wo"])
+        x = x + _ffn(cfg, lp, hh, ctx=ctx)[0]
         ks.append(torch.roll(k[:, -w:], shifts=s % w, dims=1))
         vs.append(torch.roll(v[:, -w:], shifts=s % w, dims=1))
         convs.append(conv_st)
@@ -495,16 +513,17 @@ def _hymba_decode_stack(cfg: ModelConfig, layers, x, cache: Cache,
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = T.attn_block_decode(lp["attn"], h, cfg, cache_k=cache["k"][i],
                                    cache_v=cache["v"][i], pos=pos, ring=True,
-                                   ctx=ctx)
+                                   ctx=ctx, tp=_attn_tp(cfg, ctx, lp["attn"]))
         m, conv_st, h_st = T.mamba_path(lp["mamba"], h, cfg,
                                         conv_state=cache["conv"][i],
                                         h_state=cache["h"][i], decode=True,
-                                        ctx=ctx)
+                                        ctx=ctx,
+                                        tp=_mamba_tp(cfg, ctx, lp["mamba"]))
         cache["conv"][i].copy_(conv_st)
         cache["h"][i].copy_(h_st)
         x = x + _hymba_fuse(cfg, lp, a, m)
         hh = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + swiglu(hh, lp["ffn"]["wi"], lp["ffn"]["wg"], lp["ffn"]["wo"])
+        x = x + _ffn(cfg, lp, hh, ctx=ctx)[0]
     return x, {**cache, "pos": pos + 1}
 
 
@@ -520,7 +539,7 @@ def _whisper_attn(cfg: ModelConfig, at, h, ctx, *, causal: bool = True,
     axis (wo's rows split) on the rank's heads of `_qkv_row_parallel`
     (kv_x through CopyToGroup), wo's partials summed over the group."""
     b_, s, _ = h.shape
-    tp = _row_parallel(ctx, at["wo"], cfg.n_heads * cfg.head_dim)
+    tp = _attn_tp(cfg, ctx, at)
     if tp is not None:
         q, k, v, cols = T._qkv_row_parallel(at, h, cfg, tp, kv_x=kv_x)
         a = attn_lib.chunked_causal_attention(q, k, v, causal=causal)
@@ -620,16 +639,27 @@ def _whisper_decode_stack(cfg: ModelConfig, layers, x, cache: Cache,
         h = layer_norm(x, lp["ln1"], lp["ln1b"], cfg.norm_eps)
         a, _ = T.attn_block_decode(lp["attn"], h, cfg, cache_k=cache["k"][i],
                                    cache_v=cache["v"][i], pos=pos,
-                                   rope=False, ctx=ctx)
+                                   rope=False, ctx=ctx,
+                                   tp=_attn_tp(cfg, ctx, lp["attn"]))
         x = x + a
         h = layer_norm(x, lp["lnx"], lp["lnxb"], cfg.norm_eps)
         xk, xv = cache["xk"][i], cache["xv"][i]
         q = matmul(h, lp["xattn"]["wq"])
-        if not T.local_heads(cfg, ctx):
-            q = gather_exact_tp(q, cfg.n_heads * cfg.head_dim)
-        q = q.reshape(b_, 1, -1, cfg.head_dim)
-        a = attn_lib.decode_attention(q, xk, xv, xk.shape[1], heads=heads)
-        x = x + matmul_rp(a.reshape(b_, 1, -1), lp["xattn"]["wo"])
+        tp = _attn_tp(cfg, ctx, lp["xattn"])
+        if tp is not None:
+            # the training plan: the rank's heads where xk/xv hold its kv
+            # heads, else every head; wo's rows take their columns
+            q = T.decode_heads_tp(q, cfg.n_heads, cfg.head_dim, tp,
+                                  xk.shape[2] < cfg.n_kv_heads)
+            a = attn_lib.decode_attention(q, xk, xv, xk.shape[1])
+            x = x + T.out_rows_tp(lp["xattn"]["wo"], a, tp)
+        else:
+            if not T.local_heads(cfg, ctx):
+                q = gather_exact_tp(q, cfg.n_heads * cfg.head_dim)
+            q = q.reshape(b_, 1, -1, cfg.head_dim)
+            a = attn_lib.decode_attention(q, xk, xv, xk.shape[1],
+                                          heads=heads)
+            x = x + matmul_rp(a.reshape(b_, 1, -1), lp["xattn"]["wo"])
         h = layer_norm(x, lp["ln2"], lp["ln2b"], cfg.norm_eps)
         x = x + _gelu(cfg, lp, h, ctx)
     return x, {**cache, "pos": pos + 1}
@@ -762,8 +792,23 @@ def build_model(cfg: ModelConfig) -> Model:
                               cfg.norm_eps)
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
-    def _logits(params, x):
+    def _vocab_tp(ctx, rows):
+        """The model group where the training plan splits the vocab of a
+        table or head with `rows` of it (the serving steps of
+        train/step.py over a model axis); None under exact-TP (the
+        engine) or where the vocab is whole."""
+        if ctx is None or in_exact_tp():
+            return None
+        return ctx.row_parallel(rows, cfg.vocab_size)
+
+    def _logits(params, x, ctx=None):
         x = _final_norm(params, x)
+        head = params["embed"].T if cfg.tie_embeddings else params["head"]
+        tp = _vocab_tp(ctx, head.shape[-1])
+        if tp is not None:
+            # the training plan's vocab-split head: this rank's columns,
+            # all-gathered whole
+            return tp.all_gather(lm_logits(x, head), x.dim() - 1)
         if cfg.tie_embeddings:
             # the tied table is replicated under exact-TP: already whole
             return lm_logits(x, params["embed"].T)
@@ -925,7 +970,8 @@ def build_model(cfg: ModelConfig) -> Model:
                 "and vlm and encdec prepend non-text tokens (the vis "
                 "prefix, the encoder's frames); family "
                 f"{cfg.family!r}")
-        x = _prefixed_embed(params, batch)
+        x = _prefixed_embed(params, batch,
+                            _vocab_tp(ctx, params["embed"].shape[0]))
         s = x.shape[1]
         dev = x.device
         if pad_lens is None:
@@ -962,7 +1008,7 @@ def build_model(cfg: ModelConfig) -> Model:
         else:
             idx = torch.as_tensor(last_index, device=dev).long().reshape(1)
             last = x.index_select(1, idx)
-        return _logits(params, last), cache
+        return _logits(params, last, ctx), cache
 
     @backend.f32_accumulation()
     @torch.no_grad()
@@ -975,11 +1021,18 @@ def build_model(cfg: ModelConfig) -> Model:
         A moe layer routes all B rows, idle slots included, as the JAX
         engine's decode does. Encdec: the learned position of each row's
         pos is added to its embedding (in bf16), and xk/xv are read, not
-        written."""
-        x = embed(tokens, params["embed"])
+        written. Over a model axis of the training plan (the decode step
+        of train/step.py) every layer is row-parallel, the embedding and
+        head vocab-parallel, and the logits gathered whole."""
+        x = embed(tokens, params["embed"],
+                  _vocab_tp(ctx, params["embed"].shape[0]))
         if cfg.family == "encdec":
-            pe = params["dec_pos"][cache["pos"].long()].to(x.dtype)
-            x = x + (pe[:, None] if pe.dim() == 2 else pe[None, None])
+            # index_select keeps the shapes static (no read of pos: the
+            # census runs this on fake tensors)
+            pos = cache["pos"].long()
+            pe = params["dec_pos"].index_select(0, pos.reshape(-1)).to(
+                x.dtype)
+            x = x + (pe[:, None] if pos.dim() == 1 else pe[None])
             x, cache = _whisper_decode_stack(cfg, params["dec_layers"], x,
                                              cache, ctx)
         elif cfg.family == "hybrid":
@@ -996,7 +1049,7 @@ def build_model(cfg: ModelConfig) -> Model:
                     ctx=ctx)
             x, cache = _dense_decode_stack(cfg, params["layers"], x, cache,
                                            ctx=ctx)
-        return _logits(params, x), cache
+        return _logits(params, x, ctx), cache
 
     @backend.f32_accumulation()
     @torch.no_grad()

@@ -432,8 +432,52 @@ def attn_block(lp, x, cfg: ModelConfig, *, positions, window=0,
     return out, (k, v)
 
 
+def decode_heads_tp(y, total: int, hd: int, tp, local: bool):
+    """A one-token projection (B,1,cols) under the training plan over the
+    model group `tp` as heads (B,1,H',Hd): the rank's block of heads
+    where `local` (the cache holds the rank's kv heads; a whole
+    projection narrowed to them), else every head (a column-split
+    projection's columns all-gathered over tp)."""
+    if local:
+        if y.shape[-1] == total * hd:
+            per = y.shape[-1] // tp.size
+            y = y.narrow(-1, tp.index * per, per)
+    elif y.shape[-1] != total * hd:
+        y = tp.all_gather(y, y.dim() - 1)
+    return y.reshape(*y.shape[:2], -1, hd)
+
+
+def out_rows_tp(wo, out, tp):
+    """The output projection under the training plan's row-split wo: the
+    attention output (B,S,H',Hd), narrowed to the columns of this rank's
+    wo rows where it holds every head, times them; the partials summed
+    over `tp`."""
+    out = out.reshape(*out.shape[:2], -1)
+    rows = wo.shape[-2]
+    if out.shape[-1] != rows:
+        out = out.narrow(-1, tp.index * rows, rows)
+    return matmul_rp(out, wo, tp)
+
+
+def _qkv_decode_tp(lp, x, cfg: ModelConfig, tp, local: bool):
+    """q, k, v of one token (x (B,1,D)) under the training plan over the
+    model group `tp` (`decode_heads_tp`): the rank's heads where `local`,
+    else every head."""
+    hd = cfg.head_dim
+    q = matmul(x, lp["wq"])
+    k = matmul(x, lp["wk"])
+    v = matmul(x, lp["wv"])
+    if cfg.qkv_bias:
+        q = q + lp["bq"].to(q.dtype)
+        k = k + lp["bk"].to(k.dtype)
+        v = v + lp["bv"].to(v.dtype)
+    return (decode_heads_tp(q, cfg.n_heads, hd, tp, local),
+            decode_heads_tp(k, cfg.n_kv_heads, hd, tp, local),
+            decode_heads_tp(v, cfg.n_kv_heads, hd, tp, local))
+
+
 def attn_block_decode(lp, x, cfg: ModelConfig, *, cache_k, cache_v, pos,
-                      window=0, rope=True, ring=False, ctx=None):
+                      window=0, rope=True, ring=False, ctx=None, tp=None):
     """One-token attention against a cache. cache_k/v: (B,L,KvH,Hd),
     updated IN PLACE (the JAX version returns new arrays); under exact-TP
     this rank's kv heads (see _qkv).
@@ -453,14 +497,25 @@ def attn_block_decode(lp, x, cfg: ModelConfig, *, cache_k, cache_v, pos,
     transformer.py:311-313): the cache's seq dim is split over the model
     axis, this rank holding lines [r L, (r + 1) L) of it; the line is
     written only by the rank that holds it, and flash_decode_sharded
-    combines every rank's partial softmax over whole heads."""
+    combines every rank's partial softmax over whole heads.
+
+    tp: the model group where the training plan (the decode step of
+    train/step.py over a model axis) splits wo's rows over it: q, k and v
+    are the rank's heads where the cache holds its kv heads, else every
+    head (`_qkv_decode_tp`), and wo's rows take their columns of the
+    output, the partials summed over tp (`out_rows_tp`)."""
     b_, s, _ = x.shape
     assert s == 1
     pos = torch.as_tensor(pos, device=x.device)
     per_row = pos.dim() == 1
     seq_shard = (ctx is not None and ctx.kv_seq_shard and not per_row
                  and not ring)
-    q, k, v = _qkv(lp, x, cfg, ctx, whole=seq_shard)
+    if tp is not None:
+        local = not seq_shard and cache_k.shape[2] < cfg.n_kv_heads
+        q, k, v = _qkv_decode_tp(lp, x, cfg, tp, local)
+    else:
+        q, k, v = _qkv(lp, x, cfg, ctx, whole=seq_shard)
+    heads = None if tp is not None else _kv_heads(cfg, ctx)
     if rope and cfg.rope_theta:
         # scalar pos -> one shared position; vector pos -> (B,1,1) so the
         # angle table broadcasts over heads per row
@@ -486,14 +541,15 @@ def attn_block_decode(lp, x, cfg: ModelConfig, *, cache_k, cache_v, pos,
     if ring:
         out = attn_lib.decode_attention(q, cache_k, cache_v,
                                         torch.clamp_max(pos + 1, lcache),
-                                        heads=_kv_heads(cfg, ctx))
+                                        heads=heads)
     elif seq_shard:
         out = attn_lib.flash_decode_sharded(q, cache_k, cache_v, pos + 1,
                                             ctx=ctx, window=window)
     else:
         out = attn_lib.decode_attention(q, cache_k, cache_v, pos + 1,
-                                        window=window,
-                                        heads=_kv_heads(cfg, ctx))
+                                        window=window, heads=heads)
+    if tp is not None:
+        return out_rows_tp(lp["wo"], out, tp), (cache_k, cache_v)
     out = matmul_rp(out.reshape(b_, 1, -1), lp["wo"])
     return out, (cache_k, cache_v)
 

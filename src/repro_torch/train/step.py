@@ -52,7 +52,9 @@ function of the GLOBAL batch:
 
 Every rank applies the same reduced grads in the same order, so the
 replicas stay bit-equal. There is no `lower`: XLA lowering has no
-counterpart (the dry-run is ROADMAP item 10).
+counterpart. The dry-run (launch/dryrun.py) builds these steps over an
+abstract mesh and counts a rank's call instead
+(analyze.census.census_step).
 """
 
 from __future__ import annotations
@@ -83,10 +85,11 @@ class StepBundle:
     trees, dist/sharding.py; None where an argument is whole on every
     rank or not known ahead), the abstract arguments (trees on the "meta"
     device, whole shapes) and `donate_argnums` (the arguments the step
-    updates in place). Calling the bundle calls `fn`. A train step over a
-    plan also carries its data group (`group`, whose `counts` are the
-    step's collectives over the data axes) and its model group
-    (`model_group`, the same over the model axis)."""
+    updates in place). Calling the bundle calls `fn`. `kind` is "train",
+    "prefill" or "decode". A step over a plan also carries its data group
+    (`group`, whose `counts` are the step's collectives over the data
+    axes) and its model group (`model_group`, the same over the model
+    axis)."""
     fn: Callable
     in_specs: Tuple
     out_specs: Any
@@ -95,6 +98,7 @@ class StepBundle:
     plan: Optional[shd.ShardingPlan] = None
     group: Any = None
     model_group: Any = None
+    kind: str = "train"
 
     def __call__(self, *args):
         return self.fn(*args)
@@ -280,7 +284,9 @@ def build_prefill_step(model: Model, plan: shd.ShardingPlan) -> StepBundle:
 
     ab_params, ps = _param_specs(model, plan)
     return StepBundle(fn=prefill_step, in_specs=(ps, None), out_specs=None,
-                      abstract_args=(ab_params, None), plan=plan)
+                      abstract_args=(ab_params, None), plan=plan,
+                      group=ctx.data_group(), model_group=ctx.model_group(),
+                      kind="prefill")
 
 
 def build_decode_step(model: Model, plan: shd.ShardingPlan,
@@ -297,4 +303,6 @@ def build_decode_step(model: Model, plan: shd.ShardingPlan,
     return StepBundle(fn=decode_step, in_specs=(ps, cs, None),
                       out_specs=(None, cs),
                       abstract_args=(ab_params, abstract_cache, None),
-                      donate_argnums=(1,), plan=plan)
+                      donate_argnums=(1,), plan=plan,
+                      group=ctx.data_group(), model_group=ctx.model_group(),
+                      kind="decode")

@@ -304,6 +304,55 @@ def mamba_op(mesh, payload):
     return res
 
 
+def serve_steps(mesh, payload):
+    """build_prefill_step and build_decode_step under make_plan's prefill
+    and decode plans over `mesh` (the reference's plan: row-parallel wo,
+    a vocab-split table; the decode cache's seq dim over the model axis
+    where kv_seq_shard), or one device (mesh None: a mesh of one rank):
+    the params cut to this rank's blocks, the last-token logits of a
+    prefill of payload["tokens"], then payload["steps"] lockstep decode
+    steps of payload["decode"] from a cache whose pos starts at
+    payload["start"] (its lines zero), and the cache's k at the end (None
+    without one: rwkv6); the
+    model group's collectives of the decode steps. An encdec payload
+    carries "frames", a vlm one "vis" (the prefill's stub inputs)."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import step as step_lib
+    cfg, params = build(payload["arch"], payload["reduce"],
+                        payload.get("replace", {}), payload["seed"])
+    model = build_model(cfg)
+    tokens = torch.from_numpy(payload["tokens"])
+    dec = torch.from_numpy(payload["decode"])
+    if mesh is None:
+        mesh = make_mesh({"model": 1}, device="cpu", backend="gloo")
+    plan = step_lib.make_plan(cfg, mesh, kind="prefill")
+    plan_d = step_lib.make_plan(cfg, mesh, kind="decode")
+    prefill = step_lib.build_prefill_step(model, plan)
+    local = sharding.shard_tree(params, prefill.in_specs[0], mesh)
+    batch = {"tokens": tokens}
+    for key in ("frames", "vis"):            # whisper's, internvl2's stubs
+        if key in payload:
+            batch[key] = torch.from_numpy(payload[key]).to(torch.bfloat16)
+    logits, _ = prefill(local, batch)
+    rows, clen = tokens.shape[0], payload["cache_len"]
+    bundle = step_lib.build_decode_step(
+        model, plan_d, model.init_cache(rows, clen, abstract=True))
+    cache = sharding.shard_tree(model.init_cache(rows, clen, device="cpu"),
+                                bundle.in_specs[1], mesh)
+    cache["pos"] = torch.tensor(payload["start"], dtype=torch.int32)
+    local = sharding.shard_tree(params, bundle.in_specs[0], mesh)
+    steps = []
+    for i in range(payload["steps"]):
+        out, cache = bundle(local, cache, dec[:, i:i + 1])
+        steps.append(out.float())
+    counts = bundle.model_group.counts
+    return {"prefill": logits.float(), "decode": steps, "k": cache.get("k"),
+            "kv_seq_shard": plan_d.kv_seq_shard,
+            "calls": dict(counts["calls"]), "bytes": dict(counts["bytes"])}
+
+
 def _shapes(tree, pre=""):
     out = {}
     for k, v in tree.items():
@@ -317,4 +366,4 @@ def _shapes(tree, pre=""):
 
 CASES = {"serve": serve, "router": router, "flash_decode": flash_decode,
          "seq_shard_decode": seq_shard_decode, "mesh2d": mesh2d,
-         "mamba_op": mamba_op}
+         "mamba_op": mamba_op, "serve_steps": serve_steps}

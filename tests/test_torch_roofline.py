@@ -26,7 +26,8 @@ from repro_torch.kernels.gpp import problem
 V5E_AS_GPU = hw.GpuSpec(
     name="v5e-numbers", part="TPU v5e's rates in a GpuSpec", sms=1,
     boost_hz=1.0, fp32_flops=TPU_V5E.vpu_flops, hbm_bw=TPU_V5E.hbm_bw,
-    bf16_tc_flops=TPU_V5E.mxu_flops, link_bw=TPU_V5E.ici_bw)
+    bf16_tc_flops=TPU_V5E.mxu_flops, link_bw=TPU_V5E.ici_bw,
+    memory_bytes=TPU_V5E.hbm_bytes)
 
 # the port's names for the reference's MXU columns
 RENAMED = {"mxu_frac": "tc_frac"}
@@ -129,7 +130,8 @@ def test_fma_ceiling_paper_example():
     two-rate ceiling at P_fma = 2 P_other (tests/test_core_roofline.py)."""
     v100 = hw.GpuSpec(name="v100", part="V100 FP64 rates", sms=80,
                       boost_hz=1.312e9, fp32_flops=6.7e12, hbm_bw=900e9,
-                      bf16_tc_flops=6.7e12, link_bw=300e9)
+                      bf16_tc_flops=6.7e12, link_bw=300e9,
+                      memory_bytes=16 * 2 ** 30)
     r = 0.58
     f = roofline.fma_flop_fraction(r)
     assert f == pytest.approx(2 * r / (r + 1))
@@ -139,7 +141,8 @@ def test_fma_ceiling_paper_example():
     np.testing.assert_allclose(ceiling, 5.3e12, rtol=0.01)
     two_rate = hw.GpuSpec(name="v100-2", part="FMA and other", sms=80,
                           boost_hz=1.312e9, fp32_flops=3.35e12,
-                          hbm_bw=900e9, bf16_tc_flops=6.7e12, link_bw=300e9)
+                          hbm_bw=900e9, bf16_tc_flops=6.7e12, link_bw=300e9,
+                          memory_bytes=16 * 2 ** 30)
     np.testing.assert_allclose(
         roofline.customized_ceiling(100.0, 100.0 * f, two_rate), ceiling,
         rtol=1e-12)

@@ -94,6 +94,51 @@ ROUTER = dict(DENSE, replace={},
               trace=dict(n_requests=8, rate_rps=40.0, out_max=8,
                          prompt_max=12, seed=11))
 
+
+def _steps_payload(cfg, seed):
+    """A prefill of 2 rows of 16 tokens, then 2 lockstep decode steps from
+    pos 31 of a 64-line cache: over 2 model ranks the seq-split cache's
+    line 31 sits on rank 0 and 32 on rank 1."""
+    rng = np.random.default_rng(seed)
+    return dict(cfg, tokens=rng.integers(0, 128, (2, 16)),
+                decode=rng.integers(0, 128, (2, 2)), cache_len=64,
+                start=31, steps=2)
+
+
+# the serving steps of train/step.py under the reference's prefill and
+# decode plans (row-parallel wo, a vocab-split table, the decode cache's
+# seq dim over the model axis): qwen2's local heads (12 q / 2 kv), its
+# whole-head route (8 q / 1 kv: a rank holds half a kv head), deepseek
+STEP_CASES = {"serve_steps:dense": _steps_payload(DENSE, 11),
+              "serve_steps:gather": _steps_payload(DENSE_GATHER, 12),
+              "serve_steps:moe": _steps_payload(MOE, 13)}
+# the other four families at reduce_config's 2 layers, d_model 128: hymba
+# (4 q / 1 kv heads: attention whole on every rank, its ring cache
+# whole; the mamba channels and the FFN split), rwkv6 (its heads split),
+# whisper (encoder, self- and cross-attention; 64 frames), internvl2 (8
+# patch lines before the text); a decode cache of the seq split only for
+# whisper and internvl2
+FAMILY_STEPS = {
+    name: _steps_payload(dict(arch=arch, reduce=dict(layers=2, d_model=128,
+                                                     vocab=128),
+                              replace={}, seed=seed), seed)
+    for name, arch, seed in (("hybrid", "hymba-1.5b", 14),
+                             ("ssm", "rwkv6-7b", 15),
+                             ("encdec", "whisper-small", 16),
+                             ("vlm", "internvl2-26b", 17))}
+_rng = np.random.default_rng(18)
+FAMILY_STEPS["encdec"]["frames"] = (
+    _rng.standard_normal((2, 64, 128)).astype(np.float32) * 0.5)
+FAMILY_STEPS["vlm"]["vis"] = (
+    _rng.standard_normal((2, 8, 128)).astype(np.float32) * 0.5)
+STEP_CASES.update({f"serve_steps:{k}": v for k, v in FAMILY_STEPS.items()})
+# a row-parallel partial rounds to bf16 before its sum (ROADMAP queue 3's
+# recorded deviation: a TP step is one bf16 rounding from one device), so
+# the 1e-5 of the largest logit that the data-parallel serving steps keep
+# (tests/test_torch_dist_train.py) cannot hold over a model axis: these
+# cases read 2.9e-3 to 9.2e-3; four bf16 roundings
+SERVE_STEP_RTOL = 4 * 2.0 ** -8
+
 WORLD_CASES = ([("serve:dense", _serve(DENSE)),
                 ("serve:gather", _serve(DENSE_GATHER)),
                 ("serve:moe", _serve(MOE)),
@@ -101,7 +146,8 @@ WORLD_CASES = ([("serve:dense", _serve(DENSE)),
                 ("seq_shard_decode", SEQ_DECODE),
                 ("mesh2d", None),
                 ("mamba_op", MAMBA_OP)]
-               + list(FLASH_CASES.items()) + list(FAMILY_SERVE.items()))
+               + list(FLASH_CASES.items()) + list(FAMILY_SERVE.items())
+               + list(STEP_CASES.items()))
 
 
 @pytest.fixture(scope="module")
@@ -241,6 +287,55 @@ def test_seq_sharded_decode_cache(world):
         for a, b in zip(world[rank]["seq_shard_decode"]["outs"],
                         ref["outs"]):
             assert float((a - b).abs().max()) < 5e-3
+
+
+@pytest.mark.parametrize("name", sorted(STEP_CASES))
+def test_prefill_and_decode_steps_over_a_model_axis(world, name):
+    """build_prefill_step and build_decode_step under make_plan's prefill
+    and decode plans over {"model": 2}, every family: every rank's
+    prefill and decode logits equal (bit for bit) and within
+    SERVE_STEP_RTOL of the largest |logit| of the one-device steps. Where
+    the decode plan splits the cache's seq dim (kv_seq_shard: dense, moe,
+    encdec, vlm) each written line sits on the rank that holds it, close
+    to one device's, the rest zero; for dense and moe, flash_decode_sharded's
+    three all-reduces a layer go through the model group's AxesGroup and
+    are counted, beside wo's and the FFN's sums, the embedding's, and the
+    gathers of q, k, v and the logits."""
+    payload = STEP_CASES[name]
+    ref = W.serve_steps(None, payload)
+    got = [world[r][name] for r in (0, 1)]
+    assert torch.equal(got[0]["prefill"], got[1]["prefill"])
+    for a, b in zip(got[0]["decode"], got[1]["decode"]):
+        assert torch.equal(a, b)
+    want = ref["prefill"]
+    assert float((got[0]["prefill"] - want).abs().max()) <= \
+        SERVE_STEP_RTOL * float(want.abs().max())
+    for a, b in zip(got[0]["decode"], ref["decode"]):
+        assert float((a - b).abs().max()) <= \
+            SERVE_STEP_RTOL * float(b.abs().max())
+    cfg = W.build(payload["arch"], payload["reduce"], payload["replace"],
+                  payload["seed"])[0]
+    assert got[0]["kv_seq_shard"] == (cfg.family in ("dense", "moe",
+                                                     "encdec", "vlm"))
+    if got[0]["kv_seq_shard"]:
+        k = torch.cat([g["k"] for g in got], dim=2).float()  # (L, B, S..)
+        lines = slice(payload["start"],
+                      payload["start"] + payload["steps"])
+        want_k = ref["k"].float()
+        assert not k[:, :, :payload["start"]].any()
+        assert not k[:, :, lines.stop:].any()
+        assert float((k[:, :, lines] - want_k[:, :, lines]).abs().max()) \
+            <= SERVE_STEP_RTOL * float(want_k[:, :, lines].abs().max())
+    if cfg.family not in ("dense", "moe"):
+        return
+    n_moe = cfg.n_layers - cfg.first_k_dense if cfg.family == "moe" else 0
+    # a layer: the flash decode's max, l and o, wo's sum and the FFN's (a
+    # moe layer's experts' and shared experts' sums); the embedding's
+    per_step = 5 * cfg.n_layers + n_moe * bool(cfg.n_shared_experts) + 1
+    steps = payload["steps"]
+    for g in got:
+        assert g["calls"] == {"all_reduce": per_step * steps,
+                              "all_gather": (3 * cfg.n_layers + 1) * steps}
 
 
 def test_two_axis_mesh_groups(world):
